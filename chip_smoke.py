@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (one NVIDIA GPU, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+
+1. device  — the card's name and power limit; no CUDA device is a failure.
+2. build   — compiles every CUDA kernel of the serving path from ``csrc/``,
+   one nvcc per source, all started together.
+3. kernels — each kernel against its plain PyTorch version on the card, at
+   the serving shapes and edge cases, in float32 and bfloat16.
+4. serve   — ViT-B-16 at full width on a seeded random init, through
+   ``create_engine`` and the HTTP server: image, text and similarity
+   requests, ``/health`` and concurrent HTTP requests that the batcher
+   coalesces. Checks unit-norm features, the kernel's launch count (12 per
+   tower call: one per attention layer) and agreement with the same weights
+   run through the plain attention path (cosine >= 0.9999 in fp32).
+5. times   — each kernel, its plain version and the library yardstick
+   (``scaled_dot_product_attention``, which the port never calls) timed with
+   CUDA events at the serving shapes, beside the kernel's bound; each tower's
+   time per call with the kernel and with the plain attention (CUDA events
+   behind a queued sleep: device time as long as the host launches faster
+   than the device runs; ``scripts/profile_torch_serving.py`` gives device
+   busy time and idle share); request latency per bucket.
+
+The line before the last is the JSON list of kernels; the last line is
+``{"ok": true, "device": {...}}``. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): plain fp32 FMA rate,
+# bf16 tensor-core rate, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES_PER_S = 3.35e12
+# max |kernel - plain| compared in fp32, and |kernel - float64 version|:
+# fp32 differs by summation order only; bf16 by one output ulp (7.8e-3
+# near 1) where rounding flips
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MIN_COSINE = 0.9999  # engine features vs the plain-attention run, fp32
+# Kernel cases: (B, H, L, D, causal). The ViT-B-16 serving shapes (image
+# [b,12,197,64], causal text [b,8,77,64]) at buckets 8 and 32, ViT-B-32's
+# [8,12,50,64], and edge cases: L = 1, odd L, L = 1024, odd B*H, head_dim
+# not a multiple of 32, and the largest head_dim the gate admits.
+KERNEL_CASES = [
+    (8, 12, 197, 64, False), (8, 8, 77, 64, True), (8, 12, 50, 64, False),
+    (32, 12, 197, 64, False), (32, 8, 77, 64, True),
+    (1, 1, 1, 64, False), (1, 1, 1, 64, True), (3, 5, 23, 64, True),
+    (3, 5, 23, 64, False), (1, 2, 1024, 64, False), (1, 2, 1024, 64, True),
+    (2, 3, 65, 40, True), (1, 3, 130, 128, False), (1, 2, 300, 256, True),
+    (2, 1, 1024, 256, False),
+]
+TIMED_CASES = [(8, 12, 197, 64, False), (32, 12, 197, 64, False),
+               (8, 8, 77, 64, True), (32, 8, 77, 64, True)]
+MAIN_PATH_CASE = (8, 12, 197, 64, False)  # the image call the served requests make
+MODEL, BUCKETS, SEED = "ViT-B-16", (1, 8, 32), 0
+DEVICE = "cuda"
+FUSED_TPU = "refining_clip_via_dinov2_representations_tpu/ops/fused_attention.py:60"
+FUSED_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_fwd.cu"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def phase_device() -> None:
+    import torch
+
+    check(torch.cuda.is_available(),
+          "torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0 and bool(smi.stdout.strip()),
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"capability {torch.cuda.get_device_capability(0)}", flush=True)
+    # fp32 stays fp32 in every comparison: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        import refining_clip_via_dinov2_representations_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port's package is missing ({e}): run from the root of the repo")
+
+
+def phase_build() -> None:
+    from refining_clip_via_dinov2_representations_torch.ops import native
+
+    t0 = time.perf_counter()
+    seconds = native.build()
+    print(f"build: {len(seconds)} kernel sources in {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())})", flush=True)
+    for name, log in native.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}", flush=True)
+
+
+def _qkv(b, h, l, d, dtype, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, l, d, generator=g).to("cuda", dtype) for _ in range(3)]
+
+
+def _attention_fp64(q, k, v, scale, causal):
+    """The kernel's function in float64, P still rounded to V's dtype: its
+    distance from the kernel is the kernel's own rounding error."""
+    import torch
+
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    if causal:
+        above = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype).double(), v.double())
+
+
+def phase_kernels() -> dict:
+    """Kernel vs its plain version on the card; returns {dtype: max_abs_err}."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention, fused_attention_reference,
+    )
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES):
+            q, k, v = _qkv(b, h, l, d, dtype, seed=i)
+            scale = d ** -0.5
+            got = fused_attention(q, k, v, scale, causal)
+            want = fused_attention_reference(q, k, v, scale, causal)
+            exact = _attention_fp64(q, k, v, scale, causal)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype,
+                  f"kernel output {tuple(got.shape)} {got.dtype} at {(b, h, l, d)}")
+            err = (got.float() - want.float()).abs().max().item()
+            err64 = (got.double() - exact).abs().max().item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            ok = (max(err, err64) <= TOL[name]
+                  and bool(torch.isfinite(got.float()).all()))
+            print(f"kernel fused_attention_fwd {name} [{b},{h},{l},{d}] causal={causal}: "
+                  f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64 "
+                  f"(tol {TOL[name]:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+            check(ok, f"fused_attention_fwd disagrees with its plain version at "
+                      f"{name} [{b},{h},{l},{d}] causal={causal}: {err:.3e}")
+    return worst
+
+
+def _post(base: str, path: str, payload: dict):
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def _cosines(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def phase_serve():
+    """Drive the port's serving path at ViT-B-16 width; returns
+    (engine, plain-attention model, kernel launches of the served run)."""
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import create_engine
+    from refining_clip_via_dinov2_representations_torch.models import create_model
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention,
+    )
+    from refining_clip_via_dinov2_representations_torch.serve import (
+        ClipServer, make_http_server,
+    )
+
+    t0 = time.perf_counter()
+    engine, preprocess, tokenizer = create_engine(MODEL, device=DEVICE, buckets=BUCKETS,
+                                                  seed=SEED)
+    model = engine.model
+    n_vis, n_txt = len(model.visual.transformer.resblocks), len(model.transformer.resblocks)
+    print(f"serve: {MODEL} engine on {engine.device} (vision {n_vis}x"
+          f"{model.visual.width}, text {n_txt}x{model.ln_final.weight.numel()}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, buckets "
+          f"{engine.buckets}) built and warmed in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(n_vis == 12 and n_txt == 12, "ViT-B-16 must have 12 layers per tower")
+
+    rng = np.random.default_rng(SEED)
+    pixels = rng.normal(size=(5, 224, 224, 3)).astype(np.float32)
+    captions = ["a photo of a cat", "a diagram of a transformer", "two dogs in the snow"]
+    http_texts = [f"request number {i} about a red bicycle" for i in range(6)]
+    ids = tokenizer(captions)
+
+    server = ClipServer(engine, preprocess, tokenizer, batch_window_ms=50.0)
+    httpd = make_http_server(server, host="127.0.0.1", port=0)
+    serve_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    batcher_calls = []
+    text_fn = server._text_batcher._fn
+
+    def counted(x):
+        batcher_calls.append(x.shape[0])
+        return text_fn(x)
+
+    server._text_batcher._fn = counted
+    http_feats = [None] * len(http_texts)
+    barrier = threading.Barrier(len(http_texts))
+
+    def client(i):
+        barrier.wait(timeout=60)
+        status, body = _post(base, "/v1/encode_text", {"texts": [http_texts[i]]})
+        if status == 200:
+            http_feats[i] = np.asarray(body["features"][0], np.float32)
+
+    try:
+        # ---- the main path: counts at 0 just before, read just after ----
+        fused_attention.launches = 0
+        img_f = engine.encode_image(pixels)            # 1 image-tower call (bucket 8)
+        txt_f = engine.encode_text(ids)                # 1 text-tower call (bucket 8)
+        sims = engine.similarity(pixels, ids)          # 1 image + 1 text call
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(http_texts))]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        launches = fused_attention.launches
+    finally:
+        server._text_batcher._fn = text_fn
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        serve_thread.join(timeout=30)
+    check(not any(t.is_alive() for t in clients), "an HTTP client did not finish")
+    check(not serve_thread.is_alive(), "the HTTP server thread did not stop")
+
+    tower_calls = 4 + len(batcher_calls)
+    print(f"serve: encode_image {img_f.shape}, encode_text {txt_f.shape}, similarity "
+          f"{sims.shape}, /health {health['status']} on {health['device']}, "
+          f"{len(http_texts)} concurrent /v1/encode_text coalesced into "
+          f"{len(batcher_calls)} batcher calls {batcher_calls}", flush=True)
+    print(f"serve: fused_attention_fwd launches {launches} over {tower_calls} tower calls "
+          f"(expected {12 * tower_calls})", flush=True)
+    check(health["status"] == "ok" and health["buckets"] == list(BUCKETS), "bad /health")
+    check(img_f.shape == (5, 512) and txt_f.shape == (3, 512) and sims.shape == (5, 3),
+          "feature shapes")
+    for name, f in (("image", img_f), ("text", txt_f)):
+        norms = np.linalg.norm(f, axis=-1)
+        check(bool(np.isfinite(f).all()) and bool(np.abs(norms - 1).max() < 1e-4),
+              f"{name} features not finite unit vectors: norms {norms}")
+    scale, bias = engine.logit_terms()
+    check(bool(np.abs(sims - (scale * img_f @ txt_f.T + bias)).max() < 1e-3),
+          "similarity != scale * cos + bias")
+    check(all(f is not None for f in http_feats), "an HTTP request failed")
+    check(sum(batcher_calls) == len(http_texts) and len(batcher_calls) < len(http_texts),
+          f"concurrent requests did not coalesce: {batcher_calls}")
+    direct = engine.encode_text(tokenizer(http_texts))
+    check(bool(np.abs(np.stack(http_feats) - direct).max() < 1e-4),
+          "HTTP features differ from direct engine calls")
+    check(launches == 12 * tower_calls,
+          f"fused_attention_fwd launched {launches} times, expected {12 * tower_calls}")
+
+    # the same weights through the plain attention path on the card
+    plain, _ = create_model(MODEL, device=DEVICE, attn_impl="xla", seed=SEED + 1)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    with torch.inference_mode():
+        x = torch.from_numpy(pixels).to(DEVICE).to(engine.dtype)
+        ref_img = plain.encode_image(x).float().cpu().numpy()
+        ref_txt = plain.encode_text(torch.from_numpy(ids).to(DEVICE).long()).float().cpu().numpy()
+    cos_img, cos_txt = _cosines(img_f, ref_img), _cosines(txt_f, ref_txt)
+    print(f"serve: cosine vs plain attention: image min {cos_img.min():.8f}, "
+          f"text min {cos_txt.min():.8f} (need >= {MIN_COSINE})", flush=True)
+    check(cos_img.min() >= MIN_COSINE and cos_txt.min() >= MIN_COSINE,
+          "engine features disagree with the plain-attention run")
+    return engine, plain, launches
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    """Mean device time of one call, by CUDA events over `iters` calls. A
+    sleep kernel queued first keeps the device behind the host, so host-side
+    launch cost does not leak into the device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0, 1.5 * iters * host_s + 1e-3) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound(b, h, l, d, causal, dtype_name):
+    """Least time on an H100 for the attention forward: the larger of its
+    bytes (q, k, v read once, o written once) over the memory rate and its
+    matmul FLOPs (QK^T and PV over the live score entries) over the peak rate
+    for the input type."""
+    elem = 4 if dtype_name == "float32" else 2
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = 4.0 * b * h * pairs * d
+    nbytes = 4.0 * b * h * l * d * elem
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_kernel_times(dtype_name: str) -> dict:
+    """Kernel, plain version and SDPA (yardstick only) at the serving shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention, fused_attention_reference,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    rows = {}
+    for b, h, l, d, causal in TIMED_CASES:
+        q, k, v = _qkv(b, h, l, d, dtype, seed=100)
+        scale = d ** -0.5
+        ms = time_ms(lambda: fused_attention(q, k, v, scale, causal))
+        plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale))
+        bound, by = attention_bound(b, h, l, d, causal, dtype_name)
+        rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                          bound_ms=bound, bound_by=by)
+        print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound", flush=True)
+    return rows
+
+
+def phase_serving_times(engine, plain) -> None:
+    """Tower time per call with the kernel and with plain attention (CUDA
+    events, see ``time_ms``), and the request latency per bucket (host
+    clock, H2D and D2H included)."""
+    import numpy as np
+    import torch
+
+    h, w = engine.image_size
+    rng = np.random.default_rng(SEED + 2)
+    for b in engine.buckets:
+        x = torch.from_numpy(rng.normal(size=(b, h, w, 3)).astype(np.float32)).to("cuda")
+        ids = torch.zeros(b, engine.context_length, dtype=torch.long, device="cuda")
+        ids[:, 0], ids[:, 1:6], ids[:, 6] = 49406, 320, 49407
+        with torch.inference_mode():
+            img_ms = time_ms(lambda: engine.model.encode_image(x.to(engine.dtype)), iters=10)
+            img_plain = time_ms(lambda: plain.encode_image(x.to(engine.dtype)), iters=10)
+            txt_ms = time_ms(lambda: engine.model.encode_text(ids), iters=10)
+            txt_plain = time_ms(lambda: plain.encode_text(ids), iters=10)
+        host_x, host_ids = x.cpu().numpy(), ids.cpu().numpy().astype(np.int32)
+        lat = {}
+        for name, fn, arg in (("encode_image", engine.encode_image, host_x),
+                              ("encode_text", engine.encode_text, host_ids)):
+            samples = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn(arg)
+                samples.append((time.perf_counter() - t0) * 1e3)
+            lat[name] = statistics.median(samples)
+        print(f"time tower bucket {b}: image {img_ms:.3f} ms per call (plain attention "
+              f"{img_plain:.3f}), text {txt_ms:.3f} ms (plain {txt_plain:.3f}); request "
+              f"latency p50 encode_image {lat['encode_image']:.3f} ms, encode_text "
+              f"{lat['encode_text']:.3f} ms", flush=True)
+
+
+def main() -> None:
+    phase_device()
+    phase_build()
+    worst = phase_kernels()
+    engine, plain, launches = phase_serve()
+    rows = phase_kernel_times("float32")
+    phase_kernel_times("bfloat16")
+    phase_serving_times(engine, plain)
+    check(launches > 0, "the served run launched no fused_attention_fwd")
+
+    import torch
+
+    t = rows[MAIN_PATH_CASE]
+    print(json.dumps({"kernels": [{
+        "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
+        "replaces": FUSED_TPU, "launches": launches, "max_abs_err": worst["float32"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

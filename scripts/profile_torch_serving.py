@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the serving time goes in the PyTorch port, on one CUDA card.
+
+    python3 scripts/profile_torch_serving.py
+
+Builds the ViT-B-16 serving engine (seeded random weights, fp32 compute,
+buckets 1/8/32), then for each bucket and tower profiles five engine calls
+with ``torch.profiler`` (CPU + CUDA activities) and reports, per call:
+the host-clock latency, the device busy time (union of kernel intervals),
+the device idle share, the fused attention kernel's share of device time and
+the top kernels by device time. Prints the full table as one JSON object
+on its last line. Fails when the profiler records no device time (it then
+cannot say where the time goes).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+MODEL, CALLS = "ViT-B-16", 5
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def _short(name: str) -> str:
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:80]
+
+
+def profile_calls(fn, arg, calls: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(arg)  # returns host numpy: ends in a device sync
+        wall_us = (time.perf_counter() - t0) * 1e6
+    intervals, by_name = [], defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            intervals.append((e.time_range.start, e.time_range.end))
+            by_name[_short(e.name)] += e.time_range.end - e.time_range.start
+    busy = _busy_us(intervals)
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    attn = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "latency_ms": wall_us / calls / 1e3,
+        "device_busy_ms": busy / calls / 1e3,
+        "idle_share": 1.0 - busy / wall_us,
+        "attention_share_of_device": attn / sum(by_name.values()),
+        "top_kernels_ms": {k: v / calls / 1e3 for k, v in top},
+    }
+
+
+def main() -> None:
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import create_engine
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_serving: needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    engine, _, tokenizer = create_engine(MODEL, device="cuda", buckets=(1, 8, 32))
+    h, w = engine.image_size
+    rng = np.random.default_rng(0)
+    results = {"card": card, "model": MODEL, "calls": CALLS, "cells": {}}
+    for b in engine.buckets:
+        pixels = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+        ids = tokenizer([f"a photo of object number {i}" for i in range(b)])
+        for tower, fn, arg in (("image", engine.encode_image, pixels),
+                               ("text", engine.encode_text, ids)):
+            r = profile_calls(fn, arg, CALLS)
+            results["cells"][f"{tower}_b{b}"] = r
+            top = ", ".join(f"{k} {v:.3f}" for k, v in list(r["top_kernels_ms"].items())[:3])
+            print(f"{tower} bucket {b}: latency {r['latency_ms']:.3f} ms, device busy "
+                  f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.1%}, fused "
+                  f"attention {r['attention_share_of_device']:.1%} of device; top: {top}",
+                  flush=True)
+    print(json.dumps(results), flush=True)
+
+
+if __name__ == "__main__":
+    main()

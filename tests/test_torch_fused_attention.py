@@ -1,0 +1,186 @@
+"""The port's fused attention and dispatch against the JAX package.
+
+On the CPU the port's ``fused_attention`` runs its plain version; it is held
+against the JAX ``fused_attention`` (the Pallas kernel, interpreted off-TPU)
+and ``dot_product_attention_xla`` on the same numpy inputs. Tolerances:
+2e-5 absolute in fp32 (summation order only); 1e-2 in bf16, compared in
+fp32 (one bf16 ulp of outputs near 1 is 7.8e-3). The ``cuda``-marked test
+holds the Hopper kernel against the plain version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from refining_clip_via_dinov2_representations_torch.ops import native
+from refining_clip_via_dinov2_representations_torch.ops.attention import (
+    dot_product_attention_xla,
+    multi_head_attention,
+)
+from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+    fused_attention,
+    fused_attention_compatible,
+    fused_attention_reference,
+)
+
+FP32_TOL = 2e-5
+BF16_TOL = 1e-2
+
+
+def _qkv(b=2, h=3, lq=23, lk=23, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, h, l, d)).astype(np.float32) for l in (lq, lk, lk)]
+
+
+def _causal_mask_np(l):
+    return np.triu(np.full((l, l), -np.inf, np.float32), k=1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [23, 77, 197])
+def test_plain_version_matches_jax_kernel_and_xla(causal, l):
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.ops.attention import (
+        dot_product_attention_xla as jax_xla,
+    )
+    from refining_clip_via_dinov2_representations_tpu.ops.fused_attention import (
+        fused_attention as jax_fused,
+    )
+
+    q, k, v = _qkv(lq=l, lk=l, seed=l)
+    scale = q.shape[-1] ** -0.5
+    got = fused_attention(*map(torch.from_numpy, (q, k, v)), scale, causal).numpy()
+    want_kernel = np.asarray(jax_fused(*map(jnp.asarray, (q, k, v)), scale, causal))
+    mask = jnp.asarray(_causal_mask_np(l)) if causal else None
+    want_xla = np.asarray(jax_xla(*map(jnp.asarray, (q, k, v)), mask=mask))
+    np.testing.assert_allclose(got, want_kernel, atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_allclose(got, want_xla, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_version_bf16_matches_jax_kernel(causal):
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.ops.fused_attention import (
+        fused_attention as jax_fused,
+    )
+
+    q, k, v = _qkv(b=2, h=4, lq=77, lk=77, d=64, seed=5)
+    scale = 64 ** -0.5
+    tq = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    got = fused_attention(*tq, scale, causal)
+    assert got.dtype == torch.bfloat16
+    jq = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = np.asarray(jax_fused(*jq, scale, causal).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_gate_matches_jax():
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.ops.fused_attention import (
+        fused_attention_compatible as jax_gate,
+    )
+
+    for shape, mask in [((1, 1, 197, 64), None), ((1, 1, 197, 64), (197, 197)),
+                        ((1, 1, 1024, 256), None), ((1, 1, 1025, 64), None),
+                        ((1, 1, 77, 257), None)]:
+        t = torch.zeros(shape)
+        j = jnp.zeros(shape)
+        tm = None if mask is None else torch.zeros(mask)
+        jm = None if mask is None else jnp.zeros(mask)
+        assert fused_attention_compatible(t, t, t, tm) == jax_gate(j, j, j, jm), shape
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_dispatch_on_cpu_takes_plain_version(impl):
+    q, k, v = map(torch.from_numpy, _qkv(lq=50, lk=50))
+    before = fused_attention.launches
+    for causal in (False, True):
+        got = multi_head_attention(q, k, v, causal=causal, impl=impl)
+        want = fused_attention_reference(q, k, v, q.shape[-1] ** -0.5, causal)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert fused_attention.launches == before  # no kernel on CPU tensors
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash", "xla_bf16_bwd"])
+def test_plain_paths_match_jax_xla(impl):
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.ops.attention import (
+        dot_product_attention_xla as jax_xla,
+    )
+
+    q, k, v = _qkv(lq=41, lk=41, seed=3)
+    rng = np.random.default_rng(4)
+    for mask in (None, rng.normal(size=(1, 3, 41, 41)).astype(np.float32)):
+        tmask = None if mask is None else torch.from_numpy(mask)
+        got = multi_head_attention(*map(torch.from_numpy, (q, k, v)), mask=tmask, impl=impl)
+        jm = None if mask is None else jnp.asarray(mask)
+        want = np.asarray(jax_xla(*map(jnp.asarray, (q, k, v)), mask=jm))
+        np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=FP32_TOL)
+    # causal through the plain path equals the fused plain version
+    got = multi_head_attention(*map(torch.from_numpy, (q, k, v)), causal=True, impl=impl)
+    want = np.asarray(jax_xla(*map(jnp.asarray, (q, k, v)),
+                              mask=jnp.asarray(_causal_mask_np(41))))
+    np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+def test_fused_with_mask_or_long_sequence_takes_plain_path():
+    q, k, v = map(torch.from_numpy, _qkv(b=1, h=1, lq=9, lk=9))
+    mask = torch.randn(9, 9)
+    got = multi_head_attention(q, k, v, mask=mask, impl="fused")
+    torch.testing.assert_close(got, dot_product_attention_xla(q, k, v, mask=mask))
+
+
+def test_unknown_impl_raises():
+    q, k, v = map(torch.from_numpy, _qkv())
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        multi_head_attention(q, k, v, impl="cudnn")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        native._nvcc()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,causal", [
+    ((8, 12, 197, 64), False), ((8, 8, 77, 64), True), ((8, 12, 50, 64), False),
+    ((3, 5, 23, 64), True), ((1, 1, 1, 64), False), ((1, 2, 1024, 64), True),
+    ((2, 3, 65, 40), True), ((1, 2, 300, 256), False),
+])
+def test_cuda_kernel_matches_plain_version(shape, causal, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g = torch.Generator().manual_seed(0)
+    q, k, v = [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
+    scale = shape[-1] ** -0.5
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    want = fused_attention_reference(q, k, v, scale, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.randn(1, 2, 16, 64, device="cuda")
+    with pytest.raises(TypeError):
+        fused_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3)
+        fused_attention(t, t, t, 0.125)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_attention(q, q.cpu(), q, 0.125)
+    big = torch.randn(1, 1, 1025, 64, device="cuda")
+    with pytest.raises(ValueError, match="exceed"):
+        fused_attention(big, big, big, 0.125)
