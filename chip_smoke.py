@@ -6,10 +6,14 @@
 Phases, each of which exits non-zero on failure:
 
 1. device  — the card's name and power limit; no CUDA device is a failure.
-2. build   — compiles every CUDA kernel of the serving path from ``csrc/``,
-   one nvcc per source, all started together.
-3. kernels — each kernel against its plain PyTorch version on the card, at
-   the serving shapes and edge cases, in float32 and bfloat16.
+2. build   — compiles every CUDA kernel of the serving and training paths
+   from ``csrc/``, one nvcc per source, all started together.
+3. kernels — the forward kernel against its plain PyTorch version on the
+   card, at the serving shapes and edge cases, in float32 and bfloat16.
+3b. kernels-bwd — the backward kernel against its plain version and a
+   float64 version with the same rounding points, at the same cases plus
+   the training shapes, in float32 and bfloat16; the autograd Function
+   against autograd through the plain forward.
 4. serve   — ViT-B-16 at full width on a seeded random init, through
    ``create_engine`` and the HTTP server: image, text and similarity
    requests, ``/health`` and concurrent HTTP requests that the batcher
@@ -59,13 +63,27 @@ KERNEL_CASES = [
     (2, 3, 65, 40, True), (1, 3, 130, 128, False), (1, 2, 300, 256, True),
     (2, 1, 1024, 256, False),
 ]
-TIMED_CASES = [(8, 12, 197, 64, False), (32, 12, 197, 64, False),
-               (8, 8, 77, 64, True), (32, 8, 77, 64, True)]
+TIMED_CASES = [(1, 12, 197, 64, False), (8, 12, 197, 64, False), (32, 12, 197, 64, False),
+               (64, 12, 197, 64, False), (1, 8, 77, 64, True), (8, 8, 77, 64, True),
+               (32, 8, 77, 64, True), (64, 8, 77, 64, True)]
 MAIN_PATH_CASE = (8, 12, 197, 64, False)  # the image call the served requests make
 MODEL, BUCKETS, SEED = "ViT-B-16", (1, 8, 32), 0
 DEVICE = "cuda"
+CARD = "not read"  # the card's name and power limit, as nvidia-smi gives them
 FUSED_TPU = "refining_clip_via_dinov2_representations_tpu/ops/fused_attention.py:60"
 FUSED_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_fwd.cu"
+BWD_TPU = "refining_clip_via_dinov2_representations_tpu/ops/fused_attention.py:69"
+BWD_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_bwd.cu"
+# backward: max |kernel - plain| and |kernel - float64 version| over the
+# largest |grad| of the three outputs. fp32: summation order only. bf16: a
+# few output ulps (one is 2^-8 of a value; dS, rounded to bf16 before its
+# products, flips by one ulp where P or dP differ in their last bits).
+BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the training shapes: image [64,12,197,64], causal text [64,8,77,64]
+TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
+TRAIN_BATCH, CLI_BATCH, CLI_SAMPLES, DINO_DIM = 64, 32, 96, 384
+# one train step through the kernels vs the plain attention, same init/batch
+STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, min cosine)
 
 
 def fail(msg: str) -> None:
@@ -89,7 +107,9 @@ def phase_device() -> None:
     )
     check(smi.returncode == 0 and bool(smi.stdout.strip()),
           f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
@@ -139,7 +159,7 @@ def phase_kernels() -> dict:
     import torch
 
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
-        fused_attention, fused_attention_reference,
+        fused_attention_fwd, fused_attention_reference,
     )
 
     worst = {}
@@ -148,7 +168,7 @@ def phase_kernels() -> dict:
         for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES):
             q, k, v = _qkv(b, h, l, d, dtype, seed=i)
             scale = d ** -0.5
-            got = fused_attention(q, k, v, scale, causal)
+            got = fused_attention_fwd(q, k, v, scale, causal)
             want = fused_attention_reference(q, k, v, scale, causal)
             exact = _attention_fp64(q, k, v, scale, causal)
             torch.cuda.synchronize()
@@ -191,7 +211,7 @@ def phase_serve():
     from refining_clip_via_dinov2_representations_torch.inference import create_engine
     from refining_clip_via_dinov2_representations_torch.models import create_model
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
-        fused_attention,
+        fused_attention_fwd,
     )
     from refining_clip_via_dinov2_representations_torch.serve import (
         ClipServer, make_http_server,
@@ -238,7 +258,7 @@ def phase_serve():
 
     try:
         # ---- the main path: counts at 0 just before, read just after ----
-        fused_attention.launches = 0
+        fused_attention_fwd.launches = 0
         img_f = engine.encode_image(pixels)            # 1 image-tower call (bucket 8)
         txt_f = engine.encode_text(ids)                # 1 text-tower call (bucket 8)
         sims = engine.similarity(pixels, ids)          # 1 image + 1 text call
@@ -250,7 +270,7 @@ def phase_serve():
         for t in clients:
             t.join(timeout=300)
         torch.cuda.synchronize()
-        launches = fused_attention.launches
+        launches = fused_attention_fwd.launches
     finally:
         server._text_batcher._fn = text_fn
         httpd.shutdown()
@@ -344,7 +364,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     import torch.nn.functional as F
 
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
-        fused_attention, fused_attention_reference,
+        fused_attention_fwd, fused_attention_reference,
     )
 
     dtype = getattr(torch, dtype_name)
@@ -352,7 +372,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     for b, h, l, d, causal in TIMED_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100)
         scale = d ** -0.5
-        ms = time_ms(lambda: fused_attention(q, k, v, scale, causal))
+        ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
         plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale))
@@ -361,7 +381,8 @@ def phase_kernel_times(dtype_name: str) -> dict:
                                           bound_ms=bound, bound_by=by)
         print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound", flush=True)
+              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound"
+              f" [{CARD}]", flush=True)
     return rows
 
 
@@ -396,31 +417,397 @@ def phase_serving_times(engine, plain) -> None:
         print(f"time tower bucket {b}: image {img_ms:.3f} ms per call (plain attention "
               f"{img_plain:.3f}), text {txt_ms:.3f} ms (plain {txt_plain:.3f}); request "
               f"latency p50 encode_image {lat['encode_image']:.3f} ms, encode_text "
-              f"{lat['encode_text']:.3f} ms", flush=True)
+              f"{lat['encode_text']:.3f} ms"
+              f" [{CARD}]", flush=True)
 
 
-def main() -> None:
-    phase_device()
-    phase_build()
-    worst = phase_kernels()
-    engine, plain, launches = phase_serve()
-    rows = phase_kernel_times("float32")
-    phase_kernel_times("bfloat16")
-    phase_serving_times(engine, plain)
-    check(launches > 0, "the served run launched no fused_attention_fwd")
+def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
+    """The backward kernel's function in float64, rounded to the input dtype
+    where ``_bwd_kernel`` rounds (P and dO for dV, dS): its distance from
+    the kernel is the kernel's own rounding error."""
+    import torch
+
+    t = q.dtype
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * scale
+    if causal:
+        above = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.to(t).double().transpose(-1, -2), do.double())
+    dp = torch.matmul(do.double(), v.double().transpose(-1, -2))
+    delta = (do.double() * o.double()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(t).double()
+    return (torch.matmul(ds, k.double()) * scale, torch.matmul(ds.transpose(-1, -2), q.double())
+            * scale, dv)
+
+
+def phase_kernels_bwd() -> dict:
+    """Backward kernel vs its plain version (and float64) on the card;
+    returns {dtype: max_abs_err vs plain}."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention, fused_attention_bwd, fused_attention_bwd_reference,
+        fused_attention_fwd, fused_attention_reference,
+    )
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TRAIN_CASES):
+            q, k, v = _qkv(b, h, l, d, dtype, seed=i)
+            do = _qkv(b, h, l, d, dtype, seed=1000 + i)[0]
+            scale = d ** -0.5
+            o = fused_attention_fwd(q, k, v, scale, causal)
+            got = fused_attention_bwd(q, k, v, o, do, scale, causal)
+            want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+            exact = _attention_bwd_fp64(q, k, v, o, do, scale, causal)
+            torch.cuda.synchronize()
+            largest = max(w.float().abs().max().item() for w in want)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            err64 = max((g.double() - e).abs().max().item() for g, e in zip(got, exact))
+            worst[name] = max(worst.get(name, 0.0), err)
+            ok = (all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
+                  and max(err, err64) <= BWD_REL_TOL[name] * largest
+                  and all(bool(torch.isfinite(g.float()).all()) for g in got))
+            print(f"kernel fused_attention_bwd {name} [{b},{h},{l},{d}] causal={causal}: "
+                  f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64, largest |grad| "
+                  f"{largest:.3e} (tol {BWD_REL_TOL[name]:g} x largest) "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            check(ok, f"fused_attention_bwd disagrees with its plain version at "
+                      f"{name} [{b},{h},{l},{d}] causal={causal}: {err:.3e} / {err64:.3e}")
+    # the autograd Function against autograd through the plain forward, fp32
+    for i, (b, h, l, d, causal) in enumerate(TRAIN_CASES):
+        q, k, v = (x.requires_grad_() for x in _qkv(b, h, l, d, torch.float32, seed=50 + i))
+        do = _qkv(b, h, l, d, torch.float32, seed=60 + i)[0]
+        got = torch.autograd.grad(fused_attention(q, k, v, d ** -0.5, causal), (q, k, v), do)
+        want = torch.autograd.grad(fused_attention_reference(q, k, v, d ** -0.5, causal),
+                                   (q, k, v), do)
+        largest = max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        print(f"autograd fused_attention float32 [{b},{h},{l},{d}] causal={causal}: max_abs_err "
+              f"{err:.3e} vs autograd of the plain forward (tol 1e-4 x {largest:.3e})", flush=True)
+        check(err <= 1e-4 * largest, "the autograd Function disagrees with autograd")
+    return worst
+
+
+def _train_batch(tokenizer, n: int, device: str) -> dict:
+    """Seeded random pixels, n distinct captions through the port's
+    tokenizer, seeded DINO features."""
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_model_config
+
+    size = get_model_config(MODEL)["vision_cfg"]["image_size"]
+    rng = np.random.default_rng(SEED + 10)
+    captions = [f"a photo of item {i}, a {['red', 'green', 'blue', 'grey'][i % 4]} thing "
+                f"number {i * 7 + 3} in scene {i % 5}" for i in range(n)]
+    return {
+        "images": torch.from_numpy(rng.normal(size=(n, size, size, 3)).astype(np.float32)).to(device),
+        "texts": torch.from_numpy(tokenizer(captions)).long().to(device),
+        "dino_features": torch.from_numpy(
+            rng.normal(size=(n, DINO_DIM)).astype(np.float32)).to(device),
+    }
+
+
+def _dino_setup(precision: str, attn_impl: str, steps: int = 3):
+    """ViT-B-16 + the 512->448->384 DINO head + default param groups + a
+    cosine schedule, from the same seeds every time; returns
+    (model, head, state, train_step, step_cfg)."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import create_model
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, TrainState, make_train_step, train_parameters,
+    )
+
+    model, _ = create_model(MODEL, precision=precision, device=DEVICE, attn_impl=attn_impl,
+                            seed=SEED)
+    model.train()
+    torch.manual_seed(SEED + 1)
+    head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
+    optimizer, _ = build_optimizer(train_parameters(model, head), OptimCfg(),
+                                   cosine_lr(5e-4, 0, steps))
+    cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
+    state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(SEED))
+    return model, head, state, make_train_step(model, cfg, head), cfg
+
+
+def _loss_and_grads(model, head, cfg, batch):
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        make_loss_fn, train_parameters,
+    )
+
+    params = train_parameters(model, head)
+    for p in params.values():
+        p.grad = None
+    loss, _ = make_loss_fn(model, cfg, head)(batch, 0)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in params.items() if p.grad is not None}
+    for p in params.values():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def _compare_step(precision: str, batch) -> None:
+    """One loss and gradient through the kernels vs the plain attention."""
+    import torch
+
+    name = "bfloat16" if precision == "bf16" else "float32"
+    loss_tol, min_cos = STEP_TOL[name]
+    results = []
+    for impl in ("auto", "xla"):
+        model, head, _, _, cfg = _dino_setup(precision, impl)
+        results.append(_loss_and_grads(model, head, cfg, batch))
+        del model, head
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    check(grads_k.keys() == grads_p.keys(), "the two runs have different parameters")
+    cos = {}
+    for n in grads_k:
+        a, b = grads_k[n].double().flatten(), grads_p[n].double().flatten()
+        cos[n] = float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    fp32_grads = all(g.dtype == torch.float32 for g in grads_k.values())
+    print(f"train-step {precision}: loss {loss_k:.6f} through the kernels vs {loss_p:.6f} plain "
+          f"(rel {rel:.2e}, tol {loss_tol:g}); per-tensor gradient cosine min {cos[worst]:.6f} "
+          f"at {worst} over {len(cos)} tensors (need >= {min_cos}); fp32 grads {fp32_grads}",
+          flush=True)
+    check(rel <= loss_tol and cos[worst] >= min_cos and fp32_grads,
+          f"{precision} step through the kernels disagrees with plain attention")
+
+
+def host_step_ms(fn, steps: int = 5) -> float:
+    """Mean host-clock time of one call over ``steps`` back-to-back calls
+    that end in one device sync: what a training loop sees, host launch cost
+    and device time overlapping."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_train_step():
+    """The training main path at ViT-B-16 width, bf16 compute; returns
+    (forward launches, backward launches, timing dict)."""
+    import math
 
     import torch
 
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_fwd,
+    )
+
+    batch = _train_batch(get_tokenizer(MODEL), TRAIN_BATCH, DEVICE)
+    _compare_step("bf16", batch)
+
+    model, head, state, train_step, _ = _dino_setup("bf16", "auto")
+    head_before = [p.detach().clone() for p in head.parameters()]
+    steps = 3
+    # ---- the main path: counts at 0 just before, read just after ----
+    fused_attention_fwd.launches = fused_attention_bwd.launches = 0
+    losses = []
+    for _ in range(steps):
+        state, metrics = train_step(state, batch)
+        losses.append(metrics["total_loss"])
+    torch.cuda.synchronize()
+    fwd, bwd = fused_attention_fwd.launches, fused_attention_bwd.launches
+    losses = [float(x) for x in losses]
+    ln_scale = float(model.logit_scale.detach())
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(head.parameters(), head_before))
+    print(f"train-step: {MODEL} bf16 DINO-soft (kl_teacher, lambda_soft 0.5, mlp head "
+          f"{head.fc1.in_features}->{head.fc1.out_features}->{DINO_DIM}) batch {TRAIN_BATCH}: losses {losses}, ln logit scale {ln_scale:.6f}, head "
+          f"moved by {moved:.3e}; launches fwd {fwd} bwd {bwd} over {steps} steps "
+          f"(expected {24 * steps} each)", flush=True)
+    check(all(math.isfinite(x) for x in losses), "a train-step loss is not finite")
+    check(0.0 <= ln_scale <= math.log(100.0), "the logit scale left [0, ln 100]")
+    check(moved > 0, "the DINO head did not move")
+    check(fwd == 24 * steps and bwd == 24 * steps,
+          f"expected {24 * steps} forward and backward launches, got {fwd} and {bwd}")
+
+    # ---- step time and peak memory, kernels vs plain attention ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: train_step(state, batch), iters=5)
+    host_ms = host_step_ms(lambda: train_step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    del model, head, state, train_step
+    torch.cuda.empty_cache()
+    _, _, p_state, p_step, _ = _dino_setup("bf16", "xla")
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = time_ms(lambda: p_step(p_state, batch), iters=5)
+    plain_host_ms = host_step_ms(lambda: p_step(p_state, batch))
+    plain_peak = torch.cuda.max_memory_allocated()
+    del p_state, p_step
+    torch.cuda.empty_cache()
+    print(f"time train step {MODEL} bf16 batch {TRAIN_BATCH}: device {step_ms:.3f} ms with the "
+          f"kernels, {plain_ms:.3f} ms with plain attention (CUDA events); host clock "
+          f"{host_ms:.3f} ms ({TRAIN_BATCH / host_ms * 1e3:.1f} samples/s) with the kernels, "
+          f"{plain_host_ms:.3f} ms ({TRAIN_BATCH / plain_host_ms * 1e3:.1f} samples/s) plain; "
+          f"peak memory {peak / 2**30:.3f} GiB (plain {plain_peak / 2**30:.3f} GiB)"
+              f" [{CARD}]", flush=True)
+
+    _compare_step("fp32", batch)
+    return fwd, bwd
+
+
+def phase_train_cli() -> None:
+    """``train.main.main`` for one synthetic epoch; its checkpoint serves."""
+    import json as _json
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import create_engine
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_fwd,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.main import main as train_main
+
+    # a temporary directory inside the checkout's (ignored) build tree
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    logs = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build)
+    try:
+        fused_attention_fwd.launches = fused_attention_bwd.launches = 0
+        train_main(["--model", MODEL, "--dataset-type", "synthetic", "--use_dino_general",
+                    "--soft_mode", "kl_teacher", "--lambda_soft", "0.5",
+                    "--synthetic-dino-dim", str(DINO_DIM), "--precision", "bf16",
+                    "--batch-size", str(CLI_BATCH), "--train-num-samples", str(CLI_SAMPLES),
+                    "--epochs", "1", "--workers", "4", "--log-every-n-steps", "1",
+                    "--logs", logs, "--name", "cli", "--seed", str(SEED), "--device", DEVICE])
+        torch.cuda.synchronize()
+        launches = fused_attention_fwd.launches + fused_attention_bwd.launches
+        steps = CLI_SAMPLES // CLI_BATCH
+        with open(os.path.join(logs, "cli", "loss_steps.json")) as f:
+            records = _json.load(f)
+        ckpt = os.path.join(logs, "cli", "checkpoints", "epoch_1.pt")
+        print(f"train-cli: {len(records)} logged steps, total_loss "
+              f"{[r['total_loss'] for r in records]}; kernel launches {launches} "
+              f"(expected {48 * steps}); checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB",
+              flush=True)
+        check(len(records) == steps and all(math.isfinite(r["total_loss"]) for r in records),
+              "loss_steps.json is not one finite record per step")
+        check(launches == 48 * steps, f"the CLI run launched {launches} kernels")
+        engine, _, tokenizer = create_engine(MODEL, checkpoint=ckpt, buckets=(1,), device=DEVICE)
+        feats = engine.encode_text(tokenizer(["a photo of a cat"]))
+        norm = float(np.linalg.norm(feats))
+        print(f"train-cli: the checkpoint serves encode_text {feats.shape}, norm {norm:.6f}",
+              flush=True)
+        check(feats.shape[0] == 1 and abs(norm - 1) < 1e-4, "the checkpoint does not serve")
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def attention_bwd_bound(b, h, l, d, causal, dtype_name):
+    """Least time on an H100 for the attention backward: 8 L D elements per
+    head moved (q, k, v, o, dO in; dq, dk, dv out) and 10 pairs D FLOPs per
+    head (S recomputed, dV, dP, dQ, dK) over the peak rate for the type."""
+    elem = 4 if dtype_name == "float32" else 2
+    pairs = l * (l + 1) // 2 if causal else l * l
+    flops = 10.0 * b * h * pairs * d
+    nbytes = 8.0 * b * h * l * d * elem
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_bwd_times(dtype_name: str) -> dict:
+    """Backward kernel, its plain version and SDPA forward+backward minus
+    its forward (yardstick only) at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_bwd_reference, fused_attention_fwd,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    rows = {}
+    for b, h, l, d, causal in TRAIN_CASES:
+        q, k, v = _qkv(b, h, l, d, dtype, seed=200)
+        do = _qkv(b, h, l, d, dtype, seed=201)[0]
+        scale = d ** -0.5
+        o = fused_attention_fwd(q, k, v, scale, causal)
+        ms = time_ms(lambda: fused_attention_bwd(q, k, v, o, do, scale, causal), iters=20)
+        plain = time_ms(lambda: fused_attention_bwd_reference(q, k, v, o, do, scale, causal),
+                        iters=20)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=scale)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale), iters=20)
+        lib = time_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
+        bound, by = attention_bwd_bound(b, h, l, d, causal, dtype_name)
+        rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                          bound_ms=bound, bound_by=by)
+        print(f"time fused_attention_bwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd minus fwd {lib:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound"
+              f" [{CARD}]", flush=True)
+    return rows
+
+
+def main() -> None:
+    import torch
+
+    phase_device()
+    phase_build()
+    worst = phase_kernels()
+    worst_bwd = phase_kernels_bwd()
+    engine, plain, serve_launches = phase_serve()
+    rows = phase_kernel_times("float32")
+    phase_kernel_times("bfloat16")
+    phase_serving_times(engine, plain)
+    check(serve_launches > 0, "the served run launched no fused_attention_fwd")
+    del engine, plain
+    torch.cuda.empty_cache()
+    train_fwd, train_bwd = phase_train_step()
+    check(train_fwd > 0 and train_bwd > 0, "the train steps launched no kernel")
+    phase_train_cli()
+    bwd_rows = phase_bwd_times("bfloat16")
+    phase_bwd_times("float32")
+
     t = rows[MAIN_PATH_CASE]
+    tb = bwd_rows[TRAIN_CASES[0]]
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
-        "replaces": FUSED_TPU, "launches": launches, "max_abs_err": worst["float32"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "replaces": FUSED_TPU, "launches": serve_launches + train_fwd,
+        "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    }, {
+        "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
+        "replaces": BWD_TPU, "launches": train_bwd, "max_abs_err": worst_bwd["bfloat16"],
+        "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
     }]}), flush=True)
+    # count: the one card this run uses
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}), flush=True)
 
 
 if __name__ == "__main__":

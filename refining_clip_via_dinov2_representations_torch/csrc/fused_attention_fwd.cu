@@ -32,57 +32,27 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "fused_attention_common.cuh"
+
 namespace {
+
+using fa::round_like;
+using fa::warp_max;
+using fa::warp_sum;
 
 constexpr int kThreads = 128;  // four warps
 constexpr int kRowsPerWarp = 8;
 constexpr int kBQ = (kThreads / 32) * kRowsPerWarp;  // 32 query rows per block
 constexpr int kBK = 64;                              // keys per K/V tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's astype
-}
-
-// The value P takes once cast to V's dtype (`p.astype(v_ref.dtype)`).
-template <typename T>
-__device__ __forceinline__ float round_like(float x) { return to_float(from_float<T>(x)); }
-
 __device__ __forceinline__ float component(const float4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Stage rows [r0, r0 + rows) of a [len, d] matrix into a [rows][DP + 4] fp32
-// tile, zero past `len` rows and `d` columns (so padded keys add nothing).
 template <typename T, int DP>
 __device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src, int r0,
                                            int rows, int len, int d) {
-  constexpr int kStride = DP + 4;
-  for (int i = threadIdx.x; i < rows * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP;
-    float x = 0.f;
-    if (r0 + r < len && c < d) x = to_float(src[(size_t)(r0 + r) * d + c]);
-    dst[r * kStride + c] = x;
-  }
+  fa::stage_tile<T, DP, kThreads>(dst, src, r0, rows, len, d);
 }
 
 template <typename T, int DP>
@@ -206,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int c = lane + 32 * cc;
-      if (c < d) o[(size_t)row * d + c] = from_float<T>(acc[r][cc]);
+      if (c < d) o[(size_t)row * d + c] = fa::from_float<T>(acc[r][cc]);
     }
   }
 }
@@ -216,14 +186,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                    int lk, int d, float scale, int causal, cudaStream_t stream) {
   const int lk_pad = (lk + kBK - 1) / kBK * kBK;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (DP + 4) + (size_t)kBQ * lk_pad);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
   auto kernel = fused_attention_fwd_kernel<T, DP>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = fa::reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (lq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -255,6 +219,6 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, 
   return cudaErrorInvalidValue;
 }
 
-extern "C" const char* fused_attention_error_string(int err) {
+extern "C" const char* fused_attention_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -10,6 +10,6 @@ from .config import (
     parse_model_cfg,
     register_model_config,
 )
-from .convert import jax_params_to_state_dict
+from .convert import jax_head_params_to_state_dict, jax_params_to_state_dict
 from .factory import create_model, create_model_and_transforms, get_tokenizer
 from .transformer import TextTransformer, Transformer, VisionTransformer, text_global_pool

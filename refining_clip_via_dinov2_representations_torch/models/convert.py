@@ -6,7 +6,10 @@ the param tree (nested dicts of numpy arrays, as ``jax.device_get`` returns
 it) becomes an open_clip-layout state dict that loads into ``models.clip.CLIP``
 with ``strict=True``. Dense kernels are transposed to [out, in], the fused
 ``in_proj_kernel`` [D, 3D] to ``in_proj_weight`` [3D, D], the HWIO patch
-convolution to OIHW.
+convolution to OIHW. Every operation is a transpose, so the same function
+carries a JAX gradient tree across to the port's parameter gradients.
+``jax_head_params_to_state_dict`` does the same for the DINO projection
+head (``losses/dino.py:DinoProjectionHead``).
 """
 
 from __future__ import annotations
@@ -87,4 +90,18 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd["logit_scale"] = _t(params["logit_scale"])
     if "logit_bias" in params:
         sd["logit_bias"] = _t(params["logit_bias"])
+    return sd
+
+
+def jax_head_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``DinoProjectionHead`` params -> the port head's state dict."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("proj", "fc1", "fc2"):
+        if name in params:
+            sd[f"{name}.weight"] = _t(params[name]["kernel"], transpose=True)
+            sd[f"{name}.bias"] = _t(params[name]["bias"])
+    if "ln" in params:
+        sd["ln.weight"] = _t(params["ln"]["scale"])
+        sd["ln.bias"] = _t(params["ln"]["bias"])
     return sd

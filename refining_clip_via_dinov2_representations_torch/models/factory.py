@@ -21,7 +21,19 @@ from ..transform import PreprocessCfg, image_transform_v2, merge_preprocess_dict
 from .clip import CLIP, build_model
 from .config import get_model_config, list_models, parse_model_cfg
 
-_PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+def _precision_to_dtype(precision: str) -> Tuple[torch.dtype, torch.dtype]:
+    """Precision flag -> (compute dtype, parameter dtype), with the JAX
+    package's names and mapping: the amp/fp16 flags of the torch reference
+    collapse to bf16 compute over fp32 parameters (there is no autocast or
+    GradScaler); ``amp`` itself is fp32, as there."""
+    if precision in ("fp32", "amp", "float32"):
+        return torch.float32, torch.float32
+    if precision in ("bf16", "amp_bf16", "bfloat16", "fp16", "amp_bfloat16", "pure_fp16"):
+        return torch.bfloat16, torch.float32
+    if precision == "pure_bf16":
+        return torch.bfloat16, torch.bfloat16
+    raise ValueError(f"unknown precision {precision!r}")
 
 
 def _resolve_device(device) -> torch.device:
@@ -57,11 +69,12 @@ def create_model(
 ) -> Tuple[CLIP, PreprocessCfg]:
     """Build a model on ``device``. ``pretrained`` may name a local
     state-dict file (loaded with ``strict=True``); without one the weights
-    are a seeded random init. ``precision`` is "fp32" or "bf16" compute over
-    fp32 parameters. Returns ``(model, preprocess_cfg)``."""
+    are a seeded random init. ``precision`` takes the training CLI's names
+    (``_precision_to_dtype``): "fp32", "bf16" (bf16 compute over fp32
+    parameters), "pure_bf16" (bf16 parameters), ... Returns
+    ``(model, preprocess_cfg)``."""
     device = _resolve_device(device)
-    if precision not in _PRECISIONS:
-        raise ValueError(f"unsupported precision {precision!r}; one of {sorted(_PRECISIONS)}")
+    compute_dtype, param_dtype = _precision_to_dtype(precision)
     if model_name.startswith("hf-hub:"):
         raise NotImplementedError("hf-hub models: downloading is not ported")
     model_name = model_name.replace("/", "-")
@@ -77,10 +90,10 @@ def create_model(
             "tags need downloads, which the PyTorch port does not do"
         )
     cfg = parse_model_cfg(raw_cfg)
-    model = build_model(cfg, dtype=_PRECISIONS[precision], attn_impl=attn_impl, seed=seed)
+    model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl, seed=seed)
     if pretrained:
         model.load_state_dict(load_state_dict(pretrained), strict=True)
-    model = model.to(device).eval()
+    model = model.to(device=device, dtype=param_dtype).eval()
     preprocess_cfg = PreprocessCfg(**merge_preprocess_dict(
         PreprocessCfg(), {"size": cfg.vision_cfg.image_size}))
     return model, preprocess_cfg

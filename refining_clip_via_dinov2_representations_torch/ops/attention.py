@@ -5,9 +5,10 @@ The port of ``refining_clip_via_dinov2_representations_tpu/ops/attention.py``.
 * ``impl="xla"`` — ``dot_product_attention_xla``: plain PyTorch attention
   with an fp32 softmax. The correctness oracle and the CPU path. (The name is
   the JAX package's, kept so the two can be read side by side.)
-* ``impl="fused"`` — the hand-written Hopper kernel
-  (``ops/fused_attention.py``) wherever its gate holds, else the plain path;
-  on CPU tensors its plain version.
+* ``impl="fused"`` — the hand-written Hopper kernels
+  (``ops/fused_attention.py``: forward, and backward under autograd)
+  wherever their gate holds, else the plain path; on CPU tensors their
+  plain versions, through the same autograd Function.
 * ``impl="auto"`` — ``"fused"`` on a CUDA tensor wherever the gate holds,
   ``"xla"`` on a CPU tensor.
 * ``impl="flash"`` / ``"xla_bf16_bwd"`` — not ported yet: they raise

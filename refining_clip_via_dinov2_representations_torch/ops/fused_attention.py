@@ -1,17 +1,27 @@
-"""Fused short-sequence attention: the Hopper kernel and its plain version.
+"""Fused short-sequence attention: the Hopper kernels and their plain versions.
 
-The port of the TPU Pallas kernel in
-``refining_clip_via_dinov2_representations_tpu/ops/fused_attention.py``
-(``_fwd_kernel``, launched by ``_fused_fwd``). At CLIP sequence lengths
-(77 text tokens, 197 ViT-B/16 tokens) a head's whole score row fits on chip,
-so scores, softmax and the PV product run in one kernel and only Q, K, V and
-O touch device memory. The CUDA source is ``csrc/fused_attention_fwd.cu``;
-its header states what bounds it on an H100 and how its design answers that.
+The port of the TPU Pallas kernels in
+``refining_clip_via_dinov2_representations_tpu/ops/fused_attention.py``:
+``_fwd_kernel`` (launched by ``_fused_fwd``) and ``_bwd_kernel`` (launched by
+``_fused_bwd``, the VJP of ``fused_attention``). At CLIP sequence lengths (77
+text tokens, 197 ViT-B/16 tokens) scores, softmax and the products run inside
+the kernels and only the inputs, the outputs and (backward) three fp32 row
+statistics touch device memory. The CUDA sources are
+``csrc/fused_attention_fwd.cu`` and ``csrc/fused_attention_bwd.cu``; their
+headers state what bounds them on an H100 and how their designs answer that.
 
-Numerics, as the TPU kernel: scores and softmax in fp32; a causal mask sets
-col > row to the fp32 minimum; the normalised probabilities are cast to V's
-dtype before the PV product, which accumulates in fp32; the output is in the
-input dtype. Forward only: the backward kernel comes with training.
+Numerics, as the TPU kernels. Forward: scores and softmax in fp32; a causal
+mask sets col > row to the fp32 minimum; the normalised probabilities are
+cast to V's dtype before the PV product, which accumulates in fp32; the
+output is in the input dtype. Backward: P is recomputed in fp32; dV uses P
+and dO cast to V's dtype; delta = rowsum(dO * O) in fp32 from the stored O;
+dS = P * (dP - delta) is cast to q's dtype; dQ and dK are scaled after their
+fp32 sums; each gradient is in its input's dtype.
+
+``fused_attention`` is a ``torch.autograd.Function`` over the two: the
+forward saves q, k, v and o (as the JAX VJP's residuals) and the backward
+runs the backward kernel. CPU tensors take the plain versions in both
+directions; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -25,23 +35,44 @@ from . import native
 
 MAX_FUSED_SEQ = 1024
 MAX_HEAD_DIM = 256
-_SOURCE = "fused_attention_fwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+
+
+def _causal_scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool):
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        lq, lk = s.shape[-2:]
+        above = torch.ones(lq, lk, dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, torch.finfo(torch.float32).min)
+    return s
 
 
 def fused_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version with the kernel's numerics. q,k,v: [B,H,L,D]."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        lq, lk = s.shape[-2:]
-        above = torch.ones(lq, lk, dtype=torch.bool, device=s.device).triu(1)
-        s = s.masked_fill(above, torch.finfo(torch.float32).min)
-    p = torch.softmax(s, dim=-1)
+    """Plain PyTorch version of the forward kernel. q,k,v: [B,H,L,D]."""
+    p = torch.softmax(_causal_scores(q, k, scale, causal), dim=-1)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, scale: float, causal: bool = False,
+):
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) from the
+    residuals q, k, v, o and the cotangent do, with ``_bwd_kernel``'s
+    rounding points."""
+    p = torch.softmax(_causal_scores(q, k, scale, causal), dim=-1)
+    do_v = do.float().to(v.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do_v)
+    dp = torch.matmul(do_v, v.float().transpose(-1, -2))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fused_attention_compatible(q, k, v, mask) -> bool:
@@ -54,28 +85,30 @@ def fused_attention_compatible(q, k, v, mask) -> bool:
     return q.shape[-1] <= MAX_HEAD_DIM
 
 
-def _library() -> ctypes.CDLL:
-    lib = native.load(_SOURCE)
-    fn = lib.fused_attention_fwd
+def _library(source: str, fn_name: str, n_pointers: int) -> ctypes.CDLL:
+    lib = native.load(source)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * n_pointers + [i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
-        lib.fused_attention_error_string.argtypes = [i]
-        lib.fused_attention_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{fn_name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+def _check(q, k, v, *same_as_q) -> None:
+    tensors = (q, k, v, *same_as_q)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(
-            f"fused_attention: q, k, v must share one CUDA device "
-            f"(got {q.device}, {k.device}, {v.device})"
+            "fused_attention: inputs must share one CUDA device (got "
+            f"{', '.join(str(t.device) for t in tensors)})"
         )
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(
-            f"fused_attention: float32 or bfloat16 q, k, v of one dtype "
-            f"(got {q.dtype}, {k.dtype}, {v.dtype})"
+            "fused_attention: float32 or bfloat16 inputs of one dtype (got "
+            f"{', '.join(str(t.dtype) for t in tensors)})"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"fused_attention: q [B,H,Lq,D], k=v [B,H,Lk,D]; got "
@@ -83,29 +116,36 @@ def _check(q, k, v) -> None:
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"fused_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in batch, heads or head_dim")
+    if any(t.shape != q.shape for t in same_as_q):
+        raise ValueError(f"fused_attention: o and do must have q's shape {tuple(q.shape)}")
     if min(q.shape) == 0 or min(k.shape) == 0:
         raise ValueError(f"fused_attention: empty input {tuple(q.shape)}")
     if not fused_attention_compatible(q, k, v, None):
         raise ValueError(f"fused_attention: shapes {tuple(q.shape)}/{tuple(k.shape)} "
                          f"exceed L <= {MAX_FUSED_SEQ}, D <= {MAX_HEAD_DIM}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused_attention: q, k, v must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused_attention: inputs must be contiguous")
 
 
-def fused_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-    causal: bool = False,
-) -> torch.Tensor:
-    """Fused attention forward. q,k,v: [B,H,L,D]; returns [B,H,Lq,D].
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    calling thread's current stream, or raise. ``fused_attention.launches``
-    counts the kernel launches.
-    """
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+
+def _raise_on(lib, fn_name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{fn_name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
+
+
+def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, causal: bool = False) -> torch.Tensor:
+    """The forward kernel, launched on the calling thread's current stream.
+    CPU tensors take the plain version. ``fused_attention_fwd.launches``
+    counts the kernel's launches."""
+    if _on_cpu(q, k, v):
         return fused_attention_reference(q, k, v, scale, causal)
     _check(q, k, v)
-    lib = _library()
+    lib = _library("fused_attention_fwd.cu", "fused_attention_fwd", 4)
     out = torch.empty_like(q)
     b, h, lq, d = q.shape
     with torch.cuda.device(q.device):
@@ -115,12 +155,67 @@ def fused_attention(
             b * h, lq, k.shape[2], d, float(scale), int(bool(causal)),
             _DTYPE_CODES[q.dtype], stream,
         )
-    if err != 0:
-        msg = lib.fused_attention_error_string(err).decode()
-        raise RuntimeError(f"fused_attention_fwd launch failed: {msg} ({err})")
+    _raise_on(lib, "fused_attention_fwd", err)
     with _count_lock:
-        fused_attention.launches += 1
+        fused_attention_fwd.launches += 1
     return out
 
 
-fused_attention.launches = 0
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, scale: float,
+                        causal: bool = False):
+    """The backward kernel -> (dq, dk, dv), launched on the calling thread's
+    current stream (autograd runs a CUDA backward on its own thread, with the
+    forward's stream current). CPU tensors take the plain version.
+    ``fused_attention_bwd.launches`` counts the kernel's launches."""
+    if _on_cpu(q, k, v, o, do):
+        return fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+    _check(q, k, v, o, do)
+    lib = _library("fused_attention_bwd.cu", "fused_attention_bwd", 9)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    b, h, lq, d = q.shape
+    stats = torch.empty(3 * b * h * lq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fused_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b * h, lq, k.shape[2], d, float(scale), int(bool(causal)),
+            _DTYPE_CODES[q.dtype], stream,
+        )
+    _raise_on(lib, "fused_attention_bwd", err)
+    with _count_lock:
+        fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_fwd.launches = 0
+fused_attention_bwd.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o = fused_attention_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        # MultiheadAttention's transpose + reshape hands back a strided view
+        do = do.contiguous()
+        dq, dk, dv = fused_attention_bwd(q, k, v, o, do, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Fused attention, differentiable. q,k,v: [B,H,L,D]; returns [B,H,Lq,D].
+
+    CPU tensors take the plain versions; CUDA tensors launch the forward
+    kernel and, under autograd, the backward kernel, or raise."""
+    return _FusedAttention.apply(q, k, v, float(scale), bool(causal))

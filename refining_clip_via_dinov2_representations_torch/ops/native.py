@@ -4,9 +4,10 @@ Each source under ``csrc/`` is compiled on first use by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, loaded with ``ctypes``. Libraries are cached in
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source builds anew. Nothing is compiled
-when a module is imported: the package imports on machines without ``nvcc``
-or a GPU, where only the kernels' plain PyTorch versions run.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew. Nothing is compiled when a module is
+imported: the package imports on machines without ``nvcc`` or a GPU, where
+only the kernels' plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("fused_attention_fwd.cu",)
+KERNEL_SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / name
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     return BUILD_DIR / f"{src.stem}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the serving time goes in the PyTorch port, on one CUDA card.
+"""Where the serving and training time goes in the PyTorch port, on one
+CUDA card.
 
     python3 scripts/profile_torch_serving.py
 
@@ -7,10 +8,12 @@ Builds the ViT-B-16 serving engine (seeded random weights, fp32 compute,
 buckets 1/8/32), then for each bucket and tower profiles five engine calls
 with ``torch.profiler`` (CPU + CUDA activities) and reports, per call:
 the host-clock latency, the device busy time (union of kernel intervals),
-the device idle share, the fused attention kernel's share of device time and
-the top kernels by device time. Prints the full table as one JSON object
-on its last line. Fails when the profiler records no device time (it then
-cannot say where the time goes).
+the device idle share, the fused attention kernels' share of device time
+and the top kernels by device time. Then the same for three ViT-B-16
+DINO-soft train steps (bf16 compute, batch 64, seeded random batch),
+through the fused attention kernels and through the plain attention.
+Prints the full table as one JSON object on its last line. Fails when the
+profiler records no device time (it then cannot say where the time goes).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import time
 from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-MODEL, CALLS = "ViT-B-16", 5
+MODEL, CALLS, TRAIN_STEPS, TRAIN_BATCH = "ViT-B-16", 5, 3, 64
 
 
 def _busy_us(intervals):
@@ -53,17 +56,19 @@ def profile_calls(fn, arg, calls: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            fn(arg)  # returns host numpy: ends in a device sync
+            fn(arg)  # ends in a device sync
         wall_us = (time.perf_counter() - t0) * 1e6
     intervals, by_name = [], defaultdict(float)
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False):  # e.g. the optimizer step's range
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
             intervals.append((e.time_range.start, e.time_range.end))
             by_name[_short(e.name)] += e.time_range.end - e.time_range.start
     busy = _busy_us(intervals)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    attn = sum(v for k, v in by_name.items() if "fused_attention_fwd" in k)
+    attn = sum(v for k, v in by_name.items() if "fused_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "latency_ms": wall_us / calls / 1e3,
@@ -72,6 +77,40 @@ def profile_calls(fn, arg, calls: int):
         "attention_share_of_device": attn / sum(by_name.values()),
         "top_kernels_ms": {k: v / calls / 1e3 for k, v in top},
     }
+
+
+def train_step_fn(attn_impl: str):
+    """A ViT-B-16 DINO-soft train step (bf16 compute, 512->448->384 head,
+    default param groups, cosine schedule) that ends in a device sync."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import create_model
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, TrainState, make_train_step, train_parameters,
+    )
+
+    model, _ = create_model(MODEL, precision="bf16", device="cuda", attn_impl=attn_impl)
+    model.train()
+    torch.manual_seed(1)
+    head = DinoProjectionHead(512, 384).to("cuda")
+    optimizer, _ = build_optimizer(train_parameters(model, head), OptimCfg(),
+                                   cosine_lr(5e-4, 0, 100))
+    cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
+    step = make_train_step(model, cfg, head)
+    state = TrainState(model, head, optimizer)
+
+    def run(batch):
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    return run
 
 
 def main() -> None:
@@ -102,6 +141,22 @@ def main() -> None:
                   f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.1%}, fused "
                   f"attention {r['attention_share_of_device']:.1%} of device; top: {top}",
                   flush=True)
+    ids = tokenizer([f"a photo of item {i} in scene {i % 5}" for i in range(TRAIN_BATCH)])
+    batch = {
+        "images": torch.from_numpy(rng.normal(size=(TRAIN_BATCH, h, w, 3)).astype(np.float32)),
+        "texts": torch.from_numpy(ids).long(),
+        "dino_features": torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 384)).astype(np.float32)),
+    }
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    del engine
+    for name, impl in (("train_b64", "auto"), ("train_b64_plain_attention", "xla")):
+        torch.cuda.empty_cache()
+        r = profile_calls(train_step_fn(impl), batch, TRAIN_STEPS)
+        results["cells"][name] = r
+        top = ", ".join(f"{k} {v:.3f}" for k, v in list(r["top_kernels_ms"].items())[:4])
+        print(f"{name}: step {r['latency_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
+              f"idle {r['idle_share']:.1%}, fused attention {r['attention_share_of_device']:.1%} "
+              f"of device; top: {top}", flush=True)
     print(json.dumps(results), flush=True)
 
 

@@ -20,6 +20,7 @@ from refining_clip_via_dinov2_representations_torch.ops.attention import (
 from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
     fused_attention,
     fused_attention_compatible,
+    fused_attention_fwd,
     fused_attention_reference,
 )
 
@@ -96,12 +97,12 @@ def test_gate_matches_jax():
 @pytest.mark.parametrize("impl", ["auto", "fused"])
 def test_dispatch_on_cpu_takes_plain_version(impl):
     q, k, v = map(torch.from_numpy, _qkv(lq=50, lk=50))
-    before = fused_attention.launches
+    before = fused_attention_fwd.launches
     for causal in (False, True):
         got = multi_head_attention(q, k, v, causal=causal, impl=impl)
         want = fused_attention_reference(q, k, v, q.shape[-1] ** -0.5, causal)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
-    assert fused_attention.launches == before  # no kernel on CPU tensors
+    assert fused_attention_fwd.launches == before  # no kernel on CPU tensors
 
 
 @pytest.mark.parametrize("impl", ["xla", "flash", "xla_bf16_bwd"])
@@ -160,10 +161,10 @@ def test_cuda_kernel_matches_plain_version(shape, causal, dtype, tol):
     g = torch.Generator().manual_seed(0)
     q, k, v = [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(3)]
     scale = shape[-1] ** -0.5
-    before = fused_attention.launches
+    before = fused_attention_fwd.launches
     got = fused_attention(q, k, v, scale, causal)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
+    assert fused_attention_fwd.launches == before + 1
     want = fused_attention_reference(q, k, v, scale, causal)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)

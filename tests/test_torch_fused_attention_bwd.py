@@ -1,0 +1,183 @@
+"""The port's fused attention backward against the JAX package.
+
+On the CPU the port's backward runs its plain version
+(``fused_attention_bwd_reference``); it is held against ``jax.vjp`` of the
+JAX ``fused_attention``, whose backward is the Pallas ``_bwd_kernel``
+interpreted off-TPU, on the same numpy inputs and cotangent. Tolerances:
+3e-5 absolute and relative in fp32, as the JAX package's own gradient test
+(summation order only); in bf16, 2e-2 of the largest |grad| of the three compared
+in fp32 (a few output ulps: one bf16 ulp is 2^-8 of a value, and the rounded
+dS can flip by one ulp where P or dP differ in their last fp32 bits). The
+``cuda``-marked tests hold the Hopper kernel against the plain version on
+the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from refining_clip_via_dinov2_representations_torch.ops.attention import (
+    multi_head_attention,
+)
+from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+    fused_attention,
+    fused_attention_bwd,
+    fused_attention_bwd_reference,
+    fused_attention_fwd,
+    fused_attention_reference,
+)
+
+FP32_TOL = 3e-5
+BF16_REL_TOL = 2e-2
+
+
+def _inputs(b=2, h=3, l=23, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, h, l, d)).astype(np.float32) for _ in range(4)]
+
+
+def _jax_vjp(q, k, v, do, scale, causal, dtype=None):
+    import jax
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.ops.fused_attention import (
+        fused_attention as jax_fused,
+    )
+
+    dtype = dtype or jnp.float32
+    args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    o, vjp = jax.vjp(lambda q_, k_, v_: jax_fused(q_, k_, v_, scale, causal), *args)
+    grads = vjp(jnp.asarray(do, dtype))
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [23, 77, 197])
+def test_plain_backward_matches_jax_vjp(l, causal):
+    q, k, v, do = _inputs(l=l, seed=l)
+    scale = q.shape[-1] ** -0.5
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = fused_attention_reference(tq, tk, tv, scale, causal)
+    got = fused_attention_bwd_reference(tq, tk, tv, o, tdo, scale, causal)
+    want = _jax_vjp(q, k, v, do, scale, causal)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), w, atol=FP32_TOL, rtol=FP32_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_bf16_matches_jax_vjp(causal):
+    import jax.numpy as jnp
+
+    q, k, v, do = _inputs(b=2, h=4, l=77, d=64, seed=7)
+    scale = 64 ** -0.5
+    tq, tk, tv, tdo = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do)]
+    o = fused_attention_reference(tq, tk, tv, scale, causal)
+    got = fused_attention_bwd_reference(tq, tk, tv, o, tdo, scale, causal)
+    want = _jax_vjp(q, k, v, do, scale, causal, dtype=jnp.bfloat16)
+    largest = max(np.abs(w).max() for w in want)
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= BF16_REL_TOL * largest, (name, err, largest)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("impl", ["fused", "auto", "xla"])
+def test_autograd_through_dispatch_matches_jax_vjp(impl, causal):
+    """``torch.autograd.grad`` through ``multi_head_attention`` on CPU
+    tensors ("fused": the autograd Function with the plain versions; "auto"
+    and "xla": the plain path differentiated by autograd)."""
+    q, k, v, do = _inputs(l=41, seed=11)
+    scale = q.shape[-1] ** -0.5
+    tq, tk, tv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = multi_head_attention(tq, tk, tv, causal=causal, impl=impl)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    want = _jax_vjp(q, k, v, do, scale, causal)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), w, atol=FP32_TOL, rtol=FP32_TOL,
+                                   err_msg=f"{impl} d{name}")
+
+
+def test_function_takes_strided_cotangent_and_counts_no_cpu_launches():
+    """The Function makes the cotangent contiguous (the attention layer's
+    transpose + reshape hands back a strided view) and launches no kernel on
+    CPU tensors."""
+    q, k, v, do = map(torch.from_numpy, _inputs(l=9, seed=3))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = (fused_attention_fwd.launches, fused_attention_bwd.launches)
+    out = fused_attention(q, k, v, 0.25, True)
+    strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    got = torch.autograd.grad(out, (q, k, v), strided)
+    want = fused_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                         out.detach(), do, 0.25, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    assert (fused_attention_fwd.launches, fused_attention_bwd.launches) == before
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-4), (torch.bfloat16, BF16_REL_TOL)])
+@pytest.mark.parametrize("shape,causal", [
+    ((8, 12, 197, 64), False), ((8, 8, 77, 64), True), ((3, 5, 23, 64), True),
+    ((1, 1, 1, 64), False), ((1, 2, 1024, 64), True), ((2, 3, 65, 40), True),
+    ((1, 2, 300, 256), False),
+])
+def test_cuda_backward_kernel_matches_plain_version(shape, causal, dtype, rel_tol):
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(4)]
+    scale = shape[-1] ** -0.5
+    o = fused_attention_fwd(q, k, v, scale, causal)
+    before = fused_attention_bwd.launches
+    got = fused_attention_bwd(q, k, v, o, do, scale, causal)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == before + 1
+    want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+    # relative to the largest |grad| of the three: at L = 1, dq and dk are
+    # rounding noise around 0
+    largest = max(w.float().abs().max().item() for w in want)
+    for g_, w in zip(got, want):
+        assert g_.dtype == dtype and g_.shape == w.shape
+        err = (g_.float() - w.float()).abs().max().item()
+        assert err <= rel_tol * largest, err
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_function_matches_autograd_of_plain_version():
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    for shape, causal in (((4, 12, 197, 64), False), ((4, 8, 77, 64), True)):
+        q, k, v, do = [torch.randn(shape, generator=g).to("cuda") for _ in range(4)]
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = fused_attention_bwd.launches
+        got = torch.autograd.grad(fused_attention(q, k, v, 0.125, causal), (q, k, v), do)
+        torch.cuda.synchronize()
+        assert fused_attention_bwd.launches == before + 1
+        want = torch.autograd.grad(fused_attention_reference(q, k, v, 0.125, causal),
+                                   (q, k, v), do)
+        largest = max(w.abs().max().item() for w in want)
+        for g_, w in zip(got, want):
+            assert (g_ - w).abs().max().item() <= 1e-4 * largest
+
+
+@pytest.mark.cuda
+def test_cuda_backward_wrapper_rejects_bad_inputs():
+    _needs_cuda()
+    q = torch.randn(1, 2, 16, 64, device="cuda")
+    with pytest.raises(TypeError):
+        fused_attention_bwd(q, q, q, q, q.bfloat16(), 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention_bwd(q, q, q, q, q.transpose(2, 3).contiguous().transpose(2, 3), 0.125)
+    with pytest.raises(ValueError, match="shape"):
+        fused_attention_bwd(q, q, q, q[:, :, :8].contiguous(), q, 0.125)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_attention_bwd(q, q, q, q, q.cpu(), 0.125)
