@@ -27,6 +27,23 @@ Phases, each of which exits non-zero on failure:
    behind a queued sleep: device time as long as the host launches faster
    than the device runs; ``scripts/profile_torch_serving.py`` gives device
    busy time and idle share); request latency per bucket.
+6. train-step / train-cli — three ViT-B-16 DINO-soft steps through both
+   fused kernels (24 + 24 launches per step), one step's loss and gradients
+   against plain attention, and the training CLI, whose checkpoint serves;
+   the backward kernel's times.
+7. kernels-flash — the flash forward kernel against its plain version and a
+   float64 version with the same rounding points, from 512 to 4097 tokens,
+   causal, Lq != Lk, head_dim 40 to 256, in float32 and bfloat16; its
+   autograd Function against autograd through the plain version.
+8. train-long — ViT-L-14-336 (577 vision tokens) at full width and depth,
+   DINO-soft, bf16, ``attn_impl="flash"``: three steps without and three
+   with grad checkpointing (24 and 48 flash launches per step, no fused
+   launch), one step's loss and gradients against plain attention, step
+   times and peak memory.
+9. train-cli-long — the training CLI on ViT-L-14-336 with
+   ``--grad-checkpointing`` (its checkpoint loads strictly) and on ViT-B-16
+   with ``--force-image-size 384`` (12 flash launches per forward); then the
+   flash kernel's times beside its plain version, SDPA and its bound.
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -34,6 +51,7 @@ The line before the last is the JSON list of kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -82,6 +100,24 @@ BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training shapes: image [64,12,197,64], causal text [64,8,77,64]
 TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
 TRAIN_BATCH, CLI_BATCH, CLI_SAMPLES, DINO_DIM = 64, 32, 96, 384
+FLASH_TPU = "refining_clip_via_dinov2_representations_tpu/ops/flash_attention.py:44"
+FLASH_SRC = "refining_clip_via_dinov2_representations_torch/csrc/flash_attention_fwd.cu"
+# Flash kernel cases: (B, H, Lq, Lk, D, causal). The ViT-L-14-336 and
+# ViT-B-16@384 vision shapes, the gate's edge (512) and one past it, 1370
+# tokens (a 518-px DINOv2, where "fused" falls to flash), 4097 tokens at
+# B*H = 1, Lq != Lk, head_dim 80 and 40 (the scale is not exact in bf16) and
+# the largest head_dim the gate admits.
+FLASH_CASES = [
+    (8, 16, 577, 577, 64, False), (8, 16, 577, 577, 64, True),
+    (8, 12, 577, 577, 64, False), (8, 12, 577, 577, 64, True),
+    (1, 4, 512, 512, 64, False), (1, 4, 513, 513, 64, True), (2, 6, 1370, 1370, 64, False),
+    (1, 1, 4097, 4097, 64, False), (1, 1, 4097, 4097, 64, True),
+    (2, 4, 600, 1030, 64, False), (2, 4, 600, 1030, 64, True),
+    (2, 4, 577, 577, 80, False), (2, 4, 577, 577, 40, True), (1, 2, 577, 577, 256, False),
+]
+FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
+               (32, 12, 577, 577, 64, False, "bfloat16")]
+LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
 # one train step through the kernels vs the plain attention, same init/batch
 STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, min cosine)
 
@@ -135,11 +171,12 @@ def phase_build() -> None:
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
 
 
-def _qkv(b, h, l, d, dtype, seed):
+def _qkv(b, h, l, d, dtype, seed, lk=None):
+    """Seeded q [b,h,l,d] and k, v [b,h,lk,d] (lk = l unless given) on the card."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(b, h, l, d, generator=g).to("cuda", dtype) for _ in range(3)]
+    return [torch.randn(b, h, n, d, generator=g).to("cuda", dtype) for n in (l, lk or l, lk or l)]
 
 
 def _attention_fp64(q, k, v, scale, causal):
@@ -345,15 +382,16 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, l, d, causal, dtype_name):
+def attention_bound(b, h, l, d, causal, dtype_name, lk=None):
     """Least time on an H100 for the attention forward: the larger of its
     bytes (q, k, v read once, o written once) over the memory rate and its
-    matmul FLOPs (QK^T and PV over the live score entries) over the peak rate
-    for the input type."""
+    matmul FLOPs (QK^T and PV over the live score entries: about half when
+    causal) over the peak rate for the input type. lk = l unless given."""
     elem = 4 if dtype_name == "float32" else 2
-    pairs = l * (l + 1) // 2 if causal else l * l
+    lk = lk or l
+    pairs = sum(min(i + 1, lk) for i in range(l)) if causal else l * lk
     flops = 4.0 * b * h * pairs * d
-    nbytes = 4.0 * b * h * l * d * elem
+    nbytes = 2.0 * b * h * (l + lk) * d * elem
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
@@ -491,16 +529,17 @@ def phase_kernels_bwd() -> dict:
     return worst
 
 
-def _train_batch(tokenizer, n: int, device: str) -> dict:
-    """Seeded random pixels, n distinct captions through the port's
-    tokenizer, seeded DINO features."""
+def _train_batch(tokenizer, n: int, device: str, model_name: str = MODEL, size=None,
+                 seed: int = SEED + 10) -> dict:
+    """Seeded random pixels (at the model's image size unless ``size``), n
+    distinct captions through the port's tokenizer, seeded DINO features."""
     import numpy as np
     import torch
 
     from refining_clip_via_dinov2_representations_torch.models import get_model_config
 
-    size = get_model_config(MODEL)["vision_cfg"]["image_size"]
-    rng = np.random.default_rng(SEED + 10)
+    size = size or get_model_config(model_name)["vision_cfg"]["image_size"]
+    rng = np.random.default_rng(seed)
     captions = [f"a photo of item {i}, a {['red', 'green', 'blue', 'grey'][i % 4]} thing "
                 f"number {i * 7 + 3} in scene {i % 5}" for i in range(n)]
     return {
@@ -511,10 +550,12 @@ def _train_batch(tokenizer, n: int, device: str) -> dict:
     }
 
 
-def _dino_setup(precision: str, attn_impl: str, steps: int = 3):
-    """ViT-B-16 + the 512->448->384 DINO head + default param groups + a
-    cosine schedule, from the same seeds every time; returns
-    (model, head, state, train_step, step_cfg)."""
+def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str = MODEL,
+                grad_checkpointing: bool = False, force_image_size=None):
+    """The model (ViT-B-16 by default) + the MLP DINO head (embed dim ->
+    448 -> 384 for ViT-B-16) + default param groups + a cosine schedule, from
+    the same seeds every time; returns (model, head, state, train_step,
+    step_cfg)."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.losses import (
@@ -529,8 +570,9 @@ def _dino_setup(precision: str, attn_impl: str, steps: int = 3):
         StepCfg, TrainState, make_train_step, train_parameters,
     )
 
-    model, _ = create_model(MODEL, precision=precision, device=DEVICE, attn_impl=attn_impl,
-                            seed=SEED)
+    model, _ = create_model(model_name, precision=precision, device=DEVICE, attn_impl=attn_impl,
+                            seed=SEED, grad_checkpointing=grad_checkpointing,
+                            force_image_size=force_image_size)
     model.train()
     torch.manual_seed(SEED + 1)
     head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
@@ -557,32 +599,82 @@ def _loss_and_grads(model, head, cfg, batch):
     return float(loss.detach()), grads
 
 
-def _compare_step(precision: str, batch) -> None:
-    """One loss and gradient through the kernels vs the plain attention."""
+def _grad_cosines(grads_a: dict, grads_b: dict):
+    """Per-tensor gradient cosines, and the cosine of all tensors together."""
+    import torch
+
+    cos = {}
+    for n in grads_a:
+        a, b = grads_a[n].double().flatten(), grads_b[n].double().flatten()
+        cos[n] = float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+    a = torch.cat([grads_a[n].double().flatten() for n in grads_a])
+    b = torch.cat([grads_b[n].double().flatten() for n in grads_a])
+    return cos, float((a @ b) / (a.norm() * b.norm()))
+
+
+@contextlib.contextmanager
+def _flash_plain_version():
+    """Run the flash Function's forward through the kernel's plain version on
+    CUDA tensors (measurement only): a step through it against one through
+    plain attention compares two plain PyTorch versions, no kernel."""
+    from refining_clip_via_dinov2_representations_torch.ops import flash_attention as fm
+
+    kernel = fm.flash_attention_fwd
+    fm.flash_attention_fwd = lambda q, k, v, scale, causal=False: fm.flash_attention_reference(
+        q, k, v, scale, causal)
+    try:
+        yield
+    finally:
+        fm.flash_attention_fwd = kernel
+
+
+def _compare_step(precision: str, batch, model_name: str = MODEL, impl: str = "auto",
+                  grad_checkpointing: bool = False, per_tensor: bool = True) -> None:
+    """One loss and gradient through the kernels vs the plain attention.
+    ``per_tensor``: every tensor's gradient cosine is held to the minimum;
+    else the cosine of all tensors together is, as the bf16 train-step
+    test does (``tests/test_torch_train_step.py``), and the per-tensor
+    minimum is printed beside the same comparison between two plain
+    versions (the flash kernel's and plain attention), no kernel involved:
+    the bf16 noise floor of the step."""
     import torch
 
     name = "bfloat16" if precision == "bf16" else "float32"
     loss_tol, min_cos = STEP_TOL[name]
-    results = []
-    for impl in ("auto", "xla"):
-        model, head, _, _, cfg = _dino_setup(precision, impl)
-        results.append(_loss_and_grads(model, head, cfg, batch))
+
+    def run(attn):
+        model, head, _, _, cfg = _dino_setup(precision, attn, model_name=model_name,
+                                             grad_checkpointing=grad_checkpointing)
+        result = _loss_and_grads(model, head, cfg, batch)
         del model, head
         torch.cuda.empty_cache()
-    (loss_k, grads_k), (loss_p, grads_p) = results
+        return result
+
+    (loss_k, grads_k), (loss_p, grads_p) = run(impl), run("xla")
     check(grads_k.keys() == grads_p.keys(), "the two runs have different parameters")
-    cos = {}
-    for n in grads_k:
-        a, b = grads_k[n].double().flatten(), grads_p[n].double().flatten()
-        cos[n] = float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+    cos, together = _grad_cosines(grads_k, grads_p)
     worst = min(cos, key=cos.get)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     fp32_grads = all(g.dtype == torch.float32 for g in grads_k.values())
-    print(f"train-step {precision}: loss {loss_k:.6f} through the kernels vs {loss_p:.6f} plain "
-          f"(rel {rel:.2e}, tol {loss_tol:g}); per-tensor gradient cosine min {cos[worst]:.6f} "
-          f"at {worst} over {len(cos)} tensors (need >= {min_cos}); fp32 grads {fp32_grads}",
-          flush=True)
-    check(rel <= loss_tol and cos[worst] >= min_cos and fp32_grads,
+    held = cos[worst] if per_tensor else together
+    print(f"train-step {model_name} {precision} impl={impl} grad_checkpointing="
+          f"{grad_checkpointing}: loss {loss_k:.6f} through the kernels vs {loss_p:.6f} plain "
+          f"(rel {rel:.2e}, tol {loss_tol:g}); gradient cosine, per tensor min {cos[worst]:.6f} "
+          f"at {worst} ({sum(c < min_cos for c in cos.values())} of {len(cos)} tensors below "
+          f"{min_cos}), all tensors together {together:.6f} (need "
+          f"{'per tensor' if per_tensor else 'together'} >= {min_cos}); fp32 grads "
+          f"{fp32_grads}", flush=True)
+    if not per_tensor:
+        with _flash_plain_version():
+            loss_f, grads_f = run("flash")
+        cos_f, together_f = _grad_cosines(grads_f, grads_p)
+        worst_f = min(cos_f, key=cos_f.get)
+        print(f"train-step {model_name} {precision} noise floor, the flash kernel's plain "
+              f"version vs plain attention (no kernel): loss rel "
+              f"{abs(loss_f - loss_p) / abs(loss_p):.2e}; gradient cosine, per tensor min "
+              f"{cos_f[worst_f]:.6f} at {worst_f} ({sum(c < min_cos for c in cos_f.values())} "
+              f"below {min_cos}), all tensors together {together_f:.6f}", flush=True)
+    check(rel <= loss_tol and held >= min_cos and fp32_grads,
           f"{precision} step through the kernels disagrees with plain attention")
 
 
@@ -772,6 +864,274 @@ def phase_bwd_times(dtype_name: str) -> dict:
     return rows
 
 
+def _flash_fp64(q, k, v, scale, causal):
+    """The flash kernel's function in float64 with its rounding points: Q
+    pre-scaled in the input dtype, P rounded to V's dtype for the PV product,
+    normalised after it. Its distance from the kernel is the kernel's own
+    rounding error."""
+    import torch
+
+    qs = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)).double()
+    s = torch.matmul(qs, k.double().transpose(-1, -2))
+    if causal:
+        above = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1)
+        s = s.masked_fill(above, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return torch.matmul(p.to(v.dtype).double(), v.double()) / p.sum(dim=-1, keepdim=True)
+
+
+def phase_kernels_flash() -> dict:
+    """The flash kernel vs its plain version and float64 on the card;
+    returns {dtype: max_abs_err vs plain}."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
+        flash_attention, flash_attention_fwd, flash_attention_reference,
+    )
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, (b, h, lq, lk, d, causal) in enumerate(FLASH_CASES):
+            q, k, v = _qkv(b, h, lq, d, dtype, seed=300 + i, lk=lk)
+            scale = d ** -0.5
+            got = flash_attention_fwd(q, k, v, scale, causal)
+            want = flash_attention_reference(q, k, v, scale, causal)
+            exact = _flash_fp64(q, k, v, scale, causal)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dtype,
+                  f"flash output {tuple(got.shape)} {got.dtype} at {(b, h, lq, lk, d)}")
+            err = (got.float() - want.float()).abs().max().item()
+            err64 = (got.double() - exact).abs().max().item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            ok = max(err, err64) <= TOL[name] and bool(torch.isfinite(got.float()).all())
+            print(f"kernel flash_attention_fwd {name} [{b},{h},{lq},{d}] x {lk} keys "
+                  f"causal={causal}: max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64 "
+                  f"(tol {TOL[name]:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+            check(ok, f"flash_attention_fwd disagrees with its plain version at {name} "
+                      f"[{b},{h},{lq},{lk},{d}] causal={causal}: {err:.3e} / {err64:.3e}")
+    # the autograd Function against autograd through the plain version, fp32
+    for causal in (False, True):
+        q, k, v = (x.requires_grad_() for x in _qkv(2, 4, 577, 64, torch.float32,
+                                                     seed=400 + causal))
+        do = _qkv(2, 4, 577, 64, torch.float32, seed=410 + causal)[0]
+        got = torch.autograd.grad(flash_attention(q, k, v, 0.125, causal), (q, k, v), do)
+        want = torch.autograd.grad(flash_attention_reference(q, k, v, 0.125, causal),
+                                   (q, k, v), do)
+        largest = max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        print(f"autograd flash_attention float32 [2,4,577,64] causal={causal}: max_abs_err "
+              f"{err:.3e} vs autograd of the plain version (tol 1e-4 x {largest:.3e})",
+              flush=True)
+        check(err <= 1e-4 * largest, "the flash autograd Function disagrees with autograd")
+    return worst
+
+
+def _launch_counters():
+    from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
+        flash_attention_fwd,
+    )
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_fwd,
+    )
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "fused_attention_fwd": fused_attention_fwd,
+            "fused_attention_bwd": fused_attention_bwd}
+
+
+def _zero_counts() -> None:
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _launch_counters().items()}
+
+
+def phase_train_long() -> int:
+    """The long-sequence training path: ViT-L-14-336 at full width and depth,
+    bf16 compute, ``attn_impl="flash"``, three steps without and three with
+    grad checkpointing; returns the flash launches of the six steps."""
+    import math
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+
+    batch = _train_batch(get_tokenizer(LONG_MODEL), LONG_BATCH, DEVICE, model_name=LONG_MODEL)
+    # bf16 at 577 tokens: single tensors' gradient cosines are noise, also
+    # between two plain versions (PERF.md, PR 3); all tensors together are held
+    _compare_step("bf16", batch, model_name=LONG_MODEL, impl="flash", per_tensor=False)
+
+    # a schedule long enough that the learning rate is not 0 in any step here
+    model, head, state, train_step, _ = _dino_setup("bf16", "flash", steps=40,
+                                                    model_name=LONG_MODEL)
+    n_vis = len(model.visual.transformer.resblocks)
+    print(f"train-long: {LONG_MODEL} (vision {n_vis}x{model.visual.width}, "
+          f"{model.visual.positional_embedding.shape[0]} tokens; text "
+          f"{len(model.transformer.resblocks)}x{model.ln_final.weight.numel()}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params) bf16 DINO-soft "
+          f"(kl_teacher, lambda_soft 0.5, mlp head {head.fc1.in_features}->"
+          f"{head.fc1.out_features}->{DINO_DIM}) batch {LONG_BATCH}", flush=True)
+    check(n_vis == 24 and model.visual.positional_embedding.shape[0] == 577,
+          "ViT-L-14-336 must have 24 vision layers over 577 tokens")
+    head_before = [p.detach().clone() for p in head.parameters()]
+    steps, flash_total, losses = 3, 0, []
+    for remat in (False, True):
+        model.set_grad_checkpointing(remat)
+        # ---- the main path: counts at 0 just before, read just after ----
+        _zero_counts()
+        for _ in range(steps):
+            state, metrics = train_step(state, batch)
+            losses.append(metrics["total_loss"])
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        per_step = 48 if remat else 24
+        print(f"train-long grad_checkpointing={remat}: launches {counts} over {steps} steps "
+              f"(expected flash {per_step * steps}, fused 0)", flush=True)
+        check(counts["flash_attention_fwd"] == per_step * steps,
+              f"expected {per_step * steps} flash launches, got {counts}")
+        check(counts["fused_attention_fwd"] == 0 and counts["fused_attention_bwd"] == 0,
+              f"the flash path launched a fused kernel: {counts}")
+        flash_total += counts["flash_attention_fwd"]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: train_step(state, batch), iters=3)
+        host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"time train step {LONG_MODEL} bf16 batch {LONG_BATCH} flash grad_checkpointing="
+              f"{remat}: device {step_ms:.3f} ms (CUDA events), host clock {host_ms:.3f} ms "
+              f"({LONG_BATCH / host_ms * 1e3:.1f} samples/s), peak memory "
+              f"{peak / 2**30:.3f} GiB [{CARD}]", flush=True)
+    losses = [float(x) for x in losses]
+    ln_scale = float(model.logit_scale.detach())
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(head.parameters(), head_before))
+    print(f"train-long: losses {losses}, ln logit scale {ln_scale:.6f}, head moved by "
+          f"{moved:.3e}", flush=True)
+    check(all(math.isfinite(x) for x in losses), "a train-long loss is not finite")
+    check(0.0 <= ln_scale <= math.log(100.0), "the logit scale left [0, ln 100]")
+    check(moved > 0, "the DINO head did not move")
+    del model, head, state, train_step
+    torch.cuda.empty_cache()
+
+    # plain attention's step, for scale (no checkpointing)
+    _, _, p_state, p_step, _ = _dino_setup("bf16", "xla", model_name=LONG_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = time_ms(lambda: p_step(p_state, batch), iters=3)
+    plain_host_ms = host_step_ms(lambda: p_step(p_state, batch), steps=3)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del p_state, p_step
+    torch.cuda.empty_cache()
+    print(f"time train step {LONG_MODEL} bf16 batch {LONG_BATCH} plain attention "
+          f"grad_checkpointing=False: device {plain_ms:.3f} ms (CUDA events), host clock "
+          f"{plain_host_ms:.3f} ms ({LONG_BATCH / plain_host_ms * 1e3:.1f} samples/s), peak "
+          f"memory {plain_peak / 2**30:.3f} GiB [{CARD}]", flush=True)
+
+    # fp32 (TF32 off) with checkpointing: its activations would not fit without
+    _compare_step("fp32", batch, model_name=LONG_MODEL, impl="flash", grad_checkpointing=True)
+    return flash_total
+
+
+def phase_train_cli_long() -> int:
+    """The CLI on ViT-L-14-336 with ``--grad-checkpointing --attn-impl
+    flash`` (its checkpoint loads strictly), then one step of ViT-B-16 at
+    ``--force-image-size 384``; returns the flash launches of both runs."""
+    import json as _json
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import create_model
+    from refining_clip_via_dinov2_representations_torch.train.main import main as train_main
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    logs = tempfile.mkdtemp(prefix="chip_smoke_train_long_", dir=build)
+    common = ["--dataset-type", "synthetic", "--use_dino_general", "--soft_mode", "kl_teacher",
+              "--lambda_soft", "0.5", "--synthetic-dino-dim", str(DINO_DIM), "--precision",
+              "bf16", "--batch-size", str(LONG_BATCH), "--epochs", "1", "--workers", "4",
+              "--log-every-n-steps", "1", "--logs", logs, "--seed", str(SEED), "--device", DEVICE,
+              "--attn-impl", "flash"]
+    try:
+        _zero_counts()
+        train_main(["--model", LONG_MODEL, "--grad-checkpointing", "--name", "long",
+                    "--train-num-samples", str(CLI_LONG_SAMPLES), *common])
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        steps = CLI_LONG_SAMPLES // LONG_BATCH
+        with open(os.path.join(logs, "long", "loss_steps.json")) as f:
+            records = _json.load(f)
+        ckpt = os.path.join(logs, "long", "checkpoints", "epoch_1.pt")
+        print(f"train-cli-long: {LONG_MODEL} --grad-checkpointing --attn-impl flash: "
+              f"{len(records)} logged steps, total_loss {[r['total_loss'] for r in records]}; "
+              f"launches {counts} (expected flash {48 * steps}, fused 0); checkpoint "
+              f"{os.path.getsize(ckpt) / 2**20:.1f} MiB", flush=True)
+        check(len(records) == steps and all(math.isfinite(r["total_loss"]) for r in records),
+              "loss_steps.json is not one finite record per step")
+        check(counts == {"flash_attention_fwd": 48 * steps, "fused_attention_fwd": 0,
+                         "fused_attention_bwd": 0}, f"the CLI run launched {counts}")
+        flash = counts["flash_attention_fwd"]
+        model, _ = create_model(LONG_MODEL, pretrained=ckpt, device=DEVICE)  # strict
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True, mmap=True)["state_dict"]
+        same = all(torch.equal(v.cpu(), saved[k]) for k, v in model.state_dict().items())
+        print(f"train-cli-long: the checkpoint loads strictly with create_model(pretrained=...), "
+              f"every tensor equal to the saved one: {same}", flush=True)
+        check(same and len(saved) == len(model.state_dict()), "the checkpoint does not load")
+        del model, saved
+        torch.cuda.empty_cache()
+
+        _zero_counts()
+        train_main(["--model", MODEL, "--force-image-size", "384", "--name", "b16_384",
+                    "--train-num-samples", str(LONG_BATCH), "--stop-after-steps", "1",
+                    "--save-frequency", "0", *common])
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        with open(os.path.join(logs, "b16_384", "loss_steps.json")) as f:
+            records = _json.load(f)
+        print(f"train-cli-long: {MODEL} --force-image-size 384 --attn-impl flash: one step, "
+              f"total_loss {[r['total_loss'] for r in records]}; launches {counts} (expected "
+              f"flash 12, fused 0)", flush=True)
+        check(len(records) == 1 and math.isfinite(records[0]["total_loss"]),
+              "the forced-size run did not log one finite step")
+        check(counts == {"flash_attention_fwd": 12, "fused_attention_fwd": 0,
+                         "fused_attention_bwd": 0}, f"the forced-size run launched {counts}")
+        return flash + counts["flash_attention_fwd"]
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def phase_flash_times() -> dict:
+    """Flash kernel, its plain version and SDPA (yardstick only) at the
+    training shapes, beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_reference,
+    )
+
+    rows = {}
+    for b, h, lq, lk, d, causal, dtype_name in FLASH_TIMED:
+        q, k, v = _qkv(b, h, lq, d, getattr(torch, dtype_name), seed=500, lk=lk)
+        scale = d ** -0.5
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, scale, causal), iters=20)
+        plain = time_ms(lambda: flash_attention_reference(q, k, v, scale, causal), iters=20)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale), iters=20)
+        bound, by = attention_bound(b, h, lq, d, causal, dtype_name, lk=lk)
+        rows[(b, h, lq, lk, d, causal, dtype_name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        print(f"time flash_attention_fwd {dtype_name} [{b},{h},{lq},{d}] causal={causal}: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound [{CARD}]", flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -791,9 +1151,14 @@ def main() -> None:
     phase_train_cli()
     bwd_rows = phase_bwd_times("bfloat16")
     phase_bwd_times("float32")
+    worst_flash = phase_kernels_flash()
+    long_launches = phase_train_long()
+    phase_train_cli_long()
+    flash_rows = phase_flash_times()
 
     t = rows[MAIN_PATH_CASE]
     tb = bwd_rows[TRAIN_CASES[0]]
+    tf = flash_rows[FLASH_TIMED[0]]
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
         "replaces": FUSED_TPU, "launches": serve_launches + train_fwd,
@@ -804,6 +1169,11 @@ def main() -> None:
         "replaces": BWD_TPU, "launches": train_bwd, "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+    }, {
+        "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_TPU, "launches": long_launches,
+        "max_abs_err": worst_flash["bfloat16"], "ms": tf["ms"], "plain_ms": tf["plain_ms"],
+        "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"], "library_ms": tf["library_ms"],
     }]}), flush=True)
     # count: the one card this run uses
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,8 @@ def _unsupported(what: str):
 
 
 def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool,
-                        dtype: torch.dtype, attn_impl: str) -> VisionTransformer:
+                        dtype: torch.dtype, attn_impl: str,
+                        grad_checkpointing: bool = False) -> VisionTransformer:
     if cfg.timm_model_name is not None:
         raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
     if cfg.is_resnet:
@@ -62,11 +63,13 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
         act=quick_gelu if use_quick_gelu else gelu,
         attn_impl=attn_impl,
         compute_dtype=dtype,
+        grad_checkpointing=grad_checkpointing,
     )
 
 
 def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
-                      dtype: torch.dtype, attn_impl: str) -> TextTransformer:
+                      dtype: torch.dtype, attn_impl: str,
+                      grad_checkpointing: bool = False) -> TextTransformer:
     if cfg.hf_model_name is not None:
         raise _unsupported(f"HF text tower {cfg.hf_model_name!r}")
     if cfg.embed_cls or cfg.output_tokens:
@@ -89,6 +92,7 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
         act=quick_gelu if use_quick_gelu else gelu,
         attn_impl=attn_impl,
         compute_dtype=dtype,
+        grad_checkpointing=grad_checkpointing,
     )
 
 
@@ -100,10 +104,13 @@ class CLIP(nn.Module):
                  text_cfg: CLIPTextCfg, quick_gelu: bool = False,
                  init_logit_scale: float = DEFAULT_INIT_LOGIT_SCALE,
                  init_logit_bias: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 grad_checkpointing: bool = False):
         super().__init__()
-        self.visual = _build_vision_tower(embed_dim, vision_cfg, quick_gelu, dtype, attn_impl)
-        text = _build_text_tower(embed_dim, text_cfg, quick_gelu, dtype, attn_impl)
+        self.visual = _build_vision_tower(embed_dim, vision_cfg, quick_gelu, dtype, attn_impl,
+                                          grad_checkpointing)
+        text = _build_text_tower(embed_dim, text_cfg, quick_gelu, dtype, attn_impl,
+                                 grad_checkpointing)
         # open_clip's CLIP layout: the text tower's parts sit at top level
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding
@@ -115,6 +122,12 @@ class CLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(float(init_logit_scale)))
         self.logit_bias = (None if init_logit_bias is None
                            else nn.Parameter(torch.tensor(float(init_logit_bias))))
+
+    def set_grad_checkpointing(self, enable: bool = True) -> None:
+        """Per-block activation checkpointing in both towers (open_clip's
+        method; ``Transformer``)."""
+        self.visual.set_grad_checkpointing(enable)
+        self.transformer.grad_checkpointing = enable
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
@@ -167,9 +180,11 @@ class CLIP(nn.Module):
 
 
 def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
-                attn_impl: str = "auto", seed: int = 0) -> CLIP:
+                attn_impl: str = "auto", seed: int = 0,
+                grad_checkpointing: bool = False) -> CLIP:
     """Instantiate CLIP from a parsed registry config, seeded-random weights
-    on the CPU."""
+    on the CPU. ``grad_checkpointing`` recomputes each residual block of both
+    towers in the backward (the JAX ``remat=True``)."""
     if cfg.multimodal_cfg is not None:
         raise _unsupported("CoCa (multimodal_cfg)")
     model = CLIP(
@@ -181,6 +196,7 @@ def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
         init_logit_bias=cfg.init_logit_bias,
         dtype=dtype,
         attn_impl=attn_impl,
+        grad_checkpointing=grad_checkpointing,
     )
     model.init_weights(seed)
     return model

@@ -12,7 +12,7 @@ when that device is missing; tests pass ``device="cpu"``.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -66,13 +66,19 @@ def create_model(
     device="cuda",
     attn_impl: str = "auto",
     seed: int = 0,
+    force_image_size: Optional[Union[int, Tuple[int, int]]] = None,
+    grad_checkpointing: bool = False,
 ) -> Tuple[CLIP, PreprocessCfg]:
     """Build a model on ``device``. ``pretrained`` may name a local
     state-dict file (loaded with ``strict=True``); without one the weights
     are a seeded random init. ``precision`` takes the training CLI's names
     (``_precision_to_dtype``): "fp32", "bf16" (bf16 compute over fp32
-    parameters), "pure_bf16" (bf16 parameters), ... Returns
-    ``(model, preprocess_cfg)``."""
+    parameters), "pure_bf16" (bf16 parameters), ... ``force_image_size``
+    replaces the vision tower's image size, so its positional embedding is
+    built at the new grid and the preprocess config takes that size; a
+    checkpoint of another grid raises (positional-embedding resizing is not
+    ported). ``grad_checkpointing`` recomputes every residual block in the
+    backward. Returns ``(model, preprocess_cfg)``."""
     device = _resolve_device(device)
     compute_dtype, param_dtype = _precision_to_dtype(precision)
     if model_name.startswith("hf-hub:"):
@@ -84,15 +90,25 @@ def create_model(
                            f"models: {', '.join(list_models()[:20])}...")
     if "quickgelu" in model_name.lower():
         raw_cfg["quick_gelu"] = True
+    if force_image_size is not None:
+        raw_cfg.setdefault("vision_cfg", {})["image_size"] = force_image_size
     if pretrained and not os.path.isfile(pretrained):
         raise RuntimeError(
             f"pretrained={pretrained!r} is not a local checkpoint file; pretrained "
             "tags need downloads, which the PyTorch port does not do"
         )
     cfg = parse_model_cfg(raw_cfg)
-    model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl, seed=seed)
+    model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl, seed=seed,
+                        grad_checkpointing=grad_checkpointing)
     if pretrained:
-        model.load_state_dict(load_state_dict(pretrained), strict=True)
+        sd = load_state_dict(pretrained)
+        pos, want = "visual.positional_embedding", model.visual.positional_embedding.shape
+        if pos in sd and sd[pos].shape != want:
+            raise NotImplementedError(
+                f"{pretrained} holds {pos} of shape {tuple(sd[pos].shape)} but the model's "
+                f"{model.visual.image_size} images need {tuple(want)}: positional-embedding "
+                "resizing is not ported (ROADMAP Queue 1)")
+        model.load_state_dict(sd, strict=True)
     model = model.to(device=device, dtype=param_dtype).eval()
     preprocess_cfg = PreprocessCfg(**merge_preprocess_dict(
         PreprocessCfg(), {"size": cfg.vision_cfg.image_size}))

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, gelu
 
@@ -53,18 +54,29 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
+    """A stack of residual blocks. With ``grad_checkpointing`` on, a module
+    in training under autograd runs each block under
+    ``torch.utils.checkpoint`` (non-reentrant): only the block's input is
+    kept and the block is recomputed in the backward, as the JAX package's
+    ``nn.remat`` with its default ("full") policy."""
+
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl)
             for _ in range(layers)
         )
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+        remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
         for blk in self.resblocks:
-            x = blk(x, causal=causal)
+            if remat:
+                x = checkpoint(blk, x, causal, use_reentrant=False)
+            else:
+                x = blk(x, causal=causal)
         return x
 
 
@@ -84,7 +96,7 @@ class VisionTransformer(nn.Module):
                  layers: int = 12, heads: int = 12, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, output_dim: int = 512,
                  act: Callable = gelu, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False):
         super().__init__()
         self.image_size = tuple(image_size)
         self.patch_size = tuple(patch_size)
@@ -98,9 +110,12 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl)
+                                       act, attn_impl, grad_checkpointing)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
+
+    def set_grad_checkpointing(self, enable: bool = True) -> None:
+        self.transformer.grad_checkpointing = enable
 
     def _patch_embed(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, gh*gw, width], the stride-patch convolution
@@ -146,16 +161,19 @@ class TextTransformer(nn.Module):
                  width: int = 512, heads: int = 8, layers: int = 12,
                  mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
                  output_dim: int = 512, act: Callable = gelu, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False):
         super().__init__()
         self.context_length = context_length
         self.compute_dtype = compute_dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl)
+                                       act, attn_impl, grad_checkpointing)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
+
+    def set_grad_checkpointing(self, enable: bool = True) -> None:
+        self.transformer.grad_checkpointing = enable
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
         return encode_text_tokens(self, text)

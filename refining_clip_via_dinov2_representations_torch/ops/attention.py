@@ -7,13 +7,20 @@ The port of ``refining_clip_via_dinov2_representations_tpu/ops/attention.py``.
   the JAX package's, kept so the two can be read side by side.)
 * ``impl="fused"`` — the hand-written Hopper kernels
   (``ops/fused_attention.py``: forward, and backward under autograd)
-  wherever their gate holds, else the plain path; on CPU tensors their
-  plain versions, through the same autograd Function.
-* ``impl="auto"`` — ``"fused"`` on a CUDA tensor wherever the gate holds,
-  ``"xla"`` on a CPU tensor.
-* ``impl="flash"`` / ``"xla_bf16_bwd"`` — not ported yet: they raise
-  ``NotImplementedError`` on CUDA tensors and take the plain path on CPU
-  tensors (their forwards compute the same function).
+  wherever their gate holds (L <= 1024); where it fails, ``"flash"``, as in
+  the JAX package. On CPU tensors their plain versions, through the same
+  autograd Function.
+* ``impl="flash"`` — the hand-written Hopper flash forward
+  (``ops/flash_attention.py``; its backward recomputes through the plain
+  attention, as the JAX package's) wherever its gate holds (no mask,
+  head_dim <= 256, at least 512 queries), else the plain path. On CPU
+  tensors its plain version, through the same autograd Function. (The JAX
+  gate is closed off the TPU; the port's gate checks shapes only.)
+* ``impl="auto"`` — ``"fused"`` on a CUDA tensor wherever its gate holds,
+  ``"xla"`` otherwise.
+* ``impl="xla_bf16_bwd"`` — not ported yet: it raises
+  ``NotImplementedError`` on CUDA tensors and takes the plain path on CPU
+  tensors (its forward computes the same function).
 
 Layout is ``[batch, heads, seq, head_dim]`` throughout.
 """
@@ -24,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention_compatible, flash_mha
 from .fused_attention import fused_attention, fused_attention_compatible
 
 IMPLS = ("xla", "xla_bf16_bwd", "fused", "flash", "auto")
@@ -81,12 +89,17 @@ def multi_head_attention(
             if scale is None:
                 scale = q.shape[-1] ** -0.5
             return fused_attention(q, k, v, float(scale), causal)
-        impl = "xla"  # as the JAX package off-TPU, where its flash gate is closed
+        impl = "flash"  # long-sequence fallback
 
-    if impl in ("flash", "xla_bf16_bwd") and q.is_cuda:
+    if impl == "flash":
+        if flash_attention_compatible(q, k, v, mask):
+            return flash_mha(q, k, v, mask=None, causal=causal, scale=scale)
+        impl = "xla"
+
+    if impl == "xla_bf16_bwd" and q.is_cuda:
         raise NotImplementedError(
-            f"attention impl {impl!r} has no CUDA kernel yet (ROADMAP Queue 2); "
-            "use 'fused' or 'xla'"
+            "attention impl 'xla_bf16_bwd' has no CUDA version yet (ROADMAP Queue 1); "
+            "use 'fused', 'flash' or 'xla'"
         )
 
     if causal and mask is None:

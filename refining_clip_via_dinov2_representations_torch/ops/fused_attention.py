@@ -98,33 +98,40 @@ def _library(source: str, fn_name: str, n_pointers: int) -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, *same_as_q) -> None:
+def _check_inputs(name: str, q, k, v, *same_as_q) -> None:
+    """What every kernel wrapper takes: one CUDA device, one dtype of
+    float32 or bfloat16, q [B,H,Lq,D] and k = v [B,H,Lk,D], no empty axis,
+    contiguous memory."""
     tensors = (q, k, v, *same_as_q)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(
-            "fused_attention: inputs must share one CUDA device (got "
+            f"{name}: inputs must share one CUDA device (got "
             f"{', '.join(str(t.device) for t in tensors)})"
         )
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError(
-            "fused_attention: float32 or bfloat16 inputs of one dtype (got "
+            f"{name}: float32 or bfloat16 inputs of one dtype (got "
             f"{', '.join(str(t.dtype) for t in tensors)})"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"fused_attention: q [B,H,Lq,D], k=v [B,H,Lk,D]; got "
+        raise ValueError(f"{name}: q [B,H,Lq,D], k=v [B,H,Lk,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
-        raise ValueError(f"fused_attention: q {tuple(q.shape)} and k "
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} differ in batch, heads or head_dim")
     if any(t.shape != q.shape for t in same_as_q):
-        raise ValueError(f"fused_attention: o and do must have q's shape {tuple(q.shape)}")
+        raise ValueError(f"{name}: o and do must have q's shape {tuple(q.shape)}")
     if min(q.shape) == 0 or min(k.shape) == 0:
-        raise ValueError(f"fused_attention: empty input {tuple(q.shape)}")
+        raise ValueError(f"{name}: empty input {tuple(q.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check(q, k, v, *same_as_q) -> None:
+    _check_inputs("fused_attention", q, k, v, *same_as_q)
     if not fused_attention_compatible(q, k, v, None):
         raise ValueError(f"fused_attention: shapes {tuple(q.shape)}/{tuple(k.shape)} "
                          f"exceed L <= {MAX_FUSED_SEQ}, D <= {MAX_HEAD_DIM}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_attention: inputs must be contiguous")
 
 
 def _on_cpu(*tensors) -> bool:

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu")
+KERNEL_SOURCES = ("fused_attention_fwd.cu", "fused_attention_bwd.cu", "flash_attention_fwd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

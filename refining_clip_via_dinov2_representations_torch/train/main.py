@@ -95,8 +95,13 @@ def main(args=None):
     torch.manual_seed(args.seed)
 
     # ---- model (raises when the device is a missing CUDA card) ----
+    # nargs='+' gives a list; collapse a single value to a scalar
+    if isinstance(args.force_image_size, (tuple, list)) and len(args.force_image_size) == 1:
+        args.force_image_size = args.force_image_size[0]
     model, pp_cfg = create_model(args.model, args.pretrained or None, precision=args.precision,
-                                 device=device, attn_impl=args.attn_impl, seed=args.seed)
+                                 device=device, attn_impl=args.attn_impl, seed=args.seed,
+                                 force_image_size=args.force_image_size,
+                                 grad_checkpointing=args.grad_checkpointing)
     model.train()
     preprocess = image_transform_v2(pp_cfg, is_train=False)
     tokenizer = get_tokenizer(args.model)

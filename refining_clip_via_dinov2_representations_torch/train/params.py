@@ -41,10 +41,9 @@ UNPORTED = {
     "force_quick_gelu": "model overrides",
     "force_custom_text": "model overrides",
     "force_patch_dropout": "patch dropout (ROADMAP Queue 1 item 3)",
-    "force_image_size": "model overrides",
-    "grad_checkpointing": "activation checkpointing",
     "adam_mu_dtype": "a bf16 first moment",
-    "remat_policy": "activation checkpointing",
+    "remat_policy": "selective activation-checkpointing policies (jax.checkpoint_policies; "
+                    "ROADMAP Queue 1 item 3)",
     "lock_image_freeze_bn_stats": "BatchNorm towers",
     "lock_text_freeze_layer_norm": "frozen LayerNorms",
     "torchscript": "TorchScript",

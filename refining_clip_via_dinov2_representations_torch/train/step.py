@@ -6,7 +6,9 @@ The port of the JAX package's ``train/step.py`` for one process and the
 compiled function: ``make_train_step`` returns a closure over the model, the
 DINO head and the optimizer that updates them in place. On a CUDA model
 every attention call of both towers runs the fused kernels, forward and
-backward (``ops/attention.py``, ``"auto"`` or ``"fused"``).
+backward (``ops/attention.py``, ``"auto"`` or ``"fused"``); with
+``"flash"``, attention over 512 or more queries runs the flash forward
+kernel and the shorter calls the plain path.
 
 Kept from the JAX step: the lambda_soft warm-up from the step counter (only
 lambda_soft warms; ``enable_warmup_dino_hyperparams``); the DINO head on the

@@ -8,12 +8,15 @@ Builds the ViT-B-16 serving engine (seeded random weights, fp32 compute,
 buckets 1/8/32), then for each bucket and tower profiles five engine calls
 with ``torch.profiler`` (CPU + CUDA activities) and reports, per call:
 the host-clock latency, the device busy time (union of kernel intervals),
-the device idle share, the fused attention kernels' share of device time
-and the top kernels by device time. Then the same for three ViT-B-16
-DINO-soft train steps (bf16 compute, batch 64, seeded random batch),
-through the fused attention kernels and through the plain attention.
-Prints the full table as one JSON object on its last line. Fails when the
-profiler records no device time (it then cannot say where the time goes).
+the device idle share, the attention kernels' share of device time (the
+fused and the flash kernels together, and the flash kernel alone) and the
+top kernels by device time. Then the same for three ViT-B-16 DINO-soft train
+steps (bf16 compute, batch 64, seeded random batch), through the fused
+attention kernels and through the plain attention, and for three
+ViT-L-14-336 DINO-soft train steps (577 vision tokens, bf16, batch 32) through
+the flash kernel with grad checkpointing. Prints the full table as one JSON
+object on its last line. Fails when the profiler records no device time (it
+then cannot say where the time goes).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 MODEL, CALLS, TRAIN_STEPS, TRAIN_BATCH = "ViT-B-16", 5, 3, 64
+LONG_MODEL, LONG_BATCH = "ViT-L-14-336", 32
 
 
 def _busy_us(intervals):
@@ -68,20 +72,23 @@ def profile_calls(fn, arg, calls: int):
     busy = _busy_us(intervals)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    attn = sum(v for k, v in by_name.items() if "fused_attention" in k)
+    kernel_us = sum(by_name.values())
+    flash = sum(v for k, v in by_name.items() if "flash_attention" in k)
+    attn = flash + sum(v for k, v in by_name.items() if "fused_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "latency_ms": wall_us / calls / 1e3,
         "device_busy_ms": busy / calls / 1e3,
         "idle_share": 1.0 - busy / wall_us,
-        "attention_share_of_device": attn / sum(by_name.values()),
+        "attention_share_of_device": attn / kernel_us,
+        "flash_share_of_device": flash / kernel_us,
         "top_kernels_ms": {k: v / calls / 1e3 for k, v in top},
     }
 
 
-def train_step_fn(attn_impl: str):
-    """A ViT-B-16 DINO-soft train step (bf16 compute, 512->448->384 head,
-    default param groups, cosine schedule) that ends in a device sync."""
+def train_step_fn(attn_impl: str, model_name: str = MODEL, grad_checkpointing: bool = False):
+    """A DINO-soft train step (bf16 compute, MLP head from the embed dim to
+    384, default param groups, cosine schedule) that ends in a device sync."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.losses import (
@@ -96,10 +103,11 @@ def train_step_fn(attn_impl: str):
         StepCfg, TrainState, make_train_step, train_parameters,
     )
 
-    model, _ = create_model(MODEL, precision="bf16", device="cuda", attn_impl=attn_impl)
+    model, _ = create_model(model_name, precision="bf16", device="cuda", attn_impl=attn_impl,
+                            grad_checkpointing=grad_checkpointing)
     model.train()
     torch.manual_seed(1)
-    head = DinoProjectionHead(512, 384).to("cuda")
+    head = DinoProjectionHead(model.text_projection.shape[1], 384).to("cuda")
     optimizer, _ = build_optimizer(train_parameters(model, head), OptimCfg(),
                                    cosine_lr(5e-4, 0, 100))
     cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
@@ -138,25 +146,32 @@ def main() -> None:
             results["cells"][f"{tower}_b{b}"] = r
             top = ", ".join(f"{k} {v:.3f}" for k, v in list(r["top_kernels_ms"].items())[:3])
             print(f"{tower} bucket {b}: latency {r['latency_ms']:.3f} ms, device busy "
-                  f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.1%}, fused "
-                  f"attention {r['attention_share_of_device']:.1%} of device; top: {top}",
+                  f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.1%}, attention "
+                  f"kernels {r['attention_share_of_device']:.1%} of device; top: {top}",
                   flush=True)
-    ids = tokenizer([f"a photo of item {i} in scene {i % 5}" for i in range(TRAIN_BATCH)])
-    batch = {
-        "images": torch.from_numpy(rng.normal(size=(TRAIN_BATCH, h, w, 3)).astype(np.float32)),
-        "texts": torch.from_numpy(ids).long(),
-        "dino_features": torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 384)).astype(np.float32)),
-    }
-    batch = {k: v.to("cuda") for k, v in batch.items()}
     del engine
-    for name, impl in (("train_b64", "auto"), ("train_b64_plain_attention", "xla")):
+
+    def batch_of(n, size):
+        ids = tokenizer([f"a photo of item {i} in scene {i % 5}" for i in range(n)])
+        batch = {
+            "images": torch.from_numpy(rng.normal(size=(n, size, size, 3)).astype(np.float32)),
+            "texts": torch.from_numpy(ids).long(),
+            "dino_features": torch.from_numpy(rng.normal(size=(n, 384)).astype(np.float32)),
+        }
+        return {k: v.to("cuda") for k, v in batch.items()}
+
+    cells = (("train_b64", (MODEL, "auto", False), TRAIN_BATCH, h),
+             ("train_b64_plain_attention", (MODEL, "xla", False), TRAIN_BATCH, h),
+             ("train_vit_l_14_336_b32_flash_grad_checkpointing", (LONG_MODEL, "flash", True),
+              LONG_BATCH, 336))
+    for name, (model_name, impl, remat), n, size in cells:
         torch.cuda.empty_cache()
-        r = profile_calls(train_step_fn(impl), batch, TRAIN_STEPS)
+        r = profile_calls(train_step_fn(impl, model_name, remat), batch_of(n, size), TRAIN_STEPS)
         results["cells"][name] = r
         top = ", ".join(f"{k} {v:.3f}" for k, v in list(r["top_kernels_ms"].items())[:4])
         print(f"{name}: step {r['latency_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
-              f"idle {r['idle_share']:.1%}, fused attention {r['attention_share_of_device']:.1%} "
-              f"of device; top: {top}", flush=True)
+              f"idle {r['idle_share']:.1%}, attention kernels {r['attention_share_of_device']:.1%} "
+              f"(flash {r['flash_share_of_device']:.1%}) of device; top: {top}", flush=True)
     print(json.dumps(results), flush=True)
 
 

@@ -1,4 +1,4 @@
-"""The PyTorch port, ``chip_smoke.py`` and the port's profiling script
+"""The PyTorch port, ``chip_smoke.py`` and the port's measurement scripts
 import no JAX.
 
 An AST scan, not a ``sys.modules`` check: the test process may have JAX
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "refining_clip_via_dinov2_representations_tpu")
 NOT_AT_MODULE_LEVEL = ("regex", "PIL", "triton")
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                      REPO / "scripts" / "profile_torch_serving.py"]
+                                      REPO / "scripts" / "profile_torch_serving.py",
+                                      REPO / "scripts" / "step_noise_floor.py"]
 
 
 def _imported(node):
@@ -32,7 +33,8 @@ def _imported(node):
 def test_scan_covers_the_port():
     names = {p.relative_to(REPO).as_posix() for p in FILES}
     for must in ("chip_smoke.py", f"{PORT.name}/ops/fused_attention.py",
-                 f"{PORT.name}/serve.py", f"{PORT.name}/models/clip.py"):
+                 f"{PORT.name}/ops/flash_attention.py", f"{PORT.name}/serve.py",
+                 f"{PORT.name}/models/clip.py"):
         assert must in names
 
 

@@ -29,7 +29,9 @@ def _argv(tmp_path, *extra):
 
 @pytest.mark.parametrize("argv", [["--model", "ViT-B-16"], ["--model", "RN50", "--lr", "1e-4"],
                                   ["--model", "ViT-B-32", "--use_dino_general",
-                                   "--lambda_soft", "0.5", "--soft_mode", "kl_teacher"]])
+                                   "--lambda_soft", "0.5", "--soft_mode", "kl_teacher"],
+                                  ["--model", "ViT-L-14-336", "--attn-impl", "flash",
+                                   "--grad-checkpointing", "--force-image-size", "384"]])
 def test_flags_and_defaults_match_jax(argv):
     from refining_clip_via_dinov2_representations_tpu.train.params import (
         parse_args as jax_parse,
@@ -59,6 +61,23 @@ def test_force_cpu_run_writes_losses_and_a_checkpoint_that_loads_strictly(tmp_pa
         torch.testing.assert_close(v, saved["state_dict"][k], atol=0, rtol=0)
 
 
+def test_forced_size_checkpointed_flash_run(tmp_path):
+    """``--force-image-size`` (the one-element list collapses, as in the JAX
+    CLI), ``--grad-checkpointing`` and ``--attn-impl flash`` on the CPU: the
+    data follow the forced size and the checkpoint loads at it."""
+    records = main(_argv(tmp_path, "--force-cpu", "--force-image-size", "32",
+                         "--grad-checkpointing", "--attn-impl", "flash",
+                         "--stop-after-steps", "1", "--log-every-n-steps", "1"))
+    assert [r["step"] for r in records] == [1] and math.isfinite(records[0]["total_loss"])
+    params_txt = (tmp_path / "run" / "params.txt").read_text()
+    assert "force_image_size: 32\n" in params_txt and "grad_checkpointing: True" in params_txt
+    ckpt = tmp_path / "run" / "checkpoints" / "epoch_1.pt"
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+    assert tuple(saved["visual.positional_embedding"].shape) == (17, 32)  # (32 / 8)^2 + 1
+    model, pp = create_model(MODEL, str(ckpt), device="cpu", force_image_size=32)
+    assert pp.size == 32 and model.visual.image_size == (32, 32)
+
+
 def test_clip_loss_run_without_dino(tmp_path):
     records = main(_argv(tmp_path, "--force-cpu", "--log-every-n-steps", "2"))
     assert [r["step"] for r in records] == [2, 4]
@@ -76,7 +95,8 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 @pytest.mark.parametrize("extra", [["--val-data", "val.csv"], ["--accum-freq", "2"],
                                    ["--resume", "latest"], ["--siglip"],
                                    ["--dino_model_name", "facebook/dinov2-small"], ["--fsdp"],
-                                   ["--opt", "lion"], ["--train-data", "train.csv"]])
+                                   ["--opt", "lion"], ["--train-data", "train.csv"],
+                                   ["--grad-checkpointing", "--remat-policy", "dots_saveable"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):
         main(_argv(tmp_path, "--force-cpu", *extra))
