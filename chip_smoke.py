@@ -22,15 +22,18 @@ Phases, each of which exits non-zero on failure:
    run through the plain attention path (cosine >= 0.9999 in fp32).
 5. times   — each kernel, its plain version and the library yardstick
    (``scaled_dot_product_attention``, which the port never calls) timed with
-   CUDA events at the serving shapes, beside the kernel's bound; each tower's
+   CUDA events at the serving shapes, beside the kernel's bound and the time
+   of the scalar kernel that bf16 ran through before its tensor-core path
+   (where recorded), with the speedup; each tower's
    time per call with the kernel and with the plain attention (CUDA events
    behind a queued sleep: device time as long as the host launches faster
    than the device runs; ``scripts/profile_torch_serving.py`` gives device
    busy time and idle share); request latency per bucket.
 6. train-step / train-cli — three ViT-B-16 DINO-soft steps through both
    fused kernels (24 + 24 launches per step), one step's loss and gradients
-   against plain attention, and the training CLI, whose checkpoint serves;
-   the backward kernel's times.
+   against plain attention (bf16: all tensors together, beside the same
+   comparison between the kernels' plain versions and plain attention), and
+   the training CLI, whose checkpoint serves; the backward kernel's times.
 7. kernels-flash — the flash forward kernel against its plain version and a
    float64 version with the same rounding points, from 512 to 4097 tokens,
    causal, Lq != Lk, head_dim 40 to 256, in float32 and bfloat16; its
@@ -43,7 +46,8 @@ Phases, each of which exits non-zero on failure:
 9. train-cli-long — the training CLI on ViT-L-14-336 with
    ``--grad-checkpointing`` (its checkpoint loads strictly) and on ViT-B-16
    with ``--force-image-size 384`` (12 flash launches per forward); then the
-   flash kernel's times beside its plain version, SDPA and its bound.
+   flash kernel's times beside its plain version, SDPA, its bound and the
+   scalar kernel's time.
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -53,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +104,18 @@ BWD_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_b
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training shapes: image [64,12,197,64], causal text [64,8,77,64]
 TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
+# The forward kernels' times before the bf16 tensor-core path, when every
+# dtype ran scalar fp32 FMAs (this script's time phases, CUDA events, as
+# PERF.md records them); printed beside each new time with the speedup.
+SCALAR_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+SCALAR_FUSED_MS = {
+    ("float32", (8, 12, 197, 64, False)): 0.0992, ("float32", (32, 12, 197, 64, False)): 0.4167,
+    ("float32", (8, 8, 77, 64, True)): 0.0248, ("float32", (32, 8, 77, 64, True)): 0.0467,
+    ("bfloat16", (64, 12, 197, 64, False)): 0.8209, ("bfloat16", (64, 8, 77, 64, True)): 0.0725,
+}
+SCALAR_FLASH_MS = {(32, 16, 577, 577, 64, False, "bfloat16"): 2.8691,
+                   (32, 16, 577, 577, 64, False, "float32"): 2.9051,
+                   (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935}
 TRAIN_BATCH, CLI_BATCH, CLI_SAMPLES, DINO_DIM = 64, 32, 96, 384
 FLASH_TPU = "refining_clip_via_dinov2_representations_tpu/ops/flash_attention.py:44"
 FLASH_SRC = "refining_clip_via_dinov2_representations_torch/csrc/flash_attention_fwd.cu"
@@ -166,9 +183,21 @@ def phase_build() -> None:
     print(f"build: {len(seconds)} kernel sources in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())})", flush=True)
     for name, log in native.build_logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}", flush=True)
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                kernel = _kernel_name(entry.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}] {kernel}: {line.strip()}", flush=True)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_attention_fwd_mma_kernel<64>`` from its mangled name."""
+    base = re.search(r"([a-z_]+_kernel)I", mangled)
+    args = ["float"] if "IfLi" in mangled else ["bf16"] if "I13__nv_bfloat16Li" in mangled else []
+    args += re.findall(r"Li(\d+)E", mangled)
+    return f"{base.group(1) if base else mangled}<{','.join(args)}>"
 
 
 def _qkv(b, h, l, d, dtype, seed, lk=None):
@@ -396,6 +425,12 @@ def attention_bound(b, h, l, d, causal, dtype_name, lk=None):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _beside_scalar(before, ms: float) -> str:
+    if before is None:
+        return "scalar kernel: not recorded"
+    return f"scalar kernel {before:.4f} ms (on {SCALAR_CARD}), {before / ms:.2f}x faster"
+
+
 def phase_kernel_times(dtype_name: str) -> dict:
     """Kernel, plain version and SDPA (yardstick only) at the serving shapes."""
     import torch
@@ -419,7 +454,8 @@ def phase_kernel_times(dtype_name: str) -> dict:
                                           bound_ms=bound, bound_by=by)
         print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound"
+              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound; "
+              f"{_beside_scalar(SCALAR_FUSED_MS.get((dtype_name, (b, h, l, d, causal))), ms)}"
               f" [{CARD}]", flush=True)
     return rows
 
@@ -613,34 +649,42 @@ def _grad_cosines(grads_a: dict, grads_b: dict):
 
 
 @contextlib.contextmanager
-def _flash_plain_version():
-    """Run the flash Function's forward through the kernel's plain version on
-    CUDA tensors (measurement only): a step through it against one through
-    plain attention compares two plain PyTorch versions, no kernel."""
+def _plain_versions():
+    """Run the flash and fused Functions through the kernels' plain versions
+    on CUDA tensors (measurement only): a step through them against one
+    through plain attention compares two plain PyTorch versions, no kernel."""
     from refining_clip_via_dinov2_representations_torch.ops import flash_attention as fm
+    from refining_clip_via_dinov2_representations_torch.ops import fused_attention as fu
 
-    kernel = fm.flash_attention_fwd
+    kernels = fm.flash_attention_fwd, fu.fused_attention_fwd, fu.fused_attention_bwd
     fm.flash_attention_fwd = lambda q, k, v, scale, causal=False: fm.flash_attention_reference(
         q, k, v, scale, causal)
+    fu.fused_attention_fwd = lambda q, k, v, scale, causal=False: fu.fused_attention_reference(
+        q, k, v, scale, causal)
+    fu.fused_attention_bwd = (lambda q, k, v, o, do, scale, causal=False:
+                              fu.fused_attention_bwd_reference(q, k, v, o, do, scale, causal))
     try:
         yield
     finally:
-        fm.flash_attention_fwd = kernel
+        fm.flash_attention_fwd, fu.fused_attention_fwd, fu.fused_attention_bwd = kernels
 
 
 def _compare_step(precision: str, batch, model_name: str = MODEL, impl: str = "auto",
-                  grad_checkpointing: bool = False, per_tensor: bool = True) -> None:
+                  grad_checkpointing: bool = False) -> None:
     """One loss and gradient through the kernels vs the plain attention.
-    ``per_tensor``: every tensor's gradient cosine is held to the minimum;
-    else the cosine of all tensors together is, as the bf16 train-step
-    test does (``tests/test_torch_train_step.py``), and the per-tensor
-    minimum is printed beside the same comparison between two plain
-    versions (the flash kernel's and plain attention), no kernel involved:
-    the bf16 noise floor of the step."""
+    fp32: every tensor's gradient cosine is held to the minimum. bf16: the
+    cosine of all tensors together is, as the bf16 train-step test does
+    (``tests/test_torch_train_step.py``), and the per-tensor minimum is
+    printed beside the same comparison between two plain versions (the
+    kernels' and plain attention), no kernel involved: the bf16 noise floor
+    of the step. In bf16 single tensors (``dino_head.fc1.bias``) fall below
+    0.99 also between two plain versions, at 197 and at 577 tokens
+    (``scripts/step_noise_floor.py``, PERF.md)."""
     import torch
 
     name = "bfloat16" if precision == "bf16" else "float32"
     loss_tol, min_cos = STEP_TOL[name]
+    per_tensor = precision != "bf16"
 
     def run(attn):
         model, head, _, _, cfg = _dino_setup(precision, attn, model_name=model_name,
@@ -665,12 +709,12 @@ def _compare_step(precision: str, batch, model_name: str = MODEL, impl: str = "a
           f"{'per tensor' if per_tensor else 'together'} >= {min_cos}); fp32 grads "
           f"{fp32_grads}", flush=True)
     if not per_tensor:
-        with _flash_plain_version():
-            loss_f, grads_f = run("flash")
+        with _plain_versions():
+            loss_f, grads_f = run(impl)
         cos_f, together_f = _grad_cosines(grads_f, grads_p)
         worst_f = min(cos_f, key=cos_f.get)
-        print(f"train-step {model_name} {precision} noise floor, the flash kernel's plain "
-              f"version vs plain attention (no kernel): loss rel "
+        print(f"train-step {model_name} {precision} noise floor, impl={impl} through the "
+              f"kernels' plain versions vs plain attention (no kernel): loss rel "
               f"{abs(loss_f - loss_p) / abs(loss_p):.2e}; gradient cosine, per tensor min "
               f"{cos_f[worst_f]:.6f} at {worst_f} ({sum(c < min_cos for c in cos_f.values())} "
               f"below {min_cos}), all tensors together {together_f:.6f}", flush=True)
@@ -960,9 +1004,7 @@ def phase_train_long() -> int:
     from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
 
     batch = _train_batch(get_tokenizer(LONG_MODEL), LONG_BATCH, DEVICE, model_name=LONG_MODEL)
-    # bf16 at 577 tokens: single tensors' gradient cosines are noise, also
-    # between two plain versions (PERF.md, PR 3); all tensors together are held
-    _compare_step("bf16", batch, model_name=LONG_MODEL, impl="flash", per_tensor=False)
+    _compare_step("bf16", batch, model_name=LONG_MODEL, impl="flash")
 
     # a schedule long enough that the learning rate is not 0 in any step here
     model, head, state, train_step, _ = _dino_setup("bf16", "flash", steps=40,
@@ -1128,7 +1170,9 @@ def phase_flash_times() -> dict:
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
         print(f"time flash_attention_fwd {dtype_name} [{b},{h},{lq},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound [{CARD}]", flush=True)
+              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound; "
+              f"{_beside_scalar(SCALAR_FLASH_MS.get((b, h, lq, lk, d, causal, dtype_name)), ms)} "
+              f"[{CARD}]", flush=True)
     return rows
 
 
@@ -1141,7 +1185,7 @@ def main() -> None:
     worst_bwd = phase_kernels_bwd()
     engine, plain, serve_launches = phase_serve()
     rows = phase_kernel_times("float32")
-    phase_kernel_times("bfloat16")
+    rows_bf16 = phase_kernel_times("bfloat16")
     phase_serving_times(engine, plain)
     check(serve_launches > 0, "the served run launched no fused_attention_fwd")
     del engine, plain
@@ -1157,6 +1201,7 @@ def main() -> None:
     flash_rows = phase_flash_times()
 
     t = rows[MAIN_PATH_CASE]
+    t16 = rows_bf16[TRAIN_CASES[0]]  # the training image call, bf16
     tb = bwd_rows[TRAIN_CASES[0]]
     tf = flash_rows[FLASH_TIMED[0]]
     print(json.dumps({"kernels": [{
@@ -1164,6 +1209,9 @@ def main() -> None:
         "replaces": FUSED_TPU, "launches": serve_launches + train_fwd,
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
+        "bf16_plain_ms": t16["plain_ms"], "bf16_bound_ms": t16["bound_ms"],
+        "bf16_library_ms": t16["library_ms"],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU, "launches": train_bwd, "max_abs_err": worst_bwd["bfloat16"],

@@ -17,26 +17,44 @@
 // vision call [32,16,577,64] is 43.6 GFLOP over 151 MB in bf16, about 45 us
 // at 3.35 TB/s and 44 us at the 989 TFLOP/s bf16 tensor-core rate, so
 // balanced; in fp32 it moves 303 MB but takes 651 us at the 67 TFLOP/s of
-// plain fp32 FMAs, compute-bound.
-// How the design answers that: only Q, K, V and O touch device memory, and
+// plain fp32 FMAs, compute-bound. Only Q, K, V and O touch device memory, and
 // shared memory does not grow with the sequence length (the gate has no upper
-// bound on it). One block owns 32 query rows of one (batch, head); their
-// pre-scaled Q stays in shared memory while K and V stream through it in
-// 64-key tiles that all four warps share. Each warp owns 8 query rows: a lane
-// computes 8x2 scores per K tile from float4 shared-memory reads (the Q reads
-// are warp-wide broadcasts), the row statistics are warp reductions, P goes
+// bound on it). Causal blocks stop at their last row's diagonal tile.
+//
+// bf16, the training path: tensor cores (`flash_attention_fwd_mma_kernel`,
+// building blocks in attention_mma.cuh). A block of four warps owns 64 query
+// rows of one (batch, head), each warp 16 rows: the m16 of mma.sync
+// m16n8k16. Q, K and V stay bf16 in shared memory, in rows padded by 16
+// bytes so ldmatrix reads them without bank conflicts; cp.async copies 16
+// bytes at a time where d % 8 == 0 and the bases are aligned (element copies
+// otherwise; d is zero-padded to DP). Q is scaled in place once. K and V
+// tiles are double-buffered: the next tile's copies are in flight while the
+// current one is consumed. S = Q K^T and acc += P V both run on mma.sync
+// with fp32 accumulators; S never leaves registers, the row max and sum are
+// quad shuffles, and p is rounded to bf16 in registers and repacked from the
+// accumulator layout into the A operand of P V. Tiles of 64 keys (32 at
+// DP = 256, where the O accumulator alone is 128 registers a thread). A
+// warp whose rows all lie past Lq computes nothing, and a tile's keys past
+// Lk (or past the warp's last row, when causal) are skipped 16 at a time.
+// What still holds it back: mma.sync runs from each warp in turn at a
+// fraction of the wgmma rate and needs every operand through ldmatrix; one
+// __syncthreads a tile with four warps a block; an exact expf on every
+// score (to keep p's rounding); no warp specialisation. wgmma on TMA-fed
+// tiles is the next step.
+//
+// fp32 (any fp32 call): the first port's scalar kernel, kept as it was so
+// fp32 stays within 1e-4 of the plain version (no TF32). One block owns 32
+// query rows; a warp owns 8: a lane computes 8x2 scores per 64-key tile from
+// float4 shared-memory reads, the row statistics are warp reductions, P goes
 // through a 32 x 64 shared tile, and in the PV product a lane owns D/32
-// output columns of the warp's 8 rows, held in registers across the tiles.
-// Causal blocks stop at their last row's diagonal tile. All arithmetic is
-// scalar fp32 FMA (no TF32, no tensor cores): the fp32 result stays within
-// 1e-4 of the plain PyTorch version, and in bf16 the kernel is far from its
-// tensor-core bound by construction; an mma/wgmma path is later work.
+// output columns of the warp's 8 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "attention_mma.cuh"
 #include "fused_attention_common.cuh"
 
 namespace {
@@ -186,6 +204,146 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The bf16 tensor-core kernel; see the note at the top. `vec`: 16-byte
+// copies (d % 8 == 0, aligned bases) instead of element copies.
+template <int DP>
+__global__ void __launch_bounds__(fa::kMmaThreads, fa::mma_min_blocks<DP>())
+    flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   __nv_bfloat16* __restrict__ o, int lq, int lk, int d,
+                                   float scale, int causal, int vec) {
+  constexpr int kRows = fa::kMmaRows;
+  constexpr int kTile = fa::mma_key_tile<DP>();
+  constexpr int kStride = fa::mma_stride<DP>();
+  constexpr bool kQRegs = DP <= 128;  // Q fragments held in registers
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kRows][kStride]
+  __nv_bfloat16* kv = qs + kRows * kStride;  // two buffers of K then V, [kTile][kStride] each
+
+  size_t bh;
+  int q0;
+  fa::mma_block_coords((lq + kRows - 1) / kRows, &bh, &q0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  q += bh * lq * d;
+  o += bh * lq * d;
+  k += bh * lk * d;
+  v += bh * lk * d;
+
+  // when causal, keys past the block's last row are masked for all its rows
+  const int n_keys = causal ? min(lk, q0 + kRows) : lk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  auto load_kv = [&](int t) {
+    __nv_bfloat16* buf = kv + (t & 1) * 2 * kTile * kStride;
+    fa::load_tile<DP, kTile>(buf, k, t * kTile, lk, d, vec);
+    fa::load_tile<DP, kTile>(buf + kTile * kStride, v, t * kTile, lk, d, vec);
+  };
+
+  fa::load_tile<DP, kRows>(qs, q, q0, lq, d, vec);
+  load_kv(0);
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
+  // Q pre-scaled and rounded in bf16, the scale rounded to bf16 first
+  const float sc = __bfloat162float(__float2bfloat16(scale));
+  for (int i = threadIdx.x; i < kRows * DP / 2; i += fa::kMmaThreads) {
+    __nv_bfloat162* x2 =
+        reinterpret_cast<__nv_bfloat162*>(qs + (i / (DP / 2)) * kStride + (i % (DP / 2)) * 2);
+    const float2 x = __bfloat1622float2(*x2);
+    *x2 = __floats2bfloat162_rn(x.x * sc, x.y * sc);
+  }
+  __syncthreads();
+
+  const __nv_bfloat16* qw = qs + warp * 16 * kStride;  // the warp's 16 rows
+  uint32_t qf[kQRegs ? DP / 16 : 1][4];
+  if constexpr (kQRegs) fa::load_q_frags<DP>(qf, qw, lane);
+
+  // a lane's rows: row_lo (accumulator elements 0, 1) and row_lo + 8 (2, 3)
+  const int warp_row0 = q0 + warp * 16;
+  const int row_lo = warp_row0 + (lane >> 2);
+  const int col = (lane & 3) * 2;
+  // a warp past lq has nothing to compute; keys from warp_keys on are padding
+  // or causal-masked for all the warp's rows, and are skipped
+  const bool warp_live = warp_row0 < lq;
+  const int warp_keys = causal ? min(lk, warp_row0 + 16) : lk;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // l: this lane's part of the row sum
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // One tile: S on tensor cores, the online softmax, acc += P V. PARTIAL:
+  // keys from n_live on are not computed (a separate instantiation, so full
+  // tiles keep straight-line code).
+  auto step = [&](const __nv_bfloat16* ks, int j0, int n_live, auto partial) {
+    constexpr bool kPartial = decltype(partial)::value;
+    float s[kTile / 8][4];
+    fa::tile_scores<DP, kTile, kQRegs, kPartial>(s, qf, qw, ks, n_live, lane);
+    if (j0 + kTile > lk || (causal && j0 + kTile - 1 > warp_row0)) {
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + n * 8 + col + (e & 1);
+          if (j >= lk || (causal && j > row_lo + (e >> 1) * 8)) s[n][e] = kMasked;
+        }
+    }
+
+    // online softmax: m_new, p = exp(s - m_new) in fp32 (kept in s), rescale
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fa::quad_max(mx);  // finite after the first tile: key 0 is live for every row
+      const float alpha = expf(m[h] - mx);
+      m[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n) {
+        const bool live = !kPartial || n * 8 < n_live;
+        s[n][2 * h] = live ? expf(s[n][2 * h] - mx) : 0.f;
+        s[n][2 * h + 1] = live ? expf(s[n][2 * h + 1] - mx) : 0.f;
+        sum += s[n][2 * h] + s[n][2 * h + 1];
+      }
+      l[h] = l[h] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][2 * h] *= alpha;
+        acc[n][2 * h + 1] *= alpha;
+      }
+    }
+    // p rounded to bf16 there
+    fa::tile_pv<DP, kTile, kPartial>(acc, s, ks + kTile * kStride, n_live, lane);
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    fa::cp_async_wait<0>();
+    // tile t has landed for every thread, and every warp is done with tile
+    // t - 1, whose buffer now takes tile t + 1 while tile t is consumed
+    __syncthreads();
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    fa::cp_async_commit();
+    const int j0 = t * kTile;
+    const int n_live = min(kTile, warp_keys - j0);
+    const __nv_bfloat16* ks = kv + (t & 1) * 2 * kTile * kStride;
+    if (warp_live && n_live == kTile) step(ks, j0, n_live, fa::Flag<false>{});
+    else if (warp_live && n_live > 0) step(ks, j0, n_live, fa::Flag<true>{});
+  }
+  if (!warp_live) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(fa::quad_sum(l[h]), 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[n][2 * h] /= denom;
+      acc[n][2 * h + 1] /= denom;
+    }
+  }
+  fa::store_rows<DP>(o, acc, qs + warp * 16 * kStride, warp_row0, lq, d, vec, lane);
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int lq,
                    int lk, int d, float scale, int causal, cudaStream_t stream) {
@@ -211,17 +369,46 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int b
   return launch<T, 256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
 }
 
+template <int DP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int bh, int lq,
+                       int lk, int d, float scale, int causal, cudaStream_t stream) {
+  // independent of the sequence lengths: 101,376 bytes at DP = 256
+  const size_t smem = sizeof(__nv_bfloat16) *
+                      (size_t)(fa::kMmaRows + 4 * fa::mma_key_tile<DP>()) * fa::mma_stride<DP>();
+  auto kernel = flash_attention_fwd_mma_kernel<DP>;
+  cudaError_t err = fa::reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 8 == 0 && fa::aligned16(q) && fa::aligned16(k) && fa::aligned16(v) &&
+                  fa::aligned16(o);
+  const dim3 grid(bh, (lq + fa::kMmaRows - 1) / fa::kMmaRows);
+  kernel<<<grid, fa::kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, d, scale,
+      causal, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, int bh, int lq,
+                         int lk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 32) return launch_mma<32>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (d <= 64) return launch_mma<64>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  return launch_mma<256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int bh, int lq, int lk, int d, float scale, int causal,
                                    int dtype, void* stream) {
-  if (bh <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 256 || lq > 65535 * kBQ)
-    return cudaErrorInvalidValue;
+  if (bh <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  // the grid's second dimension counts query tiles: at most 65535 of them
+  if (dtype == 0 && lq <= 65535 * kBQ)
+    return dispatch<float>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (dtype == 1 && lq <= 65535 * fa::kMmaRows)
+    return dispatch_mma(q, k, v, o, bh, lq, lk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -10,28 +10,57 @@
 //
 // What bounds it on an H100 (published peaks, not measured):
 //   * serving image call [32,12,197,64]: 3.82 GFLOP, 77.5 MB in fp32. At the
-//     67 TFLOP/s of plain fp32 FMAs it is compute-bound, ~57 us; in bf16 it
-//     moves 38.7 MB and is memory-bound, ~11.6 us at 3.35 TB/s.
+//     67 TFLOP/s of plain fp32 FMAs it is compute-bound, ~57 us.
 //   * serving text call [32,8,77,64] causal: ~0.20 GFLOP, 20.2 MB in fp32,
 //     memory-bound, ~6.0 us.
-// How the design answers that: only Q, K, V and O touch device memory. One
-// block owns 32 query rows of one (batch, head) and keeps their whole fp32
-// score row (<= 1024 columns) in shared memory, so the softmax is the exact
-// full-row softmax of the TPU kernel and P is never written out. K and V are
-// staged through shared memory in 64-key tiles that all four warps share.
-// Each warp owns 8 query rows: a lane computes 8x2 scores per K tile from
-// float4 shared-memory reads (the Q reads are warp-wide broadcasts), and in
-// the PV product a lane owns D/32 output columns of the warp's 8 rows, held
-// in registers across the V tiles. Causal blocks stop at their last row's
-// diagonal tile. All arithmetic is scalar fp32 FMA (no TF32), which keeps the
-// fp32 result within 1e-4 of the plain PyTorch version; a tensor-core (wgmma)
-// bf16 path is later work.
+//   * training image call [64,12,197,64] bf16: 7.6 GFLOP over 77.5 MB,
+//     memory-bound, ~23 us at 3.35 TB/s (8 us at the 989 TFLOP/s bf16
+//     tensor-core rate).
+// Only Q, K, V and O touch device memory: P is never written out. Causal
+// blocks stop at their last row's diagonal tile.
+//
+// bf16, the training path: tensor cores (`fused_attention_fwd_mma_kernel`,
+// building blocks in attention_mma.cuh), in two passes over the key tiles,
+// because the TPU kernel normalises P in fp32 *before* rounding it to bf16
+// for the PV product: a flash-style division after the product computes a
+// different function. Pass 1 takes each row's max m and sum l in fp32
+// (online, l rescaled as m grows); pass 2 recomputes S and forms
+// p = exp(s - m) / l in fp32, rounds it to bf16 and accumulates P V. A block
+// of four warps owns 64 query rows of one (batch, head), each warp 16 rows:
+// the m16 of mma.sync m16n8k16. Q, K and V stay bf16 in shared memory, in
+// rows padded by 16 bytes so ldmatrix reads them without bank conflicts;
+// cp.async copies 16 bytes at a time where d % 8 == 0 and the bases are
+// aligned (element copies otherwise; d is zero-padded to DP). The tiles of
+// both passes form one double-buffered stream (K in pass 1, K and V in pass
+// 2): the next tile's copies are in flight while the current one is
+// consumed. Both products run on mma.sync with fp32 accumulators; the scale
+// multiplies S after the product; S never leaves registers, the row
+// statistics are quad shuffles, and p becomes the A operand of P V in
+// registers. Shared memory no longer grows with Lk (46,080 bytes at DP = 64,
+// 101,376 at DP = 256, 32-key tiles there for the O accumulator's 128
+// registers a thread). A warp whose rows all lie past Lq computes nothing,
+// and a tile's keys past Lk (or past the warp's last row, when causal) are
+// skipped 16 at a time.
+// What still holds it back: S is computed twice; exact expf twice and an
+// fp32 division on every score; mma.sync instead of wgmma; one
+// __syncthreads a tile with four warps a block; at 128 registers (four
+// blocks an SM at DP = 64) ptxas spills a few bytes.
+//
+// fp32 (the serving path): the first port's scalar kernel, kept as it was
+// so fp32 stays within 1e-4 of the plain version (no TF32). One block owns
+// 32 query rows and keeps their whole fp32 score row (<= 1024 columns) in
+// shared memory, so the softmax is the exact full-row softmax of the TPU
+// kernel. K and V are staged in 64-key tiles that all four warps share. A
+// warp owns 8 query rows: a lane computes 8x2 scores per K tile from float4
+// shared-memory reads, and in the PV product a lane owns D/32 output columns
+// of the warp's 8 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "attention_mma.cuh"
 #include "fused_attention_common.cuh"
 
 namespace {
@@ -181,6 +210,134 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The bf16 tensor-core kernel; see the note at the top. `vec`: 16-byte
+// copies (d % 8 == 0, aligned bases) instead of element copies.
+template <int DP>
+__global__ void __launch_bounds__(fa::kMmaThreads, fa::mma_min_blocks<DP>())
+    fused_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   __nv_bfloat16* __restrict__ o, int lq, int lk, int d,
+                                   float scale, int causal, int vec) {
+  constexpr int kRows = fa::kMmaRows;
+  constexpr int kTile = fa::mma_key_tile<DP>();
+  constexpr int kStride = fa::mma_stride<DP>();
+  constexpr bool kQRegs = DP <= 128;  // Q fragments held in registers
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kRows][kStride]
+  __nv_bfloat16* kv = qs + kRows * kStride;  // two buffers of K then V, [kTile][kStride] each
+
+  size_t bh;
+  int q0;
+  fa::mma_block_coords((lq + kRows - 1) / kRows, &bh, &q0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  q += bh * lq * d;
+  o += bh * lq * d;
+  k += bh * lk * d;
+  v += bh * lk * d;
+
+  // when causal, keys past the block's last row are masked for all its rows
+  const int n_keys = causal ? min(lk, q0 + kRows) : lk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  // step i < n_tiles: pass 1, K tile i; step n_tiles + t: pass 2, K and V tile t
+  auto load_step = [&](int i) {
+    const int t = i < n_tiles ? i : i - n_tiles;
+    __nv_bfloat16* buf = kv + (i & 1) * 2 * kTile * kStride;
+    fa::load_tile<DP, kTile>(buf, k, t * kTile, lk, d, vec);
+    if (i >= n_tiles) fa::load_tile<DP, kTile>(buf + kTile * kStride, v, t * kTile, lk, d, vec);
+  };
+
+  fa::load_tile<DP, kRows>(qs, q, q0, lq, d, vec);
+  load_step(0);
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
+
+  const __nv_bfloat16* qw = qs + warp * 16 * kStride;  // the warp's 16 rows
+  uint32_t qf[kQRegs ? DP / 16 : 1][4];
+  if constexpr (kQRegs) fa::load_q_frags<DP>(qf, qw, lane);
+
+  // a lane's rows: row_lo (accumulator elements 0, 1) and row_lo + 8 (2, 3)
+  const int warp_row0 = q0 + warp * 16;
+  const int row_lo = warp_row0 + (lane >> 2);
+  const int col = (lane & 3) * 2;
+  // a warp past lq has nothing to compute; keys from warp_keys on are padding
+  // or causal-masked for all the warp's rows, and are skipped
+  const bool warp_live = warp_row0 < lq;
+  const int warp_keys = causal ? min(lk, warp_row0 + 16) : lk;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // One step: S = Q K^T * scale on tensor cores, masked entries (padding,
+  // col > row) -inf; then pass 1's running max and sum, or pass 2's
+  // normalised p and acc += P V. PARTIAL: keys from n_live on are not
+  // computed (a separate instantiation, so full tiles keep straight-line code).
+  auto step = [&](const __nv_bfloat16* ks, int j0, int n_live, bool second, auto partial) {
+    constexpr bool kPartial = decltype(partial)::value;
+    float s[kTile / 8][4];
+    fa::tile_scores<DP, kTile, kQRegs, kPartial>(s, qf, qw, ks, n_live, lane);
+    const bool edge = j0 + kTile > lk || (causal && j0 + kTile - 1 > warp_row0);
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + col + (e & 1);
+        s[n][e] = edge && (j >= lk || (causal && j > row_lo + (e >> 1) * 8)) ? -INFINITY
+                                                                           : s[n][e] * scale;
+      }
+
+    if (!second) {
+      // pass 1: running row max and this lane's part of the row sum
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[h];
+#pragma unroll
+        for (int n = 0; n < kTile / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        mx = fa::quad_max(mx);  // finite from the first tile on: key 0 is live for every row
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < kTile / 8; ++n)
+          if (!kPartial || n * 8 < n_live)
+            sum += expf(s[n][2 * h] - mx) + expf(s[n][2 * h + 1] - mx);
+        l[h] = l[h] * expf(m[h] - mx) + sum;
+        m[h] = mx;
+      }
+    } else {
+      // pass 2: the normalised softmax in fp32, rounded to bf16 in tile_pv
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = !kPartial || n * 8 < n_live ? expf(s[n][e] - m[e >> 1]) / l[e >> 1] : 0.f;
+      fa::tile_pv<DP, kTile, kPartial>(acc, s, ks + kTile * kStride, n_live, lane);
+    }
+  };
+
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    fa::cp_async_wait<0>();
+    // step i has landed for every thread, and every warp is done with step
+    // i - 1, whose buffer now takes step i + 1 while step i is consumed
+    __syncthreads();
+    if (i + 1 < 2 * n_tiles) load_step(i + 1);
+    fa::cp_async_commit();
+    const bool second = i >= n_tiles;
+    const int j0 = (second ? i - n_tiles : i) * kTile;
+    const int n_live = min(kTile, warp_keys - j0);
+    if (warp_live && i == n_tiles) {  // pass 1 is over: the lanes' parts of l summed
+      l[0] = fa::quad_sum(l[0]);
+      l[1] = fa::quad_sum(l[1]);
+    }
+    const __nv_bfloat16* ks = kv + (i & 1) * 2 * kTile * kStride;
+    if (warp_live && n_live == kTile) step(ks, j0, n_live, second, fa::Flag<false>{});
+    else if (warp_live && n_live > 0) step(ks, j0, n_live, second, fa::Flag<true>{});
+  }
+  if (warp_live)
+    fa::store_rows<DP>(o, acc, qs + warp * 16 * kStride, warp_row0, lq, d, vec, lane);
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int lq,
                    int lk, int d, float scale, int causal, cudaStream_t stream) {
@@ -205,6 +362,32 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int b
   return launch<T, 256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
 }
 
+template <int DP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int bh, int lq,
+                       int lk, int d, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) *
+                      (size_t)(fa::kMmaRows + 4 * fa::mma_key_tile<DP>()) * fa::mma_stride<DP>();
+  auto kernel = fused_attention_fwd_mma_kernel<DP>;
+  cudaError_t err = fa::reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int vec = d % 8 == 0 && fa::aligned16(q) && fa::aligned16(k) && fa::aligned16(v) &&
+                  fa::aligned16(o);
+  const dim3 grid(bh, (lq + fa::kMmaRows - 1) / fa::kMmaRows);
+  kernel<<<grid, fa::kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lq, lk, d, scale,
+      causal, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, int bh, int lq,
+                         int lk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 32) return launch_mma<32>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (d <= 64) return launch_mma<64>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (d <= 128) return launch_mma<128>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  return launch_mma<256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
@@ -215,7 +398,7 @@ extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v, 
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (dtype == 1) return dispatch_mma(q, k, v, o, bh, lq, lk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -36,7 +36,8 @@ from .fused_attention import (
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MIN_FLASH_SEQ = 512
-# the CUDA grid's second dimension counts 32-row query tiles (at most 65535)
+# the CUDA grid's second dimension counts query tiles (at most 65535): 32
+# rows in the fp32 kernel, 64 in the bf16 one; the fp32 bound holds for both
 MAX_QUERY_LEN = 65535 * 32
 
 

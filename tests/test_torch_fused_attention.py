@@ -185,3 +185,67 @@ def test_cuda_wrapper_rejects_bad_inputs():
     big = torch.randn(1, 1, 1025, 64, device="cuda")
     with pytest.raises(ValueError, match="exceed"):
         fused_attention(big, big, big, 0.125)
+
+
+def _kernels_launched(fn) -> set:
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_runs_the_tensor_core_kernel():
+    """bf16 inputs reach the mma.sync kernel; fp32 inputs the scalar one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.randn(2, 3, 77, 64, device="cuda")
+    for dtype, want, not_want in ((torch.bfloat16, "fused_attention_fwd_mma_kernel", None),
+                                  (torch.float32, "fused_attention_fwd_kernel<float",
+                                   "fused_attention_fwd_mma_kernel")):
+        x = q.to(dtype)
+        names = _kernels_launched(lambda: fused_attention_fwd(x, x, x, 0.125, True))
+        assert any(want in n for n in names), names
+        assert not_want is None or not any(not_want in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_bf16_every_head_dim(causal):
+    """Every head_dim the gate admits (1-256): d % 8 != 0 takes element
+    copies, d % 8 == 0 the 16-byte cp.async copies; d pads to 32/64/128/256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(1)
+    for d in range(1, 257):
+        q = torch.randn(1, 2, 70, d, generator=g).to("cuda", torch.bfloat16)
+        k, v = (torch.randn(1, 2, 45, d, generator=g).to("cuda", torch.bfloat16)
+                for _ in range(2))
+        got = fused_attention_fwd(q, k, v, d ** -0.5, causal)
+        want = fused_attention_reference(q, k, v, d ** -0.5, causal)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0,
+                                   msg=lambda m: f"head_dim {d}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(1, 1), (1, 9), (70, 70)])
+def test_cuda_bf16_unaligned_and_strided_inputs(lq, lk):
+    """Bases 2 bytes off a 16-byte boundary (element copies) and transposed
+    views made contiguous give the plain version's result; L = 1 included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(2)
+    sizes = (2 * 3 * lq * 64, 2 * 3 * lk * 64, 2 * 3 * lk * 64)
+    flat = torch.randn(sum(sizes) + 1, generator=g).to("cuda", torch.bfloat16)
+    q, k, v = (t.view(2, 3, -1, 64) for t in flat[1:].split(sizes))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    strided = [torch.randn(2, 3, 64, n, generator=g).to("cuda", torch.bfloat16)
+               .transpose(2, 3).contiguous() for n in (lq, lk, lk)]
+    for causal in (False, True):
+        for args in ((q, k, v), strided):
+            got = fused_attention_fwd(*args, 0.125, causal)
+            want = fused_attention_reference(*args, 0.125, causal)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)

@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 NOT_AT_MODULE_LEVEL = ("regex", "PIL", "triton")
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "profile_torch_serving.py",
-                                      REPO / "scripts" / "step_noise_floor.py"]
+                                      REPO / "scripts" / "step_noise_floor.py",
+                                      REPO / "scripts" / "probe_attention_kernels.py"]
 
 
 def _imported(node):
