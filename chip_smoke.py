@@ -12,8 +12,9 @@ Phases, each of which exits non-zero on failure:
    card, at the serving shapes and edge cases, in float32 and bfloat16.
 3b. kernels-bwd — the backward kernel against its plain version and a
    float64 version with the same rounding points, at the same cases plus
-   the training shapes, in float32 and bfloat16; the autograd Function
-   against autograd through the plain forward.
+   the training shapes, Lq != Lk and head dims 80 and 128, in float32 and
+   bfloat16 (bf16 up to head dim 128 runs the tensor-core kernels); the
+   autograd Function against autograd through the plain forward.
 4. serve   — ViT-B-16 at full width on a seeded random init, through
    ``create_engine`` and the HTTP server: image, text and similarity
    requests, ``/health`` and concurrent HTTP requests that the batcher
@@ -33,7 +34,9 @@ Phases, each of which exits non-zero on failure:
    fused kernels (24 + 24 launches per step), one step's loss and gradients
    against plain attention (bf16: all tensors together, beside the same
    comparison between the kernels' plain versions and plain attention), and
-   the training CLI, whose checkpoint serves; the backward kernel's times.
+   the training CLI, whose checkpoint serves; the backward kernel's times
+   (bf16 beside the scalar kernels' it ran through before, with the
+   speedup).
 7. kernels-flash — the flash forward kernel against its plain version and a
    float64 version with the same rounding points, from 512 to 4097 tokens,
    causal, Lq != Lk, head_dim 40 to 256, in float32 and bfloat16; its
@@ -104,6 +107,14 @@ BWD_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_b
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training shapes: image [64,12,197,64], causal text [64,8,77,64]
 TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
+# backward only, (B, H, Lq, Lk, D, causal): Lq != Lk with and without the
+# causal mask, and head dims 80 and 128 (the widest the bf16 tensor-core
+# route takes; 256 in KERNEL_CASES takes the scalar kernels)
+BWD_CASES = [
+    (4, 12, 197, 150, 64, False), (4, 8, 77, 120, 64, True), (4, 12, 150, 77, 64, True),
+    (8, 12, 197, 197, 80, False), (8, 8, 77, 77, 80, True), (8, 12, 197, 197, 128, False),
+    (4, 8, 77, 77, 128, True), (2, 4, 300, 1024, 128, False),
+]
 # The forward kernels' times before the bf16 tensor-core path, when every
 # dtype ran scalar fp32 FMAs (this script's time phases, CUDA events, as
 # PERF.md records them); printed beside each new time with the speedup.
@@ -113,6 +124,10 @@ SCALAR_FUSED_MS = {
     ("float32", (8, 8, 77, 64, True)): 0.0248, ("float32", (32, 8, 77, 64, True)): 0.0467,
     ("bfloat16", (64, 12, 197, 64, False)): 0.8209, ("bfloat16", (64, 8, 77, 64, True)): 0.0725,
 }
+# The backward's times when bf16 ran the scalar kernels too (this script's
+# time phases, CUDA events, as PERF.md records them).
+SCALAR_BWD_MS = {("bfloat16", (64, 12, 197, 64, False)): 2.7512,
+                 ("bfloat16", (64, 8, 77, 64, True)): 0.2600}
 SCALAR_FLASH_MS = {(32, 16, 577, 577, 64, False, "bfloat16"): 2.8691,
                    (32, 16, 577, 577, 64, False, "float32"): 2.9051,
                    (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935}
@@ -515,41 +530,60 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
             * scale, dv)
 
 
+def bwd_cases():
+    """Every backward case as (B, H, Lq, Lk, D, causal)."""
+    return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES] + BWD_CASES
+
+
+def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
+    """The backward kernel against its plain version and the float64 version
+    at one case, with seeded inputs (or the given q, k, v). Prints one line;
+    returns (max_abs_err vs plain, ok)."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
+        fused_attention_bwd, fused_attention_bwd_reference, fused_attention_fwd,
+    )
+
+    name = str(dtype).split(".")[-1]
+    q, k, v = qkv or _qkv(b, h, lq, d, dtype, seed=seed, lk=lk)
+    do = _qkv(b, h, lq, d, dtype, seed=1000 + seed)[0]
+    scale = d ** -0.5
+    o = fused_attention_fwd(q, k, v, scale, causal)
+    got = fused_attention_bwd(q, k, v, o, do, scale, causal)
+    want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+    exact = _attention_bwd_fp64(q, k, v, o, do, scale, causal)
+    torch.cuda.synchronize()
+    largest = max(w.float().abs().max().item() for w in want)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    err64 = max((g.double() - e).abs().max().item() for g, e in zip(got, exact))
+    ok = (all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
+          and max(err, err64) <= BWD_REL_TOL[name] * largest
+          and all(bool(torch.isfinite(g.float()).all()) for g in got))
+    print(f"kernel fused_attention_bwd {name} [{b},{h},{lq},{d}] x {lk} keys causal={causal}: "
+          f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64, largest |grad| "
+          f"{largest:.3e} (tol {BWD_REL_TOL[name]:g} x largest) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return err, ok
+
+
 def phase_kernels_bwd() -> dict:
     """Backward kernel vs its plain version (and float64) on the card;
     returns {dtype: max_abs_err vs plain}."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
-        fused_attention, fused_attention_bwd, fused_attention_bwd_reference,
-        fused_attention_fwd, fused_attention_reference,
+        fused_attention, fused_attention_reference,
     )
 
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TRAIN_CASES):
-            q, k, v = _qkv(b, h, l, d, dtype, seed=i)
-            do = _qkv(b, h, l, d, dtype, seed=1000 + i)[0]
-            scale = d ** -0.5
-            o = fused_attention_fwd(q, k, v, scale, causal)
-            got = fused_attention_bwd(q, k, v, o, do, scale, causal)
-            want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
-            exact = _attention_bwd_fp64(q, k, v, o, do, scale, causal)
-            torch.cuda.synchronize()
-            largest = max(w.float().abs().max().item() for w in want)
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            err64 = max((g.double() - e).abs().max().item() for g, e in zip(got, exact))
+        for i, (b, h, lq, lk, d, causal) in enumerate(bwd_cases()):
+            err, ok = check_bwd_case(b, h, lq, lk, d, causal, dtype, seed=i)
             worst[name] = max(worst.get(name, 0.0), err)
-            ok = (all(g.dtype == dtype and g.shape == w.shape for g, w in zip(got, want))
-                  and max(err, err64) <= BWD_REL_TOL[name] * largest
-                  and all(bool(torch.isfinite(g.float()).all()) for g in got))
-            print(f"kernel fused_attention_bwd {name} [{b},{h},{l},{d}] causal={causal}: "
-                  f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64, largest |grad| "
-                  f"{largest:.3e} (tol {BWD_REL_TOL[name]:g} x largest) "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
             check(ok, f"fused_attention_bwd disagrees with its plain version at "
-                      f"{name} [{b},{h},{l},{d}] causal={causal}: {err:.3e} / {err64:.3e}")
+                      f"{name} [{b},{h},{lq},{d}] x {lk} keys causal={causal}: {err:.3e}")
     # the autograd Function against autograd through the plain forward, fp32
     for i, (b, h, l, d, causal) in enumerate(TRAIN_CASES):
         q, k, v = (x.requires_grad_() for x in _qkv(b, h, l, d, torch.float32, seed=50 + i))
@@ -901,10 +935,12 @@ def phase_bwd_times(dtype_name: str) -> dict:
         bound, by = attention_bwd_bound(b, h, l, d, causal, dtype_name)
         rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                           bound_ms=bound, bound_by=by)
+        scalar = SCALAR_BWD_MS.get((dtype_name, (b, h, l, d, causal)))
         print(f"time fused_attention_bwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd minus fwd {lib:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound"
-              f" [{CARD}]", flush=True)
+              f"{'' if scalar is None else '; ' + _beside_scalar(scalar, ms)} [{CARD}]",
+              flush=True)
     return rows
 
 

@@ -7,9 +7,11 @@ Builds the kernels (printing ptxas's registers and spills for each), holds
 both forward kernels against their plain versions and the float64 versions
 at every ``chip_smoke.KERNEL_CASES`` / ``FLASH_CASES`` shape in bfloat16 and
 float32, then in bfloat16 at head dims that are not multiples of 8 or of 16
-and with bases 2 bytes off a 16-byte boundary, and times the training
-shapes. Unlike ``chip_smoke.py`` it reports every case before it fails, and
-it runs no model. Exits non-zero if any case disagrees.
+and with bases 2 bytes off a 16-byte boundary; the same for the backward
+kernel (``chip_smoke.bwd_cases()``, Lq != Lk among them). Then it times the
+training shapes, the backward's bf16 times beside the scalar kernels' it
+replaced. Unlike ``chip_smoke.py`` it reports every case before it fails,
+and it runs no model. Exits non-zero if any case disagrees.
 """
 
 from __future__ import annotations
@@ -70,6 +72,19 @@ def main() -> None:
         err = (fn(q, k, v, 0.125, True).float() - ref(q, k, v, 0.125, True).float()).abs().max()
         bad += err.item() > cs.TOL["bfloat16"]
         print(f"{kind} bfloat16 bases 2 bytes off 16: {err.item():.3e} vs plain", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, case in enumerate(cs.bwd_cases()):
+            bad += not cs.check_bwd_case(*case, dtype, seed=i)[1]
+    for d in ODD_HEAD_DIMS + (80, 128):
+        for causal in (False, True):
+            bad += not cs.check_bwd_case(2, 3, 70, 90, d, causal, torch.bfloat16, seed=d)[1]
+    n = 2 * 3 * 70 * 64
+    flat = torch.randn(3 * n + 1, device="cuda").bfloat16()
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(2, 3, 70, 64) for i in range(3))
+    print("backward, bases 2 bytes off 16:", flush=True)
+    bad += not cs.check_bwd_case(2, 3, 70, 70, 64, True, torch.bfloat16, seed=7, qkv=(q, k, v))[1]
+    for dtype_name in ("bfloat16", "float32"):
+        cs.phase_bwd_times(dtype_name)
     for dtype_name in ("bfloat16", "float32"):
         for b, h, l, d, causal in TIMED:
             q, k, v = cs._qkv(b, h, l, d, getattr(torch, dtype_name), seed=100)

@@ -8,9 +8,11 @@ Builds the ViT-B-16 serving engine (seeded random weights, fp32 compute,
 buckets 1/8/32), then for each bucket and tower profiles five engine calls
 with ``torch.profiler`` (CPU + CUDA activities) and reports, per call:
 the host-clock latency, the device busy time (union of kernel intervals),
-the device idle share, the attention kernels' share of device time (the
-fused and the flash kernels together, and the flash kernel alone) and the
-top kernels by device time. Then the same for three ViT-B-16 DINO-soft train
+the device idle share, the device operations (kernels and copies) per call,
+the attention kernels' share of device time (the fused and the flash
+kernels together, and the flash kernel alone), the top kernels by device
+time and the top host operators by their own host time (inflated by the
+profiler's overhead). Then the same for three ViT-B-16 DINO-soft train
 steps (bf16 compute, batch 64, seeded random batch), through the fused
 attention kernels and through the plain attention, and for three
 ViT-L-14-336 DINO-soft train steps (577 vision tokens, bf16, batch 32) through
@@ -76,13 +78,20 @@ def profile_calls(fn, arg, calls: int):
     flash = sum(v for k, v in by_name.items() if "flash_attention" in k)
     attn = flash + sum(v for k, v in by_name.items() if "fused_attention" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # host side: the operators that take the most of the host's own time
+    # (the profiler's overhead included), and how often each runs per call
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
     return {
         "latency_ms": wall_us / calls / 1e3,
         "device_busy_ms": busy / calls / 1e3,
         "idle_share": 1.0 - busy / wall_us,
+        "device_ops_per_call": len(intervals) / calls,
         "attention_share_of_device": attn / kernel_us,
         "flash_share_of_device": flash / kernel_us,
         "top_kernels_ms": {k: v / calls / 1e3 for k, v in top},
+        "top_host_ops": {e.key: {"self_ms": e.self_cpu_time_total / calls / 1e3,
+                                 "count": e.count / calls} for e in host},
     }
 
 
@@ -169,9 +178,12 @@ def main() -> None:
         r = profile_calls(train_step_fn(impl, model_name, remat), batch_of(n, size), TRAIN_STEPS)
         results["cells"][name] = r
         top = ", ".join(f"{k} {v:.3f}" for k, v in list(r["top_kernels_ms"].items())[:4])
+        host = ", ".join(f"{k} {v['self_ms']:.3f} ms x {v['count']:.0f}"
+                         for k, v in list(r["top_host_ops"].items())[:4])
         print(f"{name}: step {r['latency_ms']:.3f} ms, device busy {r['device_busy_ms']:.3f} ms, "
-              f"idle {r['idle_share']:.1%}, attention kernels {r['attention_share_of_device']:.1%} "
-              f"(flash {r['flash_share_of_device']:.1%}) of device; top: {top}", flush=True)
+              f"idle {r['idle_share']:.1%}, {r['device_ops_per_call']:.0f} device ops, attention "
+              f"kernels {r['attention_share_of_device']:.1%} (flash "
+              f"{r['flash_share_of_device']:.1%}) of device; top: {top}; host: {host}", flush=True)
     print(json.dumps(results), flush=True)
 
 

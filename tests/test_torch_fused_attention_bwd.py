@@ -122,32 +122,44 @@ def _needs_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
+def _bwd_error(q, k, v, do, causal):
+    """max |kernel - plain| over the three gradients, and the largest |grad|
+    of the three (the tolerance is relative to it: at L = 1, dq and dk are
+    rounding noise around 0)."""
+    scale = q.shape[-1] ** -0.5
+    o = fused_attention_fwd(q, k, v, scale, causal)
+    got = fused_attention_bwd(q, k, v, o, do, scale, causal)
+    want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        assert g_.dtype == q.dtype and g_.shape == w.shape
+    err = max((g_.float() - w.float()).abs().max().item() for g_, w in zip(got, want))
+    return err, max(w.float().abs().max().item() for w in want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-4), (torch.bfloat16, BF16_REL_TOL)])
-@pytest.mark.parametrize("shape,causal", [
-    ((8, 12, 197, 64), False), ((8, 8, 77, 64), True), ((3, 5, 23, 64), True),
-    ((1, 1, 1, 64), False), ((1, 2, 1024, 64), True), ((2, 3, 65, 40), True),
-    ((1, 2, 300, 256), False),
+@pytest.mark.parametrize("shape,lk,causal", [
+    ((8, 12, 197, 64), None, False), ((8, 8, 77, 64), None, True), ((3, 5, 23, 64), None, True),
+    ((1, 1, 1, 64), None, False), ((1, 1, 1, 64), None, True), ((1, 2, 1024, 64), None, True),
+    ((2, 3, 1024, 64), None, False), ((2, 3, 65, 40), None, True), ((1, 2, 300, 256), None, False),
+    # Lq != Lk: keys past Lq get zero gradients when causal (col > row)
+    *(((2, 3, lq, 64), lk, causal) for lq, lk in ((70, 45), (45, 130), (1, 9), (9, 1),
+                                                  (1024, 300), (300, 1024))
+      for causal in (False, True)),
 ])
-def test_cuda_backward_kernel_matches_plain_version(shape, causal, dtype, rel_tol):
+def test_cuda_backward_kernel_matches_plain_version(shape, lk, causal, dtype, rel_tol):
+    """shape is q's [B,H,Lq,D]; k and v have lk keys (None: Lq)."""
     _needs_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
-    q, k, v, do = [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(4)]
-    scale = shape[-1] ** -0.5
-    o = fused_attention_fwd(q, k, v, scale, causal)
+    b, h, lq, d = shape
+    q, k, v, do = [torch.randn(n, generator=g).to("cuda", dtype)
+                   for n in (shape, (b, h, lk or lq, d), (b, h, lk or lq, d), shape)]
     before = fused_attention_bwd.launches
-    got = fused_attention_bwd(q, k, v, o, do, scale, causal)
-    torch.cuda.synchronize()
+    err, largest = _bwd_error(q, k, v, do, causal)
     assert fused_attention_bwd.launches == before + 1
-    want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
-    # relative to the largest |grad| of the three: at L = 1, dq and dk are
-    # rounding noise around 0
-    largest = max(w.float().abs().max().item() for w in want)
-    for g_, w in zip(got, want):
-        assert g_.dtype == dtype and g_.shape == w.shape
-        err = (g_.float() - w.float()).abs().max().item()
-        assert err <= rel_tol * largest, err
+    assert err <= rel_tol * largest, (err, largest)
 
 
 @pytest.mark.cuda
@@ -181,3 +193,66 @@ def test_cuda_backward_wrapper_rejects_bad_inputs():
         fused_attention_bwd(q, q, q, q[:, :, :8].contiguous(), q, 0.125)
     with pytest.raises(ValueError, match="CUDA device"):
         fused_attention_bwd(q, q, q, q, q.cpu(), 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_bf16_backward_every_head_dim(causal):
+    """Every head_dim the gate admits (1-256) in bf16: up to 128 the
+    tensor-core kernels (d % 8 != 0 takes element copies; d pads to 32, 64 or
+    128), past it the scalar kernels."""
+    _needs_cuda()
+    g = torch.Generator().manual_seed(1)
+    for d in range(1, 257):
+        q, do = (torch.randn(1, 2, 70, d, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(1, 2, 45, d, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
+        err, largest = _bwd_error(q, k, v, do, causal)
+        assert err <= BF16_REL_TOL * largest, (d, err, largest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(1, 1), (1, 9), (70, 70)])
+def test_cuda_bf16_backward_unaligned_and_strided_inputs(lq, lk):
+    """Bases 2 bytes off a 16-byte boundary (element copies) and transposed
+    views made contiguous give the plain version's gradients."""
+    _needs_cuda()
+    g = torch.Generator().manual_seed(2)
+    sizes = (2 * 3 * lq * 64, 2 * 3 * lk * 64, 2 * 3 * lk * 64, 2 * 3 * lq * 64)
+    flat = torch.randn(sum(sizes) + 1, generator=g).to("cuda", torch.bfloat16)
+    unaligned = [t.view(2, 3, -1, 64) for t in flat[1:].split(sizes)]
+    assert unaligned[0].data_ptr() % 16 != 0 and unaligned[0].is_contiguous()
+    strided = [torch.randn(2, 3, 64, n, generator=g).to("cuda", torch.bfloat16)
+               .transpose(2, 3).contiguous() for n in (lq, lk, lk, lq)]
+    for causal in (False, True):
+        for q, k, v, do in (unaligned, strided):
+            err, largest = _bwd_error(q, k, v, do, causal)
+            assert err <= BF16_REL_TOL * largest, (causal, err, largest)
+
+
+def _kernels_launched(fn) -> set:
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.cuda
+def test_cuda_backward_routes_by_dtype_and_head_dim():
+    """bf16 at head dim 64 runs the two tensor-core kernels; fp32, and bf16
+    at head dim 256, the two scalar kernels."""
+    _needs_cuda()
+    mma = ("fused_attention_bwd_dq_mma_kernel", "fused_attention_bwd_dkdv_mma_kernel")
+    scalar = ("fused_attention_bwd_dq_kernel<", "fused_attention_bwd_dkdv_kernel<")
+    for dtype, d, want, not_want in ((torch.bfloat16, 64, mma, scalar),
+                                     (torch.float32, 64, scalar, mma),
+                                     (torch.bfloat16, 256, scalar, mma)):
+        x = torch.randn(2, 3, 77, d, device="cuda").to(dtype)
+        o = fused_attention_fwd(x, x, x, d ** -0.5, True)
+        names = _kernels_launched(lambda: fused_attention_bwd(x, x, x, o, x, d ** -0.5, True))
+        for kernel in want:
+            assert any(kernel in n for n in names), (dtype, d, kernel, names)
+        for kernel in not_want:
+            assert not any(kernel in n for n in names), (dtype, d, kernel, names)

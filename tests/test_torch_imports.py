@@ -20,7 +20,8 @@ NOT_AT_MODULE_LEVEL = ("regex", "PIL", "triton")
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "profile_torch_serving.py",
                                       REPO / "scripts" / "step_noise_floor.py",
-                                      REPO / "scripts" / "probe_attention_kernels.py"]
+                                      REPO / "scripts" / "probe_attention_kernels.py",
+                                      REPO / "scripts" / "tune_attention_bwd.py"]
 
 
 def _imported(node):
