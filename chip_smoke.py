@@ -9,22 +9,27 @@ Phases, each of which exits non-zero on failure:
 2. build   — compiles every CUDA kernel of the serving and training paths
    from ``csrc/``, one nvcc per source, all started together.
 3. kernels — the forward kernel against its plain PyTorch version on the
-   card, at the serving shapes and edge cases, in float32 and bfloat16.
+   card, at the serving shapes and edge cases, in float32 (the split-TF32
+   tensor-core kernel up to head dim 128) and bfloat16.
 3b. kernels-bwd — the backward kernel against its plain version and a
    float64 version with the same rounding points, at the same cases plus
    the training shapes, Lq != Lk and head dims 80 and 128, in float32 and
-   bfloat16 (bf16 up to head dim 128 runs the tensor-core kernels); the
-   autograd Function against autograd through the plain forward.
+   bfloat16 (both dtypes run tensor-core kernels up to head dim 128, fp32
+   through split-TF32 products); the autograd Function against autograd
+   through the plain forward.
 4. serve   — ViT-B-16 at full width on a seeded random init, through
    ``create_engine`` and the HTTP server: image, text and similarity
    requests, ``/health`` and concurrent HTTP requests that the batcher
    coalesces. Checks unit-norm features, the kernel's launch count (12 per
-   tower call: one per attention layer) and agreement with the same weights
-   run through the plain attention path (cosine >= 0.9999 in fp32).
+   tower call: one per attention layer), agreement with the same weights
+   run through the plain attention path (cosine >= 0.9999 in fp32), and by
+   the profiler that one served fp32 image call ran the split-TF32 kernel
+   and no scalar fp32 kernel.
 5. times   — each kernel, its plain version and the library yardstick
    (``scaled_dot_product_attention``, which the port never calls) timed with
-   CUDA events at the serving shapes, beside the kernel's bound and the time
-   of the scalar kernel that bf16 ran through before its tensor-core path
+   CUDA events at the serving shapes, beside the kernel's bound (fp32: on
+   TF32 tensor cores, three products a FLOP, with the CUDA-core bound beside
+   it) and the time of the scalar kernel each tensor-core route replaced
    (where recorded), with the speedup; each tower's
    time per call with the kernel and with the plain attention (CUDA events
    behind a queued sleep: device time as long as the host launches faster
@@ -34,8 +39,11 @@ Phases, each of which exits non-zero on failure:
    fused kernels (24 + 24 launches per step), one step's loss and gradients
    against plain attention (bf16: all tensors together, beside the same
    comparison between the kernels' plain versions and plain attention), and
-   the training CLI, whose checkpoint serves; the backward kernel's times
-   (bf16 beside the scalar kernels' it ran through before, with the
+   the training CLI, whose checkpoint serves; the fp32 step (what
+   ``--precision amp`` runs): its launches, the profiler's check that it ran
+   the split-TF32 kernels and no scalar fp32 kernel, and its time and peak
+   memory through the kernels and through plain attention; the backward
+   kernel's times (each beside the scalar kernels' it replaced, with the
    speedup).
 7. kernels-flash — the flash forward kernel against its plain version and a
    float64 version with the same rounding points, from 512 to 4097 tokens,
@@ -68,9 +76,13 @@ import threading
 import time
 import urllib.request
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): plain fp32 FMA rate,
-# bf16 tensor-core rate, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# published H100 SXM peaks (NVIDIA data sheet, dense): the tensor-core rates
+# (TF32 for fp32, which the kernels form from three split TF32 products to
+# keep fp32 accuracy, so one fp32 FLOP takes three), the plain fp32 FMA rate
+# outside the tensor cores (printed beside fp32 bounds), HBM3 bandwidth
+PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+PRODUCTS_PER_FLOP = {"float32": 3, "bfloat16": 1}
+CUDA_CORE_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # max |kernel - plain| compared in fp32, and |kernel - float64 version|:
 # fp32 differs by summation order only; bf16 by one output ulp (7.8e-3
@@ -107,6 +119,9 @@ BWD_SRC = "refining_clip_via_dinov2_representations_torch/csrc/fused_attention_b
 BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the training shapes: image [64,12,197,64], causal text [64,8,77,64]
 TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
+# backward times: the training shapes, and head dim 256, where both dtypes
+# keep the scalar kernels (off every registry model)
+BWD_TIMED = TRAIN_CASES + [(8, 4, 197, 256, False)]
 # backward only, (B, H, Lq, Lk, D, causal): Lq != Lk with and without the
 # causal mask, and head dims 80 and 128 (the widest the bf16 tensor-core
 # route takes; 256 in KERNEL_CASES takes the scalar kernels)
@@ -115,19 +130,28 @@ BWD_CASES = [
     (8, 12, 197, 197, 80, False), (8, 8, 77, 77, 80, True), (8, 12, 197, 197, 128, False),
     (4, 8, 77, 77, 128, True), (2, 4, 300, 1024, 128, False),
 ]
-# The forward kernels' times before the bf16 tensor-core path, when every
-# dtype ran scalar fp32 FMAs (this script's time phases, CUDA events, as
-# PERF.md records them); printed beside each new time with the speedup.
+# The fused kernels' times on the scalar (CUDA-core) kernels each tensor-core
+# route replaced (this script's time phases, CUDA events, as PERF.md records
+# them); printed beside each new time with the speedup.
 SCALAR_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 SCALAR_FUSED_MS = {
-    ("float32", (8, 12, 197, 64, False)): 0.0992, ("float32", (32, 12, 197, 64, False)): 0.4167,
-    ("float32", (8, 8, 77, 64, True)): 0.0248, ("float32", (32, 8, 77, 64, True)): 0.0467,
+    ("float32", (8, 12, 197, 64, False)): 0.0998, ("float32", (32, 12, 197, 64, False)): 0.4184,
+    ("float32", (8, 8, 77, 64, True)): 0.0245, ("float32", (32, 8, 77, 64, True)): 0.0472,
     ("bfloat16", (64, 12, 197, 64, False)): 0.8209, ("bfloat16", (64, 8, 77, 64, True)): 0.0725,
 }
-# The backward's times when bf16 ran the scalar kernels too (this script's
-# time phases, CUDA events, as PERF.md records them).
 SCALAR_BWD_MS = {("bfloat16", (64, 12, 197, 64, False)): 2.7512,
-                 ("bfloat16", (64, 8, 77, 64, True)): 0.2600}
+                 ("bfloat16", (64, 8, 77, 64, True)): 0.2600,
+                 ("float32", (64, 12, 197, 64, False)): 2.7458,
+                 ("float32", (64, 8, 77, 64, True)): 0.2661}
+# The CUDA kernels of the fp32 route (tensor cores, split TF32) and the
+# scalar fp32 kernels they replace at head dim <= 128, as torch.profiler
+# names them.
+TF32_KERNELS = {"fwd": "fused_attention_fwd_tf32_kernel",
+                "dq": "fused_attention_bwd_dq_tf32_kernel",
+                "dkdv": "fused_attention_bwd_dkdv_tf32_kernel"}
+SCALAR_F32_KERNELS = {"fwd": "fused_attention_fwd_kernel<float",
+                      "dq": "fused_attention_bwd_dq_kernel<float",
+                      "dkdv": "fused_attention_bwd_dkdv_kernel<float"}
 SCALAR_FLASH_MS = {(32, 16, 577, 577, 64, False, "bfloat16"): 2.8691,
                    (32, 16, 577, 577, 64, False, "float32"): 2.9051,
                    (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935}
@@ -208,11 +232,20 @@ def phase_build() -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_attention_fwd_mma_kernel<64>`` from its mangled name."""
-    base = re.search(r"([a-z_]+_kernel)I", mangled)
+    """``flash_attention_fwd_mma_kernel<64>`` from its mangled name: the
+    identifier ending in ``_kernel`` whose length prefix matches (a kernel in
+    an anonymous namespace follows a hashed namespace name)."""
+    base = mangled
+    for m in re.finditer(r"_kernelI", mangled):
+        end = m.start() + len("_kernel")
+        starts = [end - n for n in range(len("_kernel") + 1, end)
+                  if mangled[end - n].isalpha() and mangled[:end - n].endswith(str(n))]
+        if starts:
+            base = mangled[starts[0]:end]
+            break
     args = ["float"] if "IfLi" in mangled else ["bf16"] if "I13__nv_bfloat16Li" in mangled else []
     args += re.findall(r"Li(\d+)E", mangled)
-    return f"{base.group(1) if base else mangled}<{','.join(args)}>"
+    return f"{base}<{','.join(args)}>"
 
 
 def _qkv(b, h, l, d, dtype, seed, lk=None):
@@ -399,7 +432,35 @@ def phase_serve():
           f"text min {cos_txt.min():.8f} (need >= {MIN_COSINE})", flush=True)
     check(cos_img.min() >= MIN_COSINE and cos_txt.min() >= MIN_COSINE,
           "engine features disagree with the plain-attention run")
+    check_fp32_route(lambda: engine.encode_image(pixels), ("fwd",), "one served fp32 image call")
     return engine, plain, launches
+
+
+def _kernels_launched(fn) -> set:
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler.
+    ``fn`` runs once before the profiled call: a kernel's first launch loads
+    its module, and the profiler can miss the kernels of that launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def check_fp32_route(fn, parts, what: str) -> None:
+    """``fn`` ran the split-TF32 kernels named by ``parts`` (keys of
+    ``TF32_KERNELS``) and none of the scalar fp32 kernels, by the profiler."""
+    names = _kernels_launched(fn)
+    ran = {TF32_KERNELS[p]: any(TF32_KERNELS[p] in n for n in names) for p in parts}
+    scalar = sorted(n for n in names if any(k in n for k in SCALAR_F32_KERNELS.values()))
+    print(f"route {what}: tensor-core fp32 kernels ran {ran}; scalar fp32 kernels "
+          f"{scalar or 'none'}", flush=True)
+    check(all(ran.values()) and not scalar,
+          f"{what} did not run the split-TF32 kernels alone: {sorted(names)}")
 
 
 def time_ms(fn, iters: int = 50) -> float:
@@ -426,18 +487,33 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, h, l, d, causal, dtype_name, lk=None):
-    """Least time on an H100 for the attention forward: the larger of its
-    bytes (q, k, v read once, o written once) over the memory rate and its
-    matmul FLOPs (QK^T and PV over the live score entries: about half when
-    causal) over the peak rate for the input type. lk = l unless given."""
+def _bound(flops: float, nbytes: float, dtype_name: str):
+    """(ms, what bounds it): the larger of the bytes over the memory rate and
+    the FLOPs over the tensor-core rate for the type, an fp32 FLOP taking
+    three TF32 products (split TF32 keeps fp32 accuracy)."""
+    t_ops = flops * PRODUCTS_PER_FLOP[dtype_name] / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def attention_work(b, h, l, d, causal, dtype_name, lk=None):
+    """(FLOPs, bytes) of the attention forward: QK^T and PV over the live
+    score entries (about half when causal); q, k, v read once, o written
+    once. lk = l unless given."""
     elem = 4 if dtype_name == "float32" else 2
     lk = lk or l
     pairs = sum(min(i + 1, lk) for i in range(l)) if causal else l * lk
-    flops = 4.0 * b * h * pairs * d
-    nbytes = 2.0 * b * h * (l + lk) * d * elem
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    return 4.0 * b * h * pairs * d, 2.0 * b * h * (l + lk) * d * elem
+
+
+def _fp32_cuda_core(work, dtype_name: str) -> str:
+    """For fp32, the least time with its FLOPs on CUDA cores (67 TFLOP/s),
+    printed beside the bound."""
+    if dtype_name != "float32":
+        return ""
+    flops, nbytes = work
+    ms = max(flops / CUDA_CORE_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    return f", cuda-core bound {ms:.4f} ms"
 
 
 def _beside_scalar(before, ms: float) -> str:
@@ -464,12 +540,14 @@ def phase_kernel_times(dtype_name: str) -> dict:
         plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale))
-        bound, by = attention_bound(b, h, l, d, causal, dtype_name)
+        work = attention_work(b, h, l, d, causal, dtype_name)
+        bound, by = _bound(*work, dtype_name)
         rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                           bound_ms=bound, bound_by=by)
         print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound; "
+              f"{bound:.4f} ms ({by}){_fp32_cuda_core(work, dtype_name)}, kernel at "
+              f"{bound / ms:.1%} of bound; "
               f"{_beside_scalar(SCALAR_FUSED_MS.get((dtype_name, (b, h, l, d, causal))), ms)}"
               f" [{CARD}]", flush=True)
     return rows
@@ -833,7 +911,51 @@ def phase_train_step():
               f" [{CARD}]", flush=True)
 
     _compare_step("fp32", batch)
+    phase_fp32_step(batch)
     return fwd, bwd
+
+
+def phase_fp32_step(batch) -> None:
+    """The ViT-B-16 DINO-soft step in fp32 compute (what ``--precision amp``,
+    the CLI's default, runs): launches over three steps, the kernels one step
+    runs by the profiler (the split-TF32 ones, no scalar fp32 kernel), then
+    the step's time and peak memory through the kernels and through plain
+    attention."""
+    import torch
+
+    model, head, state, train_step, _ = _dino_setup("fp32", "auto")
+    steps = 3
+    _zero_counts()
+    for _ in range(steps):
+        state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    print(f"train-step {MODEL} fp32: launches {counts} over {steps} steps (expected fused fwd "
+          f"and bwd {24 * steps} each)", flush=True)
+    check(counts["fused_attention_fwd"] == 24 * steps
+          and counts["fused_attention_bwd"] == 24 * steps, f"fp32 step launches {counts}")
+    check_fp32_route(lambda: train_step(state, batch), ("fwd", "dq", "dkdv"),
+                     "one fp32 train step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: train_step(state, batch), iters=5)
+    host_ms = host_step_ms(lambda: train_step(state, batch))
+    peak = torch.cuda.max_memory_allocated()
+    del model, head, state, train_step
+    torch.cuda.empty_cache()
+    _, _, p_state, p_step, _ = _dino_setup("fp32", "xla")
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = time_ms(lambda: p_step(p_state, batch), iters=5)
+    plain_host_ms = host_step_ms(lambda: p_step(p_state, batch))
+    plain_peak = torch.cuda.max_memory_allocated()
+    del p_state, p_step
+    torch.cuda.empty_cache()
+    print(f"time train step {MODEL} fp32 batch {TRAIN_BATCH}: device {step_ms:.3f} ms with the "
+          f"kernels, {plain_ms:.3f} ms with plain attention (CUDA events); host clock "
+          f"{host_ms:.3f} ms ({TRAIN_BATCH / host_ms * 1e3:.1f} samples/s) with the kernels, "
+          f"{plain_host_ms:.3f} ms ({TRAIN_BATCH / plain_host_ms * 1e3:.1f} samples/s) plain; "
+          f"peak memory {peak / 2**30:.3f} GiB (plain {plain_peak / 2**30:.3f} GiB) [{CARD}]",
+          flush=True)
 
 
 def phase_train_cli() -> None:
@@ -890,21 +1012,18 @@ def phase_train_cli() -> None:
         shutil.rmtree(logs, ignore_errors=True)
 
 
-def attention_bwd_bound(b, h, l, d, causal, dtype_name):
-    """Least time on an H100 for the attention backward: 8 L D elements per
-    head moved (q, k, v, o, dO in; dq, dk, dv out) and 10 pairs D FLOPs per
-    head (S recomputed, dV, dP, dQ, dK) over the peak rate for the type."""
+def attention_bwd_work(b, h, l, d, causal, dtype_name):
+    """(FLOPs, bytes) of the attention backward: 10 pairs D FLOPs per head
+    (S recomputed, dV, dP, dQ, dK); 8 L D elements per head moved (q, k, v,
+    o, dO in; dq, dk, dv out)."""
     elem = 4 if dtype_name == "float32" else 2
     pairs = l * (l + 1) // 2 if causal else l * l
-    flops = 10.0 * b * h * pairs * d
-    nbytes = 8.0 * b * h * l * d * elem
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    return 10.0 * b * h * pairs * d, 8.0 * b * h * l * d * elem
 
 
 def phase_bwd_times(dtype_name: str) -> dict:
     """Backward kernel, its plain version and SDPA forward+backward minus
-    its forward (yardstick only) at the training shapes."""
+    its forward (yardstick only) at ``BWD_TIMED``."""
     import torch
     import torch.nn.functional as F
 
@@ -914,7 +1033,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in TRAIN_CASES:
+    for b, h, l, d, causal in BWD_TIMED:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -932,13 +1051,15 @@ def phase_bwd_times(dtype_name: str) -> dict:
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, scale=scale), iters=20)
         lib = time_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
-        bound, by = attention_bwd_bound(b, h, l, d, causal, dtype_name)
+        work = attention_bwd_work(b, h, l, d, causal, dtype_name)
+        bound, by = _bound(*work, dtype_name)
         rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                           bound_ms=bound, bound_by=by)
         scalar = SCALAR_BWD_MS.get((dtype_name, (b, h, l, d, causal)))
         print(f"time fused_attention_bwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd minus fwd {lib:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound"
+              f"bound {bound:.4f} ms ({by}){_fp32_cuda_core(work, dtype_name)}, kernel at "
+              f"{bound / ms:.1%} of bound"
               f"{'' if scalar is None else '; ' + _beside_scalar(scalar, ms)} [{CARD}]",
               flush=True)
     return rows
@@ -1201,12 +1322,14 @@ def phase_flash_times() -> dict:
         plain = time_ms(lambda: flash_attention_reference(q, k, v, scale, causal), iters=20)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale), iters=20)
-        bound, by = attention_bound(b, h, lq, d, causal, dtype_name, lk=lk)
+        work = attention_work(b, h, lq, d, causal, dtype_name, lk=lk)
+        bound, by = _bound(*work, dtype_name)
         rows[(b, h, lq, lk, d, causal, dtype_name)] = dict(
             ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
         print(f"time flash_attention_fwd {dtype_name} [{b},{h},{lq},{d}] causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), kernel at {bound / ms:.1%} of bound; "
+              f"{bound:.4f} ms ({by}){_fp32_cuda_core(work, dtype_name)}, kernel at "
+              f"{bound / ms:.1%} of bound; "
               f"{_beside_scalar(SCALAR_FLASH_MS.get((b, h, lq, lk, d, causal, dtype_name)), ms)} "
               f"[{CARD}]", flush=True)
     return rows
@@ -1230,7 +1353,7 @@ def main() -> None:
     check(train_fwd > 0 and train_bwd > 0, "the train steps launched no kernel")
     phase_train_cli()
     bwd_rows = phase_bwd_times("bfloat16")
-    phase_bwd_times("float32")
+    bwd_rows32 = phase_bwd_times("float32")
     worst_flash = phase_kernels_flash()
     long_launches = phase_train_long()
     phase_train_cli_long()
@@ -1239,6 +1362,7 @@ def main() -> None:
     t = rows[MAIN_PATH_CASE]
     t16 = rows_bf16[TRAIN_CASES[0]]  # the training image call, bf16
     tb = bwd_rows[TRAIN_CASES[0]]
+    tb32 = bwd_rows32[TRAIN_CASES[0]]
     tf = flash_rows[FLASH_TIMED[0]]
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
@@ -1253,6 +1377,10 @@ def main() -> None:
         "replaces": BWD_TPU, "launches": train_bwd, "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
+        "fp32_shape": list(TRAIN_CASES[0][:4]), "fp32_max_abs_err": worst_bwd["float32"],
+        "fp32_ms": tb32["ms"], "fp32_plain_ms": tb32["plain_ms"],
+        "fp32_bound_ms": tb32["bound_ms"], "fp32_bound_by": tb32["bound_by"],
+        "fp32_library_ms": tb32["library_ms"],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": long_launches,

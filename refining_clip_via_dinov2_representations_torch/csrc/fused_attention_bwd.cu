@@ -15,12 +15,14 @@
 //        sums; every output is stored in T.
 // Inputs are contiguous [B*H, L, D] tensors.
 //
-// What bounds it on an H100 (published SXM peaks: 67 TFLOP/s fp32 FMA,
-// 989 TFLOP/s bf16, 3.35 TB/s; not measured). The work is 10 * pairs * D
-// FLOPs per head (S recomputed, dV, dP, dQ, dK) and 8 * L * D elements moved
-// per head (q, k, v, o, dO in; dq, dk, dv out):
+// What bounds it on an H100 (published SXM peaks: 495 TFLOP/s TF32 and
+// 989 TFLOP/s bf16 on tensor cores, 67 TFLOP/s fp32 FMA, 3.35 TB/s; not
+// measured). The work is 10 * pairs * D FLOPs per head (S recomputed, dV,
+// dP, dQ, dK) and 8 * L * D elements moved per head (q, k, v, o, dO in; dq,
+// dk, dv out); an fp32 FLOP takes three TF32 products (split TF32, below):
 //   * training image call [64,12,197,64]: 19.08 GFLOP; in fp32 310 MB moved,
-//     operations-bound, ~285 us; in bf16 155 MB, bytes-bound, ~46 us.
+//     operations-bound, ~116 us (3 x 19.08 GFLOP at 495 TFLOP/s; ~285 us on
+//     fp32 FMAs); in bf16 155 MB, bytes-bound, ~46 us.
 //   * training text call [64,8,77,64] causal: 0.98 GFLOP; in fp32 81 MB,
 //     bytes-bound, ~24 us; in bf16 40 MB, bytes-bound, ~12 us.
 // Two kernels a call, no atomics, so the result does not depend on launch
@@ -64,11 +66,40 @@
 //   warp of four; exact expf and an fp32 division on every score; mma.sync
 //   instead of wgmma; at 128 registers (four blocks an SM) ptxas spills.
 //
-// float32 (fp32 stays within 1e-4 of the plain version: no TF32), and bf16
-// with head_dim > 128 (its dK and dV accumulators alone would take 256
-// registers a thread on the tensor-core route): the scalar kernels of the
-// first port, `fused_attention_bwd_dq_kernel` and
-// `fused_attention_bwd_dkdv_kernel`.
+// float32 with head_dim <= 128 (training at --precision amp or fp32):
+// tensor cores too, `fused_attention_bwd_dq_tf32_kernel` and
+// `fused_attention_bwd_dkdv_tf32_kernel`, the same design as the bf16 pair
+// (blocks, passes, chunks, masks, statistics, no atomics) on the fp32
+// building blocks of attention_tf32.cuh: fp32 tiles in rows of DP + 4
+// floats, 32-key (dQ) and 32-query (dK/dV) tiles in the cp.async ring, and
+// every product from split-TF32 operands, hi + lo, accumulated in fp32 from
+// three mma.sync m16n8k8 TF32 products, which keeps fp32 accuracy (within
+// 1e-4 of the largest |grad|, like the scalar kernels) whatever
+// torch.backends.cuda.matmul.allow_tf32 says. `tile_scores_f32` forms S
+// (and dP) exactly as the fp32 forward does, in the same k order and key
+// tiles, and the statistics pass is the forward's online pass, so P is the
+// forward's function. The products that take an accumulator as A (dS K,
+// P^T dO, dS^T Q) read it in a permuted k order, with the B tile's rows read
+// in the same order, instead of moving values between lanes. The dQ kernel
+// keeps Q's and dO's hi and lo fragments in registers up to DP = 64 (two
+// blocks an SM); the dK/dV kernel reads its K and V fragments from shared
+// memory at each step. Up to DP = 64 every tile is split once where it lands
+// in shared memory, into a hi and a lo plane (the dK/dV kernel's streamed Q
+// and dO tiles then hold 16 rows, for shared memory), which ran faster than
+// splitting at every fragment read (scripts/tune_attention_bwd.py, PERF.md);
+// at DP = 128 the second planes do not fit, and fragments split on read.
+// Bound: the larger of 3 x FLOPs at 495 TFLOP/s and the bytes at 3.35 TB/s
+// (above). What still holds it back: three m16n8k8 products for each
+// product; S computed three times and dP twice, as in bf16; a barrier for
+// every 16 streamed queries in the dK/dV kernel; two blocks an SM (the dQ
+// kernel's register-held Q and dO fragments take 128 registers); mma.sync
+// instead of wgmma.
+//
+// float32 and bf16 with head_dim > 128 (no registry model has such heads;
+// the dK and dV accumulators alone would take 256 registers a thread on a
+// tensor-core route): the scalar kernels of the first port,
+// `fused_attention_bwd_dq_kernel` and `fused_attention_bwd_dkdv_kernel`, a
+// documented route by shape.
 //   1. dq: one block owns 32 query rows of one (batch, head). Two passes
 //      over 32-key tiles give each row's max m and sum l of the fp32 softmax
 //      (each lane sums its own keys, then one warp sum: the forward kernel's
@@ -91,6 +122,7 @@
 #include <stddef.h>
 
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 #include "fused_attention_common.cuh"
 
 namespace {
@@ -410,14 +442,6 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       q, k, v, dout, a.stats, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.bh, a.lq, a.lk,
       a.d, a.scale, a.causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const Args& a, cudaStream_t s) {
-  if (a.d <= 32) return launch<T, 32>(a, s);
-  if (a.d <= 64) return launch<T, 64>(a, s);
-  if (a.d <= 128) return launch<T, 128>(a, s);
-  return launch<T, 256>(a, s);
 }
 
 // ---- bf16 on tensor cores, head_dim <= 128 (see the note at the top) ----
@@ -792,6 +816,392 @@ cudaError_t dispatch_bf16(const Args& a, cudaStream_t s) {
   return launch<bf16, 256>(a, s);
 }
 
+// ---- fp32 on tensor cores, head_dim <= 128: split-TF32 products (see the note at the top) ----
+
+// blocks an SM, both kernels: with tiles split where they land (DP <= 64)
+// shared memory holds two, and the dQ kernel's Q and dO fragments (hi and
+// lo) take 128 registers; at DP = 128 the accumulators do. The dK/dV
+// kernel capped at 168 registers for three ran slower
+// (scripts/tune_attention_bwd.py).
+constexpr int kTf32BwdBlocks = 2;
+// the dQ kernel's Q and dO fragments held in registers, split once
+template <int DP>
+__host__ __device__ constexpr bool tf32_dq_regs() { return DP <= 64; }
+
+template <int DP>
+__global__ void __launch_bounds__(fa::kMmaThreads, kTf32BwdBlocks)
+    fused_attention_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                       const float* __restrict__ v, const float* __restrict__ o,
+                                       const float* __restrict__ dout, float* __restrict__ dq,
+                                       float* __restrict__ stats, int bh_total, int lq, int lk,
+                                       int d, float scale, int causal, int vec) {
+  constexpr int kRows = fa::kMmaRows;
+  constexpr int kTile = fa::kTf32Tile;
+  constexpr int kStride = fa::tf32_stride<DP>();
+  constexpr bool kRegs = tf32_dq_regs<DP>();
+  constexpr bool kPre = fa::tf32_bwd_presplit<DP>();
+  // a K or V tile's lo plane right after it (Q and dO, read once into
+  // registers or at DP = 128 split on read, have none)
+  constexpr int kLo = kPre ? kTile * kStride : 0;
+  constexpr int kPlane = kTile * kStride * (kPre ? 2 : 1);  // one K or V tile, both planes
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][kStride]
+  float* dos = qs + kRows * kStride;             // dO rows
+  float* kv = qs + 2 * kRows * kStride;         // two buffers of a K then a V tile
+
+  size_t bh;
+  int q0;
+  fa::mma_block_coords((lq + kRows - 1) / kRows, &bh, &q0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  q += bh * lq * d;
+  o += bh * lq * d;
+  dout += bh * lq * d;
+  dq += bh * lq * d;
+  k += bh * lk * d;
+  v += bh * lk * d;
+
+  // when causal, keys past the block's last row are masked for all its rows
+  const int n_keys = causal ? min(lk, q0 + kRows) : lk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  // step i < n_tiles: pass 1, K tile i; step n_tiles + t: pass 2, K and V tile t
+  auto load_step = [&](int i) {
+    const int t = i < n_tiles ? i : i - n_tiles;
+    float* buf = kv + (i & 1) * 2 * kPlane;
+    fa::load_tile_f32<DP, kTile>(buf, k, t * kTile, lk, d, vec);
+    if (i >= n_tiles) fa::load_tile_f32<DP, kTile>(buf + kPlane, v, t * kTile, lk, d, vec);
+  };
+
+  fa::load_tile_f32<DP, kRows>(qs, q, q0, lq, d, vec);
+  fa::load_tile_f32<DP, kRows>(dos, dout, q0, lq, d, vec);
+  load_step(0);
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
+
+  const float* qw = qs + warp * 16 * kStride;  // the warp's 16 rows
+  const float* dw = dos + warp * 16 * kStride;
+  uint32_t qf[kRegs ? DP / 8 : 1][2][4], df[kRegs ? DP / 8 : 1][2][4];
+  if constexpr (kRegs) {
+    fa::load_a_frags<DP>(qf, qw, lane);
+    fa::load_a_frags<DP>(df, dw, lane);
+  }
+
+  // a lane's rows: row_lo (accumulator elements 0, 1) and row_lo + 8 (2, 3)
+  const int warp_row0 = q0 + warp * 16;
+  const int row_lo = warp_row0 + (lane >> 2);
+  const int col = (lane & 3) * 2;
+  const bool warp_live = warp_row0 < lq;
+  const int warp_keys = causal ? min(lk, warp_row0 + 16) : lk;
+
+  // delta = rowsum(dO * O) in fp32 from the stored O; the four lanes of a
+  // row sum every fourth column, then one quad sum
+  float delta[2] = {0.f, 0.f};
+  if (warp_live) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      if (row < lq)
+        for (int c = lane & 3; c < d; c += 4)
+          delta[h] = fmaf(dout[(size_t)row * d + c], o[(size_t)row * d + c], delta[h]);
+      delta[h] = fa::quad_sum(delta[h]);
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // Pass 1, one key tile: the fused forward's scores and running statistics,
+  // the same arithmetic (so m and l are the forward's; base 2, m in units of
+  // the scores times scale * log2(e)).
+  const float scale2 = scale * fa::kLog2e;
+  auto stats_step = [&](const float* ks, int j0, int n_live, auto partial) {
+    constexpr bool kPartial = decltype(partial)::value;
+    float s[kTile / 8][4];
+    fa::tile_scores_f32<DP, kTile, kRegs, kPartial, 0, kLo>(s, qf, qw, ks, n_live, lane);
+    const bool edge = j0 + kTile > lk || (causal && j0 + kTile - 1 > warp_row0);
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + col + (e & 1);
+        s[n][e] = edge && (j >= lk || (causal && j > row_lo + (e >> 1) * 8)) ? -INFINITY
+                                                                           : s[n][e] * scale2;
+      }
+    float alpha[2];
+    fa::online_softmax<kTile, kPartial>(s, m, l, alpha, n_live);
+  };
+
+  // Pass 2, a chunk of keys: S and dP, then p and ds in fp32, dQ += ds K.
+  // `ks` and `vs` point at the chunk's K and V rows.
+  auto grad_step = [&](const float* ks, const float* vs, int j0, int n_live, auto partial) {
+    constexpr bool kPartial = decltype(partial)::value;
+    float s[kChunk / 8][4], dp[kChunk / 8][4];
+    fa::tile_scores_f32<DP, kChunk, kRegs, kPartial, 0, kLo>(s, qf, qw, ks, n_live, lane);
+    fa::tile_scores_f32<DP, kChunk, kRegs, kPartial, 0, kLo>(dp, df, dw, vs, n_live, lane);
+    const bool edge = j0 + kChunk > lk || (causal && j0 + kChunk - 1 > warp_row0);
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + col + (e & 1);
+        const int h = e >> 1;
+        const bool dead = (kPartial && n * 8 >= n_live) ||
+                          (edge && (j >= lk || (causal && j > row_lo + h * 8)));
+        const float p = dead ? 0.f : exp2f(s[n][e] * scale2 - m[h]) * inv_l[h];
+        dp[n][e] = p * (dp[n][e] - delta[h]);
+      }
+    fa::tile_pv_f32<DP, kChunk, kPartial, kLo>(acc, dp, ks, n_live, lane);
+  };
+
+  for (int i = 0; i < 2 * n_tiles; ++i) {
+    fa::cp_async_wait<0>();
+    // step i has landed for every thread, and every warp is done with step
+    // i - 1, whose buffer now takes step i + 1 while step i is consumed
+    __syncthreads();
+    if (i + 1 < 2 * n_tiles) load_step(i + 1);
+    fa::cp_async_commit();
+    float* ks = kv + (i & 1) * 2 * kPlane;
+    if constexpr (kPre) {  // split step i's tiles once, then wait for them
+      fa::split_tile<DP, kTile, kLo>(ks);
+      if (i >= n_tiles) fa::split_tile<DP, kTile, kLo>(ks + kPlane);
+      __syncthreads();
+    }
+    if (!warp_live) continue;
+    if (i < n_tiles) {
+      const int j0 = i * kTile;
+      const int n_live = min(kTile, warp_keys - j0);
+      if (n_live == kTile) stats_step(ks, j0, n_live, fa::Flag<false>{});
+      else if (n_live > 0) stats_step(ks, j0, n_live, fa::Flag<true>{});
+      continue;
+    }
+    if (i == n_tiles) {  // pass 1 is over: the lanes' parts of l summed
+      inv_l[0] = 1.f / fa::quad_sum(l[0]);
+      inv_l[1] = 1.f / fa::quad_sum(l[1]);
+    }
+    const float* vs = ks + kPlane;
+#pragma unroll
+    for (int c = 0; c < kTile; c += kChunk) {
+      const int j0 = (i - n_tiles) * kTile + c;
+      const int n_live = min(kChunk, warp_keys - j0);
+      if (n_live == kChunk)
+        grad_step(ks + c * kStride, vs + c * kStride, j0, n_live, fa::Flag<false>{});
+      else if (n_live > 0)
+        grad_step(ks + c * kStride, vs + c * kStride, j0, n_live, fa::Flag<true>{});
+    }
+  }
+  if (!warp_live) return;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= scale;
+  fa::store_rows_f32<DP>(dq, acc, warp_row0, lq, d, vec, lane);
+  if ((lane & 3) == 0) {  // m in base-2 units and 1 / l, as the dK/dV kernel takes them
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      if (row >= lq) continue;
+      const size_t i = bh * lq + row;
+      stats[i] = m[h];
+      stats[(size_t)bh_total * lq + i] = inv_l[h];
+      stats[2 * (size_t)bh_total * lq + i] = delta[h];
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(fa::kMmaThreads, kTf32BwdBlocks)
+    fused_attention_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ dout,
+                                         const float* __restrict__ stats, float* __restrict__ dk,
+                                         float* __restrict__ dv, int bh_total, int lq, int lk,
+                                         int d, float scale, int causal, int vec) {
+  constexpr int kKeys = fa::kMmaRows;  // keys per block
+  constexpr int kStride = fa::tf32_stride<DP>();
+  constexpr bool kPre = fa::tf32_bwd_presplit<DP>();
+  // query rows per tile of the stream: half as many when tiles carry lo planes
+  constexpr int kQt = kPre ? fa::kTf32Tile / 2 : fa::kTf32Tile;
+  // lo planes: the block's K and V after both; a Q or dO tile's right after it
+  constexpr int kKLo = kPre ? 2 * kKeys * kStride : 0;
+  constexpr int kLo = kPre ? kQt * kStride : 0;
+  constexpr int kPlane = kQt * kStride * (kPre ? 2 : 1);  // one Q or dO tile, both planes
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [kKeys][kStride], the block's keys
+  float* vs = ks + kKeys * kStride;             // their V rows
+  float* qd = ks + 2 * kKeys * kStride * (kPre ? 2 : 1);  // two buffers of a Q then a dO tile
+  float* st = qd + 4 * kPlane;                  // two [3][kQt]: m, l, delta
+
+  size_t bh;
+  int j0;
+  fa::mma_block_coords((lk + kKeys - 1) / kKeys, &bh, &j0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  q += bh * lq * d;
+  dout += bh * lq * d;
+  k += bh * lk * d;
+  v += bh * lk * d;
+  dk += bh * lk * d;
+  dv += bh * lk * d;
+  stats += bh * lq;  // m, then l and delta each bh_total * lq further on
+
+  // when causal, queries before the block's first key see none of its keys
+  const int first = causal ? j0 : 0;
+  const int n_tiles = first < lq ? (lq - first + kQt - 1) / kQt : 0;
+  auto load_step = [&](int t) {  // query tile t: its Q and dO rows and statistics
+    const int q0 = first + t * kQt;
+    float* buf = qd + (t & 1) * 2 * kPlane;
+    fa::load_tile_f32<DP, kQt>(buf, q, q0, lq, d, vec);
+    fa::load_tile_f32<DP, kQt>(buf + kPlane, dout, q0, lq, d, vec);
+    float* sb = st + (t & 1) * 3 * kQt;
+    for (int i = threadIdx.x; i < 3 * kQt; i += fa::kMmaThreads) {
+      const int row = q0 + i % kQt;
+      const bool live = row < lq;
+      cp_async_4(sb + i, stats + (size_t)(i / kQt) * bh_total * lq + (live ? row : 0), live);
+    }
+  };
+
+  fa::load_tile_f32<DP, kKeys>(ks, k, j0, lk, d, vec);
+  fa::load_tile_f32<DP, kKeys>(vs, v, j0, lk, d, vec);
+  if (n_tiles > 0) load_step(0);
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (kPre) fa::split_tile<DP, 2 * kKeys, kKLo>(ks);  // the block's K and V, once
+
+  // the warp's 16 keys, read as A fragments from shared memory at each step
+  const float* kw = ks + warp * 16 * kStride;
+  const float* vw = vs + warp * 16 * kStride;
+  const uint32_t none[1][2][4] = {};
+
+  // a lane's keys: key_lo (accumulator elements 0, 1) and key_lo + 8 (2, 3);
+  // its query columns: n * 8 + col (elements 0, 2) and + 1 (1, 3)
+  const int warp_key0 = j0 + warp * 16;
+  const int key_lo = warp_key0 + (lane >> 2);
+  const int col = (lane & 3) * 2;
+  const bool warp_live = warp_key0 < lk;
+  float acc_dk[DP / 8][4], acc_dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+
+  // A chunk of queries from i0: S^T and dP^T, then P and dS in fp32, dV +=
+  // P^T dO, dK += dS^T Q. `qc`, `dc` and `sc` point at the chunk's Q rows,
+  // dO rows and statistics (m in base-2 units at sc[0], 1 / l at sc[kQt],
+  // delta at sc[2 kQt]).
+  const float scale2 = scale * fa::kLog2e;
+  auto step = [&](const float* qc, const float* dc, const float* sc, int i0, int n_live,
+                  auto partial) {
+    constexpr bool kPartial = decltype(partial)::value;
+    float s[kChunk / 8][4], dp[kChunk / 8][4];
+    fa::tile_scores_f32<DP, kChunk, false, kPartial, kKLo, kLo>(s, none, kw, qc, n_live, lane);
+    fa::tile_scores_f32<DP, kChunk, false, kPartial, kKLo, kLo>(dp, none, vw, dc, n_live, lane);
+    const bool edge = i0 + kChunk > lq || (causal && warp_key0 + 15 > i0);
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n) {
+      const int c = n * 8 + col;
+      const float2 mm = *reinterpret_cast<const float2*>(sc + c);
+      const float2 ll = *reinterpret_cast<const float2*>(sc + kQt + c);
+      const float2 dd = *reinterpret_cast<const float2*>(sc + 2 * kQt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + c + (e & 1);
+        const int key = key_lo + (e >> 1) * 8;
+        const bool dead = (kPartial && n * 8 >= n_live) ||
+                          (edge && (i >= lq || (causal && key > i)));
+        const float p = dead ? 0.f
+                             : exp2f(s[n][e] * scale2 - ((e & 1) ? mm.y : mm.x)) *
+                                   ((e & 1) ? ll.y : ll.x);
+        s[n][e] = p;
+        dp[n][e] = dead ? 0.f : p * (dp[n][e] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+    fa::tile_pv_f32<DP, kChunk, kPartial, kLo>(acc_dv, s, dc, n_live, lane);
+    fa::tile_pv_f32<DP, kChunk, kPartial, kLo>(acc_dk, dp, qc, n_live, lane);
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    fa::cp_async_wait<0>();
+    // tile t has landed for every thread, and every warp is done with tile
+    // t - 1, whose buffer now takes tile t + 1 while tile t is consumed
+    __syncthreads();
+    if (t + 1 < n_tiles) load_step(t + 1);
+    fa::cp_async_commit();
+    float* qt = qd + (t & 1) * 2 * kPlane;
+    float* dt = qt + kPlane;
+    if constexpr (kPre) {  // split tile t once, then wait for it
+      fa::split_tile<DP, kQt, kLo>(qt);
+      fa::split_tile<DP, kQt, kLo>(dt);
+      __syncthreads();
+    }
+    if (!warp_live) continue;
+    const int q0 = first + t * kQt;
+    const float* sb = st + (t & 1) * 3 * kQt;
+#pragma unroll
+    for (int c = 0; c < kQt; c += kChunk) {
+      const int i0 = q0 + c;
+      const int n_live = min(kChunk, lq - i0);
+      // past Lq, or (causal) every query before the warp's first key
+      if (n_live <= 0 || (causal && i0 + kChunk - 1 < warp_key0)) continue;
+      if (n_live == kChunk)
+        step(qt + c * kStride, dt + c * kStride, sb + c, i0, n_live, fa::Flag<false>{});
+      else
+        step(qt + c * kStride, dt + c * kStride, sb + c, i0, n_live, fa::Flag<true>{});
+    }
+  }
+  if (!warp_live) return;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] *= scale;
+  fa::store_rows_f32<DP>(dk, acc_dk, warp_key0, lk, d, vec, lane);
+  fa::store_rows_f32<DP>(dv, acc_dv, warp_key0, lk, d, vec, lane);
+}
+
+template <int DP>
+cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
+  constexpr bool kPre = fa::tf32_bwd_presplit<DP>();
+  constexpr size_t row_bytes = sizeof(float) * fa::tf32_stride<DP>();
+  constexpr int kQt = kPre ? fa::kTf32Tile / 2 : fa::kTf32Tile;
+  constexpr int kPlanes = kPre ? 2 : 1;  // hi, and lo when tiles are split where they land
+  constexpr size_t smem_dq = (2 * fa::kMmaRows + 4 * fa::kTf32Tile * kPlanes) * row_bytes;
+  constexpr size_t smem_dkdv =
+      (2 * fa::kMmaRows + 4 * kQt) * kPlanes * row_bytes + 2 * 3 * kQt * sizeof(float);
+  auto k1 = fused_attention_bwd_dq_tf32_kernel<DP>;
+  auto k2 = fused_attention_bwd_dkdv_tf32_kernel<DP>;
+  cudaError_t err = fa::reserve_smem(k1, smem_dq);
+  if (err != cudaSuccess) return err;
+  err = fa::reserve_smem(k2, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  const int vec = a.d % 4 == 0 && fa::aligned16(a.q) && fa::aligned16(a.k) &&
+                  fa::aligned16(a.v) && fa::aligned16(a.o) && fa::aligned16(a.dout) &&
+                  fa::aligned16(a.dq) && fa::aligned16(a.dk) && fa::aligned16(a.dv);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const int rows = fa::kMmaRows;
+  k1<<<dim3(a.bh, (a.lq + rows - 1) / rows), fa::kMmaThreads, smem_dq, stream>>>(
+      q, k, v, static_cast<const float*>(a.o), dout, static_cast<float*>(a.dq), a.stats, a.bh,
+      a.lq, a.lk, a.d, a.scale, a.causal, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2<<<dim3(a.bh, (a.lk + rows - 1) / rows), fa::kMmaThreads, smem_dkdv, stream>>>(
+      q, k, v, dout, a.stats, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.bh, a.lq,
+      a.lk, a.d, a.scale, a.causal, vec);
+  return cudaGetLastError();
+}
+
+// fp32 by head_dim: the tensor-core kernels up to 128, the scalar ones past it
+cudaError_t dispatch_f32(const Args& a, cudaStream_t s) {
+  if (a.d <= 32) return launch_tf32<32>(a, s);
+  if (a.d <= 64) return launch_tf32<64>(a, s);
+  if (a.d <= 128) return launch_tf32<128>(a, s);
+  return launch<float, 256>(a, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. `stats` is fp32 scratch of 3 * bh * lq
@@ -805,7 +1215,7 @@ extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v, 
   const Args a{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(stats),
                bh, lq, lk, d, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, s);
+  if (dtype == 0) return dispatch_f32(a, s);
   if (dtype == 1) return dispatch_bf16(a, s);
   return cudaErrorInvalidValue;
 }

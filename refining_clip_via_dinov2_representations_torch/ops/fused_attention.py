@@ -18,10 +18,28 @@ and dO cast to V's dtype; delta = rowsum(dO * O) in fp32 from the stored O;
 dS = P * (dP - delta) is cast to q's dtype; dQ and dK are scaled after their
 fp32 sums; each gradient is in its input's dtype.
 
+Routes on the card, chosen by dtype and head dim; nothing falls back:
+
+* bf16: tensor cores (``mma.sync`` m16n8k16, ``csrc/attention_mma.cuh``),
+  forward at every head dim, backward up to head dim 128; the scalar
+  backward kernels past it.
+* fp32 (serving, and training at ``--precision amp`` / ``fp32``): tensor
+  cores up to head dim 128, forward and backward, with split-TF32 products
+  (``mma.sync`` m16n8k8, ``csrc/attention_tf32.cuh``): each operand is
+  split as hi + lo TF32 values and each product accumulates
+  lo·hi + hi·lo + hi·hi in fp32, which keeps fp32 accuracy (within 1e-4 of
+  the plain version; a single TF32 product misses that). The kernels split
+  whatever ``torch.backends.cuda.matmul.allow_tf32`` says. Past head dim 128
+  (no registry model has such heads) the scalar CUDA-core kernels. In fp32
+  the cast of P to V's dtype is the identity, so the fp32 forward takes one
+  online-softmax pass and divides after P V, the same function up to fp32
+  rounding; the bf16 forward keeps two passes.
+
 ``fused_attention`` is a ``torch.autograd.Function`` over the two: the
 forward saves q, k, v and o (as the JAX VJP's residuals) and the backward
 runs the backward kernel. CPU tensors take the plain versions in both
-directions; CUDA tensors launch the kernels or raise.
+directions; CUDA tensors launch the kernel their dtype and shape route to,
+or raise.
 """
 
 from __future__ import annotations

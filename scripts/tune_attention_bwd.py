@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Compare build variants of the fused-attention backward on one card.
+"""Compare build variants of the fused-attention kernels on one card.
 
-    python3 scripts/tune_attention_bwd.py
+    python3 scripts/tune_attention_bwd.py [variant ...]
 
-Each variant is ``csrc/fused_attention_bwd.cu`` with a few source lines
-replaced (blocks an SM, the product chunk). All variants are compiled at once with the flags
-of ``ops/native.py`` into ``build/tune_bwd/`` and loaded with ctypes. For
-each, at the bf16 training shapes: the largest difference from the plain
-version (over the largest |grad|), the time per call by CUDA events and the
-time of each of its two kernels by ``torch.profiler``. ptxas's registers and
-spills are printed per variant and kernel. Exits non-zero if a variant does
-not build or disagrees with the plain version.
+Each variant is ``csrc/`` with a few source lines replaced (blocks an SM,
+the backward's product chunk, the fp32 route's key tile, where its split
+TF32 operands are split, which of its fragments stay in registers). Every
+variant's copy of ``csrc/`` goes into its own directory under
+``build/tune_bwd/``, and the two fused sources of all variants are compiled
+at once with the flags of ``ops/native.py`` and loaded with ctypes. For each
+variant, at the training shapes of the backward (bf16 and fp32) and the
+serving and training shapes of the fp32 forward: the largest difference from
+the plain version (over the largest |grad| for the backward), the time per
+call by CUDA events and, for the backward, the time of each of its two
+kernels by ``torch.profiler``. ptxas's registers and spills are printed per
+variant and tensor-core kernel. With arguments, only the named variants
+(and the committed build) run. Exits non-zero if a variant does not build or
+disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -25,49 +32,92 @@ from pathlib import Path
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
+BWD = "fused_attention_bwd.cu"
+FWD = "fused_attention_fwd.cu"
+TF32 = "attention_tf32.cuh"
 BLOCKS = "constexpr int mma_bwd_min_blocks() { return DP <= 64 ? 4 : 2; }"
 CHUNK = "constexpr int kChunk = 16;"
+BWD_PRESPLIT = "constexpr bool tf32_bwd_presplit() { return DP <= 64; }"
+TF32_TILE = "constexpr int kTf32Tile = 32;"
+FWD_BLOCKS = "constexpr int tf32_min_blocks() { return DP <= 64 ? 3 : 2; }"
+DKDV_BLOCKS = "kTf32BwdBlocks)\n    fused_attention_bwd_dkdv_tf32_kernel"
+Q_REGS = "constexpr bool tf32_q_regs() { return DP <= 64; }"
+ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+CVT_RNA = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
+           "  return r;")
+# variant -> [(file, old text, new text)]
 VARIANTS = {
     "as committed": [],
-    "32-wide chunks": [(CHUNK, CHUNK.replace("16", "32"))],
-    "3 blocks an SM": [(BLOCKS, BLOCKS.replace("4 : 2", "3 : 2"))],
+    "32-wide chunks": [(BWD, CHUNK, CHUNK.replace("16", "32"))],
+    "bf16 3 blocks an SM": [(BWD, BLOCKS, BLOCKS.replace("4 : 2", "3 : 2"))],
+    "fp32 backward split on read": [
+        (TF32, BWD_PRESPLIT, BWD_PRESPLIT.replace("DP <= 64", "false"))],
+    "fp32 64-key tiles": [(TF32, TF32_TILE, TF32_TILE.replace("= 32", "= 64"))],
+    "fp32 split by cvt.rna": [(TF32, ROUND, CVT_RNA)],
+    "fp32 forward 4 blocks an SM": [(FWD, FWD_BLOCKS, FWD_BLOCKS.replace("3 : 2", "4 : 2"))],
+    "fp32 dK/dV 3 blocks an SM": [(BWD, DKDV_BLOCKS, DKDV_BLOCKS.replace("kTf32BwdBlocks", "3"))],
+    "fp32 forward Q from shared memory": [(FWD, Q_REGS, Q_REGS.replace("64", "32"))],
 }
+FWD_TIMED = [(32, 12, 197, 64, False), (64, 12, 197, 64, False), (32, 8, 77, 64, True)]
 
 
-def build_variants(native, out_dir: Path) -> dict:
-    """{variant: path of its library}; prints ptxas lines per kernel."""
-    src = (native.CSRC_DIR / "fused_attention_bwd.cu").read_text()
+def build_variants(native, out_dir: Path, names) -> dict:
+    """{variant: {source: path of its library}}; prints ptxas lines per kernel."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
+    for i, name in enumerate(names):
+        src_dir = out_dir / f"variant{i}"
+        shutil.rmtree(src_dir, ignore_errors=True)
+        shutil.copytree(native.CSRC_DIR, src_dir)
+        for file, old, new in VARIANTS[name]:
+            path = src_dir / file
+            text = path.read_text()
             if old not in text:
-                cs.fail(f"variant {name!r}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        cu, lib = out_dir / f"variant{i}.cu", out_dir / f"variant{i}.so"
-        cu.write_text(text)
-        cmd = [native._nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC_DIR), "-o", str(lib),
-               str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
+                cs.fail(f"variant {name!r}: {old!r} is not in {file}")
+            path.write_text(text.replace(old, new))
+        for source in (FWD, BWD):
+            lib = src_dir / f"{Path(source).stem}.so"
+            cmd = [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(src_dir / source)]
+            procs[(name, source)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
-    for name, (proc, lib) in procs.items():
+    for (name, source), (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            cs.fail(f"variant {name!r} did not build:\n{log}")
+            cs.fail(f"variant {name!r} did not build {source}:\n{log}")
         kernel = "?"
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
                 kernel = cs._kernel_name(entry.group(1))
-            elif "mma_kernel" in kernel and ("registers" in line or "spill" in line):
+            elif ("mma_kernel" in kernel or "tf32_kernel" in kernel) and (
+                    "registers" in line or "spill" in line):
                 print(f"  ptxas[{name}] {kernel}: {line.strip()}", flush=True)
-        libs[name] = lib
+        libs.setdefault(name, {})[source] = lib
     return libs
 
 
-def bind(path: Path):
+def sass_census(native, libs) -> None:
+    """Static SASS instruction counts of the committed build's fp32 and bf16
+    tensor-core kernels at DP = 64 (``cuobjdump -sass``): the opcodes that
+    make up each unrolled kernel, the mma (HMMA) among them."""
+    cuobjdump = Path(native._nvcc()).with_name("cuobjdump")
+    for source, lib in libs["as committed"].items():
+        out = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                             text=True).stdout
+        for block in out.split("Function : ")[1:]:
+            name = cs._kernel_name(block.split(None, 1)[0])
+            if not re.search(r"(tf32|mma)_kernel<64>", name):
+                continue
+            ops = {}
+            for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", block):
+                ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:14]
+            print(f"sass {name}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in top), flush=True)
+
+
+def bind_bwd(path: Path):
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_attention_bwd.argtypes = [p] * 9 + [i, i, i, i, ctypes.c_float, i, i, p]
@@ -82,12 +132,35 @@ def bind(path: Path):
         err = lib.fused_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b * h, lq,
-            k.shape[2], d, float(scale), int(causal), 1, torch.cuda.current_stream().cuda_stream)
+            k.shape[2], d, float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"fused_attention_bwd launch failed ({err})")
         return dq, dk, dv
 
     return bwd
+
+
+def bind_fwd(path: Path):
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_attention_fwd.argtypes = [p] * 4 + [i, i, i, i, ctypes.c_float, i, i, p]
+    lib.fused_attention_fwd.restype = i
+
+    def fwd(q, k, v, scale, causal):
+        import torch
+
+        out = torch.empty_like(q)
+        b, h, lq, d = q.shape
+        err = lib.fused_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, k.shape[2], d,
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_attention_fwd launch failed ({err})")
+        return out
+
+    return fwd
 
 
 def kernel_ms(fn, calls: int = 20) -> dict:
@@ -103,10 +176,10 @@ def kernel_ms(fn, calls: int = 20) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        found = re.search(r"fused_attention_bwd_(\w+?)_mma_kernel", e.key)
+        found = re.search(r"fused_attention_bwd_(dq|dkdv)_", e.key)
         if found:
             total = getattr(e, "device_time_total", None) or e.cuda_time_total
-            out[found.group(1)] = total / calls / 1e3
+            out[found.group(1)] = out.get(found.group(1), 0.0) + total / calls / 1e3
     return out
 
 
@@ -115,31 +188,55 @@ def main() -> None:
 
     from refining_clip_via_dinov2_representations_torch.ops import native
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
-        fused_attention_bwd_reference, fused_attention_fwd,
+        fused_attention_bwd_reference, fused_attention_fwd, fused_attention_reference,
     )
 
+    names = ["as committed"] + [n for n in sys.argv[1:] if n != "as committed"]
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        cs.fail(f"unknown variants {unknown}; known: {list(VARIANTS)}")
+    if len(sys.argv) == 1:
+        names = list(VARIANTS)
     cs.phase_device()
-    libs = build_variants(native, native.BUILD_DIR.parent / "tune_bwd")
+    libs = build_variants(native, native.BUILD_DIR.parent / "tune_bwd", names)
+    sass_census(native, libs)
     bad = 0
-    for b, h, l, d, causal in cs.TRAIN_CASES:
-        q, k, v = cs._qkv(b, h, l, d, torch.bfloat16, seed=200)
-        do = cs._qkv(b, h, l, d, torch.bfloat16, seed=201)[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        name_t = str(dtype).split(".")[-1]
+        for b, h, l, d, causal in cs.TRAIN_CASES:
+            q, k, v = cs._qkv(b, h, l, d, dtype, seed=200)
+            do = cs._qkv(b, h, l, d, dtype, seed=201)[0]
+            scale = d ** -0.5
+            o = fused_attention_fwd(q, k, v, scale, causal)
+            want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
+            largest = max(w.float().abs().max().item() for w in want)
+            for name in names:
+                bwd = bind_bwd(libs[name][BWD])
+                got = bwd(q, k, v, o, do, scale, causal)
+                torch.cuda.synchronize()
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                ok = err <= cs.BWD_REL_TOL[name_t] * largest
+                bad += not ok
+                ms = cs.time_ms(lambda: bwd(q, k, v, o, do, scale, causal), iters=20)
+                split = kernel_ms(lambda: bwd(q, k, v, o, do, scale, causal))
+                print(f"variant {name!r} backward {name_t} [{b},{h},{l},{d}] causal={causal}: "
+                      f"{ms:.4f} ms (dq {split.get('dq', 0):.4f}, dkdv {split.get('dkdv', 0):.4f} "
+                      f"ms by the profiler), max_abs_err {err:.3e} vs plain, largest |grad| "
+                      f"{largest:.3e} {'ok' if ok else 'MISMATCH'} [{cs.CARD}]", flush=True)
+    for b, h, l, d, causal in FWD_TIMED:
+        q, k, v = cs._qkv(b, h, l, d, torch.float32, seed=100)
         scale = d ** -0.5
-        o = fused_attention_fwd(q, k, v, scale, causal)
-        want = fused_attention_bwd_reference(q, k, v, o, do, scale, causal)
-        largest = max(w.float().abs().max().item() for w in want)
-        for name, path in libs.items():
-            bwd = bind(path)
-            got = bwd(q, k, v, o, do, scale, causal)
+        want = fused_attention_reference(q, k, v, scale, causal)
+        for name in names:
+            fwd = bind_fwd(libs[name][FWD])
+            got = fwd(q, k, v, scale, causal)
             torch.cuda.synchronize()
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            ok = err <= cs.BWD_REL_TOL["bfloat16"] * largest
+            err = (got - want).abs().max().item()
+            ok = err <= cs.TOL["float32"]
             bad += not ok
-            ms = cs.time_ms(lambda: bwd(q, k, v, o, do, scale, causal), iters=20)
-            split = kernel_ms(lambda: bwd(q, k, v, o, do, scale, causal))
-            print(f"variant {name!r} bfloat16 [{b},{h},{l},{d}] causal={causal}: {ms:.4f} ms "
-                  f"(dq {split.get('dq', 0):.4f}, dkdv {split.get('dkdv', 0):.4f} ms by the "
-                  f"profiler), max_abs_err {err:.3e} vs plain {'ok' if ok else 'MISMATCH'} "
+            ms = cs.time_ms(lambda: fwd(q, k, v, scale, causal))
+            print(f"variant {name!r} forward float32 [{b},{h},{l},{d}] causal={causal}: "
+                  f"{ms:.4f} ms, max_abs_err {err:.3e} vs plain {'ok' if ok else 'MISMATCH'} "
                   f"[{cs.CARD}]", flush=True)
     print(f"tune: {bad} variant case(s) disagree", flush=True)
     sys.exit(1 if bad else 0)

@@ -4,8 +4,10 @@ On the CPU the port's ``fused_attention`` runs its plain version; it is held
 against the JAX ``fused_attention`` (the Pallas kernel, interpreted off-TPU)
 and ``dot_product_attention_xla`` on the same numpy inputs. Tolerances:
 2e-5 absolute in fp32 (summation order only); 1e-2 in bf16, compared in
-fp32 (one bf16 ulp of outputs near 1 is 7.8e-3). The ``cuda``-marked test
-holds the Hopper kernel against the plain version on the card.
+fp32 (one bf16 ulp of outputs near 1 is 7.8e-3). The ``cuda``-marked tests
+hold the Hopper kernels against the plain version on the card: 1e-4 in fp32
+(the split-TF32 tensor-core kernel up to head dim 128, the scalar kernel
+past it), 2e-2 in bf16.
 """
 
 import numpy as np
@@ -188,9 +190,13 @@ def test_cuda_wrapper_rejects_bad_inputs():
 
 
 def _kernels_launched(fn) -> set:
-    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler."""
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler.
+    ``fn`` runs once before the profiled call: a kernel's first launch loads
+    its module, and the profiler can miss the kernels of that launch."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -199,17 +205,86 @@ def _kernels_launched(fn) -> set:
 
 @pytest.mark.cuda
 def test_cuda_bf16_runs_the_tensor_core_kernel():
-    """bf16 inputs reach the mma.sync kernel; fp32 inputs the scalar one."""
+    """bf16 inputs reach the bf16 mma.sync kernel; fp32 inputs up to head dim
+    128 the split-TF32 mma.sync kernel, past it the scalar one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    q = torch.randn(2, 3, 77, 64, device="cuda")
-    for dtype, want, not_want in ((torch.bfloat16, "fused_attention_fwd_mma_kernel", None),
-                                  (torch.float32, "fused_attention_fwd_kernel<float",
-                                   "fused_attention_fwd_mma_kernel")):
-        x = q.to(dtype)
-        names = _kernels_launched(lambda: fused_attention_fwd(x, x, x, 0.125, True))
-        assert any(want in n for n in names), names
-        assert not_want is None or not any(not_want in n for n in names), names
+    scalar, tf32 = "fused_attention_fwd_kernel<float", "fused_attention_fwd_tf32_kernel"
+    for dtype, d, want, not_want in (
+            (torch.bfloat16, 64, "fused_attention_fwd_mma_kernel", (scalar, tf32)),
+            (torch.float32, 64, tf32, (scalar, "fused_attention_fwd_mma_kernel")),
+            (torch.float32, 128, tf32, (scalar,)),
+            (torch.float32, 256, scalar, (tf32,))):
+        x = torch.randn(2, 3, 77, d, device="cuda").to(dtype)
+        names = _kernels_launched(lambda: fused_attention_fwd(x, x, x, d ** -0.5, True))
+        assert any(want in n for n in names), (dtype, d, names)
+        assert not any(k in n for k in not_want for n in names), (dtype, d, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk,d", [(197, 197, 64), (70, 45, 64), (45, 130, 64), (197, 150, 80),
+                                     (77, 120, 128), (300, 1024, 128), (1024, 300, 80),
+                                     (1, 9, 64), (9, 1, 128)])
+def test_cuda_fp32_tensor_core_route_matches_plain_version(lq, lk, d, causal):
+    """fp32 on the split-TF32 kernel: Lq != Lk both ways, head dims 64, 80
+    and 128, within the fp32 contract of the plain version and of float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(lq * 7 + lk + d)
+    q = torch.randn(2, 3, lq, d, generator=g).cuda()
+    k, v = (torch.randn(2, 3, lk, d, generator=g).cuda() for _ in range(2))
+    got = fused_attention_fwd(q, k, v, d ** -0.5, causal)
+    want = fused_attention_reference(q, k, v, d ** -0.5, causal)
+    exact = fused_attention_reference(q.double(), k.double(), v.double(), d ** -0.5, causal)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.double(), exact, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_every_head_dim_and_unaligned_inputs():
+    """Every head_dim the gate admits (1-256) in fp32: d % 4 != 0 takes
+    element copies, d pads to 32/64/128 on the tensor-core kernel and the
+    scalar kernel takes d > 128; bases 4 bytes off a 16-byte boundary too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(3)
+    for d in range(1, 257):
+        for causal in (False, True):
+            q = torch.randn(1, 2, 70, d, generator=g).cuda()
+            k, v = (torch.randn(1, 2, 45, d, generator=g).cuda() for _ in range(2))
+            torch.testing.assert_close(fused_attention_fwd(q, k, v, d ** -0.5, causal),
+                                       fused_attention_reference(q, k, v, d ** -0.5, causal),
+                                       atol=1e-4, rtol=0, msg=lambda m: f"head_dim {d}: {m}")
+    n = 2 * 3 * 70 * 64
+    flat = torch.randn(3 * n + 1, generator=g).cuda()
+    q, k, v = (t.view(2, 3, 70, 64) for t in flat[1:].split(n))
+    assert q.data_ptr() % 16 != 0
+    torch.testing.assert_close(fused_attention_fwd(q, k, v, 0.125, True),
+                               fused_attention_reference(q, k, v, 0.125, True), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_kernel_ignores_the_tf32_switch():
+    """The split-TF32 kernel keeps fp32 accuracy whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says (the reference is taken
+    with it off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(8, 12, 197, 64, generator=g).cuda() for _ in range(3))
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = fused_attention_reference(q, k, v, 0.125)
+        outs = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            outs.append(fused_attention_fwd(q, k, v, 0.125))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

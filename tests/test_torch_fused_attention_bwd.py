@@ -8,8 +8,9 @@ interpreted off-TPU, on the same numpy inputs and cotangent. Tolerances:
 (summation order only); in bf16, 2e-2 of the largest |grad| of the three compared
 in fp32 (a few output ulps: one bf16 ulp is 2^-8 of a value, and the rounded
 dS can flip by one ulp where P or dP differ in their last fp32 bits). The
-``cuda``-marked tests hold the Hopper kernel against the plain version on
-the card.
+``cuda``-marked tests hold the Hopper kernels against the plain version on
+the card: in fp32 within 1e-4 of the largest |grad| (split-TF32 tensor-core
+kernels up to head dim 128, scalar past it), in bf16 within 2e-2.
 """
 
 import numpy as np
@@ -230,9 +231,13 @@ def test_cuda_bf16_backward_unaligned_and_strided_inputs(lq, lk):
 
 
 def _kernels_launched(fn) -> set:
-    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler."""
+    """Names of the CUDA kernels that ``fn`` launches, from torch.profiler.
+    ``fn`` runs once before the profiled call: a kernel's first launch loads
+    its module, and the profiler can miss the kernels of that launch."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -241,14 +246,18 @@ def _kernels_launched(fn) -> set:
 
 @pytest.mark.cuda
 def test_cuda_backward_routes_by_dtype_and_head_dim():
-    """bf16 at head dim 64 runs the two tensor-core kernels; fp32, and bf16
-    at head dim 256, the two scalar kernels."""
+    """Up to head dim 128 bf16 runs the two bf16 tensor-core kernels and fp32
+    the two split-TF32 tensor-core kernels; past it both dtypes run the two
+    scalar kernels."""
     _needs_cuda()
     mma = ("fused_attention_bwd_dq_mma_kernel", "fused_attention_bwd_dkdv_mma_kernel")
+    tf32 = ("fused_attention_bwd_dq_tf32_kernel", "fused_attention_bwd_dkdv_tf32_kernel")
     scalar = ("fused_attention_bwd_dq_kernel<", "fused_attention_bwd_dkdv_kernel<")
-    for dtype, d, want, not_want in ((torch.bfloat16, 64, mma, scalar),
-                                     (torch.float32, 64, scalar, mma),
-                                     (torch.bfloat16, 256, scalar, mma)):
+    for dtype, d, want, not_want in ((torch.bfloat16, 64, mma, scalar + tf32),
+                                     (torch.float32, 64, tf32, scalar + mma),
+                                     (torch.float32, 128, tf32, scalar + mma),
+                                     (torch.bfloat16, 256, scalar, mma + tf32),
+                                     (torch.float32, 256, scalar, mma + tf32)):
         x = torch.randn(2, 3, 77, d, device="cuda").to(dtype)
         o = fused_attention_fwd(x, x, x, d ** -0.5, True)
         names = _kernels_launched(lambda: fused_attention_bwd(x, x, x, o, x, d ** -0.5, True))
@@ -256,3 +265,49 @@ def test_cuda_backward_routes_by_dtype_and_head_dim():
             assert any(kernel in n for n in names), (dtype, d, kernel, names)
         for kernel in not_want:
             assert not any(kernel in n for n in names), (dtype, d, kernel, names)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_backward_every_head_dim_and_unaligned_inputs():
+    """Every head_dim the gate admits (1-256) in fp32: up to 128 the
+    split-TF32 kernels (d % 4 != 0 takes element copies; d pads to 32, 64 or
+    128), past it the scalar kernels; bases 4 bytes off a 16-byte boundary."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    for d in range(1, 257):
+        for causal in (False, True):
+            q, do = (torch.randn(1, 2, 70, d, generator=g).cuda() for _ in range(2))
+            k, v = (torch.randn(1, 2, 45, d, generator=g).cuda() for _ in range(2))
+            err, largest = _bwd_error(q, k, v, do, causal)
+            assert err <= 1e-4 * largest, (d, causal, err, largest)
+    sizes = (2 * 3 * 70 * 64,) * 4
+    flat = torch.randn(sum(sizes) + 1, generator=g).cuda()
+    q, k, v, do = (t.view(2, 3, 70, 64) for t in flat[1:].split(sizes))
+    assert q.data_ptr() % 16 != 0
+    for causal in (False, True):
+        err, largest = _bwd_error(q, k, v, do, causal)
+        assert err <= 1e-4 * largest, (causal, err, largest)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_backward_ignores_the_tf32_switch():
+    """The split-TF32 backward gives the same gradients whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    _needs_cuda()
+    g = torch.Generator().manual_seed(6)
+    q, k, v, do = (torch.randn(4, 12, 197, 64, generator=g).cuda() for _ in range(4))
+    o = fused_attention_fwd(q, k, v, 0.125)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        grads = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            grads.append(fused_attention_bwd(q, k, v, o, do, 0.125))
+        want = fused_attention_bwd_reference(q, k, v, o, do, 0.125)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    largest = max(w.abs().max().item() for w in want)
+    for a, b_, w in zip(*grads, want):
+        assert torch.equal(a, b_)
+        assert (a - w).abs().max().item() <= 1e-4 * largest
