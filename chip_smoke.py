@@ -47,13 +47,20 @@ Phases, each of which exits non-zero on failure:
    speedup).
 7. kernels-flash — the flash forward kernel against its plain version and a
    float64 version with the same rounding points, from 512 to 4097 tokens,
-   causal, Lq != Lk, head_dim 40 to 256, in float32 and bfloat16; its
+   causal, Lq != Lk both ways, head_dim 40 to 256, in float32 (the
+   split-TF32 tensor-core kernel up to head dim 128) and bfloat16; its
    autograd Function against autograd through the plain version.
 8. train-long — ViT-L-14-336 (577 vision tokens) at full width and depth,
    DINO-soft, bf16, ``attn_impl="flash"``: three steps without and three
    with grad checkpointing (24 and 48 flash launches per step, no fused
    launch), one step's loss and gradients against plain attention, step
-   times and peak memory.
+   times and peak memory; then in fp32 compute with grad checkpointing
+   (what ``--precision amp --attn-impl flash --grad-checkpointing`` runs):
+   one step's loss and gradients against plain attention, three steps'
+   launches (48 flash a step, no fused), the profiler's check that a step
+   ran the split-TF32 flash kernel and no scalar fp32 kernel, and the
+   step's time and peak memory through flash, through ``"auto"`` (the fused
+   fp32 kernels at 577 tokens) and through plain attention.
 9. train-cli-long — the training CLI on ViT-L-14-336 with
    ``--grad-checkpointing`` (its checkpoint loads strictly) and on ViT-B-16
    with ``--force-image-size 384`` (12 flash launches per forward); then the
@@ -148,31 +155,37 @@ SCALAR_BWD_MS = {("bfloat16", (64, 12, 197, 64, False)): 2.7512,
 # names them.
 TF32_KERNELS = {"fwd": "fused_attention_fwd_tf32_kernel",
                 "dq": "fused_attention_bwd_dq_tf32_kernel",
-                "dkdv": "fused_attention_bwd_dkdv_tf32_kernel"}
+                "dkdv": "fused_attention_bwd_dkdv_tf32_kernel",
+                "flash": "flash_attention_fwd_tf32_kernel"}
 SCALAR_F32_KERNELS = {"fwd": "fused_attention_fwd_kernel<float",
                       "dq": "fused_attention_bwd_dq_kernel<float",
-                      "dkdv": "fused_attention_bwd_dkdv_kernel<float"}
+                      "dkdv": "fused_attention_bwd_dkdv_kernel<float",
+                      "flash": "flash_attention_fwd_kernel<float"}
+# the flash kernel's scalar times, each taken before its tensor-core route
+# existed (fp32: one turn of scripts/ab_fp32_attention.py on that tree)
 SCALAR_FLASH_MS = {(32, 16, 577, 577, 64, False, "bfloat16"): 2.8691,
-                   (32, 16, 577, 577, 64, False, "float32"): 2.9051,
-                   (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935}
+                   (32, 16, 577, 577, 64, False, "float32"): 2.9048,
+                   (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935,
+                   (32, 12, 577, 577, 64, False, "float32"): 2.1526}
 TRAIN_BATCH, CLI_BATCH, CLI_SAMPLES, DINO_DIM = 64, 32, 96, 384
 FLASH_TPU = "refining_clip_via_dinov2_representations_tpu/ops/flash_attention.py:44"
 FLASH_SRC = "refining_clip_via_dinov2_representations_torch/csrc/flash_attention_fwd.cu"
 # Flash kernel cases: (B, H, Lq, Lk, D, causal). The ViT-L-14-336 and
 # ViT-B-16@384 vision shapes, the gate's edge (512) and one past it, 1370
 # tokens (a 518-px DINOv2, where "fused" falls to flash), 4097 tokens at
-# B*H = 1, Lq != Lk, head_dim 80 and 40 (the scale is not exact in bf16) and
-# the largest head_dim the gate admits.
+# B*H = 1, Lq < Lk and Lq > Lk, head_dim 80 and 40 (the scale is not exact
+# in bf16) and the largest head_dim the gate admits (fp32: the scalar kernel).
 FLASH_CASES = [
     (8, 16, 577, 577, 64, False), (8, 16, 577, 577, 64, True),
     (8, 12, 577, 577, 64, False), (8, 12, 577, 577, 64, True),
     (1, 4, 512, 512, 64, False), (1, 4, 513, 513, 64, True), (2, 6, 1370, 1370, 64, False),
     (1, 1, 4097, 4097, 64, False), (1, 1, 4097, 4097, 64, True),
     (2, 4, 600, 1030, 64, False), (2, 4, 600, 1030, 64, True),
+    (2, 4, 1030, 600, 64, False), (2, 4, 1030, 600, 64, True),
     (2, 4, 577, 577, 80, False), (2, 4, 577, 577, 40, True), (1, 2, 577, 577, 256, False),
 ]
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
-               (32, 12, 577, 577, 64, False, "bfloat16")]
+               (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
 # one train step through the kernels vs the plain attention, same init/batch
 STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, min cosine)
@@ -1090,7 +1103,7 @@ def phase_kernels_flash() -> dict:
         flash_attention, flash_attention_fwd, flash_attention_reference,
     )
 
-    worst = {}
+    worst, worst_case = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, lq, lk, d, causal) in enumerate(FLASH_CASES):
@@ -1104,6 +1117,8 @@ def phase_kernels_flash() -> dict:
                   f"flash output {tuple(got.shape)} {got.dtype} at {(b, h, lq, lk, d)}")
             err = (got.float() - want.float()).abs().max().item()
             err64 = (got.double() - exact).abs().max().item()
+            if max(err, err64) >= worst_case.get(name, (-1.0,))[0]:
+                worst_case[name] = (max(err, err64), (b, h, lq, lk, d, causal))
             worst[name] = max(worst.get(name, 0.0), err)
             ok = max(err, err64) <= TOL[name] and bool(torch.isfinite(got.float()).all())
             print(f"kernel flash_attention_fwd {name} [{b},{h},{lq},{d}] x {lk} keys "
@@ -1111,6 +1126,9 @@ def phase_kernels_flash() -> dict:
                   f"(tol {TOL[name]:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
             check(ok, f"flash_attention_fwd disagrees with its plain version at {name} "
                       f"[{b},{h},{lq},{lk},{d}] causal={causal}: {err:.3e} / {err64:.3e}")
+        err, (b, h, lq, lk, d, causal) = worst_case[name]
+        print(f"kernel flash_attention_fwd {name}: worst case [{b},{h},{lq},{d}] x {lk} keys "
+              f"causal={causal}, {err:.3e} vs plain or float64 (tol {TOL[name]:g})", flush=True)
     # the autograd Function against autograd through the plain version, fp32
     for causal in (False, True):
         q, k, v = (x.requires_grad_() for x in _qkv(2, 4, 577, 64, torch.float32,
@@ -1230,7 +1248,55 @@ def phase_train_long() -> int:
 
     # fp32 (TF32 off) with checkpointing: its activations would not fit without
     _compare_step("fp32", batch, model_name=LONG_MODEL, impl="flash", grad_checkpointing=True)
-    return flash_total
+    return flash_total + phase_long_fp32_step(batch)
+
+
+def phase_long_fp32_step(batch) -> int:
+    """The ViT-L-14-336 DINO-soft step in fp32 compute with grad
+    checkpointing (what ``--precision amp --attn-impl flash
+    --grad-checkpointing`` runs): three steps' launches through flash (48 a
+    step, no fused), the kernels a step runs by the profiler, then the step's
+    time and peak memory through flash, through ``"auto"`` (at 577 tokens the
+    fused fp32 kernels, forward and backward: the CLI's default) and through
+    plain attention, all checkpointed; returns the flash launches."""
+    import torch
+
+    routes = {"flash": ("flash",), "auto": ("fwd", "dq", "dkdv"), "xla": ()}
+    times, flash = {}, 0
+    for impl, parts in routes.items():
+        model, head, state, train_step, _ = _dino_setup("fp32", impl, steps=40,
+                                                        model_name=LONG_MODEL,
+                                                        grad_checkpointing=True)
+        steps = 3 if impl == "flash" else 1
+        # ---- the main path (flash): counts at 0 just before, read just after ----
+        _zero_counts()
+        for _ in range(steps):
+            state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        print(f"train-long {LONG_MODEL} fp32 impl={impl} grad_checkpointing=True: launches "
+              f"{counts} over {steps} step(s)", flush=True)
+        if impl == "flash":
+            check(counts == {"flash_attention_fwd": 48 * steps, "fused_attention_fwd": 0,
+                             "fused_attention_bwd": 0},
+                  f"expected {48 * steps} flash launches and no fused one, got {counts}")
+            flash = counts["flash_attention_fwd"]
+        if parts:
+            check_fp32_route(lambda: train_step(state, batch), parts,
+                             f"one fp32 {LONG_MODEL} step, impl={impl}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: train_step(state, batch), iters=3)
+        host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
+        times[impl] = (step_ms, host_ms, torch.cuda.max_memory_allocated())
+        del model, head, state, train_step
+        torch.cuda.empty_cache()
+    print(f"time train step {LONG_MODEL} fp32 batch {LONG_BATCH} grad_checkpointing=True: "
+          + "; ".join(f"{impl} device {ms:.3f} ms (CUDA events), host clock {host:.3f} ms "
+                      f"({LONG_BATCH / host * 1e3:.2f} samples/s), peak memory "
+                      f"{peak / 2**30:.3f} GiB" for impl, (ms, host, peak) in times.items())
+          + f" [{CARD}]", flush=True)
+    return flash
 
 
 def phase_train_cli_long() -> int:
@@ -1364,6 +1430,7 @@ def main() -> None:
     tb = bwd_rows[TRAIN_CASES[0]]
     tb32 = bwd_rows32[TRAIN_CASES[0]]
     tf = flash_rows[FLASH_TIMED[0]]
+    tf32 = flash_rows[FLASH_TIMED[1]]  # the ViT-L-14-336 vision call, fp32
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
         "replaces": FUSED_TPU, "launches": serve_launches + train_fwd,
@@ -1386,6 +1453,10 @@ def main() -> None:
         "replaces": FLASH_TPU, "launches": long_launches,
         "max_abs_err": worst_flash["bfloat16"], "ms": tf["ms"], "plain_ms": tf["plain_ms"],
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"], "library_ms": tf["library_ms"],
+        "fp32_shape": list(FLASH_TIMED[1][:3]) + [FLASH_TIMED[1][4]],
+        "fp32_max_abs_err": worst_flash["float32"], "fp32_ms": tf32["ms"],
+        "fp32_plain_ms": tf32["plain_ms"], "fp32_bound_ms": tf32["bound_ms"],
+        "fp32_bound_by": tf32["bound_by"], "fp32_library_ms": tf32["library_ms"],
     }]}), flush=True)
     # count: the one card this run uses
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,12 @@
 // What bounds it on an H100 (published peaks, not measured): the ViT-L-14-336
 // vision call [32,16,577,64] is 43.6 GFLOP over 151 MB in bf16, about 45 us
 // at 3.35 TB/s and 44 us at the 989 TFLOP/s bf16 tensor-core rate, so
-// balanced; in fp32 it moves 303 MB but takes 651 us at the 67 TFLOP/s of
-// plain fp32 FMAs, compute-bound. Only Q, K, V and O touch device memory, and
-// shared memory does not grow with the sequence length (the gate has no upper
-// bound on it). Causal blocks stop at their last row's diagonal tile.
+// balanced; in fp32 it moves 303 MB (90 us) and, with three split TF32
+// products a FLOP at 495 TFLOP/s, takes 264 us of tensor-core work:
+// compute-bound (651 us at the 67 TFLOP/s of plain fp32 FMAs). Only Q, K, V
+// and O touch device memory, and shared memory does not grow with the
+// sequence length (the gate has no upper bound on it). Causal blocks stop at
+// their last row's diagonal tile.
 //
 // bf16, the training path: tensor cores (`flash_attention_fwd_mma_kernel`,
 // building blocks in attention_mma.cuh). A block of four warps owns 64 query
@@ -42,18 +44,40 @@
 // score (to keep p's rounding); no warp specialisation. wgmma on TMA-fed
 // tiles is the next step.
 //
-// fp32 (any fp32 call): the first port's scalar kernel, kept as it was so
-// fp32 stays within 1e-4 of the plain version (no TF32). One block owns 32
-// query rows; a warp owns 8: a lane computes 8x2 scores per 64-key tile from
-// float4 shared-memory reads, the row statistics are warp reductions, P goes
-// through a 32 x 64 shared tile, and in the PV product a lane owns D/32
-// output columns of the warp's 8 rows.
+// fp32 with head_dim <= 128 (`--attn-impl flash` under --precision amp or
+// fp32, and "fused" calls past 1024 tokens): tensor cores
+// (`flash_attention_fwd_tf32_kernel`), split-TF32 products that keep fp32
+// accuracy (within 1e-4 of the plain version; one TF32 product misses that).
+// Its body is the fused kernel's fp32 forward, shared in
+// attention_fwd_tf32.cuh and templated on what differs: Q is scaled once
+// in fp32 where its tile lands in shared memory (the TPU kernel's rounding
+// point), then split into hi and lo; masked keys are -1e30; O = acc /
+// max(l, 1e-30). In fp32 the TPU kernel's cast of P to V's dtype is the
+// identity, so the one online pass in base 2 (the pre-scaled scores times
+// log2(e), exp2) computes its function up to fp32 rounding. 64 query rows a
+// block (the query-length bound counts 64-row tiles), K and V in 32-key
+// tiles of one double-buffered cp.async stream, P kept in registers; four
+// blocks an SM up to DP = 64, Q's fragments read from shared memory from
+// DP = 64 on (tuned at 577 tokens: PERF.md).
+// Bound: the larger of 3 x FLOPs at 495 TFLOP/s and the bytes at 3.35 TB/s.
+// What still holds it back: three m16n8k8 products for each product; the
+// split's integer operations on every K and V fragment read; mma.sync
+// instead of wgmma; at 577 tokens each head's last 64-row block holds one
+// live row of 64 (10 % of the blocks).
+//
+// fp32 with head_dim > 128 (no registry model has such heads): the first
+// port's scalar kernel, a documented route by shape, as in the fused
+// forward. One block owns 32 query rows; a warp owns 8: a lane computes 8x2
+// scores per 64-key tile from float4 shared-memory reads, the row
+// statistics are warp reductions, P goes through a 32 x 64 shared tile, and
+// in the PV product a lane owns D/32 output columns of the warp's 8 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "attention_fwd_tf32.cuh"
 #include "attention_mma.cuh"
 #include "fused_attention_common.cuh"
 
@@ -344,6 +368,17 @@ __global__ void __launch_bounds__(fa::kMmaThreads, fa::mma_min_blocks<DP>())
   fa::store_rows<DP>(o, acc, qs + warp * 16 * kStride, warp_row0, lq, d, vec, lane);
 }
 
+// The fp32 tensor-core kernel (split-TF32 products) up to head dim 128; its
+// body, shared with the fused kernel's fp32 route, is in
+// attention_fwd_tf32.cuh.
+template <int DP>
+__global__ void __launch_bounds__(fa::kMmaThreads, (fa::tf32_min_blocks<DP, true>()))
+    flash_attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, float* __restrict__ o, int lq,
+                                    int lk, int d, float scale, int causal, int vec) {
+  fa::attention_fwd_tf32<DP, true>(q, k, v, o, lq, lk, d, scale, causal, vec);
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int lq,
                    int lk, int d, float scale, int causal, cudaStream_t stream) {
@@ -360,13 +395,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int bh, int lq,
-                     int lk, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  return launch<T, 256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+// fp32 by head_dim: the tensor-core kernel up to 128; past it (no registry
+// model has such heads) the scalar kernel, whose O accumulator fits
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int bh, int lq,
+                         int lk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 32)
+    return fa::launch_fwd_tf32<32>(flash_attention_fwd_tf32_kernel<32>, q, k, v, o, bh, lq, lk, d,
+                                   scale, causal, s);
+  if (d <= 64)
+    return fa::launch_fwd_tf32<64>(flash_attention_fwd_tf32_kernel<64>, q, k, v, o, bh, lq, lk, d,
+                                   scale, causal, s);
+  if (d <= 128)
+    return fa::launch_fwd_tf32<128>(flash_attention_fwd_tf32_kernel<128>, q, k, v, o, bh, lq, lk,
+                                    d, scale, causal, s);
+  return launch<float, 256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
 }
 
 template <int DP>
@@ -403,12 +445,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int bh, int lq, int lk, int d, float scale, int causal,
                                    int dtype, void* stream) {
   if (bh <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > 256) return cudaErrorInvalidValue;
+  // the grid's second dimension counts query tiles, at most 65535 of them:
+  // 64 rows in the tensor-core kernels, 32 in the scalar one (fp32 past 128)
+  const long long rows = dtype == 0 && d > 128 ? kBQ : fa::kMmaRows;
+  if (lq > 65535 * rows) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the grid's second dimension counts query tiles: at most 65535 of them
-  if (dtype == 0 && lq <= 65535 * kBQ)
-    return dispatch<float>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (dtype == 1 && lq <= 65535 * fa::kMmaRows)
-    return dispatch_mma(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (dtype == 0) return dispatch_f32(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (dtype == 1) return dispatch_mma(q, k, v, o, bh, lq, lk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -49,30 +49,32 @@
 // blocks an SM at DP = 64) ptxas spills a few bytes.
 //
 // fp32 with head_dim <= 128 (serving, and training at --precision amp or
-// fp32): tensor cores too (`fused_attention_fwd_tf32_kernel`, building blocks
-// in attention_tf32.cuh), with split-TF32 products: each fp32 operand is
-// split into two TF32 values, hi + lo, and each product is accumulated in
-// fp32 from three mma.sync m16n8k8 TF32 products (lo hi, hi lo, hi hi). That
-// keeps fp32 accuracy (within 1e-4 of the plain version, like the scalar
-// kernel; one TF32 product misses that), whatever
-// torch.backends.cuda.matmul.allow_tf32 says. One pass: in fp32 the TPU
-// kernel's cast of P to V's dtype is the identity, so an online softmax that
-// divides after P V computes the same function up to fp32 rounding, and S is
-// computed once (the two-pass rule above is bf16's). The block is the bf16
-// kernel's: 64 query rows, four warps of 16, K and V in 32-key tiles of one
-// double-buffered cp.async stream, in fp32 rows of DP + 4 floats (one pad
-// serves ldmatrix and the column reads; see attention_tf32.cuh). Q's hi and
-// lo fragments stay in registers up to DP = 64 (from shared memory at 128).
-// P never leaves registers: an S accumulator becomes the A operand of P V in
-// a permuted k order, with V's rows read in the same order. Every operand
-// is split where it is read (a tile four warps read is split four times):
-// splitting once where a tile lands, at the cost of a barrier and a second
-// plane, ran slower here (PERF.md), though it wins in the backward. Bound: the
-// larger of 3 x FLOPs at 495 TFLOP/s and the bytes at 3.35 TB/s (above).
-// What still holds it back: three m16n8k8 products for each product, so six
-// mma.sync instructions for one bf16 m16n8k16's work; the split's integer
-// operations on every K and V fragment read; mma.sync instead of wgmma; at
-// 197 tokens each head's last 64-row block has one live warp of four.
+// fp32): tensor cores too (`fused_attention_fwd_tf32_kernel`, a thin wrapper
+// over the body in attention_fwd_tf32.cuh, which the flash kernel's fp32
+// route shares; building blocks in attention_tf32.cuh), with split-TF32
+// products: each fp32 operand is split into two TF32 values, hi + lo, and
+// each product is accumulated in fp32 from three mma.sync m16n8k8 TF32
+// products (lo hi, hi lo, hi hi). That keeps fp32 accuracy (within 1e-4 of
+// the plain version, like the scalar kernel; one TF32 product misses that),
+// whatever torch.backends.cuda.matmul.allow_tf32 says. One pass: in fp32 the
+// TPU kernel's cast of P to V's dtype is the identity, so an online softmax
+// that divides after P V computes the same function up to fp32 rounding, and
+// S is computed once (the two-pass rule above is bf16's). The block is the
+// bf16 kernel's: 64 query rows, four warps of 16, K and V in 32-key tiles of
+// one double-buffered cp.async stream, in fp32 rows of DP + 4 floats (one
+// pad serves ldmatrix and the column reads; see attention_tf32.cuh). Q's hi
+// and lo fragments stay in registers up to DP = 64 (from shared memory at
+// 128). P never leaves registers: an S accumulator becomes the A operand of
+// P V in a permuted k order, with V's rows read in the same order. Every
+// operand is split where it is read (a tile four warps read is split four
+// times): splitting once where a tile lands, at the cost of a barrier and a
+// second plane, ran slower here (PERF.md), though it wins in the backward.
+// Bound: the larger of 3 x FLOPs at 495 TFLOP/s and the bytes at 3.35 TB/s
+// (above). What still holds it back: three m16n8k8 products for each
+// product, so six mma.sync instructions for one bf16 m16n8k16's work; the
+// split's integer operations on every K and V fragment read; mma.sync
+// instead of wgmma; at 197 tokens each head's last 64-row block has one live
+// warp of four.
 //
 // fp32 with head_dim > 128 (no registry model has such heads): the first
 // port's scalar kernel, a documented route by shape; the tensor-core route
@@ -89,8 +91,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "attention_fwd_tf32.cuh"
 #include "attention_mma.cuh"
-#include "attention_tf32.cuh"
 #include "fused_attention_common.cuh"
 
 namespace {
@@ -368,121 +370,14 @@ __global__ void __launch_bounds__(fa::kMmaThreads, fa::mma_min_blocks<DP>())
     fa::store_rows<DP>(o, acc, qs + warp * 16 * kStride, warp_row0, lq, d, vec, lane);
 }
 
-// Q fragments held in registers (hi and lo), split once
+// The fp32 tensor-core kernel (split-TF32 products); its body, shared with
+// the flash kernel's fp32 route, is in attention_fwd_tf32.cuh.
 template <int DP>
-__host__ __device__ constexpr bool tf32_q_regs() { return DP <= 64; }
-// blocks an SM should hold: three up to DP = 64 (at most 168 registers a
-// thread), two at DP = 128
-template <int DP>
-__host__ __device__ constexpr int tf32_min_blocks() { return DP <= 64 ? 3 : 2; }
-
-// The fp32 tensor-core kernel (split-TF32 products, attention_tf32.cuh); see
-// the note at the top. `vec`: 16-byte copies (d % 4 == 0, aligned bases).
-template <int DP>
-__global__ void __launch_bounds__(fa::kMmaThreads, tf32_min_blocks<DP>())
+__global__ void __launch_bounds__(fa::kMmaThreads, (fa::tf32_min_blocks<DP, false>()))
     fused_attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                     const float* __restrict__ v, float* __restrict__ o, int lq,
                                     int lk, int d, float scale, int causal, int vec) {
-  constexpr int kRows = fa::kMmaRows;
-  constexpr int kTile = fa::kTf32Tile;
-  constexpr int kStride = fa::tf32_stride<DP>();
-  constexpr bool kQRegs = tf32_q_regs<DP>();
-  constexpr int kPlane = kTile * kStride;  // one K or V tile
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][kStride]
-  float* kv = qs + kRows * kStride;             // two buffers of a K then a V tile
-
-  size_t bh;
-  int q0;
-  fa::mma_block_coords((lq + kRows - 1) / kRows, &bh, &q0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  q += bh * lq * d;
-  o += bh * lq * d;
-  k += bh * lk * d;
-  v += bh * lk * d;
-
-  // when causal, keys past the block's last row are masked for all its rows
-  const int n_keys = causal ? min(lk, q0 + kRows) : lk;
-  const int n_tiles = (n_keys + kTile - 1) / kTile;
-  auto load_step = [&](int t) {  // key tile t: its K and V rows
-    float* buf = kv + (t & 1) * 2 * kPlane;
-    fa::load_tile_f32<DP, kTile>(buf, k, t * kTile, lk, d, vec);
-    fa::load_tile_f32<DP, kTile>(buf + kPlane, v, t * kTile, lk, d, vec);
-  };
-
-  fa::load_tile_f32<DP, kRows>(qs, q, q0, lq, d, vec);
-  load_step(0);
-  fa::cp_async_commit();
-  fa::cp_async_wait<0>();
-  __syncthreads();
-
-  const float* qw = qs + warp * 16 * kStride;  // the warp's 16 rows
-  uint32_t qf[kQRegs ? DP / 8 : 1][2][4];
-  if constexpr (kQRegs) fa::load_a_frags<DP>(qf, qw, lane);
-
-  // a lane's rows: row_lo (accumulator elements 0, 1) and row_lo + 8 (2, 3)
-  const int warp_row0 = q0 + warp * 16;
-  const int row_lo = warp_row0 + (lane >> 2);
-  const int col = (lane & 3) * 2;
-  // a warp past lq has nothing to compute; keys from warp_keys on are padding
-  // or causal-masked for all the warp's rows, and are skipped
-  const bool warp_live = warp_row0 < lq;
-  const int warp_keys = causal ? min(lk, warp_row0 + 16) : lk;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  // One key tile: S = Q K^T * scale * log2(e), masked entries (padding,
-  // col > row) -inf; the running max and sum in base 2; acc rescaled, then
-  // acc += P V with the unnormalised p. PARTIAL: keys from n_live on are not
-  // computed.
-  const float scale2 = scale * fa::kLog2e;
-  auto step = [&](const float* ks, int j0, int n_live, auto partial) {
-    constexpr bool kPartial = decltype(partial)::value;
-    float s[kTile / 8][4];
-    fa::tile_scores_f32<DP, kTile, kQRegs, kPartial, 0, 0>(s, qf, qw, ks, n_live, lane);
-    const bool edge = j0 + kTile > lk || (causal && j0 + kTile - 1 > warp_row0);
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + n * 8 + col + (e & 1);
-        s[n][e] = edge && (j >= lk || (causal && j > row_lo + (e >> 1) * 8)) ? -INFINITY
-                                                                           : s[n][e] * scale2;
-      }
-    float alpha[2];
-    fa::online_softmax<kTile, kPartial>(s, m, l, alpha, n_live);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    fa::tile_pv_f32<DP, kTile, kPartial, 0>(acc, s, ks + kPlane, n_live, lane);
-  };
-
-  for (int t = 0; t < n_tiles; ++t) {
-    fa::cp_async_wait<0>();
-    // tile t has landed for every thread, and every warp is done with tile
-    // t - 1, whose buffer now takes tile t + 1 while tile t is consumed
-    __syncthreads();
-    if (t + 1 < n_tiles) load_step(t + 1);
-    fa::cp_async_commit();
-    float* ks = kv + (t & 1) * 2 * kPlane;
-    const int j0 = t * kTile;
-    const int n_live = min(kTile, warp_keys - j0);
-    if (warp_live && n_live == kTile) step(ks, j0, n_live, fa::Flag<false>{});
-    else if (warp_live && n_live > 0) step(ks, j0, n_live, fa::Flag<true>{});
-  }
-  if (!warp_live) return;
-  // the lanes' parts of l summed; every row has a live key, so l >= 1
-  l[0] = fa::quad_sum(l[0]);
-  l[1] = fa::quad_sum(l[1]);
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
-  fa::store_rows_f32<DP>(o, acc, warp_row0, lq, d, vec, lane);
+  fa::attention_fwd_tf32<DP, false>(q, k, v, o, lq, lk, d, scale, causal, vec);
 }
 
 template <typename T, int DP>
@@ -526,30 +421,19 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, i
   return launch_mma<256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
 }
 
-template <int DP>
-cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o, int bh, int lq,
-                        int lk, int d, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(float) * (fa::kMmaRows + 4 * fa::kTf32Tile) * fa::tf32_stride<DP>();
-  auto kernel = fused_attention_fwd_tf32_kernel<DP>;
-  cudaError_t err = fa::reserve_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int vec = d % 4 == 0 && fa::aligned16(q) && fa::aligned16(k) && fa::aligned16(v) &&
-                  fa::aligned16(o);
-  const dim3 grid(bh, (lq + fa::kMmaRows - 1) / fa::kMmaRows);
-  kernel<<<grid, fa::kMmaThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lq, lk, d, scale, causal, vec);
-  return cudaGetLastError();
-}
-
 // fp32 by head_dim: the tensor-core kernel up to 128; past it (no registry
 // model has such heads) the scalar kernel, whose O accumulator fits
 cudaError_t dispatch_tf32(const void* q, const void* k, const void* v, void* o, int bh, int lq,
                           int lk, int d, float scale, int causal, cudaStream_t s) {
-  if (d <= 32) return launch_tf32<32>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (d <= 64) return launch_tf32<64>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
-  if (d <= 128) return launch_tf32<128>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
+  if (d <= 32)
+    return fa::launch_fwd_tf32<32>(fused_attention_fwd_tf32_kernel<32>, q, k, v, o, bh, lq, lk, d,
+                                   scale, causal, s);
+  if (d <= 64)
+    return fa::launch_fwd_tf32<64>(fused_attention_fwd_tf32_kernel<64>, q, k, v, o, bh, lq, lk, d,
+                                   scale, causal, s);
+  if (d <= 128)
+    return fa::launch_fwd_tf32<128>(fused_attention_fwd_tf32_kernel<128>, q, k, v, o, bh, lq, lk,
+                                    d, scale, causal, s);
   return launch<float, 256>(q, k, v, o, bh, lq, lk, d, scale, causal, s);
 }
 

@@ -4,7 +4,18 @@ The port of ``refining_clip_via_dinov2_representations_tpu/ops/flash_attention.p
 ``_flash_fwd_kernel`` (launched by ``_flash_forward``), an online-softmax
 forward whose memory does not grow with the sequence length. The CUDA source
 is ``csrc/flash_attention_fwd.cu``; its header states what bounds it on an
-H100 and how its design answers that.
+H100 and how its design answers that. The route that runs, by dtype and
+head dim:
+
+* bf16: ``flash_attention_fwd_mma_kernel``, tensor cores (``mma.sync``),
+  every head dim up to 256;
+* fp32 up to head dim 128: ``flash_attention_fwd_tf32_kernel``, tensor cores
+  with split-TF32 products (each fp32 operand as hi + lo, three TF32
+  products a product), which keep fp32 accuracy; its body is the fused
+  kernel's fp32 forward (``csrc/attention_fwd_tf32.cuh``) with Q scaled in
+  fp32 where its tile lands;
+* fp32 past head dim 128 (no registry model): the scalar kernel
+  ``flash_attention_fwd_kernel<float, 256>``.
 
 Numerics, as the TPU kernel:
 
@@ -36,9 +47,17 @@ from .fused_attention import (
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MIN_FLASH_SEQ = 512
-# the CUDA grid's second dimension counts query tiles (at most 65535): 32
-# rows in the fp32 kernel, 64 in the bf16 one; the fp32 bound holds for both
-MAX_QUERY_LEN = 65535 * 32
+# the CUDA grid's second dimension counts query tiles (at most 65535): 64
+# rows in the tensor-core kernels (bf16, and fp32 up to head dim 128), 32 in
+# the scalar fp32 kernel past head dim 128
+MAX_QUERY_LEN = 65535 * 64
+MAX_QUERY_LEN_SCALAR = 65535 * 32
+
+
+def max_query_len(dtype: torch.dtype, head_dim: int) -> int:
+    """The longest query the route that runs for ``dtype`` and ``head_dim``
+    can take."""
+    return MAX_QUERY_LEN_SCALAR if dtype == torch.float32 and head_dim > 128 else MAX_QUERY_LEN
 
 
 def flash_attention_reference(
@@ -69,9 +88,10 @@ def flash_attention_compatible(q, k, v, mask) -> bool:
 
 def _check(q, k, v) -> None:
     _check_inputs("flash_attention", q, k, v)
-    if q.shape[3] > MAX_HEAD_DIM or q.shape[2] > MAX_QUERY_LEN:
+    d = q.shape[3]
+    if d > MAX_HEAD_DIM or q.shape[2] > max_query_len(q.dtype, d):
         raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds D <= {MAX_HEAD_DIM}, "
-                         f"Lq <= {MAX_QUERY_LEN}")
+                         f"Lq <= {max_query_len(q.dtype, d)}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

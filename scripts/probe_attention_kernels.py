@@ -11,9 +11,10 @@ bases off a 16-byte boundary (2 bytes in bfloat16, 4 in float32: element
 copies), in both dtypes; the same for the backward kernel
 (``chip_smoke.bwd_cases()``, Lq != Lk among them). Both dtypes run the
 tensor-core kernels up to head dim 128 (float32 through split-TF32
-products); the fused float32 forward and both backwards past 128 the scalar
-kernels. Then it times the training and serving shapes, each beside the
-scalar kernels' time it replaced where recorded. Unlike ``chip_smoke.py`` it
+products, both forwards sharing one body); both float32 forwards and both
+backwards past 128 the scalar kernels. Then it times the training and
+serving shapes, each beside the scalar kernels' time it replaced where
+recorded. Unlike ``chip_smoke.py`` it
 reports every case before it fails, and it runs no model. Exits non-zero if
 any case disagrees.
 """
@@ -108,7 +109,9 @@ def main() -> None:
     for b, h, lq, lk, d, causal, dtype_name in cs.FLASH_TIMED:
         q, k, v = cs._qkv(b, h, lq, d, getattr(torch, dtype_name), seed=500, lk=lk)
         ms = cs.time_ms(lambda: flash_attention_fwd(q, k, v, d ** -0.5, causal), iters=20)
-        print(f"time flash {dtype_name} [{b},{h},{lq},{d}]: {ms:.4f} ms [{cs.CARD}]", flush=True)
+        before = cs.SCALAR_FLASH_MS.get((b, h, lq, lk, d, causal, dtype_name))
+        print(f"time flash {dtype_name} [{b},{h},{lq},{d}]: {ms:.4f} ms; "
+              f"{cs._beside_scalar(before, ms)} [{cs.CARD}]", flush=True)
     print(f"probe: {bad} case(s) disagree", flush=True)
     sys.exit(1 if bad else 0)
 

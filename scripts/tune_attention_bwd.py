@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Compare build variants of the fused-attention kernels on one card.
+"""Compare build variants of the attention kernels on one card.
 
     python3 scripts/tune_attention_bwd.py [variant ...]
 
 Each variant is ``csrc/`` with a few source lines replaced (blocks an SM,
 the backward's product chunk, the fp32 route's key tile, where its split
-TF32 operands are split, which of its fragments stay in registers). Every
+TF32 operands are split, which of its fragments stay in registers). The
+fp32 forward's body (``csrc/attention_fwd_tf32.cuh``) is shared by the
+fused and the flash kernels, so a forward variant changes both. Every
 variant's copy of ``csrc/`` goes into its own directory under
-``build/tune_bwd/``, and the two fused sources of all variants are compiled
-at once with the flags of ``ops/native.py`` and loaded with ctypes. For each
-variant, at the training shapes of the backward (bf16 and fp32) and the
-serving and training shapes of the fp32 forward: the largest difference from
-the plain version (over the largest |grad| for the backward), the time per
-call by CUDA events and, for the backward, the time of each of its two
-kernels by ``torch.profiler``. ptxas's registers and spills are printed per
-variant and tensor-core kernel. With arguments, only the named variants
-(and the committed build) run. Exits non-zero if a variant does not build or
-disagrees with the plain version.
+``build/tune_bwd/``, and the two fused sources and the flash source of all
+variants are compiled at once with the flags of ``ops/native.py`` and
+loaded with ctypes. For each variant, at the training shapes of the
+backward (bf16 and fp32), the serving and training shapes of the fp32 fused
+forward and the ViT-L-14-336 and ViT-B-16@384 vision calls of the fp32
+flash forward: the largest difference from the plain version (over the
+largest |grad| for the backward), the time per call by CUDA events and, for
+the backward, the time of each of its two kernels by ``torch.profiler``.
+ptxas's registers and spills are printed per variant and tensor-core
+kernel. With arguments, only the named variants (and the committed build)
+run, and ``--forward`` leaves out the backward's cases. Exits non-zero if a
+variant does not build or disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -34,17 +38,33 @@ import chip_smoke as cs  # noqa: E402
 
 BWD = "fused_attention_bwd.cu"
 FWD = "fused_attention_fwd.cu"
+FLASH = "flash_attention_fwd.cu"
 TF32 = "attention_tf32.cuh"
+FWD_BODY = "attention_fwd_tf32.cuh"
 BLOCKS = "constexpr int mma_bwd_min_blocks() { return DP <= 64 ? 4 : 2; }"
 CHUNK = "constexpr int kChunk = 16;"
 BWD_PRESPLIT = "constexpr bool tf32_bwd_presplit() { return DP <= 64; }"
 TF32_TILE = "constexpr int kTf32Tile = 32;"
-FWD_BLOCKS = "constexpr int tf32_min_blocks() { return DP <= 64 ? 3 : 2; }"
+FWD_BLOCKS = "constexpr int tf32_min_blocks() { return DP <= 64 ? (FLASH ? 4 : 3) : 2; }"
 DKDV_BLOCKS = "kTf32BwdBlocks)\n    fused_attention_bwd_dkdv_tf32_kernel"
-Q_REGS = "constexpr bool tf32_q_regs() { return DP <= 64; }"
+Q_REGS = "constexpr bool tf32_q_regs() { return DP <= (FLASH ? 32 : 64); }"
 ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 CVT_RNA = ('  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n'
            "  return r;")
+# the forward's K and V tiles split once where they land (hi plane, lo plane
+# kPlane floats on), at the cost of a barrier a tile and twice the planes
+FWD_LANDS = [
+    (FWD_BODY, "float* buf = kv + (t & 1) * 2 * kPlane;", "float* buf = kv + (t & 1) * 4 * kPlane;"),
+    (FWD_BODY, "load_tile_f32<DP, kTile>(buf + kPlane, v,", "load_tile_f32<DP, kTile>(buf + 2 * kPlane, v,"),
+    (FWD_BODY, "    float* ks = kv + (t & 1) * 2 * kPlane;\n",
+     "    float* ks = kv + (t & 1) * 4 * kPlane;\n    split_tile<DP, kTile, kPlane>(ks);\n"
+     "    split_tile<DP, kTile, kPlane>(ks + 2 * kPlane);\n    __syncthreads();\n"),
+    (FWD_BODY, "tile_scores_f32<DP, kTile, kQRegs, kPartial, 0, 0>(",
+     "tile_scores_f32<DP, kTile, kQRegs, kPartial, 0, kPlane>("),
+    (FWD_BODY, "tile_pv_f32<DP, kTile, kPartial, 0>(acc, s, ks + kPlane,",
+     "tile_pv_f32<DP, kTile, kPartial, kPlane>(acc, s, ks + 2 * kPlane,"),
+    (FWD_BODY, "(kMmaRows + 4 * kTf32Tile)", "(kMmaRows + 8 * kTf32Tile)"),
+]
 # variant -> [(file, old text, new text)]
 VARIANTS = {
     "as committed": [],
@@ -54,11 +74,27 @@ VARIANTS = {
         (TF32, BWD_PRESPLIT, BWD_PRESPLIT.replace("DP <= 64", "false"))],
     "fp32 64-key tiles": [(TF32, TF32_TILE, TF32_TILE.replace("= 32", "= 64"))],
     "fp32 split by cvt.rna": [(TF32, ROUND, CVT_RNA)],
-    "fp32 forward 4 blocks an SM": [(FWD, FWD_BLOCKS, FWD_BLOCKS.replace("3 : 2", "4 : 2"))],
     "fp32 dK/dV 3 blocks an SM": [(BWD, DKDV_BLOCKS, DKDV_BLOCKS.replace("kTf32BwdBlocks", "3"))],
-    "fp32 forward Q from shared memory": [(FWD, Q_REGS, Q_REGS.replace("64", "32"))],
+    # up to DP = 64 the fused forward holds Q's fragments in registers at
+    # three blocks an SM, the flash forward reads them from shared memory at
+    # four; these variants set both kernels alike
+    "fp32 forward 3 blocks an SM": [(FWD_BODY, FWD_BLOCKS, FWD_BLOCKS.replace("(FLASH ? 4 : 3)", "3"))],
+    "fp32 forward 4 blocks an SM": [(FWD_BODY, FWD_BLOCKS, FWD_BLOCKS.replace("(FLASH ? 4 : 3)", "4"))],
+    "fp32 forward 2 blocks an SM": [(FWD_BODY, FWD_BLOCKS, FWD_BLOCKS.replace("(FLASH ? 4 : 3)", "2"))],
+    "fp32 forward Q from shared memory": [
+        (FWD_BODY, Q_REGS, Q_REGS.replace("(FLASH ? 32 : 64)", "32"))],
+    "fp32 forward Q in registers, 3 blocks an SM": [
+        (FWD_BODY, Q_REGS, Q_REGS.replace("(FLASH ? 32 : 64)", "64")),
+        (FWD_BODY, FWD_BLOCKS, FWD_BLOCKS.replace("(FLASH ? 4 : 3)", "3"))],
+    "fp32 forward Q from shared memory, 4 blocks an SM": [
+        (FWD_BODY, Q_REGS, Q_REGS.replace("(FLASH ? 32 : 64)", "32")),
+        (FWD_BODY, FWD_BLOCKS, FWD_BLOCKS.replace("(FLASH ? 4 : 3)", "4"))],
+    "fp32 forward split where tiles land": FWD_LANDS,
 }
-FWD_TIMED = [(32, 12, 197, 64, False), (64, 12, 197, 64, False), (32, 8, 77, 64, True)]
+FWD_TIMED = [(8, 12, 197, 64, False), (32, 12, 197, 64, False), (64, 12, 197, 64, False),
+             (8, 8, 77, 64, True), (32, 8, 77, 64, True)]
+# the fp32 flash forward: the ViT-L-14-336 and ViT-B-16@384 vision calls
+FLASH_TIMED = [(32, 16, 577, 64, False), (32, 12, 577, 64, False)]
 
 
 def build_variants(native, out_dir: Path, names) -> dict:
@@ -75,7 +111,7 @@ def build_variants(native, out_dir: Path, names) -> dict:
             if old not in text:
                 cs.fail(f"variant {name!r}: {old!r} is not in {file}")
             path.write_text(text.replace(old, new))
-        for source in (FWD, BWD):
+        for source in (FWD, BWD, FLASH):
             lib = src_dir / f"{Path(source).stem}.so"
             cmd = [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib), str(src_dir / source)]
             procs[(name, source)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -141,23 +177,26 @@ def bind_bwd(path: Path):
     return bwd
 
 
-def bind_fwd(path: Path):
+def bind_fwd(path: Path, name: str = "fused_attention_fwd"):
+    """The forward entry ``name`` (``fused_attention_fwd`` or
+    ``flash_attention_fwd``: one signature) of a built library."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_attention_fwd.argtypes = [p] * 4 + [i, i, i, i, ctypes.c_float, i, i, p]
-    lib.fused_attention_fwd.restype = i
+    entry = getattr(lib, name)
+    entry.argtypes = [p] * 4 + [i, i, i, i, ctypes.c_float, i, i, p]
+    entry.restype = i
 
     def fwd(q, k, v, scale, causal):
         import torch
 
         out = torch.empty_like(q)
         b, h, lq, d = q.shape
-        err = lib.fused_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, lq, k.shape[2], d,
             float(scale), int(causal), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"fused_attention_fwd launch failed ({err})")
+            raise RuntimeError(f"{name} launch failed ({err})")
         return out
 
     return fwd
@@ -187,21 +226,25 @@ def main() -> None:
     import torch
 
     from refining_clip_via_dinov2_representations_torch.ops import native
+    from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
+        flash_attention_reference,
+    )
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
         fused_attention_bwd_reference, fused_attention_fwd, fused_attention_reference,
     )
 
-    names = ["as committed"] + [n for n in sys.argv[1:] if n != "as committed"]
+    args = [a for a in sys.argv[1:] if a != "--forward"]
+    names = ["as committed"] + [n for n in args if n != "as committed"]
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         cs.fail(f"unknown variants {unknown}; known: {list(VARIANTS)}")
-    if len(sys.argv) == 1:
+    if not args:
         names = list(VARIANTS)
     cs.phase_device()
     libs = build_variants(native, native.BUILD_DIR.parent / "tune_bwd", names)
     sass_census(native, libs)
     bad = 0
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in () if "--forward" in sys.argv else (torch.bfloat16, torch.float32):
         name_t = str(dtype).split(".")[-1]
         for b, h, l, d, causal in cs.TRAIN_CASES:
             q, k, v = cs._qkv(b, h, l, d, dtype, seed=200)
@@ -236,6 +279,21 @@ def main() -> None:
             bad += not ok
             ms = cs.time_ms(lambda: fwd(q, k, v, scale, causal))
             print(f"variant {name!r} forward float32 [{b},{h},{l},{d}] causal={causal}: "
+                  f"{ms:.4f} ms, max_abs_err {err:.3e} vs plain {'ok' if ok else 'MISMATCH'} "
+                  f"[{cs.CARD}]", flush=True)
+    for b, h, l, d, causal in FLASH_TIMED:
+        q, k, v = cs._qkv(b, h, l, d, torch.float32, seed=500)
+        scale = d ** -0.5
+        want = flash_attention_reference(q, k, v, scale, causal)
+        for name in names:
+            fwd = bind_fwd(libs[name][FLASH], "flash_attention_fwd")
+            got = fwd(q, k, v, scale, causal)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ok = err <= cs.TOL["float32"]
+            bad += not ok
+            ms = cs.time_ms(lambda: fwd(q, k, v, scale, causal), iters=20)
+            print(f"variant {name!r} flash float32 [{b},{h},{l},{d}] causal={causal}: "
                   f"{ms:.4f} ms, max_abs_err {err:.3e} vs plain {'ok' if ok else 'MISMATCH'} "
                   f"[{cs.CARD}]", flush=True)
     print(f"tune: {bad} variant case(s) disagree", flush=True)

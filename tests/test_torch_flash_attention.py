@@ -119,6 +119,25 @@ def test_gate_checks_shapes_only():
         assert flash_attention_compatible(t, t, t, m) == want, shape
 
 
+def test_query_length_bound_follows_the_route():
+    """The wrapper's bound on Lq is what the route that runs can take: the
+    CUDA grid counts at most 65535 query tiles, of 64 rows in the
+    tensor-core kernels (bf16, fp32 up to head dim 128) and of 32 in the
+    scalar fp32 kernel past 128; the CUDA entry checks the same."""
+    from pathlib import Path
+
+    from refining_clip_via_dinov2_representations_torch.ops import flash_attention as fm
+
+    assert fm.max_query_len(torch.bfloat16, 256) == fm.MAX_QUERY_LEN == 65535 * 64
+    assert fm.max_query_len(torch.float32, 128) == 65535 * 64
+    assert fm.max_query_len(torch.float32, 129) == fm.MAX_QUERY_LEN_SCALAR == 65535 * 32
+    src = (Path(fm.__file__).resolve().parents[1] / "csrc" / "flash_attention_fwd.cu").read_text()
+    assert "const long long rows = dtype == 0 && d > 128 ? kBQ : fa::kMmaRows;" in src
+    assert "if (lq > 65535 * rows) return cudaErrorInvalidValue;" in src
+    assert "constexpr int kBQ = (kThreads / 32) * kRowsPerWarp;  // 32 query rows" in src
+    assert "if (d <= 128)\n    return fa::launch_fwd_tf32<128>(" in src
+
+
 def test_flash_mha_refuses_a_mask():
     q, k, v = map(torch.from_numpy, _qkv(lq=8))
     with pytest.raises(ValueError, match="mask"):
@@ -229,56 +248,67 @@ def test_cuda_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-def test_cuda_bf16_runs_the_tensor_core_kernel():
-    """bf16 inputs reach the mma.sync kernel; fp32 inputs the scalar one."""
+def test_cuda_each_dtype_runs_its_tensor_core_kernel():
+    """bf16 inputs reach the mma.sync kernel; fp32 inputs the split-TF32
+    kernel up to head dim 128 and no scalar kernel, the scalar kernel at
+    head dim 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    q = torch.randn(1, 2, 600, 64, device="cuda")
-    for dtype, want, not_want in ((torch.bfloat16, "flash_attention_fwd_mma_kernel", None),
-                                  (torch.float32, "flash_attention_fwd_kernel<float",
-                                   "flash_attention_fwd_mma_kernel")):
-        x = q.to(dtype)
+    scalar = "flash_attention_fwd_kernel<float"
+    for dtype, d, want, not_want in (
+            (torch.bfloat16, 64, "flash_attention_fwd_mma_kernel", scalar),
+            (torch.float32, 64, "flash_attention_fwd_tf32_kernel", scalar),
+            (torch.float32, 128, "flash_attention_fwd_tf32_kernel", scalar),
+            (torch.float32, 256, scalar, "flash_attention_fwd_tf32_kernel")):
+        x = torch.randn(1, 2, 600, d, device="cuda").to(dtype)
+        flash_attention_fwd(x, x, x, 0.125, True)  # the first launch loads the module
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flash_attention_fwd(x, x, x, 0.125, True)
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages()}
-        assert any(want in n for n in names), names
-        assert not_want is None or not any(not_want in n for n in names), names
+        assert any(want in n for n in names), (dtype, d, names)
+        assert not any(not_want in n for n in names), (dtype, d, names)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_cuda_bf16_every_head_dim(causal):
-    """Every head_dim the gate admits (1-256), Lq != Lk: d % 8 != 0 takes
-    element copies, d % 8 == 0 the 16-byte cp.async copies."""
+def test_cuda_every_head_dim(causal, dtype, tol):
+    """Every head_dim the gate admits (1-256), Lq != Lk. bf16: d % 8 != 0
+    takes element copies, d % 8 == 0 the 16-byte cp.async copies. fp32: up
+    to 128 the split-TF32 kernel (element copies where d % 4 != 0), past it
+    the scalar kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for d in range(1, 257):
-        q, k, v = _cuda_qkv(1, 2, 130, 100, d, torch.bfloat16, seed=d)
+        q, k, v = _cuda_qkv(1, 2, 130, 100, d, dtype, seed=d)
         got = flash_attention_fwd(q, k, v, d ** -0.5, causal)
         want = flash_attention_reference(q, k, v, d ** -0.5, causal)
-        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0,
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0,
                                    msg=lambda m: f"head_dim {d}: {m}")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("lq,lk", [(1, 1), (1, 9), (577, 577)])
-def test_cuda_bf16_unaligned_and_strided_inputs(lq, lk):
-    """Bases 2 bytes off a 16-byte boundary (element copies) and transposed
-    views made contiguous give the plain version's result; L = 1 included."""
+def test_cuda_unaligned_and_strided_inputs(lq, lk, dtype, tol):
+    """Bases one element off a 16-byte boundary (element copies) and
+    transposed views made contiguous give the plain version's result; L = 1
+    included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(2)
     sizes = (2 * 3 * lq * 64, 2 * 3 * lk * 64, 2 * 3 * lk * 64)
-    flat = torch.randn(sum(sizes) + 1, generator=g).to("cuda", torch.bfloat16)
+    flat = torch.randn(sum(sizes) + 1, generator=g).to("cuda", dtype)
     q, k, v = (t.view(2, 3, -1, 64) for t in flat[1:].split(sizes))
     assert q.data_ptr() % 16 != 0 and q.is_contiguous()
-    strided = [torch.randn(2, 3, 64, n, generator=g).to("cuda", torch.bfloat16)
+    strided = [torch.randn(2, 3, 64, n, generator=g).to("cuda", dtype)
                .transpose(2, 3).contiguous() for n in (lq, lk, lk)]
     for causal in (False, True):
         for args in ((q, k, v), strided):
             got = flash_attention_fwd(*args, 0.125, causal)
             want = flash_attention_reference(*args, 0.125, causal)
-            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)

@@ -19,13 +19,17 @@ in PyTorch, step for step:
   after P V): in fp32 the TPU kernel's cast of P to V's dtype is the
   identity, so dividing after the product computes the same function up to
   fp32 rounding.
+* ``flash_fwd_tf32``: the flash kernel's fp32 route, the same body with Q
+  pre-scaled in fp32 before it is split, the pre-scaled scores times
+  log2(e), keys masked (and m started) at -1e30, O = acc / max(l, 1e-30).
 * ``fused_bwd_tf32``: the dQ kernel's statistics pass (the forward's tiles
   and arithmetic), p = 2^(s - m) / l as 2^(s - m) (1 / l), dS = P (dP -
   delta) and dS K per 16-key chunk; the dK/dV kernel's walk over 16-query
   chunks with those statistics (m in base-2 units and 1 / l).
 
 Each model is held against the JAX package's Pallas kernels, interpreted on
-the CPU, in fp32 on seeded numpy inputs: ``_fwd_kernel`` within ``FWD_TOL``
+the CPU, in fp32 on seeded numpy inputs: ``_fwd_kernel`` and
+``_flash_fwd_kernel`` (through the JAX ``flash_mha``) within ``FWD_TOL``
 absolute and ``jax.vjp`` of ``_fused_bwd`` within ``BWD_REL_TOL`` of the
 largest |grad|, both ten times inside the kernels' fp32 contract (1e-4, and
 1e-4 of the largest |grad|: ``chip_smoke.TOL``, ``BWD_REL_TOL``). The
@@ -44,7 +48,11 @@ from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
     fused_attention_bwd_reference,
     fused_attention_reference,
 )
-from tests.test_torch_attention_schedule import _blocks
+from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
+    flash_attention_reference,
+)
+from tests.test_torch_attention_schedule import FLASH_SHAPES, _blocks
+from tests.test_torch_flash_attention import _jax_flash
 
 CSRC = (Path(__file__).resolve().parents[1] / "refining_clip_via_dinov2_representations_torch"
         / "csrc")
@@ -55,6 +63,7 @@ KSTEP = 8  # the k of mma.sync m16n8k8
 # slot s of a permuted k-step holds key 2s (s < 4) or 2(s - 4) + 1
 PERM = [0, 2, 4, 6, 1, 3, 5, 7]
 LOG2E = np.float32(1.4426950408889634)  # the kernels' kLog2e
+FLASH_MASKED = -1e30  # the flash kernel's mask value and m's start, as the TPU kernel's NEG_INF
 CONTRACT = 1e-4  # the fp32 kernels' tolerance on the card
 FWD_TOL = 1e-5  # absolute, model vs the interpreted _fwd_kernel
 BWD_REL_TOL = 1e-5  # of the largest |grad|, model vs jax.vjp of _fused_bwd
@@ -113,26 +122,27 @@ def _scale2(scale: float) -> float:
     return float(np.float32(scale) * LOG2E)
 
 
-def _masked_scores(qb, kt, q0, j0, scale2, causal, mm):
-    """One tile of S = Q K^T * scale * log2(e), keys past a query's index
-    -inf when causal (keys past Lk are not in the slice)."""
+def _masked_scores(qb, kt, q0, j0, scale2, causal, mm, masked=float("-inf")):
+    """One tile of S = Q K^T * scale2 (scale * log2(e), or log2(e) where Q
+    is pre-scaled), keys past a query's index ``masked`` when causal (keys
+    past Lk are not in the slice)."""
     s = mm(qb, kt.transpose(-1, -2)) * scale2
     if causal:
         rows = torch.arange(q0, q0 + qb.shape[-2])[:, None]
         keys = torch.arange(j0, j0 + kt.shape[-2])[None, :]
-        s = s.masked_fill(keys > rows, float("-inf"))
+        s = s.masked_fill(keys > rows, masked)
     return s
 
 
-def _online_stats(qb, k, q0, tiles, scale2, causal, mm, v=None):
+def _online_stats(qb, k, q0, tiles, scale2, causal, mm, v=None, masked=float("-inf")):
     """The forward's pass over the key tiles (and the dQ kernel's statistics
     pass, v None), in base 2: running m and l, and with v the unnormalised
-    P V."""
-    m = torch.full(qb.shape[:-1] + (1,), float("-inf"))
+    P V. m starts at ``masked``, the kernels' mask value."""
+    m = torch.full(qb.shape[:-1] + (1,), masked)
     l = torch.zeros_like(m)
     acc = torch.zeros(qb.shape)
     for j0 in tiles:
-        s = _masked_scores(qb, k[..., j0:j0 + TILE, :], q0, j0, scale2, causal, mm)
+        s = _masked_scores(qb, k[..., j0:j0 + TILE, :], q0, j0, scale2, causal, mm, masked)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
@@ -151,6 +161,21 @@ def fused_fwd_tf32(q, k, v, scale, causal=False, mm=mm_3xtf32):
         qb = q[..., q0:q0 + ROWS, :]
         _, l, acc = _online_stats(qb, k, q0, tiles, _scale2(scale), causal, mm, v)
         out[..., q0:q0 + ROWS, :] = acc / l
+    return out
+
+
+def flash_fwd_tf32(q, k, v, scale, causal=False, mm=mm_3xtf32):
+    """The flash kernel's fp32 route (``csrc/attention_fwd_tf32.cuh`` with
+    FLASH): Q pre-scaled once in fp32 (the scale rounded to fp32), then the
+    fused forward's online pass in base 2 on the pre-scaled scores times
+    log2(e), keys masked and m started at -1e30, O = acc / max(l, 1e-30)."""
+    q, k, v = (x.float() for x in (q, k, v))
+    qs = q * torch.tensor(scale, dtype=torch.float32)
+    out = torch.empty(q.shape)
+    for q0, tiles in _blocks(q.shape[-2], k.shape[-2], causal, ROWS, TILE):
+        qb = qs[..., q0:q0 + ROWS, :]
+        _, l, acc = _online_stats(qb, k, q0, tiles, float(LOG2E), causal, mm, v, FLASH_MASKED)
+        out[..., q0:q0 + ROWS, :] = acc / l.clamp_min(1e-30)
     return out
 
 
@@ -380,6 +405,48 @@ def test_tf32_schedules_compute_the_plain_functions(shape, causal):
         assert (g_ - w).abs().max().item() <= BWD_REL_TOL * largest
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_fp32_route_matches_interpreted_flash_kernel(shape, causal):
+    """The ViT-L-14-336 length (577) at head dims 64 and 80, Lq < Lk and
+    Lq > Lk (head dim 40): the model of the flash kernel's fp32 route
+    against ``_flash_fwd_kernel`` interpreted through the JAX ``flash_mha``
+    (its 128 x 128 tiles), in fp32."""
+    b, h, lq, lk, d = shape
+    q, k, v, _ = _inputs(b, h, lq, lk, d, seed=lq + lk + d)
+    got = flash_fwd_tf32(*map(torch.from_numpy, (q, k, v)), d ** -0.5, causal)
+    want = torch.from_numpy(_jax_flash(q, k, v, causal).copy())
+    torch.testing.assert_close(got, want, atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(1, 2, 130, 45, 128), (1, 2, 65, 200, 128), (2, 3, 1, 33, 64),
+                                   (1, 2, 97, 70, 7)])
+def test_flash_fp32_route_computes_the_plain_function(shape, causal):
+    """Head dim 128 (the widest the route takes), partial query blocks and
+    key tiles, one query row, and a head dim that is not a multiple of 8:
+    the model gives ``flash_attention_reference``'s function."""
+    b, h, lq, lk, d = shape
+    q, k, v = map(torch.from_numpy, _inputs(b, h, lq, lk, d, seed=lq * lk + d)[:3])
+    want = flash_attention_reference(q, k, v, d ** -0.5, causal)
+    torch.testing.assert_close(flash_fwd_tf32(q, k, v, d ** -0.5, causal), want, atol=FWD_TOL,
+                               rtol=0)
+
+
+def test_one_tf32_product_misses_the_contract_in_the_flash_route():
+    """At the ViT-L-14-336 vision call cut to batch 1 ([1,16,577,64]) the
+    flash route through single TF32 products is off the interpreted
+    ``_flash_fwd_kernel`` by about 3.8e-4, past the 1e-4 contract; through
+    3xTF32 by under 1e-6."""
+    b, h, l, d = 1, 16, 577, 64
+    q, k, v, _ = _inputs(b, h, l, l, d, seed=11)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = torch.from_numpy(_jax_flash(q, k, v).copy())
+    err1 = (flash_fwd_tf32(tq, tk, tv, d ** -0.5, mm=mm_tf32) - want).abs().max().item()
+    err3 = (flash_fwd_tf32(tq, tk, tv, d ** -0.5) - want).abs().max().item()
+    assert err1 > CONTRACT and err3 <= FWD_TOL, (err1, err3)
+
+
 def test_one_tf32_product_misses_the_contract_and_the_split_meets_it():
     """Why the split exists. At the serving image shape cut to batch 1
     ([1,12,197,64]) with standard normal inputs (as the card's checks draw
@@ -417,11 +484,31 @@ def test_models_use_the_kernels_tiles():
     assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in tf32
     mma = (CSRC / "attention_mma.cuh").read_text()
     assert int(re.search(r"constexpr int kMmaRows = (\d+);", mma).group(1)) == ROWS
+    # the forward's body, shared by the fused and the flash kernels' fp32 routes
+    body = (CSRC / "attention_fwd_tf32.cuh").read_text()
+    for used in ("tile_scores_f32<DP, kTile,", "tile_pv_f32<DP, kTile,", "online_softmax<kTile,",
+                 "kTile = kTf32Tile", "kRows = kMmaRows",
+                 "const float kMasked = FLASH ? -1e30f : -INFINITY;",
+                 "float m[2] = {kMasked, kMasked}",
+                 "const float scale2 = FLASH ? kLog2e : scale * kLog2e;",
+                 "y.x * scale, y.y * scale, y.z * scale, y.w * scale",
+                 "if constexpr (FLASH) l[0] = fmaxf(l[0], 1e-30f), l[1] = fmaxf(l[1], 1e-30f);"):
+        assert used in body, used
+    assert float(re.search(r"FLASH \? (-1e30)f", body).group(1)) == FLASH_MASKED
+    # Q is scaled before its fragments are split, where the TPU kernel scales it
+    assert body.index("y.x * scale") < body.index("load_a_frags<DP>(qf, qw, lane)")
     fwd = (CSRC / "fused_attention_fwd.cu").read_text()
-    for used in ("fa::tile_scores_f32<DP, kTile,", "fa::tile_pv_f32<DP, kTile,",
-                 "fa::online_softmax<kTile,", "kTile = fa::kTf32Tile",
-                 "if (dtype == 0) return dispatch_tf32("):
+    for used in ("fa::attention_fwd_tf32<DP, false>(", "(fa::tf32_min_blocks<DP, false>())",
+                 "if (dtype == 0) return dispatch_tf32(",
+                 "if (d <= 128)\n    return fa::launch_fwd_tf32<128>(fused_attention_fwd_tf32_kernel"):
         assert used in fwd, used
+    flash = (CSRC / "flash_attention_fwd.cu").read_text()
+    for used in ("fa::attention_fwd_tf32<DP, true>(", "(fa::tf32_min_blocks<DP, true>())",
+                 "if (dtype == 0) return dispatch_f32(",
+                 "if (d <= 128)\n    return fa::launch_fwd_tf32<128>(flash_attention_fwd_tf32_kernel",
+                 "return launch<float, 256>(",
+                 "const long long rows = dtype == 0 && d > 128 ? kBQ : fa::kMmaRows;"):
+        assert used in flash, used
     bwd = (CSRC / "fused_attention_bwd.cu").read_text()
     assert int(re.search(r"constexpr int kChunk = (\d+);", bwd).group(1)) == CHUNK
     for used in ("fa::tile_scores_f32<DP, kTile, kRegs,", "fa::tile_scores_f32<DP, kChunk,",
