@@ -168,6 +168,10 @@ SCALAR_FLASH_MS = {(32, 16, 577, 577, 64, False, "bfloat16"): 2.8691,
                    (32, 12, 577, 577, 64, False, "bfloat16"): 2.0935,
                    (32, 12, 577, 577, 64, False, "float32"): 2.1526}
 TRAIN_BATCH, CLI_BATCH, CLI_SAMPLES, DINO_DIM = 64, 32, 96, 384
+# train-eval-cli: mini-Flickr at full resolution, 800 train and 200 val
+# caption rows; the thesis model at the CLI's batch
+EVAL_MODEL, EVAL_BATCH, EVAL_SIZE_PX = "ViT-B-16", 32, 224
+EVAL_TRAIN_IMAGES, EVAL_VAL_IMAGES = 160, 40
 FLASH_TPU = "refining_clip_via_dinov2_representations_tpu/ops/flash_attention.py:44"
 FLASH_SRC = "refining_clip_via_dinov2_representations_torch/csrc/flash_attention_fwd.cu"
 # Flash kernel cases: (B, H, Lq, Lk, D, causal). The ViT-L-14-336 and
@@ -1025,6 +1029,217 @@ def phase_train_cli() -> None:
         shutil.rmtree(logs, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def _timed(module, name: str, seconds: dict):
+    """Wraps ``module.name`` so that each call adds its wall time (after a
+    device sync) to ``seconds[name]``; restores it on exit."""
+    import torch
+
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if DEVICE != "cpu":
+                torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def _eval_cli_run(argv: list) -> tuple:
+    """One ``train.main.main`` run: (records, launch counts, wall seconds,
+    seconds in train_one_epoch / evaluate / run_clip_blind_on_split)."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.eval import clip_blind
+    from refining_clip_via_dinov2_representations_torch.train import evaluate as evaluate_mod
+    from refining_clip_via_dinov2_representations_torch.train import main as main_mod
+
+    seconds: dict = {}
+    with _timed(main_mod, "train_one_epoch", seconds), \
+            _timed(evaluate_mod, "evaluate", seconds), \
+            _timed(clip_blind, "run_clip_blind_on_split", seconds):
+        # ---- the main path: counts at 0 just before, read just after ----
+        _zero_counts()
+        t0 = time.perf_counter()
+        records = main_mod.main(argv)
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+    return records, counts, wall, seconds
+
+
+def phase_train_eval_cli() -> dict:
+    """The thesis protocol through ``train.main.main`` on the card: ViT-B-16
+    at full width and depth, fp32 compute (``--precision amp``) through the
+    split-TF32 fused kernels, on mini-Flickr at 224 px (160 train and 40 val
+    images, five captions each, DINO features of 384 dims), with CSV data and
+    the DINO join, pre-train and per-epoch evaluation, checkpoints and the
+    CLIP-blind check on both splits; one epoch, then ``--resume latest
+    --epochs 2``. Checks every artifact, the resumed step, and the fused
+    launches against the loaders' batch counts (48 a train step, 24 an eval
+    batch, 12 a CLIP-blind batch); by the profiler, that an eval call runs
+    the split-TF32 forward; then the train loader's rate alone and the step's
+    alone. Returns the launches of both runs."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import create_model, get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.train.data import (
+        _clone_args, get_csv_dataset, load_dino_index_map,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.evaluate import evaluate
+    from refining_clip_via_dinov2_representations_torch.train.main import build_transforms
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+    from refining_clip_via_dinov2_representations_torch.transform import image_transform_v2
+    from scripts.mini_flickr import generate
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_cli_", dir=build)
+    try:
+        t0 = time.perf_counter()
+        d = generate(os.path.join(work, "data"), n_train=EVAL_TRAIN_IMAGES,
+                     n_val=EVAL_VAL_IMAGES, size_px=EVAL_SIZE_PX, dino_dim=DINO_DIM, seed=SEED)
+        print(f"train-eval-cli: mini-Flickr {EVAL_TRAIN_IMAGES} + {EVAL_VAL_IMAGES} images "
+              f"at {EVAL_SIZE_PX} px in {time.perf_counter() - t0:.2f} s", flush=True)
+        # the DINO-soft flags of scripts/dress_rehearsal.py:_common_flags
+        argv = ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data",
+                d["val_csv"], "--dataset-type", "csv", "--batch-size", str(EVAL_BATCH),
+                "--precision", "amp", "--lr", "5e-4", "--warmup", "2", "--wd", "0.1",
+                "--workers", "8", "--seed", str(SEED), "--use_dino_general", "--lambda_soft",
+                "0.5", "--soft_mode", "kl_teacher", "--lambda_weighted", "0.2",
+                "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
+                "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
+                d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
+                "--log-every-n-steps", "1", "--logs", work, "--name", "run", "--device", DEVICE]
+        args = parse_args(argv)
+        train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
+        val_info = get_csv_dataset(args, None, False).dataloader
+        val_batches = val_info.num_batches
+        blind_info = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False)
+        check(2 * args.clip_blind_max_images >= blind_info.dataloader.num_samples,
+              "the CLIP-blind cap would cut the train split")
+        blind_batches = val_batches + blind_info.dataloader.num_batches
+
+        def expected(evals: int) -> dict:
+            return {"flash_attention_fwd": 0,
+                    "fused_attention_fwd": 24 * train_batches + 24 * val_batches * evals
+                    + 12 * blind_batches,
+                    "fused_attention_bwd": 24 * train_batches}
+
+        run = os.path.join(work, "run")
+        launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+        first, counts1, wall1, sec1 = _eval_cli_run(argv + ["--epochs", "1"])
+        saved_step = torch.load(os.path.join(run, "checkpoints", "epoch_1.pt"),
+                                map_location="cpu", weights_only=True, mmap=True)["step"]
+        second, counts2, wall2, sec2 = _eval_cli_run(argv + ["--epochs", "2", "--resume",
+                                                             "latest"])
+        resumed = second[len(first):]
+        for label, counts, want, wall, sec, steps in (
+                ("run 1 (--epochs 1)", counts1, expected(2), wall1, sec1, len(first)),
+                ("run 2 (--resume latest --epochs 2)", counts2, expected(1), wall2, sec2,
+                 len(resumed))):
+            train_s = sec.get("train_one_epoch", float("nan"))
+            print(f"train-eval-cli {label}: {EVAL_MODEL} fp32 batch {EVAL_BATCH}: wall "
+                  f"{wall:.2f} s; train {train_s:.2f} s for {steps} steps "
+                  f"({steps * EVAL_BATCH / train_s:.1f} samples/s, data loading included); "
+                  f"evaluate {sec.get('evaluate', 0.0):.2f} s; CLIP-blind "
+                  f"{sec.get('run_clip_blind_on_split', 0.0):.2f} s [{CARD}]", flush=True)
+            print(f"train-eval-cli {label}: launches {counts}, expected {want} ({train_batches} "
+                  f"train steps x 48, {val_batches} eval batches x 24 per evaluation, "
+                  f"{blind_batches} CLIP-blind batches x 12)", flush=True)
+            check(counts == want, f"train-eval-cli {label} launched {counts}, expected {want}")
+            for k in launches:
+                launches[k] += counts[k]
+
+        with open(os.path.join(run, "loss_steps.json")) as f:
+            records = json.load(f)
+        print(f"train-eval-cli: loss_steps.json {len(records)} records, steps "
+              f"{records[0]['step']}..{records[-1]['step']}; the resumed run's first step "
+              f"{resumed[0]['step'] if resumed else None} after the saved step {saved_step}",
+              flush=True)
+        check([r["step"] for r in records] == list(range(1, 2 * train_batches + 1))
+              and all(math.isfinite(r["total_loss"]) for r in records),
+              "loss_steps.json is not one finite record per step of both runs")
+        check(records == second, "loss_steps.json differs from the records main returned")
+        check(saved_step == train_batches and resumed and resumed[0]["step"] == saved_step + 1,
+              "the resumed run did not continue at the saved step")
+        with open(os.path.join(run, "final_itm_results.json")) as f:
+            results = json.load(f)
+        check([e["epoch"] for e in results] == [0, 1, 2],
+              f"final_itm_results.json epochs {[e['epoch'] for e in results]}")
+        keys = [f"{d}_R@{k}" for d in ("text_to_image", "image_to_text") for k in (1, 5, 10)]
+        for e in results:
+            m = {r["val_name"]: r["metrics"] for r in e["results"]}.get("val", {})
+            print(f"train-eval-cli: epoch {e['epoch']} val "
+                  f"{ {k: m.get(k) for k in keys + ['clip_val_loss', 'modality_gap']} }",
+                  flush=True)
+            check(all(isinstance(m.get(k), float) and math.isfinite(m[k])
+                      for k in keys + ["clip_val_loss"]), f"epoch {e['epoch']}: {m}")
+        with open(os.path.join(run, "best_metrics.json")) as f:
+            best = json.load(f)
+        print(f"train-eval-cli: best epoch {best['epoch']}, retrieval score "
+              f"{best['score']:.4f}", flush=True)
+        check(best["epoch"] in (1, 2), f"best_metrics.json names epoch {best['epoch']}")
+        check(os.path.isfile(os.path.join(run, "itm_scores.csv")), "no itm_scores.csv")
+        for split in ("val", "train"):
+            path = os.path.join(run, "clip_blind", f"clip_blind_{split}.json")
+            check(os.path.isfile(path), f"no {path}")
+            with open(path) as f:
+                stats = json.load(f)
+            rel = {k: round(v["relative_percent"], 4) for k, v in stats["results"].items()}
+            print(f"train-eval-cli: clip_blind_{split}.json: {stats['total_pairs']} pairs, "
+                  f"relative % {rel}", flush=True)
+            check(len(stats["results"]) == 3, f"clip_blind_{split}.json thresholds")
+
+        # ---- the fp32 route of one eval call, by the profiler ----
+        model, pp = create_model(EVAL_MODEL, os.path.join(run, "checkpoints", "epoch_2.pt"),
+                                 precision="amp", device=DEVICE)
+        info = get_csv_dataset(args, image_transform_v2(pp), False,
+                               tokenizer=get_tokenizer(EVAL_MODEL))
+        check_fp32_route(lambda: evaluate(model, {"val": info}, 2, args), ("fwd",),
+                         "one eval call")
+        del model
+        # ---- the train loader alone, on the host: the rate the CLI's
+        # samples/s would reach if the steps cost nothing ----
+        loader = get_csv_dataset(args, build_transforms(args, pp)[0], True,
+                                 tokenizer=get_tokenizer(EVAL_MODEL),
+                                 dino_index_map=load_dino_index_map(d["dino_index_map"])
+                                 ).dataloader
+        t0 = time.perf_counter()
+        n = sum(len(b["images"]) for b in loader)
+        host_s = time.perf_counter() - t0
+        print(f"train-eval-cli: the train loader alone ({args.workers} threads: PNG decode, "
+              f"random resized crop, tokenizer, DINO rows): {n} samples in {host_s:.2f} s, "
+              f"{n / host_s:.1f} samples/s (host clock) [{CARD}]", flush=True)
+        # ---- and the fp32 step alone at the CLI's batch, on one cached batch ----
+        _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL)
+        batch = _train_batch(get_tokenizer(EVAL_MODEL), EVAL_BATCH, DEVICE, model_name=EVAL_MODEL)
+        step_ms = host_step_ms(lambda: train_step(state, batch))
+        print(f"train-eval-cli: the fp32 DINO-soft step alone at batch {EVAL_BATCH} on one "
+              f"cached batch: {step_ms:.3f} ms host clock ({EVAL_BATCH / step_ms * 1e3:.1f} "
+              f"samples/s) [{CARD}]", flush=True)
+        del state, train_step
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def attention_bwd_work(b, h, l, d, causal, dtype_name):
     """(FLOPs, bytes) of the attention backward: 10 pairs D FLOPs per head
     (S recomputed, dV, dP, dQ, dK); 8 L D elements per head moved (q, k, v,
@@ -1418,6 +1633,7 @@ def main() -> None:
     train_fwd, train_bwd = phase_train_step()
     check(train_fwd > 0 and train_bwd > 0, "the train steps launched no kernel")
     phase_train_cli()
+    eval_cli = phase_train_eval_cli()
     bwd_rows = phase_bwd_times("bfloat16")
     bwd_rows32 = phase_bwd_times("float32")
     worst_flash = phase_kernels_flash()
@@ -1433,7 +1649,8 @@ def main() -> None:
     tf32 = flash_rows[FLASH_TIMED[1]]  # the ViT-L-14-336 vision call, fp32
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
-        "replaces": FUSED_TPU, "launches": serve_launches + train_fwd,
+        "replaces": FUSED_TPU,
+        "launches": serve_launches + train_fwd + eval_cli["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -1441,7 +1658,8 @@ def main() -> None:
         "bf16_library_ms": t16["library_ms"],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
-        "replaces": BWD_TPU, "launches": train_bwd, "max_abs_err": worst_bwd["bfloat16"],
+        "replaces": BWD_TPU, "launches": train_bwd + eval_cli["fused_attention_bwd"],
+        "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
         "fp32_shape": list(TRAIN_CASES[0][:4]), "fp32_max_abs_err": worst_bwd["float32"],
@@ -1458,9 +1676,9 @@ def main() -> None:
         "fp32_plain_ms": tf32["plain_ms"], "fp32_bound_ms": tf32["bound_ms"],
         "fp32_bound_by": tf32["bound_by"], "fp32_library_ms": tf32["library_ms"],
     }]}), flush=True)
-    # count: the one card this run uses
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}), flush=True)
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

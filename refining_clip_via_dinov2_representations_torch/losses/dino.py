@@ -23,6 +23,7 @@ raises until multi-GPU training is ported (see ``losses/contrastive.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
@@ -71,13 +72,26 @@ class DinoLossCfg:
     with_diagnostics: bool = False
 
 
+def _lecun_normal_(weight: torch.Tensor) -> None:
+    """flax's ``lecun_normal``: truncated to [-2, 2] standard deviations,
+    the deviation divided by the truncated normal's (0.8796...) so that the
+    variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
 class DinoProjectionHead(nn.Module):
     """CLIP embedding -> DINO embedding, in fp32.
 
     linear: one Linear (``proj``). mlp: ``fc1`` to (d_in + dino_dim) // 2,
     ReLU, ``fc2``; either optionally followed by a LayerNorm (``ln``). The
     parameter names are the JAX head's, so
-    ``models/convert.py:jax_head_params_to_state_dict`` loads strictly."""
+    ``models/convert.py:jax_head_params_to_state_dict`` loads strictly. The
+    init is the JAX head's (flax ``Dense``): lecun-normal weights (a normal
+    truncated at two standard deviations, scaled to variance 1 / fan_in) and
+    zero biases, not torch's ``nn.Linear`` default; it draws from torch's
+    global generator."""
 
     def __init__(self, in_dim: int, dino_dim: int, projection_type: str = "mlp",
                  use_layernorm: bool = False):
@@ -92,6 +106,10 @@ class DinoProjectionHead(nn.Module):
         else:
             raise ValueError(f"Unknown projection_type: {projection_type}")
         self.ln = LayerNorm(dino_dim) if use_layernorm else None
+        for lin in self.modules():
+            if isinstance(lin, nn.Linear):
+                _lecun_normal_(lin.weight)
+                nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()

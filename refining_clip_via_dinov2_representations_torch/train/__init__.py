@@ -1,2 +1,3 @@
 """The training slice: schedules, precision, AdamW param groups, the train
-step, the host data path, the CLI flags and the ``main`` orchestrator."""
+step, the host data path, evaluation, checkpoints, the CLI flags and the
+``main`` orchestrator."""

@@ -1,46 +1,86 @@
-"""The host data path of the training slice: the DINO feature store, the
-synthetic dataset and the prefetching loader.
+"""The host data path of the training slice: the DINO feature store, the CSV
+and synthetic datasets and the prefetching loader.
 
-The port of the JAX package's ``train/data.py`` for ``--dataset-type
-synthetic`` and precomputed DINO features. The loader yields numpy batch
-dicts (the train loop moves them to the device); it shuffles with
-``np.random.default_rng(seed + epoch)``, so a seed and an epoch give the
-JAX loader's order. CSV, webdataset and ImageFolder datasets are not ported
-yet and raise.
+The port of the JAX package's ``train/data.py`` for one process. The loader
+yields numpy batch dicts (the train loop moves them to the device); it
+shuffles with ``np.random.default_rng(seed + epoch)``, so a seed and an
+epoch give the JAX loader's order, and it gathers a CSV batch's teacher rows
+from the feature store by the samples' ``dino_idx``. CSV rows are read with
+the ``csv`` module (the JAX package uses pandas, which the card's machine
+lacks): a header row, then one row per caption; an empty caption reads as
+"nan", as pandas gives it. Image paths are joined to the DINO index map
+through ``_canon_path``, and a map that misses a row, or gives it -1,
+raises the JAX package's error. Webdataset and ImageFolder datasets raise.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
+import logging
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, Optional, Sequence
+from types import SimpleNamespace
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from ..constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 
 
+def _canon_path(p: str) -> str:
+    """Real, normalised path with a lower-case extension: the key of the
+    DINO join."""
+    p = os.path.normpath(os.path.realpath(str(p)))
+    root, ext = os.path.splitext(p)
+    return root + ext.lower()
+
+
 class DinoFeatureStore:
-    """Precomputed DINOv2 features, ``[N, D]``, from ``.npy`` (memory-mapped)
-    or ``.npz`` (key ``feats`` or the first array)."""
+    """Precomputed DINOv2 features, ``[N, D]``, from ``.npy`` (memory-mapped),
+    ``.npz`` (key ``feats`` or the first array), ``.safetensors`` (needs the
+    ``safetensors`` package) or a torch ``.pt`` file (a tensor, or a dict
+    holding ``feats`` or one tensor), converted once to a ``<path>.npy``
+    sidecar that is memory-mapped from then on."""
 
     def __init__(self, path: str, mmap: bool = True):
         self.path = str(path)
-        if self.path.endswith(".npy"):
-            arr = np.load(self.path, mmap_mode="r" if mmap else None)
-        elif self.path.endswith(".npz"):
-            z = np.load(self.path)
-            arr = np.asarray(z["feats" if "feats" in z else list(z.keys())[0]], np.float32)
-        else:
-            raise NotImplementedError(
-                f"{self.path}: the port reads .npy and .npz feature files (convert a "
-                ".pt or .safetensors file with the JAX package's DinoFeatureStore)")
+        arr = self._load(self.path, mmap)
         if arr.ndim != 2:
             raise ValueError(f"DINO features must be [N, D], got {arr.shape}")
         self.features = arr
+
+    @staticmethod
+    def _load(path: str, mmap: bool) -> np.ndarray:
+        mode = "r" if mmap else None
+        if path.endswith(".npy"):
+            return np.load(path, mmap_mode=mode)
+        if path.endswith(".npz"):
+            z = np.load(path)
+            return np.asarray(z["feats" if "feats" in z else list(z.keys())[0]], np.float32)
+        if path.endswith(".safetensors"):
+            try:
+                from safetensors.numpy import load_file
+            except ImportError as e:
+                raise NotImplementedError(
+                    f"{path}: reading .safetensors needs the safetensors package, which this "
+                    "environment lacks; save the features as .npy or .pt") from e
+            d = load_file(path)
+            return np.asarray(d["feats" if "feats" in d else list(d.keys())[0]], np.float32)
+        cache = path + ".npy"
+        if not os.path.exists(cache):
+            import torch
+
+            t = torch.load(path, map_location="cpu", weights_only=True)
+            if isinstance(t, dict):
+                t = t.get("feats", next(iter(t.values())))
+            arr = t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+            np.save(cache, arr.astype(np.float32))
+            logging.info("[DINO] converted %s -> %s %s", path, cache, arr.shape)
+        return np.load(cache, mmap_mode=mode)
 
     @property
     def shape(self):
@@ -62,8 +102,9 @@ class DinoFeatureStore:
 
 
 def load_dino_index_map(path: str) -> Dict[str, int]:
-    """A path -> row-index map from ``.json`` or ``.npz`` (key ``map`` or the
-    first array), unwrapping a ``path_to_index`` entry."""
+    """A path -> row-index map from ``.json``, ``.npz`` (key ``map`` or the
+    first array) or a torch ``.pt`` dict, unwrapping a ``path_to_index``
+    entry."""
     if path.endswith(".json"):
         with open(path) as f:
             raw = json.load(f)
@@ -71,10 +112,116 @@ def load_dino_index_map(path: str) -> Dict[str, int]:
         z = np.load(path, allow_pickle=True)
         raw = z["map"].item() if "map" in z else z[list(z.keys())[0]].item()
     else:
-        raise NotImplementedError(f"{path}: the port reads .json and .npz index maps")
+        import torch
+
+        raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "path_to_index" in raw:
         raw = raw["path_to_index"]
     return {str(k): int(v) for k, v in raw.items()}
+
+
+def _read_csv(path: str, sep: str, columns: Sequence[str]) -> Dict[str, List[str]]:
+    """The named columns of a CSV with a header row; blank lines skipped."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f, delimiter=sep) if r]
+    if not rows:
+        raise ValueError(f"{path}: empty CSV")
+    header = rows[0]
+    missing = [c for c in columns if c not in header]
+    if missing:
+        raise KeyError(f"{path}: no column {missing} in {header}")
+    out = {}
+    for c in columns:
+        i = header.index(c)
+        out[c] = [r[i] if i < len(r) else "" for r in rows[1:]]
+    return out
+
+
+class CsvDataset:
+    """CSV of (image path, caption) rows. Train samples with a DINO index map
+    carry ``dino_idx``; eval samples (``return_image_id``) carry
+    ``image_path``."""
+
+    def __init__(self, input_filename: str, transforms: Callable, img_key: str,
+                 caption_key: str, sep: str = ",", tokenizer=None,
+                 return_image_id: bool = False,
+                 dino_index_map: Optional[Dict[str, int]] = None):
+        logging.debug("Loading csv data from %s.", input_filename)
+        cols = _read_csv(input_filename, sep, (img_key, caption_key))
+        self.images: List[str] = [_canon_path(p) for p in cols[img_key]]
+        self.captions: List[str] = [c if c != "" else "nan" for c in cols[caption_key]]
+        self.transforms = transforms
+        self.tokenize = tokenizer
+        self.return_image_id = bool(return_image_id)
+
+        self.dino_index_map = None
+        if dino_index_map:
+            base = dino_index_map.get("path_to_index", dino_index_map)
+            self.dino_index_map = {_canon_path(k): int(v) for k, v in base.items()}
+            self._validate_dino_map()
+        if self.return_image_id:
+            _, ids = np.unique(np.asarray(self.images, dtype=object), return_inverse=True)
+            self._debug_consecutive_ordering(ids.astype(int).tolist())
+
+    def _validate_dino_map(self):
+        """An actionable error for CSV rows the map misses or sets to -1."""
+        csv_set = set(self.images)
+        map_set = set(self.dino_index_map.keys())
+        missing = [p for p in self.images if p not in self.dino_index_map]
+        negvals = [p for p in self.images if self.dino_index_map.get(p, -1) < 0]
+        if missing or negvals:
+            msg = ["[DINO] CSV ↔ DINO map mismatch/invalid values."]
+            msg.append(f"  CSV rows: {len(self.images)} | Unique CSV paths: {len(csv_set)} | "
+                       f"Map keys: {len(map_set)}")
+            if missing:
+                msg.append("  Missing in map (first 10):")
+                msg += [f"    {s}" for s in missing[:10]]
+            if negvals:
+                msg.append("  Keys with -1 index (first 10):")
+                msg += [f"    {s}" for s in negvals[:10]]
+            csv_b = {os.path.basename(p) for p in csv_set}
+            map_b = {os.path.basename(p) for p in map_set}
+            msg.append("  Basename-only diff (hints):")
+            msg.append(f"    Only in CSV (first 10): {sorted(csv_b - map_b)[:10]}")
+            msg.append(f"    Only in MAP (first 10): {sorted(map_b - csv_b)[:10]}")
+            msg.append("Tip: Rebuild the DINO map from the SAME CSV, using the SAME _canon_path().")
+            raise RuntimeError("\n".join(msg))
+
+    def _debug_consecutive_ordering(self, image_ids):
+        """Logs how many of the first 100 rows fall in groups of five
+        consecutive captions of one image."""
+        ok = broken = 0
+        for idx in range(0, min(100, len(image_ids)), 5):
+            if idx + 4 >= len(image_ids):
+                break
+            group = image_ids[idx:idx + 5]
+            if len(set(group)) == 1:
+                ok += 1
+            else:
+                broken += 1
+                if broken <= 3:
+                    logging.warning("Broken group at index %d: %s", idx, group)
+        logging.info("Consecutive ordering: %d OK groups, %d broken groups", ok, broken)
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        from PIL import Image
+
+        path = self.images[idx]
+        with Image.open(path) as img:
+            image = self.transforms(img.convert("RGB"))
+        sample: Dict[str, Any] = {
+            "images": image,
+            "texts": self.tokenize([self.captions[idx]])[0] if self.tokenize
+            else self.captions[idx],
+        }
+        if self.dino_index_map is not None and not self.return_image_id:
+            sample["dino_idx"] = np.int64(self.dino_index_map.get(path, -1))
+        if self.return_image_id:
+            sample["image_path"] = path
+        return sample
 
 
 class SyntheticDataset:
@@ -120,11 +267,12 @@ def _collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 class Loader:
     """Epoch-seeded shuffling, threaded sample fetch and background
-    prefetch, for one process; yields numpy batch dicts."""
+    prefetch, for one process; yields numpy batch dicts. With a
+    ``dino_store``, a batch's ``dino_idx`` become its ``dino_features``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 8,
-                 prefetch: int = 2):
+                 prefetch: int = 2, dino_store: Optional[DinoFeatureStore] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -132,6 +280,7 @@ class Loader:
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.dino_store = dino_store
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -160,7 +309,10 @@ class Loader:
         abandoned = threading.Event()
 
         def fetch(batch_idx):
-            return _collate(list(pool.map(self.dataset.__getitem__, batch_idx)))
+            batch = _collate(list(pool.map(self.dataset.__getitem__, batch_idx)))
+            if self.dino_store is not None and "dino_idx" in batch:
+                batch["dino_features"] = self.dino_store.take(batch.pop("dino_idx"))
+            return batch
 
         def put(item) -> bool:
             # gives up once the consumer stopped iterating, so an abandoned
@@ -208,30 +360,89 @@ class DataInfo:
             self.dataloader.set_epoch(epoch)
 
 
-def get_synthetic_dataset(args, preprocess_fn, is_train: bool, tokenizer=None) -> DataInfo:
-    dataset = SyntheticDataset(
-        transform=preprocess_fn,
-        image_size=getattr(preprocess_fn, "image_size", (224, 224)),
-        dataset_size=args.train_num_samples or 256,
-        tokenizer=tokenizer,
-        dino_dim=getattr(args, "synthetic_dino_dim", None)
-        if (is_train and getattr(args, "use_dino_general", False)) else None,
-    )
+def _loader(dataset, args, is_train: bool, dino_store=None) -> DataInfo:
+    """A loader over the whole dataset (train: shuffled, last partial batch
+    dropped), with its sample and batch counts."""
     loader = Loader(dataset, batch_size=args.batch_size, shuffle=is_train, drop_last=is_train,
-                    seed=getattr(args, "seed", 0), num_workers=getattr(args, "workers", 8))
+                    seed=getattr(args, "seed", 0), num_workers=getattr(args, "workers", 8),
+                    dino_store=dino_store)
     loader.num_samples = len(dataset)
     loader.num_batches = len(loader)
     return DataInfo(loader)
 
 
-def get_data(args, preprocess_fns, tokenizer=None) -> Dict[str, DataInfo]:
-    """The dataset dict: ``"train"`` for ``--dataset-type synthetic``.
-    Other dataset types and every validation set raise."""
-    preprocess_train, _ = preprocess_fns
-    if args.dataset_type != "synthetic" or args.train_data:
-        raise NotImplementedError(
-            f"--dataset-type {args.dataset_type} / --train-data: the port reads "
-            "synthetic data so far (CSV, webdataset and ImageFolder: ROADMAP Queue 1 item 6)")
+def get_csv_dataset(args, preprocess_fn, is_train: bool, tokenizer=None,
+                    dino_index_map=None) -> DataInfo:
+    """``--train-data`` (train) or ``--val-data`` (eval) as a CSV loader; the
+    train loader joins ``--dino_fts_path`` rows under ``--use_dino_general``."""
+    input_filename = args.train_data if is_train else args.val_data
+    if not input_filename:
+        raise ValueError("a CSV dataset needs --train-data or --val-data")
+    fts = getattr(args, "dino_fts_path", None) if getattr(args, "use_dino_general", False) else None
+    dino_store = DinoFeatureStore(fts) if is_train and fts else None
+    dataset = CsvDataset(input_filename, preprocess_fn, img_key=args.csv_img_key,
+                         caption_key=args.csv_caption_key, sep=args.csv_separator,
+                         tokenizer=tokenizer, return_image_id=not is_train,
+                         dino_index_map=dino_index_map if is_train else None)
+    return _loader(dataset, args, is_train, dino_store)
+
+
+def get_synthetic_dataset(args, preprocess_fn, is_train: bool, tokenizer=None,
+                          dino_index_map=None) -> DataInfo:
+    n = args.train_num_samples if is_train else (
+        getattr(args, "val_num_samples", None) or args.train_num_samples or 256)
+    dataset = SyntheticDataset(
+        transform=preprocess_fn,
+        image_size=getattr(preprocess_fn, "image_size", (224, 224)),
+        dataset_size=n or 256,
+        tokenizer=tokenizer,
+        dino_dim=getattr(args, "synthetic_dino_dim", None)
+        if (is_train and getattr(args, "use_dino_general", False)) else None,
+    )
+    return _loader(dataset, args, is_train)
+
+
+def get_dataset_fn(data_path: Optional[str], dataset_type: str):
+    """The dataset function of ``--dataset-type`` (``auto``: by the file's
+    extension). Webdataset raises: it is not ported."""
+    if dataset_type == "auto":
+        ext = (data_path or "").split(".")[-1]
+        if ext in ("csv", "tsv"):
+            return get_csv_dataset
+        if ext != "tar":
+            raise ValueError(f"Tried to figure out dataset type, but failed for extension {ext}.")
+        dataset_type = "webdataset"
+    if dataset_type == "csv":
+        return get_csv_dataset
+    if dataset_type == "synthetic":
+        return get_synthetic_dataset
+    if dataset_type == "webdataset":
+        raise NotImplementedError("webdataset shards: the port reads CSV and synthetic data "
+                                  "(ROADMAP Queue 1 item 15)")
+    raise ValueError(f"Unsupported dataset type: {dataset_type}")
+
+
+def get_data(args, preprocess_fns, epoch: int = 0, tokenizer=None,
+             dino_index_map=None) -> Dict[str, DataInfo]:
+    """The dataset dict: ``"train"`` (``--train-data``, or synthetic data),
+    ``"val"`` (``--val-data``), and the CSV retrieval sets
+    ``"flickr30k-val"`` and ``"mscoco-val"``."""
+    preprocess_train, preprocess_val = preprocess_fns
+    data: Dict[str, DataInfo] = {}
+    if args.train_data or args.dataset_type == "synthetic":
+        data["train"] = get_dataset_fn(args.train_data, args.dataset_type)(
+            args, preprocess_train, is_train=True, tokenizer=tokenizer,
+            dino_index_map=dino_index_map)
     if getattr(args, "val_data", None):
-        raise NotImplementedError("validation data: evaluation is not ported (ROADMAP Queue 1 item 7)")
-    return {"train": get_synthetic_dataset(args, preprocess_train, True, tokenizer)}
+        data["val"] = get_dataset_fn(args.val_data, args.dataset_type)(
+            args, preprocess_val, is_train=False, tokenizer=tokenizer)
+    for key, attr in (("flickr30k-val", "flickr_val_data"), ("mscoco-val", "mscoco_val_data")):
+        path = getattr(args, attr, None)
+        if path:
+            data[key] = get_csv_dataset(_clone_args(args, val_data=path), preprocess_val,
+                                        is_train=False, tokenizer=tokenizer)
+    return data
+
+
+def _clone_args(args, **overrides):
+    return SimpleNamespace(**{**vars(args), **overrides})

@@ -5,9 +5,11 @@ defaults, and ``get_default_params`` for the model family. A flag that this
 slice of the port cannot honour raises ``NotImplementedError`` at parse time
 when it is set away from its default (``UNPORTED``), rather than being
 ignored. Flags that change nothing in one process (``--local-loss``,
-``--gather-with-grad``), the sweep-surface knobs the reference parses but no
-loss reads, and reporting knobs without a reporter are accepted, as in the
-JAX package.
+``--gather-with-grad``, ``--log-local``), the sweep-surface knobs the
+reference parses but no loss reads, and knobs whose consumer the JAX package
+does not have either (``--log-checkpoint`` without MLflow,
+``--clip_blind_dino_feats``, ``--clip_blind_dino_index_map``) are accepted,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,24 +19,12 @@ import ast
 
 # flag dest -> what the port is missing for it
 UNPORTED = {
-    "train_data": "CSV/webdataset datasets (ROADMAP Queue 1 item 6)",
-    "val_data": "evaluation (ROADMAP Queue 1 item 7)",
-    "flickr_val_data": "evaluation (ROADMAP Queue 1 item 7)",
-    "mscoco_val_data": "evaluation (ROADMAP Queue 1 item 7)",
-    "flickr30k_val": "evaluation (ROADMAP Queue 1 item 7)",
-    "mscoco_val": "evaluation (ROADMAP Queue 1 item 7)",
-    "val_num_samples": "evaluation (ROADMAP Queue 1 item 7)",
-    "imagenet_val": "zero-shot evaluation (ROADMAP Queue 1 item 7)",
-    "imagenet_v2": "zero-shot evaluation (ROADMAP Queue 1 item 7)",
-    "imagenet_train": "zero-shot evaluation (ROADMAP Queue 1 item 7)",
-    "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 6)",
-    "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 6)",
+    "imagenet_val": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
+    "imagenet_v2": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
+    "imagenet_train": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
+    "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
+    "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
     "cache_dir": "downloads",
-    "aug_cfg": "training augmentation (ROADMAP Queue 1 item 6)",
-    "image_mean": "preprocessing overrides (ROADMAP Queue 1 item 6)",
-    "image_std": "preprocessing overrides (ROADMAP Queue 1 item 6)",
-    "image_interpolation": "preprocessing overrides (ROADMAP Queue 1 item 6)",
-    "image_resize_mode": "preprocessing overrides (ROADMAP Queue 1 item 6)",
     "accum_freq": "gradient accumulation (ROADMAP Queue 1 item 5)",
     "opt": "optimizers other than AdamW",
     "momentum": "optimizers other than AdamW",
@@ -53,26 +43,16 @@ UNPORTED = {
     "siglip": "the SigLIP loss (ROADMAP Queue 1 item 12)",
     "loss_dist_impl": "the SigLIP loss (ROADMAP Queue 1 item 12)",
     "dino_model_name": "the live DINOv2 teacher (ROADMAP Queue 1 item 9)",
-    "dino_index_map_path": "the CSV join of DINO features (ROADMAP Queue 1 item 6)",
-    "dino_fts_path_val": "evaluation (ROADMAP Queue 1 item 7)",
-    "dino_index_map_path_val": "evaluation (ROADMAP Queue 1 item 7)",
     "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
     "use_coca": "CoCa (ROADMAP Queue 1 item 14)",
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
     "distill_pretrained": "the distillation loss (ROADMAP Queue 1 item 12)",
-    "save_most_recent": "checkpoint rotation (ROADMAP Queue 1 item 8)",
-    "delete_previous_checkpoint": "checkpoint rotation (ROADMAP Queue 1 item 8)",
     "compile_cache": "a JAX compilation cache",
     "save_on_preemption": "preemption checkpoints (ROADMAP Queue 1 item 8)",
     "async_checkpoint": "asynchronous checkpoints (ROADMAP Queue 1 item 8)",
-    "resume": "resuming (ROADMAP Queue 1 item 8)",
     "report_to": "tensorboard/wandb/MLflow reporting (ROADMAP Queue 1 item 8)",
-    "log_checkpoint": "MLflow artifacts (ROADMAP Queue 1 item 8)",
     "copy_codebase": "codebase snapshots (ROADMAP Queue 1 item 8)",
     "profile": "the step profiler",
-    "run_clip_blind": "the CLIP-blind check (ROADMAP Queue 1 item 7)",
-    "clip_blind_dino_feats": "the CLIP-blind check (ROADMAP Queue 1 item 7)",
-    "clip_blind_dino_index_map": "the CLIP-blind check (ROADMAP Queue 1 item 7)",
     "pretrained_image": "pretrained towers",
     "use_bnb_linear": "bitsandbytes layers",
     "remote_sync": "remote sync (ROADMAP Queue 1 item 8)",
@@ -331,4 +311,10 @@ def parse_args(args=None):
     for name, val in get_default_params(ns.model).items():
         if getattr(ns, name) is None:
             setattr(ns, name, val)
+    # the reference's spellings of the retrieval val CSVs alias the port's
+    for a, b in (("flickr30k_val", "flickr_val_data"), ("mscoco_val", "mscoco_val_data")):
+        if getattr(ns, a) and not getattr(ns, b):
+            setattr(ns, b, getattr(ns, a))
+        if getattr(ns, b) and not getattr(ns, a):
+            setattr(ns, a, getattr(ns, b))
     return ns

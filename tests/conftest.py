@@ -61,6 +61,7 @@ _SLOW_MODULES = {
     # full-CLI end-to-end runs (compile + train real epochs)
     "test_train_e2e", "test_dino_workflow_e2e", "test_remote_sync",
     "test_eval_suite", "test_baseline_configs", "test_dress_rehearsal",
+    "test_torch_dress_rehearsal",
     # many-step torch-vs-jax overlays
     "test_training_dynamics_parity",
     # AOT-compiled engine buckets + quantization sweeps
@@ -114,7 +115,7 @@ _TORCH_MODULES = {
     "test_scheduler_parity", "test_tokenizer", "test_dinov2",
     "test_hf_text_tower", "test_siglip_tower", "test_swin",
     "test_convert_dispatch", "test_convert_external", "test_dino_workflow_e2e",
-    "test_m2m100", "test_dress_rehearsal",
+    "test_m2m100", "test_dress_rehearsal", "test_torch_dress_rehearsal",
 }
 
 

@@ -1,0 +1,136 @@
+"""The port's checkpoints: resume continues a run exactly (2 steps, save,
+``--resume latest``, 1 step give the parameters and loss of 3 steps straight,
+within 1e-6), rotation keeps the right files, ``latest`` sorts naturally,
+and the JAX package's ``export_torch_checkpoint`` file loads into the port
+with ``strict=True`` and gives the JAX model's features (1e-5)."""
+
+import json
+import os
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from refining_clip_via_dinov2_representations_torch.models import (
+    create_model,
+    register_model_config,
+)
+from refining_clip_via_dinov2_representations_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+)
+from refining_clip_via_dinov2_representations_torch.train.main import main
+
+from .torch_port_utils import TINY_CFG, images, jax_clip, token_ids
+
+MODEL = "tiny-torch-ckpt-test"
+register_model_config(MODEL, TINY_CFG)
+RESUME_TOL = 1e-6
+FEATURE_TOL = 1e-5
+
+
+def _argv(logs, name, epochs, *extra):
+    """One step an epoch: 4 synthetic samples at batch 4, DINO-soft, a
+    constant lr (so the schedule does not depend on --epochs)."""
+    return ["--model", MODEL, "--dataset-type", "synthetic", "--train-num-samples", "4",
+            "--batch-size", "4", "--epochs", str(epochs), "--workers", "1", "--logs", str(logs),
+            "--name", name, "--precision", "fp32", "--force-cpu", "--use_dino_general",
+            "--soft_mode", "kl_teacher", "--lambda_soft", "0.5", "--synthetic-dino-dim", "24",
+            "--lr", "1e-3", "--lr-scheduler", "const", "--warmup", "1",
+            "--log-every-n-steps", "1", "--seed", "5", *extra]
+
+
+def _saved(logs, name, ckpt):
+    return torch.load(os.path.join(logs, name, "checkpoints", ckpt), map_location="cpu",
+                      weights_only=True)
+
+
+def test_resume_latest_continues_the_run_exactly(tmp_path):
+    straight = main(_argv(tmp_path, "straight", 3))
+    first = main(_argv(tmp_path, "resumed", 2))
+    second = main(_argv(tmp_path, "resumed", 3, "--resume", "latest"))
+    assert [r["step"] for r in first] == [1, 2]
+    assert [r["step"] for r in straight] == [r["step"] for r in second] == [1, 2, 3]
+    for got, want in zip(second, straight):
+        assert got["total_loss"] == pytest.approx(want["total_loss"], abs=RESUME_TOL)
+    with open(tmp_path / "resumed" / "loss_steps.json") as f:
+        assert json.load(f) == second  # the earlier run's records carried over
+    got, want = _saved(tmp_path, "resumed", "epoch_3.pt"), _saved(tmp_path, "straight",
+                                                                   "epoch_3.pt")
+    assert got["step"] == want["step"] == 3 and got["epoch"] == want["epoch"] == 3
+    for part in ("state_dict", "dino_head"):
+        for k, v in want[part].items():
+            torch.testing.assert_close(got[part][k], v, atol=RESUME_TOL, rtol=0)
+    g_opt, w_opt = got["optimizer"]["state"], want["optimizer"]["state"]
+    assert g_opt.keys() == w_opt.keys()
+    for i in w_opt:
+        for k in ("exp_avg", "exp_avg_sq"):
+            torch.testing.assert_close(g_opt[i][k], w_opt[i][k], atol=RESUME_TOL, rtol=0)
+    assert got["data_order"] == {"accum_freq": 1, "batch_size": 4, "seed": 5, "world": 1}
+
+
+@pytest.mark.parametrize("extra, files", [
+    ([], ["epoch_1.pt", "epoch_2.pt", "epoch_3.pt"]),
+    (["--save-frequency", "2"], ["epoch_2.pt", "epoch_3.pt"]),
+    (["--delete-previous-checkpoint"], ["epoch_3.pt"]),
+    (["--save-most-recent", "--delete-previous-checkpoint"], ["epoch_3.pt", "epoch_latest.pt"]),
+])
+def test_rotation_keeps_the_right_files(tmp_path, extra, files):
+    main(_argv(tmp_path, "run", 3, *extra))
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == files
+
+
+def test_resume_with_save_most_recent_reads_epoch_latest(tmp_path):
+    main(_argv(tmp_path, "run", 2, "--save-most-recent", "--save-frequency", "5"))
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == ["epoch_2.pt",
+                                                                    "epoch_latest.pt"]
+    os.remove(tmp_path / "run" / "checkpoints" / "epoch_2.pt")
+    records = main(_argv(tmp_path, "run", 3, "--save-most-recent", "--resume", "latest"))
+    assert [r["step"] for r in records] == [1, 2, 3]
+    assert _saved(tmp_path, "run", "epoch_latest.pt")["step"] == 3
+
+
+def test_latest_checkpoint_sorts_naturally(tmp_path):
+    assert latest_checkpoint(str(tmp_path / "absent")) is None
+    assert latest_checkpoint(str(tmp_path)) is None
+    for name in ("epoch_2.pt", "epoch_10.pt", "epoch_9.pt", "epoch_latest.pt", "epoch_11.pt.tmp1",
+                 "notes.txt"):
+        (tmp_path / name).write_text("")
+    assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "epoch_10.pt")
+    with pytest.raises(NotImplementedError, match="remote"):
+        latest_checkpoint("s3://bucket/run/checkpoints")
+
+
+def test_restore_refuses_latest_and_a_missing_head(tmp_path):
+    main(_argv(tmp_path, "clip", 1, "--lambda_soft", "0.0", "--no_projection"))
+    path = os.path.join(tmp_path, "clip", "checkpoints", "epoch_1.pt")
+    state = SimpleNamespace(head=torch.nn.Linear(2, 2))
+    with pytest.raises(ValueError, match="latest"):
+        restore_checkpoint("latest", state)
+    state.model, _ = create_model(MODEL, device="cpu")
+    with pytest.raises(ValueError, match="no DINO head"):
+        restore_checkpoint(path, state)
+
+
+def test_jax_export_torch_checkpoint_loads_strictly_with_the_same_features(tmp_path):
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.train.checkpoint import (
+        export_torch_checkpoint,
+    )
+
+    jmodel, variables = jax_clip(TINY_CFG, seed=3)
+    path = str(tmp_path / "final_torch_state.pt")
+    export_torch_checkpoint(SimpleNamespace(params={"model": variables["params"]}), 4, "run",
+                            path)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(saved) == {"epoch", "name", "state_dict"} and saved["epoch"] == 4
+    model, _ = create_model(MODEL, pretrained=path, device="cpu")  # strict=True inside
+    size, ctx = TINY_CFG["vision_cfg"]["image_size"], TINY_CFG["text_cfg"]["context_length"]
+    px, ids = images(3, size), token_ids(3, ctx)
+    want = jmodel.apply(variables, jnp.asarray(px), jnp.asarray(ids))
+    with torch.no_grad():
+        got = model(torch.from_numpy(px), torch.from_numpy(ids).long())
+    for k in ("image_features", "text_features", "logit_scale"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=FEATURE_TOL, rtol=0)

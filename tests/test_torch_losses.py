@@ -175,3 +175,37 @@ def test_soft_kl_is_finite_with_a_masked_teacher_diagonal():
     out["total_loss"].backward()
     assert torch.isfinite(out["soft_loss"]) and out["soft_loss"] > 0
     assert torch.isfinite(ti.grad).all()
+
+
+@pytest.mark.parametrize("projection_type", ["mlp", "linear"])
+def test_head_init_follows_the_jax_heads(projection_type):
+    """The head's init has the JAX (flax ``Dense``) head's distribution:
+    zero biases and lecun-normal weights, a normal truncated at two standard
+    deviations with variance 1 / fan_in (torch's ``nn.Linear`` default draws
+    uniform weights of a third of that variance and non-zero biases). At the
+    ViT-B-16 shapes (512 -> 448 -> 384) each weight's standard deviation is
+    estimated from 1.7e5 or more draws: within 2 % of the JAX head's."""
+    import jax
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.losses.dino import (
+        DinoProjectionHead as JaxHead,
+    )
+
+    torch.manual_seed(1)
+    port = DinoProjectionHead(512, 384, projection_type)
+    jax_params = JaxHead(dino_dim=384, projection_type=projection_type).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 512)))["params"]
+    got = {k: v.detach().numpy() for k, v in port.state_dict().items()}
+    want = jax_head_params_to_state_dict(jax_params)
+    assert got.keys() == {k: v for k, v in want.items()}.keys()
+    for name, w in want.items():
+        w, g = np.asarray(w), got[name]
+        assert g.shape == w.shape, name
+        if name.endswith("bias"):
+            assert not g.any() and not w.any(), name
+            continue
+        bound = 2.0 / 0.87962566103423978 / np.sqrt(g.shape[1])  # two standard deviations
+        assert np.abs(g).max() <= bound and np.abs(w).max() <= bound * (1 + 1e-6), name
+        assert g.std() == pytest.approx(w.std(), rel=0.02), name
+        assert g.std() == pytest.approx(np.sqrt(1.0 / g.shape[1]), rel=0.02), name

@@ -102,5 +102,21 @@ def test_validation_transform_equals_jax(cfg):
 
 
 def test_training_transform_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        image_transform_v2(PreprocessCfg(), is_train=True)
+    """The training transform is ported now: with a seed it gives the JAX
+    package's pixels (``tests/test_torch_csv_data.py`` covers the branches)."""
+    from PIL import Image
+
+    from refining_clip_via_dinov2_representations_tpu.transform import (
+        PreprocessCfg as JaxCfg, image_transform as jax_image_transform,
+    )
+
+    from refining_clip_via_dinov2_representations_torch.transform import image_transform
+
+    assert image_transform_v2(PreprocessCfg(size=32), is_train=True).is_train
+    got = image_transform(32, True, mean=PreprocessCfg().mean, std=PreprocessCfg().std, seed=2)
+    cfg = JaxCfg(size=32)
+    want = jax_image_transform(cfg.size, True, mean=cfg.mean, std=cfg.std, seed=2)
+    assert got.is_train and got.image_size == (32, 32)
+    img = Image.fromarray((np.random.default_rng(0).random((50, 40, 3)) * 255).astype(np.uint8))
+    for _ in range(3):
+        np.testing.assert_allclose(got(img), want(img), atol=1e-6, rtol=0)

@@ -1,10 +1,13 @@
 """The port's training CLI: flags against the JAX package's, a two-step CPU
-run whose checkpoint loads strictly, and the refusals."""
+run whose checkpoint loads strictly, a CSV run with evaluation, CLIP-blind
+and resume that writes every artifact, the transforms the image flags build,
+and the refusals."""
 
 import json
 import math
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +24,19 @@ MODEL = "tiny-torch-cli-test"
 register_model_config(MODEL, TINY_CFG)
 
 
+# every flag of the CSV, evaluation, CLIP-blind and checkpoint slice, set
+EVAL_FLAGS = ["--model", "ViT-B-16", "--train-data", "t.csv", "--val-data", "v.csv",
+              "--flickr-val-data", "f.csv", "--mscoco_val", "m.csv", "--val-num-samples", "9",
+              "--aug-cfg", "scale=(0.5,1.0)", "use_timm=True", "color_jitter=0.4",
+              "--image-mean", "0.5", "0.5", "0.5", "--image-std", "0.2", "0.2", "0.2",
+              "--image-interpolation", "bilinear", "--image-resize-mode", "squash",
+              "--dino_index_map_path", "m.pt", "--dino_fts_path_val", "fv.pt",
+              "--dino_index_map_path_val", "mv.pt", "--run_clip_blind",
+              "--clip_blind_dino_feats", "cb.pt", "--clip_blind_dino_index_map", "cbm.pt",
+              "--resume", "latest", "--save-most-recent", "--delete-previous-checkpoint",
+              "--log-checkpoint", "--log-local"]
+
+
 def _argv(tmp_path, *extra):
     return ["--model", MODEL, "--dataset-type", "synthetic", "--train-num-samples", "16",
             "--batch-size", "4", "--epochs", "1", "--workers", "2", "--logs", str(tmp_path),
@@ -31,7 +47,9 @@ def _argv(tmp_path, *extra):
                                   ["--model", "ViT-B-32", "--use_dino_general",
                                    "--lambda_soft", "0.5", "--soft_mode", "kl_teacher"],
                                   ["--model", "ViT-L-14-336", "--attn-impl", "flash",
-                                   "--grad-checkpointing", "--force-image-size", "384"]])
+                                   "--grad-checkpointing", "--force-image-size", "384"],
+                                  EVAL_FLAGS, ["--model", "ViT-B-16", "--flickr30k_val", "f.csv",
+                                               "--mscoco-val-data", "m.csv"]])
 def test_flags_and_defaults_match_jax(argv):
     from refining_clip_via_dinov2_representations_tpu.train.params import (
         parse_args as jax_parse,
@@ -92,10 +110,10 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
         main(_argv(tmp_path))
 
 
-@pytest.mark.parametrize("extra", [["--val-data", "val.csv"], ["--accum-freq", "2"],
-                                   ["--resume", "latest"], ["--siglip"],
+@pytest.mark.parametrize("extra", [["--report-to", "wandb"], ["--accum-freq", "2"],
+                                   ["--imagenet-val", "x"], ["--siglip"],
                                    ["--dino_model_name", "facebook/dinov2-small"], ["--fsdp"],
-                                   ["--opt", "lion"], ["--train-data", "train.csv"],
+                                   ["--opt", "lion"], ["--save-on-preemption"],
                                    ["--grad-checkpointing", "--remat-policy", "dots_saveable"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):
@@ -130,3 +148,123 @@ def test_precision_names_map_as_in_jax(precision):
     compute, params_dtype = _precision_to_dtype(precision)
     assert model.compute_dtype == compute
     assert {p.dtype for p in model.parameters()} == {params_dtype}
+
+
+def test_csv_run_with_eval_clip_blind_and_resume_writes_every_artifact(tmp_path):
+    """The thesis protocol at a tiny size: CSV data with the DINO join,
+    pre-train and per-epoch evaluation, best-epoch tracking, checkpoints,
+    the CLIP-blind check on both splits; then ``--resume latest`` for one
+    more epoch, whose artifacts cover the whole run."""
+    from scripts.mini_flickr import generate
+
+    d = generate(str(tmp_path / "data"), n_train=8, n_val=4, size_px=32, dino_dim=24)
+    argv = ["--model", MODEL, "--train-data", d["train_csv"], "--val-data", d["val_csv"],
+            "--dataset-type", "csv", "--batch-size", "8", "--workers", "2", "--logs",
+            str(tmp_path), "--name", "run", "--precision", "fp32", "--force-cpu",
+            "--use_dino_general", "--lambda_soft", "0.5", "--soft_mode", "kl_teacher",
+            "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
+            "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
+            d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
+            "--log-every-n-steps", "2"]
+    first = main(argv + ["--epochs", "1"])
+    second = main(argv + ["--epochs", "2", "--resume", "latest"])
+    run = tmp_path / "run"
+    assert [r["step"] for r in first] == [2, 4, 5] and [r["step"] for r in second] == [
+        2, 4, 5, 6, 8, 10]
+    with open(run / "final_itm_results.json") as f:
+        results = json.load(f)
+    assert [e["epoch"] for e in results] == [0, 1, 2]
+    for entry in results:
+        (val,) = entry["results"]
+        assert val["val_name"] == "val" and val["metrics"]["num_samples"] == 20
+        assert all(math.isfinite(val["metrics"][k]) for k in (
+            "text_to_image_R@1", "image_to_text_R@10", "clip_val_loss", "modality_gap"))
+    with open(run / "best_metrics.json") as f:
+        assert json.load(f)["epoch"] in (1, 2)
+    assert (run / "itm_scores.csv").read_text().splitlines()[0].startswith("epoch,txt_r1,")
+    assert len((run / "itm_scores.csv").read_text().splitlines()) == 4
+    for split, images in (("val", 4), ("train", 8)):
+        with open(run / "clip_blind" / f"clip_blind_{split}.json") as f:
+            stats = json.load(f)
+        assert stats["total_pairs"] == images * (images - 1) // 2
+        assert len(stats["results"]) == 3
+        assert (run / "clip_blind" / f"clip_blind_{split}_top_pairs.csv").exists()
+    assert sorted(os.listdir(run / "checkpoints")) == ["epoch_1.pt", "epoch_2.pt"]
+    assert "resuming checkpoint" in (run / "out.log").read_text()
+
+
+def _reseed(transform, seed):
+    """Seeds, in place, the generators a train transform's closure holds."""
+    import random
+
+    for cell in transform._fn.__closure__:
+        obj = cell.cell_contents
+        if isinstance(obj, random.Random):
+            obj.seed(seed)
+        elif isinstance(obj, np.random.Generator):
+            obj.bit_generator.state = np.random.default_rng(seed).bit_generator.state
+    return transform
+
+
+def test_image_flags_build_the_jax_transforms():
+    """``--aug-cfg`` and the ``--image-*`` overrides give the transforms the
+    JAX CLI builds (the train ones reseeded alike): pixels within 1e-6."""
+    from PIL import Image
+
+    from refining_clip_via_dinov2_representations_tpu.transform import (
+        PreprocessCfg as JaxCfg,
+        image_transform_v2 as jax_transform,
+        merge_preprocess_kwargs,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.main import build_transforms
+    from refining_clip_via_dinov2_representations_torch.transform import PreprocessCfg
+
+    args = params.parse_args(EVAL_FLAGS)
+    train, val = build_transforms(args, PreprocessCfg(size=24))
+    cfg = JaxCfg(**merge_preprocess_kwargs(
+        JaxCfg(size=24), mean=args.image_mean, std=args.image_std,
+        interpolation=args.image_interpolation, resize_mode=args.image_resize_mode))
+    assert val.mean == tuple(cfg.mean) == (0.5, 0.5, 0.5) and cfg.resize_mode == "squash"
+    want_val = jax_transform(cfg, is_train=False)
+    want_train = jax_transform(cfg, is_train=True, aug_cfg=args.aug_cfg)
+    for t in (train, want_train):
+        _reseed(t, 4)
+    rng = np.random.default_rng(0)
+    for hw in ((40, 30), (24, 24)):
+        img = Image.fromarray((rng.random((*hw, 3)) * 255).astype(np.uint8))
+        np.testing.assert_allclose(val(img), want_val(img), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(train(img), want_train(img), atol=1e-6, rtol=0)
+
+
+def test_eval_only_run_matches_the_pretrain_evaluation(tmp_path):
+    """Without ``--train-data`` the CLI evaluates every val key once, at
+    epoch 0, and returns the results: the pre-train evaluation of a
+    training run on the same weights."""
+    from scripts.mini_flickr import generate
+
+    d = generate(str(tmp_path / "data"), n_train=4, n_val=4, size_px=32, dino_dim=24)
+    common = ["--model", MODEL, "--val-data", d["val_csv"], "--dataset-type", "csv",
+              "--batch-size", "8", "--workers", "1", "--logs", str(tmp_path), "--precision",
+              "fp32", "--force-cpu", "--seed", "7"]
+    (got,) = main(common + ["--name", "eval"])
+    main(common + ["--name", "train", "--train-data", d["train_csv"], "--epochs", "1"])
+    with open(tmp_path / "train" / "final_itm_results.json") as f:
+        (want,) = json.load(f)[0]["results"]
+    assert got["val_name"] == want["val_name"] == "val"
+    assert got["metrics"] == pytest.approx(want["metrics"], abs=1e-6)
+    assert not (tmp_path / "eval" / "final_itm_results.json").exists()
+
+
+def test_debug_and_log_local_log_into_out_log(tmp_path):
+    """``--debug``: DEBUG-level logging into ``out.log``, the gradient norm in every
+    record and anomaly detection around the run; ``--log-local`` changes
+    nothing in one process, as in the JAX package."""
+    records = main(_argv(tmp_path, "--force-cpu", "--debug", "--log-local",
+                         "--log-every-n-steps", "2"))
+    assert [r["step"] for r in records] == [2, 4]
+    assert all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in records)
+    import logging
+
+    assert logging.getLogger().getEffectiveLevel() == logging.DEBUG
+    assert "Train Epoch: 0 [4]" in (tmp_path / "run" / "out.log").read_text()
+    assert not torch.is_anomaly_enabled()

@@ -68,8 +68,11 @@ def test_feature_store_take_and_range_error_match_jax(tmp_path, suffix):
         with pytest.raises(ValueError) as w_err:
             want.take(bad)
         assert str(g_err.value) == str(w_err.value)
-    with pytest.raises(NotImplementedError):
-        data.DinoFeatureStore(str(tmp_path / "feats.pt"))
+    import torch
+
+    torch.save(torch.from_numpy(feats), str(tmp_path / "feats.pt"))
+    np.testing.assert_array_equal(data.DinoFeatureStore(str(tmp_path / "feats.pt")).take(idx),
+                                  want.take(idx))
 
 
 @pytest.mark.parametrize("kind", ["json", "json_wrapped", "npz"])
@@ -127,12 +130,34 @@ def test_loader_surfaces_dataset_errors():
         list(data.Loader(Broken(8), batch_size=4, num_workers=2))
 
 
-def test_unported_dataset_types_raise():
+def test_unported_dataset_types_raise(tmp_path):
+    """Webdataset still raises; CSV train data and a val set load (the two
+    cases that raised before the CSV data path was ported)."""
     from types import SimpleNamespace
 
-    for kw in (dict(dataset_type="csv", train_data="train.csv"),
-               dict(dataset_type="webdataset", train_data="shards.tar"),
-               dict(dataset_type="synthetic", train_data=None, val_data="val.csv")):
-        args = SimpleNamespace(train_num_samples=8, batch_size=4, **kw)
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(dataset_type="webdataset", train_data="shards.tar"),
+               dict(dataset_type="auto", train_data="shards.tar")):
+        args = SimpleNamespace(train_num_samples=8, batch_size=4, val_data=None, **kw)
+        with pytest.raises(NotImplementedError, match="webdataset"):
             data.get_data(args, (None, None))
+
+    from PIL import Image
+
+    rows = []
+    for i in range(3):
+        path = str(tmp_path / f"img_{i}.png")
+        Image.new("RGB", (20, 12), (40 * i, 10, 200)).save(path, format="PNG")
+        rows += [f"{path},caption {i} a", f"{path},caption {i} b"]
+    csv_path = tmp_path / "rows.csv"
+    csv_path.write_text("filepath,title\n" + "\n".join(rows) + "\n")
+    t = image_transform_v2(PreprocessCfg(size=16))
+    common = dict(csv_img_key="filepath", csv_caption_key="title", csv_separator=",",
+                  batch_size=4, workers=1, seed=0, flickr_val_data=None, mscoco_val_data=None)
+    args = SimpleNamespace(dataset_type="csv", train_data=str(csv_path), val_data=None,
+                           **common)
+    (batch,) = list(data.get_data(args, (t, t))["train"].dataloader)
+    assert batch["images"].shape == (4, 16, 16, 3) and len(batch["texts"]) == 4
+    args = SimpleNamespace(dataset_type="synthetic", train_data=None, val_data=str(csv_path),
+                           train_num_samples=8, **common)
+    got = data.get_data(args, (t, t))
+    assert list(got) == ["train", "val"] and got["val"].dataloader.num_samples == 8
