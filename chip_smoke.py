@@ -67,6 +67,30 @@ Phases, each of which exits non-zero on failure:
    flash kernel's times beside its plain version, SDPA, its bound and the
    scalar kernel's time.
 
+The DINOv2 teacher's phases run after train-eval-cli, on its mini-Flickr
+set (the forward kernel is checked at the teacher's shapes ``[64,6,257,64]``
+and ``[32,16,257,64]`` in phase 3, and timed in phase 5):
+
+10. teacher — a seeded dinov2-small directory in the HF layout at the
+    published config (hidden 384, 12 layers, 6 heads, patch 14, image_size
+    518, LayerScale 1.0, LN eps 1e-6), loaded with ``load_dinov2_model``; a
+    batch of 64 at 224 px in fp32 and bf16 through ``"auto"`` (12 fused
+    forward launches a call, no backward) against ``"xla"`` (CLS cosine >=
+    0.9999 fp32, >= 0.999 bf16), the time per batch; one fp32 forward each
+    of dinov2-large and dinov2-giant (SwiGLU) at batch 32 against ``"xla"``.
+11. extract — the port's feature extractor on both mini-Flickr CSVs with
+    the seeded teacher: rows, the map, ``DinoFeatureStore`` and
+    ``CsvDataset`` accept them, 12 launches a batch.
+12. train-live-cli — the CLI at ViT-B-16, ``--precision amp``, batch 32, one
+    epoch with evaluation and ``--run_clip_blind``, the teacher from
+    ``--dino_model_name`` and no ``--dino_fts_path``: a non-zero
+    ``soft_loss``, both CLIP-blind files, launches (36 forward + 24 backward
+    a train step, 24 an eval batch, 24 a CLIP-blind batch), the extracted
+    rows against the live check's teacher rows of the same val images
+    (cosine >= 0.9999), wall time, samples/s and the seconds in the teacher
+    (CUDA events around ``extract``); then the live fp32 step alone beside
+    the step on cached features and the teacher alone at batch 32.
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -75,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -191,6 +216,15 @@ FLASH_CASES = [
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
+# the DINOv2 teacher: every variant has head dim 64 and 257 tokens at 224 px
+# (fused kernel's gate); the thesis teacher is dinov2-small, 6 heads. HF's
+# published dinov2-small config (facebook/dinov2-small/config.json)
+TEACHER_CASES = [(64, 6, 257, 64, False), (32, 16, 257, 64, False)]
+DINOV2_SMALL = dict(hidden_size=384, layers=12, heads=6, patch_size=14, mlp_ratio=4.0,
+                    layerscale_value=1.0, norm_eps=1e-6, use_swiglu_ffn=False,
+                    native_image_size=518)
+TEACHER_BATCH, TEACHER_BIG_BATCH, LIVE_BATCH = 64, 32, 32
+TEACHER_MIN_COS = {"float32": 0.9999, "bfloat16": 0.999}
 # one train step through the kernels vs the plain attention, same init/batch
 STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, min cosine)
 
@@ -286,7 +320,8 @@ def _attention_fp64(q, k, v, scale, causal):
 
 
 def phase_kernels() -> dict:
-    """Kernel vs its plain version on the card; returns {dtype: max_abs_err}."""
+    """Kernel vs its plain version on the card, at the serving, edge and
+    teacher cases; returns {dtype: max_abs_err}."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
@@ -296,7 +331,7 @@ def phase_kernels() -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES):
+        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES):
             q, k, v = _qkv(b, h, l, d, dtype, seed=i)
             scale = d ** -0.5
             got = fused_attention_fwd(q, k, v, scale, causal)
@@ -540,7 +575,8 @@ def _beside_scalar(before, ms: float) -> str:
 
 
 def phase_kernel_times(dtype_name: str) -> dict:
-    """Kernel, plain version and SDPA (yardstick only) at the serving shapes."""
+    """Kernel, plain version and SDPA (yardstick only) at the serving and the
+    teacher shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -550,7 +586,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in TIMED_CASES:
+    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100)
         scale = d ** -0.5
         ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
@@ -716,11 +752,11 @@ def _train_batch(tokenizer, n: int, device: str, model_name: str = MODEL, size=N
 
 
 def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str = MODEL,
-                grad_checkpointing: bool = False, force_image_size=None):
+                grad_checkpointing: bool = False, force_image_size=None, dino_teacher=None):
     """The model (ViT-B-16 by default) + the MLP DINO head (embed dim ->
     448 -> 384 for ViT-B-16) + default param groups + a cosine schedule, from
     the same seeds every time; returns (model, head, state, train_step,
-    step_cfg)."""
+    step_cfg). ``dino_teacher`` gives the step a live teacher."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.losses import (
@@ -745,7 +781,7 @@ def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str 
                                    cosine_lr(5e-4, 0, steps))
     cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
     state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(SEED))
-    return model, head, state, make_train_step(model, cfg, head), cfg
+    return model, head, state, make_train_step(model, cfg, head, dino_teacher), cfg
 
 
 def _loss_and_grads(model, head, cfg, batch):
@@ -1077,11 +1113,23 @@ def _eval_cli_run(argv: list) -> tuple:
     return records, counts, wall, seconds
 
 
-def phase_train_eval_cli() -> dict:
+def phase_data(work: str) -> dict:
+    """mini-Flickr at 224 px under ``work``: 160 train and 40 val images,
+    five captions each, DINO-like features of 384 dims; returns its paths."""
+    from scripts.mini_flickr import generate
+
+    t0 = time.perf_counter()
+    d = generate(os.path.join(work, "data"), n_train=EVAL_TRAIN_IMAGES, n_val=EVAL_VAL_IMAGES,
+                 size_px=EVAL_SIZE_PX, dino_dim=DINO_DIM, seed=SEED)
+    print(f"data: mini-Flickr {EVAL_TRAIN_IMAGES} + {EVAL_VAL_IMAGES} images at "
+          f"{EVAL_SIZE_PX} px in {time.perf_counter() - t0:.2f} s", flush=True)
+    return d
+
+
+def phase_train_eval_cli(d: dict, work: str) -> dict:
     """The thesis protocol through ``train.main.main`` on the card: ViT-B-16
     at full width and depth, fp32 compute (``--precision amp``) through the
-    split-TF32 fused kernels, on mini-Flickr at 224 px (160 train and 40 val
-    images, five captions each, DINO features of 384 dims), with CSV data and
+    split-TF32 fused kernels, on mini-Flickr (``phase_data``), with CSV data and
     the DINO join, pre-train and per-epoch evaluation, checkpoints and the
     CLIP-blind check on both splits; one epoch, then ``--resume latest
     --epochs 2``. Checks every artifact, the resumed step, and the fused
@@ -1090,9 +1138,6 @@ def phase_train_eval_cli() -> dict:
     the split-TF32 forward; then the train loader's rate alone and the step's
     alone. Returns the launches of both runs."""
     import math
-    import os
-    import shutil
-    import tempfile
 
     import torch
 
@@ -1104,140 +1149,443 @@ def phase_train_eval_cli() -> dict:
     from refining_clip_via_dinov2_representations_torch.train.main import build_transforms
     from refining_clip_via_dinov2_representations_torch.train.params import parse_args
     from refining_clip_via_dinov2_representations_torch.transform import image_transform_v2
-    from scripts.mini_flickr import generate
 
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_eval_cli_", dir=build)
-    try:
-        t0 = time.perf_counter()
-        d = generate(os.path.join(work, "data"), n_train=EVAL_TRAIN_IMAGES,
-                     n_val=EVAL_VAL_IMAGES, size_px=EVAL_SIZE_PX, dino_dim=DINO_DIM, seed=SEED)
-        print(f"train-eval-cli: mini-Flickr {EVAL_TRAIN_IMAGES} + {EVAL_VAL_IMAGES} images "
-              f"at {EVAL_SIZE_PX} px in {time.perf_counter() - t0:.2f} s", flush=True)
-        # the DINO-soft flags of scripts/dress_rehearsal.py:_common_flags
-        argv = ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data",
-                d["val_csv"], "--dataset-type", "csv", "--batch-size", str(EVAL_BATCH),
-                "--precision", "amp", "--lr", "5e-4", "--warmup", "2", "--wd", "0.1",
-                "--workers", "8", "--seed", str(SEED), "--use_dino_general", "--lambda_soft",
-                "0.5", "--soft_mode", "kl_teacher", "--lambda_weighted", "0.2",
-                "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
-                "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
-                d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
-                "--log-every-n-steps", "1", "--logs", work, "--name", "run", "--device", DEVICE]
-        args = parse_args(argv)
-        train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
-        val_info = get_csv_dataset(args, None, False).dataloader
-        val_batches = val_info.num_batches
-        blind_info = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False)
-        check(2 * args.clip_blind_max_images >= blind_info.dataloader.num_samples,
-              "the CLIP-blind cap would cut the train split")
-        blind_batches = val_batches + blind_info.dataloader.num_batches
+    # the DINO-soft flags of scripts/dress_rehearsal.py:_common_flags
+    argv = ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data",
+            d["val_csv"], "--dataset-type", "csv", "--batch-size", str(EVAL_BATCH),
+            "--precision", "amp", "--lr", "5e-4", "--warmup", "2", "--wd", "0.1",
+            "--workers", "8", "--seed", str(SEED), "--use_dino_general", "--lambda_soft",
+            "0.5", "--soft_mode", "kl_teacher", "--lambda_weighted", "0.2",
+            "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
+            "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
+            d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
+            "--log-every-n-steps", "1", "--logs", work, "--name", "run", "--device", DEVICE]
+    args = parse_args(argv)
+    train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
+    val_info = get_csv_dataset(args, None, False).dataloader
+    val_batches = val_info.num_batches
+    blind_info = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False)
+    check(2 * args.clip_blind_max_images >= blind_info.dataloader.num_samples,
+          "the CLIP-blind cap would cut the train split")
+    blind_batches = val_batches + blind_info.dataloader.num_batches
 
-        def expected(evals: int) -> dict:
-            return {"flash_attention_fwd": 0,
-                    "fused_attention_fwd": 24 * train_batches + 24 * val_batches * evals
-                    + 12 * blind_batches,
-                    "fused_attention_bwd": 24 * train_batches}
+    def expected(evals: int) -> dict:
+        return {"flash_attention_fwd": 0,
+                "fused_attention_fwd": 24 * train_batches + 24 * val_batches * evals
+                + 12 * blind_batches,
+                "fused_attention_bwd": 24 * train_batches}
 
-        run = os.path.join(work, "run")
-        launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
-        first, counts1, wall1, sec1 = _eval_cli_run(argv + ["--epochs", "1"])
-        saved_step = torch.load(os.path.join(run, "checkpoints", "epoch_1.pt"),
-                                map_location="cpu", weights_only=True, mmap=True)["step"]
-        second, counts2, wall2, sec2 = _eval_cli_run(argv + ["--epochs", "2", "--resume",
-                                                             "latest"])
-        resumed = second[len(first):]
-        for label, counts, want, wall, sec, steps in (
-                ("run 1 (--epochs 1)", counts1, expected(2), wall1, sec1, len(first)),
-                ("run 2 (--resume latest --epochs 2)", counts2, expected(1), wall2, sec2,
-                 len(resumed))):
-            train_s = sec.get("train_one_epoch", float("nan"))
-            print(f"train-eval-cli {label}: {EVAL_MODEL} fp32 batch {EVAL_BATCH}: wall "
-                  f"{wall:.2f} s; train {train_s:.2f} s for {steps} steps "
-                  f"({steps * EVAL_BATCH / train_s:.1f} samples/s, data loading included); "
-                  f"evaluate {sec.get('evaluate', 0.0):.2f} s; CLIP-blind "
-                  f"{sec.get('run_clip_blind_on_split', 0.0):.2f} s [{CARD}]", flush=True)
-            print(f"train-eval-cli {label}: launches {counts}, expected {want} ({train_batches} "
-                  f"train steps x 48, {val_batches} eval batches x 24 per evaluation, "
-                  f"{blind_batches} CLIP-blind batches x 12)", flush=True)
-            check(counts == want, f"train-eval-cli {label} launched {counts}, expected {want}")
-            for k in launches:
-                launches[k] += counts[k]
+    run = os.path.join(work, "run")
+    launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    first, counts1, wall1, sec1 = _eval_cli_run(argv + ["--epochs", "1"])
+    saved_step = torch.load(os.path.join(run, "checkpoints", "epoch_1.pt"),
+                            map_location="cpu", weights_only=True, mmap=True)["step"]
+    second, counts2, wall2, sec2 = _eval_cli_run(argv + ["--epochs", "2", "--resume",
+                                                         "latest"])
+    resumed = second[len(first):]
+    for label, counts, want, wall, sec, steps in (
+            ("run 1 (--epochs 1)", counts1, expected(2), wall1, sec1, len(first)),
+            ("run 2 (--resume latest --epochs 2)", counts2, expected(1), wall2, sec2,
+             len(resumed))):
+        train_s = sec.get("train_one_epoch", float("nan"))
+        print(f"train-eval-cli {label}: {EVAL_MODEL} fp32 batch {EVAL_BATCH}: wall "
+              f"{wall:.2f} s; train {train_s:.2f} s for {steps} steps "
+              f"({steps * EVAL_BATCH / train_s:.1f} samples/s, data loading included); "
+              f"evaluate {sec.get('evaluate', 0.0):.2f} s; CLIP-blind "
+              f"{sec.get('run_clip_blind_on_split', 0.0):.2f} s [{CARD}]", flush=True)
+        print(f"train-eval-cli {label}: launches {counts}, expected {want} ({train_batches} "
+              f"train steps x 48, {val_batches} eval batches x 24 per evaluation, "
+              f"{blind_batches} CLIP-blind batches x 12)", flush=True)
+        check(counts == want, f"train-eval-cli {label} launched {counts}, expected {want}")
+        for k in launches:
+            launches[k] += counts[k]
 
-        with open(os.path.join(run, "loss_steps.json")) as f:
-            records = json.load(f)
-        print(f"train-eval-cli: loss_steps.json {len(records)} records, steps "
-              f"{records[0]['step']}..{records[-1]['step']}; the resumed run's first step "
-              f"{resumed[0]['step'] if resumed else None} after the saved step {saved_step}",
+    with open(os.path.join(run, "loss_steps.json")) as f:
+        records = json.load(f)
+    print(f"train-eval-cli: loss_steps.json {len(records)} records, steps "
+          f"{records[0]['step']}..{records[-1]['step']}; the resumed run's first step "
+          f"{resumed[0]['step'] if resumed else None} after the saved step {saved_step}",
+          flush=True)
+    check([r["step"] for r in records] == list(range(1, 2 * train_batches + 1))
+          and all(math.isfinite(r["total_loss"]) for r in records),
+          "loss_steps.json is not one finite record per step of both runs")
+    check(records == second, "loss_steps.json differs from the records main returned")
+    check(saved_step == train_batches and resumed and resumed[0]["step"] == saved_step + 1,
+          "the resumed run did not continue at the saved step")
+    with open(os.path.join(run, "final_itm_results.json")) as f:
+        results = json.load(f)
+    check([e["epoch"] for e in results] == [0, 1, 2],
+          f"final_itm_results.json epochs {[e['epoch'] for e in results]}")
+    keys = [f"{d}_R@{k}" for d in ("text_to_image", "image_to_text") for k in (1, 5, 10)]
+    for e in results:
+        m = {r["val_name"]: r["metrics"] for r in e["results"]}.get("val", {})
+        print(f"train-eval-cli: epoch {e['epoch']} val "
+              f"{ {k: m.get(k) for k in keys + ['clip_val_loss', 'modality_gap']} }",
               flush=True)
-        check([r["step"] for r in records] == list(range(1, 2 * train_batches + 1))
-              and all(math.isfinite(r["total_loss"]) for r in records),
-              "loss_steps.json is not one finite record per step of both runs")
-        check(records == second, "loss_steps.json differs from the records main returned")
-        check(saved_step == train_batches and resumed and resumed[0]["step"] == saved_step + 1,
-              "the resumed run did not continue at the saved step")
-        with open(os.path.join(run, "final_itm_results.json")) as f:
-            results = json.load(f)
-        check([e["epoch"] for e in results] == [0, 1, 2],
-              f"final_itm_results.json epochs {[e['epoch'] for e in results]}")
-        keys = [f"{d}_R@{k}" for d in ("text_to_image", "image_to_text") for k in (1, 5, 10)]
-        for e in results:
-            m = {r["val_name"]: r["metrics"] for r in e["results"]}.get("val", {})
-            print(f"train-eval-cli: epoch {e['epoch']} val "
-                  f"{ {k: m.get(k) for k in keys + ['clip_val_loss', 'modality_gap']} }",
-                  flush=True)
-            check(all(isinstance(m.get(k), float) and math.isfinite(m[k])
-                      for k in keys + ["clip_val_loss"]), f"epoch {e['epoch']}: {m}")
-        with open(os.path.join(run, "best_metrics.json")) as f:
-            best = json.load(f)
-        print(f"train-eval-cli: best epoch {best['epoch']}, retrieval score "
-              f"{best['score']:.4f}", flush=True)
-        check(best["epoch"] in (1, 2), f"best_metrics.json names epoch {best['epoch']}")
-        check(os.path.isfile(os.path.join(run, "itm_scores.csv")), "no itm_scores.csv")
-        for split in ("val", "train"):
-            path = os.path.join(run, "clip_blind", f"clip_blind_{split}.json")
-            check(os.path.isfile(path), f"no {path}")
-            with open(path) as f:
-                stats = json.load(f)
-            rel = {k: round(v["relative_percent"], 4) for k, v in stats["results"].items()}
-            print(f"train-eval-cli: clip_blind_{split}.json: {stats['total_pairs']} pairs, "
-                  f"relative % {rel}", flush=True)
-            check(len(stats["results"]) == 3, f"clip_blind_{split}.json thresholds")
+        check(all(isinstance(m.get(k), float) and math.isfinite(m[k])
+                  for k in keys + ["clip_val_loss"]), f"epoch {e['epoch']}: {m}")
+    with open(os.path.join(run, "best_metrics.json")) as f:
+        best = json.load(f)
+    print(f"train-eval-cli: best epoch {best['epoch']}, retrieval score "
+          f"{best['score']:.4f}", flush=True)
+    check(best["epoch"] in (1, 2), f"best_metrics.json names epoch {best['epoch']}")
+    check(os.path.isfile(os.path.join(run, "itm_scores.csv")), "no itm_scores.csv")
+    for split in ("val", "train"):
+        path = os.path.join(run, "clip_blind", f"clip_blind_{split}.json")
+        check(os.path.isfile(path), f"no {path}")
+        with open(path) as f:
+            stats = json.load(f)
+        rel = {k: round(v["relative_percent"], 4) for k, v in stats["results"].items()}
+        print(f"train-eval-cli: clip_blind_{split}.json: {stats['total_pairs']} pairs, "
+              f"relative % {rel}", flush=True)
+        check(len(stats["results"]) == 3, f"clip_blind_{split}.json thresholds")
 
-        # ---- the fp32 route of one eval call, by the profiler ----
-        model, pp = create_model(EVAL_MODEL, os.path.join(run, "checkpoints", "epoch_2.pt"),
-                                 precision="amp", device=DEVICE)
-        info = get_csv_dataset(args, image_transform_v2(pp), False,
-                               tokenizer=get_tokenizer(EVAL_MODEL))
-        check_fp32_route(lambda: evaluate(model, {"val": info}, 2, args), ("fwd",),
-                         "one eval call")
+    # ---- the fp32 route of one eval call, by the profiler ----
+    model, pp = create_model(EVAL_MODEL, os.path.join(run, "checkpoints", "epoch_2.pt"),
+                             precision="amp", device=DEVICE)
+    info = get_csv_dataset(args, image_transform_v2(pp), False,
+                           tokenizer=get_tokenizer(EVAL_MODEL))
+    check_fp32_route(lambda: evaluate(model, {"val": info}, 2, args), ("fwd",),
+                     "one eval call")
+    del model
+    # ---- the train loader alone, on the host: the rate the CLI's
+    # samples/s would reach if the steps cost nothing ----
+    loader = get_csv_dataset(args, build_transforms(args, pp)[0], True,
+                             tokenizer=get_tokenizer(EVAL_MODEL),
+                             dino_index_map=load_dino_index_map(d["dino_index_map"])
+                             ).dataloader
+    t0 = time.perf_counter()
+    n = sum(len(b["images"]) for b in loader)
+    host_s = time.perf_counter() - t0
+    print(f"train-eval-cli: the train loader alone ({args.workers} threads: PNG decode, "
+          f"random resized crop, tokenizer, DINO rows): {n} samples in {host_s:.2f} s, "
+          f"{n / host_s:.1f} samples/s (host clock) [{CARD}]", flush=True)
+    # ---- and the fp32 step alone at the CLI's batch, on one cached batch ----
+    _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL)
+    batch = _train_batch(get_tokenizer(EVAL_MODEL), EVAL_BATCH, DEVICE, model_name=EVAL_MODEL)
+    step_ms = host_step_ms(lambda: train_step(state, batch))
+    print(f"train-eval-cli: the fp32 DINO-soft step alone at batch {EVAL_BATCH} on one "
+          f"cached batch: {step_ms:.3f} ms host clock ({EVAL_BATCH / step_ms * 1e3:.1f} "
+          f"samples/s) [{CARD}]", flush=True)
+    del state, train_step
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _set_attn_impl(model, impl: str) -> None:
+    for blk in model.encoder.layer:
+        blk.attention.attn_impl = impl
+
+
+def _teacher_pixels(n: int, size: int = 224, seed: int = SEED + 20):
+    """Seeded ImageNet-normalised-like NCHW pixels on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(n, 3, size, size, generator=g).to(DEVICE)
+
+
+def _teacher_vs_plain(model, x, launches_expected: int, what: str, min_cos: float) -> int:
+    """One ``model(x)`` through ``"auto"`` against ``"xla"`` on the same
+    weights: the ``"auto"`` call's launches (``launches_expected`` fused
+    forward, no backward, no flash), finite CLS features [B, hidden] and the
+    worst CLS cosine. Returns the fused forward launches."""
+    import torch
+
+    _set_attn_impl(model, "auto")
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    with torch.no_grad():
+        got = model(x).float()
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+    counts = _read_counts()
+    _set_attn_impl(model, "xla")
+    with torch.no_grad():
+        want = model(x).float()
+    _set_attn_impl(model, "auto")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    print(f"teacher {what}: features {tuple(got.shape)}, launches {counts} (expected fused "
+          f"forward {launches_expected}, no backward); CLS cosine vs \"xla\" min {cos:.8f} "
+          f"(need >= {min_cos})", flush=True)
+    check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": launches_expected,
+                     "fused_attention_bwd": 0}, f"teacher {what} launched {counts}")
+    check(tuple(got.shape) == (x.shape[0], model.cfg.hidden_size)
+          and bool(torch.isfinite(got).all()) and cos >= min_cos,
+          f"teacher {what} disagrees with plain attention")
+    return counts["fused_attention_fwd"]
+
+
+def phase_teacher(work: str):
+    """The DINOv2 teacher on the card: a seeded dinov2-small directory at the
+    published config, loaded by ``load_dinov2_model``, fp32 and bf16 through
+    the fused kernel against plain attention, with its time per batch; one
+    fp32 forward of dinov2-large and dinov2-giant. Returns (teacher
+    directory, fused forward launches of the ``"auto"`` calls)."""
+    import dataclasses
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models.dinov2 import (
+        Dinov2, Dinov2Cfg, dinov2_cfg_from_name, load_dinov2_model, save_hf_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    path = save_hf_checkpoint(Dinov2(Dinov2Cfg(**DINOV2_SMALL)).init_weights(SEED),
+                              os.path.join(work, "dinov2-small-seeded"))
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    print(f"teacher: seeded dinov2-small written to {path} in {time.perf_counter() - t0:.2f} s "
+          f"(hidden {cfg['hidden_size']}, {cfg['num_hidden_layers']} layers, "
+          f"{cfg['num_attention_heads']} heads, patch {cfg['patch_size']}, image_size "
+          f"{cfg['image_size']}, layerscale {cfg['layerscale_value']}, LN eps "
+          f"{cfg['layer_norm_eps']})", flush=True)
+    x = _teacher_pixels(TEACHER_BATCH)
+    launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        model = load_dinov2_model(path, dtype=dtype, device=DEVICE, attn_impl="auto")
+        check(model.embeddings.position_embeddings.shape[1] == 37 * 37 + 1,
+              "dinov2-small's position table must hold 37 x 37 + 1 rows")
+        launches += _teacher_vs_plain(model, x, 12, f"dinov2-small {name} batch "
+                                      f"{TEACHER_BATCH} at 224 px", TEACHER_MIN_COS[name])
+        ms = {}
+        for impl in ("auto", "xla"):
+            _set_attn_impl(model, impl)
+            with torch.no_grad():
+                ms[impl] = time_ms(lambda: model(x), iters=10)
+        print(f"time teacher dinov2-small {name} batch {TEACHER_BATCH} at 224 px: "
+              f"{ms['auto']:.3f} ms a batch through the fused kernel, {ms['xla']:.3f} ms "
+              f"through plain attention (CUDA events) [{CARD}]", flush=True)
         del model
-        # ---- the train loader alone, on the host: the rate the CLI's
-        # samples/s would reach if the steps cost nothing ----
-        loader = get_csv_dataset(args, build_transforms(args, pp)[0], True,
-                                 tokenizer=get_tokenizer(EVAL_MODEL),
-                                 dino_index_map=load_dino_index_map(d["dino_index_map"])
-                                 ).dataloader
-        t0 = time.perf_counter()
-        n = sum(len(b["images"]) for b in loader)
-        host_s = time.perf_counter() - t0
-        print(f"train-eval-cli: the train loader alone ({args.workers} threads: PNG decode, "
-              f"random resized crop, tokenizer, DINO rows): {n} samples in {host_s:.2f} s, "
-              f"{n / host_s:.1f} samples/s (host clock) [{CARD}]", flush=True)
-        # ---- and the fp32 step alone at the CLI's batch, on one cached batch ----
-        _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL)
-        batch = _train_batch(get_tokenizer(EVAL_MODEL), EVAL_BATCH, DEVICE, model_name=EVAL_MODEL)
-        step_ms = host_step_ms(lambda: train_step(state, batch))
-        print(f"train-eval-cli: the fp32 DINO-soft step alone at batch {EVAL_BATCH} on one "
-              f"cached batch: {step_ms:.3f} ms host clock ({EVAL_BATCH / step_ms * 1e3:.1f} "
-              f"samples/s) [{CARD}]", flush=True)
-        del state, train_step
+    for name in ("facebook/dinov2-large", "facebook/dinov2-giant"):
+        cfg = dataclasses.replace(dinov2_cfg_from_name(name), native_image_size=518)
+        model = Dinov2(cfg, attn_impl="auto").to(DEVICE).init_weights(SEED).eval()
+        launches += _teacher_vs_plain(
+            model, x[:TEACHER_BIG_BATCH], cfg.layers,
+            f"{name.split('/')[-1]} float32 batch {TEACHER_BIG_BATCH} ({cfg.layers} x "
+            f"{cfg.hidden_size}, {cfg.heads} heads, "
+            f"{'SwiGLU' if cfg.use_swiglu_ffn else 'GELU'})", TEACHER_MIN_COS["float32"])
+        del model
         if DEVICE != "cpu":
             torch.cuda.empty_cache()
-        return launches
+    return path, launches
+
+
+def phase_extract(d: dict, teacher: str, work: str):
+    """The port's extractor (``eval/extract_dino_features.py``) on both
+    mini-Flickr CSVs with the seeded teacher, fp32 on the card. Checks rows,
+    the map, that ``DinoFeatureStore`` and ``CsvDataset`` accept them, and
+    12 launches a batch of 64; returns ({split: (features, map)}, launches)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.eval.extract_dino_features import (
+        main as extract_main,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.data import (
+        CsvDataset, DinoFeatureStore, load_dino_index_map,
+    )
+
+    from refining_clip_via_dinov2_representations_torch.models import get_model_config
+
+    # the live run's image size (224 for ViT-B-16), so the two see one crop
+    size = get_model_config(EVAL_MODEL)["vision_cfg"]["image_size"]
+    out, launches = {}, 0
+    for split, csv, n in (("train", d["train_csv"], EVAL_TRAIN_IMAGES),
+                          ("val", d["val_csv"], EVAL_VAL_IMAGES)):
+        feats = os.path.join(work, f"extract_{split}.npy")
+        index = os.path.join(work, f"extract_{split}.json")
+        # ---- the main path: counts at 0 just before, read just after ----
+        _zero_counts()
+        t0 = time.perf_counter()
+        extract_main(["--csv", csv, "--dino-model", teacher, "--image-size", str(size),
+                      "--batch-size", "64", "--out-feats", feats, "--out-map", index]
+                     + (["--force-cpu"] if DEVICE == "cpu" else []))
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        store, mapping = DinoFeatureStore(feats), load_dino_index_map(index)
+        batches = math.ceil(n / 64)
+        print(f"extract {split}: {store.shape} rows from {os.path.basename(csv)} in {wall:.2f} s "
+              f"({n / wall:.1f} images/s, teacher load and PNG decode included), "
+              f"{len(mapping)} map entries; launches {counts} (expected fused forward "
+              f"{12 * batches}) [{CARD}]", flush=True)
+        check(store.shape == (n, 384) and store.features.dtype == np.float32
+              and bool(np.isfinite(store.features).all()), f"extract {split} rows {store.shape}")
+        check(sorted(mapping.values()) == list(range(n)), f"extract {split}: the map")
+        check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": 12 * batches,
+                         "fused_attention_bwd": 0}, f"extract {split} launched {counts}")
+        ds = CsvDataset(csv, lambda img: img, "filepath", "title", dino_index_map=mapping)
+        check(len(ds) == 5 * n, f"CsvDataset read {len(ds)} rows of {csv}")
+        out[split] = (np.asarray(store.features), mapping)
+        launches += counts["fused_attention_fwd"]
+    return out, launches
+
+
+@contextlib.contextmanager
+def _teacher_watch(record: list, captured: list):
+    """Wraps ``LiveDinoTeacher.extract`` to record CUDA events around each
+    call (``record``: (where, start, end), where "train" or "clip-blind")
+    and ``clip_blind.encode_clip_and_dino_images`` to keep each pass's
+    L2-normalised teacher rows and paths (``captured``, in call order)."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.eval import clip_blind
+    from refining_clip_via_dinov2_representations_torch.train.dino_teacher import (
+        LiveDinoTeacher,
+    )
+
+    extract, encode = LiveDinoTeacher.extract, clip_blind.encode_clip_and_dino_images
+    where = ["train"]
+
+    def timed(self, images):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = extract(self, images)
+        end.record()
+        record.append((where[0], start, end))
+        return out
+
+    def kept(model, teacher, loader, max_images=None):
+        where[0] = "clip-blind"
+        try:
+            clip_z, dino_z, paths = encode(model, teacher, loader, max_images)
+        finally:
+            where[0] = "train"
+        captured.append((dino_z, paths))
+        return clip_z, dino_z, paths
+
+    LiveDinoTeacher.extract, clip_blind.encode_clip_and_dino_images = timed, kept
+    try:
+        yield
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        LiveDinoTeacher.extract, clip_blind.encode_clip_and_dino_images = extract, encode
+
+
+def phase_train_live_cli(d: dict, teacher: str, work: str, extracted: dict) -> dict:
+    """The live-teacher protocol through ``train.main.main``: ViT-B-16 fp32
+    (``--precision amp``), batch 32, one epoch on mini-Flickr with pre-train
+    and epoch evaluation and ``--run_clip_blind``; the seeded dinov2-small
+    from ``--dino_model_name``, no ``--dino_fts_path``. Checks the soft loss,
+    both CLIP-blind files, the launches, a checkpoint without the teacher,
+    and the live check's val teacher rows against the extracted ones; times
+    the teacher; then the live step alone. Returns the launch counts."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.train.data import (
+        _clone_args, get_csv_dataset,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.dino_teacher import (
+        LiveDinoTeacher,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+
+    argv = ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data", d["val_csv"],
+            "--dataset-type", "csv", "--batch-size", str(LIVE_BATCH), "--precision", "amp",
+            "--lr", "5e-4", "--warmup", "2", "--wd", "0.1", "--workers", "8", "--seed",
+            str(SEED), "--use_dino_general", "--lambda_soft", "0.5", "--soft_mode",
+            "kl_teacher", "--lambda_weighted", "0.2", "--dino_model_name", teacher,
+            "--run_clip_blind", "--clip_blind_val_key", "val", "--log-every-n-steps", "1",
+            "--logs", work, "--name", "live", "--device", DEVICE, "--epochs", "1"]
+    args = parse_args(argv)
+    train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
+    val_batches = get_csv_dataset(args, None, False).dataloader.num_batches
+    blind = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False).dataloader
+    check(2 * args.clip_blind_max_images >= blind.num_samples,
+          "the CLIP-blind cap would cut the train split")
+    blind_batches = val_batches + blind.num_batches
+    want = {"flash_attention_fwd": 0,
+            "fused_attention_fwd": 36 * train_batches + 24 * val_batches * 2 + 24 * blind_batches,
+            "fused_attention_bwd": 24 * train_batches}
+
+    record, captured = [], []
+    with _teacher_watch(record, captured):
+        records, counts, wall, sec = _eval_cli_run(argv)
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+    teacher_s = {w: sum(s.elapsed_time(e) for x, s, e in record if x == w) / 1e3
+                 for w in ("train", "clip-blind")}
+    calls = {w: sum(x == w for x, _, _ in record) for w in ("train", "clip-blind")}
+    run = os.path.join(work, "live")
+    train_s = sec.get("train_one_epoch", float("nan"))
+    soft = [r.get("soft_loss", 0.0) for r in records]
+    print(f"train-live-cli: {EVAL_MODEL} fp32 batch {LIVE_BATCH}, live dinov2-small: wall "
+          f"{wall:.2f} s; train {train_s:.2f} s for {len(records)} steps "
+          f"({len(records) * LIVE_BATCH / train_s:.1f} samples/s, data loading included); "
+          f"evaluate {sec.get('evaluate', 0.0):.2f} s; CLIP-blind "
+          f"{sec.get('run_clip_blind_on_split', 0.0):.2f} s; teacher (CUDA events around "
+          f"extract) {teacher_s['train']:.3f} s in {calls['train']} train calls, "
+          f"{teacher_s['clip-blind']:.3f} s in {calls['clip-blind']} CLIP-blind calls "
+          f"[{CARD}]", flush=True)
+    print(f"train-live-cli: launches {counts}, expected {want} ({train_batches} train steps x "
+          f"(36 forward + 24 backward), {val_batches} eval batches x 24 in 2 evaluations, "
+          f"{blind_batches} CLIP-blind batches x 24); soft_loss {soft[0]:.6f} .. "
+          f"{soft[-1]:.6f}", flush=True)
+    check(len(records) == train_batches and all(math.isfinite(r["total_loss"]) for r in records),
+          "train-live-cli: not one finite record per step")
+    check(all(x > 0 for x in soft), f"train-live-cli: soft_loss {soft}")
+    check(counts == want, f"train-live-cli launched {counts}, expected {want}")
+    check(calls == {"train": train_batches, "clip-blind": blind_batches},
+          f"teacher calls {calls}")
+    for split in ("val", "train"):
+        path = os.path.join(run, "clip_blind", f"clip_blind_{split}.json")
+        check(os.path.isfile(path), f"no {path}")
+        with open(path) as f:
+            stats = json.load(f)
+        rel = {k: round(v["relative_percent"], 4) for k, v in stats["results"].items()}
+        print(f"train-live-cli: clip_blind_{split}.json: {stats['total_pairs']} pairs, "
+              f"relative % {rel}", flush=True)
+        check(len(stats["results"]) == 3, f"clip_blind_{split}.json thresholds")
+    saved = torch.load(os.path.join(run, "checkpoints", "epoch_1.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    check(not any(k.startswith(("embeddings.", "encoder.")) for k in saved["state_dict"])
+          and saved["dino_head"]["fc2.weight"].shape[0] == 384,
+          "the checkpoint holds teacher weights or a head of the wrong width")
+    del saved
+
+    # the live check's val teacher rows against the extractor's, same images
+    check(len(captured) == 2, f"captured {len(captured)} CLIP-blind passes")
+    live_z, live_paths = captured[0]
+    feats, mapping = extracted["val"]
+    ext = feats[[mapping[p] for p in live_paths]].astype(np.float64)
+    ext /= np.linalg.norm(ext, axis=-1, keepdims=True)
+    cos = (ext * live_z.astype(np.float64)).sum(-1)
+    print(f"train-live-cli: extracted vs live teacher rows of {len(live_paths)} val images "
+          f"(same paths): cosine min {cos.min():.8f} (need >= 0.9999)", flush=True)
+    check(len(live_paths) == 5 * EVAL_VAL_IMAGES and cos.min() >= 0.9999,
+          "extracted and live teacher rows disagree")
+
+    # ---- the live fp32 step alone at batch 32 on one cached batch, beside
+    # the step on cached teacher features and the teacher alone ----
+    live_teacher = LiveDinoTeacher.from_pretrained(teacher, device=DEVICE)
+    batch = _train_batch(get_tokenizer(EVAL_MODEL), LIVE_BATCH, DEVICE, model_name=EVAL_MODEL)
+    times = {}
+    for label, tch in (("live teacher", live_teacher), ("cached features", None)):
+        _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL,
+                                                 dino_teacher=tch)
+        b = {k: v for k, v in batch.items() if tch is None or k != "dino_features"}
+        times[label] = host_step_ms(lambda: train_step(state, b))
+        del state, train_step
+    alone = time_ms(lambda: live_teacher.extract(batch["images"]), iters=10)
+    print(f"train-live-cli: the fp32 DINO-soft step alone at batch {LIVE_BATCH} on one cached "
+          f"batch: {times['live teacher']:.3f} ms host clock with the live teacher "
+          f"({LIVE_BATCH / times['live teacher'] * 1e3:.1f} samples/s), "
+          f"{times['cached features']:.3f} ms on cached features; the teacher alone "
+          f"{alone:.3f} ms (CUDA events), {alone / times['live teacher']:.1%} of the live step "
+          f"[{CARD}]", flush=True)
+    del live_teacher
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return counts
 
 
 def attention_bwd_work(b, h, l, d, causal, dtype_name):
@@ -1617,6 +1965,9 @@ def phase_flash_times() -> dict:
 
 
 def main() -> None:
+    import shutil
+    import tempfile
+
     import torch
 
     phase_device()
@@ -1633,7 +1984,19 @@ def main() -> None:
     train_fwd, train_bwd = phase_train_step()
     check(train_fwd > 0 and train_bwd > 0, "the train steps launched no kernel")
     phase_train_cli()
-    eval_cli = phase_train_eval_cli()
+    # a work directory inside the checkout's (ignored) build tree, for the
+    # mini-Flickr set, the runs and the seeded teacher
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_work_", dir=build)
+    try:
+        data = phase_data(work)
+        eval_cli = phase_train_eval_cli(data, work)
+        teacher_dir, teacher_launches = phase_teacher(work)
+        extracted, extract_launches = phase_extract(data, teacher_dir, work)
+        live = phase_train_live_cli(data, teacher_dir, work, extracted)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
     bwd_rows32 = phase_bwd_times("float32")
     worst_flash = phase_kernels_flash()
@@ -1650,15 +2013,20 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
         "replaces": FUSED_TPU,
-        "launches": serve_launches + train_fwd + eval_cli["fused_attention_fwd"],
+        "launches": serve_launches + train_fwd + eval_cli["fused_attention_fwd"]
+        + teacher_launches + extract_launches + live["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
         "bf16_plain_ms": t16["plain_ms"], "bf16_bound_ms": t16["bound_ms"],
         "bf16_library_ms": t16["library_ms"],
+        "teacher": [{"shape": list(case[:4]), "dtype": dtype_name, **by_case[case]}
+                    for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                    for case in TEACHER_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
-        "replaces": BWD_TPU, "launches": train_bwd + eval_cli["fused_attention_bwd"],
+        "replaces": BWD_TPU,
+        "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],

@@ -6,6 +6,7 @@ from .clip_blind import (
     align_dino_feats_to_paths,
     build_dino_path_maps,
     dedup_by_path,
+    encode_clip_and_dino_images,
     encode_clip_images_and_paths,
     pair_stats,
     run_clip_blind_on_split,
@@ -17,6 +18,7 @@ __all__ = [
     "align_dino_feats_to_paths",
     "build_dino_path_maps",
     "dedup_by_path",
+    "encode_clip_and_dino_images",
     "encode_clip_images_and_paths",
     "extract_and_plot_itm_scores",
     "flickr_retrieval_eval_",

@@ -9,8 +9,11 @@ Pipeline: encode images (the image tower alone under ``torch.no_grad()``; on
 a card 12 fused-forward launches a batch at ViT-B-16) -> dedup by canonical
 path -> align the precomputed DINO features by path, with a basename
 fallback -> upper-triangle similarity thresholds -> summary JSON and a CSV
-of the top-gap pairs. The live-teacher branch waits for the live DINOv2
-teacher (ROADMAP Queue 1 item 9) and raises.
+of the top-gap pairs. With a live teacher
+(``train/dino_teacher.py:LiveDinoTeacher``, when training ran without
+precomputed features) one pass over the loader gives both embeddings of the
+same pixels, so no path alignment is needed; on a card that adds 12
+fused-forward launches a batch at dinov2-small.
 """
 
 from __future__ import annotations
@@ -48,6 +51,32 @@ def encode_clip_images_and_paths(model: torch.nn.Module, dataloader, max_images=
             break
     clip_z = np.concatenate(embs, axis=0) if embs else np.empty((0, 0))
     return clip_z, paths_all
+
+
+def encode_clip_and_dino_images(model: torch.nn.Module, dino_teacher, dataloader,
+                                max_images=None):
+    """The live-teacher pass: ([M, D] L2-normalised CLIP image features,
+    [M, Dd] L2-normalised teacher features, canonical paths), fp32 on the
+    host. Stops once ``max_images`` samples are encoded."""
+    device = next(model.parameters()).device
+    clip_all, dino_all, paths_all = [], [], []
+    total = 0
+    for batch in dataloader:
+        if "image_path" not in batch:
+            raise RuntimeError("Eval batch missing file paths; CsvDataset should return them.")
+        images = torch.from_numpy(np.asarray(batch["images"], np.float32)).to(device)
+        with torch.no_grad():
+            feats = model.encode_image(images).float()
+            dino = dino_teacher.extract(images).float()
+        for out, z in ((clip_all, feats), (dino_all, dino)):
+            out.append((z / z.norm(dim=-1, keepdim=True).clamp_min(1e-12)).cpu().numpy())
+        paths_all.extend(_canon_path(p) for p in batch["image_path"])
+        total += len(batch["image_path"])
+        if max_images and total >= max_images:
+            break
+    if not clip_all:
+        return np.empty((0, 0)), np.empty((0, 0)), paths_all
+    return np.concatenate(clip_all), np.concatenate(dino_all), paths_all
 
 
 def build_dino_path_maps(dino_index_map_obj: Dict):
@@ -154,35 +183,42 @@ def run_clip_blind_on_split(split_key: str, data: Dict, model: torch.nn.Module,
                             max_images: Optional[int] = 2000,
                             dino_teacher=None) -> Optional[Dict]:
     """Encode ``data[split_key]`` (an eval loader: its batches carry
-    ``image_path``), align the precomputed teacher rows, and write
-    ``clip_blind_<split>.json`` and ``clip_blind_<split>_top_pairs.csv``
-    under ``out_dir``. Returns the stats, or None when the split is absent
-    or no path aligns."""
-    if dino_teacher is not None:
-        raise NotImplementedError("the CLIP-blind check with a live DINOv2 teacher waits for "
-                                  "the live teacher (ROADMAP Queue 1 item 9)")
+    ``image_path``), take the teacher rows (aligned from the precomputed
+    ``dino_feats`` by path, or from ``dino_teacher`` on the same pixels),
+    and write ``clip_blind_<split>.json`` and
+    ``clip_blind_<split>_top_pairs.csv`` under ``out_dir``. Returns the
+    stats, or None when the split is absent or no path aligns."""
     if split_key not in data:
         logging.info("[clip-blind] split %s not in data; skipping", split_key)
         return None
-    clip_z, paths = encode_clip_images_and_paths(
-        model, data[split_key].dataloader,
-        # a margin past the cap, so that it still holds after the dedup
-        max_images=(2 * max_images) if max_images else None)
-    clip_z, paths, _ = dedup_by_path(clip_z, paths)
-    if max_images and clip_z.shape[0] > max_images:
-        clip_z, paths = clip_z[:max_images], paths[:max_images]
+    # a margin past the cap, so that it still holds after the dedup
+    margin = (2 * max_images) if max_images else None
+    if dino_teacher is not None:
+        clip_z, dino_z, paths = encode_clip_and_dino_images(
+            model, dino_teacher, data[split_key].dataloader, max_images=margin)
+        clip_z, paths, keep = dedup_by_path(clip_z, paths)
+        dino_z = dino_z[keep]
+        if max_images and clip_z.shape[0] > max_images:
+            clip_z, dino_z, paths = clip_z[:max_images], dino_z[:max_images], paths[:max_images]
+        logging.info("[clip-blind] %s: %d images (live teacher)", split_key, clip_z.shape[0])
+    else:
+        clip_z, paths = encode_clip_images_and_paths(model, data[split_key].dataloader,
+                                                     max_images=margin)
+        clip_z, paths, _ = dedup_by_path(clip_z, paths)
+        if max_images and clip_z.shape[0] > max_images:
+            clip_z, paths = clip_z[:max_images], paths[:max_images]
 
-    path2idx, base2idx = build_dino_path_maps(dino_index_map_obj)
-    dino_z, keep_idx, hit_path, hit_base, miss = align_dino_feats_to_paths(
-        dino_feats, path2idx, base2idx, paths)
-    if dino_z is None:
-        logging.warning("[clip-blind] no DINO alignment on %s (miss=%d)", split_key, miss)
-        return None
-    clip_z = clip_z[keep_idx]
-    # pair indices refer to the aligned rows, so the paths follow them
-    paths = [paths[i] for i in keep_idx]
-    logging.info("[clip-blind] %s: %d images (path hits %d, basename hits %d, miss %d)",
-                 split_key, clip_z.shape[0], hit_path, hit_base, miss)
+        path2idx, base2idx = build_dino_path_maps(dino_index_map_obj)
+        dino_z, keep_idx, hit_path, hit_base, miss = align_dino_feats_to_paths(
+            dino_feats, path2idx, base2idx, paths)
+        if dino_z is None:
+            logging.warning("[clip-blind] no DINO alignment on %s (miss=%d)", split_key, miss)
+            return None
+        clip_z = clip_z[keep_idx]
+        # pair indices refer to the aligned rows, so the paths follow them
+        paths = [paths[i] for i in keep_idx]
+        logging.info("[clip-blind] %s: %d images (path hits %d, basename hits %d, miss %d)",
+                     split_key, clip_z.shape[0], hit_path, hit_base, miss)
 
     stats = pair_stats(clip_z, dino_z, thresholds)
     os.makedirs(out_dir, exist_ok=True)

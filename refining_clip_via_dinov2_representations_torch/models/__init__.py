@@ -1,4 +1,5 @@
-"""CLIP towers, registry, weight conversion and the model factory."""
+"""CLIP towers, the DINOv2 teacher, registry, weight conversion and the model
+factory."""
 
 from .clip import CLIP, build_model
 from .config import (
@@ -10,6 +11,11 @@ from .config import (
     parse_model_cfg,
     register_model_config,
 )
-from .convert import jax_head_params_to_state_dict, jax_params_to_state_dict
+from .convert import (
+    jax_dinov2_params_to_state_dict,
+    jax_head_params_to_state_dict,
+    jax_params_to_state_dict,
+)
+from .dinov2 import Dinov2, Dinov2Cfg, load_dinov2_model
 from .factory import create_model, create_model_and_transforms, get_tokenizer
 from .transformer import TextTransformer, Transformer, VisionTransformer, text_global_pool

@@ -9,7 +9,10 @@ with ``strict=True``. Dense kernels are transposed to [out, in], the fused
 convolution to OIHW. Every operation is a transpose, so the same function
 carries a JAX gradient tree across to the port's parameter gradients.
 ``jax_head_params_to_state_dict`` does the same for the DINO projection
-head (``losses/dino.py:DinoProjectionHead``).
+head (``losses/dino.py:DinoProjectionHead``), and
+``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
+inverse of the JAX ``convert_dinov2_state_dict``, giving HF
+``Dinov2Model`` keys that load into ``models/dinov2.py:Dinov2``.
 """
 
 from __future__ import annotations
@@ -104,4 +107,44 @@ def jax_head_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.
     if "ln" in params:
         sd["ln.weight"] = _t(params["ln"]["scale"])
         sd["ln.bias"] = _t(params["ln"]["bias"])
+    return sd
+
+
+def jax_dinov2_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``Dinov2`` params -> HF ``Dinov2Model`` keys (no ``mask_token``):
+    the fused ``in_proj_kernel`` [D, 3D] split back into query, key and value
+    [D, D] each, Dense kernels transposed, the HWIO patch kernel to OIHW."""
+    params = params.get("params", params)
+    pos = np.asarray(params["position_embeddings"])
+    d = pos.shape[-1]
+    patch = params["patch_embed"]
+    sd: Dict[str, torch.Tensor] = {
+        "embeddings.cls_token": _t(np.asarray(params["cls_token"]).reshape(1, 1, d)),
+        "embeddings.position_embeddings": _t(pos.reshape(1, -1, d)),
+        "embeddings.patch_embeddings.projection.weight": _t(
+            np.transpose(np.asarray(patch["kernel"]), (3, 2, 0, 1))),
+        "embeddings.patch_embeddings.projection.bias": _t(patch["bias"]),
+    }
+    for name, blk in _blocks({k: v for k, v in params.items() if k.startswith("blocks_")}):
+        pre = f"encoder.layer.{name.rsplit('_', 1)[-1]}"
+        for ln in ("norm1", "norm2"):
+            sd[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])
+            sd[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"])
+        attn = blk["attn"]
+        kernel, bias = np.asarray(attn["in_proj_kernel"]), np.asarray(attn["in_proj_bias"])
+        for i, part in enumerate(("query", "key", "value")):
+            sd[f"{pre}.attention.attention.{part}.weight"] = _t(
+                kernel[:, i * d:(i + 1) * d], transpose=True)
+            sd[f"{pre}.attention.attention.{part}.bias"] = _t(bias[i * d:(i + 1) * d])
+        sd[f"{pre}.attention.output.dense.weight"] = _t(attn["out_proj"]["kernel"],
+                                                        transpose=True)
+        sd[f"{pre}.attention.output.dense.bias"] = _t(attn["out_proj"]["bias"])
+        sd[f"{pre}.layer_scale1.lambda1"] = _t(blk["ls1"]["gamma"])
+        sd[f"{pre}.layer_scale2.lambda1"] = _t(blk["ls2"]["gamma"])
+        mlp = blk["mlp"] if "mlp" in blk else blk
+        for lin in ("weights_in", "weights_out") if "mlp" in blk else ("fc1", "fc2"):
+            sd[f"{pre}.mlp.{lin}.weight"] = _t(mlp[lin]["kernel"], transpose=True)
+            sd[f"{pre}.mlp.{lin}.bias"] = _t(mlp[lin]["bias"])
+    sd["layernorm.weight"] = _t(params["norm"]["scale"])
+    sd["layernorm.bias"] = _t(params["norm"]["bias"])
     return sd

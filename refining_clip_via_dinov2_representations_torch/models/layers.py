@@ -3,7 +3,7 @@
 The port of the JAX package's ``models/layers.py``. Numerics kept:
 
 * LayerNorm statistics are computed in fp32 and cast back to the input
-  dtype; eps 1e-5.
+  dtype; eps 1e-5 (DINOv2 passes 1e-6).
 * QuickGELU is ``x * sigmoid(1.702 x)``; GELU is the erf form in fp32 and the
   tanh form in bf16, as in the JAX package.
 * Attention projections use the fused-QKV parameter layout of open_clip
@@ -41,14 +41,15 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics, cast back to the input dtype."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), 1e-5)
+                         self.bias.float(), self.eps)
         return y.to(x.dtype)
 
 

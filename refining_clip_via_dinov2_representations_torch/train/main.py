@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``train/main.py`` for one process:
 flags -> device -> logging -> seed -> model and transforms -> tokenizer ->
-DINO features and index map -> data -> schedule -> DINO head ->
+DINO features (the precomputed store, or the live DINOv2 teacher) and index
+map -> data -> schedule -> DINO head ->
 param-group AdamW -> resume -> pre-train evaluation over every val key ->
 epochs of {``train_one_epoch`` -> evaluation -> best-epoch tracking ->
 checkpoint} -> final artifacts -> the CLIP-blind check.
@@ -26,6 +27,16 @@ image paths, so it always fails (and is logged). The port runs it over an
 eval loader of the train CSV, as the JAX package's live-teacher branch
 does. ``--stop-after-steps`` ends the run after that epoch's evaluation
 and checkpoint (mid-epoch resume is not ported).
+
+With ``--use_dino_general`` and no ``--dino_fts_path`` (on CSV data, or on
+synthetic data with ``--dino_model_name``) the teacher runs live:
+``--dino_model_name`` (default ``facebook/dinov2-small``) is a local HF
+directory, or a hub name found in the hub cache under ``--cache-dir``
+(``models/dinov2.py:load_dinov2_model``; nothing is downloaded). It computes
+in the CLI's dtype on the run's device with ``--attn-impl``, inverts the
+student's ``preprocess_val`` normalisation, sets the DINO head's width, and
+stays out of the optimizer, the gradient norm, the checkpoints and the
+resume. Its CLIP-blind check covers both splits, each failure a warning.
 
 The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
@@ -158,10 +169,11 @@ def main(args=None):
 def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
-    from ..models.factory import create_model, get_tokenizer
+    from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
     from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
                        get_dataset_fn, load_dino_index_map)
+    from .dino_teacher import LiveDinoTeacher
     from .evaluate import evaluate
     from .logger import setup_logging
     from .optim import OptimCfg, build_optimizer
@@ -194,18 +206,23 @@ def _main(args):
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model)
 
-    # ---- DINO teacher features: the precomputed store, or synthetic ones ----
-    dino_store = dino_index_map = None
+    # ---- DINO teacher features: the precomputed store, synthetic ones, or
+    # the live teacher ----
+    dino_store = dino_index_map = dino_teacher = None
     if args.use_dino_general:
         if args.dino_fts_path:
             dino_store = DinoFeatureStore(args.dino_fts_path)
             logging.info("[DINO] feats mmap: shape=%s", dino_store.shape)
-        elif args.dataset_type == "synthetic":
+        elif args.dataset_type == "synthetic" and not args.dino_model_name:
             args.synthetic_dino_dim = args.synthetic_dino_dim or 384
         else:
-            raise NotImplementedError("--use_dino_general needs --dino_fts_path or synthetic "
-                                      "data: the live DINOv2 teacher is not ported "
-                                      "(ROADMAP Queue 1 item 9)")
+            name = args.dino_model_name or "facebook/dinov2-small"
+            dino_teacher = LiveDinoTeacher.from_pretrained(
+                name, dtype=_precision_to_dtype(args.precision)[0], cache_dir=args.cache_dir,
+                input_mean=preprocess_val.mean, input_std=preprocess_val.std, device=device,
+                attn_impl=args.attn_impl)
+            logging.info("[DINO] live teacher %s (dim %d) runs inside the train step", name,
+                         dino_teacher.hidden_size)
         if args.dino_index_map_path:
             dino_index_map = load_dino_index_map(args.dino_index_map_path)
 
@@ -225,7 +242,12 @@ def _main(args):
             schedule = make_schedule(args, args.lr, total_steps, steps_per_epoch)
         head = None
         if args.use_dino_general and args.use_projection:
-            dino_dim = dino_store.shape[1] if dino_store is not None else args.synthetic_dino_dim
+            if dino_store is not None:
+                dino_dim = dino_store.shape[1]
+            elif dino_teacher is not None:
+                dino_dim = dino_teacher.hidden_size
+            else:
+                dino_dim = args.synthetic_dino_dim
             torch.manual_seed(args.seed + 1)
             head = DinoProjectionHead(model.text_projection.shape[1], dino_dim,
                                       args.projection_type, args.use_layernorm).to(device)
@@ -256,7 +278,7 @@ def _main(args):
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,
             warmup=args.warmup, log_grad_norm=bool(args.grad_clip_norm) or args.debug,
         )
-        train_step = make_train_step(model, step_cfg, head)
+        train_step = make_train_step(model, step_cfg, head, dino_teacher)
         state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(args.seed))
 
     # ---- resume at an epoch boundary ----
@@ -359,12 +381,21 @@ def _main(args):
             json.dump(best, f, default=float)
         logging.info("Best epoch %d with retrieval score %.4f", best["epoch"], best["score"])
 
-    # ---- the CLIP-blind check over the precomputed teacher features ----
-    if args.run_clip_blind and args.use_dino_general and dino_store is not None:
+    # ---- the CLIP-blind check over the precomputed or live teacher features ----
+    if args.run_clip_blind and args.use_dino_general and (dino_store is not None
+                                                          or dino_teacher is not None):
         blind_dir = os.path.join(log_base, "clip_blind")
+        if dino_teacher is not None:
+            # the teacher encodes the val images themselves: no store, no map
+            try:
+                run_clip_blind_on_split("val", data, model, None, None, blind_dir,
+                                        max_images=args.clip_blind_max_images,
+                                        dino_teacher=dino_teacher)
+            except Exception as e:  # a failure on either split is a warning
+                logging.warning("[clip-blind] val-split check failed: %r", e)
         # the val split needs its own store and map: the train map does not
         # cover val paths and the basename fallback would align wrong rows
-        if args.dino_fts_path_val and args.dino_index_map_path_val:
+        elif args.dino_fts_path_val and args.dino_index_map_path_val:
             run_clip_blind_on_split(
                 "val", data, model, np.asarray(DinoFeatureStore(args.dino_fts_path_val).features),
                 {"path_to_index": load_dino_index_map(args.dino_index_map_path_val)},
@@ -380,8 +411,9 @@ def _main(args):
                 "train", {"train": get_csv_dataset(_clone_args(args, val_data=args.train_data),
                                                    preprocess_val, is_train=False,
                                                    tokenizer=tokenizer)},
-                model, np.asarray(dino_store.features), {"path_to_index": dino_index_map or {}},
-                blind_dir, max_images=args.clip_blind_max_images)
+                model, None if dino_store is None else np.asarray(dino_store.features),
+                {"path_to_index": dino_index_map or {}}, blind_dir,
+                max_images=args.clip_blind_max_images, dino_teacher=dino_teacher)
         except Exception as e:
             logging.warning("[clip-blind] train-split check failed: %r", e)
     return loss_steps

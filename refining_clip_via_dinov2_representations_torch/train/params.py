@@ -24,7 +24,6 @@ UNPORTED = {
     "imagenet_train": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
     "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
     "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
-    "cache_dir": "downloads",
     "accum_freq": "gradient accumulation (ROADMAP Queue 1 item 5)",
     "opt": "optimizers other than AdamW",
     "momentum": "optimizers other than AdamW",
@@ -42,7 +41,6 @@ UNPORTED = {
     "use_bn_sync": "multi-GPU training (ROADMAP Queue 1 item 10)",
     "siglip": "the SigLIP loss (ROADMAP Queue 1 item 12)",
     "loss_dist_impl": "the SigLIP loss (ROADMAP Queue 1 item 12)",
-    "dino_model_name": "the live DINOv2 teacher (ROADMAP Queue 1 item 9)",
     "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
     "use_coca": "CoCa (ROADMAP Queue 1 item 14)",
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",

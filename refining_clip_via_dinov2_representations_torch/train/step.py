@@ -14,9 +14,14 @@ Kept from the JAX step: the lambda_soft warm-up from the step counter (only
 lambda_soft warms; ``enable_warmup_dino_hyperparams``); the DINO head on the
 image features; clipping by the global norm of every gradient (frozen ones
 included) before the update; the ln logit scale clamped to [0, ln 100] after
-it; ``grad_norm`` of the raw gradients when ``log_grad_norm`` is set.
+it; ``grad_norm`` of the raw gradients when ``log_grad_norm`` is set; with
+a live DINOv2 teacher (``train/dino_teacher.py:LiveDinoTeacher``) and a
+batch without ``dino_features``, the teacher encodes the same normalised
+pixels the student saw, forward only (on a CUDA batch 12 more fused-forward
+launches a step at dinov2-small). The teacher is not in the state: its
+parameters take no gradient, no optimizer group and no checkpoint.
 Gradient accumulation, the other loss types, patch dropout, BatchNorm
-towers, device preprocessing and live teachers raise ``NotImplementedError``.
+towers and device preprocessing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,10 +98,10 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
                  dino_teacher: Any = None) -> Callable:
     """``loss_fn(batch, step) -> (loss, metrics)``. ``batch`` holds tensors on
     the model's device: images [B,H,W,3] float, texts [B,L] int, optional
-    dino_features [B,Dd]. ``loss_fn.encode_fn`` gives the per-sample rows and
-    batch scalars; ``loss_fn.compute_metrics`` the losses from them."""
-    if dino_teacher is not None:
-        raise NotImplementedError("the live DINOv2 teacher is not ported (ROADMAP Queue 1 item 9)")
+    dino_features [B,Dd]; without them, ``dino_teacher`` (a
+    ``LiveDinoTeacher``) encodes the images. ``loss_fn.encode_fn`` gives the
+    per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the losses
+    from them."""
 
     def encode_fn(batch: Dict[str, torch.Tensor], step: int):
         out = model(batch["images"], batch["texts"])
@@ -104,6 +109,8 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
         scalars: Dict[str, Any] = {"logit_scale": out["logit_scale"]}
         if cfg.loss_type == "dino":
             dino_feats = batch.get("dino_features")
+            if dino_feats is None and dino_teacher is not None:
+                dino_feats = dino_teacher.extract(batch["images"])
             if dino_feats is not None:
                 rows["dino_features"] = dino_feats
                 if cfg.dino.use_projection and head is not None:
@@ -141,12 +148,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
 
 
 def make_train_step(model: torch.nn.Module, cfg: StepCfg,
-                    head: Optional[DinoProjectionHead] = None) -> Callable:
+                    head: Optional[DinoProjectionHead] = None,
+                    dino_teacher: Any = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, updating the model
     and head in place through ``state.optimizer`` (``train/optim.py:
     build_optimizer`` over ``train_parameters(model, head)``). Metrics are
-    detached tensors on the device: reading one waits for the step."""
-    loss_fn = make_loss_fn(model, cfg, head)
+    detached tensors on the device: reading one waits for the step.
+    ``dino_teacher`` gives the DINO rows of batches that carry none."""
+    loss_fn = make_loss_fn(model, cfg, head, dino_teacher)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()

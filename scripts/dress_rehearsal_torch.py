@@ -1,8 +1,8 @@
 """Port-vs-JAX dress rehearsal: the thesis protocol through both training
 CLIs on the procedural mini-Flickr set.
 
-The JAX package's CLI (``scripts/dress_rehearsal.py:run_tpu``) stands in for
-the torch reference, and the PyTorch port's CLI
+The JAX package's CLI, run as ``scripts/dress_rehearsal.py:run_tpu`` runs it,
+stands in for the torch reference, and the PyTorch port's CLI
 (``refining_clip_via_dinov2_representations_torch.train.main``) runs beside
 it, each in a subprocess on the CPU, from one shared init on one dataset
 (``scripts/mini_flickr.py``) with the flags of
@@ -31,12 +31,29 @@ Compared, with the tolerances of ``scripts/dress_rehearsal.py``:
 The first logged step's ``total_loss`` of both runs is printed beside them,
 with its relative difference (one loader worker and one seed in both). The
 offline suite (``eval/offline.py``) is not compared: it is not ported yet
-(ROADMAP Queue 1 item 15). The table goes to ``--out`` (by default
-``docs/dress_rehearsal_torch.md``); the exit code is 0 only when every row
-is within its tolerance.
+(ROADMAP Queue 1 item 15).
 
-Usage: python scripts/dress_rehearsal_torch.py [--workdir DIR] [--epochs N]
-           [--n-train N] [--n-val N] [--seed S] [--out PATH]
+Two rehearsals, one section of the report each:
+
+* ``store``: the teacher features come from mini-Flickr's precomputed store
+  (``--dino_fts_path`` and its val twin), as above.
+* ``live``: no store; both CLIs load one seeded tiny DINOv2 directory in the
+  HF layout (``transformers.Dinov2Model``, ``save_pretrained``) with
+  ``--dino_model_name`` and run it live in the train step and the
+  CLIP-blind check. It runs without the DINO head (``--no_projection``) and
+  with a deterministic crop (the timm branch's RandomResizedCrop at scale
+  and ratio 1 takes the whole image), so the two runs see the same pixels
+  and start from the same weights; every step is logged, and the first
+  step's ``soft_loss`` of both runs is reported beside its relative
+  difference.
+
+The report goes to ``--out`` (by default ``docs/dress_rehearsal_torch.md``);
+the exit code is 0 only when every row of every rehearsal run is within its
+tolerance.
+
+Usage: python scripts/dress_rehearsal_torch.py [--mode store|live|both]
+           [--workdir DIR] [--epochs N] [--n-train N] [--n-val N] [--seed S]
+           [--out PATH]
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ from __future__ import annotations
 import json
 import os
 import platform
+import re
 import shutil
 import subprocess
 import sys
@@ -65,13 +83,20 @@ from scripts.dress_rehearsal import (  # noqa: E402
     _common_flags,
     load_clip_blind,
     load_itm_results,
-    run_tpu,
 )
+
+# the precomputed-store flags of ``_common_flags``, each followed by a path
+STORE_FLAGS = ("--dino_fts_path", "--dino_index_map_path", "--dino_fts_path_val",
+               "--dino_index_map_path_val")
+# the timm branch's RandomResizedCrop at scale and ratio 1 keeps the whole
+# image: the same pixels in both CLIs, whose train crops draw from unseeded
+# and differently seeded generators
+DETERMINISTIC_CROP = ["--aug-cfg", "use_timm=True", "scale=(1.0,1.0)", "ratio=(1.0,1.0)"]
 
 
 def prepare(workdir, n_train=160, n_val=40, seed=0, dino_dim=64):
     """The dataset, the model config file and the shared ``init.pt``.
-    Returns the context dict ``run_tpu`` reads."""
+    Returns the context dict the runs read."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -129,40 +154,94 @@ def jax_cli_head_init(ctx, path):
     return path
 
 
-def run_torch(ctx, epochs):
-    """The port's CLI in a subprocess on the CPU, with the JAX run's flags,
-    its DINO head starting from the JAX CLI's head (``jax_cli_head_init``:
-    the two packages draw an init from different generators)."""
-    logs = os.path.join(ctx["workdir"], "torch_logs")
-    head_init = jax_cli_head_init(ctx, os.path.join(ctx["workdir"], "head_init.pt"))
+def tiny_teacher(path, seed=0):
+    """A seeded tiny ``transformers.Dinov2Model`` (2 x 32, 4 heads, patch 14,
+    a 2 x 2 position table) saved in the HF layout; both CLIPs' 64-px images
+    reach it resized to 56 px, its table to 4 x 4. Its weights are drawn at
+    std 0.2 (``initializer_range``): at HF's 0.02 every pair of mini-Flickr
+    images has a teacher cosine above 0.99, and no pair could be CLIP-blind."""
+    import torch
+    from transformers import Dinov2Config, Dinov2Model
+
+    torch.manual_seed(seed)
+    Dinov2Model(Dinov2Config(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                             mlp_ratio=2, patch_size=14, image_size=28,
+                             initializer_range=0.2)).save_pretrained(path)
+    return path
+
+
+def cli_flags(ctx, epochs, live):
+    """``_common_flags``; for the live rehearsal without the store flags, with
+    the teacher directory, no DINO head, the deterministic crop and every
+    step logged."""
+    flags = _common_flags(ctx, epochs)
+    if not live:
+        return flags
+    kept, args = [], iter(flags)
+    for f in args:
+        if f in STORE_FLAGS:
+            next(args)  # its path
+        else:
+            kept.append(f)
+    return kept + ["--dino_model_name", ctx["teacher"], "--no_projection",
+                   "--log-every-n-steps", "1"] + DETERMINISTIC_CROP
+
+
+def run_cli(ctx, package, flags, logs, preamble=""):
+    """``<package>.train.main`` in a subprocess on the CPU (the JAX one on
+    one CPU device: in-process it would inherit the caller's device mesh),
+    with ``--flatten-group-lrs`` (``scripts/dress_rehearsal.py:run_tpu``);
+    ``preamble`` runs after the model config is registered."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    if package.endswith("_tpu"):
+        env["JAX_PLATFORMS"] = "cpu"
+        env["XLA_FLAGS"] = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
+                                  env.get("XLA_FLAGS", "")).strip()
     bootstrap = (
-        "import json, sys, torch\n"
-        "from refining_clip_via_dinov2_representations_torch import losses\n"
-        "from refining_clip_via_dinov2_representations_torch.models import "
-        "register_model_config\n"
+        "import json, sys\n"
+        f"from {package}.models import register_model_config\n"
         f"register_model_config('mini-dress', json.load(open({ctx['cfg_path']!r})))\n"
-        "class Head(losses.DinoProjectionHead):\n"
-        "    def __init__(self, *a, **k):\n"
-        "        super().__init__(*a, **k)\n"
-        f"        self.load_state_dict(torch.load({head_init!r}, weights_only=True))\n"
-        "losses.DinoProjectionHead = Head\n"
-        "from refining_clip_via_dinov2_representations_torch.train.main import main\n"
+        + preamble
+        + f"from {package}.train.main import main\n"
         "main(sys.argv[1:])\n"
     )
-    flags = _common_flags(ctx, epochs) + ["--flatten-group-lrs", "--logs", logs, "--name", "run",
-                                          "--force-cpu"]
-    subprocess.run([sys.executable, "-c", bootstrap] + flags, env=env, check=True,
-                   cwd=REPO_ROOT)
+    subprocess.run([sys.executable, "-c", bootstrap] + flags
+                   + ["--flatten-group-lrs", "--logs", logs, "--name", "run", "--force-cpu"],
+                   env=env, check=True, cwd=REPO_ROOT)
     return os.path.join(logs, "run")
 
 
-def first_logged_loss(run_dir):
-    """(step, total_loss) of the first ``loss_steps.json`` record."""
+def run_jax(ctx, flags):
+    return run_cli(ctx, "refining_clip_via_dinov2_representations_tpu", flags,
+                   os.path.join(ctx["workdir"], "jax_logs"))
+
+
+def run_torch(ctx, flags):
+    """The port's CLI with the JAX run's flags; with a DINO head, the head
+    starts from the JAX CLI's (``jax_cli_head_init``: the two packages draw
+    an init from different generators)."""
+    preamble = ""
+    if "--no_projection" not in flags:
+        head_init = jax_cli_head_init(ctx, os.path.join(ctx["workdir"], "head_init.pt"))
+        preamble = (
+            "import torch\n"
+            "from refining_clip_via_dinov2_representations_torch import losses\n"
+            "class Head(losses.DinoProjectionHead):\n"
+            "    def __init__(self, *a, **k):\n"
+            "        super().__init__(*a, **k)\n"
+            f"        self.load_state_dict(torch.load({head_init!r}, weights_only=True))\n"
+            "losses.DinoProjectionHead = Head\n"
+        )
+    return run_cli(ctx, "refining_clip_via_dinov2_representations_torch", flags,
+                   os.path.join(ctx["workdir"], "torch_logs"), preamble)
+
+
+def first_logged(run_dir, key="total_loss"):
+    """(step, value) of the first ``loss_steps.json`` record holding ``key``."""
     with open(os.path.join(run_dir, "loss_steps.json")) as f:
-        first = json.load(f)[0]
-    return first["step"], first["total_loss"]
+        first = next(r for r in json.load(f) if key in r)
+    return first["step"], first[key]
 
 
 def compare(jax_itm, torch_itm, jax_blind, torch_blind, epochs):
@@ -201,63 +280,80 @@ def compare(jax_itm, torch_itm, jax_blind, torch_blind, epochs):
     return rows, failures
 
 
-def write_report(path, rows, failures, meta, notes):
-    lines = [
-        "# Dress rehearsal — JAX CLI vs the PyTorch port's CLI",
-        "",
-        "Written by `python scripts/dress_rehearsal_torch.py` "
-        f"({'; '.join(f'{k} {v}' for k, v in meta.items())}).",
-        "",
-        "| section | metric | JAX | port | abs diff | tol | ok |",
-        "|---|---|---|---|---|---|---|",
-    ]
-    for sec, key, jv, tv, d, tol, ok in rows:
-        lines.append(f"| {sec} | {key} | {jv:.4f} | {tv:.4f} | {d:.4f} | {tol} |"
-                     f" {'✓' if ok else '✗'} |")
-    lines.append("| offline | (kNN, linear probe, geometry) | — | — | — | — | not "
-                 "compared: `eval/offline.py` is not ported (ROADMAP Queue 1 item 15) |")
-    lines += ["", f"**Result: {'PASS' if not failures else 'FAIL'}** "
-                  f"({len(rows) - sum(not r[-1] for r in rows)}/{len(rows)} rows within "
-                  "tolerance)"]
-    lines += [f"- FAIL {f_}" for f_ in failures]
-    lines += [""] + [f"- {n}" for n in notes]
+def write_report(path, sections):
+    """One markdown table per rehearsal (``rehearse``'s sections)."""
+    lines = ["# Dress rehearsal — JAX CLI vs the PyTorch port's CLI", ""]
+    for sec in sections:
+        rows, failures = sec["rows"], sec["failures"]
+        lines += [
+            f"## {sec['title']}",
+            "",
+            "Written by `python scripts/dress_rehearsal_torch.py` "
+            f"({'; '.join(f'{k} {v}' for k, v in sec['meta'].items())}).",
+            "",
+            "| section | metric | JAX | port | abs diff | tol | ok |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for name, key, jv, tv, d, tol, ok in rows:
+            lines.append(f"| {name} | {key} | {jv:.4f} | {tv:.4f} | {d:.4f} | {tol} |"
+                         f" {'✓' if ok else '✗'} |")
+        lines.append("| offline | (kNN, linear probe, geometry) | — | — | — | — | not "
+                     "compared: `eval/offline.py` is not ported (ROADMAP Queue 1 item 15) |")
+        lines += ["", f"**Result: {'PASS' if not failures else 'FAIL'}** "
+                      f"({len(rows) - sum(not r[-1] for r in rows)}/{len(rows)} rows within "
+                      "tolerance)"]
+        lines += [f"- FAIL {f_}" for f_ in failures]
+        lines += [""] + [f"- {n}" for n in sec["notes"]] + [""]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write("\n".join(lines))
 
 
-def run_all(workdir, epochs=3, n_train=160, n_val=40, seed=0, out=None):
-    """Both runs, the comparison and the report; returns (rows, failures)."""
+def rehearse(workdir, epochs=3, n_train=160, n_val=40, seed=0, live=False):
+    """Both runs of one rehearsal and their comparison: a report section."""
     t0 = time.perf_counter()
     for stale in ("data", "jax_logs", "torch_logs"):  # a .pt's .npy sidecar would be reused
         shutil.rmtree(os.path.join(workdir, stale), ignore_errors=True)
     ctx = prepare(workdir, n_train=n_train, n_val=n_val, seed=seed)
+    if live:
+        ctx["teacher"] = tiny_teacher(os.path.join(workdir, "teacher"), seed=seed)
+    flags = cli_flags(ctx, epochs, live)
     t_jax = time.perf_counter()
-    jax_dir = run_tpu(ctx, epochs)
+    jax_dir = run_jax(ctx, flags)
     t_torch = time.perf_counter()
-    torch_dir = run_torch(ctx, epochs)
+    torch_dir = run_torch(ctx, flags)
     t_end = time.perf_counter()
     rows, failures = compare(load_itm_results(jax_dir), load_itm_results(torch_dir),
                              load_clip_blind(jax_dir), load_clip_blind(torch_dir), epochs)
-    (j_step, j_loss), (t_step, t_loss) = first_logged_loss(jax_dir), first_logged_loss(torch_dir)
+    key = "soft_loss" if live else "total_loss"
+    (j_step, j_loss), (t_step, t_loss) = first_logged(jax_dir, key), first_logged(torch_dir, key)
     blind_splits = {"jax": sorted(load_clip_blind(jax_dir)),
                     "port": sorted(load_clip_blind(torch_dir))}
     notes = [
-        f"first logged step: JAX step {j_step} total_loss {j_loss:.6f}, port step {t_step} "
-        f"total_loss {t_loss:.6f}, relative difference {abs(t_loss - j_loss) / abs(j_loss):.3e} "
-        "(one loader worker and seed in both; the JAX CLI's augmentation is unseeded)",
-        f"CLIP-blind splits written: JAX {blind_splits['jax']}, port {blind_splits['port']} "
-        "(the JAX CLI's train split reads the train loader, which has no image paths, and "
-        "logs a failure; the port reads an eval loader of the train CSV)",
+        f"first logged step: JAX step {j_step} {key} {j_loss:.6f}, port step {t_step} "
+        f"{key} {t_loss:.6f}, relative difference {abs(t_loss - j_loss) / abs(j_loss):.3e} "
+        + ("(the same pixels and weights in both: deterministic crop, no DINO head)" if live
+           else "(one loader worker and seed in both; the JAX CLI's augmentation is unseeded)"),
+        f"CLIP-blind splits written: JAX {blind_splits['jax']}, port {blind_splits['port']}"
+        + (" (both from the live teacher)" if live else
+           " (the JAX CLI's train split reads the train loader, which has no image paths, "
+           "and logs a failure; the port reads an eval loader of the train CSV)"),
         f"wall time: {t_end - t0:.1f} s (set-up {t_jax - t0:.1f} s, JAX CLI "
         f"{t_torch - t_jax:.1f} s, port CLI {t_end - t_torch:.1f} s), on "
         f"{platform.machine()} with {os.cpu_count()} CPUs, {platform.python_implementation()} "
         f"{platform.python_version()}",
     ]
-    meta = {"epochs": epochs, "n_train": n_train, "n_val": n_val, "seed": seed}
-    write_report(out or os.path.join(workdir, "dress_rehearsal_torch.md"), rows, failures,
-                 meta, notes)
-    return rows, failures
+    title = ("Live DINOv2 teacher (seeded tiny HF directory, `--no_projection`, "
+             "deterministic crop)" if live else "Precomputed teacher features")
+    return {"title": title, "rows": rows, "failures": failures, "notes": notes,
+            "meta": {"epochs": epochs, "n_train": n_train, "n_val": n_val, "seed": seed}}
+
+
+def run_all(workdir, epochs=3, n_train=160, n_val=40, seed=0, out=None, live=False):
+    """One rehearsal and its report; returns (rows, failures)."""
+    sec = rehearse(workdir, epochs=epochs, n_train=n_train, n_val=n_val, seed=seed, live=live)
+    write_report(out or os.path.join(workdir, "dress_rehearsal_torch.md"), [sec])
+    return sec["rows"], sec["failures"]
 
 
 def main(argv=None):
@@ -265,6 +361,7 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--mode", choices=["store", "live", "both"], default="both")
     p.add_argument("--workdir", default=os.path.join(REPO_ROOT, "build", "dress_rehearsal_torch"))
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--n-train", type=int, default=160)
@@ -272,12 +369,16 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=os.path.join(REPO_ROOT, "docs", "dress_rehearsal_torch.md"))
     a = p.parse_args(argv)
-    os.makedirs(a.workdir, exist_ok=True)
-    _, failures = run_all(a.workdir, epochs=a.epochs, n_train=a.n_train, n_val=a.n_val,
-                          seed=a.seed, out=a.out)
+    sections = []
+    for mode in (("store", "live") if a.mode == "both" else (a.mode,)):
+        workdir = os.path.join(a.workdir, mode)
+        os.makedirs(workdir, exist_ok=True)
+        sections.append(rehearse(workdir, epochs=a.epochs, n_train=a.n_train, n_val=a.n_val,
+                                 seed=a.seed, live=mode == "live"))
+    write_report(a.out, sections)
     with open(a.out) as f:
         print(f.read())
-    sys.exit(1 if failures else 0)
+    sys.exit(1 if any(sec["failures"] for sec in sections) else 0)
 
 
 if __name__ == "__main__":

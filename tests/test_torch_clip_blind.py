@@ -1,8 +1,9 @@
 """The port's CLIP-blind check against the JAX package's: the path maps, the
 dedup, the alignment and the pair statistics on seeded arrays (equal), and
 ``run_clip_blind_on_split`` of a tiny CLIP carried across with
-``models/convert.py`` on a mini-Flickr val CSV: the same JSON (1e-6) and the
-same top-pairs CSV."""
+``models/convert.py`` on a mini-Flickr val CSV, with the precomputed
+teacher rows and with a live tiny DINOv2 teacher: the same JSON (1e-6) and
+the same top-pairs CSV."""
 
 import json
 import os
@@ -19,7 +20,7 @@ from refining_clip_via_dinov2_representations_torch.train.data import (
 )
 from refining_clip_via_dinov2_representations_torch.transform import image_transform
 
-from .torch_port_utils import TINY_CFG, jax_clip, port_clip
+from .torch_port_utils import TINY_CFG, jax_clip, jax_dinov2, port_clip, port_dinov2
 
 JSON_TOL = 1e-6
 
@@ -136,6 +137,30 @@ def test_run_clip_blind_on_split_writes_what_jax_writes(tmp_path):
 
     assert clip_blind.run_clip_blind_on_split("train", {}, model, feats, mapping,
                                               str(tmp_path / "none")) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        clip_blind.run_clip_blind_on_split("val", {}, model, None, None, str(tmp_path),
-                                           dino_teacher=object())
+
+    # the live-teacher branch: the tiny teacher encodes the same val pixels,
+    # no store and no map; max_images 7 as above
+    from refining_clip_via_dinov2_representations_tpu.train.dino_teacher import (
+        LiveDinoTeacher as JaxTeacher,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.dino_teacher import (
+        LiveDinoTeacher,
+    )
+
+    jteacher, tvars = jax_dinov2()
+    live = clip_blind.run_clip_blind_on_split(
+        "val", {"val": get_csv_dataset(args, image_transform(size, False), False,
+                                       tokenizer=SimpleTokenizer(ctx))},
+        model, None, None, str(tmp_path / "port_live"), max_images=7,
+        dino_teacher=LiveDinoTeacher(port_dinov2(tvars["params"])))
+    want_live = jcb.run_clip_blind_on_split(
+        "val", {"val": jdata.get_csv_dataset(args, jax_transform(size, False), False,
+                                             tokenizer=JaxTokenizer(context_length=ctx))},
+        jmodel, variables, None, None, str(tmp_path / "jax_live"), max_images=7,
+        dino_teacher=JaxTeacher(jteacher, tvars))
+    assert live["total_pairs"] == want_live["total_pairs"] == 6
+    with open(tmp_path / "port_live" / "clip_blind_val.json") as f, \
+            open(tmp_path / "jax_live" / "clip_blind_val.json") as g:
+        _assert_close_json(json.load(f), json.load(g))
+    assert (tmp_path / "port_live" / "clip_blind_val_top_pairs.csv").read_text() == (
+        tmp_path / "jax_live" / "clip_blind_val_top_pairs.csv").read_text()

@@ -1,7 +1,7 @@
 """The port's training CLI: flags against the JAX package's, a two-step CPU
 run whose checkpoint loads strictly, a CSV run with evaluation, CLIP-blind
-and resume that writes every artifact, the transforms the image flags build,
-and the refusals."""
+and resume that writes every artifact, a CSV run with the live DINOv2
+teacher, the transforms the image flags build, and the refusals."""
 
 import json
 import math
@@ -112,7 +112,7 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 
 @pytest.mark.parametrize("extra", [["--report-to", "wandb"], ["--accum-freq", "2"],
                                    ["--imagenet-val", "x"], ["--siglip"],
-                                   ["--dino_model_name", "facebook/dinov2-small"], ["--fsdp"],
+                                   ["--distill-model", "ViT-B-32"], ["--fsdp"],
                                    ["--opt", "lion"], ["--save-on-preemption"],
                                    ["--grad-checkpointing", "--remat-policy", "dots_saveable"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
@@ -191,6 +191,66 @@ def test_csv_run_with_eval_clip_blind_and_resume_writes_every_artifact(tmp_path)
         assert (run / "clip_blind" / f"clip_blind_{split}_top_pairs.csv").exists()
     assert sorted(os.listdir(run / "checkpoints")) == ["epoch_1.pt", "epoch_2.pt"]
     assert "resuming checkpoint" in (run / "out.log").read_text()
+
+
+def _tiny_teacher_dir(path) -> str:
+    """A seeded tiny DINOv2 saved in the HF layout (28-px native grid)."""
+    from refining_clip_via_dinov2_representations_torch.models.dinov2 import (
+        Dinov2, Dinov2Cfg, save_hf_checkpoint,
+    )
+
+    cfg = Dinov2Cfg(hidden_size=32, layers=2, heads=4, mlp_ratio=2, native_image_size=28)
+    return save_hf_checkpoint(Dinov2(cfg).init_weights(seed=0), str(path))
+
+
+def test_live_teacher_csv_run_writes_soft_loss_and_both_clip_blind_files(tmp_path):
+    """The live-teacher protocol (``tests/test_dino_workflow_e2e.py``'s JAX
+    case): no ``--dino_fts_path`` anywhere; the teacher from
+    ``--dino_model_name`` runs inside the step and feeds the CLIP-blind check
+    of both splits, with no store and no index map; the DINO head takes the
+    teacher's width and the checkpoint holds no teacher weight."""
+    from scripts.mini_flickr import generate
+
+    d = generate(str(tmp_path / "data"), n_train=8, n_val=4, size_px=32, dino_dim=24)
+    records = main(["--model", MODEL, "--train-data", d["train_csv"], "--val-data",
+                    d["val_csv"], "--dataset-type", "csv", "--batch-size", "8", "--workers",
+                    "2", "--logs", str(tmp_path), "--name", "live", "--precision", "fp32",
+                    "--force-cpu", "--epochs", "1", "--warmup", "1", "--use_dino_general",
+                    "--soft_mode", "kl_teacher", "--lambda_soft", "0.5", "--dino_model_name",
+                    _tiny_teacher_dir(tmp_path / "teacher"), "--run_clip_blind",
+                    "--log-every-n-steps", "1"])
+    base = tmp_path / "live"
+    with open(base / "loss_steps.json") as f:
+        steps = json.load(f)
+    assert steps == records and len(steps) == 5
+    assert any(s.get("soft_loss", 0) > 0 for s in steps), "the live teacher gave no soft term"
+    for split, images in (("val", 4), ("train", 8)):
+        with open(base / "clip_blind" / f"clip_blind_{split}.json") as f:
+            stats = json.load(f)
+        assert stats["total_pairs"] == images * (images - 1) // 2
+        assert stats["results"]
+    saved = torch.load(base / "checkpoints" / "epoch_1.pt", map_location="cpu",
+                       weights_only=True)
+    assert saved["dino_head"]["fc2.weight"].shape[0] == 32  # the teacher's width
+    model, _ = create_model(MODEL, str(base / "checkpoints" / "epoch_1.pt"), device="cpu")
+    assert set(saved["state_dict"]) == set(model.state_dict())
+
+
+def test_dino_model_name_without_local_files_raises_naming_the_paths(tmp_path):
+    hub = tmp_path / "hub"
+    with pytest.raises(FileNotFoundError, match="does not download") as err:
+        main(_argv(tmp_path, "--force-cpu", "--use_dino_general", "--dino_model_name",
+                   "facebook/dinov2-small", "--cache-dir", str(hub)))
+    assert str(hub / "models--facebook--dinov2-small" / "snapshots") in str(err.value)
+    assert "'facebook/dinov2-small'" in str(err.value)
+
+
+def test_live_teacher_without_force_cpu_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(_argv(tmp_path, "--use_dino_general", "--dino_model_name",
+                   _tiny_teacher_dir(tmp_path / "teacher")))
 
 
 def _reseed(transform, seed):

@@ -1,10 +1,11 @@
 """Shared helpers of the ``test_torch_*`` files: one set of weights in both
 the JAX package and its PyTorch port.
 
-A JAX CLIP is initialised from a seed, every parameter is then perturbed by
-seeded numpy noise (so LayerNorm scales, biases and every other leaf differ
-from their init constants), and the tree is carried into the port through
-``jax_params_to_state_dict`` with ``strict=True``. JAX is imported inside the
+A JAX CLIP (or DINOv2 teacher) is initialised from a seed, every parameter
+is then perturbed by seeded numpy noise (so LayerNorm scales, biases and
+every other leaf differ from their init constants), and the tree is carried
+into the port through ``jax_params_to_state_dict`` (``jax_dinov2_params_
+to_state_dict``) with ``strict=True``. JAX is imported inside the
 functions, so test files stay importable where JAX is absent.
 """
 
@@ -54,6 +55,38 @@ def port_clip(cfg_dict, params, attn_impl: str = "auto"):
 
     model = build_model(parse_model_cfg(cfg_dict), attn_impl=attn_impl)
     model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return model.eval()
+
+
+# a tiny DINOv2: head dim 8, a 3x3 position table (42 px at patch 14)
+DINO_TINY = dict(hidden_size=32, layers=2, heads=4, mlp_ratio=2, patch_size=14,
+                 native_image_size=42)
+
+
+def jax_dinov2(use_swiglu: bool = False, seed: int = 3, noise: float = 0.05):
+    """(flax Dinov2, variables) of ``DINO_TINY`` with seeded, perturbed fp32
+    params."""
+    import jax
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.models.dinov2 import Dinov2, Dinov2Cfg
+
+    model = Dinov2(cfg=Dinov2Cfg(**DINO_TINY, use_swiglu_ffn=use_swiglu))
+    variables = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, 28, 28, 3)))
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(lambda x: np.asarray(x) + rng.normal(0.0, noise, np.shape(x)).astype(
+        np.float32), jax.device_get(variables["params"]))
+    return model, {"params": params}
+
+
+def port_dinov2(params, use_swiglu: bool = False, attn_impl: str = "xla"):
+    """The port's Dinov2 on the CPU holding the JAX params."""
+    from refining_clip_via_dinov2_representations_torch.models import (
+        Dinov2, Dinov2Cfg, jax_dinov2_params_to_state_dict,
+    )
+
+    model = Dinov2(Dinov2Cfg(**DINO_TINY, use_swiglu_ffn=use_swiglu), attn_impl=attn_impl)
+    model.load_state_dict(jax_dinov2_params_to_state_dict(params), strict=True)
     return model.eval()
 
 
