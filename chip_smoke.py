@@ -91,6 +91,39 @@ and ``[32,16,257,64]`` in phase 3, and timed in phase 5):
     (CUDA events around ``extract``); then the live fp32 step alone beside
     the step on cached features and the teacher alone at batch 32.
 
+The pretrained-checkpoint and thesis-evaluation phases run after them on the
+same set, at ViT-B-16's full width (the fused forward is checked and timed
+at their new shapes, the zero-shot text batch ``[800,8,77,64]`` causal and
+the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
+
+13. pretrained — the port's seeded ViT-B-16 weights written twice: as the
+    open_clip-layout file of the ``openai`` tag's hub repo in the hub-cache
+    layout, and as an fp16 OpenAI TorchScript archive. ``create_model(...,
+    pretrained="openai")``, ``load_openai_model(archive)`` and
+    ``create_model(..., pretrained=archive)`` (what ``--pretrained
+    <archive>`` runs) hold exactly the written values (fp16-rounded from the
+    archive); the archive's features through the kernel against plain
+    attention (cosine >= 0.9999, fp32, 12 launches a tower call); the 224-px
+    checkpoint at ``force_image_size=384`` resizes its table and runs
+    ``[B,12,577,64]`` through the fused kernel and through flash.
+14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
+    openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
+    ImageNet-V2-style folder (1000 digit-named classes, one image each), no
+    train data: retrieval, top-1/top-5, the classifier's seconds (80,000
+    captions, 100 text calls of ``[800,77]``) and the launches; the
+    classifier of the first 10 classes through plain attention (weight
+    cosine >= 0.9999, fp32).
+15. finetune — Config 2: train-eval-cli's thesis flags with ``--pretrained
+    openai`` for one epoch; its pre-train evaluation equals Config 1's
+    retrieval (same weights); samples/s, the evaluations, the launches, and
+    the fp32 step alone from the pretrained weights.
+16. offline — ``eval.run_all_evals`` on both mini-Flickr CSVs (the ``label``
+    column) from that run's checkpoint (bf16 extraction, 12 launches a batch
+    of 256 rows), then ``eval.clip_blinds_cli`` on the val CSV with
+    mini-Flickr's DINO features and map: kNN, probe, geometry and CLIP-blind
+    results and each stage's seconds; the extracted val features against
+    plain attention's (cosine >= 0.999, bf16).
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -227,6 +260,12 @@ TEACHER_BATCH, TEACHER_BIG_BATCH, LIVE_BATCH = 64, 32, 32
 TEACHER_MIN_COS = {"float32": 0.9999, "bfloat16": 0.999}
 # one train step through the kernels vs the plain attention, same init/batch
 STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, min cosine)
+# the pretrained and thesis-evaluation phases: the zero-shot text call (10
+# ImageNet classes x 80 templates, causal) and the offline extractor's bf16
+# image batch of 256 rows; the procedural ImageNet-V2 folder's classes (one
+# image each); the revision of the seeded hub-cache snapshot
+SLICE10_CASES = [(800, 8, 77, 64, True), (256, 12, 197, 64, False)]
+ZS_IMAGES, ZS_CLASSES_PER_CALL, EXTRACT_BATCH, HUB_REV = 1000, 10, 256, "seeded"
 
 
 def fail(msg: str) -> None:
@@ -320,8 +359,8 @@ def _attention_fp64(q, k, v, scale, causal):
 
 
 def phase_kernels() -> dict:
-    """Kernel vs its plain version on the card, at the serving, edge and
-    teacher cases; returns {dtype: max_abs_err}."""
+    """Kernel vs its plain version on the card, at the serving, edge,
+    teacher and evaluation cases; returns {dtype: max_abs_err}."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
@@ -331,7 +370,7 @@ def phase_kernels() -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES):
+        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES + SLICE10_CASES):
             q, k, v = _qkv(b, h, l, d, dtype, seed=i)
             scale = d ** -0.5
             got = fused_attention_fwd(q, k, v, scale, causal)
@@ -491,16 +530,23 @@ def phase_serve():
 def _kernels_launched(fn) -> set:
     """Names of the CUDA kernels that ``fn`` launches, from torch.profiler.
     ``fn`` runs once before the profiled call: a kernel's first launch loads
-    its module, and the profiler can miss the kernels of that launch."""
+    its module, and the profiler can miss the kernels of that launch. The
+    profiler at times records a window's runtime calls but none of its
+    kernels (seen on an H100); such a window is profiled again, up to three
+    times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()}
+        if any("_kernel" in n for n in names):
+            break
+    return names
 
 
 def check_fp32_route(fn, parts, what: str) -> None:
@@ -575,8 +621,8 @@ def _beside_scalar(before, ms: float) -> str:
 
 
 def phase_kernel_times(dtype_name: str) -> dict:
-    """Kernel, plain version and SDPA (yardstick only) at the serving and the
-    teacher shapes."""
+    """Kernel, plain version and SDPA (yardstick only) at the serving, the
+    teacher and the evaluation shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -586,7 +632,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES:
+    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES + SLICE10_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100)
         scale = d ** -0.5
         ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
@@ -752,11 +798,13 @@ def _train_batch(tokenizer, n: int, device: str, model_name: str = MODEL, size=N
 
 
 def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str = MODEL,
-                grad_checkpointing: bool = False, force_image_size=None, dino_teacher=None):
+                grad_checkpointing: bool = False, force_image_size=None, dino_teacher=None,
+                **model_kw):
     """The model (ViT-B-16 by default) + the MLP DINO head (embed dim ->
     448 -> 384 for ViT-B-16) + default param groups + a cosine schedule, from
     the same seeds every time; returns (model, head, state, train_step,
-    step_cfg). ``dino_teacher`` gives the step a live teacher."""
+    step_cfg). ``dino_teacher`` gives the step a live teacher; ``model_kw``
+    go to ``create_model`` (``pretrained``, ``cache_dir``)."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.losses import (
@@ -773,7 +821,7 @@ def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str 
 
     model, _ = create_model(model_name, precision=precision, device=DEVICE, attn_impl=attn_impl,
                             seed=SEED, grad_checkpointing=grad_checkpointing,
-                            force_image_size=force_image_size)
+                            force_image_size=force_image_size, **model_kw)
     model.train()
     torch.manual_seed(SEED + 1)
     head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
@@ -1089,9 +1137,10 @@ def _timed(module, name: str, seconds: dict):
         setattr(module, name, fn)
 
 
-def _eval_cli_run(argv: list) -> tuple:
+def _eval_cli_run(argv: list, timed=()) -> tuple:
     """One ``train.main.main`` run: (records, launch counts, wall seconds,
-    seconds in train_one_epoch / evaluate / run_clip_blind_on_split)."""
+    seconds in train_one_epoch / evaluate / run_clip_blind_on_split and in
+    each further (module, function name) of ``timed``)."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.eval import clip_blind
@@ -1099,9 +1148,10 @@ def _eval_cli_run(argv: list) -> tuple:
     from refining_clip_via_dinov2_representations_torch.train import main as main_mod
 
     seconds: dict = {}
-    with _timed(main_mod, "train_one_epoch", seconds), \
-            _timed(evaluate_mod, "evaluate", seconds), \
-            _timed(clip_blind, "run_clip_blind_on_split", seconds):
+    with contextlib.ExitStack() as stack:
+        for module, name in ((main_mod, "train_one_epoch"), (evaluate_mod, "evaluate"),
+                             (clip_blind, "run_clip_blind_on_split"), *timed):
+            stack.enter_context(_timed(module, name, seconds))
         # ---- the main path: counts at 0 just before, read just after ----
         _zero_counts()
         t0 = time.perf_counter()
@@ -1126,6 +1176,46 @@ def phase_data(work: str) -> dict:
     return d
 
 
+def _thesis_argv(d: dict, work: str, name: str) -> list:
+    """The thesis protocol's CLI flags on mini-Flickr: the DINO-soft flags of
+    ``scripts/dress_rehearsal.py:_common_flags``, ViT-B-16, ``--precision
+    amp`` at batch 32, the precomputed features for training and the
+    CLIP-blind check on both splits; the run under ``work/name``."""
+    return ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data",
+            d["val_csv"], "--dataset-type", "csv", "--batch-size", str(EVAL_BATCH),
+            "--precision", "amp", "--lr", "5e-4", "--warmup", "2", "--wd", "0.1",
+            "--workers", "8", "--seed", str(SEED), "--use_dino_general", "--lambda_soft",
+            "0.5", "--soft_mode", "kl_teacher", "--lambda_weighted", "0.2",
+            "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
+            "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
+            d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
+            "--log-every-n-steps", "1", "--logs", work, "--name", name, "--device", DEVICE]
+
+
+def _thesis_launches(args):
+    """(train batches, val batches, CLIP-blind batches of both splits, and
+    the expected launches of a run with ``evals`` evaluations: 48 a train
+    step, 24 an eval batch, 12 a CLIP-blind batch) of the thesis flags."""
+    from refining_clip_via_dinov2_representations_torch.train.data import (
+        _clone_args, get_csv_dataset,
+    )
+
+    train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
+    val_batches = get_csv_dataset(args, None, False).dataloader.num_batches
+    blind_info = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False)
+    check(2 * args.clip_blind_max_images >= blind_info.dataloader.num_samples,
+          "the CLIP-blind cap would cut the train split")
+    blind_batches = val_batches + blind_info.dataloader.num_batches
+
+    def expected(evals: int) -> dict:
+        return {"flash_attention_fwd": 0,
+                "fused_attention_fwd": 24 * train_batches + 24 * val_batches * evals
+                + 12 * blind_batches,
+                "fused_attention_bwd": 24 * train_batches}
+
+    return train_batches, val_batches, blind_batches, expected
+
+
 def phase_train_eval_cli(d: dict, work: str) -> dict:
     """The thesis protocol through ``train.main.main`` on the card: ViT-B-16
     at full width and depth, fp32 compute (``--precision amp``) through the
@@ -1143,37 +1233,16 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
 
     from refining_clip_via_dinov2_representations_torch.models import create_model, get_tokenizer
     from refining_clip_via_dinov2_representations_torch.train.data import (
-        _clone_args, get_csv_dataset, load_dino_index_map,
+        get_csv_dataset, load_dino_index_map,
     )
     from refining_clip_via_dinov2_representations_torch.train.evaluate import evaluate
     from refining_clip_via_dinov2_representations_torch.train.main import build_transforms
     from refining_clip_via_dinov2_representations_torch.train.params import parse_args
     from refining_clip_via_dinov2_representations_torch.transform import image_transform_v2
 
-    # the DINO-soft flags of scripts/dress_rehearsal.py:_common_flags
-    argv = ["--model", EVAL_MODEL, "--train-data", d["train_csv"], "--val-data",
-            d["val_csv"], "--dataset-type", "csv", "--batch-size", str(EVAL_BATCH),
-            "--precision", "amp", "--lr", "5e-4", "--warmup", "2", "--wd", "0.1",
-            "--workers", "8", "--seed", str(SEED), "--use_dino_general", "--lambda_soft",
-            "0.5", "--soft_mode", "kl_teacher", "--lambda_weighted", "0.2",
-            "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
-            "--dino_fts_path_val", d["dino_feats"], "--dino_index_map_path_val",
-            d["dino_index_map"], "--run_clip_blind", "--clip_blind_val_key", "val",
-            "--log-every-n-steps", "1", "--logs", work, "--name", "run", "--device", DEVICE]
+    argv = _thesis_argv(d, work, "run")
     args = parse_args(argv)
-    train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
-    val_info = get_csv_dataset(args, None, False).dataloader
-    val_batches = val_info.num_batches
-    blind_info = get_csv_dataset(_clone_args(args, val_data=args.train_data), None, False)
-    check(2 * args.clip_blind_max_images >= blind_info.dataloader.num_samples,
-          "the CLIP-blind cap would cut the train split")
-    blind_batches = val_batches + blind_info.dataloader.num_batches
-
-    def expected(evals: int) -> dict:
-        return {"flash_attention_fwd": 0,
-                "fused_attention_fwd": 24 * train_batches + 24 * val_batches * evals
-                + 12 * blind_batches,
-                "fused_attention_bwd": 24 * train_batches}
+    train_batches, val_batches, blind_batches, expected = _thesis_launches(args)
 
     run = os.path.join(work, "run")
     launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
@@ -1274,8 +1343,10 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
 
 
 def _set_attn_impl(model, impl: str) -> None:
-    for blk in model.encoder.layer:
-        blk.attention.attn_impl = impl
+    """Every attention layer of ``model`` (CLIP or DINOv2) to ``impl``."""
+    for m in model.modules():
+        if hasattr(m, "attn_impl"):
+            m.attn_impl = impl
 
 
 def _teacher_pixels(n: int, size: int = 224, seed: int = SEED + 20):
@@ -1586,6 +1657,380 @@ def phase_train_live_cli(d: dict, teacher: str, work: str, extracted: dict) -> d
     if DEVICE != "cpu":
         torch.cuda.empty_cache()
     return counts
+
+
+def _exactly(model, want: dict) -> bool:
+    """Every tensor of ``model``'s state dict equals ``want``'s (on the CPU,
+    reshaped to the model's shape, cast to its dtype)."""
+    import torch
+
+    return all(torch.equal(v.cpu(), want[k].reshape(v.shape).to(v.dtype))
+               for k, v in model.state_dict().items())
+
+
+def _kernel_vs_plain(model, inputs: dict, what: str, min_cos: float = MIN_COSINE) -> dict:
+    """``model``'s features of ``inputs`` ({"image": NHWC pixels, "text":
+    ids} on the card) through its attention impl against ``"xla"``: the
+    launches of the first pass and the worst cosine, checked."""
+    import torch
+
+    impl = next(m.attn_impl for m in model.modules() if hasattr(m, "attn_impl"))
+    fns = {"image": model.encode_image, "text": model.encode_text}
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    with torch.no_grad():
+        got = {k: fns[k](x, normalize=True).float() for k, x in inputs.items()}
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+    counts = _read_counts()
+    _set_attn_impl(model, "xla")
+    with torch.no_grad():
+        want = {k: fns[k](x, normalize=True).float() for k, x in inputs.items()}
+    _set_attn_impl(model, impl)
+    cos = {k: torch.nn.functional.cosine_similarity(got[k].double(), want[k].double(),
+                                                    dim=-1).min().item() for k in inputs}
+    shapes = {k: tuple(v.shape) for k, v in got.items()}
+    print(f"pretrained {what}: features {shapes} through {impl!r}, launches {counts}; cosine "
+          f"vs plain attention min {cos} (need >= {min_cos})", flush=True)
+    check(all(bool(torch.isfinite(v).all()) for v in got.values())
+          and min(cos.values()) >= min_cos, f"pretrained {what} disagrees with plain attention")
+    return counts
+
+
+def phase_pretrained(work: str) -> dict:
+    """Pretrained checkpoints at ViT-B-16's full width (phase 13): the
+    seeded weights written in the hub-cache layout of the ``openai`` tag
+    and as an fp16 OpenAI TorchScript archive, loaded three ways and checked
+    exactly; the archive's features through the kernel against plain
+    attention; the 224-px checkpoint at 384 px through the fused kernel and
+    through flash. Returns the cache, the archive and the launches."""
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.openai import (
+        load_openai_model, save_openai_archive,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+
+    t0 = time.perf_counter()
+    src, _ = create_model(EVAL_MODEL, device=DEVICE, seed=SEED + 30)
+    sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    del src
+    hub_id = get_pretrained_cfg(EVAL_MODEL, "openai")["hf_hub"].rstrip("/")
+    cache = os.path.join(work, "hub")
+    repo = os.path.join(cache, "models--" + hub_id.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", HUB_REV)
+    os.makedirs(os.path.join(repo, "refs"))
+    os.makedirs(snap)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(HUB_REV)
+    torch.save(sd, os.path.join(snap, "open_clip_pytorch_model.bin"))
+    archive = save_openai_archive(sd, os.path.join(work, f"{EVAL_MODEL}-openai-seeded.pt"))
+    print(f"pretrained: seeded {EVAL_MODEL} written in {time.perf_counter() - t0:.2f} s: "
+          f"{os.path.getsize(os.path.join(snap, 'open_clip_pytorch_model.bin')) / 2**20:.1f} MiB "
+          f"open_clip layout in the hub cache of {hub_id}, {os.path.getsize(archive) / 2**20:.1f}"
+          f" MiB fp16 TorchScript archive", flush=True)
+    half = {k: v.half() if v.is_floating_point() else v for k, v in sd.items()}
+
+    t0 = time.perf_counter()
+    tagged, pp = create_model(EVAL_MODEL, pretrained="openai", cache_dir=cache, device=DEVICE)
+    tag_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    openai = load_openai_model(archive, device=DEVICE)
+    archive_s = time.perf_counter() - t0
+    by_path, _ = create_model(EVAL_MODEL, pretrained=archive, device=DEVICE)
+    exact = {"pretrained='openai' (hub cache)": _exactly(tagged, sd),
+             "load_openai_model(archive)": _exactly(openai, half),
+             "pretrained=<archive> (--pretrained)": _exactly(by_path, half)}
+    act = openai.visual.transformer.resblocks[0].mlp.act.__name__
+    print(f"pretrained: loads {tag_s:.2f} s from the hub cache, {archive_s:.2f} s from the "
+          f"archive; the written values exactly: {exact}; load_openai_model's activation "
+          f"{act}; the tag's preprocess: mean {pp.mean}, interpolation {pp.interpolation}, "
+          f"resize {pp.resize_mode}", flush=True)
+    check(all(exact.values()), f"pretrained weights differ from the written ones: {exact}")
+    check(act == "quick_gelu", "load_openai_model must build QuickGELU")
+    del tagged, by_path
+
+    rng = np.random.default_rng(SEED + 31)
+    size = openai.visual.image_size[0]
+    x = torch.from_numpy(rng.normal(size=(8, size, size, 3)).astype(np.float32)).to(DEVICE)
+    ids = torch.from_numpy(get_tokenizer(EVAL_MODEL)(
+        [f"a photo of pretrained item {i}" for i in range(8)])).long().to(DEVICE)
+    launches = {"fused_attention_fwd": 0, "flash_attention_fwd": 0}
+    counts = _kernel_vs_plain(openai, {"image": x, "text": ids}, "archive fp32 batch 8")
+    check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": 24,
+                     "fused_attention_bwd": 0}, f"the archive's towers launched {counts}")
+    launches["fused_attention_fwd"] += counts["fused_attention_fwd"]
+    del openai
+
+    big, _ = create_model(EVAL_MODEL, pretrained="openai", cache_dir=cache, device=DEVICE,
+                          force_image_size=384)
+    pos = big.visual.positional_embedding
+    tokens = (384 // big.visual.patch_size[0]) ** 2 + 1  # 577 at patch 16
+    check(tuple(pos.shape) == (tokens, sd["visual.positional_embedding"].shape[1])
+          and torch.equal(pos[0].cpu(), sd["visual.positional_embedding"][0]),
+          f"the 384-px table {tuple(pos.shape)} is not the resized {size}-px one")
+    x384 = torch.from_numpy(rng.normal(size=(4, 384, 384, 3)).astype(np.float32)).to(DEVICE)
+    heads = big.visual.transformer.resblocks[0].attn.num_heads
+    for impl, kernel in (("auto", "fused_attention_fwd"), ("flash", "flash_attention_fwd")):
+        _set_attn_impl(big, impl)
+        counts = _kernel_vs_plain(big, {"image": x384},
+                                  f"384 px [4,{heads},{tokens},64] {impl}")
+        check(counts[kernel] == 12 and sum(counts.values()) == 12,
+              f"the 384-px tower through {impl!r} launched {counts}")
+        launches[kernel] += counts[kernel]
+    del big
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return {"cache": cache, "archive": archive, "launches": launches}
+
+
+def phase_zero_shot(d: dict, pre: dict, work: str) -> dict:
+    """Config 1 through ``train.main.main`` (phase 14): zero-shot Flickr
+    retrieval and zero-shot ImageNet from ``--pretrained openai``, no train
+    data, on a procedural ImageNet-V2-style folder. Checks the metrics and
+    the launches (12 a text call of 10 classes x 80 templates, 12 an image
+    batch, 24 a val batch); times the classifier; holds the first 10
+    classes' classifier to plain attention's. Returns the launches and the
+    val metrics."""
+    import math
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from refining_clip_via_dinov2_representations_torch.eval._imagenet_metadata import (
+        IMAGENET_CLASSNAMES, OPENAI_IMAGENET_TEMPLATES,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train import zero_shot
+    from refining_clip_via_dinov2_representations_torch.train.data import get_csv_dataset
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+
+    folder = os.path.join(work, "imagenet-v2")
+    rng = np.random.default_rng(SEED + 40)
+    t0 = time.perf_counter()
+    for c in range(ZS_IMAGES):
+        os.makedirs(os.path.join(folder, str(c)))
+        Image.fromarray(rng.integers(0, 255, (96, 96, 3), dtype=np.uint8)).save(
+            os.path.join(folder, str(c), "0.png"))
+    print(f"zero-shot: {ZS_IMAGES} class folders of one 96-px image each in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    argv = ["--model", EVAL_MODEL, "--pretrained", "openai", "--cache-dir", pre["cache"],
+            "--val-data", d["val_csv"], "--dataset-type", "csv", "--imagenet-val", folder,
+            "--batch-size", str(EVAL_BATCH), "--precision", "amp", "--workers", "8",
+            "--seed", str(SEED), "--logs", work, "--name", "zero-shot", "--device", DEVICE]
+    val_batches = get_csv_dataset(parse_args(argv), None, False).dataloader.num_batches
+    text_calls = math.ceil(len(IMAGENET_CLASSNAMES) / ZS_CLASSES_PER_CALL)
+    image_batches = math.ceil(ZS_IMAGES / EVAL_BATCH)
+    want = {"flash_attention_fwd": 0, "fused_attention_bwd": 0,
+            "fused_attention_fwd": 12 * (text_calls + image_batches) + 24 * val_batches}
+    results, counts, wall, sec = _eval_cli_run(argv, timed=(
+        (zero_shot, "build_zero_shot_classifier"), (zero_shot, "run")))
+    (entry,) = results
+    m = entry["metrics"]
+    keys = [f"{k}_R@{r}" for k in ("text_to_image", "image_to_text") for r in (1, 5, 10)]
+    zs = {k: m.get(k) for k in ("imagenet-zeroshot-val-top1", "imagenet-zeroshot-val-top5")}
+    print(f"zero-shot Config 1: {EVAL_MODEL} fp32 (--precision amp), eval only: wall "
+          f"{wall:.2f} s; classifier {sec.get('build_zero_shot_classifier', 0.0):.2f} s "
+          f"({len(IMAGENET_CLASSNAMES)} classes x {len(OPENAI_IMAGENET_TEMPLATES)} templates in "
+          f"{text_calls} text calls, tokenizer included); ImageNet images "
+          f"{sec.get('run', 0.0):.2f} s ({ZS_IMAGES} images, {image_batches} batches, decode "
+          f"included); evaluate {sec.get('evaluate', 0.0):.2f} s [{CARD}]", flush=True)
+    print(f"zero-shot Config 1: val retrieval { {k: m.get(k) for k in keys} }, clip_val_loss "
+          f"{m.get('clip_val_loss')}; ImageNet {zs}; launches {counts}, expected {want}",
+          flush=True)
+    check(counts == want, f"zero-shot launched {counts}, expected {want}")
+    check(all(isinstance(v, float) and 0.0 <= v <= 1.0 for v in zs.values())
+          and all(math.isfinite(m.get(k, float("nan"))) for k in keys + ["clip_val_loss"]),
+          f"zero-shot metrics {m}")
+
+    model, _ = create_model(EVAL_MODEL, "openai", precision="amp", cache_dir=pre["cache"],
+                            device=DEVICE)
+    tok = get_tokenizer(EVAL_MODEL)
+    first = IMAGENET_CLASSNAMES[:ZS_CLASSES_PER_CALL]
+    got = zero_shot.build_zero_shot_classifier(model, tok, first, OPENAI_IMAGENET_TEMPLATES)
+    _set_attn_impl(model, "xla")
+    plain = zero_shot.build_zero_shot_classifier(model, tok, first, OPENAI_IMAGENET_TEMPLATES)
+    cos = torch.nn.functional.cosine_similarity(got.double(), plain.double(), dim=0).min().item()
+    print(f"zero-shot: the classifier of the first {len(first)} classes {tuple(got.shape)} "
+          f"through the kernel vs plain attention: weight cosine min {cos:.8f} (need >= "
+          f"{MIN_COSINE})", flush=True)
+    check(cos >= MIN_COSINE, "the zero-shot classifier disagrees with plain attention")
+    del model
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return {"counts": counts, "metrics": m}
+
+
+def phase_finetune(d: dict, pre: dict, zs: dict, work: str) -> dict:
+    """Config 2 (phase 15): the thesis flags with ``--pretrained openai`` for
+    one epoch. Checks the launches, that the pre-train evaluation equals
+    Config 1's retrieval on the same weights, every epoch's metrics; times
+    the run and the fp32 step alone from the pretrained weights. Returns
+    the launches and the checkpoint."""
+    import math
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+
+    argv = _thesis_argv(d, work, "finetune") + ["--pretrained", "openai", "--cache-dir",
+                                                pre["cache"], "--epochs", "1"]
+    train_batches, _, _, expected = _thesis_launches(parse_args(argv))
+    want = expected(2)
+    records, counts, wall, sec = _eval_cli_run(argv)
+    run = os.path.join(work, "finetune")
+    train_s = sec.get("train_one_epoch", float("nan"))
+    print(f"finetune Config 2: {EVAL_MODEL} from the pretrained weights, fp32 batch "
+          f"{EVAL_BATCH}: wall {wall:.2f} s; train {train_s:.2f} s for {len(records)} steps "
+          f"({len(records) * EVAL_BATCH / train_s:.1f} samples/s, data loading included); "
+          f"evaluate {sec.get('evaluate', 0.0):.2f} s; CLIP-blind "
+          f"{sec.get('run_clip_blind_on_split', 0.0):.2f} s; launches {counts}, expected "
+          f"{want} [{CARD}]", flush=True)
+    check(counts == want, f"finetune launched {counts}, expected {want}")
+    check(len(records) == train_batches and all(math.isfinite(r["total_loss"]) for r in records),
+          "finetune: not one finite record per step")
+    with open(os.path.join(run, "final_itm_results.json")) as f:
+        results = json.load(f)
+    check([e["epoch"] for e in results] == [0, 1], f"finetune epochs {results}")
+    keys = [f"{k}_R@{r}" for k in ("text_to_image", "image_to_text") for r in (1, 5, 10)]
+    for e in results:
+        m = {r["val_name"]: r["metrics"] for r in e["results"]}["val"]
+        print(f"finetune: epoch {e['epoch']} val { {k: m.get(k) for k in keys} }, "
+              f"clip_val_loss {m.get('clip_val_loss')}", flush=True)
+        check(all(math.isfinite(m[k]) for k in keys + ["clip_val_loss"]), f"epoch {e}: {m}")
+    m0 = {r["val_name"]: r["metrics"] for r in results[0]["results"]}["val"]
+    same = all(m0[k] == zs["metrics"][k] for k in keys) and abs(
+        m0["clip_val_loss"] - zs["metrics"]["clip_val_loss"]) <= 1e-5
+    print(f"finetune: the pre-train evaluation equals Config 1's on the same weights: {same}",
+          flush=True)
+    check(same, "the fine-tune did not start from the pretrained weights")
+
+    _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL,
+                                             pretrained="openai", cache_dir=pre["cache"])
+    batch = _train_batch(get_tokenizer(EVAL_MODEL), EVAL_BATCH, DEVICE, model_name=EVAL_MODEL)
+    step_ms = host_step_ms(lambda: train_step(state, batch))
+    print(f"finetune: the fp32 DINO-soft step alone from the pretrained weights at batch "
+          f"{EVAL_BATCH} on one cached batch: {step_ms:.3f} ms host clock "
+          f"({EVAL_BATCH / step_ms * 1e3:.1f} samples/s) [{CARD}]", flush=True)
+    del state, train_step
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return {"counts": counts, "checkpoint": os.path.join(run, "checkpoints", "epoch_1.pt")}
+
+
+def phase_offline(d: dict, pre: dict, ft: dict, work: str) -> dict:
+    """The offline acceptance suite (phase 16): ``run_all_evals`` on both
+    mini-Flickr CSVs from the fine-tune's checkpoint (bf16 extraction, 12
+    launches a batch of 256 rows), ``clip_blinds_cli`` on the val CSV with
+    mini-Flickr's DINO features and map (12 launches a batch of 128
+    images); results and each stage's seconds; the extracted val features
+    against plain attention's (cosine >= 0.999). Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.eval import (
+        clip_blinds_cli, offline, run_all_evals,
+    )
+    from refining_clip_via_dinov2_representations_torch.eval._batching import (
+        encode_images_padded,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, load_checkpoint,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.data import _read_csv
+    from refining_clip_via_dinov2_representations_torch.transform import image_transform_v2
+
+    cpu = ["--force-cpu"] if DEVICE == "cpu" else []
+    rows = {s: len(_read_csv(d[f"{s}_csv"], ",", ("filepath",))["filepath"])
+            for s in ("train", "val")}
+    out = os.path.join(work, "evals")
+    sec: dict = {}
+    with contextlib.ExitStack() as stack:
+        for name in ("extract_features", "knn_top1", "eval_geometry", "linear_probe"):
+            stack.enter_context(_timed(offline, name, sec))
+        # ---- the main path: counts at 0 just before, read just after ----
+        _zero_counts()
+        t0 = time.perf_counter()
+        results = run_all_evals.main(
+            ["--train-csv", d["train_csv"], "--val-csv", d["val_csv"], "--model", EVAL_MODEL,
+             "--pretrained", "openai", "--cache-dir", pre["cache"], "--checkpoint",
+             ft["checkpoint"], "--out-dir", out, "--batch-size", str(EXTRACT_BATCH)] + cpu)
+        if DEVICE != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+    want = {"flash_attention_fwd": 0, "fused_attention_bwd": 0,
+            "fused_attention_fwd": 12 * sum(math.ceil(n / EXTRACT_BATCH) for n in rows.values())}
+    print(f"offline run_all_evals: {EVAL_MODEL} bf16 from {os.path.basename(ft['checkpoint'])}: "
+          f"{results}; wall {wall:.2f} s: extract {sec.get('extract_features', 0.0):.2f} s "
+          f"({rows['train']} + {rows['val']} rows, model builds and decode included), kNN "
+          f"{sec.get('knn_top1', 0.0):.3f} s, geometry {sec.get('eval_geometry', 0.0):.3f} s, "
+          f"probe {sec.get('linear_probe', 0.0):.3f} s; launches {counts}, expected {want} "
+          f"[{CARD}]", flush=True)
+    check(counts == want, f"run_all_evals launched {counts}, expected {want}")
+    check(set(results) == {"knn_top1", "linear_probe_top1", "uniformity", "pc1", "pc10",
+                           "pc100"} and all(math.isfinite(v) for v in results.values()),
+          f"all_evals.json {results}")
+    with open(os.path.join(out, "all_evals.json")) as f:
+        check(json.load(f) == results, "all_evals.json differs from the returned results")
+
+    blind_out = os.path.join(work, "clip-blinds")
+    images = len(dict.fromkeys(_read_csv(d["val_csv"], ",", ("filepath",))["filepath"]))
+    _zero_counts()
+    t0 = time.perf_counter()
+    stats = clip_blinds_cli.main(
+        ["--csv", d["val_csv"], "--model", EVAL_MODEL, "--pretrained", "openai", "--cache-dir",
+         pre["cache"], "--checkpoint", ft["checkpoint"], "--dino-feats", d["dino_feats"],
+         "--dino-index-map", d["dino_index_map"], "--out-dir", blind_out, "--save-pairs"] + cpu)
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+    blind_s = time.perf_counter() - t0
+    blind_counts = _read_counts()
+    blind_want = {"flash_attention_fwd": 0, "fused_attention_bwd": 0,
+                  "fused_attention_fwd": 12 * math.ceil(images / 128)}
+    print(f"offline clip_blinds_cli: {images} val images, {stats['total_pairs']} pairs, "
+          f"{stats['results']} in {blind_s:.2f} s; launches {blind_counts}, expected "
+          f"{blind_want} [{CARD}]", flush=True)
+    check(blind_counts == blind_want, f"clip_blinds_cli launched {blind_counts}")
+    check(stats["total_pairs"] == images * (images - 1) // 2
+          and all(os.path.isfile(os.path.join(blind_out, f))
+                  for f in ("summary.txt", "summary.json", "pairs.csv")),
+          "clip_blinds_cli did not write its summaries")
+
+    # the extracted val rows against plain attention's on the same weights
+    model, pp = create_model(EVAL_MODEL, "openai", precision="bf16", force_quick_gelu=True,
+                             cache_dir=pre["cache"], device=DEVICE, attn_impl="xla")
+    load_checkpoint(model, ft["checkpoint"], strict=False)
+
+    def encode(batch: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            return model.encode_image(torch.from_numpy(batch).to(DEVICE),
+                                      normalize=True).float().cpu().numpy()
+
+    plain = encode_images_padded(encode, _read_csv(d["val_csv"], ",", ("filepath",))["filepath"],
+                                 image_transform_v2(pp), EXTRACT_BATCH)
+    got = offline.load_feats(os.path.join(out, "val_feats.npz"))[0].astype(np.float64)
+    cos = (got * plain).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(plain, axis=-1))
+    print(f"offline: extracted val features {got.shape} (bf16, kernel) vs plain attention: "
+          f"cosine min {cos.min():.8f} (need >= {TEACHER_MIN_COS['bfloat16']})", flush=True)
+    check(cos.min() >= TEACHER_MIN_COS["bfloat16"], "the extracted features disagree")
+    del model
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return {"fused_attention_fwd": counts["fused_attention_fwd"]
+            + blind_counts["fused_attention_fwd"]}
 
 
 def attention_bwd_work(b, h, l, d, causal, dtype_name):
@@ -1995,6 +2440,10 @@ def main() -> None:
         teacher_dir, teacher_launches = phase_teacher(work)
         extracted, extract_launches = phase_extract(data, teacher_dir, work)
         live = phase_train_live_cli(data, teacher_dir, work, extracted)
+        pre = phase_pretrained(work)
+        zs = phase_zero_shot(data, pre, work)
+        ft = phase_finetune(data, pre, zs, work)
+        off = phase_offline(data, pre, ft, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
@@ -2014,7 +2463,9 @@ def main() -> None:
         "name": "fused_attention_fwd", "route": "cuda", "source": FUSED_SRC,
         "replaces": FUSED_TPU,
         "launches": serve_launches + train_fwd + eval_cli["fused_attention_fwd"]
-        + teacher_launches + extract_launches + live["fused_attention_fwd"],
+        + teacher_launches + extract_launches + live["fused_attention_fwd"]
+        + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
+        + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -2023,10 +2474,14 @@ def main() -> None:
         "teacher": [{"shape": list(case[:4]), "dtype": dtype_name, **by_case[case]}
                     for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                     for case in TEACHER_CASES],
+        "evaluation": [{"shape": list(case[:4]), "dtype": dtype_name, **by_case[case]}
+                       for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                       for case in SLICE10_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
-        "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"],
+        "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
+        + ft["counts"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -2036,7 +2491,8 @@ def main() -> None:
         "fp32_library_ms": tb32["library_ms"],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
-        "replaces": FLASH_TPU, "launches": long_launches,
+        "replaces": FLASH_TPU,
+        "launches": long_launches + pre["launches"]["flash_attention_fwd"],
         "max_abs_err": worst_flash["bfloat16"], "ms": tf["ms"], "plain_ms": tf["plain_ms"],
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"], "library_ms": tf["library_ms"],
         "fp32_shape": list(FLASH_TIMED[1][:3]) + [FLASH_TIMED[1][4]],

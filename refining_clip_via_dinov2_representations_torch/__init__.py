@@ -14,9 +14,12 @@ from .models import (
     build_model,
     create_model,
     create_model_and_transforms,
+    create_model_from_pretrained,
     get_model_config,
     get_tokenizer,
     list_models,
+    list_pretrained,
+    load_openai_model,
     parse_model_cfg,
     register_model_config,
 )

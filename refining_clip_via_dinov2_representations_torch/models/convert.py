@@ -13,6 +13,7 @@ head (``losses/dino.py:DinoProjectionHead``), and
 ``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
 inverse of the JAX ``convert_dinov2_state_dict``, giving HF
 ``Dinov2Model`` keys that load into ``models/dinov2.py:Dinov2``.
+``normalize_state_dict_keys`` cleans the keys of a checkpoint file.
 """
 
 from __future__ import annotations
@@ -21,6 +22,20 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+
+def normalize_state_dict_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """DDP ``module.`` and ``torch.compile`` ``_orig_mod.`` prefixes stripped,
+    the HF text tower's ``position_ids`` buffer dropped (the JAX package's
+    ``models/convert.py:normalize_state_dict_keys``)."""
+    out = {}
+    for k, v in state_dict.items():
+        for prefix in ("module.", "_orig_mod."):
+            if k.startswith(prefix):
+                k = k[len(prefix):]
+        out[k] = v
+    out.pop("text.transformer.embeddings.position_ids", None)
+    return out
 
 
 def _t(x, transpose: bool = False) -> torch.Tensor:

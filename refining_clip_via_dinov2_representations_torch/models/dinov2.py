@@ -31,7 +31,6 @@ Numerics, as the JAX module:
 from __future__ import annotations
 
 import dataclasses
-import glob
 import json
 import os
 from typing import Dict, Optional, Tuple, Union
@@ -43,6 +42,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention
 from .factory import _resolve_device
 from .layers import LayerNorm, _linear, gelu
+from .pretrained import hub_snapshot_dirs
 
 # name -> (hidden, layers, heads, swiglu)
 DINOV2_CONFIGS = {
@@ -271,12 +271,12 @@ def _config_from_hf(hf: Dict) -> Dinov2Cfg:
 
 
 def _checkpoint_dirs(model_name: str, cache_dir: Optional[str]):
-    """Where ``model_name`` may lie: itself as a directory, then the hub-cache
-    snapshots ``<cache_dir>/models--<org>--<name>/snapshots/*``."""
+    """Where ``model_name`` may lie: itself as a directory, then its hub-cache
+    snapshots under ``cache_dir`` (``pretrained.hub_snapshot_dirs``)."""
     dirs = [model_name]
     if cache_dir:
         snaps = os.path.join(cache_dir, "models--" + model_name.replace("/", "--"), "snapshots")
-        dirs += sorted(glob.glob(os.path.join(snaps, "*"))) or [os.path.join(snaps, "*")]
+        dirs += hub_snapshot_dirs(model_name, cache_dir) or [os.path.join(snaps, "*")]
     return dirs
 
 

@@ -85,10 +85,15 @@ def _match_literal(text: str, i: int, lit: str) -> bool:
 def pre_tokenize(text: str, specials: List[str]) -> List[str]:
     """The regex pre-tokenizer's ``findall``, without the regex package."""
     literals = [s.lower() for s in specials] + list(_CONTRACTIONS)
+    # a literal can only start where its first character stands (no other
+    # character case-folds to '<' or "'"): the scan skips the rest
+    starts = {s[0] for s in literals}
     out: List[str] = []
     i, n = 0, len(text)
     while i < n:
-        lit = next((s for s in literals if _match_literal(text, i, s)), None)
+        lit = None
+        if text[i] in starts:
+            lit = next((s for s in literals if _match_literal(text, i, s)), None)
         if lit is not None:
             out.append(text[i:i + len(lit)])
             i += len(lit)

@@ -10,7 +10,10 @@ the ``csv`` module (the JAX package uses pandas, which the card's machine
 lacks): a header row, then one row per caption; an empty caption reads as
 "nan", as pandas gives it. Image paths are joined to the DINO index map
 through ``_canon_path``, and a map that misses a row, or gives it -1,
-raises the JAX package's error. Webdataset and ImageFolder datasets raise.
+raises the JAX package's error. ImageNet folders (``--imagenet-val``,
+``--imagenet-v2``: one directory per class) feed the zero-shot evaluation;
+folders named only with digits are class indices, sorted as numbers (the
+ImageNet-V2 layout). Webdataset and the ImageNet train subset raise.
 """
 
 from __future__ import annotations
@@ -257,6 +260,43 @@ class SyntheticDataset:
         return sample
 
 
+class ImageFolderDataset:
+    """One subdirectory per class, image files inside (``.jpg``, ``.jpeg``,
+    ``.png``, ``.bmp``, ``.webp``), in sorted order; samples are
+    ``{"images", "labels"}``. Classes sort by name, or as numbers where
+    every folder name is digits, each then being its own class index."""
+
+    EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+    def __init__(self, root: str, transform: Optional[Callable] = None):
+        self.root = root
+        self.transform = transform
+        classes = [d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))]
+        if classes and all(c.isdigit() for c in classes):
+            classes = sorted(classes, key=int)
+            self.class_to_idx = {c: int(c) for c in classes}
+        else:
+            classes = sorted(classes)
+            self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[tuple] = []
+        for c in classes:
+            cdir = os.path.join(root, c)
+            for fn in sorted(os.listdir(cdir)):
+                if fn.lower().endswith(self.EXTENSIONS):
+                    self.samples.append((os.path.join(cdir, fn), self.class_to_idx[c]))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        with Image.open(path) as img:
+            image = self.transform(img.convert("RGB")) if self.transform else np.asarray(img)
+        return {"images": image, "labels": np.int64(label)}
+
+
 def _collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for key in samples[0]:
@@ -371,6 +411,25 @@ def _loader(dataset, args, is_train: bool, dino_store=None) -> DataInfo:
     return DataInfo(loader)
 
 
+def get_imagenet(args, preprocess_fns, split: str) -> DataInfo:
+    """The ``val`` (``--imagenet-val``) or ``v2`` (``--imagenet-v2``) ImageNet
+    folder, in order, through the eval transform. The ``train`` split's
+    50-shot subset raises: it is not ported."""
+    if split == "train":
+        raise NotImplementedError("the ImageNet train subset (--imagenet-train) is not ported "
+                                  "(ROADMAP Queue 1 item 15)")
+    if split not in ("val", "v2"):
+        raise ValueError(f"unknown imagenet split {split!r}")
+    root = args.imagenet_val if split == "val" else args.imagenet_v2
+    if not root:
+        raise ValueError(f"no path configured for imagenet split {split}")
+    dataset = ImageFolderDataset(root, transform=preprocess_fns[1])
+    loader = Loader(dataset, batch_size=args.batch_size, num_workers=getattr(args, "workers", 8))
+    loader.num_samples = len(dataset)
+    loader.num_batches = len(loader)
+    return DataInfo(loader)
+
+
 def get_csv_dataset(args, preprocess_fn, is_train: bool, tokenizer=None,
                     dino_index_map=None) -> DataInfo:
     """``--train-data`` (train) or ``--val-data`` (eval) as a CSV loader; the
@@ -425,8 +484,9 @@ def get_dataset_fn(data_path: Optional[str], dataset_type: str):
 def get_data(args, preprocess_fns, epoch: int = 0, tokenizer=None,
              dino_index_map=None) -> Dict[str, DataInfo]:
     """The dataset dict: ``"train"`` (``--train-data``, or synthetic data),
-    ``"val"`` (``--val-data``), and the CSV retrieval sets
-    ``"flickr30k-val"`` and ``"mscoco-val"``."""
+    ``"val"`` (``--val-data``), the CSV retrieval sets ``"flickr30k-val"``
+    and ``"mscoco-val"``, and the ImageNet folders ``"imagenet-val"`` and
+    ``"imagenet-v2"``."""
     preprocess_train, preprocess_val = preprocess_fns
     data: Dict[str, DataInfo] = {}
     if args.train_data or args.dataset_type == "synthetic":
@@ -441,6 +501,9 @@ def get_data(args, preprocess_fns, epoch: int = 0, tokenizer=None,
         if path:
             data[key] = get_csv_dataset(_clone_args(args, val_data=path), preprocess_val,
                                         is_train=False, tokenizer=tokenizer)
+    for key, split in (("imagenet-val", "val"), ("imagenet-v2", "v2")):
+        if getattr(args, f"imagenet_{split}", None):
+            data[key] = get_imagenet(args, preprocess_fns, split)
     return data
 
 

@@ -7,8 +7,9 @@ device (on a card, every attention call through the fused forward kernel:
 map to image ids by the first occurrence of their ``image_path``, image
 features are deduplicated by first occurrence, and the retrieval metrics
 of ``train/metrics.py`` follow. Without image paths (synthetic data) the
-in-batch ranks of ``get_clip_metrics`` stand in. Zero-shot ImageNet
-evaluation is not ported.
+in-batch ranks of ``get_clip_metrics`` stand in. The first evaluation
+round of an epoch also runs the zero-shot ImageNet evaluation
+(``train/zero_shot.py``; frequency-gated there), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,12 +24,19 @@ from ..losses import clip_loss
 from .metrics import build_unique_image_features, clip_retrieval_metrics, get_clip_metrics
 
 
-def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args,
-             val_key: str = "val") -> Dict[str, float]:
-    """The metrics of ``data[val_key]`` at ``epoch``; empty when the key is
-    absent or ``--val-frequency`` skips this epoch (it runs when
-    ``epoch % val_frequency == 0`` or at the last epoch; 0 turns it off)."""
+def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args, tokenizer=None,
+             val_key: str = "val", include_zero_shot: bool = True) -> Dict[str, float]:
+    """The metrics of ``data[val_key]`` at ``epoch``, after the zero-shot
+    ImageNet metrics where ``include_zero_shot`` (the caller passes it for
+    the first val key only, so the classifier is built once an epoch).
+    The retrieval part is skipped when the key is absent or
+    ``--val-frequency`` skips this epoch (it runs when ``epoch %
+    val_frequency == 0`` or at the last epoch; 0 turns it off)."""
     metrics: Dict[str, float] = {}
+    if include_zero_shot:
+        from .zero_shot import zero_shot_eval
+
+        metrics.update(zero_shot_eval(model, data, epoch, args, tokenizer))
     if val_key not in data or not args.val_frequency:
         return metrics
     if not ((epoch % args.val_frequency) == 0 or epoch == args.epochs):

@@ -1,12 +1,18 @@
 """Training CLI: the run lifecycle of the port's training slice.
 
 The port of the JAX package's ``train/main.py`` for one process:
-flags -> device -> logging -> seed -> model and transforms -> tokenizer ->
+flags -> device -> logging -> seed -> model (``--pretrained`` tag or file,
+read offline under ``--cache-dir``) and transforms -> tokenizer ->
 DINO features (the precomputed store, or the live DINOv2 teacher) and index
 map -> data -> schedule -> DINO head ->
 param-group AdamW -> resume -> pre-train evaluation over every val key ->
 epochs of {``train_one_epoch`` -> evaluation -> best-epoch tracking ->
-checkpoint} -> final artifacts -> the CLIP-blind check.
+checkpoint} -> final artifacts -> the CLIP-blind check. The first val key's
+evaluation of an epoch also runs zero-shot ImageNet (``--imagenet-val``,
+``--imagenet-v2``, gated by ``--zeroshot-frequency``); with ImageNet data and
+no val key it runs alone. Without ``--train-data`` the run evaluates once
+(Config 1: zero-shot retrieval and ImageNet from ``--pretrained``) and
+returns the results.
 
 Under ``--logs/--name`` a run writes ``out.log``, ``params.txt``,
 ``loss_steps.json``, ``final_itm_results.json`` (the pre-train evaluation
@@ -200,11 +206,13 @@ def _main(args):
         args.force_image_size = args.force_image_size[0]
     model, pp_cfg = create_model(args.model, args.pretrained or None, precision=args.precision,
                                  device=device, attn_impl=args.attn_impl, seed=args.seed,
+                                 force_quick_gelu=args.force_quick_gelu,
                                  force_image_size=args.force_image_size,
+                                 cache_dir=args.cache_dir,
                                  grad_checkpointing=args.grad_checkpointing)
     model.train()
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
-    tokenizer = get_tokenizer(args.model)
+    tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
 
     # ---- DINO teacher features: the precomputed store, synthetic ones, or
     # the live teacher ----
@@ -306,17 +314,31 @@ def _main(args):
         for name in sorted(vars(args)):
             f.write(f"{name}: {getattr(args, name)}\n")
 
-    eval_rounds = [k for k in ("val", "flickr30k-val", "mscoco-val") if k in data]
+    eval_keys = [k for k in ("val", "flickr30k-val", "mscoco-val") if k in data]
+    # ImageNet data without a retrieval key still evaluates (zero-shot alone)
+    has_zs = any(k in data for k in ("imagenet-val", "imagenet-v2"))
+    eval_rounds = eval_keys or (["val"] if has_zs else [])
+
+    def evaluate_all(epoch: int) -> List[dict]:
+        """Every round's metrics at ``epoch``; zero-shot with the first."""
+        results = []
+        for i, key in enumerate(eval_rounds):
+            m = evaluate(model, data, epoch, args, tokenizer, val_key=key,
+                         include_zero_shot=(i == 0))
+            if m:
+                results.append({"val_name": key, "metrics": m})
+        return results
+
     if "train" not in data:  # eval-only
-        return [{"val_name": key, "metrics": evaluate(model, data, start_epoch, args, val_key=key)}
-                for key in eval_rounds]
+        return evaluate_all(start_epoch)
 
     # ---- pre-train evaluation: the epoch-0 entry, never "best" ----
     pretrain_results = []
     if start_epoch == 0:
-        for key in eval_rounds:
+        for i, key in enumerate(eval_rounds):
             try:
-                m = evaluate(model, data, 0, args, val_key=key)
+                m = evaluate(model, data, 0, args, tokenizer, val_key=key,
+                             include_zero_shot=(i == 0))
                 if m:
                     pretrain_results.append({"val_name": key, "metrics": m})
             except Exception as e:  # the pre-train evaluation does not end the run
@@ -339,11 +361,7 @@ def _main(args):
         loss_steps.extend(records)
         completed_epoch = epoch + 1
 
-        epoch_results = []
-        for key in eval_rounds:
-            m = evaluate(model, data, completed_epoch, args, val_key=key)
-            if m:
-                epoch_results.append({"val_name": key, "metrics": m})
+        epoch_results = evaluate_all(completed_epoch)
         all_results.append({"epoch": completed_epoch, "results": epoch_results})
         best = _update_best(best, completed_epoch, epoch_results)
 

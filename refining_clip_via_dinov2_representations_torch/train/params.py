@@ -19,16 +19,13 @@ import ast
 
 # flag dest -> what the port is missing for it
 UNPORTED = {
-    "imagenet_val": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
-    "imagenet_v2": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
-    "imagenet_train": "zero-shot evaluation (ROADMAP Queue 1 item 15)",
+    "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
     "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
     "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
     "accum_freq": "gradient accumulation (ROADMAP Queue 1 item 5)",
     "opt": "optimizers other than AdamW",
     "momentum": "optimizers other than AdamW",
-    "force_quick_gelu": "model overrides",
-    "force_custom_text": "model overrides",
+    "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
     "force_patch_dropout": "patch dropout (ROADMAP Queue 1 item 3)",
     "adam_mu_dtype": "a bf16 first moment",
     "remat_policy": "selective activation-checkpointing policies (jax.checkpoint_policies; "

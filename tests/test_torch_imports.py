@@ -36,7 +36,13 @@ def test_scan_covers_the_port():
     names = {p.relative_to(REPO).as_posix() for p in FILES}
     for must in ("chip_smoke.py", f"{PORT.name}/ops/fused_attention.py",
                  f"{PORT.name}/ops/flash_attention.py", f"{PORT.name}/serve.py",
-                 f"{PORT.name}/models/clip.py"):
+                 f"{PORT.name}/models/clip.py", f"{PORT.name}/models/pretrained.py",
+                 f"{PORT.name}/models/_pretrained_data.py", f"{PORT.name}/models/openai.py",
+                 f"{PORT.name}/models/_safetensors.py",
+                 f"{PORT.name}/eval/_imagenet_metadata.py",
+                 f"{PORT.name}/eval/zero_shot_classifier.py", f"{PORT.name}/eval/offline.py",
+                 f"{PORT.name}/eval/run_all_evals.py", f"{PORT.name}/eval/clip_blinds_cli.py",
+                 f"{PORT.name}/train/zero_shot.py"):
         assert must in names
 
 

@@ -185,9 +185,19 @@ def test_force_image_size_matches_jax_factory():
 
 
 def test_checkpoint_of_another_grid_raises(tmp_path):
+    """A checkpoint of another grid loads with its positional table resized
+    (``tests/test_torch_pretrained.py`` holds the resize to the JAX
+    package's); one whose other tensors do not fit the model raises."""
     model, _ = create_model(TINY, device="cpu")
     path = tmp_path / "tiny.pt"
     torch.save(model.state_dict(), path)
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        create_model(TINY, str(path), device="cpu", force_image_size=32)
+    resized, _ = create_model(TINY, str(path), device="cpu", force_image_size=32)
+    assert tuple(resized.visual.positional_embedding.shape) == (17, 32)  # (32 / 8)^2 + 1
+    torch.testing.assert_close(resized.visual.positional_embedding[0],
+                               model.visual.positional_embedding[0], atol=0, rtol=0)
     create_model(TINY, str(path), device="cpu", force_image_size=16)  # same grid loads
+    bad = dict(model.state_dict())
+    bad["visual.proj"] = torch.zeros(3, 3)
+    torch.save(bad, path)
+    with pytest.raises(ValueError, match="shape mismatch at visual.proj"):
+        create_model(TINY, str(path), device="cpu")

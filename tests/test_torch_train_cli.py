@@ -1,7 +1,9 @@
 """The port's training CLI: flags against the JAX package's, a two-step CPU
 run whose checkpoint loads strictly, a CSV run with evaluation, CLIP-blind
 and resume that writes every artifact, a CSV run with the live DINOv2
-teacher, the transforms the image flags build, and the refusals."""
+teacher, a run from pretrained weights with QuickGELU and zero-shot
+ImageNet against the JAX CLI's, the transforms the image flags build, and
+the refusals."""
 
 import json
 import math
@@ -111,10 +113,11 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [["--report-to", "wandb"], ["--accum-freq", "2"],
-                                   ["--imagenet-val", "x"], ["--siglip"],
+                                   ["--imagenet-train", "x"], ["--siglip"],
                                    ["--distill-model", "ViT-B-32"], ["--fsdp"],
                                    ["--opt", "lion"], ["--save-on-preemption"],
-                                   ["--grad-checkpointing", "--remat-policy", "dots_saveable"]])
+                                   ["--grad-checkpointing", "--remat-policy", "dots_saveable"],
+                                   ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):
         main(_argv(tmp_path, "--force-cpu", *extra))
@@ -328,3 +331,71 @@ def test_debug_and_log_local_log_into_out_log(tmp_path):
     assert logging.getLogger().getEffectiveLevel() == logging.DEBUG
     assert "Train Epoch: 0 [4]" in (tmp_path / "run" / "out.log").read_text()
     assert not torch.is_anomaly_enabled()
+
+
+def test_pretrained_quickgelu_zero_shot_run_matches_the_jax_cli(tmp_path, monkeypatch):
+    """``--pretrained <file> --force-quick-gelu --imagenet-val <folder>
+    --zeroshot-frequency 1`` without train data (Config 1): the epoch-0
+    evaluation, the 1000-class, 80-template zero-shot ImageNet top-1/top-5
+    among it, equals the JAX CLI's on the same weights (retrieval recalls
+    and zero-shot counts exactly, losses within 1e-5; the JAX CLI's
+    evaluation read by wrapping its ``evaluate``). The pre-train evaluation
+    of a training run is the eval-only run's
+    (``test_eval_only_run_matches_the_pretrain_evaluation``)."""
+    import importlib
+
+    import jax
+    from PIL import Image
+
+    from refining_clip_via_dinov2_representations_tpu.models import (
+        register_model_config as jax_register,
+    )
+    from refining_clip_via_dinov2_representations_tpu.train.main import main as jax_main
+    from scripts.mini_flickr import generate
+
+    from refining_clip_via_dinov2_representations_torch.models.convert import (
+        jax_params_to_state_dict,
+    )
+
+    from .torch_port_utils import jax_clip
+
+    jax_register(MODEL, TINY_CFG)
+    d = generate(str(tmp_path / "data"), n_train=4, n_val=4, size_px=32, dino_dim=24)
+    _, variables = jax_clip({**TINY_CFG, "quick_gelu": True}, seed=41)
+    ckpt = str(tmp_path / "pretrained.bin")
+    torch.save(jax_params_to_state_dict(variables["params"]), ckpt)
+    rng = np.random.default_rng(0)
+    for c in ("0", "1", "2", "10"):  # ImageNet-V2 layout: the folder is the class index
+        (tmp_path / "v2" / c).mkdir(parents=True)
+        for j in range(2):
+            Image.fromarray(rng.integers(0, 255, (20, 20, 3), dtype=np.uint8)).save(
+                tmp_path / "v2" / c / f"{j}.png")
+    common = ["--model", MODEL, "--val-data", d["val_csv"], "--dataset-type", "csv",
+              "--workers", "1", "--precision", "fp32", "--seed", "7", "--pretrained", ckpt,
+              "--force-quick-gelu", "--imagenet-val", str(tmp_path / "v2"),
+              "--zeroshot-frequency", "1", "--logs", str(tmp_path), "--force-cpu"]
+    # the JAX CLI's --batch-size is per device (its loaders take it times
+    # the CPU devices): the port's one device gets the same batches
+    (got,) = main(common + ["--name", "port", "--batch-size", str(4 * jax.device_count())])
+    # the module, not the package's attribute of the same name (the function)
+    jax_evaluate = importlib.import_module(
+        "refining_clip_via_dinov2_representations_tpu.train.evaluate")
+    recorded = []
+    real = jax_evaluate.evaluate
+
+    def recording(*args, **kwargs):
+        recorded.append(real(*args, **kwargs))
+        return recorded[-1]
+
+    monkeypatch.setattr(jax_evaluate, "evaluate", recording)
+    jax_main(common + ["--name", "jax", "--batch-size", "4"])
+    (want,) = recorded
+    got = got["metrics"]
+    zs = {"imagenet-zeroshot-val-top1", "imagenet-zeroshot-val-top5"}
+    assert zs <= set(got) and set(got) == set(want)
+    for k, v in want.items():
+        if k in zs or "_R@" in k or k.endswith("_rank") or k in ("epoch", "num_samples"):
+            assert got[k] == v, k
+        else:
+            assert got[k] == pytest.approx(v, abs=1e-5), k
+    assert "force_quick_gelu: True" in (tmp_path / "port" / "params.txt").read_text()

@@ -104,3 +104,14 @@ def token_ids(n: int, context_length: int, seed: int = 2) -> np.ndarray:
         out[i, 1:1 + length] = rng.integers(1, 49405, length)
         out[i, 1 + length] = 49407
     return out
+
+
+# the smallest config an OpenAI archive can describe: OpenAI's shapes give
+# heads = width // 64 in both towers, so both are 64 wide (one head each)
+OPENAI_TINY_CFG = {
+    "embed_dim": 32,
+    "quick_gelu": True,
+    "vision_cfg": {"image_size": 16, "patch_size": 8, "width": 64, "layers": 2},
+    "text_cfg": {"context_length": 12, "vocab_size": 49408, "width": 64,
+                 "heads": 1, "layers": 2},
+}
