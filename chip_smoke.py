@@ -124,6 +124,27 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     results and each stage's seconds; the extracted val features against
     plain attention's (cosine >= 0.999, bf16).
 
+The published Config 2 and the accumulated step run last, on the same set:
+
+17. config2 — ``train.main.main`` with Config 2's flags exactly as
+    ``docs/REPRODUCE.md`` writes them (ViT-B-16 from the ``openai`` tag,
+    ``--precision bf16``, batch 96, ``--teacher_temp 0.15 --use_projection
+    --projection_type mlp --report-to tensorboard --run_clip_blind``), cut
+    to mini-Flickr, 2 epochs and whole-image train crops: launches (48 a
+    train step, 24 an eval batch, 12 a CLIP-blind batch), the TensorBoard
+    events or their one warning, every artifact, ``final_torch_state.pt``
+    served by the engine; the same flags with ``--save-on-preemption
+    --async-checkpoint`` in a subprocess, sent SIGTERM once its
+    ``out.log`` shows step 3 of epoch 1, then ``--resume latest``: the
+    preemption save's position, both runs' launches, their losses against
+    the uninterrupted run's (bf16, ``STEP_TOL``); the blocking seconds of a
+    synchronous and an asynchronous save of the ViT-B-16 state.
+18. accum — ``--accum-freq 2`` of microbatches of 48 against one batch of
+    96 through the kernels, in bf16 and fp32: loss and gradients within
+    ``STEP_TOL`` (the logit scale's gradient halved), launches 48a forward
+    and 24a backward (12a more forward with the live dinov2-small teacher),
+    host clock and peak memory against the single step.
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -131,6 +152,7 @@ The line before the last is the JSON list of kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import re
@@ -266,6 +288,9 @@ STEP_TOL = {"bfloat16": (1e-2, 0.99), "float32": (1e-5, 0.9999)}  # (loss rel, m
 # image each); the revision of the seeded hub-cache snapshot
 SLICE10_CASES = [(800, 8, 77, 64, True), (256, 12, 197, 64, False)]
 ZS_IMAGES, ZS_CLASSES_PER_CALL, EXTRACT_BATCH, HUB_REV = 1000, 10, 256, "seeded"
+# Config 2 as published (batch 96), its epochs cut to 2; the preempted run
+# gets SIGTERM at this step of its second epoch; the accumulated step
+CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
 
 
 def fail(msg: str) -> None:
@@ -2033,6 +2058,299 @@ def phase_offline(d: dict, pre: dict, ft: dict, work: str) -> dict:
             + blind_counts["fused_attention_fwd"]}
 
 
+def _config2_argv(d: dict, cache: str, work: str, name: str) -> list:
+    """Config 2's training flags exactly as ``docs/REPRODUCE.md:30-36``
+    writes them, on mini-Flickr (its CSVs and precomputed DINO features in
+    place of CC3M's and Flickr's), cut to ``CONFIG2_EPOCHS`` epochs, with
+    the train crops fixed to the whole image (``--aug-cfg scale=(1.0,
+    1.0)``) so that an interrupted and resumed run sees the uninterrupted
+    run's pixels; the ``openai`` tag from the seeded hub cache."""
+    return ["--model", EVAL_MODEL, "--pretrained", "openai", "--precision", "bf16",
+            "--train-data", d["train_csv"], "--val-data", d["val_csv"], "--dataset-type", "csv",
+            "--use_dino_general", "--soft_mode", "kl_teacher", "--lambda_soft", "0.5",
+            "--teacher_temp", "0.15", "--use_projection", "--projection_type", "mlp",
+            "--dino_fts_path", d["dino_feats"], "--dino_index_map_path", d["dino_index_map"],
+            "--batch-size", str(CONFIG2_BATCH), "--epochs", str(CONFIG2_EPOCHS), "--warmup",
+            "500", "--lr", "5e-4", "--report-to", "tensorboard", "--run_clip_blind",
+            # the cuts and the run's place
+            "--aug-cfg", "scale=(1.0, 1.0)", "--cache-dir", cache, "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--logs", work, "--name", name, "--device", DEVICE]
+
+
+def _config2_expected(args, epochs: int, evals: int, steps: int = None) -> dict:
+    """The fused launches of a Config 2 run: 48 a train step, 24 an eval
+    batch, 12 a CLIP-blind batch of the train split (the published flags
+    give the val split no features, so its check is skipped)."""
+    train_batches, val_batches, blind_batches, _ = _thesis_launches(args)
+    steps = train_batches * epochs if steps is None else steps
+    return {"flash_attention_fwd": 0,
+            "fused_attention_fwd": 24 * steps + 24 * val_batches * evals
+            + 12 * (blind_batches - val_batches),
+            "fused_attention_bwd": 24 * steps}
+
+
+def _wait_for_line(path: str, needle: str, proc, timeout: float) -> bool:
+    """Polls ``path`` until it holds ``needle``; False when ``proc`` ends or
+    the time runs out first."""
+    deadline = time.time() + timeout
+    while time.time() < deadline and proc.poll() is None:
+        if os.path.isfile(path):
+            with open(path) as f:
+                if needle in f.read():
+                    return True
+        time.sleep(0.05)
+    return False
+
+
+def phase_config2(d: dict, pre: dict, work: str) -> dict:
+    """Config 2 as published (phase 17): ViT-B-16 from the ``openai`` tag at
+    bf16, batch 96, the DINO-soft flags, ``--report-to tensorboard
+    --run_clip_blind``, on mini-Flickr for ``CONFIG2_EPOCHS`` epochs through
+    ``train.main.main``: launches, TensorBoard (or its one warning), every
+    artifact, ``final_torch_state.pt`` served by the engine. Then the same
+    flags with ``--save-on-preemption --async-checkpoint`` in a subprocess,
+    sent SIGTERM once its ``out.log`` shows step ``PREEMPT_AT`` of epoch 1,
+    and ``--resume latest`` in this process: the two runs' losses against
+    the uninterrupted run's. Then the blocking seconds of a synchronous and
+    an asynchronous save of the run's state. Returns the launches."""
+    import math
+    import signal
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import create_engine
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.train.checkpoint import (
+        save_checkpoint, wait_for_checkpoints,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+
+    print(f"config2: the cuts: mini-Flickr's {EVAL_TRAIN_IMAGES} train and {EVAL_VAL_IMAGES} "
+          f"val images (5 captions each, {EVAL_SIZE_PX} px) in place of CC3M and Flickr30k, "
+          f"{CONFIG2_EPOCHS} epochs in place of 10, train crops of the whole image "
+          f"(--aug-cfg scale=(1.0, 1.0)), seeded weights under the openai tag", flush=True)
+    argv = _config2_argv(d, pre["cache"], work, "config2")
+    args = parse_args(argv)
+    train_batches = _thesis_launches(args)[0]
+    launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    records, counts, wall, sec = _eval_cli_run(argv)
+    want = _config2_expected(args, CONFIG2_EPOCHS, CONFIG2_EPOCHS + 1)
+    run = os.path.join(work, "config2")
+    train_s = sec.get("train_one_epoch", float("nan"))
+    print(f"config2: {EVAL_MODEL} bf16 batch {CONFIG2_BATCH}, {len(records)} steps: wall "
+          f"{wall:.2f} s; train {train_s:.2f} s ({len(records) * CONFIG2_BATCH / train_s:.1f} "
+          f"samples/s, data loading included); evaluate {sec.get('evaluate', 0.0):.2f} s; "
+          f"CLIP-blind {sec.get('run_clip_blind_on_split', 0.0):.2f} s; launches {counts}, "
+          f"expected {want} [{CARD}]", flush=True)
+    check(counts == want, f"config2 launched {counts}, expected {want}")
+    check(len(records) == CONFIG2_EPOCHS * train_batches
+          and all(math.isfinite(r["total_loss"]) for r in records),
+          "config2: not one finite record per step")
+    for k in launches:
+        launches[k] += counts[k]
+    tb = os.path.join(run, "tensorboard")
+    events = sorted(f for f in os.listdir(tb) if f.startswith("events.")) if os.path.isdir(
+        tb) else []
+    with open(os.path.join(run, "out.log")) as f:
+        log = f.read()
+    warned = log.count("tensorboard logging unavailable")
+    # the plots are drawn where matplotlib imports, else a warning
+    plots = importlib.util.find_spec("matplotlib") is not None
+    print(f"config2: --report-to tensorboard: {len(events)} event files written, "
+          f"{warned} warnings that tensorboard is missing; matplotlib "
+          f"{'imports' if plots else 'missing'}, loss_curves.png "
+          f"{os.path.isfile(os.path.join(run, 'loss_curves.png'))}", flush=True)
+    check(bool(events) ^ (warned == 1), "config2: not either TensorBoard events or its one "
+                                        "warning")
+    check(plots or "loss plotting failed" in log, "config2: no loss plot and no warning")
+    arts = ["loss_steps.json", "final_itm_results.json", "best_metrics.json",
+            "itm_scores.csv", "params.txt", os.path.join("clip_blind", "clip_blind_train.json"),
+            os.path.join("checkpoints", f"epoch_{CONFIG2_EPOCHS}.pt"),
+            os.path.join("checkpoints", "final_torch_state.pt")]
+    for art in arts + (["loss_curves.png"] if plots else []):
+        check(os.path.isfile(os.path.join(run, art)), f"config2 wrote no {art}")
+    final = os.path.join(run, "checkpoints", "final_torch_state.pt")
+    engine, _, tokenizer = create_engine(EVAL_MODEL, checkpoint=final, buckets=(1,),
+                                         device=DEVICE)
+    feats = engine.encode_text(tokenizer(["a photo of a cat"]))
+    norm = float(np.linalg.norm(feats))
+    print(f"config2: final_torch_state.pt ({os.path.getsize(final) / 2**20:.1f} MiB) serves "
+          f"encode_text {feats.shape}, norm {norm:.6f}", flush=True)
+    check(feats.shape[0] == 1 and abs(norm - 1) < 1e-4, "final_torch_state.pt does not serve")
+    del engine
+
+    # ---- preempted by SIGTERM in a subprocess, then resumed here ----
+    pre_argv = _config2_argv(d, pre["cache"], work, "preempted") + [
+        "--save-on-preemption", "--async-checkpoint"]
+    log = os.path.join(work, "preempted", "out.log")
+    needle = f"Train Epoch: 1 [{train_batches + PREEMPT_AT}]"
+    with open(os.path.join(work, "preempted.stdout"), "w") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "refining_clip_via_dinov2_representations_torch.train.main",
+                                 *pre_argv], stdout=out, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            seen = _wait_for_line(log, needle, proc, timeout=600)
+            if seen:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sub_s = time.perf_counter() - t0
+    with open(log) as f:
+        tail = f.read()
+    check(seen and rc == 0, f"the preempted run: line seen {seen}, rc {rc}; "
+                            f"its log ends {tail[-2000:]}")
+    saved = torch.load(os.path.join(work, "preempted", "checkpoints", "epoch_1_preempt.pt"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    at, step = saved["step_in_epoch"], saved["step"]
+    del saved
+    with open(os.path.join(work, "preempted", "final_itm_results.json")) as f:
+        first_epochs = [e["epoch"] for e in json.load(f)]
+    print(f"config2: the subprocess with --save-on-preemption --async-checkpoint: SIGTERM "
+          f"after '{needle}', exit code {rc} after {sub_s:.2f} s; epoch_1_preempt.pt at "
+          f"optimizer step {step}, {at} steps into epoch 1; evaluations {first_epochs} "
+          f"[{CARD}]", flush=True)
+    check(at >= PREEMPT_AT and step == train_batches + at and first_epochs == [0, 1],
+          "the preemption save is not at its step, or evaluated the stopped epoch")
+    resumed, rcounts, rwall, _ = _eval_cli_run(pre_argv + ["--resume", "latest"])
+    rwant = _config2_expected(args, 1, 1, steps=train_batches - at)
+    print(f"config2: --resume latest: wall {rwall:.2f} s, launches {rcounts}, expected "
+          f"{rwant} [{CARD}]", flush=True)
+    check(rcounts == rwant, f"the resumed run launched {rcounts}, expected {rwant}")
+    for k in launches:
+        launches[k] += rcounts[k]
+    check([r["step"] for r in resumed] == [r["step"] for r in records],
+          "the two runs' records do not cover the uninterrupted run's steps")
+    rel = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+              for a, b in zip(resumed, records))
+    same = sum(a["total_loss"] == b["total_loss"] for a, b in zip(resumed, records))
+    tol = STEP_TOL["bfloat16"][0]
+    print(f"config2: preempted + resumed vs uninterrupted, {len(records)} steps: total_loss "
+          f"largest relative difference {rel:.3e} (tol {tol:g}), {same} of {len(records)} "
+          f"equal", flush=True)
+    check(rel <= tol, "the preempted and resumed run does not reproduce the losses")
+
+    # ---- the blocking time of one save, synchronous and asynchronous ----
+    _, _, state, train_step, _ = _dino_setup("bf16", "auto", model_name=EVAL_MODEL)
+    batch = _train_batch(get_tokenizer(EVAL_MODEL), CONFIG2_BATCH, DEVICE,
+                         model_name=EVAL_MODEL)
+    state, _ = train_step(state, batch)
+    torch.cuda.synchronize()
+    blocking = {}
+    for mode in ("sync", "async"):
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(work, f"save_{mode}"), state, 1,
+                               async_save=mode == "async")
+        blocking[mode] = time.perf_counter() - t0
+        wait_for_checkpoints()
+        blocking[mode + " total"] = time.perf_counter() - t0
+    print(f"config2: one save of the {EVAL_MODEL} state with AdamW ("
+          f"{os.path.getsize(path) / 2**30:.3f} GiB): blocks the loop {blocking['sync']:.3f} s "
+          f"synchronous, {blocking['async']:.3f} s asynchronous (the copy to host memory; the "
+          f"write done {blocking['async total']:.3f} s after the call) [{CARD}]", flush=True)
+    del state, train_step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_accum(teacher: str) -> dict:
+    """Cached-feature accumulation at ViT-B-16's full width (phase 18):
+    ``--accum-freq 2`` of microbatches of 48 against one batch of 96 on the
+    same weights and rows, in bf16 and fp32 through the kernels: the loss,
+    the gradients (the logit scale's halved; bf16 all tensors together,
+    fp32 per tensor, ``STEP_TOL``), the launches (48a forward and 24a
+    backward; with the live dinov2-small teacher 12a more forward), and the
+    host clock and peak memory of the whole step, accumulated against one
+    step at 96. Returns the launches of the accumulated passes."""
+    import dataclasses
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.train.dino_teacher import (
+        LiveDinoTeacher,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        accumulate_grads, make_loss_fn, make_train_step, train_parameters,
+    )
+
+    a, micro = ACCUM, CONFIG2_BATCH // ACCUM
+    batch = _train_batch(get_tokenizer(MODEL), CONFIG2_BATCH, DEVICE)
+    stacked = {k: v.reshape(a, micro, *v.shape[1:]) for k, v in batch.items()}
+    launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    for precision in ("bf16", "fp32"):
+        name = "bfloat16" if precision == "bf16" else "float32"
+        loss_tol, min_cos = STEP_TOL[name]
+        model, head, state, train_step, cfg = _dino_setup(precision, "auto")
+        loss_big, grads_big = _loss_and_grads(model, head, cfg, batch)
+        params = train_parameters(model, head)
+        # ---- the main path: counts at 0 just before, read just after ----
+        _zero_counts()
+        metrics = accumulate_grads(make_loss_fn(model, cfg, head), stacked, 0, a)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        grads = {n: p.grad.detach().clone() for n, p in params.items() if p.grad is not None}
+        for p in params.values():
+            p.grad = None
+        grads["logit_scale"] = grads["logit_scale"] / a
+        cos, together = _grad_cosines(grads, grads_big)
+        worst = min(cos, key=cos.get)
+        loss = float(metrics["total_loss"])
+        rel = abs(loss - loss_big) / abs(loss_big)
+        want = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * a,
+                "fused_attention_bwd": 24 * a}
+        print(f"accum {MODEL} {precision}: a={a} x {micro} vs one batch of {CONFIG2_BATCH}: "
+              f"loss {loss:.6f} vs {loss_big:.6f} (rel {rel:.2e}, tol {loss_tol:g}); gradient "
+              f"cosine (logit scale / {a}) per tensor min {cos[worst]:.6f} at {worst}, all "
+              f"tensors together {together:.6f} (need "
+              f"{'together' if precision == 'bf16' else 'per tensor'} >= {min_cos}); launches "
+              f"{counts}, expected {want}", flush=True)
+        check(counts == want, f"accumulation launched {counts}, expected {want}")
+        check(rel <= loss_tol and (together if precision == "bf16" else cos[worst]) >= min_cos,
+              f"{precision}: accumulated gradients differ from the big batch's")
+        for k in launches:
+            launches[k] += counts[k]
+        acc_step = make_train_step(model, dataclasses.replace(cfg, accum_freq=a), head)
+        times, peaks = {}, {}
+        for label, fn in ((f"one step of {CONFIG2_BATCH}", lambda: train_step(state, batch)),
+                          (f"accumulated {a} x {micro}", lambda: acc_step(state, stacked))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times[label] = host_step_ms(fn, steps=3)
+            peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"accum {MODEL} {precision}: host clock " + ", ".join(
+            f"{k} {v:.3f} ms (peak {peaks[k]:.3f} GiB)" for k, v in times.items())
+            + f" [{CARD}]", flush=True)
+        del model, head, state, train_step, acc_step
+        torch.cuda.empty_cache()
+
+    # ---- the live teacher: 12 more forward launches a microbatch ----
+    live = LiveDinoTeacher.from_pretrained(teacher, dtype=torch.bfloat16, device=DEVICE)
+    _, _, state, _, cfg = _dino_setup("bf16", "auto")
+    acc_step = make_train_step(state.model, dataclasses.replace(cfg, accum_freq=a),
+                               state.head, dino_teacher=live)
+    no_rows = {k: v for k, v in stacked.items() if k != "dino_features"}
+    _zero_counts()
+    state, metrics = acc_step(state, no_rows)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * a + 12 * a,
+            "fused_attention_bwd": 24 * a}
+    print(f"accum {MODEL} bf16 with the live dinov2-small teacher: soft_loss "
+          f"{float(metrics['soft_loss']):.6f}; launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"live accumulation launched {counts}, expected {want}")
+    for k in launches:
+        launches[k] += counts[k]
+    del live, state, acc_step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def attention_bwd_work(b, h, l, d, causal, dtype_name):
     """(FLOPs, bytes) of the attention backward: 10 pairs D FLOPs per head
     (S recomputed, dV, dP, dQ, dK); 8 L D elements per head moved (q, k, v,
@@ -2360,8 +2678,7 @@ def phase_train_cli_long() -> int:
 
         _zero_counts()
         train_main(["--model", MODEL, "--force-image-size", "384", "--name", "b16_384",
-                    "--train-num-samples", str(LONG_BATCH), "--stop-after-steps", "1",
-                    "--save-frequency", "0", *common])
+                    "--train-num-samples", str(LONG_BATCH), "--save-frequency", "0", *common])
         torch.cuda.synchronize()
         counts = _read_counts()
         with open(os.path.join(logs, "b16_384", "loss_steps.json")) as f:
@@ -2444,6 +2761,8 @@ def main() -> None:
         zs = phase_zero_shot(data, pre, work)
         ft = phase_finetune(data, pre, zs, work)
         off = phase_offline(data, pre, ft, work)
+        config2 = phase_config2(data, pre, work)
+        accum = phase_accum(teacher_dir)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
@@ -2465,7 +2784,8 @@ def main() -> None:
         "launches": serve_launches + train_fwd + eval_cli["fused_attention_fwd"]
         + teacher_launches + extract_launches + live["fused_attention_fwd"]
         + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
-        + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"],
+        + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
+        + config2["fused_attention_fwd"] + accum["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -2481,7 +2801,8 @@ def main() -> None:
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
-        + ft["counts"]["fused_attention_bwd"],
+        + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
+        + accum["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],

@@ -1,4 +1,5 @@
-"""Checkpoints on ``torch.save``: per-epoch files, rotation, resume.
+"""Checkpoints on ``torch.save``: per-epoch files, preemption saves,
+asynchronous writes, remote discovery, resume, the interop export.
 
 The port of the JAX package's ``train/checkpoint.py`` (which writes Orbax
 directories) for one process. ``checkpoints/epoch_N.pt`` holds:
@@ -8,16 +9,23 @@ directories) for one process. ``checkpoints/epoch_N.pt`` holds:
   ``inference.create_engine(checkpoint=path)`` load it strictly;
 * ``dino_head`` (the DINO projection head's state dict, or None),
   ``optimizer`` (the AdamW state), ``step``, ``epoch``, ``name``;
-* ``data_order``, the flags that fix the batch order (every save is at
-  an epoch boundary);
+* ``step_in_epoch``: the optimizer steps already taken inside ``epoch``
+  (0 for a completed epoch; a preemption save, ``epoch_N_preempt.pt``,
+  records its position so that a resume continues epoch N there);
+* ``data_order``, the flags that fix the batch order, which a resume
+  compares before it skips ``step_in_epoch`` steps;
 * ``rng``: the states of Python's, numpy's and torch's global generators,
   the train state's generator and, on a card, the CUDA generator.
 
 A file is written under a temporary name and renamed, so a kill never
 leaves half a checkpoint. ``--save-most-recent`` also writes
 ``epoch_latest.pt``; ``--delete-previous-checkpoint`` removes
-``epoch_{N-1}.pt``. Preemption saves, asynchronous writes and remote
-checkpoints are not ported (ROADMAP Queue 1 item 8).
+``epoch_{N-1}.pt`` once the new file is on disk. An asynchronous save
+copies every tensor to host memory before it returns (the next step
+updates the parameters in place) and writes on a background thread;
+``wait_for_checkpoints`` waits for it and raises what it raised.
+``export_torch_checkpoint`` writes ``{"epoch", "name", "state_dict"}``, the
+file the offline suite reads (``final_torch_state.pt``).
 """
 
 from __future__ import annotations
@@ -26,13 +34,20 @@ import logging
 import os
 import random
 import re
+import shutil
+import threading
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-_CKPT_RE = re.compile(r"^epoch_\d+\.pt$")
+_CKPT_RE = re.compile(r"^epoch_\d+(_preempt)?\.pt$")
+
+# the background writes of asynchronous saves, and what they raised; one
+# save is in flight at a time (each save waits for the last)
+_PENDING: List[threading.Thread] = []
+_ERRORS: List[BaseException] = []
 
 
 def _natural_key(s: str):
@@ -40,11 +55,23 @@ def _natural_key(s: str):
 
 
 def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
-    """The newest ``epoch_N.pt`` in a local directory, by natural sort
-    (``epoch_10`` after ``epoch_9``); None when there is none."""
+    """The newest ``epoch_N.pt`` or ``epoch_N_preempt.pt`` by natural sort
+    (``epoch_10`` after ``epoch_9``, ``epoch_N_preempt`` after ``epoch_N``)
+    in a local directory or under any fsspec URL (returned as a URL); None
+    when there is none."""
     if "://" in checkpoint_dir:
-        raise NotImplementedError(f"{checkpoint_dir}: remote checkpoints are not ported "
-                                  "(ROADMAP Queue 1 item 8)")
+        import fsspec
+
+        fs, root = fsspec.core.url_to_fs(checkpoint_dir)
+        try:
+            names = [e.rstrip("/").rsplit("/", 1)[-1] for e in fs.ls(root, detail=False)]
+        except FileNotFoundError:
+            return None
+        cands = sorted((n for n in names if _CKPT_RE.match(n)), key=_natural_key)
+        if not cands:
+            return None
+        proto = checkpoint_dir.split("://", 1)[0]
+        return f"{proto}://{root.rstrip('/')}/{cands[-1]}"
     d = Path(checkpoint_dir)
     if not d.is_dir():
         return None
@@ -52,6 +79,23 @@ def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
     if not cands:
         return None
     return str(sorted(cands, key=lambda p: _natural_key(p.name))[-1])
+
+
+def fetch_remote_checkpoint(remote_path: str, local_dir: str) -> str:
+    """Copies a checkpoint file from a URL (or another directory) into
+    ``local_dir``; returns the local path."""
+    if "://" in remote_path:
+        import fsspec
+
+        source = fsspec.open(remote_path, "rb")
+    else:
+        source = open(remote_path, "rb")
+    dest = os.path.join(local_dir, remote_path.rstrip("/").rsplit("/", 1)[-1])
+    os.makedirs(local_dir, exist_ok=True)
+    with source as src, open(f"{dest}.tmp{os.getpid()}", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.replace(f"{dest}.tmp{os.getpid()}", dest)
+    return dest
 
 
 def _rng_states(generator: Optional[torch.Generator]) -> Dict[str, Any]:
@@ -88,37 +132,82 @@ def _atomic_save(payload: dict, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _to_host(obj):
+    """A copy of ``obj`` with every tensor copied to host memory."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def wait_for_checkpoints() -> None:
+    """Blocks until every asynchronous write has its file in place; raises
+    the first error a write met."""
+    while _PENDING:
+        _PENDING.pop().join()
+    if _ERRORS:
+        err = _ERRORS.pop(0)
+        _ERRORS.clear()
+        raise RuntimeError("an asynchronous checkpoint write failed") from err
+
+
 def save_checkpoint(checkpoint_dir: str, state, epoch: int, name: str = "",
                     save_most_recent: bool = False, delete_previous: bool = False,
-                    data_order: Optional[Dict[str, int]] = None) -> str:
-    """Write ``epoch_{epoch}.pt`` (and ``epoch_latest.pt`` under
+                    data_order: Optional[Dict[str, int]] = None, async_save: bool = False,
+                    name_suffix: str = "", step_in_epoch: int = 0) -> str:
+    """Write ``epoch_{epoch}{name_suffix}.pt`` (and ``epoch_latest.pt`` under
     ``save_most_recent``; ``delete_previous`` then removes
-    ``epoch_{epoch-1}.pt``); returns the path."""
+    ``epoch_{epoch-1}.pt``); returns the path. With ``async_save`` the
+    tensors are copied to the host here and the files written on a
+    background thread."""
+    wait_for_checkpoints()  # one write in flight: never two on one path
     os.makedirs(checkpoint_dir, exist_ok=True)
-    path = os.path.abspath(os.path.join(checkpoint_dir, f"epoch_{epoch}.pt"))
+    path = os.path.abspath(os.path.join(checkpoint_dir, f"epoch_{epoch}{name_suffix}.pt"))
     payload = {
         "epoch": int(epoch), "name": name, "step": int(state.step),
+        "step_in_epoch": int(step_in_epoch),
         "state_dict": state.model.state_dict(),
         "dino_head": None if state.head is None else state.head.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "data_order": {k: int(v) for k, v in sorted((data_order or {}).items())},
         "rng": _rng_states(state.generator),
     }
-    _atomic_save(payload, path)
-    if save_most_recent:
-        _atomic_save(payload, os.path.join(checkpoint_dir, "epoch_latest.pt"))
-    if delete_previous:
-        prev = os.path.join(checkpoint_dir, f"epoch_{epoch - 1}.pt")
-        if os.path.isfile(prev):
-            os.remove(prev)
-    logging.info("saved checkpoint %s", path)
+
+    def write(payload):
+        _atomic_save(payload, path)
+        if save_most_recent:
+            _atomic_save(payload, os.path.join(checkpoint_dir, "epoch_latest.pt"))
+        if delete_previous:  # only once the new file is in place
+            prev = os.path.join(checkpoint_dir, f"epoch_{epoch - 1}.pt")
+            if os.path.isfile(prev):
+                os.remove(prev)
+        logging.info("saved checkpoint %s%s", path, " (async)" if async_save else "")
+
+    if not async_save:
+        write(payload)
+        return path
+    payload = _to_host(payload)
+
+    def run():
+        try:
+            write(payload)
+        except BaseException as e:  # raised again by wait_for_checkpoints
+            _ERRORS.append(e)
+
+    thread = threading.Thread(target=run, name=f"checkpoint {os.path.basename(path)}")
+    thread.start()
+    _PENDING.append(thread)
     return path
 
 
-def restore_checkpoint(path: str, state) -> Tuple[Any, int]:
+def restore_checkpoint(path: str, state) -> Tuple[Any, int, int, Dict[str, int]]:
     """Load ``path`` into ``state`` in place: the model (strictly), the DINO
     head, the optimizer, the step and every generator. Returns (state,
-    start_epoch)."""
+    start_epoch, step_in_epoch, data_order); a save without the last two
+    (an epoch-boundary file of an earlier layout) gives 0 and ``{}``."""
     if path == "latest":
         raise ValueError("resolve 'latest' with latest_checkpoint() first")
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -131,4 +220,12 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, int]:
     state.step = int(payload["step"])
     if "rng" in payload:  # the port's checkpoints before resume was ported lack it
         _set_rng_states(payload["rng"], state.generator)
-    return state, int(payload["epoch"])
+    return (state, int(payload["epoch"]), int(payload.get("step_in_epoch", 0)),
+            {k: int(v) for k, v in payload.get("data_order", {}).items()})
+
+
+def export_torch_checkpoint(state, epoch: int, name: str, out_path: str) -> str:
+    """open_clip's ``{"epoch", "name", "state_dict"}`` file of the model."""
+    _atomic_save({"epoch": int(epoch), "name": name,
+                  "state_dict": _to_host(state.model.state_dict())}, out_path)
+    return out_path

@@ -322,9 +322,15 @@ class Loader:
         self.prefetch = prefetch
         self.dino_store = dino_store
         self.epoch = 0
+        self._skip_batches = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+
+    def skip_next_batches(self, n: int):
+        """The next iteration starts at batch ``n`` of its epoch's order (a
+        mid-epoch resume). The skip is on indices: no skipped row is read."""
+        self._skip_batches = int(n)
 
     def __len__(self):
         n = len(self.dataset)
@@ -342,7 +348,8 @@ class Loader:
         return out
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        batches = self.batches()
+        skip, self._skip_batches = self._skip_batches, 0
+        batches = self.batches()[skip:]
         pool = ThreadPoolExecutor(self.num_workers)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()

@@ -7,7 +7,8 @@ DINO features (the precomputed store, or the live DINOv2 teacher) and index
 map -> data -> schedule -> DINO head ->
 param-group AdamW -> resume -> pre-train evaluation over every val key ->
 epochs of {``train_one_epoch`` -> evaluation -> best-epoch tracking ->
-checkpoint} -> final artifacts -> the CLIP-blind check. The first val key's
+checkpoint} -> final artifacts -> the CLIP-blind check -> the final remote
+sync. The first val key's
 evaluation of an epoch also runs zero-shot ImageNet (``--imagenet-val``,
 ``--imagenet-v2``, gated by ``--zeroshot-frequency``); with ImageNet data and
 no val key it runs alone. Without ``--train-data`` the run evaluates once
@@ -15,24 +16,45 @@ no val key it runs alone. Without ``--train-data`` the run evaluates once
 returns the results.
 
 Under ``--logs/--name`` a run writes ``out.log``, ``params.txt``,
-``loss_steps.json``, ``final_itm_results.json`` (the pre-train evaluation
-as its epoch-0 entry, which never counts as "best"), ``best_metrics.json``
-(the epoch with the best mean of the six recalls, tie-broken by the mean
-R@1), ``itm_scores.csv``, ``checkpoints/epoch_N.pt`` (``train/checkpoint.py``)
-and, under ``--run_clip_blind``, ``clip_blind/clip_blind_{val,train}.json``
-with their top-pair CSVs. ``--resume latest|<path>`` continues at the saved
-epoch boundary, and the artifacts of the earlier run are carried over, so
-that they cover the whole run. The recall plots are drawn where
-``matplotlib`` exists; a plot that fails is a warning, as are a failed
-pre-train evaluation and a failed train-split CLIP-blind check, as in the
-JAX package.
+``loss_steps.json``, ``loss_curves.png``, ``final_itm_results.json`` (the
+pre-train evaluation as its epoch-0 entry, which never counts as "best"),
+``best_metrics.json`` (the epoch with the best mean of the six recalls,
+tie-broken by the mean R@1), ``itm_scores.csv``, ``checkpoints/epoch_N.pt``
+(``train/checkpoint.py``), ``checkpoints/final_torch_state.pt`` (the model
+in open_clip's ``{"epoch", "name", "state_dict"}`` file, which the offline
+suite reads) and, under ``--run_clip_blind``,
+``clip_blind/clip_blind_{val,train}.json`` with their top-pair CSVs;
+``--report-to tensorboard`` adds ``tensorboard/`` (``train/loggers.py``:
+TensorBoard, MLflow and wandb where their packages import, else a warning),
+``--copy-codebase`` a copy of this package under ``code/``. The plots are
+drawn where ``matplotlib`` exists; a plot that fails is a warning, as are a
+failed pre-train evaluation and a failed train-split CLIP-blind check, as
+in the JAX package.
+
+Preemption: under ``--save-on-preemption`` a SIGTERM ends the epoch at the
+next optimizer step; ``--stop-after-steps N`` does the same after N steps
+of the run. The run then saves ``checkpoints/epoch_E_preempt.pt`` with its
+position in the epoch (``step_in_epoch``) and the flags that fix the batch
+order, skips that epoch's evaluation, writes the final artifacts and
+returns. ``--resume latest|<path>|<url>`` continues a preemption save at
+its optimizer step inside the epoch (the loader skips the batches already
+trained, unread), or an epoch save at the epoch's start, and carries the
+earlier run's records over, so that the artifacts cover the whole run; a
+preemption save whose batch-order flags differ from this run's redoes its
+epoch, with a warning. ``--async-checkpoint`` writes every checkpoint on a
+background thread, ``--remote-sync DIR`` mirrors the run directory to a
+local path or fsspec URL (at the start, every ``--remote-sync-frequency``
+seconds from a daemon process, and at every exit), and ``--resume latest``
+with it takes the newest checkpoint of the remote run.
+
+``--accum-freq a`` makes one optimizer step of ``a`` loader batches
+(``train/step.py``'s cached-feature accumulation).
 
 One difference from the JAX package: its precomputed-feature CLIP-blind
 check of the train split reads the train loader, whose batches carry no
 image paths, so it always fails (and is logged). The port runs it over an
 eval loader of the train CSV, as the JAX package's live-teacher branch
-does. ``--stop-after-steps`` ends the run after that epoch's evaluation
-and checkpoint (mid-epoch resume is not ported).
+does.
 
 With ``--use_dino_general`` and no ``--dino_fts_path`` (on CSV data, or on
 synthetic data with ``--dino_model_name``) the teacher runs live:
@@ -59,12 +81,17 @@ import logging
 import math
 import os
 import random
+import shutil
+import signal
+import threading
 import time
 from datetime import datetime
 from typing import Dict, List
 
 import numpy as np
 import torch
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -76,9 +103,27 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
 
 
 def _data_order_flags(args) -> Dict[str, int]:
-    """The flags that fix the train batch order, recorded in checkpoints."""
+    """The flags that fix the train batch order, recorded in checkpoints:
+    a preemption save's ``step_in_epoch`` counts steps in this order."""
     return {"accum_freq": max(1, int(args.accum_freq or 1)), "batch_size": int(args.batch_size),
             "seed": int(args.seed or 0), "world": 1}
+
+
+def _fetch_remote_artifacts(remote_run_dir: str, log_base: str) -> None:
+    """The remote run's ``loss_steps.json`` and ``final_itm_results.json``
+    where this run directory has none (a resume on a fresh host)."""
+    from .checkpoint import fetch_remote_checkpoint
+    from .file_utils import check_exists
+
+    for art in ("loss_steps.json", "final_itm_results.json"):
+        remote = f"{remote_run_dir}/{art}"
+        if os.path.exists(os.path.join(log_base, art)) or not check_exists(remote):
+            continue
+        try:
+            fetch_remote_checkpoint(remote, log_base)  # a copy of any one file
+            logging.info("fetched remote artifact %s", art)
+        except OSError as e:  # the records are best-effort
+            logging.warning("could not fetch remote %s: %r", art, e)
 
 
 def _preload_artifacts(log_base: str, resumed_step: int, start_epoch: int):
@@ -116,6 +161,64 @@ def _update_best(best: dict, epoch: int, results: List[dict]) -> dict:
     return new
 
 
+def _copy_codebase(log_base: str) -> None:
+    """This package's source under ``<run>/code/<package>``."""
+    dst = os.path.join(log_base, "code", os.path.basename(PACKAGE_DIR))
+    if os.path.exists(dst):
+        logging.info("codebase copy exists at %s; skipping", dst)
+        return
+    shutil.copytree(PACKAGE_DIR, dst,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so", "assets"))
+    logging.info("copied codebase to %s", dst)
+
+
+def _plot_loss_curves(loss_steps: List[dict], log_base: str) -> None:
+    """``loss_curves.png``: each loss against the step; never fails the run."""
+    if not loss_steps:
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        steps = [r["step"] for r in loss_steps]
+        plt.figure()
+        for key in ("total_loss", "classic_loss", "soft_loss", "weighted_loss",
+                    "contrastive_loss"):
+            vals = [r.get(key) for r in loss_steps]
+            if any(v is not None for v in vals):
+                plt.plot(steps, [float("nan") if v is None else v for v in vals], label=key)
+        plt.xlabel("Step")
+        plt.ylabel("Loss")
+        plt.title("Training loss")
+        plt.legend()
+        plt.grid(True)
+        plt.savefig(os.path.join(log_base, "loss_curves.png"))
+        plt.close()
+    except Exception as e:
+        logging.warning("loss plotting failed: %r", e)
+
+
+def _final_remote_sync(remote_sync_process, args, log_base: str) -> None:
+    """Waits for the checkpoint writes, stops the sync daemon and mirrors
+    the run directory one last time."""
+    from .checkpoint import wait_for_checkpoints
+    from .file_utils import remote_sync
+
+    wait_for_checkpoints()
+    if remote_sync_process is None:
+        return
+    logging.info("Final remote sync.")
+    remote_sync_process.terminate()
+    remote_sync_process.join(timeout=30)
+    if remote_sync(log_base, os.path.join(args.remote_sync, args.name),
+                   args.remote_sync_protocol):
+        logging.info("Final remote sync successful.")
+    else:
+        logging.info("Final remote sync failed.")
+
+
 def build_transforms(args, pp_cfg):
     """(train, eval) transforms of the model's preprocess config with the
     ``--image-*`` overrides; the train one takes ``--aug-cfg`` and, as in
@@ -130,23 +233,45 @@ def build_transforms(args, pp_cfg):
 
 
 def train_one_epoch(train_step, state, train_data, args, epoch: int, device: torch.device,
-                    stop_after: int = 0):
-    """One epoch of the loop: fetch, move to the device, step, and log every
-    ``--log-every-n-steps`` (and at the epoch's last batch). Returns
-    (state, records, steps_done); ``stop_after`` > 0 ends the epoch after
-    that many steps."""
+                    tracker=None, stop_event=None, skip_steps: int = 0, stop_after: int = 0):
+    """One epoch of the loop: fetch ``--accum-freq`` batches, move them to
+    the device, step, and log every ``--log-every-n-steps`` (and at the
+    epoch's last batch). ``stop_event`` (set by the SIGTERM handler) ends the
+    epoch at the next step; ``skip_steps`` resumes a preemption save: the
+    loader skips ``skip_steps * accum`` batches; ``stop_after`` > 0 sets
+    ``stop_event`` after that many steps of this call. Returns (state,
+    records, steps_done)."""
     loader = train_data.dataloader
     loader.set_epoch(epoch)
+    accum = max(1, args.accum_freq)
+    if skip_steps:
+        loader.skip_next_batches(skip_steps * accum)
     records: List[dict] = []
     steps_done = 0
+    group: List[dict] = []
     window_samples, window_t0 = 0, time.time()
     num_batches = getattr(loader, "num_batches", None)
     for i, batch in enumerate(loader):
+        if stop_event is not None and stop_event.is_set():
+            logging.warning("stop requested: leaving epoch %d early", epoch)
+            break
+        group.append(batch)
+        if len(group) < accum:
+            continue
+        if accum > 1:  # the step takes the microbatches stacked on a leading axis
+            batch = {k: np.stack([m[k] for m in group]) for k in group[0]}
+        window_samples += sum(len(m["images"]) for m in group)
+        group = []
         state, metrics = train_step(state, _to_device(batch, device))
         steps_done += 1
-        window_samples += len(batch["images"])
         stop_now = bool(stop_after and steps_done >= stop_after)
-        if state.step % args.log_every_n_steps == 0 or i == (num_batches or 0) - 1 or stop_now:
+        if stop_now:
+            logging.warning("--stop-after-steps %d reached at epoch %d", stop_after, epoch)
+            if stop_event is not None:
+                stop_event.set()
+        # a resumed epoch yields its batches after the skipped ones
+        is_last = num_batches and i == num_batches - 1 - skip_steps * accum
+        if state.step % args.log_every_n_steps == 0 or is_last:
             m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}  # waits for the step
             now = time.time()
             ips = window_samples / max(now - window_t0, 1e-9)
@@ -154,6 +279,8 @@ def train_one_epoch(train_step, state, train_data, args, epoch: int, device: tor
             logging.info("Train Epoch: %d [%d] total_loss: %.5f logit_scale: %.3f %.1f samples/s",
                          epoch, state.step, m["total_loss"], m["logit_scale"], ips)
             records.append({"step": state.step, "epoch": epoch, **m})
+            if tracker is not None:
+                tracker.log_scalars({**m, "samples_per_s": ips}, step=state.step)
         if stop_now:
             break
     return state, records, steps_done
@@ -172,16 +299,51 @@ def main(args=None):
         return _main(args)
 
 
+def _resolve_resume(args, checkpoint_dir: str, log_base: str):
+    """The checkpoint ``--resume`` names, fetched to a local path where it
+    is remote; None where there is none."""
+    from .checkpoint import fetch_remote_checkpoint, latest_checkpoint, wait_for_checkpoints
+
+    wait_for_checkpoints()  # an earlier run's writes in this process
+    if args.resume != "latest":
+        if "://" not in args.resume:
+            return args.resume
+        # a cleared staging directory: a foreign checkpoint must not join this
+        # run's own files, which `latest` and the pruning read
+        staging = os.path.join(checkpoint_dir, "_remote_staging")
+        shutil.rmtree(staging, ignore_errors=True)
+        logging.info("=> fetching remote checkpoint %s", args.resume)
+        return fetch_remote_checkpoint(args.resume, staging)
+    if args.remote_sync is not None:
+        if args.save_most_recent:
+            raise ValueError("Cannot use save-most-recent with remote_sync and resume latest.")
+        remote_run = os.path.join(args.remote_sync, args.name)
+        path = latest_checkpoint(remote_run + "/checkpoints")
+        if path is None:
+            return None
+        logging.info("=> fetching remote checkpoint %s", path)
+        _fetch_remote_artifacts(remote_run, log_base)
+        return fetch_remote_checkpoint(path, checkpoint_dir)
+    if args.save_most_recent:
+        # --save-most-recent resumes from epoch_latest, not the newest
+        # epoch_N (those may be pruned or gated by --save-frequency)
+        path = os.path.join(checkpoint_dir, "epoch_latest.pt")
+        return path if os.path.isfile(path) else None
+    return latest_checkpoint(checkpoint_dir)
+
+
 def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
     from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
-    from .checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+    from .checkpoint import export_torch_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
                        get_dataset_fn, load_dino_index_map)
     from .dino_teacher import LiveDinoTeacher
     from .evaluate import evaluate
+    from .file_utils import remote_sync, start_sync_process
     from .logger import setup_logging
+    from .loggers import Tracker
     from .optim import OptimCfg, build_optimizer
     from .scheduler import const_lr, make_schedule
     from .step import StepCfg, TrainState, make_train_step, train_parameters
@@ -242,7 +404,7 @@ def _main(args):
     # ---- schedule, DINO head, optimizer, train step ----
     state = train_step = None
     if "train" in data:
-        steps_per_epoch = data["train"].dataloader.num_batches
+        steps_per_epoch = data["train"].dataloader.num_batches // max(1, args.accum_freq)
         total_steps = steps_per_epoch * args.epochs
         if args.skip_scheduler:
             schedule = const_lr(args.lr, 0, total_steps)
@@ -289,30 +451,45 @@ def _main(args):
         train_step = make_train_step(model, step_cfg, head, dino_teacher)
         state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(args.seed))
 
-    # ---- resume at an epoch boundary ----
-    start_epoch = 0
+    tracker = Tracker(log_base, args, enable_tb="tensorboard" in (args.report_to or ""))
+
+    # ---- resume: at an epoch's start, or inside it after a preemption ----
+    start_epoch = resume_step_in_epoch = 0
     if args.resume is not None and state is not None:
-        if args.resume != "latest":
-            resume_path = args.resume
-            if "://" in resume_path:
-                raise NotImplementedError(f"--resume {resume_path}: remote checkpoints are "
-                                          "not ported (ROADMAP Queue 1 item 8)")
-        elif args.save_most_recent:
-            # --save-most-recent resumes from epoch_latest, not the newest
-            # epoch_N (those may be pruned or gated by --save-frequency)
-            resume_path = os.path.join(checkpoint_dir, "epoch_latest.pt")
-            resume_path = resume_path if os.path.isfile(resume_path) else None
-        else:
-            resume_path = latest_checkpoint(checkpoint_dir)
+        resume_path = _resolve_resume(args, checkpoint_dir, log_base)
         if resume_path:
-            state, start_epoch = restore_checkpoint(resume_path, state)
-            logging.info("=> resuming checkpoint '%s' (epoch %d)", resume_path, start_epoch)
+            state, start_epoch, resume_step_in_epoch, saved_order = restore_checkpoint(
+                resume_path, state)
+            current_order = _data_order_flags(args)
+            if resume_step_in_epoch and saved_order and saved_order != current_order:
+                # the saved position counts steps in the saved batch order:
+                # skipping it in another order would drop or repeat batches
+                logging.warning(
+                    "mid-epoch resume: data-order flags changed since the preemption save "
+                    "(%s -> %s); cannot skip %d steps safely — redoing epoch %d from its start",
+                    saved_order, current_order, resume_step_in_epoch, start_epoch)
+                resume_step_in_epoch = 0
+            logging.info("=> resuming checkpoint '%s' (epoch %d%s)", resume_path, start_epoch,
+                         f", step {resume_step_in_epoch}" if resume_step_in_epoch else "")
         else:
             logging.info("=> no checkpoint found at %s", args.resume)
+
+    # ---- remote sync: a verification sync, then the daemon ----
+    remote_sync_process = None
+    if args.remote_sync is not None:
+        remote_run = os.path.join(args.remote_sync, args.name)
+        if not remote_sync(log_base, remote_run, args.remote_sync_protocol):
+            raise RuntimeError("Error: remote sync failed. Exiting.")
+        logging.info("remote sync successful.")
+        remote_sync_process = start_sync_process(args.remote_sync_frequency, log_base,
+                                                 remote_run, args.remote_sync_protocol)
+        remote_sync_process.start()
 
     with open(os.path.join(log_base, "params.txt"), "w") as f:
         for name in sorted(vars(args)):
             f.write(f"{name}: {getattr(args, name)}\n")
+    if args.copy_codebase:
+        _copy_codebase(log_base)
 
     eval_keys = [k for k in ("val", "flickr30k-val", "mscoco-val") if k in data]
     # ImageNet data without a retrieval key still evaluates (zero-shot alone)
@@ -330,11 +507,15 @@ def _main(args):
         return results
 
     if "train" not in data:  # eval-only
-        return evaluate_all(start_epoch)
+        results = evaluate_all(start_epoch)
+        tracker.finish()
+        _final_remote_sync(remote_sync_process, args, log_base)
+        return results
 
-    # ---- pre-train evaluation: the epoch-0 entry, never "best" ----
+    # ---- pre-train evaluation: the epoch-0 entry, never "best"; a resume
+    # inside epoch 0 has it from the earlier run ----
     pretrain_results = []
-    if start_epoch == 0:
+    if start_epoch == 0 and resume_step_in_epoch == 0:
         for i, key in enumerate(eval_rounds):
             try:
                 m = evaluate(model, data, 0, args, tokenizer, val_key=key,
@@ -353,34 +534,69 @@ def _main(args):
         if prior.get("epoch") != 0:
             best = _update_best(best, prior["epoch"], prior["results"])
 
-    steps_budget = max(0, int(args.stop_after_steps or 0))
-    for epoch in range(start_epoch, args.epochs):
-        logging.info("Start epoch %d", epoch)
-        state, records, steps_done = train_one_epoch(train_step, state, data["train"], args,
-                                                     epoch, device, stop_after=steps_budget)
-        loss_steps.extend(records)
-        completed_epoch = epoch + 1
+    # ---- preemption: SIGTERM ends the epoch at the next step boundary ----
+    preempt = threading.Event()
+    prev_sigterm = None
+    if args.save_on_preemption:
+        def _on_sigterm(signum, frame):
+            logging.warning("SIGTERM: checkpointing and exiting at the next step boundary")
+            preempt.set()
 
-        epoch_results = evaluate_all(completed_epoch)
-        all_results.append({"epoch": completed_epoch, "results": epoch_results})
-        best = _update_best(best, completed_epoch, epoch_results)
-
-        if args.save_frequency > 0 and (completed_epoch % args.save_frequency == 0
-                                        or completed_epoch == args.epochs):
-            save_checkpoint(checkpoint_dir, state, completed_epoch, name=args.name,
-                            save_most_recent=args.save_most_recent,
-                            delete_previous=args.delete_previous_checkpoint,
-                            data_order=_data_order_flags(args))
-        if steps_budget:
-            steps_budget -= steps_done
-            if steps_budget <= 0:
-                logging.warning("--stop-after-steps %d reached at epoch %d",
-                                args.stop_after_steps, epoch)
+        if threading.current_thread() is threading.main_thread():
+            prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+        else:  # signal handlers are the main thread's only
+            logging.warning("--save-on-preemption: not on the main thread; SIGTERM handler "
+                            "not installed")
+    try:
+        steps_budget = max(0, int(args.stop_after_steps or 0))
+        for epoch in range(start_epoch, args.epochs):
+            skip_steps = resume_step_in_epoch if epoch == start_epoch else 0
+            logging.info("Start epoch %d%s", epoch,
+                         f" (resuming at optimizer step {skip_steps})" if skip_steps else "")
+            state, records, steps_done = train_one_epoch(
+                train_step, state, data["train"], args, epoch, device, tracker=tracker,
+                stop_event=preempt, skip_steps=skip_steps, stop_after=steps_budget)
+            if steps_budget:
+                steps_budget = max(0, steps_budget - steps_done)
+            loss_steps.extend(records)
+            if preempt.is_set():
+                # its own file: overwriting epoch_N would put the newest
+                # completed checkpoint at risk until the new one is written
+                step_in_epoch = skip_steps + steps_done
+                logging.warning("preemption: saving epoch_%d_preempt (at optimizer step %d of "
+                                "the epoch; resume continues there) and shutting down", epoch,
+                                step_in_epoch)
+                save_checkpoint(checkpoint_dir, state, epoch, name=args.name,
+                                save_most_recent=args.save_most_recent,
+                                data_order=_data_order_flags(args),
+                                async_save=args.async_checkpoint, name_suffix="_preempt",
+                                step_in_epoch=step_in_epoch)
                 break
+            completed_epoch = epoch + 1
+
+            epoch_results = evaluate_all(completed_epoch)
+            for r in epoch_results:
+                tracker.log_scalars({k: v for k, v in r["metrics"].items()
+                                     if isinstance(v, (int, float))},
+                                    step=completed_epoch, prefix=f"val/{r['val_name']}")
+            all_results.append({"epoch": completed_epoch, "results": epoch_results})
+            best = _update_best(best, completed_epoch, epoch_results)
+
+            if args.save_frequency > 0 and (completed_epoch % args.save_frequency == 0
+                                            or completed_epoch == args.epochs):
+                save_checkpoint(checkpoint_dir, state, completed_epoch, name=args.name,
+                                save_most_recent=args.save_most_recent,
+                                delete_previous=args.delete_previous_checkpoint,
+                                data_order=_data_order_flags(args),
+                                async_save=args.async_checkpoint)
+    finally:
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
 
     # ---- final artifacts ----
     with open(os.path.join(log_base, "loss_steps.json"), "w") as f:
         json.dump(loss_steps, f)
+    _plot_loss_curves(loss_steps, log_base)
     itm_path = os.path.join(log_base, "final_itm_results.json")
     with open(itm_path, "w") as f:
         json.dump(all_results, f, default=float)
@@ -398,6 +614,14 @@ def _main(args):
         with open(os.path.join(log_base, "best_metrics.json"), "w") as f:
             json.dump(best, f, default=float)
         logging.info("Best epoch %d with retrieval score %.4f", best["epoch"], best["score"])
+        tracker.log_scalars({"retrieval_score": best["score"], "epoch": best["epoch"]},
+                            step=args.epochs, prefix="best")
+    for artifact in ("loss_steps.json", "final_itm_results.json", "best_metrics.json",
+                     "loss_curves.png", "itm_recall_plot.png", "itm_scores.csv"):
+        tracker.log_artifact(os.path.join(log_base, artifact))
+    tracker.finish()
+    export_torch_checkpoint(state, args.epochs, args.name,
+                            os.path.join(checkpoint_dir, "final_torch_state.pt"))
 
     # ---- the CLIP-blind check over the precomputed or live teacher features ----
     if args.run_clip_blind and args.use_dino_general and (dino_store is not None
@@ -434,6 +658,7 @@ def _main(args):
                 max_images=args.clip_blind_max_images, dino_teacher=dino_teacher)
         except Exception as e:
             logging.warning("[clip-blind] train-split check failed: %r", e)
+    _final_remote_sync(remote_sync_process, args, log_base)
     return loss_steps
 
 

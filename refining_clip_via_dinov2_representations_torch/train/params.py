@@ -4,10 +4,16 @@ The port of the JAX package's ``train/params.py``: the same flag names and
 defaults, and ``get_default_params`` for the model family. A flag that this
 slice of the port cannot honour raises ``NotImplementedError`` at parse time
 when it is set away from its default (``UNPORTED``), rather than being
-ignored. Flags that change nothing in one process (``--local-loss``,
-``--gather-with-grad``, ``--log-local``), the sweep-surface knobs the
-reference parses but no loss reads, and knobs whose consumer the JAX package
-does not have either (``--log-checkpoint`` without MLflow,
+ignored: other optimizers and a bf16 first moment, patch dropout and the
+selective remat policies, the other losses and towers, webdataset and the
+ImageNet train subset, device preprocessing, multi-GPU training, the step
+profiler. Tracking (``--report-to``), preemption saves, asynchronous and
+remote checkpoints, ``--remote-sync``, ``--copy-codebase`` and gradient
+accumulation (``--accum-freq``) are ported. Flags that change nothing in
+one process (``--local-loss``, ``--gather-with-grad``, ``--log-local``), the
+sweep-surface knobs the reference parses but no loss reads, and knobs whose
+consumer the JAX package does not have either (``--log-checkpoint``,
+``--use_mlflow``: MLflow is gated by ``MLFLOW_ENABLE``;
 ``--clip_blind_dino_feats``, ``--clip_blind_dino_index_map``) are accepted,
 as in the JAX package.
 """
@@ -22,7 +28,6 @@ UNPORTED = {
     "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
     "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
     "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
-    "accum_freq": "gradient accumulation (ROADMAP Queue 1 item 5)",
     "opt": "optimizers other than AdamW",
     "momentum": "optimizers other than AdamW",
     "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
@@ -43,14 +48,9 @@ UNPORTED = {
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
     "distill_pretrained": "the distillation loss (ROADMAP Queue 1 item 12)",
     "compile_cache": "a JAX compilation cache",
-    "save_on_preemption": "preemption checkpoints (ROADMAP Queue 1 item 8)",
-    "async_checkpoint": "asynchronous checkpoints (ROADMAP Queue 1 item 8)",
-    "report_to": "tensorboard/wandb/MLflow reporting (ROADMAP Queue 1 item 8)",
-    "copy_codebase": "codebase snapshots (ROADMAP Queue 1 item 8)",
     "profile": "the step profiler",
     "pretrained_image": "pretrained towers",
     "use_bnb_linear": "bitsandbytes layers",
-    "remote_sync": "remote sync (ROADMAP Queue 1 item 8)",
     "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",
     "mesh_model_axis": "model parallelism (ROADMAP Queue 1 item 10)",
     "shard_opt_state": "sharded optimizer state (ROADMAP Queue 1 item 10)",

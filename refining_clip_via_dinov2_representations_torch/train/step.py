@@ -20,8 +20,23 @@ batch without ``dino_features``, the teacher encodes the same normalised
 pixels the student saw, forward only (on a CUDA batch 12 more fused-forward
 launches a step at dinov2-small). The teacher is not in the state: its
 parameters take no gradient, no optimizer group and no checkpoint.
-Gradient accumulation, the other loss types, patch dropout, BatchNorm
-towers and device preprocessing raise ``NotImplementedError``.
+
+``accum_freq`` > 1 is the JAX step's cached-feature gradient accumulation:
+the batch holds ``accum`` microbatches stacked on a leading axis; phase 1
+encodes each under ``no_grad`` and caches its rows; phase 2 encodes each
+again with grad, puts its live rows in its slot of the cached full batch,
+takes the loss over all ``accum * B`` rows and backpropagates, so the
+gradients add up in ``.grad`` to the single big batch's. The loss is not
+scaled by ``1 / accum``, and the logit scale is live in every pass, so its
+gradient is ``accum`` times the big batch's (as in torch and the JAX step).
+The teacher's rows come from phase 1 and are reused in phase 2: the live
+teacher runs once a microbatch. The metrics are the mean over the passes.
+The JAX step folds the microbatch index into its rng so that stochastic
+paths draw alike in both phases; the port's step has no stochastic path
+yet (patch dropout and device preprocessing raise), so nothing draws.
+
+The other loss types, patch dropout, BatchNorm towers and device
+preprocessing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,15 +78,14 @@ class StepCfg:
     def __post_init__(self):
         unported = {
             f"loss_type {self.loss_type!r}": self.loss_type not in LOSS_TYPES,
-            "gradient accumulation (accum_freq > 1)": self.accum_freq > 1,
             "patch dropout": self.use_patch_dropout,
             "device preprocessing": self.device_preprocess is not None,
         }
         for what, present in unported.items():
             if present:
                 raise NotImplementedError(
-                    f"{what}: the port's train step has the clip and dino losses, one "
-                    "step per batch, so far (ROADMAP Queue 1 item 5)")
+                    f"{what}: the port's train step has the clip and dino losses, without "
+                    "patch dropout or device preprocessing, so far (ROADMAP Queue 1 item 5)")
 
 
 def train_parameters(model: torch.nn.Module, head: Optional[torch.nn.Module]
@@ -147,6 +161,28 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
     return loss_fn
 
 
+def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: int,
+                     accum: int) -> Dict[str, torch.Tensor]:
+    """Cached-feature accumulation over ``batch``'s ``accum`` stacked
+    microbatches: adds the gradients of the full-batch loss into ``.grad``
+    (see the module docstring) and returns the metrics' mean over the
+    passes."""
+    micros = [{k: v[j] for k, v in batch.items()} for j in range(accum)]
+    with torch.no_grad():
+        cached = [loss_fn.encode_fn(m, step)[0] for m in micros]
+    passes = []
+    for j, micro in enumerate(micros):
+        if "dino_features" in cached[j] and "dino_features" not in micro:
+            micro = {**micro, "dino_features": cached[j]["dino_features"]}
+        rows, scalars = loss_fn.encode_fn(micro, step)
+        full = {k: torch.cat([r if i == j else c[k] for i, c in enumerate(cached)])
+                for k, r in rows.items()}
+        metrics = loss_fn.compute_metrics(full, scalars)
+        metrics["total_loss"].backward()
+        passes.append({k: v.detach() for k, v in metrics.items()})
+    return {k: torch.stack([m[k] for m in passes]).mean(0) for k in passes[0]}
+
+
 def make_train_step(model: torch.nn.Module, cfg: StepCfg,
                     head: Optional[DinoProjectionHead] = None,
                     dino_teacher: Any = None) -> Callable:
@@ -154,13 +190,18 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
     and head in place through ``state.optimizer`` (``train/optim.py:
     build_optimizer`` over ``train_parameters(model, head)``). Metrics are
     detached tensors on the device: reading one waits for the step.
-    ``dino_teacher`` gives the DINO rows of batches that carry none."""
+    ``dino_teacher`` gives the DINO rows of batches that carry none. With
+    ``cfg.accum_freq`` > 1 every tensor of ``batch`` has a leading axis of
+    ``accum_freq`` microbatches."""
     loss_fn = make_loss_fn(model, cfg, head, dino_teacher)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
-        _, metrics = loss_fn(batch, state.step)
-        metrics["total_loss"].backward()
+        if cfg.accum_freq > 1:
+            metrics = accumulate_grads(loss_fn, batch, state.step, cfg.accum_freq)
+        else:
+            _, metrics = loss_fn(batch, state.step)
+            metrics["total_loss"].backward()
         if cfg.log_grad_norm:
             metrics["grad_norm"] = global_norm(state.optimizer.grads())
         state.optimizer.step(state.step)

@@ -78,13 +78,15 @@ def test_resume_latest_continues_the_run_exactly(tmp_path):
 ])
 def test_rotation_keeps_the_right_files(tmp_path, extra, files):
     main(_argv(tmp_path, "run", 3, *extra))
-    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == files
+    # beside the run's final export of the model
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == files + [
+        "final_torch_state.pt"]
 
 
 def test_resume_with_save_most_recent_reads_epoch_latest(tmp_path):
     main(_argv(tmp_path, "run", 2, "--save-most-recent", "--save-frequency", "5"))
-    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == ["epoch_2.pt",
-                                                                    "epoch_latest.pt"]
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == [
+        "epoch_2.pt", "epoch_latest.pt", "final_torch_state.pt"]
     os.remove(tmp_path / "run" / "checkpoints" / "epoch_2.pt")
     records = main(_argv(tmp_path, "run", 3, "--save-most-recent", "--resume", "latest"))
     assert [r["step"] for r in records] == [1, 2, 3]
@@ -95,11 +97,16 @@ def test_latest_checkpoint_sorts_naturally(tmp_path):
     assert latest_checkpoint(str(tmp_path / "absent")) is None
     assert latest_checkpoint(str(tmp_path)) is None
     for name in ("epoch_2.pt", "epoch_10.pt", "epoch_9.pt", "epoch_latest.pt", "epoch_11.pt.tmp1",
-                 "notes.txt"):
+                 "notes.txt", "final_torch_state.pt"):
         (tmp_path / name).write_text("")
     assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "epoch_10.pt")
-    with pytest.raises(NotImplementedError, match="remote"):
-        latest_checkpoint("s3://bucket/run/checkpoints")
+    # a preemption save sorts after its epoch's completed checkpoint
+    (tmp_path / "epoch_10_preempt.pt").write_text("")
+    assert latest_checkpoint(str(tmp_path)) == str(tmp_path / "epoch_10_preempt.pt")
+    # and an fsspec URL lists the same way, the answer a URL
+    assert latest_checkpoint("file://" + str(tmp_path)) == "file://" + str(
+        tmp_path / "epoch_10_preempt.pt")
+    assert latest_checkpoint("file://" + str(tmp_path / "absent")) is None
 
 
 def test_restore_refuses_latest_and_a_missing_head(tmp_path):
@@ -134,3 +141,63 @@ def test_jax_export_torch_checkpoint_loads_strictly_with_the_same_features(tmp_p
         got = model(torch.from_numpy(px), torch.from_numpy(ids).long())
     for k in ("image_features", "text_features", "logit_scale"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=FEATURE_TOL, rtol=0)
+
+
+def test_async_save_equals_the_synchronous_one_after_the_next_step(tmp_path):
+    """An asynchronous save holds the state of its call, tensor for
+    tensor, though the next step updates the parameters and the AdamW
+    moments in place before the background write has run."""
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg,
+        DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.train import optim, scheduler
+    from refining_clip_via_dinov2_representations_torch.train.checkpoint import (
+        save_checkpoint,
+        wait_for_checkpoints,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg,
+        TrainState,
+        make_train_step,
+        train_parameters,
+    )
+
+    model, _ = create_model(MODEL, device="cpu")
+    head = DinoProjectionHead(TINY_CFG["embed_dim"], 24)
+    opt, _ = optim.build_optimizer(train_parameters(model, head), optim.OptimCfg(lr=1e-2),
+                                   scheduler.const_lr(1e-2, 0, 3))
+    state = TrainState(model, head, opt, 0, torch.Generator().manual_seed(0))
+    step = make_train_step(model, StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5)),
+                           head)
+    size, ctx = TINY_CFG["vision_cfg"]["image_size"], TINY_CFG["text_cfg"]["context_length"]
+    batch = {"images": torch.from_numpy(images(4, size)),
+             "texts": torch.from_numpy(token_ids(4, ctx)).long(),
+             "dino_features": torch.from_numpy(
+                 np.random.default_rng(9).normal(size=(4, 24)).astype(np.float32))}
+    state, _ = step(state, batch)
+    sync = save_checkpoint(str(tmp_path / "sync"), state, 1, data_order={"seed": 0})
+    later = save_checkpoint(str(tmp_path / "async"), state, 1, data_order={"seed": 0},
+                            async_save=True)
+    state, _ = step(state, batch)  # in place, while the write may still run
+    wait_for_checkpoints()
+    got, want = (torch.load(p, map_location="cpu", weights_only=True) for p in (later, sync))
+    assert got.keys() == want.keys()
+
+    def same(a, b, where):
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a, b), where
+        elif isinstance(b, dict):
+            assert a.keys() == b.keys(), where
+            for k in b:
+                same(a[k], b[k], f"{where}.{k}")
+        elif isinstance(b, (list, tuple)):
+            assert len(a) == len(b), where
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{where}[{i}]")
+        else:
+            assert a == b, where
+
+    same(got, want, "checkpoint")
+    moved = dict(model.named_parameters())["visual.conv1.weight"]
+    assert not torch.equal(moved, want["state_dict"]["visual.conv1.weight"])

@@ -213,7 +213,7 @@ def test_teacher_stays_out_of_the_optimizer_and_the_checkpoint(tmp_path):
     assert set(saved["dino_head"]) == set(head.state_dict())
     n_state = sum(len(s) > 0 for s in saved["optimizer"]["state"].values())
     assert len(saved["optimizer"]["state"]) == len(named) == n_state
-    restored, epoch = restore_checkpoint(path, state)
-    assert epoch == 1 and restored.step == 1
+    restored, epoch, step_in_epoch, data_order = restore_checkpoint(path, state)
+    assert epoch == 1 and restored.step == 1 and (step_in_epoch, data_order) == (0, {})
     for k, v in teacher.model.state_dict().items():
         torch.testing.assert_close(v, teacher_before[k], atol=0, rtol=0)

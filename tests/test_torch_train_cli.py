@@ -37,6 +37,15 @@ EVAL_FLAGS = ["--model", "ViT-B-16", "--train-data", "t.csv", "--val-data", "v.c
               "--clip_blind_dino_feats", "cb.pt", "--clip_blind_dino_index_map", "cbm.pt",
               "--resume", "latest", "--save-most-recent", "--delete-previous-checkpoint",
               "--log-checkpoint", "--log-local"]
+# Config 2 as docs/REPRODUCE.md publishes it (the thesis fine-tune)
+CONFIG2_FLAGS = ["--model", "ViT-B-16", "--pretrained", "openai", "--precision", "bf16",
+                 "--train-data", "cc3m_train.csv", "--val-data", "flickr_val.csv",
+                 "--dataset-type", "csv", "--use_dino_general", "--soft_mode", "kl_teacher",
+                 "--lambda_soft", "0.5", "--teacher_temp", "0.15", "--use_projection",
+                 "--projection_type", "mlp", "--dino_fts_path", "dino_feats.npy",
+                 "--dino_index_map_path", "dino_map.json", "--batch-size", "96", "--epochs",
+                 "10", "--warmup", "500", "--lr", "5e-4", "--report-to", "tensorboard",
+                 "--run_clip_blind"]
 
 
 def _argv(tmp_path, *extra):
@@ -51,7 +60,11 @@ def _argv(tmp_path, *extra):
                                   ["--model", "ViT-L-14-336", "--attn-impl", "flash",
                                    "--grad-checkpointing", "--force-image-size", "384"],
                                   EVAL_FLAGS, ["--model", "ViT-B-16", "--flickr30k_val", "f.csv",
-                                               "--mscoco-val-data", "m.csv"]])
+                                               "--mscoco-val-data", "m.csv"],
+                                  CONFIG2_FLAGS + ["--save-on-preemption", "--async-checkpoint",
+                                                   "--accum-freq", "2", "--copy-codebase",
+                                                   "--remote-sync", "r", "--remote-sync-protocol",
+                                                   "fsspec", "--stop-after-steps", "3"]])
 def test_flags_and_defaults_match_jax(argv):
     from refining_clip_via_dinov2_representations_tpu.train.params import (
         parse_args as jax_parse,
@@ -72,9 +85,10 @@ def test_force_cpu_run_writes_losses_and_a_checkpoint_that_loads_strictly(tmp_pa
     assert logged == records and [r["step"] for r in logged] == [1, 2]
     assert all(math.isfinite(r["total_loss"]) and r["soft_loss"] > 0 for r in logged)
     assert "use_dino_general: True" in (run / "params.txt").read_text()
-    ckpt = run / "checkpoints" / "epoch_1.pt"
+    # --stop-after-steps ends the run through the preemption save, as in JAX
+    ckpt = run / "checkpoints" / "epoch_0_preempt.pt"
     saved = torch.load(ckpt, map_location="cpu", weights_only=True)
-    assert saved["step"] == 2 and set(saved["dino_head"]) == {
+    assert saved["step"] == saved["step_in_epoch"] == 2 and set(saved["dino_head"]) == {
         "fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias"}
     model, _ = create_model(MODEL, str(ckpt), device="cpu")  # strict=True inside
     for k, v in model.state_dict().items():
@@ -91,7 +105,7 @@ def test_forced_size_checkpointed_flash_run(tmp_path):
     assert [r["step"] for r in records] == [1] and math.isfinite(records[0]["total_loss"])
     params_txt = (tmp_path / "run" / "params.txt").read_text()
     assert "force_image_size: 32\n" in params_txt and "grad_checkpointing: True" in params_txt
-    ckpt = tmp_path / "run" / "checkpoints" / "epoch_1.pt"
+    ckpt = tmp_path / "run" / "checkpoints" / "epoch_0_preempt.pt"
     saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
     assert tuple(saved["visual.positional_embedding"].shape) == (17, 32)  # (32 / 8)^2 + 1
     model, pp = create_model(MODEL, str(ckpt), device="cpu", force_image_size=32)
@@ -112,10 +126,10 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
         main(_argv(tmp_path))
 
 
-@pytest.mark.parametrize("extra", [["--report-to", "wandb"], ["--accum-freq", "2"],
+@pytest.mark.parametrize("extra", [["--adam-mu-dtype", "bfloat16"], ["--profile"],
                                    ["--imagenet-train", "x"], ["--siglip"],
                                    ["--distill-model", "ViT-B-32"], ["--fsdp"],
-                                   ["--opt", "lion"], ["--save-on-preemption"],
+                                   ["--opt", "lion"], ["--force-patch-dropout", "0.5"],
                                    ["--grad-checkpointing", "--remat-policy", "dots_saveable"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
@@ -192,7 +206,8 @@ def test_csv_run_with_eval_clip_blind_and_resume_writes_every_artifact(tmp_path)
         assert stats["total_pairs"] == images * (images - 1) // 2
         assert len(stats["results"]) == 3
         assert (run / "clip_blind" / f"clip_blind_{split}_top_pairs.csv").exists()
-    assert sorted(os.listdir(run / "checkpoints")) == ["epoch_1.pt", "epoch_2.pt"]
+    assert sorted(os.listdir(run / "checkpoints")) == ["epoch_1.pt", "epoch_2.pt",
+                                                       "final_torch_state.pt"]
     assert "resuming checkpoint" in (run / "out.log").read_text()
 
 
