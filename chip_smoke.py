@@ -145,6 +145,27 @@ The published Config 2 and the accumulated step run last, on the same set:
     and 24a backward (12a more forward with the live dinov2-small teacher),
     host clock and peak memory against the single step.
 
+Config 5's single-chip recipe runs last in the work directory (the
+kernels are checked at its shapes, head dim 88 among them, in phases 3 and
+3b, and timed in phases 5 and 6):
+
+19. giant — ViT-g-14 at full width and depth (1.37B parameters, vision
+    ``[16,16,257,88]``, text ``[16,16,77,64]`` causal), seeded, bf16 over
+    fp32 parameters, batch 16, DINO-soft: 64 fused-forward launches a
+    forward, 128 forward + 64 backward a checkpointed step; one step
+    through the kernels against plain attention (``STEP_TOL`` bf16); under
+    adafactor with a bf16 first moment each remat policy (``full``,
+    ``dots_saveable``, ``dots_with_no_batch_dims_saveable``,
+    ``offload_dots_with_no_batch_dims``) against ``full``, with its host
+    clock, CUDA-event time, peak memory and launches, and the same without
+    checkpointing; the peak memory of AdamW (fp32 and bf16 first moment)
+    and adafactor (bf16) under ``dots_with_no_batch_dims_saveable``; then
+    ``train.main`` with Config 5's flags, Config 2's DINO flags and
+    ``--force-patch-dropout 0.5`` on mini-Flickr cut to 16 + 8 images, one
+    epoch and no per-epoch checkpoint: launches against the loader's
+    batches, and the vision attention at 129 tokens in training and 257 in
+    evaluation.
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -209,6 +230,7 @@ TRAIN_CASES = [(64, 12, 197, 64, False), (64, 8, 77, 64, True)]
 # backward times: the training shapes, and head dim 256, where both dtypes
 # keep the scalar kernels (off every registry model)
 BWD_TIMED = TRAIN_CASES + [(8, 4, 197, 256, False)]
+# (extended by ViT-g-14's GIANT_CASES below)
 # backward only, (B, H, Lq, Lk, D, causal): Lq != Lk with and without the
 # causal mask, and head dims 80 and 128 (the widest the bf16 tensor-core
 # route takes; 256 in KERNEL_CASES takes the scalar kernels)
@@ -291,6 +313,18 @@ ZS_IMAGES, ZS_CLASSES_PER_CALL, EXTRACT_BATCH, HUB_REV = 1000, 10, 256, "seeded"
 # Config 2 as published (batch 96), its epochs cut to 2; the preempted run
 # gets SIGTERM at this step of its second epoch; the accumulated step
 CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
+# Config 5's single-chip recipe (docs/REPRODUCE.md:78-90): ViT-g-14 at batch
+# 16. Its attention calls: vision [16,16,257,88] (head dim 88: the kernels'
+# head-dim-128 instantiations with the tail zero-padded), text [16,16,77,64]
+# causal; checked forward and backward in both dtypes, timed beside SDPA
+GIANT_MODEL, GIANT_BATCH = "ViT-g-14", 16
+GIANT_CASES = [(16, 16, 257, 88, False), (16, 16, 77, 64, True)]
+# peak memory of these optimizers under dots_with_no_batch_dims_saveable
+GIANT_OPTIMIZERS = (("adamw", None), ("adamw", "bfloat16"), ("adafactor", "bfloat16"))
+# the recipe through train.main: mini-Flickr cut to 16 train and 8 val
+# images (80 and 40 caption rows: 5 steps of 16, 3 eval batches), one
+# epoch, no per-epoch checkpoint (the final export stays)
+GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
 
 
 def fail(msg: str) -> None:
@@ -395,7 +429,8 @@ def phase_kernels() -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES + SLICE10_CASES):
+        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
+                                                 + GIANT_CASES):
             q, k, v = _qkv(b, h, l, d, dtype, seed=i)
             scale = d ** -0.5
             got = fused_attention_fwd(q, k, v, scale, causal)
@@ -657,7 +692,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES + SLICE10_CASES:
+    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES + SLICE10_CASES + GIANT_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100)
         scale = d ** -0.5
         ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
@@ -734,7 +769,8 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
-    return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES] + BWD_CASES
+    return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
+            ] + BWD_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -823,13 +859,15 @@ def _train_batch(tokenizer, n: int, device: str, model_name: str = MODEL, size=N
 
 
 def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str = MODEL,
-                grad_checkpointing: bool = False, force_image_size=None, dino_teacher=None,
-                **model_kw):
+                grad_checkpointing=False, force_image_size=None, dino_teacher=None,
+                optim_kw=None, **model_kw):
     """The model (ViT-B-16 by default) + the MLP DINO head (embed dim ->
     448 -> 384 for ViT-B-16) + default param groups + a cosine schedule, from
     the same seeds every time; returns (model, head, state, train_step,
-    step_cfg). ``dino_teacher`` gives the step a live teacher; ``model_kw``
-    go to ``create_model`` (``pretrained``, ``cache_dir``)."""
+    step_cfg). ``dino_teacher`` gives the step a live teacher; ``optim_kw``
+    go to ``OptimCfg`` (``opt``, ``mu_dtype``; AdamW by default),
+    ``model_kw`` to ``create_model`` (``pretrained``, ``cache_dir``).
+    ``grad_checkpointing`` is a bool or a remat policy's name."""
     import torch
 
     from refining_clip_via_dinov2_representations_torch.losses import (
@@ -850,7 +888,7 @@ def _dino_setup(precision: str, attn_impl: str, steps: int = 3, model_name: str 
     model.train()
     torch.manual_seed(SEED + 1)
     head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
-    optimizer, _ = build_optimizer(train_parameters(model, head), OptimCfg(),
+    optimizer, _ = build_optimizer(train_parameters(model, head), OptimCfg(**(optim_kw or {})),
                                    cosine_lr(5e-4, 0, steps))
     cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
     state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(SEED))
@@ -877,13 +915,15 @@ def _grad_cosines(grads_a: dict, grads_b: dict):
     """Per-tensor gradient cosines, and the cosine of all tensors together."""
     import torch
 
-    cos = {}
+    cos, dot, na, nb = {}, 0.0, 0.0, 0.0
     for n in grads_a:
         a, b = grads_a[n].double().flatten(), grads_b[n].double().flatten()
-        cos[n] = float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
-    a = torch.cat([grads_a[n].double().flatten() for n in grads_a])
-    b = torch.cat([grads_b[n].double().flatten() for n in grads_a])
-    return cos, float((a @ b) / (a.norm() * b.norm()))
+        ab, aa, bb = float(a @ b), float(a @ a), float(b @ b)
+        cos[n] = ab / max((aa * bb) ** 0.5, 1e-300)
+        dot, na, nb = dot + ab, na + aa, nb + bb
+    # all tensors together, summed tensor by tensor (no concatenated copy:
+    # ViT-g-14's gradients are 1.4 billion numbers)
+    return cos, dot / (na * nb) ** 0.5
 
 
 @contextlib.contextmanager
@@ -2351,6 +2391,265 @@ def phase_accum(teacher: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _attention_lengths():
+    """Records the sequence length of every ``MultiheadAttention`` call
+    (recomputes included: a checkpointed block calls its modules again), by
+    a global forward pre-hook; yields the list of lengths."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models.layers import MultiheadAttention
+
+    lengths = []
+
+    def hook(module, args):
+        if isinstance(module, MultiheadAttention):
+            lengths.append(int(args[0].shape[1]))
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield lengths
+    finally:
+        handle.remove()
+
+
+def _set_remat(model, policy) -> None:
+    """Both towers' activation checkpointing: a remat policy's name, or None
+    for none."""
+    for tower in (model.visual.transformer, model.transformer):
+        tower.grad_checkpointing = policy is not None
+        tower.remat_policy = policy or "full"
+
+
+def _giant_step_numbers(state, train_step, batch, what: str) -> dict:
+    """One step's launches, then the host clock over back-to-back steps,
+    the CUDA-event time and the peak memory of those steps (gradients freed
+    first, so the peak is the step's own)."""
+    import torch
+
+    for p in state.optimizer.params:
+        p.grad = None
+    torch.cuda.empty_cache()
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    state, metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    loss = float(metrics["total_loss"])
+    for p in state.optimizer.params:
+        p.grad = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    host = host_step_ms(lambda: train_step(state, batch), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    events = time_ms(lambda: train_step(state, batch), iters=3)
+    print(f"giant {what}: loss {loss:.6f}; launches {counts}; host clock {host:.3f} ms "
+          f"({GIANT_BATCH / host * 1e3:.2f} samples/s), CUDA events {events:.3f} ms, peak "
+          f"memory {peak:.3f} GiB [{CARD}]", flush=True)
+    return dict(loss=loss, counts=counts, host_ms=host, events_ms=events, peak_gib=peak)
+
+
+def phase_giant(work: str) -> dict:
+    """Config 5's single-chip recipe at ViT-g-14's full width and depth
+    (vision 40 x 1408, 16 heads of 88, 257 tokens; text 24 x 1024, 77 causal
+    tokens; 1.37B parameters), seeded, bf16 compute over fp32 parameters,
+    batch 16, the DINO-soft loss as Config 2 sets it (kl_teacher, lambda_soft
+    0.5, mlp head 1024 -> 384 on precomputed rows):
+
+    (a) one step's loss and gradients through the kernels against plain
+        attention (bf16 ``STEP_TOL``: loss 1e-2, all tensors' cosine 0.99),
+        64 fused-forward launches a forward pass, 128 forward and 64
+        backward a checkpointed step;
+    (b) under adafactor with a bf16 first moment, each remat policy's loss
+        and gradients against ``full``'s (the same tolerances), its launches,
+        host clock, CUDA-event time and peak memory, and the same without
+        checkpointing;
+    (c) the peak memory of AdamW (fp32 and bf16 first moment) and adafactor
+        (bf16) under ``dots_with_no_batch_dims_saveable``;
+    (d) the recipe through ``train.main`` on a cut mini-Flickr with
+        ``--force-patch-dropout 0.5``: the vision kernels at 129 tokens in
+        training and 257 in evaluation, launches against the loader's batches.
+
+    Returns the launches of (a), (b) and (d)."""
+    import math
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.models.transformer import REMAT_POLICIES
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import train_parameters
+
+    from refining_clip_via_dinov2_representations_torch.models import get_model_config
+
+    launches = {"flash_attention_fwd": 0, "fused_attention_fwd": 0, "fused_attention_bwd": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # launches: one a block (40 vision + 24 text) a forward; a checkpointed
+    # step runs the forward twice (the recompute relaunches the kernel) and
+    # the backward once
+    mcfg = get_model_config(GIANT_MODEL)
+    v_layers, t_layers = mcfg["vision_cfg"]["layers"], mcfg["text_cfg"]["layers"]
+    blocks = v_layers + t_layers
+    n_tok = (mcfg["vision_cfg"]["image_size"] // mcfg["vision_cfg"]["patch_size"]) ** 2 + 1
+    ctx = mcfg["text_cfg"]["context_length"]
+    step_want = {"flash_attention_fwd": 0, "fused_attention_fwd": 2 * blocks,
+                 "fused_attention_bwd": blocks}
+    loss_tol, min_cos = STEP_TOL["bfloat16"]
+    t0 = time.perf_counter()
+    model, head, state, train_step, cfg = _dino_setup(
+        "bf16", "auto", steps=20, model_name=GIANT_MODEL, grad_checkpointing="full",
+        optim_kw=dict(opt="adafactor", mu_dtype="bfloat16"))
+    batch = _train_batch(get_tokenizer(GIANT_MODEL), GIANT_BATCH, DEVICE, GIANT_MODEL)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in train_parameters(model, head).values())
+    print(f"giant: {GIANT_MODEL} seeded, {n_params / 1e9:.4f}B parameters with the head, on the "
+          f"card in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- (a) the kernels against plain attention, and the launches ----
+    _zero_counts()
+    with torch.no_grad():
+        out = model(batch["images"], batch["texts"])
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    check(counts["fused_attention_fwd"] == blocks and counts["fused_attention_bwd"] == 0
+          and torch.isfinite(out["image_features"].float()).all().item(),
+          f"a ViT-g-14 forward launched {counts}, expected {blocks} forward")
+    add(counts)
+    del out
+    _zero_counts()
+    loss_k, grads_k = _loss_and_grads(model, head, cfg, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    _set_attn_impl(model, "xla")
+    loss_p, grads_p = _loss_and_grads(model, head, cfg, batch)
+    _set_attn_impl(model, "auto")
+    cos, together = _grad_cosines(grads_k, grads_p)
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"giant {GIANT_MODEL} bf16 batch {GIANT_BATCH}, full remat: loss {loss_k:.6f} through "
+          f"the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol {loss_tol:g}); gradient "
+          f"cosine all tensors together {together:.6f} (need >= {min_cos}), per tensor min "
+          f"{cos[worst]:.6f} at {worst}; launches {counts}, expected {step_want}", flush=True)
+    check(counts == step_want, f"the checkpointed ViT-g-14 step launched {counts}")
+    check(math.isfinite(loss_k) and rel <= loss_tol and together >= min_cos,
+          "the ViT-g-14 step through the kernels disagrees with plain attention")
+    del grads_p
+    torch.cuda.empty_cache()
+
+    # ---- (b) each remat policy against full on the same parameters ----
+    for policy in REMAT_POLICIES[1:]:
+        _set_remat(model, policy)
+        loss, grads = _loss_and_grads(model, head, cfg, batch)
+        cos, together = _grad_cosines(grads, grads_k)
+        rel = abs(loss - loss_k) / abs(loss_k)
+        del grads
+        print(f"giant remat {policy}: loss {loss:.6f} vs full's {loss_k:.6f} (rel {rel:.2e}); "
+              f"gradient cosine all tensors together {together:.6f}, per tensor min "
+              f"{min(cos.values()):.6f}", flush=True)
+        check(rel <= loss_tol and together >= min_cos,
+              f"remat policy {policy} changes the ViT-g-14 step")
+    del grads_k
+    torch.cuda.empty_cache()
+    # ---- each policy's numbers (the steps from here on move the parameters) ----
+    policies = {}
+    for policy in REMAT_POLICIES + (None,):
+        _set_remat(model, policy)
+        nums = _giant_step_numbers(state, train_step, batch,
+                                   f"step adafactor bf16-mu {policy or 'no remat'}")
+        want = step_want if policy else {**step_want, "fused_attention_fwd": blocks}
+        check(nums["counts"] == want and math.isfinite(nums["loss"]),
+              f"{policy}: launches {nums['counts']}, expected {want}")
+        add(nums["counts"])
+        policies[policy or "none"] = nums
+
+    # ---- (c) the optimizers' peak memory ----
+    _set_remat(model, "dots_with_no_batch_dims_saveable")
+    optimizers = {}
+    for opt, mu in GIANT_OPTIMIZERS:
+        state.optimizer = None
+        for p in train_parameters(model, head).values():
+            p.grad = None
+        torch.cuda.empty_cache()
+        state.optimizer, _ = build_optimizer(train_parameters(model, head),
+                                             OptimCfg(opt=opt, mu_dtype=mu), cosine_lr(5e-4, 0, 20))
+        state_gib = sum(t.numel() * t.element_size() for st in state.optimizer.state.values()
+                        for t in st.values()) / 2**30
+        what = f"{opt} {mu or 'float32'} mu"
+        nums = _giant_step_numbers(state, train_step, batch, f"optimizer {what}")
+        nums["state_gib"] = state_gib
+        print(f"giant optimizer {what}: state {state_gib:.3f} GiB, peak {nums['peak_gib']:.3f} "
+              f"GiB under dots_with_no_batch_dims_saveable [{CARD}]", flush=True)
+        check(math.isfinite(nums["loss"]) and nums["counts"] == step_want,
+              f"{what}: the step failed ({nums})")
+        add(nums["counts"])
+        optimizers[what] = nums
+    finite = all(torch.isfinite(p).all().item() for p in model.parameters())
+    check(finite, "a ViT-g-14 parameter is not finite after the steps")
+    del model, head, state, train_step, batch
+    torch.cuda.empty_cache()
+
+    # ---- (d) the recipe through train.main ----
+    from scripts.mini_flickr import generate
+
+    d = generate(os.path.join(work, "giant_data"), n_train=GIANT_TRAIN_IMAGES,
+                 n_val=GIANT_VAL_IMAGES, size_px=224, dino_dim=DINO_DIM, seed=SEED + 3)
+    argv = ["--model", GIANT_MODEL, "--train-data", d["train_csv"], "--val-data", d["val_csv"],
+            "--dataset-type", "csv", "--batch-size", str(GIANT_BATCH), "--precision", "bf16",
+            "--opt", "adafactor", "--adam-mu-dtype", "bfloat16", "--grad-checkpointing",
+            "--remat-policy", "dots_with_no_batch_dims_saveable", "--use_dino_general",
+            "--soft_mode", "kl_teacher", "--lambda_soft", "0.5", "--teacher_temp", "0.15",
+            "--use_projection", "--projection_type", "mlp", "--dino_fts_path", d["dino_feats"],
+            "--dino_index_map_path", d["dino_index_map"], "--force-patch-dropout",
+            str(GIANT_PATCH_DROPOUT), "--epochs", "1", "--save-frequency", "0", "--lr", "5e-4",
+            "--warmup", "2", "--workers", "4", "--seed", str(SEED), "--log-every-n-steps", "1",
+            "--logs", work, "--name", "giant_cli", "--device", DEVICE]
+    from refining_clip_via_dinov2_representations_torch.train.data import get_csv_dataset
+
+    args = parse_args(argv)
+    train_batches = get_csv_dataset(args, None, True).dataloader.num_batches
+    val_batches = get_csv_dataset(args, None, False).dataloader.num_batches
+    with _attention_lengths() as lengths:
+        records, counts, wall, seconds = _eval_cli_run(argv)
+    # two evaluations (before training and after the epoch)
+    want = {"flash_attention_fwd": 0,
+            "fused_attention_fwd": 2 * blocks * train_batches + blocks * val_batches * 2,
+            "fused_attention_bwd": blocks * train_batches}
+    kept = 1 + max(1, int((n_tok - 1) * (1 - GIANT_PATCH_DROPOUT)))
+    hist = {n: lengths.count(n) for n in sorted(set(lengths))}
+    want_hist = {ctx: 2 * t_layers * train_batches + t_layers * val_batches * 2,
+                 kept: 2 * v_layers * train_batches, n_tok: v_layers * val_batches * 2}
+    run = os.path.join(work, "giant_cli")
+    with open(os.path.join(run, "final_itm_results.json")) as f:
+        evals = [e["epoch"] for e in json.load(f)]
+    losses = [r["total_loss"] for r in records]
+    print(f"giant-cli: {GIANT_MODEL} Config 5 flags + Config 2's DINO flags + "
+          f"--force-patch-dropout {GIANT_PATCH_DROPOUT} on mini-Flickr ({GIANT_TRAIN_IMAGES} + "
+          f"{GIANT_VAL_IMAGES} images; cut in images, steps and checkpoint saves): "
+          f"{len(records)} steps, losses {losses}, evaluations at epochs {evals}; wall "
+          f"{wall:.2f} s (train {seconds.get('train_one_epoch', 0):.2f} s, evaluation "
+          f"{seconds.get('evaluate', 0):.2f} s); launches {counts}, expected {want}; attention "
+          f"lengths {hist}, expected {want_hist} [{CARD}]", flush=True)
+    check(counts == want, f"the Config 5 run launched {counts}, expected {want}")
+    check(hist == want_hist, f"attention lengths {hist}, expected {want_hist}")
+    check(len(records) == train_batches and all(math.isfinite(x) for x in losses),
+          "the Config 5 run's losses")
+    check(evals == [0, 1] and os.path.isfile(os.path.join(run, "checkpoints",
+                                                         "final_torch_state.pt")),
+          "the Config 5 run's evaluations or final export are missing")
+    add(counts)
+    return {"launches": launches, "policies": policies, "optimizers": optimizers,
+            "cli": dict(wall=wall, seconds=seconds, steps=len(records))}
+
+
 def attention_bwd_work(b, h, l, d, causal, dtype_name):
     """(FLOPs, bytes) of the attention backward: 10 pairs D FLOPs per head
     (S recomputed, dV, dP, dQ, dK); 8 L D elements per head moved (q, k, v,
@@ -2372,7 +2671,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in BWD_TIMED:
+    for b, h, l, d, causal in BWD_TIMED + GIANT_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -2763,6 +3062,7 @@ def main() -> None:
         off = phase_offline(data, pre, ft, work)
         config2 = phase_config2(data, pre, work)
         accum = phase_accum(teacher_dir)
+        giant = phase_giant(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
@@ -2785,7 +3085,8 @@ def main() -> None:
         + teacher_launches + extract_launches + live["fused_attention_fwd"]
         + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
-        + config2["fused_attention_fwd"] + accum["fused_attention_fwd"],
+        + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
+        + giant["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -2797,12 +3098,16 @@ def main() -> None:
         "evaluation": [{"shape": list(case[:4]), "dtype": dtype_name, **by_case[case]}
                        for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                        for case in SLICE10_CASES],
+        "giant": [{"shape": list(case[:4]), "causal": case[4], "dtype": dtype_name,
+                   **by_case[case]}
+                  for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                  for case in GIANT_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
-        + accum["fused_attention_bwd"],
+        + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -2810,6 +3115,10 @@ def main() -> None:
         "fp32_ms": tb32["ms"], "fp32_plain_ms": tb32["plain_ms"],
         "fp32_bound_ms": tb32["bound_ms"], "fp32_bound_by": tb32["bound_by"],
         "fp32_library_ms": tb32["library_ms"],
+        "giant": [{"shape": list(case[:4]), "causal": case[4], "dtype": dtype_name,
+                   **by_case[case]}
+                  for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                  for case in GIANT_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

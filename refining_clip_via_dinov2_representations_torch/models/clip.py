@@ -14,7 +14,7 @@ vision tower under ``visual.``, the text tower's parts at top level
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +23,7 @@ from torch import nn
 from ..constants import DEFAULT_INIT_LOGIT_SCALE
 from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .layers import LayerNorm, MultiheadAttention, gelu, quick_gelu
-from .transformer import TextTransformer, VisionTransformer, encode_text_tokens
+from .transformer import TextTransformer, VisionTransformer, encode_text_tokens, remat_args
 
 
 def _unsupported(what: str):
@@ -34,8 +34,8 @@ def _unsupported(what: str):
 
 
 def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool,
-                        dtype: torch.dtype, attn_impl: str,
-                        grad_checkpointing: bool = False) -> VisionTransformer:
+                        dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
+                        remat_policy: str = "full") -> VisionTransformer:
     if cfg.timm_model_name is not None:
         raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
     if cfg.is_resnet:
@@ -45,7 +45,6 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
     variants = {"pos_embed_type": cfg.pos_embed_type != "learnable",
                 "pool_type": cfg.pool_type != "tok", "no_ln_pre": cfg.no_ln_pre,
                 "final_ln_after_pool": cfg.final_ln_after_pool,
-                "patch_dropout (a training feature)": cfg.patch_dropout > 0,
                 "output_tokens": cfg.output_tokens, "act_kwargs": bool(cfg.act_kwargs),
                 "norm_kwargs": bool(cfg.norm_kwargs)}
     for what, present in variants.items():
@@ -64,12 +63,14 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
         attn_impl=attn_impl,
         compute_dtype=dtype,
         grad_checkpointing=grad_checkpointing,
+        remat_policy=remat_policy,
+        patch_dropout=cfg.patch_dropout,
     )
 
 
 def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
-                      dtype: torch.dtype, attn_impl: str,
-                      grad_checkpointing: bool = False) -> TextTransformer:
+                      dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
+                      remat_policy: str = "full") -> TextTransformer:
     if cfg.hf_model_name is not None:
         raise _unsupported(f"HF text tower {cfg.hf_model_name!r}")
     if cfg.embed_cls or cfg.output_tokens:
@@ -93,6 +94,7 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
         attn_impl=attn_impl,
         compute_dtype=dtype,
         grad_checkpointing=grad_checkpointing,
+        remat_policy=remat_policy,
     )
 
 
@@ -105,12 +107,13 @@ class CLIP(nn.Module):
                  init_logit_scale: float = DEFAULT_INIT_LOGIT_SCALE,
                  init_logit_bias: Optional[float] = None,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 grad_checkpointing: bool = False):
+                 grad_checkpointing: Union[bool, str] = False):
         super().__init__()
+        remat, policy = remat_args(grad_checkpointing)
         self.visual = _build_vision_tower(embed_dim, vision_cfg, quick_gelu, dtype, attn_impl,
-                                          grad_checkpointing)
-        text = _build_text_tower(embed_dim, text_cfg, quick_gelu, dtype, attn_impl,
-                                 grad_checkpointing)
+                                          remat, policy)
+        text = _build_text_tower(embed_dim, text_cfg, quick_gelu, dtype, attn_impl, remat,
+                                 policy)
         # open_clip's CLIP layout: the text tower's parts sit at top level
         self.token_embedding = text.token_embedding
         self.positional_embedding = text.positional_embedding
@@ -125,7 +128,7 @@ class CLIP(nn.Module):
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         """Per-block activation checkpointing in both towers (open_clip's
-        method; ``Transformer``)."""
+        method; ``Transformer``), under the policy the model was built with."""
         self.visual.set_grad_checkpointing(enable)
         self.transformer.grad_checkpointing = enable
 
@@ -159,8 +162,9 @@ class CLIP(nn.Module):
         normal_(self.positional_embedding, 0.01)
         normal_(self.text_projection, self.text_projection.shape[0] ** -0.5)
 
-    def encode_image(self, image: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        features = self.visual(image)
+    def encode_image(self, image: torch.Tensor, normalize: bool = False,
+                     patch_dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        features = self.visual(image, patch_dropout_generator)
         return F.normalize(features, dim=-1) if normalize else features
 
     def encode_text(self, text: torch.Tensor, normalize: bool = False) -> torch.Tensor:
@@ -168,9 +172,14 @@ class CLIP(nn.Module):
         return F.normalize(features, dim=-1) if normalize else features
 
     def forward(self, image: Optional[torch.Tensor] = None,
-                text: Optional[torch.Tensor] = None) -> dict:
+                text: Optional[torch.Tensor] = None,
+                patch_dropout_generator: Optional[torch.Generator] = None) -> dict:
+        """Patch dropout (where the vision config has it) draws from
+        ``patch_dropout_generator`` in training; without one the towers are
+        deterministic."""
         out = {
-            "image_features": None if image is None else self.encode_image(image, True),
+            "image_features": None if image is None else self.encode_image(
+                image, True, patch_dropout_generator),
             "text_features": None if text is None else self.encode_text(text, True),
             "logit_scale": self.logit_scale.exp(),
         }
@@ -181,10 +190,11 @@ class CLIP(nn.Module):
 
 def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
                 attn_impl: str = "auto", seed: int = 0,
-                grad_checkpointing: bool = False) -> CLIP:
+                grad_checkpointing: Union[bool, str] = False) -> CLIP:
     """Instantiate CLIP from a parsed registry config, seeded-random weights
     on the CPU. ``grad_checkpointing`` recomputes each residual block of both
-    towers in the backward (the JAX ``remat=True``)."""
+    towers in the backward: true for the ``"full"`` policy, or a policy name
+    of ``models/transformer.py:REMAT_POLICIES`` (the JAX ``remat``)."""
     if cfg.multimodal_cfg is not None:
         raise _unsupported("CoCa (multimodal_cfg)")
     model = CLIP(

@@ -196,7 +196,8 @@ def create_model(
     force_preprocess_cfg: Optional[Dict[str, Any]] = None,
     cache_dir: Optional[str] = None,
     require_pretrained: bool = False,
-    grad_checkpointing: bool = False,
+    grad_checkpointing: Union[bool, str] = False,
+    force_patch_dropout: Optional[float] = None,
 ) -> Tuple[CLIP, PreprocessCfg]:
     """Build a model on ``device``; returns ``(model, preprocess_cfg)``.
 
@@ -213,7 +214,10 @@ def create_model(
     training CLI's names (``_precision_to_dtype``). ``force_image_size``
     replaces the vision tower's image size (and the preprocess size);
     ``force_preprocess_cfg`` overrides preprocess keys; ``grad_checkpointing``
-    recomputes every residual block in the backward."""
+    recomputes every residual block in the backward (true: the ``"full"``
+    policy; or a policy name, ``models/transformer.py:REMAT_POLICIES``);
+    ``force_patch_dropout`` replaces the vision tower's patch-dropout
+    probability (applied in training when the caller passes a generator)."""
     device = _resolve_device(device)
     compute_dtype, param_dtype = _precision_to_dtype(precision)
     preprocess_cfg = PreprocessCfg()
@@ -236,6 +240,8 @@ def create_model(
         raw_cfg["quick_gelu"] = True
     if force_image_size is not None:
         raw_cfg.setdefault("vision_cfg", {})["image_size"] = force_image_size
+    if force_patch_dropout is not None:
+        raw_cfg.setdefault("vision_cfg", {})["patch_dropout"] = force_patch_dropout
     if pretrained:
         pcfg = get_pretrained_cfg(model_name, pretrained)
         if pcfg:

@@ -8,6 +8,8 @@ The port of the JAX package's ``models/layers.py``. Numerics kept:
   tanh form in bf16, as in the JAX package.
 * Attention projections use the fused-QKV parameter layout of open_clip
   (``in_proj_weight`` [3D, D]), the transpose of the JAX ``in_proj_kernel``.
+* PatchDropout keeps ``max(1, int(n * (1 - prob)))`` patch tokens (CLS
+  kept): the first of ``argsort(scores)`` (stable) for uniform scores.
 
 Parameters stay fp32; each layer casts them to the dtype of its input, so a
 model computes in the dtype its input arrives in.
@@ -15,7 +17,7 @@ model computes in the dtype its input arrives in.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +64,51 @@ class LayerScale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gamma.to(x.dtype)
+
+
+def patch_dropout_keep(x: torch.Tensor, scores: torch.Tensor, prob: float,
+                       exclude_first_token: bool = True) -> torch.Tensor:
+    """The tokens PatchDropout keeps for per-example ``scores`` [B, n] (n the
+    patch tokens): the first token (CLS) when excluded, then the patch
+    tokens at ``argsort(scores)[:, :num_keep]`` in that order, as the JAX
+    ``PatchDropout`` takes them."""
+    if exclude_first_token:
+        cls_tok, rest = x[:, :1], x[:, 1:]
+    else:
+        cls_tok, rest = x[:, :0], x
+    b, n, d = rest.shape
+    num_keep = max(1, int(n * (1.0 - prob)))
+    keep = torch.argsort(scores, dim=-1, stable=True)[:, :num_keep]
+    rest = torch.gather(rest, 1, keep.unsqueeze(-1).expand(b, num_keep, d))
+    return torch.cat([cls_tok, rest], dim=1)
+
+
+class PatchDropout(nn.Module):
+    """Token subsampling in training (open_clip ``transformer.py:50-87``).
+
+    Draws uniform scores from the explicit ``generator`` it is given (on the
+    tokens' device) and keeps ``patch_dropout_keep``'s tokens. The identity
+    in eval mode, at ``prob`` 0, and without a generator (the JAX module's
+    ``deterministic`` default: a caller that passes no generator asks for
+    no draw, as the evaluations do)."""
+
+    def __init__(self, prob: float = 0.5, exclude_first_token: bool = True):
+        super().__init__()
+        self.prob = prob
+        self.exclude_first_token = exclude_first_token
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        if not self.training or self.prob == 0.0 or generator is None:
+            return x
+        n = x.shape[1] - (1 if self.exclude_first_token else 0)
+        return patch_dropout_keep(x, self.scores(x.shape[0], n, generator, x.device), self.prob,
+                                  self.exclude_first_token)
+
+    @staticmethod
+    def scores(b: int, n: int, generator: torch.Generator, device) -> torch.Tensor:
+        """Uniform [b, n] fp32 scores from ``generator`` on ``device``."""
+        return torch.rand(b, n, generator=generator, device=device)
 
 
 class MultiheadAttention(nn.Module):

@@ -12,17 +12,124 @@ accepted too and transposed once). The patch embedding, a convolution with
 kernel = stride = patch, runs as a reshape and one matmul over the
 ``conv1.weight`` [width, 3, ph, pw] parameter: in fp32 that keeps it off
 cuDNN's TF32 convolutions.
+
+Activation checkpointing (``grad_checkpointing``) recomputes each residual
+block in the backward under one of the JAX package's remat policies
+(``tpu/models/transformer.py:46-72``, ``REMAT_POLICIES``):
+
+* ``"full"``: keep only the block's input (``torch.utils.checkpoint``,
+  non-reentrant), as ``nn.remat`` with no policy;
+* ``"dots_saveable"`` / ``"dots_with_no_batch_dims_saveable"``: selective
+  checkpointing (``create_selective_checkpoint_contexts``) that keeps the
+  outputs of the matmul-class aten ops and recomputes the rest. A dot
+  without a batch dimension is an ``mm``/``addmm`` (the blocks' linear
+  projections); ``bmm``/``baddbmm`` (plain attention's products) have one,
+  and only ``dots_saveable`` keeps them;
+* ``"offload_dots_with_no_batch_dims"``: the same dots copied to pinned host
+  memory in the forward and back to the device when the recompute reaches
+  them (``_OffloadDots``): neither kept on the device nor recomputed.
+
+The attention kernels are no dots here, as the ``pallas_call`` is none in
+JAX: their ctypes launch is invisible to the dispatcher, so the autograd
+Function runs again on every recompute, under every policy (one more
+forward launch per block and step). Patch dropout draws outside the
+checkpointed blocks, from the generator the caller passes
+(``preserve_rng_state`` restores the global generators only).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import functools
+from collections import defaultdict
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, gelu
+from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, PatchDropout, gelu
+
+REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable",
+                  "offload_dots_with_no_batch_dims")
+_aten = torch.ops.aten
+NO_BATCH_DOTS = frozenset({_aten.mm.default, _aten.addmm.default, _aten.mv.default,
+                           _aten.addmv.default, _aten.dot.default})
+BATCH_DOTS = frozenset({_aten.bmm.default, _aten.baddbmm.default})
+
+
+def saved_ops(policy: str) -> frozenset:
+    """The aten ops whose outputs a policy keeps (or offloads)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; one of {REMAT_POLICIES}")
+    if policy == "full":
+        return frozenset()
+    if policy == "dots_saveable":
+        return NO_BATCH_DOTS | BATCH_DOTS
+    return NO_BATCH_DOTS
+
+
+def selective_policy(policy: str) -> Callable:
+    """The ``create_selective_checkpoint_contexts`` policy function: keep the
+    outputs of ``saved_ops(policy)``, recompute everything else."""
+    keep = saved_ops(policy)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy_fn
+
+
+class _OffloadDots(TorchDispatchMode):
+    """One half of the offload policy's pair. In the forward (``restore``
+    false) it copies each named dot's output to host memory (pinned when it
+    comes from the card) behind the op; in the recompute it returns those
+    copies, in order, on the device instead of running the dots again."""
+
+    def __init__(self, ops: frozenset, storage: dict, restore: bool):
+        super().__init__()
+        self.ops, self.storage, self.restore = ops, storage, restore
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.ops:
+            return func(*args, **kwargs)
+        if self.restore:
+            host, device = self.storage[func].pop(0)
+            return host.to(device, non_blocking=True)
+        out = func(*args, **kwargs)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=out.is_cuda)
+        host.copy_(out, non_blocking=True)
+        self.storage[func].append((host, out.device))
+        return out
+
+
+def _offload_contexts(ops: frozenset):
+    storage = defaultdict(list)
+    return _OffloadDots(ops, storage, False), _OffloadDots(ops, storage, True)
+
+
+def remat_kwargs(policy: str) -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s extra arguments for a policy."""
+    ops = saved_ops(policy)
+    if policy == "full":
+        return {}
+    if policy.startswith("offload"):
+        return {"context_fn": functools.partial(_offload_contexts, ops)}
+    return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                            selective_policy(policy))}
+
+
+def remat_args(grad_checkpointing: Union[bool, str]) -> Tuple[bool, str]:
+    """``grad_checkpointing`` as the JAX factory takes it — a bool (full
+    recompute when true) or a policy name — split into (enabled, policy)."""
+    if isinstance(grad_checkpointing, str):
+        return True, grad_checkpointing
+    return bool(grad_checkpointing), "full"
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -56,15 +163,19 @@ class ResidualAttentionBlock(nn.Module):
 class Transformer(nn.Module):
     """A stack of residual blocks. With ``grad_checkpointing`` on, a module
     in training under autograd runs each block under
-    ``torch.utils.checkpoint`` (non-reentrant): only the block's input is
-    kept and the block is recomputed in the backward, as the JAX package's
-    ``nn.remat`` with its default ("full") policy."""
+    ``torch.utils.checkpoint`` (non-reentrant) with ``remat_policy``'s
+    arguments (``remat_kwargs``): the block is recomputed in the backward,
+    keeping only its input and what the policy saves, as the JAX package's
+    ``nn.remat``."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
-                 attn_impl: str = "auto", grad_checkpointing: bool = False):
+                 attn_impl: str = "auto", grad_checkpointing: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
+        saved_ops(remat_policy)  # raises on an unknown name
         self.grad_checkpointing = grad_checkpointing
+        self.remat_policy = remat_policy
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl)
             for _ in range(layers)
@@ -72,9 +183,10 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
+        kwargs = remat_kwargs(self.remat_policy) if remat else {}
         for blk in self.resblocks:
             if remat:
-                x = checkpoint(blk, x, causal, use_reentrant=False)
+                x = checkpoint(blk, x, causal, use_reentrant=False, **kwargs)
             else:
                 x = blk(x, causal=causal)
         return x
@@ -88,15 +200,17 @@ def text_global_pool(x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
 
 
 class VisionTransformer(nn.Module):
-    """ViT tower: patch embed, CLS + learnable positional embedding, ln_pre,
-    transformer, ln_post on the CLS token, projection."""
+    """ViT tower: patch embed, CLS + learnable positional embedding, patch
+    dropout (training, with a generator), ln_pre, transformer, ln_post on the
+    CLS token, projection."""
 
     def __init__(self, image_size: Tuple[int, int] = (224, 224),
                  patch_size: Tuple[int, int] = (16, 16), width: int = 768,
                  layers: int = 12, heads: int = 12, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, output_dim: int = 512,
                  act: Callable = gelu, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
+                 remat_policy: str = "full", patch_dropout: float = 0.0):
         super().__init__()
         self.image_size = tuple(image_size)
         self.patch_size = tuple(patch_size)
@@ -108,9 +222,10 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.zeros(width))
         n_pos = self.grid_size[0] * self.grid_size[1] + 1
         self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
+        self.patch_dropout = PatchDropout(patch_dropout) if patch_dropout > 0 else None
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl, grad_checkpointing)
+                                       act, attn_impl, grad_checkpointing, remat_policy)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
 
@@ -126,7 +241,8 @@ class VisionTransformer(nn.Module):
         patches = patches.reshape(b, gh * gw, 3 * ph * pw)
         return patches @ self.conv1.weight.to(x.dtype).reshape(self.width, -1).t()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                patch_dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if x.shape[1] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 2, 3, 1)  # accept NCHW at the boundary
         if tuple(x.shape[1:3]) != self.image_size:
@@ -135,6 +251,8 @@ class VisionTransformer(nn.Module):
         x = self._patch_embed(x.to(dtype))
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        if self.patch_dropout is not None:
+            x = self.patch_dropout(x, patch_dropout_generator)
         x = self.transformer(self.ln_pre(x))
         pooled = self.ln_post(x)[:, 0]
         return pooled @ self.proj.to(pooled.dtype)
@@ -161,14 +279,15 @@ class TextTransformer(nn.Module):
                  width: int = 512, heads: int = 8, layers: int = 12,
                  mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
                  output_dim: int = 512, act: Callable = gelu, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
         self.context_length = context_length
         self.compute_dtype = compute_dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl, grad_checkpointing)
+                                       act, attn_impl, grad_checkpointing, remat_policy)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
 

@@ -8,7 +8,7 @@ directories) for one process. ``checkpoints/epoch_N.pt`` holds:
   ``models.create_model(pretrained=path)`` and
   ``inference.create_engine(checkpoint=path)`` load it strictly;
 * ``dino_head`` (the DINO projection head's state dict, or None),
-  ``optimizer`` (the AdamW state), ``step``, ``epoch``, ``name``;
+  ``optimizer`` (the optimizer's state: its family, count and moments), ``step``, ``epoch``, ``name``;
 * ``step_in_epoch``: the optimizer steps already taken inside ``epoch``
   (0 for a completed epoch; a preemption save, ``epoch_N_preempt.pt``,
   records its position so that a resume continues epoch N there);

@@ -2,10 +2,11 @@
 
 The port of the JAX package's ``train/main.py`` for one process:
 flags -> device -> logging -> seed -> model (``--pretrained`` tag or file,
-read offline under ``--cache-dir``) and transforms -> tokenizer ->
-DINO features (the precomputed store, or the live DINOv2 teacher) and index
-map -> data -> schedule -> DINO head ->
-param-group AdamW -> resume -> pre-train evaluation over every val key ->
+read offline under ``--cache-dir``; ``--force-patch-dropout``,
+``--grad-checkpointing`` under ``--remat-policy``) and transforms ->
+tokenizer -> DINO features (the precomputed store, or the live DINOv2
+teacher) and index map -> data -> schedule -> DINO head -> the param-group
+optimizer (``--opt``, ``--adam-mu-dtype``) -> resume -> pre-train evaluation over every val key ->
 epochs of {``train_one_epoch`` -> evaluation -> best-epoch tracking ->
 checkpoint} -> final artifacts -> the CLIP-blind check -> the final remote
 sync. The first val key's
@@ -371,7 +372,11 @@ def _main(args):
                                  force_quick_gelu=args.force_quick_gelu,
                                  force_image_size=args.force_image_size,
                                  cache_dir=args.cache_dir,
-                                 grad_checkpointing=args.grad_checkpointing)
+                                 force_patch_dropout=args.force_patch_dropout,
+                                 grad_checkpointing=(
+                                     args.remat_policy
+                                     if args.grad_checkpointing and args.remat_policy != "full"
+                                     else args.grad_checkpointing))
     model.train()
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
@@ -430,6 +435,7 @@ def _main(args):
             lock_text=args.lock_text, lock_text_unlocked_layers=args.lock_text_unlocked_layers,
             freeze_projection=args.freeze_projection, flatten_group_lrs=args.flatten_group_lrs,
             use_param_groups=args.use_param_groups,
+            mu_dtype=None if args.adam_mu_dtype == "float32" else args.adam_mu_dtype,
         )
         optimizer, _ = build_optimizer(train_parameters(model, head), optim_cfg, schedule)
         dino_cfg = DinoLossCfg(
@@ -447,6 +453,9 @@ def _main(args):
             accum_freq=args.accum_freq,
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,
             warmup=args.warmup, log_grad_norm=bool(args.grad_clip_norm) or args.debug,
+            # forced from the CLI or set in the model's config, as in the JAX CLI
+            use_patch_dropout=(bool(args.force_patch_dropout)
+                               or model.visual.patch_dropout is not None),
         )
         train_step = make_train_step(model, step_cfg, head, dino_teacher)
         state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(args.seed))

@@ -1,7 +1,7 @@
-"""Param-group AdamW with tower locking, on the port's parameter names.
+"""Param-group optimizers with tower locking, on the port's parameter names.
 
-The port of the JAX package's ``train/optim.py`` for AdamW. Groups, with
-their lr and weight decay:
+The port of the JAX package's ``train/optim.py``. Groups, with their lr and
+weight decay:
 
   1. ``heads``: ``text_projection``, every non-visual name containing
      "proj" (so every text-tower ``in_proj``/``out_proj``/``c_proj``
@@ -21,17 +21,45 @@ in_proj_weight``), and ``tests/test_torch_optim.py`` holds the two label
 sets equal leaf for leaf at ViT-B-16.
 
 Locking gives the label ``frozen``: such parameters belong to no param
-group, so AdamW neither moves nor decays them, but they keep
+group, so the optimizer neither moves nor decays them, but they keep
 ``requires_grad``. JAX clips by the global norm before the per-group
-transform, so the norm includes the frozen leaves' gradients; the train
-step clips over every parameter for the same reason.
+transform, so the norm includes the frozen leaves' gradients; the
+optimizer clips over every parameter for the same reason.
 
-The head's parameters are named ``dino_head.<name>`` here, as the JAX
-train tree holds them under ``dino_head``. ``GroupAdamW.step(step)``
-sets each group's lr to ``schedule(step) * group_lr / base_lr`` (or
-``schedule(step)`` under ``flatten_group_lrs``) before the update, which is
-the value optax reads at the count before its update. Other optimizer
-families and the fused AdamW raise.
+The families of ``--opt`` (``make_inner_optimizer`` in the JAX package;
+each name may carry the reference's ``timm/`` prefix), written as plain
+torch on lists of tensors with optax 0.2.6's rounding points:
+
+* ``adamw``: ``optax.adamw`` — the update from the fp32 moment; only the
+  stored first moment is cast to ``mu_dtype`` (``--adam-mu-dtype``). Its
+  decay ``b1 * mu`` takes b1 rounded to that dtype and the product in fp32,
+  as the JAX package's jitted step computes it (``_decay_in``);
+* ``lion``: ``optax.lion`` — the sign of ``(1-b1) g + b1 mu`` read from the
+  stored (rounded) moment, then ``mu = (1-b2) g + b2 mu`` stored in
+  ``mu_dtype``;
+* ``lamb``: ``optax.lamb`` — Adam's direction plus decay, scaled per tensor
+  by ``|p| / |u|`` (1 where either norm is zero); no ``mu_dtype``;
+* ``adafactor``: ``optax.adafactor(learning_rate=None, momentum=beta1,
+  dtype_momentum=mu_dtype or fp32, multiply_by_parameter_scale=False)``,
+  then decoupled decay and the lr: the second moment factored into a row
+  and a column statistic over a tensor's two largest dims where the
+  smaller of them has at least 128 entries (decay ``1 - (t+1)^-0.8``, eps
+  1e-30), the update clipped to block RMS 1, then a momentum of beta1;
+  the factored dims follow the tensor's own shape, so for a square weight
+  (stored transposed against the JAX kernel) the row and column
+  statistics swap, which leaves the update the same;
+* ``sgd`` / ``sgdw`` / ``momentum``: ``optax.trace(beta1)``, decay, lr
+  (``--momentum`` is parsed and read by none, as in the JAX package).
+
+Each update is ``p += -lr * (direction + wd * p)``. The head's parameters
+are named ``dino_head.<name>`` here, as the JAX train tree holds them under
+``dino_head``. ``GroupOptimizer.step(step)`` takes each group's lr as
+``schedule(step) * group_lr / base_lr`` (or ``schedule(step)`` under
+``flatten_group_lrs``), the value optax reads at the count before its
+update. Tensors are updated in chunks of at most ``CHUNK`` elements with
+``torch._foreach_*`` ops (adafactor and lamb tensor by tensor), so the
+temporaries stay small beside the state. ``build_fused_optimizer`` is the
+JAX package's fused AdamW: one flattened fp32 ``m`` and ``v`` per group.
 """
 
 from __future__ import annotations
@@ -39,7 +67,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import re
-from typing import Dict, Iterable, Mapping, Optional, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -68,7 +96,10 @@ class OptimCfg:
     lock_text_unlocked_layers: int = 0
     freeze_projection: bool = False  # bug-compatible: don't train the DINO head
     flatten_group_lrs: bool = False  # bug-compatible: scheduler overrides group LRs
-    use_param_groups: bool = True    # False -> one AdamW group at the base lr
+    use_param_groups: bool = True    # False -> one group at the base lr
+    # the stored first moment's dtype ("bfloat16"); None keeps the
+    # parameters' dtype. The second moment stays in the parameters' dtype.
+    mu_dtype: Optional[str] = None
 
 
 GROUP_WD = {
@@ -185,16 +216,98 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> None:
         g.div_(factor.to(g.dtype))
 
 
-class GroupAdamW:
-    """``torch.optim.AdamW`` with one param group per label, and what the
-    JAX optimizer chains around AdamW: clipping by the global norm of every
-    gradient (frozen ones included) and the per-group schedule."""
+
+
+FAMILIES = ("adamw", "lion", "lamb", "adafactor", "sgd")
+_ALIASES = {"sgdw": "sgd", "momentum": "sgd"}
+# the largest number of elements one chunk of foreach updates holds
+CHUNK = 1 << 24
+# adafactor's fixed settings (optax.adafactor's defaults)
+AF_DECAY, AF_MIN_DIM, AF_EPS, AF_CLIP = 0.8, 128, 1e-30, 1.0
+
+
+def optimizer_family(cfg: OptimCfg) -> str:
+    """``cfg.opt`` without its ``timm/`` prefix, aliases resolved; the JAX
+    package's errors for an unknown name and for lamb with a mu dtype."""
+    name = (cfg.opt or "adamw").strip().lower().removeprefix("timm/")
+    name = _ALIASES.get(name, name)
+    if name not in FAMILIES:
+        raise ValueError(
+            f"unknown --opt {cfg.opt!r}: supported are 'adamw', 'lion', 'lamb', "
+            "'adafactor', 'sgd' (optionally prefixed 'timm/' for reference-CLI "
+            "compatibility)")
+    if name == "lamb" and _mu_dtype(cfg.mu_dtype) is not None:
+        raise ValueError("--adam-mu-dtype is not supported with --opt lamb "
+                         "(optax.lamb keeps fp32 moments); unset one of them")
+    return name
+
+
+def _mu_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    if name in (None, "float32"):
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"mu_dtype {name!r}: 'float32' or 'bfloat16'")
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (second largest, largest) dim of a tensor
+    of two or more dims whose second largest dim has at least 128 entries,
+    ties in dim order; else None."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < AF_MIN_DIM:
+        return None
+    return order[-2], order[-1]
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay ** count`` in fp32, as optax computes it."""
+    return float(1 - torch.tensor(decay, dtype=torch.float32) ** count)
+
+
+def _decay_in(tensors: List[torch.Tensor], decay: float) -> List[torch.Tensor]:
+    """``decay * t`` in fp32 with the scalar rounded to each tensor's dtype:
+    what the JAX package's jitted step computes for a weak-typed ``decay *
+    mu`` with a bf16 ``mu`` (the literal is bf16; XLA keeps the product in
+    fp32, as its excess-precision rule allows)."""
+    if not tensors:
+        return []
+    scalar = float(torch.tensor(decay, dtype=tensors[0].dtype))
+    if tensors[0].dtype == torch.float32:
+        return torch._foreach_mul(tensors, scalar)
+    return [t.float() * scalar for t in tensors]
+
+
+def _chunks(tensors: List[torch.Tensor]) -> List[List[int]]:
+    out, cur, n = [], [], 0
+    for i, t in enumerate(tensors):
+        if cur and n + t.numel() > CHUNK:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(i)
+        n += t.numel()
+    if cur:
+        out.append(cur)
+    return out
+
+
+class GroupOptimizer:
+    """One ``--opt`` family with one param group per label, and what the JAX
+    optimizer chains around it: clipping by the global norm of every
+    gradient (frozen ones included) and the per-group schedule. The state
+    is created with the optimizer, on each parameter's device."""
 
     def __init__(self, params: Mapping[str, torch.nn.Parameter], labels: Dict[str, str],
                  cfg: OptimCfg, schedule: Schedule, base_lr: float):
+        self.family = optimizer_family(cfg)
+        self.cfg = cfg
+        self.mu_dtype = _mu_dtype(cfg.mu_dtype)
         self.params = list(params.values())
         self.schedule = schedule
         self.grad_clip_norm = cfg.grad_clip_norm
+        self.count = 0
         if not cfg.use_param_groups:
             group_wd, ratios = {"default": cfg.wd}, {"default": 1.0}
         else:
@@ -202,14 +315,31 @@ class GroupAdamW:
             group_wd = {g: cfg.wd if wd is None else wd for g, wd in GROUP_WD.items()}
             ratios = {g: 1.0 if cfg.flatten_group_lrs or base_lr <= 0 else lrs[g] / base_lr
                       for g in GROUP_WD}
-        groups = []
+        self.groups = []
         for g, wd in group_wd.items():
-            members = [params[p] for p, lbl in labels.items() if lbl == g]
-            if members:
-                groups.append({"params": members, "lr": base_lr * ratios[g],
-                               "weight_decay": wd, "label": g, "lr_ratio": ratios[g]})
-        self.adamw = torch.optim.AdamW(groups, lr=base_lr, betas=(cfg.beta1, cfg.beta2),
-                                       eps=cfg.eps)
+            names = [p for p, lbl in labels.items() if lbl == g]
+            if names:
+                self.groups.append({"label": g, "names": names, "wd": wd, "lr_ratio": ratios[g],
+                                    "params": [params[n] for n in names]})
+        self.state = {n: self._init_state(params[n]) for grp in self.groups
+                      for n in grp["names"]}
+
+    def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        zeros = lambda shape, dtype=None: torch.zeros(  # noqa: E731
+            shape, dtype=dtype or p.dtype, device=p.device)
+        if self.family in ("adamw", "lamb"):
+            return {"mu": zeros(p.shape, self.mu_dtype), "nu": zeros(p.shape)}
+        if self.family == "lion":
+            return {"mu": zeros(p.shape, self.mu_dtype)}
+        if self.family == "sgd":
+            return {"mu": zeros(p.shape)}
+        dims = factored_dims(p.shape)  # adafactor: its momentum and second moment
+        mu = zeros(p.shape, self.mu_dtype or torch.float32)
+        if dims is None:
+            return {"mu": mu, "v": zeros(p.shape)}
+        d1, d0 = dims
+        return {"mu": mu, "v_row": zeros([n for i, n in enumerate(p.shape) if i != d0]),
+                "v_col": zeros([n for i, n in enumerate(p.shape) if i != d1])}
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -218,32 +348,142 @@ class GroupAdamW:
     def grads(self):
         return [p.grad for p in self.params if p.grad is not None]
 
+    @torch.no_grad()
     def step(self, step: int) -> None:
         """One update with the lr the schedule gives at ``step`` (counted
-        from 0: the count optax reads before its update)."""
+        from 0: the count optax reads before its update). A parameter of a
+        group without a gradient takes a zero gradient, as an optax leaf."""
         if self.grad_clip_norm is not None:
             clip_by_global_norm(self.grads(), self.grad_clip_norm)
+        self.count += 1
         lr = self.schedule(step)
-        for group in self.adamw.param_groups:
-            group["lr"] = lr * group["lr_ratio"]
-        self.adamw.step()
+        update = getattr(self, f"_{self.family}")
+        for group in self.groups:
+            ps = group["params"]
+            gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+            states = [self.state[n] for n in group["names"]]
+            for idx in _chunks(ps):
+                update([ps[i] for i in idx], [gs[i] for i in idx], [states[i] for i in idx],
+                       lr * group["lr_ratio"], group["wd"])
+
+    # ---- the families: each takes a chunk of parameters, gradients and
+    # states, the group's lr and weight decay, and updates in place ----
+
+    def _apply(self, ps, us, lr: float, wd: float) -> None:
+        """``p += -lr * (u + wd * p)`` (optax's add_decayed_weights,
+        scale_by_learning_rate and apply_updates)."""
+        if wd:
+            torch._foreach_add_(us, torch._foreach_mul(ps, wd))
+        torch._foreach_mul_(us, -lr)
+        torch._foreach_add_(ps, us)
+
+    def _adam_direction(self, gs, states) -> List[torch.Tensor]:
+        """scale_by_adam: ``mu_hat / (sqrt(nu_hat) + eps)`` from the fp32
+        moment; the stored moment cast to its dtype."""
+        c = self.cfg
+        mus, nus = [s["mu"] for s in states], [s["nu"] for s in states]
+        m = torch._foreach_mul(gs, 1 - c.beta1)
+        torch._foreach_add_(m, _decay_in(mus, c.beta1))
+        torch._foreach_copy_(mus, m)
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1 - c.beta2)
+        torch._foreach_mul_(nus, c.beta2)
+        torch._foreach_add_(nus, sq)
+        del sq
+        torch._foreach_div_(m, _bias_correction(c.beta1, self.count))
+        den = torch._foreach_div(nus, _bias_correction(c.beta2, self.count))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, c.eps)
+        torch._foreach_div_(m, den)
+        return m
+
+    def _adamw(self, ps, gs, states, lr, wd) -> None:
+        self._apply(ps, self._adam_direction(gs, states), lr, wd)
+
+    def _lamb(self, ps, gs, states, lr, wd) -> None:
+        us = self._adam_direction(gs, states)
+        if wd:
+            torch._foreach_add_(us, torch._foreach_mul(ps, wd))
+        for p, u in zip(ps, us):  # scale_by_trust_ratio
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un))
+        self._apply(ps, us, lr, 0.0)
+
+    def _lion(self, ps, gs, states, lr, wd) -> None:
+        c = self.cfg
+        mus = [s["mu"] for s in states]
+        us = torch._foreach_mul(gs, 1 - c.beta1)
+        torch._foreach_add_(us, _decay_in(mus, c.beta1))
+        torch._foreach_sign_(us)
+        m = torch._foreach_mul(gs, 1 - c.beta2)
+        torch._foreach_add_(m, _decay_in(mus, c.beta2))
+        torch._foreach_copy_(mus, m)
+        del m
+        self._apply(ps, us, lr, wd)
+
+    def _sgd(self, ps, gs, states, lr, wd) -> None:
+        traces = [s["mu"] for s in states]
+        torch._foreach_mul_(traces, self.cfg.beta1)
+        torch._foreach_add_(traces, gs)
+        self._apply(ps, [t.clone() for t in traces], lr, wd)
+
+    def _adafactor(self, ps, gs, states, lr, wd) -> None:
+        c = self.cfg
+        # decay_rate_t = 1 - (t + 1)^-0.8 at the count t before this update,
+        # in fp32 (a host number: no copy to the device, no wait for it)
+        dr = float(1.0 - torch.tensor(float(self.count), dtype=torch.float32) ** -AF_DECAY)
+        us = []
+        for p, g, s in zip(ps, gs, states):
+            sq = g * g + AF_EPS
+            dims = factored_dims(p.shape)
+            if dims is None:
+                s["v"].copy_(dr * s["v"] + (1.0 - dr) * sq)
+                u = g * s["v"] ** -0.5
+            else:
+                d1, d0 = dims
+                s["v_row"].copy_(dr * s["v_row"] + (1.0 - dr) * sq.mean(d0))
+                s["v_col"].copy_(dr * s["v_col"] + (1.0 - dr) * sq.mean(d1))
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = s["v_row"].mean(reduced_d1, keepdim=True)
+                row = (s["v_row"] / row_col_mean) ** -0.5
+                u = g * row.unsqueeze(d0) * (s["v_col"] ** -0.5).unsqueeze(d1)
+            del sq
+            # clip_by_block_rms, then the momentum (ema without debiasing)
+            u = u / torch.clamp(torch.sqrt((u * u).mean()) / AF_CLIP, min=1.0)
+            mu = s["mu"]
+            u = u * (1 - c.beta1) + _decay_in([mu], c.beta1)[0]
+            mu.copy_(u)
+            us.append(u)
+        self._apply(ps, us, lr, wd)
 
     def state_dict(self) -> dict:
-        return self.adamw.state_dict()
+        return {"family": self.family, "count": self.count,
+                "state": {n: dict(s) for n, s in self.state.items()}}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state)
+        """Restores into the existing tensors (each keeps its dtype and
+        device); raises on another family or another set of parameters."""
+        if state.get("family") != self.family:
+            raise ValueError(f"the saved optimizer state is {state.get('family')!r}, this run's "
+                             f"optimizer is {self.family!r}")
+        if set(state["state"]) != set(self.state):
+            raise ValueError("the saved optimizer state holds other parameters than this run's")
+        self.count = int(state["count"])
+        for n, saved in state["state"].items():
+            for k, t in self.state[n].items():
+                if tuple(saved[k].shape) != tuple(t.shape):
+                    raise ValueError(f"optimizer state {n}.{k}: saved {tuple(saved[k].shape)}, "
+                                     f"expected {tuple(t.shape)}")
+                t.copy_(saved[k])
 
 
 def build_optimizer(params: Mapping[str, torch.nn.Parameter], cfg: OptimCfg,
                     schedule: Schedule, base_lr: Optional[float] = None
-                    ) -> Tuple[GroupAdamW, Dict[str, str]]:
-    """AdamW with per-group lr and weight decay, global-norm clipping and
-    frozen parameters in no group. ``params`` maps names (model keys, head
-    keys under ``dino_head.``) to parameters. Returns (optimizer, labels)."""
-    name = (cfg.opt or "adamw").strip().lower().removeprefix("timm/")
-    if name != "adamw":
-        raise NotImplementedError(f"--opt {cfg.opt!r}: the port has AdamW only so far")
+                    ) -> Tuple[GroupOptimizer, Dict[str, str]]:
+    """``cfg.opt`` with per-group lr and weight decay, global-norm clipping
+    and frozen parameters in no group. ``params`` maps names (model keys,
+    head keys under ``dino_head.``) to parameters. Returns (optimizer,
+    labels)."""
     base_lr = base_lr if base_lr is not None else (cfg.lr if cfg.lr is not None else 5e-5)
     labels = label_params(params, cfg)
     if not cfg.use_param_groups:
@@ -252,8 +492,89 @@ def build_optimizer(params: Mapping[str, torch.nn.Parameter], cfg: OptimCfg,
     for p, lbl in labels.items():
         sizes[lbl] = sizes.get(lbl, 0) + params[p].numel()
     logging.info("optimizer groups: %s", sizes)
-    return GroupAdamW(params, labels, cfg, schedule, base_lr), labels
+    return GroupOptimizer(params, labels, cfg, schedule, base_lr), labels
 
 
-def build_fused_optimizer(*args, **kwargs):
-    raise NotImplementedError("the fused AdamW of the JAX package is not ported")
+class FusedAdamW:
+    """The JAX package's ``build_fused_optimizer``: AdamW with one flattened
+    fp32 ``m`` and ``v`` per group (groups by label, whatever
+    ``use_param_groups`` says, as there), the lr read at its own count
+    before the update, ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``."""
+
+    def __init__(self, params: Mapping[str, torch.nn.Parameter], labels: Dict[str, str],
+                 cfg: OptimCfg, schedule: Schedule, base_lr: float):
+        self.cfg = cfg
+        self.params = list(params.values())
+        self.schedule = schedule
+        self.base_lr = base_lr
+        self.grad_clip_norm = cfg.grad_clip_norm
+        self.count = 0
+        self.groups = {}
+        for g in sorted({lbl for lbl in labels.values() if lbl != "frozen"}):
+            members = [params[n] for n, lbl in labels.items() if lbl == g]
+            n = sum(p.numel() for p in members)
+            dev = members[0].device
+            self.groups[g] = {"params": members,
+                              "m": torch.zeros(n, dtype=torch.float32, device=dev),
+                              "v": torch.zeros(n, dtype=torch.float32, device=dev)}
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def grads(self):
+        return [p.grad for p in self.params if p.grad is not None]
+
+    @torch.no_grad()
+    def step(self, step: Optional[int] = None) -> None:
+        """One update; the lr comes from the optimizer's own count, as in the
+        JAX fused transform (``step`` is accepted for the train step's
+        call and not read)."""
+        c = self.cfg
+        if self.grad_clip_norm is not None:
+            clip_by_global_norm(self.grads(), self.grad_clip_norm)
+        lr_now = self.schedule(self.count)
+        self.count += 1
+        lrs = group_base_lrs(c)
+        bc1, bc2 = _bias_correction(c.beta1, self.count), _bias_correction(c.beta2, self.count)
+        for g, st in self.groups.items():
+            ps = st["params"]
+            gv = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                            .reshape(-1).float() for p in ps])
+            pv = torch.cat([p.reshape(-1).float() for p in ps])
+            st["m"].mul_(c.beta1).add_(gv * (1 - c.beta1))
+            st["v"].mul_(c.beta2).add_(gv * gv * (1 - c.beta2))
+            ratio = 1.0 if c.flatten_group_lrs or self.base_lr <= 0 else lrs[g] / self.base_lr
+            lr = lr_now * ratio
+            wd = GROUP_WD[g] if GROUP_WD[g] is not None else c.wd
+            upd = st["m"] / bc1 / (torch.sqrt(st["v"] / bc2) + c.eps) + wd * pv
+            upd.mul_(-lr)
+            off = 0
+            for p in ps:
+                p.add_(upd[off:off + p.numel()].view_as(p).to(p.dtype))
+                off += p.numel()
+
+    def state_dict(self) -> dict:
+        return {"family": "fused_adamw", "count": self.count,
+                "groups": {g: {"m": st["m"], "v": st["v"]} for g, st in self.groups.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state.get("family") != "fused_adamw" or set(state["groups"]) != set(self.groups):
+            raise ValueError("the saved optimizer state is not this fused AdamW's")
+        self.count = int(state["count"])
+        for g, saved in state["groups"].items():
+            self.groups[g]["m"].copy_(saved["m"])
+            self.groups[g]["v"].copy_(saved["v"])
+
+
+def build_fused_optimizer(params: Mapping[str, torch.nn.Parameter], cfg: OptimCfg,
+                          schedule: Schedule, base_lr: Optional[float] = None
+                          ) -> Tuple[FusedAdamW, Dict[str, str]]:
+    """AdamW over one flattened fp32 ``m``/``v`` per group; other families
+    raise, as in the JAX package. Not on the CLI's path."""
+    if (cfg.opt or "adamw").strip().lower().removeprefix("timm/") != "adamw":
+        raise ValueError("build_fused_optimizer implements AdamW only; "
+                         f"--opt {cfg.opt!r} must use build_optimizer")
+    base_lr = base_lr if base_lr is not None else (cfg.lr if cfg.lr is not None else 5e-5)
+    labels = label_params(params, cfg)
+    return FusedAdamW(params, labels, cfg, schedule, base_lr), labels

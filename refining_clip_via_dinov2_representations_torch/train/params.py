@@ -4,12 +4,13 @@ The port of the JAX package's ``train/params.py``: the same flag names and
 defaults, and ``get_default_params`` for the model family. A flag that this
 slice of the port cannot honour raises ``NotImplementedError`` at parse time
 when it is set away from its default (``UNPORTED``), rather than being
-ignored: other optimizers and a bf16 first moment, patch dropout and the
-selective remat policies, the other losses and towers, webdataset and the
-ImageNet train subset, device preprocessing, multi-GPU training, the step
-profiler. Tracking (``--report-to``), preemption saves, asynchronous and
-remote checkpoints, ``--remote-sync``, ``--copy-codebase`` and gradient
-accumulation (``--accum-freq``) are ported. Flags that change nothing in
+ignored: the other losses and towers, webdataset and the ImageNet train
+subset, device preprocessing, multi-GPU training, the step profiler.
+Tracking (``--report-to``), preemption saves, asynchronous and remote
+checkpoints, ``--remote-sync``, ``--copy-codebase``, gradient accumulation
+(``--accum-freq``), the ``--opt`` families, ``--adam-mu-dtype``,
+``--force-patch-dropout`` and every ``--remat-policy`` are ported;
+``--momentum`` is parsed and read by none, as in the JAX package. Flags that change nothing in
 one process (``--local-loss``, ``--gather-with-grad``, ``--log-local``), the
 sweep-surface knobs the reference parses but no loss reads, and knobs whose
 consumer the JAX package does not have either (``--log-checkpoint``,
@@ -28,13 +29,7 @@ UNPORTED = {
     "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
     "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
     "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
-    "opt": "optimizers other than AdamW",
-    "momentum": "optimizers other than AdamW",
     "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
-    "force_patch_dropout": "patch dropout (ROADMAP Queue 1 item 3)",
-    "adam_mu_dtype": "a bf16 first moment",
-    "remat_policy": "selective activation-checkpointing policies (jax.checkpoint_policies; "
-                    "ROADMAP Queue 1 item 3)",
     "lock_image_freeze_bn_stats": "BatchNorm towers",
     "lock_text_freeze_layer_norm": "frozen LayerNorms",
     "torchscript": "TorchScript",

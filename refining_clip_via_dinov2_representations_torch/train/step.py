@@ -1,5 +1,5 @@
-"""The training step: forward both towers, the loss, backward, param-group
-AdamW, the logit-scale clamp.
+"""The training step: forward both towers, the loss, backward, the
+param-group optimizer (``train/optim.py``), the logit-scale clamp.
 
 The port of the JAX package's ``train/step.py`` for one process and the
 ``"clip"`` and ``"dino"`` losses. PyTorch runs eagerly, so there is no
@@ -31,12 +31,18 @@ scaled by ``1 / accum``, and the logit scale is live in every pass, so its
 gradient is ``accum`` times the big batch's (as in torch and the JAX step).
 The teacher's rows come from phase 1 and are reused in phase 2: the live
 teacher runs once a microbatch. The metrics are the mean over the passes.
-The JAX step folds the microbatch index into its rng so that stochastic
-paths draw alike in both phases; the port's step has no stochastic path
-yet (patch dropout and device preprocessing raise), so nothing draws.
 
-The other loss types, patch dropout, BatchNorm towers and device
-preprocessing raise ``NotImplementedError``.
+Patch dropout (``use_patch_dropout``, on a model whose vision config has a
+probability) is the step's one random draw. Each step takes a seed from
+the state's generator (saved in checkpoints, so a resume draws on) and
+gives microbatch ``j`` a generator on the model's device seeded from it
+with ``j`` folded in (``patch_dropout_generator``), as the JAX step folds
+the microbatch index into its rng: both phases of ``accumulate_grads`` see
+the same kept tokens for the same rows. Forwards without a generator (the
+evaluations, CLIP-blind) keep every token.
+
+The other loss types, BatchNorm towers and device preprocessing raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import torch
 
 from ..losses import DinoLossCfg, clip_loss, dino_enhanced_loss
 from ..losses.dino import DinoProjectionHead
-from .optim import HEAD_PREFIX, GroupAdamW, global_norm
+from .optim import HEAD_PREFIX, GroupOptimizer, global_norm
 
 LN100 = math.log(100.0)
 LOSS_TYPES = ("clip", "dino")
@@ -59,7 +65,7 @@ LOSS_TYPES = ("clip", "dino")
 class TrainState:
     model: torch.nn.Module
     head: Optional[DinoProjectionHead]
-    optimizer: GroupAdamW
+    optimizer: GroupOptimizer
     step: int = 0
     generator: Optional[torch.Generator] = None
 
@@ -78,14 +84,26 @@ class StepCfg:
     def __post_init__(self):
         unported = {
             f"loss_type {self.loss_type!r}": self.loss_type not in LOSS_TYPES,
-            "patch dropout": self.use_patch_dropout,
             "device preprocessing": self.device_preprocess is not None,
         }
         for what, present in unported.items():
             if present:
                 raise NotImplementedError(
                     f"{what}: the port's train step has the clip and dino losses, without "
-                    "patch dropout or device preprocessing, so far (ROADMAP Queue 1 item 5)")
+                    "device preprocessing, so far (ROADMAP Queue 1 item 5)")
+
+
+# an odd 63-bit constant (the golden ratio's): folds a microbatch index
+# into the step's seed
+_FOLD = 0x1E3779B97F4A7C15
+
+
+def patch_dropout_generator(seed: int, index: int, device) -> torch.Generator:
+    """Microbatch ``index``'s generator on ``device``: ``seed`` with the
+    index folded in. The same (seed, index) gives the same draws."""
+    g = torch.Generator(device=device)
+    g.manual_seed((seed + _FOLD * (index + 1)) % (1 << 63))
+    return g
 
 
 def train_parameters(model: torch.nn.Module, head: Optional[torch.nn.Module]
@@ -117,8 +135,9 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
     per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the losses
     from them."""
 
-    def encode_fn(batch: Dict[str, torch.Tensor], step: int):
-        out = model(batch["images"], batch["texts"])
+    def encode_fn(batch: Dict[str, torch.Tensor], step: int,
+                  generator: Optional[torch.Generator] = None):
+        out = model(batch["images"], batch["texts"], patch_dropout_generator=generator)
         rows = {"img_f": out["image_features"], "txt_f": out["text_features"]}
         scalars: Dict[str, Any] = {"logit_scale": out["logit_scale"]}
         if cfg.loss_type == "dino":
@@ -151,8 +170,8 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
         metrics["total_loss"] = total
         return metrics
 
-    def loss_fn(batch, step):
-        rows, scalars = encode_fn(batch, step)
+    def loss_fn(batch, step, generator=None):
+        rows, scalars = encode_fn(batch, step, generator)
         metrics = compute_metrics(rows, scalars)
         return metrics["total_loss"], metrics
 
@@ -162,19 +181,22 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
 
 
 def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: int,
-                     accum: int) -> Dict[str, torch.Tensor]:
+                     accum: int, generator_for: Optional[Callable] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Cached-feature accumulation over ``batch``'s ``accum`` stacked
     microbatches: adds the gradients of the full-batch loss into ``.grad``
     (see the module docstring) and returns the metrics' mean over the
-    passes."""
+    passes. ``generator_for(j)`` gives microbatch ``j``'s patch-dropout
+    generator, a fresh one in each phase."""
+    gen = generator_for or (lambda j: None)
     micros = [{k: v[j] for k, v in batch.items()} for j in range(accum)]
     with torch.no_grad():
-        cached = [loss_fn.encode_fn(m, step)[0] for m in micros]
+        cached = [loss_fn.encode_fn(m, step, gen(j))[0] for j, m in enumerate(micros)]
     passes = []
     for j, micro in enumerate(micros):
         if "dino_features" in cached[j] and "dino_features" not in micro:
             micro = {**micro, "dino_features": cached[j]["dino_features"]}
-        rows, scalars = loss_fn.encode_fn(micro, step)
+        rows, scalars = loss_fn.encode_fn(micro, step, gen(j))
         full = {k: torch.cat([r if i == j else c[k] for i, c in enumerate(cached)])
                 for k, r in rows.items()}
         metrics = loss_fn.compute_metrics(full, scalars)
@@ -197,10 +219,15 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
+        generator_for = None
+        if cfg.use_patch_dropout:
+            seed = int(torch.randint(0, 1 << 62, (1,), generator=state.generator))
+            device = batch["images"].device
+            generator_for = lambda j: patch_dropout_generator(seed, j, device)  # noqa: E731
         if cfg.accum_freq > 1:
-            metrics = accumulate_grads(loss_fn, batch, state.step, cfg.accum_freq)
+            metrics = accumulate_grads(loss_fn, batch, state.step, cfg.accum_freq, generator_for)
         else:
-            _, metrics = loss_fn(batch, state.step)
+            _, metrics = loss_fn(batch, state.step, generator_for and generator_for(0))
             metrics["total_loss"].backward()
         if cfg.log_grad_norm:
             metrics["grad_norm"] = global_norm(state.optimizer.grads())

@@ -26,6 +26,10 @@ from .torch_port_utils import TINY_CFG, images, jax_clip, token_ids
 
 MODEL = "tiny-torch-ckpt-test"
 register_model_config(MODEL, TINY_CFG)
+# a 128-wide vision tower, so that adafactor factors its projections
+WIDE_MODEL = "tiny-torch-ckpt-test-wide"
+register_model_config(WIDE_MODEL, {**TINY_CFG, "vision_cfg": {
+    **TINY_CFG["vision_cfg"], "width": 128, "head_width": 64, "layers": 1}})
 RESUME_TOL = 1e-6
 FEATURE_TOL = 1e-5
 
@@ -64,9 +68,10 @@ def test_resume_latest_continues_the_run_exactly(tmp_path):
             torch.testing.assert_close(got[part][k], v, atol=RESUME_TOL, rtol=0)
     g_opt, w_opt = got["optimizer"]["state"], want["optimizer"]["state"]
     assert g_opt.keys() == w_opt.keys()
-    for i in w_opt:
-        for k in ("exp_avg", "exp_avg_sq"):
-            torch.testing.assert_close(g_opt[i][k], w_opt[i][k], atol=RESUME_TOL, rtol=0)
+    assert got["optimizer"]["count"] == want["optimizer"]["count"] == 3
+    for n in w_opt:  # AdamW's moments, by parameter name
+        for k in ("mu", "nu"):
+            torch.testing.assert_close(g_opt[n][k], w_opt[n][k], atol=RESUME_TOL, rtol=0)
     assert got["data_order"] == {"accum_freq": 1, "batch_size": 4, "seed": 5, "world": 1}
 
 
@@ -201,3 +206,74 @@ def test_async_save_equals_the_synchronous_one_after_the_next_step(tmp_path):
     same(got, want, "checkpoint")
     moved = dict(model.named_parameters())["visual.conv1.weight"]
     assert not torch.equal(moved, want["state_dict"]["visual.conv1.weight"])
+
+
+@pytest.mark.parametrize("opt,mu", [("adamw", None), ("adamw", "bfloat16"),
+                                    ("lion", "bfloat16"), ("lamb", None),
+                                    ("adafactor", "bfloat16"), ("sgd", None), ("fused", None)])
+def test_each_family_state_makes_a_round_trip(tmp_path, opt, mu):
+    """Two steps, a save, a restore into a fresh state: every moment back in
+    its dtype (bf16 stays bf16), factored statistics in their shapes, bit
+    for bit; a third step from the restored state equals the third step of
+    the run that saved."""
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg,
+        DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.train import optim, scheduler
+    from refining_clip_via_dinov2_representations_torch.train.checkpoint import save_checkpoint
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg,
+        TrainState,
+        make_train_step,
+        train_parameters,
+    )
+
+    def fresh():
+        model, _ = create_model(WIDE_MODEL, device="cpu", seed=2)
+        torch.manual_seed(0)
+        head = DinoProjectionHead(TINY_CFG["embed_dim"], 24)
+        cfg = optim.OptimCfg(lr=1e-2, opt="adamw" if opt == "fused" else opt, mu_dtype=mu)
+        build = optim.build_fused_optimizer if opt == "fused" else optim.build_optimizer
+        o, _ = build(train_parameters(model, head), cfg, scheduler.const_lr(1e-2, 0, 3))
+        state = TrainState(model.train(), head, o, 0, torch.Generator().manual_seed(0))
+        step = make_train_step(model, StepCfg(loss_type="dino",
+                                              dino=DinoLossCfg(lambda_soft=0.5)), head)
+        return state, step
+
+    size, ctx = TINY_CFG["vision_cfg"]["image_size"], TINY_CFG["text_cfg"]["context_length"]
+    batch = {"images": torch.from_numpy(images(4, size)),
+             "texts": torch.from_numpy(token_ids(4, ctx)).long(),
+             "dino_features": torch.from_numpy(
+                 np.random.default_rng(9).normal(size=(4, 24)).astype(np.float32))}
+    state, step = fresh()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    path = save_checkpoint(str(tmp_path), state, 1)
+    saved = torch.load(path, map_location="cpu", weights_only=True)["optimizer"]
+    restored, step2 = fresh()
+    restored, *_ = restore_checkpoint(path, restored)
+
+    def leaves(sd, prefix=""):
+        for k, v in sd.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            elif isinstance(v, torch.Tensor):
+                yield f"{prefix}{k}", v
+
+    want = dict(leaves(state.optimizer.state_dict()))
+    got = dict(leaves(restored.optimizer.state_dict()))
+    assert got.keys() == want.keys() == dict(leaves(saved)).keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        assert torch.equal(got[k], v), k
+    if mu is not None:
+        assert {v.dtype for k, v in got.items() if k.endswith(".mu")} == {torch.bfloat16}
+    if opt == "adafactor":
+        rows = {k: v.shape for k, v in got.items() if k.endswith(".v_row")}
+        assert rows["state.visual.transformer.resblocks.0.attn.in_proj_weight.v_row"] == (128,)
+        assert got["state.visual.transformer.resblocks.0.attn.in_proj_weight.v_col"].shape == (384,)
+    state, _ = step(state, batch)
+    restored, _ = step2(restored, batch)
+    for (n, p), q in zip(state.model.named_parameters(), restored.model.parameters()):
+        assert torch.equal(p, q), n

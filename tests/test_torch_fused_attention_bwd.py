@@ -318,3 +318,24 @@ def test_cuda_fp32_backward_ignores_the_tf32_switch():
     for a, b_, w in zip(*grads, want):
         assert torch.equal(a, b_)
         assert (a - w).abs().max().item() <= 1e-4 * largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fwd_tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                                    (torch.bfloat16, 2e-2, BF16_REL_TOL)])
+@pytest.mark.parametrize("shape,causal", [((16, 16, 257, 88), False), ((16, 16, 77, 64), True)])
+def test_cuda_vit_g14_shapes_match_plain_version(shape, causal, dtype, fwd_tol, rel_tol):
+    """ViT-g-14's attention calls at batch 16: vision heads of 88 (the
+    head-dim-128 instantiations with the tail zero-padded) and the causal
+    text call; forward (absolute tolerance) and backward (of the largest
+    |grad|) against the plain versions."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = [torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(4)]
+    scale = shape[-1] ** -0.5
+    got = fused_attention_fwd(q, k, v, scale, causal)
+    want = fused_attention_reference(q, k, v, scale, causal)
+    assert (got.float() - want.float()).abs().max().item() <= fwd_tol
+    err, largest = _bwd_error(q, k, v, do, causal)
+    assert err <= rel_tol * largest, (err, largest)

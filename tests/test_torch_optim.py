@@ -178,7 +178,12 @@ def test_adamw_matches_optax_for_5_steps(case):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError):
-        optim.build_optimizer({}, optim.OptimCfg(opt="lion"), scheduler.const_lr(1e-3, 0, 1))
-    with pytest.raises(NotImplementedError):
-        optim.build_fused_optimizer()
+    """Every family of the JAX package is ported (their parity tests are in
+    ``test_torch_optim_families.py``); what still raises is what raises
+    there: a name outside the zoo, and the fused AdamW asked for another
+    family."""
+    with pytest.raises(ValueError, match="unknown --opt"):
+        optim.build_optimizer({}, optim.OptimCfg(opt="adagrad"), scheduler.const_lr(1e-3, 0, 1))
+    with pytest.raises(ValueError, match="AdamW only"):
+        optim.build_fused_optimizer({}, optim.OptimCfg(opt="lion"),
+                                    scheduler.const_lr(1e-3, 0, 1))

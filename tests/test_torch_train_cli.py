@@ -46,6 +46,9 @@ CONFIG2_FLAGS = ["--model", "ViT-B-16", "--pretrained", "openai", "--precision",
                  "--dino_index_map_path", "dino_map.json", "--batch-size", "96", "--epochs",
                  "10", "--warmup", "500", "--lr", "5e-4", "--report-to", "tensorboard",
                  "--run_clip_blind"]
+# Config 5's single-chip recipe (docs/REPRODUCE.md:78-90)
+CONFIG5_FLAGS = ["--opt", "adafactor", "--adam-mu-dtype", "bfloat16", "--grad-checkpointing",
+                 "--remat-policy", "dots_with_no_batch_dims_saveable"]
 
 
 def _argv(tmp_path, *extra):
@@ -64,7 +67,10 @@ def _argv(tmp_path, *extra):
                                   CONFIG2_FLAGS + ["--save-on-preemption", "--async-checkpoint",
                                                    "--accum-freq", "2", "--copy-codebase",
                                                    "--remote-sync", "r", "--remote-sync-protocol",
-                                                   "fsspec", "--stop-after-steps", "3"]])
+                                                   "fsspec", "--stop-after-steps", "3"],
+                                  ["--model", "ViT-g-14", "--batch-size", "16", *CONFIG5_FLAGS,
+                                   "--force-patch-dropout", "0.5", "--momentum", "0.9",
+                                   "--opt", "timm/lion"]])
 def test_flags_and_defaults_match_jax(argv):
     from refining_clip_via_dinov2_representations_tpu.train.params import (
         parse_args as jax_parse,
@@ -112,6 +118,47 @@ def test_forced_size_checkpointed_flash_run(tmp_path):
     assert pp.size == 32 and model.visual.image_size == (32, 32)
 
 
+def test_config5_flags_run_on_the_tiny_model(tmp_path, monkeypatch):
+    """Config 5's flags with Config 2's DINO loss and ``--force-patch-dropout
+    0.5``: adafactor with a bf16 first moment in the checkpoint, every
+    block checkpointed under the policy, half the patches dropped in the
+    train steps and none in evaluation."""
+    from refining_clip_via_dinov2_representations_torch.models import layers, transformer
+
+    policies, tokens = [], []
+    real_kwargs, real_keep = transformer.remat_kwargs, layers.patch_dropout_keep
+
+    def remat_kwargs(policy):
+        policies.append(policy)
+        return real_kwargs(policy)
+
+    def keep(x, scores, prob, exclude):
+        out = real_keep(x, scores, prob, exclude)
+        tokens.append((x.shape[1], out.shape[1]))
+        return out
+
+    monkeypatch.setattr(transformer, "remat_kwargs", remat_kwargs)
+    monkeypatch.setattr(layers, "patch_dropout_keep", keep)
+    records = main(_argv(tmp_path, "--force-cpu", *CONFIG5_FLAGS, "--use_dino_general",
+                         "--soft_mode", "kl_teacher", "--lambda_soft", "0.5",
+                         "--synthetic-dino-dim", "24", "--force-patch-dropout", "0.5",
+                         "--log-every-n-steps", "1", "--stop-after-steps", "2"))
+    assert [r["step"] for r in records] == [1, 2]
+    assert all(math.isfinite(r["total_loss"]) and r["soft_loss"] > 0 for r in records)
+    # two train steps, both towers: the policy every time, 5 -> 3 vision tokens
+    assert policies == ["dots_with_no_batch_dims_saveable"] * 4
+    assert tokens == [(5, 3)] * 2
+    saved = torch.load(tmp_path / "run" / "checkpoints" / "epoch_0_preempt.pt",
+                       map_location="cpu", weights_only=True)
+    opt = saved["optimizer"]
+    assert opt["family"] == "adafactor" and opt["count"] == 2
+    assert {s["mu"].dtype for s in opt["state"].values()} == {torch.bfloat16}
+    params_txt = (tmp_path / "run" / "params.txt").read_text()
+    for line in ("opt: adafactor", "adam_mu_dtype: bfloat16", "force_patch_dropout: 0.5",
+                 "remat_policy: dots_with_no_batch_dims_saveable"):
+        assert line + "\n" in params_txt
+
+
 def test_clip_loss_run_without_dino(tmp_path):
     records = main(_argv(tmp_path, "--force-cpu", "--log-every-n-steps", "2"))
     assert [r["step"] for r in records] == [2, 4]
@@ -126,11 +173,10 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
         main(_argv(tmp_path))
 
 
-@pytest.mark.parametrize("extra", [["--adam-mu-dtype", "bfloat16"], ["--profile"],
-                                   ["--imagenet-train", "x"], ["--siglip"],
+# --adam-mu-dtype, --opt, --force-patch-dropout and --remat-policy are
+# ported: test_config5_flags_run_on_the_tiny_model runs them
+@pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"], ["--siglip"],
                                    ["--distill-model", "ViT-B-32"], ["--fsdp"],
-                                   ["--opt", "lion"], ["--force-patch-dropout", "0.5"],
-                                   ["--grad-checkpointing", "--remat-policy", "dots_saveable"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):

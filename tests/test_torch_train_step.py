@@ -164,7 +164,8 @@ def test_three_steps_match_jax_make_train_step(case):
 
 
 def test_unported_step_options_raise():
-    for kw in (dict(loss_type="siglip"), dict(loss_type="coca"), dict(use_patch_dropout=True),
+    # patch dropout is ported (tests/test_torch_patch_dropout.py)
+    for kw in (dict(loss_type="siglip"), dict(loss_type="coca"),
                dict(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))):
         with pytest.raises(NotImplementedError):
             StepCfg(**kw)
