@@ -166,6 +166,26 @@ kernels are checked at its shapes, head dim 88 among them, in phases 3 and
     batches, and the vision attention at 129 tokens in training and 257 in
     evaluation.
 
+Multi-GPU training runs after it, in subprocesses of this script
+(``--dist-child train|probe|step``), on its own mini-Flickr cut (20 + 8
+images, whole-image crops):
+
+20. dist — (a) the thesis flags through ``train.main`` (ViT-B-16,
+    ``--precision amp``, batch 32, three steps) as one process and as rank
+    0 of a NCCL group of one under DDP, ``--shard-opt-state`` and
+    ``--fsdp``: per-step losses equal the one process's (1e-5), 24 + 24
+    fused launches a step, host clock and peak memory beside the one
+    process's; (b) two ranks on the card over gloo: each collective the
+    port uses on CUDA tensors (and DDP, ZeRO-1's gather, FSDP) probed in
+    its own pair of processes, the result written to
+    ``gloo_cuda_probe.json`` in the work directory and printed, then from
+    that file the ViT-B-16
+    fp32 step at 2 x 32 for each case it carries (clip and the SigLIP
+    rings under DDP, clip under ZeRO-1 and FSDP) against the one-process
+    step at 64 on the same rows: the rank-mean loss at 1e-5, every
+    gradient after the rank mean at cosine >= 0.9999 (TF32 off), 24 + 24
+    launches a step on each rank, the host clock of a second step.
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -3025,6 +3045,616 @@ def phase_flash_times() -> dict:
     return rows
 
 
+# ---- phase dist: multi-GPU training on the one card ----
+
+# the dist phase's own mini-Flickr cut: 100 train caption rows (three steps
+# of 32), whole-image crops so that every run sees the same pixels
+DIST_TRAIN_IMAGES, DIST_VAL_IMAGES, DIST_BATCH = 20, 8, 32
+DIST_ROUTES = (("replicated", []), ("zero1", ["--shard-opt-state"]), ("fsdp", ["--fsdp"]))
+# the flags of the evaluation and the CLIP-blind check (and their values),
+# left out of the world-size-1 runs: their train steps are what is compared
+_EVAL_FLAGS = {"--val-data": 1, "--dino_fts_path_val": 1, "--dino_index_map_path_val": 1,
+               "--run_clip_blind": 0, "--clip_blind_val_key": 1}
+# the bare torch.distributed calls gloo carried for CUDA tensors with torch
+# 2.11 on the H100 (PERF.md §5), probed together in one pair of ranks: a
+# refusal of any of them now fails the phase
+GLOO_CUDA_CARRIES = ("all_gather", "all_gather_grad", "all_reduce", "broadcast",
+                     "reduce_scatter", "all_gather_into_tensor", "ddp")
+# what it refused there (P2P: "writev ... Bad address"; fully_shard: signal
+# 11), each in a pair of its own, since it may end the process
+GLOO_CUDA_REFUSED = ("p2p", "fsdp")
+# (loss, SigLIP impl, route) of phase (b), and the collectives each needs
+# (DDP: broadcast at the start, all_reduce in the backward; the gathered
+# losses: all_gather, then all_reduce in the backward; ZeRO-1: each rank's
+# slices gathered into the parameters)
+_DDP = ("all_reduce", "broadcast", "ddp")
+DIST_STEP_CASES = ((("clip", "bidir", "replicated"), ("all_gather_grad",) + _DDP),
+                   (("siglip", "bidir", "replicated"), ("p2p",) + _DDP),
+                   (("siglip", "gather", "replicated"), ("all_gather_grad",) + _DDP),
+                   (("siglip", "shift", "replicated"), ("p2p",) + _DDP),
+                   (("siglip", "reduce", "replicated"), _DDP),
+                   (("clip", "bidir", "zero1"), ("all_gather_grad", "all_gather_into_tensor")
+                    + _DDP),
+                   (("clip", "bidir", "fsdp"), ("all_gather_grad", "fsdp")))
+
+
+def _rank_device():
+    """Every rank's device: the one card (``DEVICE`` "cpu" rehearses on the
+    host)."""
+    import torch
+
+    return torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
+
+
+def _sync(device=None) -> None:
+    import torch
+
+    if (device.type if device is not None else DEVICE) == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_child(role: str, payload: dict, env: dict, timeout: float):
+    """``python3 chip_smoke.py --dist-child role payload`` under ``env`` (a
+    rank's variables): (exit code, the JSON of its ``DIST_CHILD`` line or
+    None, the ends of its output and errors)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--dist-child", role,
+                               json.dumps(payload)], cwd=here, env={**os.environ, **env},
+                              capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        return None, None, f"timed out after {timeout} s", str(e.stderr)[-2000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("DIST_CHILD ")]
+    result = json.loads(lines[-1][len("DIST_CHILD "):]) if lines else None
+    return proc.returncode, result, proc.stdout[-3000:], proc.stderr[-6000:]
+
+
+def _child(role: str, payload: dict, env: dict, timeout: float = 300) -> dict:
+    """A child that must succeed: its result."""
+    code, result, out, err = _run_child(role, payload, env, timeout)
+    if code != 0 or result is None:
+        fail(f"dist child {role} ({env.get('RANK', 'one process')}) exited {code}:\n{out}\n{err}")
+    return result
+
+
+def _rank_envs(world: int, per_card: bool = False) -> list:
+    """torchrun's variables for ``world`` ranks: every rank on card 0, or
+    rank ``r`` on card ``r`` (``per_card``)."""
+    port = str(_free_port())
+    threads = str(max(1, (os.cpu_count() or 1) // world))
+    return [{"RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r if per_card else 0),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+             "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", threads)}
+            for r in range(world)]
+
+
+def _children(role: str, payload: dict, world: int, timeout: float = 300,
+              per_card: bool = False) -> list:
+    """``world`` ranks of ``role``, started together; their results in rank
+    order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(world) as pool:
+        return list(pool.map(lambda e: _child(role, payload, e, timeout),
+                             _rank_envs(world, per_card)))
+
+
+def _probe_gloo_cuda() -> dict:
+    """The collectives gloo carries for CUDA tensors on two ranks of the
+    card: those it carried before in one pair, each it refused in a pair of
+    its own, all pairs at once. Each name gives True, "wrong numbers", what
+    the ranks raised or how they ended, or that an earlier probe of its
+    pair stopped it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pairs = [GLOO_CUDA_CARRIES] + [(name,) for name in GLOO_CUDA_REFUSED]
+    jobs = [(ops, env) for ops in pairs for env in _rank_envs(2)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        ends = list(pool.map(lambda j: _run_child("probe", {"ops": list(j[0])}, j[1], 150),
+                             jobs))
+    carried = {}
+    for ops in pairs:
+        mine = [end for (o, _), end in zip(jobs, ends) if o == ops]
+        for name in ops:
+            said = [res["carried"].get(name) for _, res, _, _ in mine if res is not None]
+            if len(said) == 2 and all(v is True for v in said):
+                carried[name] = True
+                continue
+            why = [str(v) for v in said if v not in (True, None)]
+            for code, res, _, err in mine:
+                if res is None:  # the fatal error and the innermost frame faulthandler printed
+                    lines = [ln.strip() for ln in err.splitlines() if ln.strip()]
+                    fatal = [ln for ln in lines if ln.startswith(("Fatal Python error",
+                                                                  "terminate called", "what():"))]
+                    frames = [ln for ln in lines if ln.startswith("File ")]
+                    why.append(f"exit {code}: {' / '.join(fatal[:2] + frames[:1])[:300]}")
+            carried[name] = "; ".join(why) or "not probed: an earlier probe of its pair failed"
+    return carried
+
+
+def _child_train(payload: dict) -> dict:
+    """One run of ``train.main`` (a rank when the environment names one):
+    its per-step losses, host clock and launches, and its peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from refining_clip_via_dinov2_representations_torch.train import main as train_main
+    from refining_clip_via_dinov2_representations_torch.train import step as train_step_mod
+
+    counters = _launch_counters()
+    steps = []
+    make = train_step_mod.make_train_step
+
+    def timed(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(state, batch):
+            _sync()
+            before = _read_counts()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            _sync()
+            after = _read_counts()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          **{k: after[k] - before[k] for k in after}})
+            return out
+
+        return run
+
+    train_step_mod.make_train_step = timed
+    _zero_counts()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = train_main.main(payload["argv"])
+    wall = time.perf_counter() - t0
+    return {"losses": [r["total_loss"] for r in records], "steps": steps,
+            "launches": {k: fn.launches for k, fn in counters.items()}, "wall_s": wall,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if DEVICE == "cuda" else 0.0),
+            "world": dist.get_world_size() if dist.is_initialized() else 0,
+            "backend": dist.get_backend() if dist.is_initialized() else None}
+
+
+def _child_probe(payload: dict) -> dict:
+    """The bare torch.distributed calls of ``payload["ops"]`` on CUDA
+    tensors over gloo, in order, up to the first that raises: for each,
+    True when it gives the right numbers, "wrong numbers" when not, or what
+    it raised."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    # a collective that hangs raises after a minute instead of holding the run
+    dist.init_process_group("gloo", timeout=timedelta(seconds=60))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4, 8), float(rank + 1), device=_rank_device())
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return all(float(o[0, 0]) == i + 1 for i, o in enumerate(out))
+
+    class Gather(torch.autograd.Function):  # all_gather, all_reduce in the backward
+        @staticmethod
+        def forward(ctx, t):
+            out = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(out, t.contiguous())
+            return torch.cat(out)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.contiguous().clone()
+            dist.all_reduce(g)
+            return g[rank * 4:(rank + 1) * 4]
+
+    def all_gather_grad():
+        a = x.clone().requires_grad_()
+        g = Gather.apply(a)
+        g.sum().backward()
+        return (g.shape[0] == 4 * world and float(g[4 * (world - 1), 0]) == world
+                and bool((a.grad == world).all()))
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return float(y[0, 0]) == world * (world + 1) / 2
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return float(y[0, 0]) == 1.0
+
+    def p2p():
+        y = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+               dist.P2POp(dist.irecv, y, (rank - 1) % world)]
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+        return float(y[0, 0]) == (rank - 1) % world + 1
+
+    def reduce_scatter():
+        y = torch.empty_like(x)
+        dist.reduce_scatter_tensor(y, torch.cat([x] * world))
+        return float(y[0, 0]) == world * (world + 1) / 2
+
+    def all_gather_into_tensor():
+        y = x.new_empty((4 * world, 8))
+        dist.all_gather_into_tensor(y, x)
+        return float(y[4 * (world - 1), 0]) == world
+
+    def ddp():  # the wrapper's start (shapes checked, states broadcast) and a backward
+        from torch.nn.parallel import DistributedDataParallel
+
+        lin = torch.nn.Linear(8, 2).to(x.device)
+        ids = [x.device.index] if x.device.type == "cuda" else None
+        wrapped = DistributedDataParallel(lin, device_ids=ids)  # alive through the backward
+        wrapped(x).sum().backward()
+        # each rank's rows sum to 4 (rank + 1); DDP averages over the ranks
+        return torch.allclose(lin.weight.grad, torch.full_like(lin.weight.grad,
+                                                               4 * (world + 1) / 2))
+
+    def fsdp():  # fully_shard on two layers and the root, forward and backward
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.fsdp import fully_shard
+
+        torch.manual_seed(0)
+        net = torch.nn.Sequential(torch.nn.Linear(8, 64), torch.nn.Linear(64, 8)).to(x.device)
+        want = [p.detach().clone() for p in net.parameters()]
+        mesh = init_device_mesh(x.device.type, (world,))
+        for layer in net:
+            fully_shard(layer, mesh=mesh)
+        fully_shard(net, mesh=mesh)
+        net(x).sum().backward()
+        grads = [p.grad.full_tensor() for p in net.parameters()]
+        # the rank mean of each rank's gradient, from the same weights
+        ref = torch.nn.Sequential(torch.nn.Linear(8, 64), torch.nn.Linear(64, 8)).to(x.device)
+        with torch.no_grad():
+            for p, w in zip(ref.parameters(), want):
+                p.copy_(w)
+        for r in range(world):
+            ref(torch.full_like(x, float(r + 1))).sum().backward()
+        return all(torch.allclose(g, p.grad / world, rtol=1e-5, atol=1e-5)
+                   for g, p in zip(grads, ref.parameters()))
+
+    ops = {"all_gather": all_gather, "all_gather_grad": all_gather_grad, "ddp": ddp,
+           "fsdp": fsdp, "all_reduce": all_reduce, "broadcast": broadcast, "p2p": p2p,
+           "reduce_scatter": reduce_scatter, "all_gather_into_tensor": all_gather_into_tensor}
+    carried = {}
+    for name in payload["ops"]:
+        try:
+            carried[name] = True if ops[name]() else "wrong numbers"
+            _sync()
+        except Exception as e:  # the probe's finding: gloo refuses this one
+            carried[name] = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:200]}"
+            break  # the pair's connection may be gone: the rest stay unprobed
+    return {"rank": rank, "carried": carried, "torch": torch.__version__}
+
+
+def _child_step(payload: dict) -> dict:
+    """A rank of the multi-rank train step: phase (b) (gloo, both ranks on
+    card 0) and ``scripts/dist_nccl_check.py`` (NCCL, rank ``r`` on card
+    ``r``; or gloo on the CPU). The group joins through
+    ``train/distributed.py`` (``payload["backend"]``, ``payload["device"]``
+    "cuda" or "cpu"). Each case ``(loss, SigLIP impl, route)`` takes a fresh
+    copy of one seeded ``payload["model"]`` (and DINO head for ``dino``:
+    soft KL and weighted CE) under DDP (``replicated``), ZeRO-1 under DDP
+    or FSDP, and a step on this rank's ``payload["batch"]`` rows (fp32,
+    TF32 off). Its reference: for clip and SigLIP, rank 0's one-process
+    step at the global batch (their rank mean is the global batch's loss);
+    for DINO-soft under ZeRO-1 and FSDP, the DINO case under DDP. Returns,
+    a case: the loss, the cosines of the whole gradients after the rank
+    mean against the reference's (rank 0), the launches of the step and of
+    two, the host clock of the second, and the card's peak over the two
+    steps and over a checkpoint's gather (model, head and optimizer state
+    into rank 0's host memory; its seconds and the tensors kept). With
+    ``payload["time_one_process"]`` rank 0 also times the one-process step
+    at ``batch`` rows."""
+    import copy
+    import gc
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.parallel.mesh import (
+        apply_fsdp, create_mesh, full_state_dict, wrap_ddp, zero1_sharding,
+    )
+    from refining_clip_via_dinov2_representations_torch.train import optim, scheduler
+    from refining_clip_via_dinov2_representations_torch.train.distributed import (
+        init_distributed_device,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, Towers, TrainState, make_train_step, train_parameters,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ns = SimpleNamespace(device=None, force_cpu=payload["device"] == "cpu", dist_url=None,
+                         dist_backend=payload["backend"], no_set_device_rank=False)
+    dev = init_distributed_device(ns)
+    rank, world, group = ns.rank, ns.world_size, dist.group.WORLD
+    cuda = dev.type == "cuda"
+    model_name, batch = payload["model"], payload["batch"]
+    base, _ = create_model(model_name, precision="amp", device=dev, seed=SEED)
+    base.train()
+    torch.manual_seed(SEED + 1)
+    base_head = DinoProjectionHead(base.text_projection.shape[1], DINO_DIM).to(dev)
+    full = _train_batch(get_tokenizer(model_name), world * batch, dev.type,
+                        model_name=model_name)
+    mine = {k: v[rank * batch:(rank + 1) * batch] for k, v in full.items()}
+    schedule = scheduler.const_lr(1e-5, 0, 2)
+    dino = DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher", lambda_weighted=0.2)
+    mesh = None
+
+    def build(route, loss):
+        nonlocal mesh
+        model = copy.deepcopy(base)
+        head = copy.deepcopy(base_head) if loss == "dino" else None
+        named = train_parameters(model, head)
+        sharding = towers = None
+        if route == "fsdp":
+            mesh = mesh or create_mesh(device_type=dev.type)
+            sharding = apply_fsdp(model, head, mesh, named)
+            towers = Towers(model, head)
+        elif route != "single":
+            if route == "zero1":
+                sharding = zero1_sharding(named, group)
+            towers = wrap_ddp(Towers(model, head), dev)
+        # FSDP replaces the parameters with its DTensors: the optimizer takes those
+        opt, _ = optim.build_optimizer(train_parameters(model, head), optim.OptimCfg(), schedule,
+                                       sharding=sharding)
+        return model, head, opt, towers
+
+    def whole_grads(model, head):  # a collective under FSDP
+        return {n: (p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad)
+                .detach().double().flatten().cpu()
+                for n, p in train_parameters(model, head).items()}
+
+    out, dino_ref = {}, None
+    for loss, impl, route in payload["cases"]:
+        key = f"{loss}-{impl}-{route}"
+        print(f"rank {rank}: {key}", file=sys.stderr, flush=True)
+        cfg = StepCfg(loss_type=loss, dino=dino, siglip_dist_impl=impl)
+        ref = dino_ref if loss == "dino" and route != "replicated" else None
+        if rank == 0 and loss != "dino":  # the one-process step at the global batch
+            model, head, opt, _ = build("single", loss)
+            single, m = make_train_step(model, cfg, head)(TrainState(model, head, opt), full)
+            ref = (float(m["total_loss"]), whole_grads(model, head))
+            del model, head, opt, single, m
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        model, head, opt, towers = build(route, loss)
+        step = make_train_step(model, cfg, head, group=group, towers=towers)
+        state = TrainState(model, head, opt)
+        _zero_counts()
+        state, m = step(state, mine)
+        _sync(dev)
+        res = {"loss": float(m["total_loss"]), "launches": _read_counts()}
+        grads = whole_grads(model, head)
+        if loss == "dino" and route == "replicated":
+            dino_ref = (res["loss"], grads)
+        if ref is not None and rank == 0:
+            cos = {n: float(torch.nn.functional.cosine_similarity(g, ref[1][n], dim=0))
+                   for n, g in grads.items()}
+            res.update(ref_loss=ref[0], min_cosine=min(cos.values()),
+                       min_cosine_at=min(cos, key=cos.get))
+        del grads
+        _sync(dev)
+        dist.barrier()  # every rank starts the timed step together
+        t0 = time.perf_counter()
+        state, m = step(state, mine)
+        float(m["total_loss"])
+        _sync(dev)
+        res["ms"] = (time.perf_counter() - t0) * 1e3
+        res["launches_both"] = _read_counts()
+        gib = lambda n: n / 2 ** 30 if cuda else 0.0  # noqa: E731
+        res["peak_gib"] = gib(cuda and torch.cuda.max_memory_allocated(dev))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        res["resident_gib"] = gib(cuda and torch.cuda.memory_allocated(dev))
+        t0 = time.perf_counter()  # a checkpoint's gather
+        saved = (full_state_dict(model, cpu_offload=True),
+                 None if head is None else full_state_dict(head, cpu_offload=True),
+                 opt.state_dict(cpu_offload=True))
+        _sync(dev)
+        res["save_s"] = time.perf_counter() - t0
+        res["save_peak_gib"] = gib(cuda and torch.cuda.max_memory_allocated(dev))
+        res["saved_tensors"] = len(saved[0]) + len(saved[2]["state"])
+        del saved
+        out[key] = res
+        del model, head, opt, towers, step, state, ref
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    one_ms = None
+    if rank == 0 and payload.get("time_one_process"):  # the per-card reference
+        model, head, opt, _ = build("single", "clip")
+        step = make_train_step(model, StepCfg(loss_type="clip"))
+        state = TrainState(model, head, opt)
+        state, _ = step(state, mine)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, mine)
+        float(m["total_loss"])
+        _sync(dev)
+        one_ms = (time.perf_counter() - t0) * 1e3
+    dist.barrier()
+    dist.destroy_process_group()
+    return {"rank": rank, "cases": out, "one_process_step_ms": one_ms}
+
+
+def step_case_report(ranks: list, cases, expect=(24, 24)):
+    """The checks of ``_child_step``'s results (``ranks``, in rank order):
+    (a line a case, the failures). A case's loss is the reference's at 1e-5
+    relative and the same on every rank, every gradient at cosine >= 0.9999,
+    and each rank launches ``expect`` (fused forward, backward) a step."""
+    lines, failed = [], []
+    fwd, bwd = expect
+    for loss, impl, route in cases:
+        key = f"{loss}-{impl}-{route}"
+        rs = [r["cases"][key] for r in ranks]
+        r0 = rs[0]
+        rel = None
+        if "ref_loss" in r0:
+            rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+            if rel > 1e-5 or r0["min_cosine"] < 0.9999:
+                failed.append(f"{key}: loss rel {rel:.2e}, min gradient cosine "
+                              f"{r0['min_cosine']} at {r0['min_cosine_at']}")
+        elif (loss, route) != ("dino", "replicated"):
+            failed.append(f"{key}: no reference ran")
+        for r in rs:
+            first, both = r["launches"], r["launches_both"]
+            if ((first["fused_attention_fwd"], first["fused_attention_bwd"]) != (fwd, bwd)
+                    or (both["fused_attention_fwd"], both["fused_attention_bwd"])
+                    != (2 * fwd, 2 * bwd) or r["loss"] != r0["loss"]):
+                failed.append(f"{key}: launches {first} (first step), {both} (two), expected "
+                              f"{fwd} + {bwd} a step; loss {r['loss']} vs rank 0's {r0['loss']}")
+        ref = (f"vs {r0['ref_loss']:.6f} (rel {rel:.2e}), min gradient cosine "
+               f"{r0['min_cosine']:.7f} ({r0['min_cosine_at']})" if rel is not None
+               else "(the reference)")
+        mem = (f", peak GiB a rank {[round(r['peak_gib'], 3) for r in rs]}, resident "
+               f"{[round(r['resident_gib'], 3) for r in rs]}, checkpoint gather peak "
+               f"{[round(r['save_peak_gib'], 3) for r in rs]} in "
+               f"{[round(r['save_s'], 2) for r in rs]} s")
+        launched = [(r["launches"]["fused_attention_fwd"], r["launches"]["fused_attention_bwd"])
+                    for r in rs]
+        lines.append(f"{key}: loss {r0['loss']:.6f} {ref}, launches a rank a step {launched}, "
+                     f"second step host clock {[round(r['ms'], 1) for r in rs]} ms{mem}")
+    return lines, failed
+
+
+def phase_dist(work: str) -> dict:
+    """Multi-GPU training on the one card. (a) World size 1 over NCCL through
+    ``train.main``: the thesis protocol's training at ViT-B-16's full width
+    (``--precision amp``, batch 32, three steps; no evaluation) as one
+    process, then as rank 0 of a group of one under DDP,
+    ``--shard-opt-state`` and ``--fsdp``: the ranks' per-step
+    losses equal the one process's (fp32, 1e-5 relative), 24 + 24 fused
+    launches a step, host clock and peak memory beside the one process's. (b) Two ranks on the card over gloo
+    (NCCL refuses two ranks on one device): first the bare collectives gloo
+    carries for CUDA tensors, written to ``gloo_cuda_probe.json`` in
+    ``work`` and printed (a refusal of one it carried with torch 2.11, or
+    wrong numbers from any, fails the phase); then, from that file, the
+    ViT-B-16 fp32 step at 2 x 32 for each case whose collectives it carries
+    (``DIST_STEP_CASES``; at least one must) against the one-process step
+    at 64 on the same rows (``step_case_report``), with each rank's peak
+    memory over the steps and over the checkpoint's gather. Returns the
+    launches of every run."""
+    from scripts.mini_flickr import generate
+
+    t_phase = time.perf_counter()
+    d = generate(os.path.join(work, "dist_data"), n_train=DIST_TRAIN_IMAGES,
+                 n_val=DIST_VAL_IMAGES, size_px=EVAL_SIZE_PX, dino_dim=DINO_DIM, seed=SEED)
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    argv = []
+    thesis = iter(_thesis_argv(d, work, "dist"))
+    for a in thesis:
+        if a in _EVAL_FLAGS:
+            for _ in range(_EVAL_FLAGS[a]):
+                next(thesis)
+        else:
+            argv.append(a)
+    def run_argv(route, flags):
+        return argv + ["--name", f"dist-{route}", "--batch-size", str(DIST_BATCH), "--epochs",
+                       "1", "--aug-cfg", "scale=(1.0, 1.0)", "--save-frequency", "0", *flags]
+
+    # a process a run: in one process a run's peak memory carries part of
+    # what the run before it left
+    runs = {"one-process": _child("train", {"argv": run_argv("one-process", [])}, {})}
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    for route, flags in DIST_ROUTES:
+        (runs[route],) = _children("train", {"argv": run_argv(route, flags)}, 1)
+        check(runs[route]["world"] == 1 and runs[route]["backend"] == backend,
+              f"dist {route}: not a NCCL group of one ({runs[route]['backend']})")
+    for res in runs.values():
+        add(res["launches"])
+    base = runs["one-process"]
+    check(len(base["losses"]) == 3, f"dist: {len(base['losses'])} steps, expected 3")
+    for route, res in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], base["losses"]))
+        check(len(res["losses"]) == len(base["losses"]) and rel <= 1e-5,
+              f"dist {route}: losses {res['losses']} vs one process {base['losses']}")
+        for s in res["steps"]:
+            check(s["fused_attention_fwd"] == 24 and s["fused_attention_bwd"] == 24,
+                  f"dist {route}: step launches {s}, expected 24 + 24")
+        step_ms = statistics.median(s["ms"] for s in res["steps"][1:])
+        base_ms = statistics.median(s["ms"] for s in base["steps"][1:])
+        print(f"dist {route} (world {res['world'] or 1}, {res['backend'] or 'no group'}): "
+              f"losses {[f'{x:.6f}' for x in res['losses']]} (max rel {rel:.2e} vs one "
+              f"process), step host clock {step_ms:.3f} ms (one process {base_ms:.3f}, "
+              f"overhead {step_ms - base_ms:+.3f} ms), peak {res['peak_gib']:.3f} GiB (one "
+              f"process {base['peak_gib']:.3f}), wall {res['wall_s']:.2f} s, launches "
+              f"{res['launches']} ({CARD})", flush=True)
+
+    import torch
+
+    carried = _probe_gloo_cuda()
+    probe_path = os.path.join(work, "gloo_cuda_probe.json")
+    with open(probe_path, "w") as f:
+        json.dump({"card": CARD, "torch": torch.__version__, "carried": carried}, f, indent=1)
+    print(f"dist gloo on CUDA tensors, 2 ranks on one card (torch {torch.__version__}, "
+          f"{CARD}): {json.dumps(carried)}", flush=True)
+    with open(probe_path) as f:  # the phase runs what the written probe allows
+        carried = json.load(f)["carried"]
+    wrong = [n for n, v in carried.items() if "wrong numbers" in str(v)]
+    check(not wrong, f"dist: gloo gave wrong numbers for CUDA tensors in {wrong}")
+    lost = [n for n in GLOO_CUDA_CARRIES if carried[n] is not True]
+    check(not lost, f"dist: gloo no longer carries {lost} for CUDA tensors: "
+          f"{ {n: carried[n] for n in lost} }")
+    cases = [c for c, needs in DIST_STEP_CASES if all(carried[n] is True for n in needs)]
+    for c, needs in DIST_STEP_CASES:
+        if c not in cases:
+            print(f"dist 2-rank {'-'.join(c)}: not run, gloo does not carry "
+                  f"{[n for n in needs if carried[n] is not True]} for CUDA tensors",
+                  flush=True)
+    check(bool(cases), "dist: no 2-rank case ran")
+    ranks = _children("step", {"cases": cases, "model": MODEL, "batch": DIST_BATCH,
+                               "device": DEVICE, "backend": "gloo"}, 2)
+    lines, failed = step_case_report(ranks, cases, (24, 24) if DEVICE == "cuda" else (0, 0))
+    for line in lines:
+        print(f"dist 2-rank gloo {line} ({CARD})", flush=True)
+    check(not failed, f"dist 2-rank: {failed}")
+    for r in ranks:
+        for res in r["cases"].values():
+            add(res["launches_both"])
+    print(f"dist: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def _dist_child_main() -> None:
+    import faulthandler
+
+    faulthandler.enable()  # a crash in native code prints where it happened
+    role, payload = sys.argv[2], json.loads(sys.argv[3])
+    result = {"train": _child_train, "probe": _child_probe, "step": _child_step}[role](payload)
+    print("DIST_CHILD " + json.dumps(result), flush=True)
+
+
 def main() -> None:
     import shutil
     import tempfile
@@ -3063,6 +3693,7 @@ def main() -> None:
         config2 = phase_config2(data, pre, work)
         accum = phase_accum(teacher_dir)
         giant = phase_giant(work)
+        dist_launches = phase_dist(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
@@ -3086,7 +3717,7 @@ def main() -> None:
         + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
-        + giant["launches"]["fused_attention_fwd"],
+        + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -3107,7 +3738,8 @@ def main() -> None:
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
-        + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"],
+        + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
+        + dist_launches["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -3136,4 +3768,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-child"]:
+        _dist_child_main()
+    else:
+        main()

@@ -13,7 +13,9 @@ of the top-gap pairs. With a live teacher
 (``train/dino_teacher.py:LiveDinoTeacher``, when training ran without
 precomputed features) one pass over the loader gives both embeddings of the
 same pixels, so no path alignment is needed; on a card that adds 12
-fused-forward launches a batch at dinov2-small.
+fused-forward launches a batch at dinov2-small. Across ranks each rank
+encodes its share of every batch and the shares are gathered
+(``parallel/mesh.py:on_rank_rows``); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import on_rank_rows
 from ..train.data import _canon_path
+from ..train.distributed import data_group
 
 DEFAULT_THRESHOLDS: List[Tuple[float, float]] = [(0.90, 0.60), (0.85, 0.65), (0.80, 0.65)]
 
@@ -42,7 +46,7 @@ def encode_clip_images_and_paths(model: torch.nn.Module, dataloader, max_images=
             raise RuntimeError("Eval batch missing file paths; CsvDataset should return them.")
         images = torch.from_numpy(np.asarray(batch["images"], np.float32)).to(device)
         with torch.no_grad():
-            feats = model.encode_image(images).float()
+            feats = on_rank_rows(model.encode_image, images, group=data_group()).float()
             feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         embs.append(feats.cpu().numpy())
         paths_all.extend(_canon_path(p) for p in batch["image_path"])
@@ -66,8 +70,9 @@ def encode_clip_and_dino_images(model: torch.nn.Module, dino_teacher, dataloader
             raise RuntimeError("Eval batch missing file paths; CsvDataset should return them.")
         images = torch.from_numpy(np.asarray(batch["images"], np.float32)).to(device)
         with torch.no_grad():
-            feats = model.encode_image(images).float()
-            dino = dino_teacher.extract(images).float()
+            feats, dino = on_rank_rows(lambda x: (model.encode_image(x), dino_teacher.extract(x)),
+                                       images, group=data_group())
+            feats, dino = feats.float(), dino.float()
         for out, z in ((clip_all, feats), (dino_all, dino)):
             out.append((z / z.norm(dim=-1, keepdim=True).clamp_min(1e-12)).cpu().numpy())
         paths_all.extend(_canon_path(p) for p in batch["image_path"])
@@ -221,6 +226,8 @@ def run_clip_blind_on_split(split_key: str, data: Dict, model: torch.nn.Module,
                      split_key, clip_z.shape[0], hit_path, hit_base, miss)
 
     stats = pair_stats(clip_z, dino_z, thresholds)
+    if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return stats  # every rank encodes its share; rank 0 writes
     os.makedirs(out_dir, exist_ok=True)
     summary_path = os.path.join(out_dir, f"clip_blind_{split_key}.json")
     with open(summary_path, "w") as f:

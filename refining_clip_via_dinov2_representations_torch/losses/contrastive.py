@@ -1,11 +1,30 @@
-"""Contrastive CLIP objective as plain PyTorch functions.
+"""Contrastive objectives as plain PyTorch functions: CLIP and SigLIP.
 
-The port of the JAX package's ``losses/contrastive.py`` for one process:
-``cross_entropy`` (an fp32 log-softmax), ``clip_logits`` and ``clip_loss``.
-Across processes the JAX package all-gathers features over a named mesh
-axis; here ``group`` stands for a ``torch.distributed`` process group, and
-gathering is not ported yet (multi-GPU training is a later slice): without
-a group the features are used as they are, with one the functions raise.
+The port of the JAX package's ``losses/contrastive.py``: ``cross_entropy``
+(an fp32 log-softmax), ``clip_logits`` / ``clip_loss`` and
+``siglip_loss``. ``group`` is a ``torch.distributed`` process group (the
+data axis): each rank passes its own rows, and the JAX package's
+named-axis collectives become collectives over the group.
+
+* ``gather_features`` all-gathers the rows of every rank in rank order
+  (``lax.all_gather(tiled=True)``) with gradients: the backward sums the
+  cotangents of a rank's rows over every rank (``psum_scatter``), so the
+  reference's ``gather_with_grad=True`` is the only behaviour.
+* ``local_loss`` (what the train step uses): local rows against every
+  rank's columns, labels ``arange(b) + b * rank``. Without it every rank
+  forms the whole ``[W b, W b]`` matrix.
+* SigLIP scores the local block, then the other ranks' text blocks as
+  negatives by ``dist_impl``: ``shift`` (W - 1 hops of a one-way ring),
+  ``bidir`` (two counter-rotating rings, plus one hop where W - 1 is odd),
+  ``gather`` (one gathered ``[b, W b]`` product, the local block masked) or
+  ``reduce`` (W masked all-reduce rounds). A ring hop is an autograd
+  Function over ``dist.batch_isend_irecv`` whose backward sends the
+  gradient the opposite way.
+
+Each rank returns its own loss; the train step averages the losses and the
+gradients over the ranks, so the gradient is that of the rank mean, as
+``jax.grad`` of the JAX step's ``pmean``. Without a group the features are
+used as they are.
 
 Dtypes follow JAX's promotion: the exponentiated ``logit_scale`` is fp32, so
 ``logit_scale * features`` promotes bf16 features to fp32 before the logits
@@ -14,9 +33,13 @@ matmul, as ``jnp`` does for two non-weak arrays.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+SIGLIP_DIST_IMPLS = ("shift", "bidir", "gather", "reduce")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -25,33 +48,195 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(1, labels[:, None].long())[:, 0].mean()
 
 
+def group_rank_size(group) -> Tuple[int, int]:
+    """(rank, world size) in ``group``; (0, 1) without one."""
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, concatenated in rank order; the backward sums the
+    cotangents over the ranks and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        rank, world = group_rank_size(group)
+        ctx.rows, ctx.rank = x.shape[0], rank
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x.contiguous(), group=group)
+        return torch.cat(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad.narrow(0, ctx.rank * ctx.rows, ctx.rows), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``psum``: the sum over the ranks; its backward is the sum of the
+    cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _exchange(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """``x`` sent to rank ``rank + shift``; returns what rank ``rank -
+    shift`` sent (``lax.ppermute`` over the ring)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        # gloo hands the device pointer to its socket and aborts the process
+        # (torch 2.11 on the H100: chip_smoke.py's gloo probe)
+        raise RuntimeError("SigLIP's shift and bidir rings send CUDA tensors point to point, "
+                           "which gloo does not carry: use NCCL, or --loss-dist-impl gather "
+                           "or reduce")
+    rank, world = group_rank_size(group)
+    dst = dist.get_global_rank(group, (rank + shift) % world)
+    src = dist.get_global_rank(group, (rank - shift) % world)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group),
+                                   dist.P2POp(dist.irecv, out, src, group)])
+    for r in reqs:
+        r.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    """One ring hop; the gradient goes back the opposite way."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift: int):
+        ctx.group, ctx.shift = group, shift
+        return _exchange(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group, -ctx.shift), None, None
+
+
 def gather_features(image_features: torch.Tensor, text_features: torch.Tensor,
                     group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The features of every process, in rank order. One process: as given."""
+    """The features of every rank, in rank order, with gradients. Without a
+    group: as given."""
     if group is None:
         return image_features, text_features
-    raise NotImplementedError(
-        "gathering features across processes comes with multi-GPU training "
-        "(ROADMAP Queue 1 item 10)"
-    )
+    return _GatherRows.apply(image_features, group), _GatherRows.apply(text_features, group)
+
+
+def _promoted(logit_scale: torch.Tensor, *features: torch.Tensor):
+    dtype = torch.promote_types(logit_scale.dtype, features[0].dtype)
+    return (logit_scale.to(dtype),) + tuple(f.to(dtype) for f in features)
 
 
 def clip_logits(image_features: torch.Tensor, text_features: torch.Tensor,
                 logit_scale: torch.Tensor, group=None, local_loss: bool = True):
-    """(logits_per_image, logits_per_text, labels) for one process."""
-    image_features, text_features = gather_features(image_features, text_features, group)
-    dtype = torch.promote_types(logit_scale.dtype, image_features.dtype)
-    img, txt = image_features.to(dtype), text_features.to(dtype)
-    logits_per_image = (logit_scale.to(dtype) * img) @ txt.T
-    logits_per_text = (logit_scale.to(dtype) * txt) @ img.T
-    labels = torch.arange(img.shape[0], device=img.device)
-    return logits_per_image, logits_per_text, labels
+    """(logits_per_image, logits_per_text, labels). Under a group with
+    ``local_loss``: ``[b, W b]`` logits and labels offset by ``b * rank``;
+    without ``local_loss``: the whole ``[W b, W b]`` matrix on every rank."""
+    b = image_features.shape[0]
+    if group is None:
+        scale, img, txt = _promoted(logit_scale, image_features, text_features)
+        labels = torch.arange(b, device=img.device)
+        return (scale * img) @ txt.T, (scale * txt) @ img.T, labels
+    all_img, all_txt = gather_features(image_features, text_features, group)
+    if local_loss:
+        scale, img, txt, a_img, a_txt = _promoted(logit_scale, image_features, text_features,
+                                                  all_img, all_txt)
+        rank, _ = group_rank_size(group)
+        labels = torch.arange(b, device=img.device) + b * rank
+        return (scale * img) @ a_txt.T, (scale * txt) @ a_img.T, labels
+    scale, a_img, a_txt = _promoted(logit_scale, all_img, all_txt)
+    logits_per_image = (scale * a_img) @ a_txt.T
+    labels = torch.arange(a_img.shape[0], device=a_img.device)
+    return logits_per_image, logits_per_image.T, labels
 
 
 def clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
               logit_scale: torch.Tensor, group=None,
               local_loss: bool = True) -> torch.Tensor:
-    """Symmetric InfoNCE."""
+    """Symmetric InfoNCE; under a group, this rank's loss."""
     logits_i, logits_t, labels = clip_logits(image_features, text_features, logit_scale,
                                              group, local_loss)
     return 0.5 * (cross_entropy(logits_i, labels) + cross_entropy(logits_t, labels))
+
+
+def _siglip_pair_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                      logit_scale: torch.Tensor, logit_bias, negative_only: bool = False
+                      ) -> torch.Tensor:
+    """The pairwise sigmoid loss of one (image block, text block) pair:
+    positives on the diagonal unless ``negative_only``."""
+    scale, img, txt = _promoted(logit_scale, image_features, text_features)
+    logits = (scale * img) @ txt.T
+    if logit_bias is not None:
+        logits = logits + logit_bias
+    b = img.shape[0]
+    labels = -torch.ones((b, b), dtype=logits.dtype, device=logits.device)
+    if not negative_only:
+        labels = labels + 2.0 * torch.eye(b, dtype=logits.dtype, device=logits.device)
+    return -F.logsigmoid(labels * logits.float()).sum() / b
+
+
+def siglip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                logit_scale: torch.Tensor, logit_bias, group=None,
+                dist_impl: str = "shift") -> torch.Tensor:
+    """SigLIP with the other ranks' text blocks as negatives (see the module
+    docstring for ``dist_impl``); this rank's loss."""
+    if dist_impl not in SIGLIP_DIST_IMPLS:
+        raise ValueError(f"unknown dist_impl {dist_impl!r}")
+    loss = _siglip_pair_loss(image_features, text_features, logit_scale, logit_bias)
+    rank, n = group_rank_size(group)
+    if n <= 1:
+        return loss
+
+    def negatives(block):
+        return _siglip_pair_loss(image_features, block, logit_scale, logit_bias,
+                                 negative_only=True)
+
+    if dist_impl == "shift":
+        block = text_features
+        for _ in range(n - 1):
+            block = _RingShift.apply(block, group, 1)
+            loss = loss + negatives(block)
+    elif dist_impl == "bidir":
+        to_left = to_right = text_features
+        num_bidir, remainder = divmod(n - 1, 2)
+        for _ in range(num_bidir):
+            from_right = _RingShift.apply(to_left, group, -1)
+            from_left = _RingShift.apply(to_right, group, 1)
+            for block in (from_right, from_left):
+                loss = loss + negatives(block)
+            to_left, to_right = from_right, from_left
+        if remainder:
+            loss = loss + negatives(_RingShift.apply(to_right, group, 1))
+    elif dist_impl == "gather":
+        all_text = _GatherRows.apply(text_features, group)
+        scale, img, flat = _promoted(logit_scale, image_features, all_text)
+        b = img.shape[0]
+        logits = (scale * img) @ flat.T
+        if logit_bias is not None:
+            logits = logits + logit_bias
+        # every gathered pair is a negative; the local block was scored above
+        per_pair = -F.logsigmoid(-logits.float())
+        col_mask = (torch.arange(n * b, device=logits.device) // b != rank).float()
+        loss = loss + (per_pair * col_mask).sum() / b
+    else:  # reduce: round i gives every rank rank i's block
+        for i in range(n):
+            mask = float(rank == i)
+            block = _AllReduceSum.apply(text_features * mask, group)
+            # rank i scores its own block as zero, but keeps the node, whose
+            # backward is a collective every rank joins
+            loss = loss + (0.0 if rank == i else 1.0) * negatives(block)
+    return loss

@@ -16,8 +16,16 @@ The port of the JAX package's ``losses/dino.py`` for one process. Terms:
   (g) optional diagnostics, computed without gradient.
 
 Dtypes as in JAX: the soft and weighted terms run in fp32; stop-gradients
-become ``detach``. ``group`` is a ``torch.distributed`` process group, which
-raises until multi-GPU training is ported (see ``losses/contrastive.py``).
+become ``detach``.
+
+Under a ``torch.distributed`` process group (``group``, the data axis) each
+rank passes its own ``b`` rows: the classic term goes through the gathered
+logits (``losses/contrastive.py``), the soft and text KL stay on the local
+``b x b`` block, and the weighted CE modulates this rank's ``(row0, col0)``
+block of the gathered logits: the softmax of the full rows, ``delta``
+added into the block only, ``row_std``'s lower median over the local rows
+(the JAX package's distributed generalisation; the reference's weighted
+term is one-process only).
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import LayerNorm
-from .contrastive import clip_logits, cross_entropy
+from .contrastive import clip_logits, cross_entropy, group_rank_size
 
 
 def compute_student_tau(logit_scale: torch.Tensor) -> torch.Tensor:
@@ -207,9 +215,17 @@ def dino_enhanced_loss(
         r = (1.0 - torch.clamp(dn @ dn.T, -1.0, 1.0)).masked_fill(eye, 0.0)
         rho = ov.get("rho", cfg.rho)
 
+        # this rank's (row, col) block of the possibly gathered logits:
+        # local_loss keeps local rows (row offset 0) and gathers columns; the
+        # global mode carries every rank's rows at the same offset
+        n_rows, n_cols = logits_i.shape
+        rank = group_rank_size(group)[0]
+        col0 = b * rank if n_cols != b else 0
+        row0 = b * rank if n_rows != b else 0
+
         def modulate(logits, r_mat):
-            """Add Delta = beta * r_hat to the logits."""
-            p_base = torch.softmax(logits.float(), dim=1)
+            """Add Delta = beta * r_hat to this rank's block of the logits."""
+            p_base = torch.softmax(logits.float(), dim=1)[row0:row0 + b, col0:col0 + b]
             r_hat = r_mat - (p_base * r_mat).sum(dim=1, keepdim=True)
             r_hat = torch.clamp(r_hat, -cfg.c_clip, cfg.c_clip)
             row_std = torch.std(logits.float(), dim=1, correction=1)
@@ -218,7 +234,10 @@ def dino_enhanced_loss(
                                 min=1e-6)
             beta = (rho * sigma / cfg.c_clip).detach()
             delta = (beta * r_hat).masked_fill(eye, 0.0)
-            return logits + delta.to(logits.dtype), delta
+            # zero outside the block: x + 0 leaves the other logits as they are
+            placed = F.pad(delta.to(logits.dtype),
+                           (col0, n_cols - col0 - b, row0, n_rows - row0 - b))
+            return logits + placed, delta
 
         logits_i_tilde, delta_img = modulate(logits_i, r)
         ce_img_den = cross_entropy(logits_i_tilde, labels)

@@ -26,6 +26,16 @@ updates the parameters in place) and writes on a background thread;
 ``wait_for_checkpoints`` waits for it and raises what it raised.
 ``export_torch_checkpoint`` writes ``{"epoch", "name", "state_dict"}``, the
 file the offline suite reads (``final_torch_state.pt``).
+
+Across ranks every rank calls these functions: a save first gathers the
+whole model and optimizer state tensor by tensor into rank 0's host memory
+(FSDP's shards and ZeRO-1's optimizer slices; ``parallel/mesh.py:
+full_state_dict``, ``GroupOptimizer.state_dict``, both with
+``cpu_offload``), so no card holds more than one whole tensor beyond its
+shards; then rank 0 alone writes, synchronously or on its background
+thread, so the file is the one a single process writes. A
+restore reads the file on every rank and takes each rank's slices, so a
+one-process checkpoint resumes under any world size, and the reverse.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import full_state_dict, is_writer, load_full_state_dict
 
 _CKPT_RE = re.compile(r"^epoch_\d+(_preempt)?\.pt$")
 
@@ -132,17 +144,6 @@ def _atomic_save(payload: dict, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _to_host(obj):
-    """A copy of ``obj`` with every tensor copied to host memory."""
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu", copy=True)
-    if isinstance(obj, dict):
-        return {k: _to_host(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_host(v) for v in obj)
-    return obj
-
-
 def wait_for_checkpoints() -> None:
     """Blocks until every asynchronous write has its file in place; raises
     the first error a write met."""
@@ -160,21 +161,24 @@ def save_checkpoint(checkpoint_dir: str, state, epoch: int, name: str = "",
                     name_suffix: str = "", step_in_epoch: int = 0) -> str:
     """Write ``epoch_{epoch}{name_suffix}.pt`` (and ``epoch_latest.pt`` under
     ``save_most_recent``; ``delete_previous`` then removes
-    ``epoch_{epoch-1}.pt``); returns the path. With ``async_save`` the
-    tensors are copied to the host here and the files written on a
+    ``epoch_{epoch-1}.pt``); returns the path. Every tensor is copied to
+    the host here; with ``async_save`` the files are written on a
     background thread."""
     wait_for_checkpoints()  # one write in flight: never two on one path
-    os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(checkpoint_dir, f"epoch_{epoch}{name_suffix}.pt"))
     payload = {
         "epoch": int(epoch), "name": name, "step": int(state.step),
         "step_in_epoch": int(step_in_epoch),
-        "state_dict": state.model.state_dict(),
-        "dino_head": None if state.head is None else state.head.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "state_dict": full_state_dict(state.model, cpu_offload=True),
+        "dino_head": None if state.head is None else full_state_dict(state.head,
+                                                                      cpu_offload=True),
+        "optimizer": state.optimizer.state_dict(cpu_offload=True),
         "data_order": {k: int(v) for k, v in sorted((data_order or {}).items())},
         "rng": _rng_states(state.generator),
     }
+    if not is_writer():
+        return path
+    os.makedirs(checkpoint_dir, exist_ok=True)
 
     def write(payload):
         _atomic_save(payload, path)
@@ -189,7 +193,6 @@ def save_checkpoint(checkpoint_dir: str, state, epoch: int, name: str = "",
     if not async_save:
         write(payload)
         return path
-    payload = _to_host(payload)
 
     def run():
         try:
@@ -211,11 +214,11 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, int, int, Dict[str, int]]
     if path == "latest":
         raise ValueError("resolve 'latest' with latest_checkpoint() first")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["state_dict"], strict=True)
+    load_full_state_dict(state.model, payload["state_dict"], strict=True)
     if state.head is not None:
         if payload.get("dino_head") is None:
             raise ValueError(f"{path} holds no DINO head, but this run trains one")
-        state.head.load_state_dict(payload["dino_head"], strict=True)
+        load_full_state_dict(state.head, payload["dino_head"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     if "rng" in payload:  # the port's checkpoints before resume was ported lack it
@@ -225,7 +228,9 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, int, int, Dict[str, int]]
 
 
 def export_torch_checkpoint(state, epoch: int, name: str, out_path: str) -> str:
-    """open_clip's ``{"epoch", "name", "state_dict"}`` file of the model."""
-    _atomic_save({"epoch": int(epoch), "name": name,
-                  "state_dict": _to_host(state.model.state_dict())}, out_path)
+    """open_clip's ``{"epoch", "name", "state_dict"}`` file of the model
+    (gathered into rank 0's host memory, written by rank 0)."""
+    state_dict = full_state_dict(state.model, cpu_offload=True)
+    if is_writer():
+        _atomic_save({"epoch": int(epoch), "name": name, "state_dict": state_dict}, out_path)
     return out_path

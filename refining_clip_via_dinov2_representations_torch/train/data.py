@@ -306,13 +306,19 @@ def _collate(samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 class Loader:
-    """Epoch-seeded shuffling, threaded sample fetch and background
-    prefetch, for one process; yields numpy batch dicts. With a
-    ``dino_store``, a batch's ``dino_idx`` become its ``dino_features``."""
+    """Epoch-seeded shuffling, rank sharding, threaded sample fetch and
+    background prefetch; yields numpy batch dicts. With a ``dino_store``, a
+    batch's ``dino_idx`` become its ``dino_features``.
+
+    Rank ``process_index`` of ``process_count`` takes a contiguous shard of
+    the epoch's permutation, ``n // process_count`` rows, the tail dropped so
+    that every rank takes as many steps. Every rank seeds alike (no rank
+    offset), so the shards of one epoch are disjoint."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 8,
-                 prefetch: int = 2, dino_store: Optional[DinoFeatureStore] = None):
+                 prefetch: int = 2, dino_store: Optional[DinoFeatureStore] = None,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -321,6 +327,8 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.dino_store = dino_store
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self._skip_batches = 0
 
@@ -333,14 +341,16 @@ class Loader:
         self._skip_batches = int(n)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def batches(self):
-        """This epoch's index batches, in order."""
+        """This epoch's index batches of this rank's shard, in order."""
         indices = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(indices)
+        per_rank = len(indices) // self.process_count
+        indices = indices[self.process_index * per_rank:(self.process_index + 1) * per_rank]
         bs = self.batch_size
         out = [indices[i:i + bs] for i in range(0, len(indices), bs)]
         if out and self.drop_last and len(out[-1]) < bs:
@@ -408,12 +418,15 @@ class DataInfo:
 
 
 def _loader(dataset, args, is_train: bool, dino_store=None) -> DataInfo:
-    """A loader over the whole dataset (train: shuffled, last partial batch
-    dropped), with its sample and batch counts."""
+    """A loader over the dataset (train: shuffled, last partial batch
+    dropped, this rank's shard of ``args.world_size``), with its sample and
+    batch counts. Evaluation loaders are not sharded: every rank reads the
+    whole set, so the metrics are global."""
+    ranks = (getattr(args, "rank", 0), getattr(args, "world_size", 1)) if is_train else (0, 1)
     loader = Loader(dataset, batch_size=args.batch_size, shuffle=is_train, drop_last=is_train,
                     seed=getattr(args, "seed", 0), num_workers=getattr(args, "workers", 8),
-                    dino_store=dino_store)
-    loader.num_samples = len(dataset)
+                    dino_store=dino_store, process_index=ranks[0], process_count=ranks[1])
+    loader.num_samples = len(dataset) // ranks[1]
     loader.num_batches = len(loader)
     return DataInfo(loader)
 

@@ -10,6 +10,13 @@ of ``train/metrics.py`` follow. Without image paths (synthetic data) the
 in-batch ranks of ``get_clip_metrics`` stand in. The first evaluation
 round of an epoch also runs the zero-shot ImageNet evaluation
 (``train/zero_shot.py``; frequency-gated there), as in the JAX package.
+
+Across ranks every rank reads the whole val set (the loaders are not
+sharded) and takes part: each batch is padded to a multiple of the world
+size, each rank encodes its share of the rows, the shares are
+all-gathered and the padding rows dropped (``parallel/mesh.py:
+on_rank_rows``), so the metrics equal the one-process evaluation's on
+every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import numpy as np
 import torch
 
 from ..losses import clip_loss
+from ..parallel.mesh import on_rank_rows
+from .distributed import data_group
 from .metrics import build_unique_image_features, clip_retrieval_metrics, get_clip_metrics
 
 
@@ -49,13 +58,19 @@ def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args, tokenizer=Non
     cumulative_loss = 0.0
     num_samples = 0
     logit_scale = 1.0
+    group = data_group()
+
+    def encode(images, texts):
+        out = model(images, texts)
+        return out["image_features"], out["text_features"]
+
     for i, batch in enumerate(loader):
         images = torch.from_numpy(np.asarray(batch["images"], np.float32)).to(device)
         texts = torch.from_numpy(np.asarray(batch["texts"])).long().to(device)
         b = images.shape[0]
         with torch.no_grad():
-            out = model(images, texts)
-            img_f, txt_f, scale = out["image_features"], out["text_features"], out["logit_scale"]
+            img_f, txt_f = on_rank_rows(encode, images, texts, group=group)
+            scale = model.logit_scale.exp()
             batch_loss = float(clip_loss(img_f, txt_f, scale))
         logit_scale = float(scale)
         all_img.append(img_f.float().cpu().numpy())

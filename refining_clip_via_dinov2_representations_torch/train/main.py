@@ -71,6 +71,23 @@ The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
 honour yet raise at parse time (``train/params.py:UNPORTED``).
 
+Multi-GPU: one process a GPU, launched by torchrun (``torchrun
+--nproc-per-node N -m refining_clip_via_dinov2_representations_torch.train.
+main ...``) or any launcher that sets ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``
+(``train/distributed.py``). The process group comes first; then the mesh,
+``args.world_size`` and the global batch (``--batch-size`` is per rank).
+Each rank trains on its shard of every epoch; the losses gather over the
+ranks (``train/step.py``); DDP averages the gradients, under
+``--shard-opt-state`` each rank keeps and updates the optimizer state of
+its slices (ZeRO-1), and under ``--fsdp`` (``--fsdp-min-size``) the blocks,
+the model and the head are sharded with ``fully_shard`` (ZeRO-3). Every
+rank evaluates its share of each val batch and runs the CLIP-blind check
+with the others; only rank 0 writes the logs, the Tracker, checkpoints,
+``final_torch_state.pt``, the plots, the remote sync and the codebase copy.
+``--resume latest`` is resolved on rank 0 and broadcast; a checkpoint holds
+the whole state whatever the world size. Under ``--save-on-preemption``
+the ranks agree at every step whether one of them was signalled.
+
 Usage: python -m refining_clip_via_dinov2_representations_torch.train.main <flags>
 """
 
@@ -91,6 +108,9 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .distributed import any_rank, data_group
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,7 +127,7 @@ def _data_order_flags(args) -> Dict[str, int]:
     """The flags that fix the train batch order, recorded in checkpoints:
     a preemption save's ``step_in_epoch`` counts steps in this order."""
     return {"accum_freq": max(1, int(args.accum_freq or 1)), "batch_size": int(args.batch_size),
-            "seed": int(args.seed or 0), "world": 1}
+            "seed": int(args.seed or 0), "world": int(getattr(args, "world_size", 1) or 1)}
 
 
 def _fetch_remote_artifacts(remote_run_dir: str, log_base: str) -> None:
@@ -233,6 +253,19 @@ def build_transforms(args, pp_cfg):
             image_transform_v2(pp_cfg, is_train=False))
 
 
+class _NoTracker:
+    """The Tracker of a rank that does not log."""
+
+    def log_scalars(self, *args, **kwargs):
+        pass
+
+    def log_artifact(self, *args, **kwargs):
+        pass
+
+    def finish(self):
+        pass
+
+
 def train_one_epoch(train_step, state, train_data, args, epoch: int, device: torch.device,
                     tracker=None, stop_event=None, skip_steps: int = 0, stop_after: int = 0):
     """One epoch of the loop: fetch ``--accum-freq`` batches, move them to
@@ -249,11 +282,18 @@ def train_one_epoch(train_step, state, train_data, args, epoch: int, device: tor
         loader.skip_next_batches(skip_steps * accum)
     records: List[dict] = []
     steps_done = 0
+    # a signal may reach one rank only: the ranks stop at the same step
+    agree = args.save_on_preemption and data_group() is not None
     group: List[dict] = []
     window_samples, window_t0 = 0, time.time()
     num_batches = getattr(loader, "num_batches", None)
     for i, batch in enumerate(loader):
-        if stop_event is not None and stop_event.is_set():
+        stop = stop_event is not None and stop_event.is_set()
+        if agree:
+            stop = any_rank(stop, device)
+            if stop:
+                stop_event.set()
+        if stop:
             logging.warning("stop requested: leaving epoch %d early", epoch)
             break
         group.append(batch)
@@ -298,6 +338,38 @@ def main(args=None):
         if args.debug:  # raise at the first NaN of a backward
             stack.enter_context(torch.autograd.detect_anomaly())
         return _main(args)
+
+
+def _write_final_artifacts(args, log_base: str, loss_steps: List[dict],
+                           all_results: List[dict], best: dict, tracker) -> None:
+    """``loss_steps.json``, ``loss_curves.png``, ``final_itm_results.json``,
+    the ITM plots and ``itm_scores.csv``, ``best_metrics.json``; each one
+    handed to the Tracker."""
+    with open(os.path.join(log_base, "loss_steps.json"), "w") as f:
+        json.dump(loss_steps, f)
+    _plot_loss_curves(loss_steps, log_base)
+    itm_path = os.path.join(log_base, "final_itm_results.json")
+    with open(itm_path, "w") as f:
+        json.dump(all_results, f, default=float)
+    if any(e["results"] for e in all_results):
+        from ..eval.my_metrics import extract_and_plot_itm_scores
+
+        try:
+            extract_and_plot_itm_scores(
+                itm_path, os.path.join(log_base, "itm_recall_plot.png"),
+                os.path.join(log_base, "itm_similarity_plot.png"),
+                save_csv_path=os.path.join(log_base, "itm_scores.csv"))
+        except Exception as e:  # plots never fail the run
+            logging.warning("ITM plotting failed: %r", e)
+    if best["epoch"] >= 0:
+        with open(os.path.join(log_base, "best_metrics.json"), "w") as f:
+            json.dump(best, f, default=float)
+        logging.info("Best epoch %d with retrieval score %.4f", best["epoch"], best["score"])
+        tracker.log_scalars({"retrieval_score": best["score"], "epoch": best["epoch"]},
+                            step=args.epochs, prefix="best")
+    for artifact in ("loss_steps.json", "final_itm_results.json", "best_metrics.json",
+                     "loss_curves.png", "itm_recall_plot.png", "itm_scores.csv"):
+        tracker.log_artifact(os.path.join(log_base, artifact))
 
 
 def _resolve_resume(args, checkpoint_dir: str, log_base: str):
@@ -345,20 +417,42 @@ def _main(args):
     from .file_utils import remote_sync, start_sync_process
     from .logger import setup_logging
     from .loggers import Tracker
+    from ..parallel.mesh import apply_fsdp, create_mesh, wrap_ddp, zero1_sharding
+    from .distributed import barrier, broadcast_object, init_distributed_device, is_master
     from .optim import OptimCfg, build_optimizer
     from .scheduler import const_lr, make_schedule
-    from .step import StepCfg, TrainState, make_train_step, train_parameters
+    from .step import StepCfg, TrainState, Towers, make_train_step, train_parameters
 
-    device = torch.device(args.device or ("cpu" if args.force_cpu else "cuda"))
+    # the process group first: every rank must join before any other work
+    device = init_distributed_device(args)
+    master = is_master(args)
     if args.name is None:
-        args.name = "-".join([datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
-                              f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
-                              f"b_{args.batch_size}", f"p_{args.precision}"])
+        name = "-".join([datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
+                         f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
+                         f"b_{args.batch_size}", f"p_{args.precision}"])
+        args.name = broadcast_object(args, name)  # one run directory for every rank
     log_base = os.path.join(args.logs, args.name)
     checkpoint_dir = os.path.join(log_base, "checkpoints")
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    setup_logging(os.path.join(log_base, "out.log"), logging.DEBUG if args.debug else logging.INFO)
+    level = logging.DEBUG if args.debug else logging.INFO
+    if master:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        setup_logging(os.path.join(log_base, "out.log"), level)
+    else:
+        setup_logging(None, max(level, logging.WARNING))
 
+    mesh = group = None
+    if args.distributed:
+        mesh = create_mesh(model=args.mesh_model_axis, device_type=device.type)
+        group = data_group()
+    elif args.shard_opt_state or args.fsdp:
+        raise ValueError("--shard-opt-state and --fsdp need a process group: launch with torchrun "
+                         "(WORLD_SIZE=1 with MASTER_ADDR/MASTER_PORT for one GPU)")
+    args.global_batch_size = args.batch_size * args.world_size
+    logging.info("batch: %d/rank x %d ranks = %d global", args.batch_size, args.world_size,
+                 args.global_batch_size)
+
+    # every rank seeds alike (no rank offset): the train loader shards one
+    # shared permutation per epoch
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
@@ -426,6 +520,17 @@ def _main(args):
             torch.manual_seed(args.seed + 1)
             head = DinoProjectionHead(model.text_projection.shape[1], dino_dim,
                                       args.projection_type, args.use_layernorm).to(device)
+        # the forward's module across ranks: FSDP's shards, or DDP
+        towers = sharding = None
+        if args.fsdp:
+            sharding = apply_fsdp(model, head, mesh, train_parameters(model, head),
+                                  args.fsdp_min_size)
+            towers = Towers(model, head)
+        elif args.distributed:
+            if args.shard_opt_state:
+                sharding = zero1_sharding(train_parameters(model, head), dist.group.WORLD,
+                                          args.fsdp_min_size)
+            towers = wrap_ddp(Towers(model, head), device, static_graph=args.ddp_static_graph)
         optim_cfg = OptimCfg(
             opt=args.opt, lr=args.lr, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
             wd=args.wd, head_lr=args.head_lr, logit_scale_lr=args.logit_scale_lr,
@@ -437,7 +542,8 @@ def _main(args):
             use_param_groups=args.use_param_groups,
             mu_dtype=None if args.adam_mu_dtype == "float32" else args.adam_mu_dtype,
         )
-        optimizer, _ = build_optimizer(train_parameters(model, head), optim_cfg, schedule)
+        optimizer, _ = build_optimizer(train_parameters(model, head), optim_cfg, schedule,
+                                       sharding=sharding)
         dino_cfg = DinoLossCfg(
             lambda_original=args.lambda_original, lambda_soft=args.lambda_soft,
             soft_mode=args.soft_mode, teacher_temp=args.teacher_temp,
@@ -449,7 +555,8 @@ def _main(args):
             residual_alpha=args.residual_alpha, with_diagnostics=args.dbg_print_every > 0,
         )
         step_cfg = StepCfg(
-            loss_type="dino" if args.use_dino_general else "clip", dino=dino_cfg,
+            loss_type="siglip" if args.siglip else ("dino" if args.use_dino_general else "clip"),
+            dino=dino_cfg, siglip_dist_impl=args.loss_dist_impl or "bidir",
             accum_freq=args.accum_freq,
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,
             warmup=args.warmup, log_grad_norm=bool(args.grad_clip_norm) or args.debug,
@@ -457,15 +564,18 @@ def _main(args):
             use_patch_dropout=(bool(args.force_patch_dropout)
                                or model.visual.patch_dropout is not None),
         )
-        train_step = make_train_step(model, step_cfg, head, dino_teacher)
+        train_step = make_train_step(model, step_cfg, head, dino_teacher, group=group,
+                                     towers=towers)
         state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(args.seed))
 
-    tracker = Tracker(log_base, args, enable_tb="tensorboard" in (args.report_to or ""))
+    tracker = (Tracker(log_base, args, enable_tb="tensorboard" in (args.report_to or ""))
+               if master else _NoTracker())
 
     # ---- resume: at an epoch's start, or inside it after a preemption ----
     start_epoch = resume_step_in_epoch = 0
     if args.resume is not None and state is not None:
-        resume_path = _resolve_resume(args, checkpoint_dir, log_base)
+        resume_path = broadcast_object(
+            args, _resolve_resume(args, checkpoint_dir, log_base) if master else None)
         if resume_path:
             state, start_epoch, resume_step_in_epoch, saved_order = restore_checkpoint(
                 resume_path, state)
@@ -485,7 +595,7 @@ def _main(args):
 
     # ---- remote sync: a verification sync, then the daemon ----
     remote_sync_process = None
-    if args.remote_sync is not None:
+    if args.remote_sync is not None and master:
         remote_run = os.path.join(args.remote_sync, args.name)
         if not remote_sync(log_base, remote_run, args.remote_sync_protocol):
             raise RuntimeError("Error: remote sync failed. Exiting.")
@@ -494,11 +604,12 @@ def _main(args):
                                                  remote_run, args.remote_sync_protocol)
         remote_sync_process.start()
 
-    with open(os.path.join(log_base, "params.txt"), "w") as f:
-        for name in sorted(vars(args)):
-            f.write(f"{name}: {getattr(args, name)}\n")
-    if args.copy_codebase:
-        _copy_codebase(log_base)
+    if master:
+        with open(os.path.join(log_base, "params.txt"), "w") as f:
+            for name in sorted(vars(args)):
+                f.write(f"{name}: {getattr(args, name)}\n")
+        if args.copy_codebase:
+            _copy_codebase(log_base)
 
     eval_keys = [k for k in ("val", "flickr30k-val", "mscoco-val") if k in data]
     # ImageNet data without a retrieval key still evaluates (zero-shot alone)
@@ -519,6 +630,7 @@ def _main(args):
         results = evaluate_all(start_epoch)
         tracker.finish()
         _final_remote_sync(remote_sync_process, args, log_base)
+        barrier()
         return results
 
     # ---- pre-train evaluation: the epoch-0 entry, never "best"; a resume
@@ -602,32 +714,9 @@ def _main(args):
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
 
-    # ---- final artifacts ----
-    with open(os.path.join(log_base, "loss_steps.json"), "w") as f:
-        json.dump(loss_steps, f)
-    _plot_loss_curves(loss_steps, log_base)
-    itm_path = os.path.join(log_base, "final_itm_results.json")
-    with open(itm_path, "w") as f:
-        json.dump(all_results, f, default=float)
-    if any(e["results"] for e in all_results):
-        from ..eval.my_metrics import extract_and_plot_itm_scores
-
-        try:
-            extract_and_plot_itm_scores(
-                itm_path, os.path.join(log_base, "itm_recall_plot.png"),
-                os.path.join(log_base, "itm_similarity_plot.png"),
-                save_csv_path=os.path.join(log_base, "itm_scores.csv"))
-        except Exception as e:  # plots never fail the run
-            logging.warning("ITM plotting failed: %r", e)
-    if best["epoch"] >= 0:
-        with open(os.path.join(log_base, "best_metrics.json"), "w") as f:
-            json.dump(best, f, default=float)
-        logging.info("Best epoch %d with retrieval score %.4f", best["epoch"], best["score"])
-        tracker.log_scalars({"retrieval_score": best["score"], "epoch": best["epoch"]},
-                            step=args.epochs, prefix="best")
-    for artifact in ("loss_steps.json", "final_itm_results.json", "best_metrics.json",
-                     "loss_curves.png", "itm_recall_plot.png", "itm_scores.csv"):
-        tracker.log_artifact(os.path.join(log_base, artifact))
+    # ---- final artifacts (rank 0 writes) ----
+    if master:
+        _write_final_artifacts(args, log_base, loss_steps, all_results, best, tracker)
     tracker.finish()
     export_torch_checkpoint(state, args.epochs, args.name,
                             os.path.join(checkpoint_dir, "final_torch_state.pt"))
@@ -668,6 +757,7 @@ def _main(args):
         except Exception as e:
             logging.warning("[clip-blind] train-split check failed: %r", e)
     _final_remote_sync(remote_sync_process, args, log_base)
+    barrier()
     return loss_steps
 
 

@@ -60,6 +60,16 @@ update. Tensors are updated in chunks of at most ``CHUNK`` elements with
 ``torch._foreach_*`` ops (adafactor and lamb tensor by tensor), so the
 temporaries stay small beside the state. ``build_fused_optimizer`` is the
 JAX package's fused AdamW: one flattened fp32 ``m`` and ``v`` per group.
+
+Under ZeRO-1 or FSDP (``sharding``, a ``parallel/mesh.py:ParamSharding``)
+each rank keeps the state of its dimension-0 slice of every split tensor
+and updates that slice; ZeRO-1 then all-gathers the parameters. What XLA
+computes over a whole tensor stays whole: the sums of squares behind the
+global norm (clipping, ``grad_norm``) and lamb's trust ratio, adafactor's
+row and column means over a split dimension, its ``row_col_mean`` and its
+block RMS are reduced over the ranks. ``state_dict`` gives the whole,
+unsplit state and ``load_state_dict`` takes it, so a checkpoint is the same
+file at any world size.
 """
 
 from __future__ import annotations
@@ -206,11 +216,13 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> None:
     """Scale the gradients in place by max_norm / norm where the norm is at
-    least max_norm (optax's rule, with no epsilon)."""
+    least max_norm (optax's rule, with no epsilon); ``norm`` defaults to
+    the gradients' global norm."""
     grads = list(grads)
-    norm = global_norm(grads)
+    norm = global_norm(grads) if norm is None else norm
     factor = torch.where(norm < max_norm, torch.ones_like(norm), norm / max_norm)
     for g in grads:
         g.div_(factor.to(g.dtype))
@@ -297,16 +309,19 @@ class GroupOptimizer:
     """One ``--opt`` family with one param group per label, and what the JAX
     optimizer chains around it: clipping by the global norm of every
     gradient (frozen ones included) and the per-group schedule. The state
-    is created with the optimizer, on each parameter's device."""
+    is created with the optimizer, on each parameter's device; under
+    ``sharding`` for this rank's slices only."""
 
     def __init__(self, params: Mapping[str, torch.nn.Parameter], labels: Dict[str, str],
-                 cfg: OptimCfg, schedule: Schedule, base_lr: float):
+                 cfg: OptimCfg, schedule: Schedule, base_lr: float, sharding=None):
         self.family = optimizer_family(cfg)
         self.cfg = cfg
         self.mu_dtype = _mu_dtype(cfg.mu_dtype)
+        self.named = dict(params)
         self.params = list(params.values())
         self.schedule = schedule
         self.grad_clip_norm = cfg.grad_clip_norm
+        self.sharding = sharding
         self.count = 0
         if not cfg.use_param_groups:
             group_wd, ratios = {"default": cfg.wd}, {"default": 1.0}
@@ -321,25 +336,44 @@ class GroupOptimizer:
             if names:
                 self.groups.append({"label": g, "names": names, "wd": wd, "lr_ratio": ratios[g],
                                     "params": [params[n] for n in names]})
-        self.state = {n: self._init_state(params[n]) for grp in self.groups
+        # per state tensor: whether it holds this rank's dimension-0 slice
+        self.split: Dict[str, Dict[str, bool]] = {}
+        self.state = {n: self._init_state(n, params[n]) for grp in self.groups
                       for n in grp["names"]}
 
-    def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _split(self, name: str) -> bool:
+        return self.sharding is not None and name in self.sharding.sharded
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return t if self.sharding is None else self.sharding.local(name, t)
+
+    def _init_state(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        local = self._local(name, p.detach())
+        split = self._split(name)
         zeros = lambda shape, dtype=None: torch.zeros(  # noqa: E731
-            shape, dtype=dtype or p.dtype, device=p.device)
+            shape, dtype=dtype or local.dtype, device=local.device)
         if self.family in ("adamw", "lamb"):
-            return {"mu": zeros(p.shape, self.mu_dtype), "nu": zeros(p.shape)}
-        if self.family == "lion":
-            return {"mu": zeros(p.shape, self.mu_dtype)}
-        if self.family == "sgd":
-            return {"mu": zeros(p.shape)}
-        dims = factored_dims(p.shape)  # adafactor: its momentum and second moment
-        mu = zeros(p.shape, self.mu_dtype or torch.float32)
-        if dims is None:
-            return {"mu": mu, "v": zeros(p.shape)}
-        d1, d0 = dims
-        return {"mu": mu, "v_row": zeros([n for i, n in enumerate(p.shape) if i != d0]),
-                "v_col": zeros([n for i, n in enumerate(p.shape) if i != d1])}
+            state = {"mu": zeros(local.shape, self.mu_dtype), "nu": zeros(local.shape)}
+        elif self.family == "lion":
+            state = {"mu": zeros(local.shape, self.mu_dtype)}
+        elif self.family == "sgd":
+            state = {"mu": zeros(local.shape)}
+        else:  # adafactor: its momentum and second moment
+            mu = zeros(local.shape, self.mu_dtype or torch.float32)
+            dims = factored_dims(p.shape)
+            if dims is None:
+                state = {"mu": mu, "v": zeros(local.shape)}
+            else:
+                d1, d0 = dims
+                # a statistic keeps this rank's slice where it keeps dim 0
+                row = [n for i, n in enumerate(local.shape if d0 else p.shape) if i != d0]
+                col = [n for i, n in enumerate(local.shape if d1 else p.shape) if i != d1]
+                state = {"mu": mu, "v_row": zeros(row), "v_col": zeros(col)}
+                self.split[name] = {"mu": split, "v_row": split and d0 != 0,
+                                    "v_col": split and d1 != 0}
+                return state
+        self.split[name] = {k: split for k in state}
+        return state
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -348,26 +382,58 @@ class GroupOptimizer:
     def grads(self):
         return [p.grad for p in self.params if p.grad is not None]
 
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of every gradient, in fp32, over the whole
+        tensors (each slice's sum of squares reduced over the ranks)."""
+        if self.sharding is None:
+            return global_norm(self.grads())
+        sums = {False: [], True: []}
+        for n, p in self.named.items():
+            if p.grad is not None:
+                sums[self._split(n)].append((self._local(n, p.grad).float() ** 2).sum())
+        zero = torch.zeros((), device=(sums[False] + sums[True])[0].device)
+        split = self.sharding.all_reduce(sum(sums[True], zero).reshape(1))[0]
+        return torch.sqrt(sum(sums[False], zero) + split)
+
+    def _sum_over_split(self, values: List[torch.Tensor], split: List[bool]) -> List[torch.Tensor]:
+        """Each value, summed over the ranks where ``split`` says so (one
+        collective for all of them)."""
+        idx = [i for i, s in enumerate(split) if s]
+        if not idx or self.sharding.world == 1:
+            return values
+        summed = self.sharding.all_reduce(torch.stack([values[i].float() for i in idx]))
+        values = list(values)
+        for j, i in enumerate(idx):
+            values[i] = summed[j]
+        return values
+
     @torch.no_grad()
     def step(self, step: int) -> None:
         """One update with the lr the schedule gives at ``step`` (counted
         from 0: the count optax reads before its update). A parameter of a
         group without a gradient takes a zero gradient, as an optax leaf."""
         if self.grad_clip_norm is not None:
-            clip_by_global_norm(self.grads(), self.grad_clip_norm)
+            grads = [self._local(n, p.grad) for n, p in self.named.items() if p.grad is not None]
+            clip_by_global_norm(grads, self.grad_clip_norm,
+                                None if self.sharding is None else self.grad_norm())
         self.count += 1
         lr = self.schedule(step)
         update = getattr(self, f"_{self.family}")
         for group in self.groups:
-            ps = group["params"]
-            gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
-            states = [self.state[n] for n in group["names"]]
+            names = group["names"]
+            ps = [self._local(n, p.detach()) for n, p in zip(names, group["params"])]
+            gs = [self._local(n, p.grad) if p.grad is not None else torch.zeros_like(lp)
+                  for n, p, lp in zip(names, group["params"], ps)]
+            states = [self.state[n] for n in names]
             for idx in _chunks(ps):
-                update([ps[i] for i in idx], [gs[i] for i in idx], [states[i] for i in idx],
-                       lr * group["lr_ratio"], group["wd"])
+                update([names[i] for i in idx], [ps[i] for i in idx], [gs[i] for i in idx],
+                       [states[i] for i in idx], lr * group["lr_ratio"], group["wd"])
+        if self.sharding is not None:
+            self.sharding.gather_params(self.named)
 
-    # ---- the families: each takes a chunk of parameters, gradients and
-    # states, the group's lr and weight decay, and updates in place ----
+    # ---- the families: each takes a chunk of names, parameters (this
+    # rank's slices), gradients and states, the group's lr and weight
+    # decay, and updates in place ----
 
     def _apply(self, ps, us, lr: float, wd: float) -> None:
         """``p += -lr * (u + wd * p)`` (optax's add_decayed_weights,
@@ -397,19 +463,27 @@ class GroupOptimizer:
         torch._foreach_div_(m, den)
         return m
 
-    def _adamw(self, ps, gs, states, lr, wd) -> None:
+    def _adamw(self, names, ps, gs, states, lr, wd) -> None:
         self._apply(ps, self._adam_direction(gs, states), lr, wd)
 
-    def _lamb(self, ps, gs, states, lr, wd) -> None:
+    def _lamb(self, names, ps, gs, states, lr, wd) -> None:
         us = self._adam_direction(gs, states)
         if wd:
             torch._foreach_add_(us, torch._foreach_mul(ps, wd))
-        for p, u in zip(ps, us):  # scale_by_trust_ratio
-            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        split = [self._split(n) for n in names]
+        if any(split):  # whole-tensor norms from each rank's slice
+            sq = [torch.stack([(p.float() ** 2).sum(), (u.float() ** 2).sum()]) if s else None
+                  for p, u, s in zip(ps, us, split)]
+            sq = self._sum_over_split(sq, split)
+        for i, (p, u) in enumerate(zip(ps, us)):  # scale_by_trust_ratio
+            if split[i]:
+                pn, un = torch.sqrt(sq[i][0]), torch.sqrt(sq[i][1])
+            else:
+                pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
             u.mul_(torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un))
         self._apply(ps, us, lr, 0.0)
 
-    def _lion(self, ps, gs, states, lr, wd) -> None:
+    def _lion(self, names, ps, gs, states, lr, wd) -> None:
         c = self.cfg
         mus = [s["mu"] for s in states]
         us = torch._foreach_mul(gs, 1 - c.beta1)
@@ -421,48 +495,80 @@ class GroupOptimizer:
         del m
         self._apply(ps, us, lr, wd)
 
-    def _sgd(self, ps, gs, states, lr, wd) -> None:
+    def _sgd(self, names, ps, gs, states, lr, wd) -> None:
         traces = [s["mu"] for s in states]
         torch._foreach_mul_(traces, self.cfg.beta1)
         torch._foreach_add_(traces, gs)
         self._apply(ps, [t.clone() for t in traces], lr, wd)
 
-    def _adafactor(self, ps, gs, states, lr, wd) -> None:
+    def _mean(self, t: torch.Tensor, dim: int, across: bool, n: int,
+              keepdim: bool = False) -> torch.Tensor:
+        """``t.mean(dim)``; where ``dim`` is split over the ranks
+        (``across``), the sum over every rank's slice divided by the whole
+        length ``n``."""
+        if not across:
+            return t.mean(dim, keepdim=keepdim)
+        return self.sharding.all_reduce(t.sum(dim, keepdim=keepdim)) / n
+
+    def _adafactor(self, names, ps, gs, states, lr, wd) -> None:
         c = self.cfg
         # decay_rate_t = 1 - (t + 1)^-0.8 at the count t before this update,
         # in fp32 (a host number: no copy to the device, no wait for it)
         dr = float(1.0 - torch.tensor(float(self.count), dtype=torch.float32) ** -AF_DECAY)
         us = []
-        for p, g, s in zip(ps, gs, states):
+        for name, p, g, s in zip(names, ps, gs, states):
+            split = self._split(name)
+            shape = self.named[name].shape  # the whole tensor's
             sq = g * g + AF_EPS
-            dims = factored_dims(p.shape)
+            dims = factored_dims(shape)
             if dims is None:
                 s["v"].copy_(dr * s["v"] + (1.0 - dr) * sq)
                 u = g * s["v"] ** -0.5
             else:
                 d1, d0 = dims
-                s["v_row"].copy_(dr * s["v_row"] + (1.0 - dr) * sq.mean(d0))
-                s["v_col"].copy_(dr * s["v_col"] + (1.0 - dr) * sq.mean(d1))
+                row = self._mean(sq, d0, split and d0 == 0, shape[d0])
+                s["v_row"].copy_(dr * s["v_row"] + (1.0 - dr) * row)
+                col = self._mean(sq, d1, split and d1 == 0, shape[d1])
+                s["v_col"].copy_(dr * s["v_col"] + (1.0 - dr) * col)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = s["v_row"].mean(reduced_d1, keepdim=True)
-                row = (s["v_row"] / row_col_mean) ** -0.5
-                u = g * row.unsqueeze(d0) * (s["v_col"] ** -0.5).unsqueeze(d1)
+                row_col_mean = self._mean(s["v_row"], reduced_d1, split and d0 != 0 and d1 == 0,
+                                          shape[d1], keepdim=True)
+                r = (s["v_row"] / row_col_mean) ** -0.5
+                u = g * r.unsqueeze(d0) * (s["v_col"] ** -0.5).unsqueeze(d1)
             del sq
             # clip_by_block_rms, then the momentum (ema without debiasing)
-            u = u / torch.clamp(torch.sqrt((u * u).mean()) / AF_CLIP, min=1.0)
+            ms = (u * u).mean() if not split else (
+                self.sharding.all_reduce((u * u).sum()) / self.named[name].numel())
+            u = u / torch.clamp(torch.sqrt(ms) / AF_CLIP, min=1.0)
             mu = s["mu"]
             u = u * (1 - c.beta1) + _decay_in([mu], c.beta1)[0]
             mu.copy_(u)
             us.append(u)
         self._apply(ps, us, lr, wd)
 
-    def state_dict(self) -> dict:
-        return {"family": self.family, "count": self.count,
-                "state": {n: dict(s) for n, s in self.state.items()}}
+    def state_dict(self, cpu_offload: bool = False) -> dict:
+        """The whole state (each rank's slices gathered: a collective under
+        a sharding, which every rank calls). ``cpu_offload``: each tensor is
+        gathered in turn and copied to host memory by the writer alone
+        (``parallel/mesh.py:is_writer``), the others get an empty
+        ``state``."""
+        from ..parallel.mesh import is_writer
+
+        keep = not cpu_offload or is_writer()
+        state = {}
+        for n, s in self.state.items():
+            for k, t in s.items():
+                whole = self.sharding.gather(t) if self.split[n][k] else t
+                if keep:
+                    state.setdefault(n, {})[k] = (whole.to("cpu", copy=True) if cpu_offload
+                                                  else whole)
+                del whole  # freed before the next gather
+        return {"family": self.family, "count": self.count, "state": state}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restores into the existing tensors (each keeps its dtype and
-        device); raises on another family or another set of parameters."""
+        """Restores the whole state into the existing tensors (each keeps its
+        dtype and device; a split one takes this rank's slice); raises on
+        another family or another set of parameters."""
         if state.get("family") != self.family:
             raise ValueError(f"the saved optimizer state is {state.get('family')!r}, this run's "
                              f"optimizer is {self.family!r}")
@@ -471,19 +577,27 @@ class GroupOptimizer:
         self.count = int(state["count"])
         for n, saved in state["state"].items():
             for k, t in self.state[n].items():
-                if tuple(saved[k].shape) != tuple(t.shape):
+                src = saved[k]
+                if self.split[n][k]:
+                    w = self.sharding.world
+                    if src.shape[0] != t.shape[0] * w:
+                        raise ValueError(f"optimizer state {n}.{k}: saved {tuple(src.shape)}, "
+                                         f"expected {(t.shape[0] * w,) + tuple(t.shape[1:])}")
+                    src = src.chunk(w, 0)[self.sharding.rank]
+                if tuple(src.shape) != tuple(t.shape):
                     raise ValueError(f"optimizer state {n}.{k}: saved {tuple(saved[k].shape)}, "
                                      f"expected {tuple(t.shape)}")
-                t.copy_(saved[k])
+                t.copy_(src)
 
 
 def build_optimizer(params: Mapping[str, torch.nn.Parameter], cfg: OptimCfg,
-                    schedule: Schedule, base_lr: Optional[float] = None
+                    schedule: Schedule, base_lr: Optional[float] = None, sharding=None
                     ) -> Tuple[GroupOptimizer, Dict[str, str]]:
     """``cfg.opt`` with per-group lr and weight decay, global-norm clipping
     and frozen parameters in no group. ``params`` maps names (model keys,
-    head keys under ``dino_head.``) to parameters. Returns (optimizer,
-    labels)."""
+    head keys under ``dino_head.``) to parameters; ``sharding`` (a
+    ``parallel/mesh.py:ParamSharding``) splits the state over the ranks.
+    Returns (optimizer, labels)."""
     base_lr = base_lr if base_lr is not None else (cfg.lr if cfg.lr is not None else 5e-5)
     labels = label_params(params, cfg)
     if not cfg.use_param_groups:
@@ -492,7 +606,7 @@ def build_optimizer(params: Mapping[str, torch.nn.Parameter], cfg: OptimCfg,
     for p, lbl in labels.items():
         sizes[lbl] = sizes.get(lbl, 0) + params[p].numel()
     logging.info("optimizer groups: %s", sizes)
-    return GroupOptimizer(params, labels, cfg, schedule, base_lr), labels
+    return GroupOptimizer(params, labels, cfg, schedule, base_lr, sharding), labels
 
 
 class FusedAdamW:
@@ -554,9 +668,12 @@ class FusedAdamW:
                 p.add_(upd[off:off + p.numel()].view_as(p).to(p.dtype))
                 off += p.numel()
 
-    def state_dict(self) -> dict:
+    def state_dict(self, cpu_offload: bool = False) -> dict:
+        """The state; ``cpu_offload`` copies it to host memory."""
+        host = (lambda t: t.to("cpu", copy=True)) if cpu_offload else (lambda t: t)  # noqa: E731
         return {"family": "fused_adamw", "count": self.count,
-                "groups": {g: {"m": st["m"], "v": st["v"]} for g, st in self.groups.items()}}
+                "groups": {g: {"m": host(st["m"]), "v": host(st["v"])}
+                           for g, st in self.groups.items()}}
 
     def load_state_dict(self, state: dict) -> None:
         if state.get("family") != "fused_adamw" or set(state["groups"]) != set(self.groups):

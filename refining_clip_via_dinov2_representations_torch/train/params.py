@@ -1,17 +1,23 @@
 """Training CLI flags.
 
 The port of the JAX package's ``train/params.py``: the same flag names and
-defaults, and ``get_default_params`` for the model family. A flag that this
-slice of the port cannot honour raises ``NotImplementedError`` at parse time
-when it is set away from its default (``UNPORTED``), rather than being
-ignored: the other losses and towers, webdataset and the ImageNet train
-subset, device preprocessing, multi-GPU training, the step profiler.
-Tracking (``--report-to``), preemption saves, asynchronous and remote
-checkpoints, ``--remote-sync``, ``--copy-codebase``, gradient accumulation
-(``--accum-freq``), the ``--opt`` families, ``--adam-mu-dtype``,
-``--force-patch-dropout`` and every ``--remat-policy`` are ported;
-``--momentum`` is parsed and read by none, as in the JAX package. Flags that change nothing in
-one process (``--local-loss``, ``--gather-with-grad``, ``--log-local``), the
+defaults, and ``get_default_params`` for the model family. A flag that the
+port cannot honour raises ``NotImplementedError`` at parse time when it is
+set away from its default (``UNPORTED``), rather than being ignored: the
+other losses and towers, webdataset and the ImageNet train subset, device
+preprocessing, the tensor-parallel model axis, Horovod, SyncBatchNorm, the
+step profiler. Tracking (``--report-to``), preemption saves, asynchronous
+and remote checkpoints, ``--remote-sync``, ``--copy-codebase``, gradient
+accumulation (``--accum-freq``), the ``--opt`` families,
+``--adam-mu-dtype``, ``--force-patch-dropout``, every ``--remat-policy``,
+SigLIP (``--siglip``, ``--loss-dist-impl``) and multi-GPU training
+(``--dist-url``, ``--dist-backend``, ``--no-set-device-rank``,
+``--ddp-static-graph``, ``--shard-opt-state``, ``--fsdp``,
+``--fsdp-min-size``; ``train/distributed.py``, ``parallel/``) are ported;
+``--momentum`` is parsed and read by none, as in the JAX package.
+``--local-loss`` and ``--gather-with-grad`` are accepted and change
+nothing: the losses always take local rows against gathered columns, with
+gradients through the gather, as the JAX step does. ``--log-local``, the
 sweep-surface knobs the reference parses but no loss reads, and knobs whose
 consumer the JAX package does not have either (``--log-checkpoint``,
 ``--use_mlflow``: MLflow is gated by ``MLFLOW_ENABLE``;
@@ -35,9 +41,7 @@ UNPORTED = {
     "torchscript": "TorchScript",
     "torchcompile": "torch.compile",
     "trace": "tracing",
-    "use_bn_sync": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "siglip": "the SigLIP loss (ROADMAP Queue 1 item 12)",
-    "loss_dist_impl": "the SigLIP loss (ROADMAP Queue 1 item 12)",
+    "use_bn_sync": "SyncBatchNorm (it has no BatchNorm tower: ROADMAP Queue 1 item 14)",
     "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
     "use_coca": "CoCa (ROADMAP Queue 1 item 14)",
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
@@ -47,14 +51,8 @@ UNPORTED = {
     "pretrained_image": "pretrained towers",
     "use_bnb_linear": "bitsandbytes layers",
     "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",
-    "mesh_model_axis": "model parallelism (ROADMAP Queue 1 item 10)",
-    "shard_opt_state": "sharded optimizer state (ROADMAP Queue 1 item 10)",
-    "fsdp": "FSDP (ROADMAP Queue 1 item 10)",
-    "dist_url": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "dist_backend": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "horovod": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "ddp_static_graph": "multi-GPU training (ROADMAP Queue 1 item 10)",
-    "no_set_device_rank": "multi-GPU training (ROADMAP Queue 1 item 10)",
+    "mesh_model_axis": "tensor-parallel model axis (ROADMAP Queue 1 item 10b)",
+    "horovod": "Horovod launcher (launch one process a GPU with torchrun)",
 }
 
 
@@ -162,7 +160,8 @@ def _parser() -> argparse.ArgumentParser:
     flag("--trace")
     flag("--use-bn-sync")
     flag("--siglip")
-    a("--loss-dist-impl", type=str, default=None)
+    a("--loss-dist-impl", type=str, default=None,
+      choices=["shift", "bidir", "gather", "reduce"])
 
     # ---- DINO thesis knobs ----
     flag("--use_dino_general")
@@ -229,7 +228,8 @@ def _parser() -> argparse.ArgumentParser:
     a("--distill-model", type=str, default=None)
     a("--distill-pretrained", type=str, default=None)
 
-    # ---- contrastive dist options (no effect in one process) ----
+    # ---- contrastive dist options (accepted; the losses always gather with
+    # gradients and take local rows, as the JAX step) ----
     flag("--local-loss")
     flag("--gather-with-grad")
 

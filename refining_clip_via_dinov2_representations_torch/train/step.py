@@ -1,10 +1,11 @@
 """The training step: forward both towers, the loss, backward, the
 param-group optimizer (``train/optim.py``), the logit-scale clamp.
 
-The port of the JAX package's ``train/step.py`` for one process and the
-``"clip"`` and ``"dino"`` losses. PyTorch runs eagerly, so there is no
-compiled function: ``make_train_step`` returns a closure over the model, the
-DINO head and the optimizer that updates them in place. On a CUDA model
+The port of the JAX package's ``train/step.py`` for the ``"clip"``,
+``"dino"`` and ``"siglip"`` losses, in one process or in one process a
+rank. PyTorch runs eagerly, so there is no compiled function:
+``make_train_step`` returns a closure over the model, the DINO head and
+the optimizer that updates them in place. On a CUDA model
 every attention call of both towers runs the fused kernels, forward and
 backward (``ops/attention.py``, ``"auto"`` or ``"fused"``); with
 ``"flash"``, attention over 512 or more queries runs the flash forward
@@ -41,24 +42,46 @@ the microbatch index into its rng: both phases of ``accumulate_grads`` see
 the same kept tokens for the same rows. Forwards without a generator (the
 evaluations, CLIP-blind) keep every token.
 
+Across ranks (``group``, the data axis of ``parallel/mesh.py``; one
+process a GPU): every loss takes the group, so the classic CLIP term uses
+the local rows against the gathered columns, the DINO soft and text KL
+stay on the local block, the weighted CE modulates this rank's block of
+the gathered logits, and SigLIP runs ``siglip_dist_impl``'s ring
+(``bidir`` by default, as the JAX CLI) with ``logit_bias`` from the
+model's output (0.0 where it has none). Each rank backpropagates its own
+loss; the forward runs through ``towers`` (``Towers`` under DDP, whose
+backward averages the gradients, or with FSDP's modules inside, whose
+reduce-scatter does; the replicated tensors FSDP ignores are averaged
+after the backward), so the gradient is the rank mean, as ``jax.grad`` of
+the JAX step's ``pmean``. The returned metrics are the rank mean. Under
+accumulation each pass's full batch is this rank's cached rows with the
+live slot, gathered over the ranks inside the loss; the gradients are not
+reduced until the last pass (``parallel/mesh.py:grad_sync_paused``).
+Patch dropout folds the rank into the microbatch index, so that two ranks
+never draw the same masks.
+
 The other loss types, BatchNorm towers and device preprocessing raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..losses import DinoLossCfg, clip_loss, dino_enhanced_loss
+from ..losses.contrastive import SIGLIP_DIST_IMPLS, group_rank_size, siglip_loss
 from ..losses.dino import DinoProjectionHead
 from .optim import HEAD_PREFIX, GroupOptimizer, global_norm
 
 LN100 = math.log(100.0)
-LOSS_TYPES = ("clip", "dino")
+LOSS_TYPES = ("clip", "dino", "siglip")
 
 
 @dataclasses.dataclass
@@ -80,8 +103,12 @@ class StepCfg:
     use_patch_dropout: bool = False
     device_preprocess: Optional[Tuple] = None
     log_grad_norm: bool = False
+    siglip_dist_impl: str = "bidir"  # bidir | shift | gather | reduce
 
     def __post_init__(self):
+        if self.siglip_dist_impl not in SIGLIP_DIST_IMPLS:
+            raise ValueError(f"unknown siglip_dist_impl {self.siglip_dist_impl!r}: "
+                             f"one of {SIGLIP_DIST_IMPLS}")
         unported = {
             f"loss_type {self.loss_type!r}": self.loss_type not in LOSS_TYPES,
             "device preprocessing": self.device_preprocess is not None,
@@ -89,8 +116,8 @@ class StepCfg:
         for what, present in unported.items():
             if present:
                 raise NotImplementedError(
-                    f"{what}: the port's train step has the clip and dino losses, without "
-                    "device preprocessing, so far (ROADMAP Queue 1 item 5)")
+                    f"{what}: the port's train step has the clip, dino and siglip losses, "
+                    "without device preprocessing, so far (ROADMAP Queue 1 item 5)")
 
 
 # an odd 63-bit constant (the golden ratio's): folds a microbatch index
@@ -125,42 +152,86 @@ def _lambda_overrides(cfg: StepCfg, step: int) -> Dict[str, float]:
     return {"lambda_soft": frac * cfg.dino.lambda_soft}
 
 
+class Towers(nn.Module):
+    """The model and the DINO head as one module, the unit DDP wraps: the
+    forward of both towers, then the head on the image features where
+    ``project`` asks for it."""
+
+    def __init__(self, model: nn.Module, head: Optional[nn.Module] = None):
+        super().__init__()
+        self.model = model
+        self.head = head
+
+    def forward(self, images, texts, generator=None, project: bool = False):
+        out = self.model(images, texts, patch_dropout_generator=generator)
+        if project:
+            out = {**out, "raw_proj": self.head(out["image_features"])}
+        return out
+
+
+def rank_mean(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each scalar metric, detached and averaged over ``group``'s ranks in
+    one collective (the JAX step's ``pmean``); as they are without one."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    _, world = group_rank_size(group)
+    if world == 1:
+        return metrics
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(flat, group=group)
+    flat /= world
+    return {k: flat[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
+
+
 def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
                  head: Optional[DinoProjectionHead] = None,
-                 dino_teacher: Any = None) -> Callable:
-    """``loss_fn(batch, step) -> (loss, metrics)``. ``batch`` holds tensors on
-    the model's device: images [B,H,W,3] float, texts [B,L] int, optional
-    dino_features [B,Dd]; without them, ``dino_teacher`` (a
-    ``LiveDinoTeacher``) encodes the images. ``loss_fn.encode_fn`` gives the
-    per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the losses
-    from them."""
+                 dino_teacher: Any = None, group=None,
+                 towers: Optional[nn.Module] = None) -> Callable:
+    """``loss_fn(batch, step) -> (loss, metrics)``: this rank's loss and
+    metrics. ``batch`` holds tensors on the model's device: images
+    [B,H,W,3] float, texts [B,L] int, optional dino_features [B,Dd];
+    without them, ``dino_teacher`` (a ``LiveDinoTeacher``) encodes the
+    images. ``towers`` runs the forward (``Towers(model, head)`` by default;
+    its DDP wrapper under a group). ``loss_fn.encode_fn`` gives the
+    per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the
+    losses from them."""
+    towers = towers if towers is not None else Towers(model, head)
 
     def encode_fn(batch: Dict[str, torch.Tensor], step: int,
                   generator: Optional[torch.Generator] = None):
-        out = model(batch["images"], batch["texts"], patch_dropout_generator=generator)
-        rows = {"img_f": out["image_features"], "txt_f": out["text_features"]}
-        scalars: Dict[str, Any] = {"logit_scale": out["logit_scale"]}
+        dino_feats = None
         if cfg.loss_type == "dino":
             dino_feats = batch.get("dino_features")
             if dino_feats is None and dino_teacher is not None:
                 dino_feats = dino_teacher.extract(batch["images"])
+        project = dino_feats is not None and cfg.dino.use_projection and head is not None
+        out = towers(batch["images"], batch["texts"], generator, project)
+        rows = {"img_f": out["image_features"], "txt_f": out["text_features"]}
+        scalars: Dict[str, Any] = {"logit_scale": out["logit_scale"]}
+        if cfg.loss_type == "dino":
             if dino_feats is not None:
                 rows["dino_features"] = dino_feats
-                if cfg.dino.use_projection and head is not None:
-                    rows["raw_proj"] = head(rows["img_f"])
+                if project:
+                    rows["raw_proj"] = out["raw_proj"]
             scalars.update(_lambda_overrides(cfg, step))
+        elif cfg.loss_type == "siglip" and "logit_bias" in out:
+            scalars["logit_bias"] = out["logit_bias"]
         return rows, scalars
 
     def compute_metrics(rows, scalars) -> Dict[str, torch.Tensor]:
         logit_scale = scalars["logit_scale"]
         metrics = {"logit_scale": logit_scale}
         if cfg.loss_type == "clip":
-            total = clip_loss(rows["img_f"], rows["txt_f"], logit_scale)
+            total = clip_loss(rows["img_f"], rows["txt_f"], logit_scale, group)
+            metrics["contrastive_loss"] = total
+        elif cfg.loss_type == "siglip":
+            total = siglip_loss(rows["img_f"], rows["txt_f"], logit_scale,
+                                scalars.get("logit_bias", 0.0), group, cfg.siglip_dist_impl)
             metrics["contrastive_loss"] = total
         else:
             losses = dino_enhanced_loss(
                 rows["img_f"], rows["txt_f"], logit_scale, rows.get("dino_features"),
-                cfg.dino, image_proj=rows.get("raw_proj"),
+                cfg.dino, image_proj=rows.get("raw_proj"), group=group,
                 lambda_overrides={k: v for k, v in scalars.items()
                                   if k in ("lambda_soft", "lambda_weighted", "lambda_original")}
                 or None,
@@ -177,6 +248,7 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
 
     loss_fn.encode_fn = encode_fn
     loss_fn.compute_metrics = compute_metrics
+    loss_fn.towers = towers
     return loss_fn
 
 
@@ -185,10 +257,14 @@ def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: in
                      ) -> Dict[str, torch.Tensor]:
     """Cached-feature accumulation over ``batch``'s ``accum`` stacked
     microbatches: adds the gradients of the full-batch loss into ``.grad``
-    (see the module docstring) and returns the metrics' mean over the
-    passes. ``generator_for(j)`` gives microbatch ``j``'s patch-dropout
-    generator, a fresh one in each phase."""
+    (see the module docstring) and returns this rank's metrics' mean over
+    the passes. ``generator_for(j)`` gives microbatch ``j``'s patch-dropout
+    generator, a fresh one in each phase. The gradients are reduced over
+    the ranks in the last pass's backward only."""
+    from ..parallel.mesh import grad_sync_paused
+
     gen = generator_for or (lambda j: None)
+    towers = getattr(loss_fn, "towers", None)
     micros = [{k: v[j] for k, v in batch.items()} for j in range(accum)]
     with torch.no_grad():
         cached = [loss_fn.encode_fn(m, step, gen(j))[0] for j, m in enumerate(micros)]
@@ -196,26 +272,34 @@ def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: in
     for j, micro in enumerate(micros):
         if "dino_features" in cached[j] and "dino_features" not in micro:
             micro = {**micro, "dino_features": cached[j]["dino_features"]}
-        rows, scalars = loss_fn.encode_fn(micro, step, gen(j))
-        full = {k: torch.cat([r if i == j else c[k] for i, c in enumerate(cached)])
-                for k, r in rows.items()}
-        metrics = loss_fn.compute_metrics(full, scalars)
-        metrics["total_loss"].backward()
+        last = j == accum - 1
+        with (contextlib.nullcontext() if last or towers is None
+              else grad_sync_paused(towers)):
+            rows, scalars = loss_fn.encode_fn(micro, step, gen(j))
+            full = {k: torch.cat([r if i == j else c[k] for i, c in enumerate(cached)])
+                    for k, r in rows.items()}
+            metrics = loss_fn.compute_metrics(full, scalars)
+            metrics["total_loss"].backward()
         passes.append({k: v.detach() for k, v in metrics.items()})
     return {k: torch.stack([m[k] for m in passes]).mean(0) for k in passes[0]}
 
 
 def make_train_step(model: torch.nn.Module, cfg: StepCfg,
                     head: Optional[DinoProjectionHead] = None,
-                    dino_teacher: Any = None) -> Callable:
+                    dino_teacher: Any = None, group=None,
+                    towers: Optional[nn.Module] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, updating the model
     and head in place through ``state.optimizer`` (``train/optim.py:
     build_optimizer`` over ``train_parameters(model, head)``). Metrics are
-    detached tensors on the device: reading one waits for the step.
-    ``dino_teacher`` gives the DINO rows of batches that carry none. With
-    ``cfg.accum_freq`` > 1 every tensor of ``batch`` has a leading axis of
-    ``accum_freq`` microbatches."""
-    loss_fn = make_loss_fn(model, cfg, head, dino_teacher)
+    detached tensors on the device, the rank mean under ``group``: reading
+    one waits for the step. ``dino_teacher`` gives the DINO rows of batches
+    that carry none. With ``cfg.accum_freq`` > 1 every tensor of ``batch``
+    has a leading axis of ``accum_freq`` microbatches. Under a group,
+    ``towers`` is the DDP-wrapped ``Towers`` (or, under FSDP, ``Towers`` of
+    the sharded modules) and the optimizer's ``sharding`` the placement of
+    ZeRO-1 or FSDP."""
+    loss_fn = make_loss_fn(model, cfg, head, dino_teacher, group, towers)
+    rank, _ = group_rank_size(group)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
@@ -223,18 +307,25 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
         if cfg.use_patch_dropout:
             seed = int(torch.randint(0, 1 << 62, (1,), generator=state.generator))
             device = batch["images"].device
-            generator_for = lambda j: patch_dropout_generator(seed, j, device)  # noqa: E731
+            first = rank * max(1, cfg.accum_freq)
+            generator_for = lambda j: patch_dropout_generator(seed, first + j, device)  # noqa: E731
         if cfg.accum_freq > 1:
             metrics = accumulate_grads(loss_fn, batch, state.step, cfg.accum_freq, generator_for)
         else:
             _, metrics = loss_fn(batch, state.step, generator_for and generator_for(0))
             metrics["total_loss"].backward()
+        sharding = getattr(state.optimizer, "sharding", None)
+        if sharding is not None:
+            sharding.average_grads(state.optimizer.named)
+        metrics = rank_mean(metrics, group)
         if cfg.log_grad_norm:
-            metrics["grad_norm"] = global_norm(state.optimizer.grads())
+            metrics["grad_norm"] = (state.optimizer.grad_norm()
+                                    if hasattr(state.optimizer, "grad_norm")
+                                    else global_norm(state.optimizer.grads()))
         state.optimizer.step(state.step)
         with torch.no_grad():
             model.logit_scale.clamp_(0.0, LN100)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step

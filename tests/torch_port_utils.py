@@ -22,8 +22,10 @@ TINY_CFG = {
 }
 
 
-def jax_clip(cfg_dict, attn_impl: str = "fused", seed: int = 0, noise: float = 0.02):
-    """(flax module, variables) with seeded, perturbed fp32 params."""
+def jax_clip(cfg_dict, attn_impl: str = "fused", seed: int = 0, noise: float = 0.02,
+             jit: bool = False):
+    """(flax module, variables) with seeded, perturbed fp32 params; ``jit``
+    compiles the init once (faster than op by op; other last bits)."""
     import jax
     import jax.numpy as jnp
 
@@ -34,7 +36,7 @@ def jax_clip(cfg_dict, attn_impl: str = "fused", seed: int = 0, noise: float = 0
     cfg = parse_model_cfg(cfg_dict)
     model = build_model(cfg, attn_impl=attn_impl)
     size = cfg.vision_cfg.image_size
-    variables = model.init(
+    variables = (jax.jit(model.init) if jit else model.init)(
         jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3)),
         jnp.zeros((1, cfg.text_cfg.context_length), jnp.int32),
     )
