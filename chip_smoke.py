@@ -186,6 +186,25 @@ images, whole-image crops):
     gradient after the rank mean at cosine >= 0.9999 (TF32 off), 24 + 24
     launches a step on each rank, the host clock of a second step.
 
+Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
+``train`` subprocesses (the kernels are checked at each rank's local heads,
+``TP_CASES``, in phases 3 and 3b, and timed in phases 5 and 6):
+
+21. tp — two ranks on the card over gloo at ``--mesh-model-axis 2``: (a)
+    the ViT-B-16 fp32 DINO-soft step split over the model group,
+    replicated and under ZeRO-1, against the one-process step on the same
+    rows and weights (loss 1e-5 relative, every whole gradient at cosine
+    >= 0.9999), 24 + 24 launches a rank a step at ``[32,6,197,64]`` and
+    ``[32,4,77,64]``, and one gloo all-reduce of an EVA01-g-14 activation;
+    (c) dinov2-giant split over the two ranks against the whole teacher
+    (CLS cosine >= 0.9999 fp32; bf16 >= 0.999 or, where two bf16 paths of
+    the whole teacher differ by more, no further than its kernel is from
+    plain attention), 40 fused-forward launches a rank a call; (b)
+    EVA01-g-14 at full width and depth with Config 5's flags through
+    ``train.main``, bf16, batch 16, one process and two ranks: per-step
+    losses at 1e-2 relative, each rank's peak memory beside the one
+    process's, 104 + 52 launches a rank a step.
+
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -345,6 +364,20 @@ GIANT_OPTIMIZERS = (("adamw", None), ("adamw", "bfloat16"), ("adafactor", "bfloa
 # images (80 and 40 caption rows: 5 steps of 16, 3 eval batches), one
 # epoch, no per-epoch checkpoint (the final export stays)
 GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
+# Config 5's multi-chip recipe (docs/REPRODUCE.md:69-77) at a model axis of 2,
+# both ranks on the card over gloo. The attention calls at each rank's local
+# heads: ViT-B-16 at batch 32 (image [32,6,197,64], causal text [32,4,77,64]),
+# EVA01-g-14 at batch 16 (vision 16 heads of 88: [16,8,257,88]; causal text
+# 12 heads of 64: [16,6,77,64]) and dinov2-giant's 24 heads of 64 forward
+# only ([16,12,257,64]); checked forward (all) and backward (the first four)
+# in both dtypes in phases 3 and 3b, timed in phases 5 and 6
+TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
+TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
+            (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
+TP_BWD_CASES = TP_CASES[:4]
+# the EVA01 recipe through train.main: mini-Flickr cut to 7 train images (35
+# caption rows: 2 steps of 16), no evaluation, no per-epoch checkpoint
+TP_EVA_IMAGES = 7
 
 
 def fail(msg: str) -> None:
@@ -450,7 +483,7 @@ def phase_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
-                                                 + GIANT_CASES):
+                                                 + GIANT_CASES + TP_CASES):
             q, k, v = _qkv(b, h, l, d, dtype, seed=i)
             scale = d ** -0.5
             got = fused_attention_fwd(q, k, v, scale, causal)
@@ -712,7 +745,8 @@ def phase_kernel_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in TIMED_CASES + TEACHER_CASES + SLICE10_CASES + GIANT_CASES:
+    for b, h, l, d, causal in (TIMED_CASES + TEACHER_CASES + SLICE10_CASES + GIANT_CASES
+                               + TP_CASES):
         q, k, v = _qkv(b, h, l, d, dtype, seed=100)
         scale = d ** -0.5
         ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
@@ -790,7 +824,7 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            ] + BWD_CASES
+            + TP_BWD_CASES] + BWD_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -2691,7 +2725,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in BWD_TIMED + GIANT_CASES:
+    for b, h, l, d, causal in BWD_TIMED + GIANT_CASES + TP_BWD_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -3358,7 +3392,15 @@ def _child_step(payload: dict) -> dict:
     steps and over a checkpoint's gather (model, head and optimizer state
     into rank 0's host memory; its seconds and the tensors kept). With
     ``payload["time_one_process"]`` rank 0 also times the one-process step
-    at ``batch`` rows."""
+    at ``batch`` rows. With ``payload["model_axis"]`` above 1 the ranks form
+    a ``(world / model_axis, model_axis)`` mesh: every copy but the
+    one-process reference is split over its model group
+    (``parallel/tensor.py``), the losses, DDP, ZeRO-1 and FSDP run over the
+    data group, data rank ``r`` takes rows ``r * batch`` onward of the global
+    batch of ``world / model_axis * batch`` rows, and the gradients are
+    gathered whole over both axes. ``payload["remat"]`` builds the model
+    with that remat policy, ``payload["optim"]`` the optimizer's settings
+    (``OptimCfg``'s fields)."""
     import copy
     import gc
     from types import SimpleNamespace
@@ -3373,14 +3415,18 @@ def _child_step(payload: dict) -> dict:
         create_model, get_tokenizer,
     )
     from refining_clip_via_dinov2_representations_torch.parallel.mesh import (
-        apply_fsdp, create_mesh, full_state_dict, wrap_ddp, zero1_sharding,
+        DATA_AXIS, apply_fsdp, create_mesh, full_state_dict, tp_sharding, wrap_ddp,
+        zero1_sharding,
+    )
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
+        gather_tensor, model_parallel, shard_module,
     )
     from refining_clip_via_dinov2_representations_torch.train import optim, scheduler
     from refining_clip_via_dinov2_representations_torch.train.distributed import (
-        init_distributed_device,
+        data_group, init_distributed_device, model_group,
     )
     from refining_clip_via_dinov2_representations_torch.train.step import (
-        StepCfg, Towers, TrainState, make_train_step, train_parameters,
+        StepCfg, Towers, TrainState, make_train_step, train_parameters, train_splits,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3391,21 +3437,34 @@ def _child_step(payload: dict) -> dict:
     rank, world, group = ns.rank, ns.world_size, dist.group.WORLD
     cuda = dev.type == "cuda"
     model_name, batch = payload["model"], payload["batch"]
-    base, _ = create_model(model_name, precision="amp", device=dev, seed=SEED)
+    model_axis = payload.get("model_axis", 1)
+    mesh = mp = dgroup = None
+    data_rank, data_world = rank, world
+    if model_axis > 1:
+        mesh = create_mesh(model=model_axis, device_type=dev.type)
+        mp, group, dgroup = model_parallel(model_group()), data_group(), mesh[DATA_AXIS].get_group()
+        data_rank, data_world = mesh[DATA_AXIS].get_local_rank(), mesh[DATA_AXIS].size()
+    base, _ = create_model(model_name, precision="amp", device=dev, seed=SEED,
+                           grad_checkpointing=payload.get("remat") or False)
     base.train()
     torch.manual_seed(SEED + 1)
     base_head = DinoProjectionHead(base.text_projection.shape[1], DINO_DIM).to(dev)
-    full = _train_batch(get_tokenizer(model_name), world * batch, dev.type,
+    full = _train_batch(get_tokenizer(model_name), data_world * batch, dev.type,
                         model_name=model_name)
-    mine = {k: v[rank * batch:(rank + 1) * batch] for k, v in full.items()}
+    mine = {k: v[data_rank * batch:(data_rank + 1) * batch] for k, v in full.items()}
     schedule = scheduler.const_lr(1e-5, 0, 2)
     dino = DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher", lambda_weighted=0.2)
-    mesh = None
 
     def build(route, loss):
         nonlocal mesh
         model = copy.deepcopy(base)
         head = copy.deepcopy(base_head) if loss == "dino" else None
+        splits = {}
+        if route != "single" and mp is not None:
+            shard_module(model, mp)
+            if head is not None:
+                shard_module(head, mp, head=True)
+            splits = train_splits(model, head)
         named = train_parameters(model, head)
         sharding = towers = None
         if route == "fsdp":
@@ -3414,17 +3473,24 @@ def _child_step(payload: dict) -> dict:
             towers = Towers(model, head)
         elif route != "single":
             if route == "zero1":
-                sharding = zero1_sharding(named, group)
-            towers = wrap_ddp(Towers(model, head), dev)
+                sharding = zero1_sharding(named, dgroup or group, tp=mp, tp_splits=splits)
+            elif mp is not None:
+                sharding = tp_sharding(named, dgroup, mp, splits)
+            towers = wrap_ddp(Towers(model, head), dev, dgroup)
         # FSDP replaces the parameters with its DTensors: the optimizer takes those
-        opt, _ = optim.build_optimizer(train_parameters(model, head), optim.OptimCfg(), schedule,
+        opt, _ = optim.build_optimizer(train_parameters(model, head),
+                                       optim.OptimCfg(**payload.get("optim", {})), schedule,
                                        sharding=sharding)
         return model, head, opt, towers
 
-    def whole_grads(model, head):  # a collective under FSDP
-        return {n: (p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad)
-                .detach().double().flatten().cpu()
-                for n, p in train_parameters(model, head).items()}
+    def whole_grads(model, head):  # a collective under FSDP or a model axis
+        splits = train_splits(model, head) if mp is not None else {}
+        out = {}
+        for n, p in train_parameters(model, head).items():
+            g = (p.grad.full_tensor() if hasattr(p.grad, "full_tensor") else p.grad).detach()
+            out[n] = (gather_tensor(g, splits[n], mp) if n in splits else g
+                      ).double().flatten().cpu()
+        return out
 
     out, dino_ref = {}, None
     for loss, impl, route in payload["cases"]:
@@ -3507,10 +3573,11 @@ def step_case_report(ranks: list, cases, expect=(24, 24)):
     """The checks of ``_child_step``'s results (``ranks``, in rank order):
     (a line a case, the failures). A case's loss is the reference's at 1e-5
     relative and the same on every rank, every gradient at cosine >= 0.9999,
-    and each rank launches ``expect`` (fused forward, backward) a step."""
+    and each rank launches ``expect`` (fused forward, backward; or a dict of
+    them by case) a step."""
     lines, failed = [], []
-    fwd, bwd = expect
     for loss, impl, route in cases:
+        fwd, bwd = expect[(loss, impl, route)] if isinstance(expect, dict) else expect
         key = f"{loss}-{impl}-{route}"
         rs = [r["cases"][key] for r in ranks]
         r0 = rs[0]
@@ -3645,13 +3712,290 @@ def phase_dist(work: str) -> dict:
     print(f"dist: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
 
+def _child_tp(payload: dict) -> dict:
+    """A rank of the tp phase's parts (a) and (c): both ranks on the card over
+    gloo, a ``(1, TP_AXIS)`` mesh. (a) ViT-B-16 in fp32 (TF32 off), DINO-soft
+    with the mlp head, batch ``TP_BATCH``: on each rank the whole model's two
+    steps (the one-process reference on the same rows and weights), then the
+    model, head and optimizer split over the model group, with replicated
+    optimizer state and under ZeRO-1 (``zero1_sharding``): each step's loss,
+    every whole gradient's cosine against the reference's after the first
+    step (split ones gathered), the launches of each split step (counts at 0
+    just before it, read just after), its host clock and the rank's peak
+    memory; one gloo all-reduce of a ``[16,257,1408]`` bf16 activation
+    (EVA01-g-14's, summed in fp32 as the port does on gloo), host clock.
+    (c) dinov2-giant at its width and depth, seeded on the card: the whole
+    teacher's CLS features against its split copy's, fp32 and bf16, the
+    split call's launches, and the floor: the whole teacher through the
+    kernel against itself through plain attention (``"xla"``)."""
+    import copy
+    import gc
+    from types import SimpleNamespace
+
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.dinov2 import (
+        Dinov2, dinov2_cfg_from_name,
+    )
+    from refining_clip_via_dinov2_representations_torch.parallel.mesh import (
+        DATA_AXIS, create_mesh, tp_sharding, wrap_ddp, zero1_sharding,
+    )
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
+        _all_reduce, gather_tensor, model_parallel, shard_module,
+    )
+    from refining_clip_via_dinov2_representations_torch.train import optim, scheduler
+    from refining_clip_via_dinov2_representations_torch.train.distributed import (
+        data_group, init_distributed_device, model_group,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, Towers, TrainState, make_train_step, train_parameters, train_splits,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ns = SimpleNamespace(device=None, force_cpu=DEVICE == "cpu", dist_url=None,
+                         dist_backend="gloo", no_set_device_rank=False)
+    dev = init_distributed_device(ns)
+    mesh = create_mesh(model=ns.world_size, device_type=dev.type)
+    mp = model_parallel(model_group())
+    cuda = dev.type == "cuda"
+    gib = lambda: torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0  # noqa: E731
+    base, _ = create_model(MODEL, precision="amp", device=dev, seed=SEED)
+    base.train()
+    torch.manual_seed(SEED + 1)
+    base_head = DinoProjectionHead(base.text_projection.shape[1], DINO_DIM).to(dev)
+    batch = _train_batch(get_tokenizer(MODEL), TP_BATCH, dev.type)
+    cfg = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher",
+                                                    lambda_weighted=0.2))
+    schedule = scheduler.const_lr(1e-5, 0, 2)
+
+    def run(route):
+        model, head = copy.deepcopy(base), copy.deepcopy(base_head)
+        sharding = towers = group = None
+        splits = {}
+        if route != "single":
+            shard_module(model, mp)
+            shard_module(head, mp, head=True)
+            named, dgroup = train_parameters(model, head), mesh[DATA_AXIS].get_group()
+            splits = train_splits(model, head)
+            sharding = (zero1_sharding(named, dgroup, tp=mp, tp_splits=splits)
+                        if route == "zero1" else tp_sharding(named, dgroup, mp, splits))
+            towers, group = wrap_ddp(Towers(model, head), dev, dgroup), data_group()
+        opt, _ = optim.build_optimizer(train_parameters(model, head), optim.OptimCfg(),
+                                       schedule, sharding=sharding)
+        step = make_train_step(model, cfg, head, group=group, towers=towers)
+        state = TrainState(model, head, opt)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = {"losses": [], "launches": [], "ms": []}
+        for i in range(2):
+            _sync(dev)
+            _zero_counts()  # the main path: counts at 0 just before the step
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            res["losses"].append(float(m["total_loss"]))
+            _sync(dev)
+            res["ms"].append((time.perf_counter() - t0) * 1e3)
+            res["launches"].append(_read_counts())  # read just after
+            if i == 0:
+                res["grads"] = {n: (gather_tensor(p.grad, splits[n], mp) if n in splits
+                                    else p.grad).detach().double().flatten().cpu()
+                                for n, p in train_parameters(model, head).items()}
+        res["peak_gib"] = gib()
+        del model, head, opt, towers, step, state
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return res
+
+    out = {"rank": ns.rank}
+    ref = run("single")
+    for route in ("replicated", "zero1"):
+        res = run(route)
+        cos = {n: float(torch.nn.functional.cosine_similarity(g, ref["grads"][n], dim=0))
+               for n, g in res.pop("grads").items()}
+        res.update(ref_losses=ref["losses"], ref_ms=ref["ms"], ref_peak_gib=ref["peak_gib"],
+                   min_cosine=min(cos.values()), min_cosine_at=min(cos, key=cos.get))
+        out[route] = res
+    del base, base_head
+    gc.collect()
+    # one all-reduce of an EVA01-g-14 activation over gloo
+    act = torch.randn(TP_EVA_BATCH, 257, 1408, device=dev).to(torch.bfloat16)
+    times = []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        _all_reduce(act, mp.group)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = statistics.median(times[1:])
+    del act
+    # (c) the split teacher at dinov2-giant's width and depth
+    tcfg = dinov2_cfg_from_name("facebook/dinov2-giant")
+    whole = Dinov2(tcfg, attn_impl="auto").to(dev).init_weights(SEED).eval()
+    split = copy.deepcopy(whole)
+    shard_module(split, mp)
+    x = _teacher_pixels(TP_EVA_BATCH)
+    out["teacher"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        whole.dtype = split.dtype = dtype
+        with torch.no_grad():
+            want = whole(x).float()
+            _set_attn_impl(whole, "xla")
+            plain = whole(x).float()
+            _set_attn_impl(whole, "auto")
+        _sync(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = split(x).float()
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        out["teacher"][str(dtype).split(".")[-1]] = {
+            "launches": counts, "ms": ms, "shape": list(got.shape), "hidden": tcfg.hidden_size,
+            "finite": bool(torch.isfinite(got).all()),
+            "min_cosine": float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()),
+            "floor": float(torch.nn.functional.cosine_similarity(plain, want, dim=-1).min())}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_tp(work: str) -> dict:
+    """Config 5's multi-chip recipe at a model axis of ``TP_AXIS``, both ranks
+    on the card over gloo (NCCL refuses two ranks on one device; gloo carries
+    the all_reduce and all_gather that tensor parallelism needs). (a) and (c)
+    in one pair of ``--dist-child tp`` processes (``_child_tp``): the TP
+    ViT-B-16 step against the one-process step (loss 1e-5 relative, every
+    whole gradient at cosine >= 0.9999, fp32), replicated and ZeRO-1, 24 + 24
+    launches a rank a step at ``[32,6,197,64]`` and ``[32,4,77,64]``; the
+    split dinov2-giant teacher against the whole one (CLS cosine >= 0.9999
+    fp32, >= 0.999 bf16), 40 fused-forward launches a rank a call. (b)
+    EVA01-g-14 at full width and depth through ``train.main`` with Config
+    5's flags (adafactor, a bf16 first moment, ``--grad-checkpointing``
+    under ``dots_with_no_batch_dims_saveable``) and Config 2's DINO flags,
+    bf16, batch 16, on mini-Flickr cut to ``TP_EVA_IMAGES`` images with
+    whole-image crops (the same rows in both runs): one process, then two
+    ranks at ``--mesh-model-axis 2 --shard-opt-state``: the per-step losses at 1e-2 relative (the bf16 step row), each rank's
+    peak memory beside the one process's, 104 fused-forward + 52 backward
+    launches a rank a step (40 vision + 12 text blocks, the forward twice
+    with the recompute). Returns the launches."""
+    import math
+
+    from scripts.mini_flickr import generate
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    ranks = _children("tp", {}, TP_AXIS, timeout=400)
+    want = (24, 24) if DEVICE == "cuda" else (0, 0)
+    for route in ("replicated", "zero1"):
+        rs = [r[route] for r in ranks]
+        r0 = rs[0]
+        rels = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["ref_losses"])]
+        launched = [[(c["fused_attention_fwd"], c["fused_attention_bwd"]) for c in r["launches"]]
+                    for r in rs]
+        print(f"tp (a) ViT-B-16 fp32 (1, {TP_AXIS}) {route}: losses {r0['losses']} vs one "
+              f"process {r0['ref_losses']} (max rel {max(rels):.2e}), min gradient cosine "
+              f"{min(r['min_cosine'] for r in rs):.7f} ({r0['min_cosine_at']}), launches a rank "
+              f"a step {launched}, second step host clock {[round(r['ms'][1], 1) for r in rs]} "
+              f"ms (one process {r0['ref_ms'][1]:.1f}), peak GiB a rank "
+              f"{[round(r['peak_gib'], 3) for r in rs]} (one process "
+              f"{r0['ref_peak_gib']:.3f}) [{CARD}]", flush=True)
+        check(max(rels) <= 1e-5 and all(r["min_cosine"] >= 0.9999 for r in rs)
+              and all(r["losses"] == r0["losses"] for r in rs),
+              f"tp (a) {route}: the TP step disagrees with the one-process step")
+        check(all(c == want for steps in launched for c in steps),
+              f"tp (a) {route}: launches {launched}, expected {want} a rank a step")
+        for r in rs:
+            for c in r["launches"]:
+                add(c)
+    print(f"tp gloo all-reduce of a [16,257,1408] bf16 activation (fp32 sum), 2 ranks on the "
+          f"card: {[round(r['allreduce_ms'], 2) for r in ranks]} ms host clock [{CARD}]",
+          flush=True)
+    for dtype, min_cos in TEACHER_MIN_COS.items():
+        rs = [r["teacher"][dtype] for r in ranks]
+        floor = min(r["floor"] for r in rs)
+        if dtype == "bfloat16":
+            # two bf16 paths of a seeded 40-block giant differ by more than
+            # 0.999 (the kernel against plain attention: PERF.md, PR 14); the
+            # split teacher must be no further from the whole than that
+            min_cos = min(min_cos, floor)
+        want_t = {"flash_attention_fwd": 0, "fused_attention_fwd": 40 if DEVICE == "cuda" else 0,
+                  "fused_attention_bwd": 0}
+        print(f"tp (c) dinov2-giant split over {TP_AXIS} ranks, {dtype}, batch {TP_EVA_BATCH}: "
+              f"CLS cosine vs the whole teacher min {min(r['min_cosine'] for r in rs):.8f} "
+              f"(need >= {min_cos:.8f}; the whole teacher, kernel vs plain attention, "
+              f"{floor:.8f}), launches a rank {[r['launches'] for r in rs]}, host clock "
+              f"{[round(r['ms'], 1) for r in rs]} ms [{CARD}]", flush=True)
+        check(all(r["finite"] and r["shape"] == [TP_EVA_BATCH, r["hidden"]]
+                  and r["min_cosine"] >= min_cos for r in rs),
+              f"tp (c) the split teacher disagrees ({dtype})")
+        check(all(r["launches"] == want_t for r in rs), f"tp (c) launches, expected {want_t}")
+        for r in rs:
+            add(r["launches"])
+
+    # (b) EVA01-g-14 through train.main, one process and two ranks
+    d = generate(os.path.join(work, "tp_data"), n_train=TP_EVA_IMAGES, n_val=1, size_px=224,
+                 dino_dim=DINO_DIM, seed=SEED + 5)
+    argv = ["--model", TP_EVA_MODEL, "--train-data", d["train_csv"], "--dataset-type", "csv",
+            "--batch-size", str(TP_EVA_BATCH), "--precision", "bf16", "--opt", "adafactor",
+            "--adam-mu-dtype", "bfloat16", "--grad-checkpointing", "--remat-policy",
+            "dots_with_no_batch_dims_saveable", "--use_dino_general", "--soft_mode",
+            "kl_teacher", "--lambda_soft", "0.5", "--teacher_temp", "0.15", "--use_projection",
+            "--projection_type", "mlp", "--dino_fts_path", d["dino_feats"],
+            "--dino_index_map_path", d["dino_index_map"], "--epochs", "1", "--save-frequency",
+            "0", "--lr", "5e-4", "--warmup", "2", "--workers", "4", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--aug-cfg", "scale=(1.0, 1.0)", "--logs", work,
+            "--device", DEVICE]
+    one = _child("train", {"argv": argv + ["--name", "tp-one"]}, {}, timeout=400)
+    tp = _children("train", {"argv": argv + ["--name", "tp-2", "--mesh-model-axis",
+                                             str(TP_AXIS), "--shard-opt-state",
+                                             "--dist-backend", "gloo"]}, TP_AXIS, timeout=500)
+    steps = len(one["losses"])
+    want_b = ((104, 52) if DEVICE == "cuda" else (0, 0))
+    rels = [abs(a - b) / abs(b) for a, b in zip(tp[0]["losses"], one["losses"])]
+    launched = [[(s["fused_attention_fwd"], s["fused_attention_bwd"]) for s in r["steps"]]
+                for r in tp]
+    print(f"tp (b) {TP_EVA_MODEL} Config 5 flags + --mesh-model-axis {TP_AXIS} "
+          f"--shard-opt-state (full width and depth, bf16, batch {TP_EVA_BATCH}, {steps} steps): "
+          f"losses {tp[0]['losses']} vs one process {one['losses']} (max rel {max(rels):.2e}); "
+          f"step host clock a rank {[[round(s['ms'], 1) for s in r['steps']] for r in tp]} ms "
+          f"(one process {[round(s['ms'], 1) for s in one['steps']]}); peak GiB a rank "
+          f"{[round(r['peak_gib'], 3) for r in tp]} (one process {one['peak_gib']:.3f}); wall "
+          f"{[round(r['wall_s'], 1) for r in tp]} s (one process {one['wall_s']:.1f}); launches "
+          f"a rank a step {launched} [{CARD}]", flush=True)
+    check(steps >= 2 and len(tp[0]["losses"]) == steps and max(rels) <= STEP_TOL["bfloat16"][0]
+          and all(math.isfinite(x) for x in tp[0]["losses"])
+          and tp[0]["losses"] == tp[1]["losses"] and all(r["world"] == TP_AXIS for r in tp),
+          "tp (b): the two-rank EVA01-g-14 run disagrees with the one process")
+    check(all(c == want_b for steps_ in launched for c in steps_),
+          f"tp (b): launches {launched}, expected {want_b} a rank a step")
+    add(one["launches"])
+    for r in tp:
+        add(r["launches"])
+    print(f"tp: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": total, "ranks": ranks, "eva": {"one": one, "tp": tp}}
+
 
 def _dist_child_main() -> None:
     import faulthandler
 
     faulthandler.enable()  # a crash in native code prints where it happened
     role, payload = sys.argv[2], json.loads(sys.argv[3])
-    result = {"train": _child_train, "probe": _child_probe, "step": _child_step}[role](payload)
+    result = {"train": _child_train, "probe": _child_probe, "step": _child_step,
+              "tp": _child_tp}[role](payload)
     print("DIST_CHILD " + json.dumps(result), flush=True)
 
 
@@ -3694,6 +4038,7 @@ def main() -> None:
         accum = phase_accum(teacher_dir)
         giant = phase_giant(work)
         dist_launches = phase_dist(work)
+        tp = phase_tp(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
@@ -3717,7 +4062,8 @@ def main() -> None:
         + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
-        + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"],
+        + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
+        + tp["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -3733,13 +4079,17 @@ def main() -> None:
                    **by_case[case]}
                   for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                   for case in GIANT_CASES],
+        "tp": [{"shape": list(case[:4]), "causal": case[4], "dtype": dtype_name,
+                **by_case[case]}
+               for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+               for case in TP_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
-        + dist_launches["fused_attention_bwd"],
+        + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -3751,6 +4101,10 @@ def main() -> None:
                    **by_case[case]}
                   for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                   for case in GIANT_CASES],
+        "tp": [{"shape": list(case[:4]), "causal": case[4], "dtype": dtype_name,
+                **by_case[case]}
+               for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+               for case in TP_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

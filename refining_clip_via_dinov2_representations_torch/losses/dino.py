@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor import column_linear, row_linear
+
 from ..models.layers import LayerNorm
 from .contrastive import clip_logits, cross_entropy, group_rank_size
 
@@ -99,7 +101,11 @@ class DinoProjectionHead(nn.Module):
     init is the JAX head's (flax ``Dense``): lecun-normal weights (a normal
     truncated at two standard deviations, scaled to variance 1 / fan_in) and
     zero biases, not torch's ``nn.Linear`` default; it draws from torch's
-    global generator."""
+    global generator. Under a model group (``tp``, ``parallel/tensor.py:
+    shard_module(head, mp, head=True)``) the mlp's ``fc1`` is column- and
+    ``fc2`` row-parallel, as the JAX rules split ``fc1``/``fc2``."""
+
+    tp = None
 
     def __init__(self, in_dim: int, dino_dim: int, projection_type: str = "mlp",
                  use_layernorm: bool = False):
@@ -123,8 +129,10 @@ class DinoProjectionHead(nn.Module):
         x = x.float()
         if self.projection_type == "linear":
             x = self.proj(x)
-        else:
+        elif self.tp is None:
             x = self.fc2(F.relu(self.fc1(x)))
+        else:
+            x = row_linear(F.relu(column_linear(x, self.fc1, self.tp)), self.fc2, self.tp)
         return self.ln(x) if self.ln is not None else x
 
 

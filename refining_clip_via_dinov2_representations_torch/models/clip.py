@@ -4,8 +4,11 @@ The port of the JAX package's ``models/clip.py`` for the standard ViT +
 causal text-transformer CLIP. Parameter layout is open_clip's ``CLIP``: the
 vision tower under ``visual.``, the text tower's parts at top level
 (``token_embedding``, ``positional_embedding``, ``transformer``,
-``ln_final``, ``text_projection``), then ``logit_scale``. Other towers
-(timm, ResNet, HF text, CoCa) raise ``NotImplementedError``.
+``ln_final``, ``text_projection``), then ``logit_scale``, also for the
+``custom_text`` configs (EVA01), whose open_clip checkpoints
+``models/eva.py`` converts. The vision tower is the ViT or the EVA01 trunk
+(``models/eva.py``); other towers (other timm trunks, ResNet, HF text,
+CoCa) raise ``NotImplementedError``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
 ``image_features``, ``text_features`` and the exponentiated ``logit_scale``
@@ -22,6 +25,7 @@ from torch import nn
 
 from ..constants import DEFAULT_INIT_LOGIT_SCALE
 from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
+from .eva import EVA01_DIMS
 from .layers import LayerNorm, MultiheadAttention, gelu, quick_gelu
 from .transformer import TextTransformer, VisionTransformer, encode_text_tokens, remat_args
 
@@ -37,13 +41,25 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                         dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
                         remat_policy: str = "full") -> VisionTransformer:
     if cfg.timm_model_name is not None:
-        raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
+        if cfg.timm_model_name not in EVA01_DIMS:
+            raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
+        # the EVA01 trunk: the standard ViT with timm's four differences
+        # (``models/eva.py``), GELU whatever quick_gelu says, as in JAX
+        width, layers, heads, mlp_ratio, patch = EVA01_DIMS[cfg.timm_model_name]
+        if cfg.output_tokens:
+            raise _unsupported("EVA01 tower with output_tokens")
+        return VisionTransformer(
+            image_size=to_2tuple(cfg.image_size), patch_size=to_2tuple(patch), width=width,
+            layers=layers, heads=heads, mlp_ratio=mlp_ratio, output_dim=embed_dim, act=gelu,
+            attn_impl=attn_impl, compute_dtype=dtype, grad_checkpointing=grad_checkpointing,
+            remat_policy=remat_policy, no_ln_pre=True, proj_bias=True, patch_embed_bias=True,
+            norm_eps=1e-6)
     if cfg.is_resnet:
         raise _unsupported("ModifiedResNet vision tower")
     if cfg.attentional_pool:
         raise _unsupported("attentional pooling (CoCa)")
     variants = {"pos_embed_type": cfg.pos_embed_type != "learnable",
-                "pool_type": cfg.pool_type != "tok", "no_ln_pre": cfg.no_ln_pre,
+                "pool_type": cfg.pool_type != "tok",
                 "final_ln_after_pool": cfg.final_ln_after_pool,
                 "output_tokens": cfg.output_tokens, "act_kwargs": bool(cfg.act_kwargs),
                 "norm_kwargs": bool(cfg.norm_kwargs)}
@@ -65,6 +81,7 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
         grad_checkpointing=grad_checkpointing,
         remat_policy=remat_policy,
         patch_dropout=cfg.patch_dropout,
+        no_ln_pre=cfg.no_ln_pre,
     )
 
 
@@ -122,6 +139,9 @@ class CLIP(nn.Module):
         self.text_projection = text.text_projection
         self.context_length = text.context_length
         self.compute_dtype = dtype
+        # open_clip's CustomTextCLIP semantics for locking and the param
+        # groups (``train/main.py:text_tower_style``); the layout stays CLIP's
+        self.custom_text = False
         self.logit_scale = nn.Parameter(torch.tensor(float(init_logit_scale)))
         self.logit_bias = (None if init_logit_bias is None
                            else nn.Parameter(torch.tensor(float(init_logit_bias))))
@@ -157,8 +177,11 @@ class CLIP(nn.Module):
                 normal_(m.weight, 0.02)
             elif isinstance(m, VisionTransformer):
                 normal_(m.conv1.weight, m.conv1.weight[0].numel() ** -0.5)
+                if m.conv1.bias is not None:
+                    m.conv1.bias.zero_()
                 for p in (m.class_embedding, m.positional_embedding, m.proj):
-                    normal_(p, m.width ** -0.5)
+                    if isinstance(p, nn.Parameter):  # a Linear proj: the branch above
+                        normal_(p, m.width ** -0.5)
         normal_(self.positional_embedding, 0.01)
         normal_(self.text_projection, self.text_projection.shape[0] ** -0.5)
 
@@ -208,5 +231,6 @@ def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
         attn_impl=attn_impl,
         grad_checkpointing=grad_checkpointing,
     )
+    model.custom_text = cfg.custom_text
     model.init_weights(seed)
     return model

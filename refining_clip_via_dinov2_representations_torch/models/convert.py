@@ -4,7 +4,10 @@
 of the JAX package's ``models/convert.py:flax_params_to_torch_state_dict``:
 the param tree (nested dicts of numpy arrays, as ``jax.device_get`` returns
 it) becomes an open_clip-layout state dict that loads into ``models.clip.CLIP``
-with ``strict=True``. Dense kernels are transposed to [out, in], the fused
+with ``strict=True``; an EVA01 tree (no ``ln_pre``, a biased patch
+embedding, a Dense ``proj``) gives the port's EVA01 keys (``models/eva.py``
+converts them to open_clip's CustomTextCLIP layout and back). Dense kernels
+are transposed to [out, in], the fused
 ``in_proj_kernel`` [D, 3D] to ``in_proj_weight`` [3D, D], the HWIO patch
 convolution to OIHW. Every operation is a transpose, so the same function
 carries a JAX gradient tree across to the port's parameter gradients.
@@ -86,6 +89,8 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         raise NotImplementedError("CoCa trees are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
     sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]), (3, 2, 0, 1)))
+    if "bias" in visual["conv1"]:  # EVA01's biased patch embedding
+        sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
     sd["visual.class_embedding"] = _t(visual["class_embedding"])
     sd["visual.positional_embedding"] = _t(visual["positional_embedding"])
     if "ln_pre" in visual:
@@ -95,7 +100,11 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         _emit_block(sd, block, f"visual.transformer.resblocks.{name.rsplit('_', 1)[-1]}")
     sd["visual.ln_post.weight"] = _t(visual["ln_post"]["scale"])
     sd["visual.ln_post.bias"] = _t(visual["ln_post"]["bias"])
-    sd["visual.proj"] = _t(visual["proj"])
+    if isinstance(visual["proj"], Mapping):  # EVA01's biased head (a Dense)
+        sd["visual.proj.weight"] = _t(visual["proj"]["kernel"], transpose=True)
+        sd["visual.proj.bias"] = _t(visual["proj"]["bias"])
+    else:
+        sd["visual.proj"] = _t(visual["proj"])
 
     sd["token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
     sd["positional_embedding"] = _t(text["positional_embedding"])

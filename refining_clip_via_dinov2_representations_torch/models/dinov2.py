@@ -23,6 +23,8 @@ Numerics, as the JAX module:
   which antialiases when it shrinks, to fp32 rounding; without antialias the
   37 -> 16 resize of every 224-px call differs by O(1)), then cast.
 * GELU is erf under fp32 and tanh under bf16 (``layers.gelu``).
+* Under a model group (``parallel/tensor.py:shard_module``) the attention
+  and the MLP run on this rank's heads and columns.
 * Attention goes through ``ops.attention.multi_head_attention`` with the
   module's ``attn_impl``, whose default is ``"xla"`` as in JAX; the loader
   defaults to the port's ``"auto"`` (the fused kernel on a CUDA tensor).
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import column_linear, copy_to_model, row_linear
 from .factory import _resolve_device
 from .layers import LayerNorm, _linear, gelu
 from .pretrained import hub_snapshot_dirs
@@ -99,7 +102,10 @@ class _SelfOutput(nn.Module):
 
 class _Attention(nn.Module):
     """HF's separate query, key and value Linears; the attention core wants
-    contiguous [B, H, L, Dh] tensors."""
+    contiguous [B, H, L, Dh] tensors. Under a model group (``tp``) each
+    Linear holds this rank's heads and ``output.dense`` its columns."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int, attn_impl: str):
         super().__init__()
@@ -110,28 +116,37 @@ class _Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
+        heads, dh = self.heads // (self.tp.world if self.tp else 1), d // self.heads
+        x = copy_to_model(x, self.tp)
 
-        def heads(layer):
-            return _linear(x, layer).view(b, l, self.heads, d // self.heads).transpose(
-                1, 2).contiguous()
+        def split(layer):
+            return _linear(x, layer).view(b, l, heads, dh).transpose(1, 2).contiguous()
 
         a = self.attention
-        out = multi_head_attention(heads(a.query), heads(a.key), heads(a.value),
+        out = multi_head_attention(split(a.query), split(a.key), split(a.value),
                                    impl=self.attn_impl)
-        return _linear(out.transpose(1, 2).reshape(b, l, d), self.output.dense)
+        return row_linear(out.transpose(1, 2).reshape(b, l, heads * dh), self.output.dense,
+                          self.tp)
 
 
 class _Mlp(nn.Module):
+    tp = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(gelu(_linear(x, self.fc1)), self.fc2)
+        return row_linear(gelu(column_linear(x, self.fc1, self.tp)), self.fc2, self.tp)
 
 
 class _SwiGLUFFN(nn.Module):
+    """``weights_in`` packs the gate and the value; under a model group each
+    rank holds its rows of both (``parallel/tensor.py:Split(0, packs=2)``)."""
+
+    tp = None
+
     def __init__(self, dim: int, hidden_features: int):
         super().__init__()
         h = (int(hidden_features * 2 / 3) + 7) // 8 * 8  # dinov2 rounding
@@ -139,8 +154,8 @@ class _SwiGLUFFN(nn.Module):
         self.weights_out = nn.Linear(h, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = _linear(x, self.weights_in).chunk(2, dim=-1)
-        return _linear(F.silu(x1) * x2, self.weights_out)
+        x1, x2 = column_linear(x, self.weights_in, self.tp).chunk(2, dim=-1)
+        return row_linear(F.silu(x1) * x2, self.weights_out, self.tp)
 
 
 class Dinov2Block(nn.Module):

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import column_linear, copy_to_model, row_linear
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +117,13 @@ class MultiheadAttention(nn.Module):
 
     ``in_proj_weight`` is [3D, D] as in torch's ``nn.MultiheadAttention``;
     ``out_proj`` is a Linear. The attention core is ``multi_head_attention``
-    with this layer's ``attn_impl``.
+    with this layer's ``attn_impl``. Under a model group (``tp``, set by
+    ``parallel/tensor.py:shard_module``) the layer holds this rank's heads of
+    q, k and v and its columns of ``out_proj``, and the core runs on
+    ``num_heads / tp.world`` heads.
     """
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
         super().__init__()
@@ -131,16 +137,21 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, l, d = x.shape
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+        heads = self.num_heads // (self.tp.world if self.tp else 1)
+        dh = d // self.num_heads
+        qkv = F.linear(copy_to_model(x, self.tp), self.in_proj_weight.to(x.dtype),
+                       self.in_proj_bias.to(x.dtype))
         # [B, L, 3, H, Dh] -> three contiguous [B, H, L, Dh] tensors
-        q, k, v = qkv.view(b, l, 3, self.num_heads, d // self.num_heads).permute(
-            2, 0, 3, 1, 4).contiguous().unbind(0)
+        q, k, v = qkv.view(b, l, 3, heads, dh).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         out = multi_head_attention(q, k, v, causal=causal, impl=self.attn_impl)
-        return _linear(out.transpose(1, 2).reshape(b, l, d), self.out_proj)
+        return row_linear(out.transpose(1, 2).reshape(b, l, heads * dh), self.out_proj, self.tp)
 
 
 class MLP(nn.Module):
-    """Transformer MLP: c_fc -> act -> c_proj."""
+    """Transformer MLP: c_fc -> act -> c_proj; under a model group (``tp``)
+    ``c_fc`` column- and ``c_proj`` row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, hidden_dim: int, act: Callable = gelu):
         super().__init__()
@@ -149,4 +160,4 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(self.act(_linear(x, self.c_fc)), self.c_proj)
+        return row_linear(self.act(column_linear(x, self.c_fc, self.tp)), self.c_proj, self.tp)

@@ -52,7 +52,8 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, PatchDropout, gelu
+from ..parallel.tensor import gather_from_model
+from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, PatchDropout, _linear, gelu
 
 REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable",
                   "offload_dots_with_no_batch_dims")
@@ -137,11 +138,11 @@ class ResidualAttentionBlock(nn.Module):
 
     def __init__(self, width: int, n_head: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", norm_eps: float = 1e-5):
         super().__init__()
-        self.ln_1 = LayerNorm(width)
+        self.ln_1 = LayerNorm(width, norm_eps)
         self.attn = MultiheadAttention(width, n_head, attn_impl)
-        self.ln_2 = LayerNorm(width)
+        self.ln_2 = LayerNorm(width, norm_eps)
         self.mlp = MLP(width, int(width * mlp_ratio), act)
         if ls_init_value is not None:
             self.ls_1 = LayerScale(width, ls_init_value)
@@ -171,13 +172,14 @@ class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
                  attn_impl: str = "auto", grad_checkpointing: bool = False,
-                 remat_policy: str = "full"):
+                 remat_policy: str = "full", norm_eps: float = 1e-5):
         super().__init__()
         saved_ops(remat_policy)  # raises on an unknown name
         self.grad_checkpointing = grad_checkpointing
         self.remat_policy = remat_policy
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl)
+            ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl,
+                                   norm_eps)
             for _ in range(layers)
         )
 
@@ -202,7 +204,13 @@ def text_global_pool(x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
 class VisionTransformer(nn.Module):
     """ViT tower: patch embed, CLS + learnable positional embedding, patch
     dropout (training, with a generator), ln_pre, transformer, ln_post on the
-    CLS token, projection."""
+    CLS token, projection.
+
+    The EVA01 trunk (``models/eva.py``) is this tower with the JAX module's
+    four options: ``no_ln_pre`` (no ``ln_pre``), ``proj_bias`` (``proj`` a
+    biased Linear, timm's classifier head, instead of the [width, out]
+    matrix), ``patch_embed_bias`` (a bias on ``conv1``) and ``norm_eps``
+    (every LayerNorm's; 1e-6 for EVA)."""
 
     def __init__(self, image_size: Tuple[int, int] = (224, 224),
                  patch_size: Tuple[int, int] = (16, 16), width: int = 768,
@@ -210,7 +218,9 @@ class VisionTransformer(nn.Module):
                  ls_init_value: Optional[float] = None, output_dim: int = 512,
                  act: Callable = gelu, attn_impl: str = "auto",
                  compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
-                 remat_policy: str = "full", patch_dropout: float = 0.0):
+                 remat_policy: str = "full", patch_dropout: float = 0.0,
+                 no_ln_pre: bool = False, proj_bias: bool = False,
+                 patch_embed_bias: bool = False, norm_eps: float = 1e-5):
         super().__init__()
         self.image_size = tuple(image_size)
         self.patch_size = tuple(patch_size)
@@ -218,16 +228,18 @@ class VisionTransformer(nn.Module):
         self.width = width
         self.compute_dtype = compute_dtype
         self.conv1 = nn.Conv2d(3, width, kernel_size=self.patch_size,
-                               stride=self.patch_size, bias=False)
+                               stride=self.patch_size, bias=patch_embed_bias)
         self.class_embedding = nn.Parameter(torch.zeros(width))
         n_pos = self.grid_size[0] * self.grid_size[1] + 1
         self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
         self.patch_dropout = PatchDropout(patch_dropout) if patch_dropout > 0 else None
-        self.ln_pre = LayerNorm(width)
+        self.ln_pre = None if no_ln_pre else LayerNorm(width, norm_eps)
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl, grad_checkpointing, remat_policy)
-        self.ln_post = LayerNorm(width)
-        self.proj = nn.Parameter(torch.zeros(width, output_dim))
+                                       act, attn_impl, grad_checkpointing, remat_policy,
+                                       norm_eps)
+        self.ln_post = LayerNorm(width, norm_eps)
+        self.proj = (nn.Linear(width, output_dim) if proj_bias
+                     else nn.Parameter(torch.zeros(width, output_dim)))
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable
@@ -239,7 +251,8 @@ class VisionTransformer(nn.Module):
         (gh, gw), (ph, pw) = self.grid_size, self.patch_size
         patches = x.reshape(b, gh, ph, gw, pw, 3).permute(0, 1, 3, 5, 2, 4)
         patches = patches.reshape(b, gh * gw, 3 * ph * pw)
-        return patches @ self.conv1.weight.to(x.dtype).reshape(self.width, -1).t()
+        out = patches @ self.conv1.weight.to(x.dtype).reshape(self.width, -1).t()
+        return out if self.conv1.bias is None else out + self.conv1.bias.to(x.dtype)
 
     def forward(self, x: torch.Tensor,
                 patch_dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -253,8 +266,11 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         if self.patch_dropout is not None:
             x = self.patch_dropout(x, patch_dropout_generator)
-        x = self.transformer(self.ln_pre(x))
-        pooled = self.ln_post(x)[:, 0]
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
+        pooled = self.ln_post(self.transformer(x))[:, 0]
+        if isinstance(self.proj, nn.Linear):
+            return _linear(pooled, self.proj)
         return pooled @ self.proj.to(pooled.dtype)
 
 
@@ -265,7 +281,9 @@ def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
     ``TextTransformer``, or a ``CLIP``, which holds them at top level as
     open_clip's CLIP does."""
     dtype = tower.compute_dtype
-    x = tower.token_embedding(text).to(dtype)
+    # a width-split table (``parallel/tensor.py``) looks up this rank's columns
+    emb = tower.token_embedding
+    x = gather_from_model(emb(text), getattr(emb, "tp", None)).to(dtype)
     x = x + tower.positional_embedding[: text.shape[1]].to(dtype)
     x = tower.ln_final(tower.transformer(x, causal=True))
     pooled = text_global_pool(x, text)

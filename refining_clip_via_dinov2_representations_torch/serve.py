@@ -228,7 +228,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--buckets", type=int, nargs="+", default=None)
     p.add_argument("--batch-window-ms", type=float, default=5.0)
+    p.add_argument("--mesh-model-axis", type=int, default=1,
+                   help="the JAX server's TP-sharded weights; not ported (above 1 raises)")
     args = p.parse_args(argv)
+    if args.mesh_model_axis > 1:
+        raise NotImplementedError(
+            f"--mesh-model-axis {args.mesh_model_axis}: serving a TP-sharded model is not "
+            "ported (ROADMAP Queue 1 item 13); the trainer takes the model axis")
 
     from .inference import DEFAULT_BUCKETS, create_engine
 

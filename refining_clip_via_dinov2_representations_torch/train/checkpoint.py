@@ -29,13 +29,14 @@ file the offline suite reads (``final_torch_state.pt``).
 
 Across ranks every rank calls these functions: a save first gathers the
 whole model and optimizer state tensor by tensor into rank 0's host memory
-(FSDP's shards and ZeRO-1's optimizer slices; ``parallel/mesh.py:
+(FSDP's shards, ZeRO-1's optimizer slices and the model ranks' TP parts,
+the packed QKV put back in its order; ``parallel/mesh.py:
 full_state_dict``, ``GroupOptimizer.state_dict``, both with
 ``cpu_offload``), so no card holds more than one whole tensor beyond its
 shards; then rank 0 alone writes, synchronously or on its background
 thread, so the file is the one a single process writes. A
-restore reads the file on every rank and takes each rank's slices, so a
-one-process checkpoint resumes under any world size, and the reverse.
+restore reads the file on every rank and takes each rank's parts, so a
+checkpoint saved at one ``(data, model)`` resumes at any other.
 """
 
 from __future__ import annotations

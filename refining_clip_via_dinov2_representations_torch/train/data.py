@@ -419,10 +419,15 @@ class DataInfo:
 
 def _loader(dataset, args, is_train: bool, dino_store=None) -> DataInfo:
     """A loader over the dataset (train: shuffled, last partial batch
-    dropped, this rank's shard of ``args.world_size``), with its sample and
-    batch counts. Evaluation loaders are not sharded: every rank reads the
-    whole set, so the metrics are global."""
-    ranks = (getattr(args, "rank", 0), getattr(args, "world_size", 1)) if is_train else (0, 1)
+    dropped, this data rank's shard of the data axis, ``args.data_rank`` of
+    ``args.data_world_size``: the model ranks of one data rank read the same
+    rows; without a mesh, ``args.rank`` of ``args.world_size``), with its
+    sample and batch counts. Evaluation loaders are not sharded: every rank
+    reads the whole set, so the metrics are global."""
+    ranks = (0, 1)
+    if is_train:
+        ranks = (getattr(args, "data_rank", getattr(args, "rank", 0)),
+                 getattr(args, "data_world_size", getattr(args, "world_size", 1)))
     loader = Loader(dataset, batch_size=args.batch_size, shuffle=is_train, drop_last=is_train,
                     seed=getattr(args, "seed", 0), num_workers=getattr(args, "workers", 8),
                     dino_store=dino_store, process_index=ranks[0], process_count=ranks[1])

@@ -16,6 +16,12 @@ CUDA tensor, no backward). Its parameters are not the student's: the
 train step holds it beside the model, so it is in no optimizer group, no
 gradient norm and no checkpoint.
 
+Under a model axis the main CLI splits the teacher over the model group
+by the student's rules (``parallel/tensor.py:shard_module``: query, key
+and value on heads, ``output.dense`` on columns, ``fc1``/``fc2`` or the
+SwiGLU pair), so each rank runs its heads: the JAX package's TP-sharded
+teacher of Config 5.
+
 Images are NCHW here; ``LiveDinoTeacher.extract`` also takes the NHWC
 batches of the port's loaders and transposes them once.
 """

@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``train/distributed.py`` on
 ``torch.distributed``. One process drives one GPU (torchrun's model): a
-rank is a process, and the data axis of the JAX mesh is the world size.
+rank is a process; the ranks form the ``(data, model)`` mesh of
+``parallel/mesh.py`` (``data_group``, ``model_group``).
 The launcher's variables (torchrun, SLURM, OMPI), read in the JAX
 package's order, give the rank, the local rank and the world size.
 
@@ -111,17 +112,28 @@ def all_gather_object(args, obj: Any) -> List[Any]:
 
 
 def data_group():
-    """The data axis's process group (every rank: the model axis is 1), or
-    None in one process or a group of one."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        return dist.group.WORLD
-    return None
+    """The data axis's process group (``parallel/mesh.py:create_mesh``; every
+    rank before a mesh is built), or None in one process or where the axis
+    holds one rank. The batch, the gathered losses, the gradient mean and
+    the evaluations' shares run over it."""
+    from ..parallel.mesh import DATA_AXIS, axis_group
+
+    return axis_group(DATA_AXIS)
+
+
+def model_group():
+    """The model axis's process group (the ranks that hold parts of one
+    model, ``parallel/tensor.py``), or None where it holds one rank."""
+    from ..parallel.mesh import MODEL_AXIS, axis_group
+
+    return axis_group(MODEL_AXIS)
 
 
 def any_rank(flag: bool, device: torch.device) -> bool:
-    """Whether ``flag`` is set on some rank (a collective where there is a
-    group), so that every rank stops at the same step."""
-    if data_group() is None:
+    """Whether ``flag`` is set on some rank, over every rank of both axes (a
+    collective where there is a group), so that every rank stops at the
+    same step."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
         return flag
     t = torch.tensor([float(flag)], device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)

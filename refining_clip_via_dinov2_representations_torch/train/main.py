@@ -74,10 +74,15 @@ honour yet raise at parse time (``train/params.py:UNPORTED``).
 Multi-GPU: one process a GPU, launched by torchrun (``torchrun
 --nproc-per-node N -m refining_clip_via_dinov2_representations_torch.train.
 main ...``) or any launcher that sets ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``
-(``train/distributed.py``). The process group comes first; then the mesh,
-``args.world_size`` and the global batch (``--batch-size`` is per rank).
-Each rank trains on its shard of every epoch; the losses gather over the
-ranks (``train/step.py``); DDP averages the gradients, under
+(``train/distributed.py``). The process group comes first; then the
+``(data, model)`` mesh (``--mesh-model-axis`` ranks a model: it must divide
+the world size and every tower's and the teacher's head count), and the
+global batch (``--batch-size`` is per data rank). Under a model axis the
+model, the DINO head and the live teacher are split over each model group
+(``parallel/tensor.py``), whose ranks read the same rows and compute the
+same loss. Each data rank trains on its shard of every epoch; the losses
+gather over the data ranks (``train/step.py``); DDP averages the gradients
+over them, under
 ``--shard-opt-state`` each rank keeps and updates the optimizer state of
 its slices (ZeRO-1), and under ``--fsdp`` (``--fsdp-min-size``) the blocks,
 the model and the head are sharded with ``fully_shard`` (ZeRO-3). Every
@@ -85,8 +90,9 @@ rank evaluates its share of each val batch and runs the CLIP-blind check
 with the others; only rank 0 writes the logs, the Tracker, checkpoints,
 ``final_torch_state.pt``, the plots, the remote sync and the codebase copy.
 ``--resume latest`` is resolved on rank 0 and broadcast; a checkpoint holds
-the whole state whatever the world size. Under ``--save-on-preemption``
-the ranks agree at every step whether one of them was signalled.
+the whole state whatever the mesh, and resumes at any other. Under
+``--save-on-preemption`` the ranks agree at every step whether one of them
+was signalled.
 
 Usage: python -m refining_clip_via_dinov2_representations_torch.train.main <flags>
 """
@@ -110,7 +116,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .distributed import any_rank, data_group
+from .distributed import any_rank
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -125,9 +131,11 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
 
 def _data_order_flags(args) -> Dict[str, int]:
     """The flags that fix the train batch order, recorded in checkpoints:
-    a preemption save's ``step_in_epoch`` counts steps in this order."""
+    a preemption save's ``step_in_epoch`` counts steps in this order. The
+    data axis's size is the ``world`` the loader shards over."""
+    world = getattr(args, "data_world_size", getattr(args, "world_size", 1))
     return {"accum_freq": max(1, int(args.accum_freq or 1)), "batch_size": int(args.batch_size),
-            "seed": int(args.seed or 0), "world": int(getattr(args, "world_size", 1) or 1)}
+            "seed": int(args.seed or 0), "world": int(world or 1)}
 
 
 def _fetch_remote_artifacts(remote_run_dir: str, log_base: str) -> None:
@@ -283,7 +291,7 @@ def train_one_epoch(train_step, state, train_data, args, epoch: int, device: tor
     records: List[dict] = []
     steps_done = 0
     # a signal may reach one rank only: the ranks stop at the same step
-    agree = args.save_on_preemption and data_group() is not None
+    agree = args.save_on_preemption and dist.is_initialized() and dist.get_world_size() > 1
     group: List[dict] = []
     window_samples, window_t0 = 0, time.time()
     num_batches = getattr(loader, "num_batches", None)
@@ -417,11 +425,14 @@ def _main(args):
     from .file_utils import remote_sync, start_sync_process
     from .logger import setup_logging
     from .loggers import Tracker
-    from ..parallel.mesh import apply_fsdp, create_mesh, wrap_ddp, zero1_sharding
-    from .distributed import barrier, broadcast_object, init_distributed_device, is_master
+    from ..parallel.mesh import (DATA_AXIS, apply_fsdp, create_mesh, log_mesh, tp_sharding,
+                                 wrap_ddp, zero1_sharding)
+    from ..parallel.tensor import model_parallel, shard_module
+    from .distributed import (barrier, broadcast_object, data_group, init_distributed_device,
+                              is_master, model_group)
     from .optim import OptimCfg, build_optimizer
     from .scheduler import const_lr, make_schedule
-    from .step import StepCfg, TrainState, Towers, make_train_step, train_parameters
+    from .step import StepCfg, TrainState, Towers, make_train_step, train_parameters, train_splits
 
     # the process group first: every rank must join before any other work
     device = init_distributed_device(args)
@@ -440,15 +451,20 @@ def _main(args):
     else:
         setup_logging(None, max(level, logging.WARNING))
 
-    mesh = group = None
+    mesh = group = mp = None
+    args.data_rank, args.data_world_size = 0, 1
     if args.distributed:
         mesh = create_mesh(model=args.mesh_model_axis, device_type=device.type)
-        group = data_group()
-    elif args.shard_opt_state or args.fsdp:
-        raise ValueError("--shard-opt-state and --fsdp need a process group: launch with torchrun "
-                         "(WORLD_SIZE=1 with MASTER_ADDR/MASTER_PORT for one GPU)")
-    args.global_batch_size = args.batch_size * args.world_size
-    logging.info("batch: %d/rank x %d ranks = %d global", args.batch_size, args.world_size,
+        log_mesh(mesh)
+        group, mp = data_group(), model_parallel(model_group())
+        args.data_rank, args.data_world_size = (mesh[DATA_AXIS].get_local_rank(),
+                                                mesh[DATA_AXIS].size())
+    elif args.shard_opt_state or args.fsdp or args.mesh_model_axis > 1:
+        raise ValueError("--shard-opt-state, --fsdp and --mesh-model-axis need a process group: "
+                         "launch with torchrun (WORLD_SIZE=1 with MASTER_ADDR/MASTER_PORT for "
+                         "one GPU)")
+    args.global_batch_size = args.batch_size * args.data_world_size
+    logging.info("batch: %d/rank x %d ranks = %d global", args.batch_size, args.data_world_size,
                  args.global_batch_size)
 
     # every rank seeds alike (no rank offset): the train loader shards one
@@ -472,6 +488,7 @@ def _main(args):
                                      if args.grad_checkpointing and args.remat_policy != "full"
                                      else args.grad_checkpointing))
     model.train()
+    shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
 
@@ -490,6 +507,9 @@ def _main(args):
                 name, dtype=_precision_to_dtype(args.precision)[0], cache_dir=args.cache_dir,
                 input_mean=preprocess_val.mean, input_std=preprocess_val.std, device=device,
                 attn_impl=args.attn_impl)
+            # split over the model group by the student's rules (Config 5's
+            # sharded teacher)
+            shard_module(dino_teacher.model, mp)
             logging.info("[DINO] live teacher %s (dim %d) runs inside the train step", name,
                          dino_teacher.hidden_size)
         if args.dino_index_map_path:
@@ -520,17 +540,22 @@ def _main(args):
             torch.manual_seed(args.seed + 1)
             head = DinoProjectionHead(model.text_projection.shape[1], dino_dim,
                                       args.projection_type, args.use_layernorm).to(device)
-        # the forward's module across ranks: FSDP's shards, or DDP
+            shard_module(head, mp, head=True)
+        # the forward's module across the data ranks: FSDP's shards, or DDP
         towers = sharding = None
         if args.fsdp:
             sharding = apply_fsdp(model, head, mesh, train_parameters(model, head),
                                   args.fsdp_min_size)
             towers = Towers(model, head)
         elif args.distributed:
+            named, dgroup = train_parameters(model, head), mesh[DATA_AXIS].get_group()
             if args.shard_opt_state:
-                sharding = zero1_sharding(train_parameters(model, head), dist.group.WORLD,
-                                          args.fsdp_min_size)
-            towers = wrap_ddp(Towers(model, head), device, static_graph=args.ddp_static_graph)
+                sharding = zero1_sharding(named, dgroup, args.fsdp_min_size, mp,
+                                          train_splits(model, head))
+            elif mp is not None:
+                sharding = tp_sharding(named, dgroup, mp, train_splits(model, head))
+            towers = wrap_ddp(Towers(model, head), device, dgroup,
+                              static_graph=args.ddp_static_graph)
         optim_cfg = OptimCfg(
             opt=args.opt, lr=args.lr, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
             wd=args.wd, head_lr=args.head_lr, logit_scale_lr=args.logit_scale_lr,
@@ -538,6 +563,8 @@ def _main(args):
             grad_clip_norm=args.grad_clip_norm, lock_image=args.lock_image,
             lock_image_unlocked_groups=args.lock_image_unlocked_groups,
             lock_text=args.lock_text, lock_text_unlocked_layers=args.lock_text_unlocked_layers,
+            # the JAX _text_tower_style: CustomTextCLIP's locking and groups
+            text_tower_style="custom_text" if model.custom_text else "clip",
             freeze_projection=args.freeze_projection, flatten_group_lrs=args.flatten_group_lrs,
             use_param_groups=args.use_param_groups,
             mu_dtype=None if args.adam_mu_dtype == "float32" else args.adam_mu_dtype,

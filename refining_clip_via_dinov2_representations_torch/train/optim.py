@@ -63,24 +63,31 @@ JAX package's fused AdamW: one flattened fp32 ``m`` and ``v`` per group.
 
 Under ZeRO-1 or FSDP (``sharding``, a ``parallel/mesh.py:ParamSharding``)
 each rank keeps the state of its dimension-0 slice of every split tensor
-and updates that slice; ZeRO-1 then all-gathers the parameters. What XLA
-computes over a whole tensor stays whole: the sums of squares behind the
-global norm (clipping, ``grad_norm``) and lamb's trust ratio, adafactor's
-row and column means over a split dimension, its ``row_col_mean`` and its
-block RMS are reduced over the ranks. ``state_dict`` gives the whole,
-unsplit state and ``load_state_dict`` takes it, so a checkpoint is the same
-file at any world size.
+and updates that slice; ZeRO-1 then all-gathers the parameters. Under a
+model axis each model rank holds its part of every TP-split tensor
+(``parallel/tensor.py``) and the state of that part (layered under the
+data split). What XLA computes over a whole tensor stays whole: the sums
+of squares behind the global norm (clipping, ``grad_norm``) and lamb's
+trust ratio, adafactor's row and column means over a split dimension, its
+``row_col_mean`` and its block RMS are reduced over the ranks that hold
+parts of the tensor (the data group for a data split, the model group for
+a TP split; a replicated tensor counts once); adafactor factors by the
+whole shape. ``state_dict`` gives the whole, unsplit state and
+``load_state_dict`` takes it, so a checkpoint is the same file at any
+``(data, model)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import re
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..parallel.tensor import Split, whole_shape
 from .scheduler import Schedule
 
 HEAD_PREFIX = "dino_head."
@@ -104,6 +111,12 @@ class OptimCfg:
     lock_image_unlocked_groups: int = 0
     lock_text: bool = False
     lock_text_unlocked_layers: int = 0
+    # the reference's text-tower semantics (``train/main.py:text_tower_style``):
+    # "clip" freezes the non-block text parameters under --lock-text and moves
+    # the unlocked text blocks into the text group; "custom_text"
+    # (CustomTextCLIP: the EVA configs) frees them unless no layer is
+    # unlocked, and has no block loop
+    text_tower_style: str = "clip"
     freeze_projection: bool = False  # bug-compatible: don't train the DINO head
     flatten_group_lrs: bool = False  # bug-compatible: scheduler overrides group LRs
     use_param_groups: bool = True    # False -> one group at the base lr
@@ -171,8 +184,9 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
             if tb is not None:
                 if tb < text_layers - n_unlock_text:
                     return "frozen"
-            else:
-                # CLIP.lock_text_tower freezes the non-block text params always
+            elif cfg.text_tower_style == "clip" or n_unlock_text == 0:
+                # CLIP.lock_text_tower freezes the non-block text params
+                # always; TextTransformer.lock only at a full lock
                 return "frozen"
 
         if p.startswith(HEAD_PREFIX):
@@ -184,14 +198,15 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
             return "heads"
         if "logit_scale" in p:
             return "logit_scale"
-        tb = _text_block(p)
-        if tb is not None and tb >= text_start and n_unlock_text > 0:
-            return "text"
-        # the block selector "transformer.resblocks.{i}." also matches visual
-        # blocks whose index falls in the unlocked text range
-        vb = _vision_block(p)
-        if vb is not None and n_unlock_text > 0 and text_start <= vb < text_layers:
-            return "text"
+        if cfg.text_tower_style == "clip":  # the reference's block loop
+            tb = _text_block(p)
+            if tb is not None and tb >= text_start and n_unlock_text > 0:
+                return "text"
+            # the block selector "transformer.resblocks.{i}." also matches
+            # visual blocks whose index falls in the unlocked text range
+            vb = _vision_block(p)
+            if vb is not None and n_unlock_text > 0 and text_start <= vb < text_layers:
+                return "text"
         if "token_embedding" in p or "positional_embedding" in p:
             return "text"  # the visual positional embedding too
         return "default"
@@ -274,6 +289,14 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
     return order[-2], order[-1]
 
 
+def _drop_dim(split: Optional[Split], dim: int) -> Optional[Split]:
+    """The model-axis split of a statistic that reduces ``dim`` of a tensor
+    split by ``split``: none where ``dim`` was the split one."""
+    if split is None or split.dim == dim:
+        return None
+    return Split(split.dim - (1 if split.dim > dim else 0), split.packs)
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay ** count`` in fp32, as optax computes it."""
     return float(1 - torch.tensor(decay, dtype=torch.float32) ** count)
@@ -336,20 +359,32 @@ class GroupOptimizer:
             if names:
                 self.groups.append({"label": g, "names": names, "wd": wd, "lr_ratio": ratios[g],
                                     "params": [params[n] for n in names]})
-        # per state tensor: whether it holds this rank's dimension-0 slice
-        self.split: Dict[str, Dict[str, bool]] = {}
+        # per state tensor: (whether it holds this data rank's dimension-0
+        # slice, its model-axis split or None)
+        self.split: Dict[str, Dict[str, Tuple[bool, Optional[Split]]]] = {}
         self.state = {n: self._init_state(n, params[n]) for grp in self.groups
                       for n in grp["names"]}
 
     def _split(self, name: str) -> bool:
         return self.sharding is not None and name in self.sharding.sharded
 
+    def _tp(self, name: str) -> Optional[Split]:
+        return None if self.sharding is None else self.sharding.tp_split(name)
+
+    def _across(self, name: str) -> Tuple[bool, bool]:
+        """(data, model): whether parameter ``name`` is split over each axis."""
+        return self._split(name), self._tp(name) is not None
+
+    def _whole_shape(self, name: str) -> tuple:
+        shape = self.named[name].shape  # whole over the data axis (FSDP: the DTensor's)
+        return tuple(shape) if self.sharding is None else self.sharding.whole_shape(name, shape)
+
     def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         return t if self.sharding is None else self.sharding.local(name, t)
 
     def _init_state(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         local = self._local(name, p.detach())
-        split = self._split(name)
+        split, tp = self._split(name), self._tp(name)
         zeros = lambda shape, dtype=None: torch.zeros(  # noqa: E731
             shape, dtype=dtype or local.dtype, device=local.device)
         if self.family in ("adamw", "lamb"):
@@ -360,19 +395,21 @@ class GroupOptimizer:
             state = {"mu": zeros(local.shape)}
         else:  # adafactor: its momentum and second moment
             mu = zeros(local.shape, self.mu_dtype or torch.float32)
-            dims = factored_dims(p.shape)
+            dims = factored_dims(self._whole_shape(name))
             if dims is None:
                 state = {"mu": mu, "v": zeros(local.shape)}
             else:
                 d1, d0 = dims
-                # a statistic keeps this rank's slice where it keeps dim 0
+                # a statistic keeps this rank's slice where it keeps dim 0,
+                # and its model part where it keeps the TP-split dimension
                 row = [n for i, n in enumerate(local.shape if d0 else p.shape) if i != d0]
                 col = [n for i, n in enumerate(local.shape if d1 else p.shape) if i != d1]
                 state = {"mu": mu, "v_row": zeros(row), "v_col": zeros(col)}
-                self.split[name] = {"mu": split, "v_row": split and d0 != 0,
-                                    "v_col": split and d1 != 0}
+                self.split[name] = {"mu": (split, tp),
+                                    "v_row": (split and d0 != 0, _drop_dim(tp, d0)),
+                                    "v_col": (split and d1 != 0, _drop_dim(tp, d1))}
                 return state
-        self.split[name] = {k: split for k in state}
+        self.split[name] = {k: (split, tp) for k in state}
         return state
 
     def zero_grad(self) -> None:
@@ -384,27 +421,26 @@ class GroupOptimizer:
 
     def grad_norm(self) -> torch.Tensor:
         """The global norm of every gradient, in fp32, over the whole
-        tensors (each slice's sum of squares reduced over the ranks)."""
+        tensors (each part's sum of squares reduced over the ranks that
+        hold parts of it; a replicated tensor counted once)."""
         if self.sharding is None:
             return global_norm(self.grads())
-        sums = {False: [], True: []}
-        for n, p in self.named.items():
-            if p.grad is not None:
-                sums[self._split(n)].append((self._local(n, p.grad).float() ** 2).sum())
-        zero = torch.zeros((), device=(sums[False] + sums[True])[0].device)
-        split = self.sharding.all_reduce(sum(sums[True], zero).reshape(1))[0]
-        return torch.sqrt(sum(sums[False], zero) + split)
+        names = [n for n, p in self.named.items() if p.grad is not None]
+        sums = [(self._local(n, self.named[n].grad).float() ** 2).sum() for n in names]
+        return torch.sqrt(sum(self._sum_over(sums, [self._across(n) for n in names])))
 
-    def _sum_over_split(self, values: List[torch.Tensor], split: List[bool]) -> List[torch.Tensor]:
-        """Each value, summed over the ranks where ``split`` says so (one
-        collective for all of them)."""
-        idx = [i for i, s in enumerate(split) if s]
-        if not idx or self.sharding.world == 1:
-            return values
-        summed = self.sharding.all_reduce(torch.stack([values[i].float() for i in idx]))
+    def _sum_over(self, values: List[torch.Tensor], across: List[Optional[Tuple[bool, bool]]]
+                  ) -> List[torch.Tensor]:
+        """Each value, summed over the data and the model ranks where its
+        ``across`` says so (one collective an axis for all of them)."""
         values = list(values)
-        for j, i in enumerate(idx):
-            values[i] = summed[j]
+        for data, model in ((True, False), (False, True), (True, True)):
+            idx = [i for i, a in enumerate(across) if a == (data, model)]
+            if idx:
+                summed = self.sharding.sum_over(torch.stack([values[i].float() for i in idx]),
+                                                data, model)
+                for j, i in enumerate(idx):
+                    values[i] = summed[j]
         return values
 
     @torch.no_grad()
@@ -470,13 +506,13 @@ class GroupOptimizer:
         us = self._adam_direction(gs, states)
         if wd:
             torch._foreach_add_(us, torch._foreach_mul(ps, wd))
-        split = [self._split(n) for n in names]
-        if any(split):  # whole-tensor norms from each rank's slice
-            sq = [torch.stack([(p.float() ** 2).sum(), (u.float() ** 2).sum()]) if s else None
-                  for p, u, s in zip(ps, us, split)]
-            sq = self._sum_over_split(sq, split)
+        split = [self._across(n) for n in names]
+        if any(any(s) for s in split):  # whole-tensor norms from each rank's part
+            sq = [torch.stack([(p.float() ** 2).sum(), (u.float() ** 2).sum()]) if any(s)
+                  else None for p, u, s in zip(ps, us, split)]
+            sq = self._sum_over(sq, split)
         for i, (p, u) in enumerate(zip(ps, us)):  # scale_by_trust_ratio
-            if split[i]:
+            if any(split[i]):
                 pn, un = torch.sqrt(sq[i][0]), torch.sqrt(sq[i][1])
             else:
                 pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
@@ -501,14 +537,14 @@ class GroupOptimizer:
         torch._foreach_add_(traces, gs)
         self._apply(ps, [t.clone() for t in traces], lr, wd)
 
-    def _mean(self, t: torch.Tensor, dim: int, across: bool, n: int,
+    def _mean(self, t: torch.Tensor, dim: int, data: bool, model: bool, n: int,
               keepdim: bool = False) -> torch.Tensor:
-        """``t.mean(dim)``; where ``dim`` is split over the ranks
-        (``across``), the sum over every rank's slice divided by the whole
-        length ``n``."""
-        if not across:
+        """``t.mean(dim)``; where ``dim`` is split over the data ranks
+        (``data``) or the model ranks (``model``), the sum over every rank's
+        part divided by the whole length ``n``."""
+        if not (data or model):
             return t.mean(dim, keepdim=keepdim)
-        return self.sharding.all_reduce(t.sum(dim, keepdim=keepdim)) / n
+        return self.sharding.sum_over(t.sum(dim, keepdim=keepdim), data, model) / n
 
     def _adafactor(self, names, ps, gs, states, lr, wd) -> None:
         c = self.cfg
@@ -517,8 +553,9 @@ class GroupOptimizer:
         dr = float(1.0 - torch.tensor(float(self.count), dtype=torch.float32) ** -AF_DECAY)
         us = []
         for name, p, g, s in zip(names, ps, gs, states):
-            split = self._split(name)
-            shape = self.named[name].shape  # the whole tensor's
+            split, tp = self._across(name)
+            tp_dim = self._tp(name).dim if tp else None
+            shape = self._whole_shape(name)
             sq = g * g + AF_EPS
             dims = factored_dims(shape)
             if dims is None:
@@ -526,19 +563,19 @@ class GroupOptimizer:
                 u = g * s["v"] ** -0.5
             else:
                 d1, d0 = dims
-                row = self._mean(sq, d0, split and d0 == 0, shape[d0])
+                row = self._mean(sq, d0, split and d0 == 0, tp_dim == d0, shape[d0])
                 s["v_row"].copy_(dr * s["v_row"] + (1.0 - dr) * row)
-                col = self._mean(sq, d1, split and d1 == 0, shape[d1])
+                col = self._mean(sq, d1, split and d1 == 0, tp_dim == d1, shape[d1])
                 s["v_col"].copy_(dr * s["v_col"] + (1.0 - dr) * col)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_col_mean = self._mean(s["v_row"], reduced_d1, split and d0 != 0 and d1 == 0,
-                                          shape[d1], keepdim=True)
+                                          tp_dim == d1, shape[d1], keepdim=True)
                 r = (s["v_row"] / row_col_mean) ** -0.5
                 u = g * r.unsqueeze(d0) * (s["v_col"] ** -0.5).unsqueeze(d1)
             del sq
             # clip_by_block_rms, then the momentum (ema without debiasing)
-            ms = (u * u).mean() if not split else (
-                self.sharding.all_reduce((u * u).sum()) / self.named[name].numel())
+            ms = (u * u).mean() if not (split or tp) else (
+                self.sharding.sum_over((u * u).sum(), split, tp) / math.prod(shape))
             u = u / torch.clamp(torch.sqrt(ms) / AF_CLIP, min=1.0)
             mu = s["mu"]
             u = u * (1 - c.beta1) + _decay_in([mu], c.beta1)[0]
@@ -558,7 +595,8 @@ class GroupOptimizer:
         state = {}
         for n, s in self.state.items():
             for k, t in s.items():
-                whole = self.sharding.gather(t) if self.split[n][k] else t
+                whole = t if self.sharding is None else self.sharding.gather_whole(
+                    t, *self.split[n][k])
                 if keep:
                     state.setdefault(n, {})[k] = (whole.to("cpu", copy=True) if cpu_offload
                                                   else whole)
@@ -578,12 +616,16 @@ class GroupOptimizer:
         for n, saved in state["state"].items():
             for k, t in self.state[n].items():
                 src = saved[k]
-                if self.split[n][k]:
-                    w = self.sharding.world
-                    if src.shape[0] != t.shape[0] * w:
+                if self.sharding is not None:
+                    data, split = self.split[n][k]
+                    tp = self.sharding.tp
+                    want = list(whole_shape(t.shape, split, tp.world if tp else 1))
+                    if data:
+                        want[0] *= self.sharding.world
+                    if tuple(src.shape) != tuple(want):
                         raise ValueError(f"optimizer state {n}.{k}: saved {tuple(src.shape)}, "
-                                         f"expected {(t.shape[0] * w,) + tuple(t.shape[1:])}")
-                    src = src.chunk(w, 0)[self.sharding.rank]
+                                         f"expected {tuple(want)}")
+                    src = self.sharding.take_part(src, data, split)
                 if tuple(src.shape) != tuple(t.shape):
                     raise ValueError(f"optimizer state {n}.{k}: saved {tuple(saved[k].shape)}, "
                                      f"expected {tuple(t.shape)}")

@@ -5,15 +5,16 @@ defaults, and ``get_default_params`` for the model family. A flag that the
 port cannot honour raises ``NotImplementedError`` at parse time when it is
 set away from its default (``UNPORTED``), rather than being ignored: the
 other losses and towers, webdataset and the ImageNet train subset, device
-preprocessing, the tensor-parallel model axis, Horovod, SyncBatchNorm, the
-step profiler. Tracking (``--report-to``), preemption saves, asynchronous
-and remote checkpoints, ``--remote-sync``, ``--copy-codebase``, gradient
-accumulation (``--accum-freq``), the ``--opt`` families,
+preprocessing, Horovod, SyncBatchNorm, the step profiler. Tracking
+(``--report-to``), preemption saves, asynchronous and remote checkpoints,
+``--remote-sync``, ``--copy-codebase``, gradient accumulation
+(``--accum-freq``), the ``--opt`` families,
 ``--adam-mu-dtype``, ``--force-patch-dropout``, every ``--remat-policy``,
 SigLIP (``--siglip``, ``--loss-dist-impl``) and multi-GPU training
 (``--dist-url``, ``--dist-backend``, ``--no-set-device-rank``,
 ``--ddp-static-graph``, ``--shard-opt-state``, ``--fsdp``,
-``--fsdp-min-size``; ``train/distributed.py``, ``parallel/``) are ported;
+``--fsdp-min-size``, ``--mesh-model-axis``; ``train/distributed.py``,
+``parallel/``) are ported;
 ``--momentum`` is parsed and read by none, as in the JAX package.
 ``--local-loss`` and ``--gather-with-grad`` are accepted and change
 nothing: the losses always take local rows against gathered columns, with
@@ -51,7 +52,6 @@ UNPORTED = {
     "pretrained_image": "pretrained towers",
     "use_bnb_linear": "bitsandbytes layers",
     "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",
-    "mesh_model_axis": "tensor-parallel model axis (ROADMAP Queue 1 item 10b)",
     "horovod": "Horovod launcher (launch one process a GPU with torchrun)",
 }
 
@@ -278,7 +278,9 @@ def _parser() -> argparse.ArgumentParser:
     flag("--device-preprocess")
     a("--device-preprocess-raw-size", type=int, default=256)
     flag("--force-cpu", help="train on the CPU with the plain attention versions (tests)")
-    a("--mesh-model-axis", type=int, default=1)
+    a("--mesh-model-axis", type=int, default=1,
+      help="tensor-parallel ranks a model (parallel/tensor.py); divides the world size "
+           "and every tower's and the teacher's heads")
     flag("--shard-opt-state")
     flag("--fsdp")
     a("--fsdp-min-size", type=int, default=2**16)

@@ -58,7 +58,11 @@ accumulation each pass's full batch is this rank's cached rows with the
 live slot, gathered over the ranks inside the loss; the gradients are not
 reduced until the last pass (``parallel/mesh.py:grad_sync_paused``).
 Patch dropout folds the rank into the microbatch index, so that two ranks
-never draw the same masks.
+never draw the same masks. Under a model axis (``parallel/tensor.py``) the
+model ranks of one data rank take the same rows, draw the same masks (the
+rank folded in is the data rank) and compute the same loss; their
+gradients of replicated tensors come out equal, and each holds its part of
+the split ones (``train_splits``).
 
 The other loss types, BatchNorm towers and device preprocessing raise
 ``NotImplementedError``.
@@ -141,6 +145,15 @@ def train_parameters(model: torch.nn.Module, head: Optional[torch.nn.Module]
     if head is not None:
         params.update({HEAD_PREFIX + n: p for n, p in head.named_parameters()})
     return params
+
+
+def train_splits(model: torch.nn.Module, head: Optional[torch.nn.Module]) -> Dict[str, Any]:
+    """The model-axis splits (``parallel/tensor.py:shard_module``) by the
+    names of ``train_parameters``."""
+    splits = dict(getattr(model, "tp_splits", {}))
+    if head is not None:
+        splits.update({HEAD_PREFIX + n: s for n, s in getattr(head, "tp_splits", {}).items()})
+    return splits
 
 
 def _lambda_overrides(cfg: StepCfg, step: int) -> Dict[str, float]:

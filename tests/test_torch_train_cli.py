@@ -175,9 +175,10 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 
 # --adam-mu-dtype, --opt, --force-patch-dropout and --remat-policy are
 # ported: test_config5_flags_run_on_the_tiny_model runs them; --siglip and
-# --fsdp are ported with multi-GPU training (tests/test_torch_dist_*.py)
+# --fsdp are ported with multi-GPU training (tests/test_torch_dist_*.py),
+# --mesh-model-axis with the model axis (tests/test_torch_tp_*.py)
 @pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"], ["--use-bn-sync"],
-                                   ["--distill-model", "ViT-B-32"], ["--mesh-model-axis", "2"],
+                                   ["--distill-model", "ViT-B-32"], ["--horovod"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):
