@@ -205,8 +205,34 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     losses at 1e-2 relative, each rank's peak memory beside the one
     process's, 104 + 52 launches a rank a step.
 
-The line before the last is the JSON list of kernels; the last line is
-``{"ok": true, "device": {...}}``. Imports no JAX.
+CoCa runs right after the mini-Flickr set is made (the fused kernels are
+checked at its decoder's shapes, the cross-attention ``[32,12,75,255,64]``
+(75 text queries over 255 image tokens) and the causal ``[32,12,75,64]``,
+forward in phase 3 and backward in 3b, and timed in phases 5 and 6):
+
+22. coca — coca_ViT-L-14 at full width and depth (638,450,177 parameters),
+    seeded: written in open_clip's layout into the hub cache of the
+    ``mscoco_finetuned_laion2b_s13b_b90k`` tag and loaded by tag, exactly;
+    an fp32 engine behind the HTTP server captions 1 and 8 mini-Flickr
+    images at the defaults (6 beams in 3 groups, 30 tokens) and once with
+    custom parameters (24 fused-forward launches a caption call: the
+    vision tower; the text tower, the poolers and the cached decode take
+    plain attention, as in JAX), encodes images and texts;
+    ``decode_logits`` through the kernels against plain attention (cosine
+    >= 0.9999), the captions against the plain-attention engine's token for
+    token (where they differ: the step and the top-2 logit gap there), the
+    caption latency cached and uncached; the CoCa step in bf16 at batch 32
+    (48 forward + 48 backward launches a step; one step against plain
+    attention at ``STEP_TOL`` bf16) and in fp32 with TF32 off at batch 8
+    (``STEP_TOL`` fp32), host clock and peak memory; ``train.main`` from the
+    tag, bf16, batch 32, one epoch on 64 + 32 mini-Flickr rows: the caption
+    loss in the loss records, ``val_generative_loss`` in both evaluations,
+    the final checkpoint loaded strictly into an engine that captions.
+
+Each phase prints the seconds elapsed since the start. The line before the
+last is the JSON list of kernels (each fused kernel with a ``"coca"`` list
+of its CoCa shapes); the last line is ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -221,6 +247,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): the tensor-core rates
@@ -378,6 +405,15 @@ TP_BWD_CASES = TP_CASES[:4]
 # the EVA01 recipe through train.main: mini-Flickr cut to 7 train images (35
 # caption rows: 2 steps of 16), no evaluation, no per-epoch checkpoint
 TP_EVA_IMAGES = 7
+# CoCa at coca_ViT-L-14's full width and depth (phase 22): the tag whose hub
+# cache the seeded weights are written into; the engine's buckets; the
+# training batch (bf16), the fp32 step's batch and the steps. Its attention
+# calls through the kernels, (B, H, Lq, Lk, D, causal): the decoder's
+# cross-attention of 75 text queries over 255 image tokens and its causal
+# self-attention at 75 (the vision tower's [b,16,257,64] is a teacher case)
+COCA_MODEL, COCA_TAG = "coca_ViT-L-14", "mscoco_finetuned_laion2b_s13b_b90k"
+COCA_BUCKETS, COCA_BATCH, COCA_FP32_BATCH, COCA_STEPS = (1, 8), 32, 8, 3
+COCA_CASES = [(32, 12, 75, 255, 64, False), (32, 12, 75, 75, 64, True)]
 
 
 def fail(msg: str) -> None:
@@ -480,11 +516,12 @@ def phase_kernels() -> dict:
     )
 
     worst = {}
+    cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
+             + GIANT_CASES + TP_CASES] + COCA_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, l, d, causal) in enumerate(KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
-                                                 + GIANT_CASES + TP_CASES):
-            q, k, v = _qkv(b, h, l, d, dtype, seed=i)
+        for i, (b, h, l, lk, d, causal) in enumerate(cases):
+            q, k, v = _qkv(b, h, l, d, dtype, seed=i, lk=lk)
             scale = d ** -0.5
             got = fused_attention_fwd(q, k, v, scale, causal)
             want = fused_attention_reference(q, k, v, scale, causal)
@@ -497,11 +534,11 @@ def phase_kernels() -> dict:
             worst[name] = max(worst.get(name, 0.0), err)
             ok = (max(err, err64) <= TOL[name]
                   and bool(torch.isfinite(got.float()).all()))
-            print(f"kernel fused_attention_fwd {name} [{b},{h},{l},{d}] causal={causal}: "
-                  f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64 "
+            print(f"kernel fused_attention_fwd {name} [{b},{h},{l},{d}] x {lk} keys "
+                  f"causal={causal}: max_abs_err {err:.3e} vs plain, {err64:.3e} vs float64 "
                   f"(tol {TOL[name]:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
             check(ok, f"fused_attention_fwd disagrees with its plain version at "
-                      f"{name} [{b},{h},{l},{d}] causal={causal}: {err:.3e}")
+                      f"{name} [{b},{h},{l},{d}] x {lk} keys causal={causal}: {err:.3e}")
     return worst
 
 
@@ -511,6 +548,14 @@ def _post(base: str, path: str, payload: dict):
                                  method="POST")
     with urllib.request.urlopen(req, timeout=120) as r:
         return r.status, json.loads(r.read())
+
+
+def _post_status(base: str, path: str, payload: dict):
+    """``_post``, with an HTTP error's status and body returned, not raised."""
+    try:
+        return _post(base, path, payload)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def _cosines(a, b):
@@ -707,6 +752,13 @@ def _bound(flops: float, nbytes: float, dtype_name: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _case_key(case):
+    """A (B, H, Lq, Lk, D, causal) case's key in the time phases' rows:
+    (B, H, L, D, causal) where Lq = Lk."""
+    b, h, l, lk, d, causal = case
+    return (b, h, l, d, causal) if lk == l else case
+
+
 def attention_work(b, h, l, d, causal, dtype_name, lk=None):
     """(FLOPs, bytes) of the attention forward: QK^T and PV over the live
     score entries (about half when causal); q, k, v read once, o written
@@ -745,19 +797,21 @@ def phase_kernel_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in (TIMED_CASES + TEACHER_CASES + SLICE10_CASES + GIANT_CASES
-                               + TP_CASES):
-        q, k, v = _qkv(b, h, l, d, dtype, seed=100)
+    cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
+             + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES
+    for b, h, l, lk, d, causal in cases:
+        q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
         ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
         plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal))
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, scale=scale))
-        work = attention_work(b, h, l, d, causal, dtype_name)
+        work = attention_work(b, h, l, d, causal, dtype_name, lk=lk)
         bound, by = _bound(*work, dtype_name)
-        rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                          bound_ms=bound, bound_by=by)
-        print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        rows[_case_key((b, h, l, lk, d, causal))] = row
+        print(f"time fused_attention_fwd {dtype_name} [{b},{h},{l},{d}] x {lk} keys "
+              f"causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
               f"{bound:.4f} ms ({by}){_fp32_cuda_core(work, dtype_name)}, kernel at "
               f"{bound / ms:.1%} of bound; "
@@ -824,7 +878,7 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            + TP_BWD_CASES] + BWD_CASES
+            + TP_BWD_CASES] + BWD_CASES + COCA_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -2704,13 +2758,14 @@ def phase_giant(work: str) -> dict:
             "cli": dict(wall=wall, seconds=seconds, steps=len(records))}
 
 
-def attention_bwd_work(b, h, l, d, causal, dtype_name):
+def attention_bwd_work(b, h, l, d, causal, dtype_name, lk=None):
     """(FLOPs, bytes) of the attention backward: 10 pairs D FLOPs per head
-    (S recomputed, dV, dP, dQ, dK); 8 L D elements per head moved (q, k, v,
-    o, dO in; dq, dk, dv out)."""
+    (S recomputed, dV, dP, dQ, dK); 4 Lq D + 4 Lk D elements per head moved
+    (q, o, dO in and dq out; k, v in and dk, dv out). lk = l unless given."""
     elem = 4 if dtype_name == "float32" else 2
-    pairs = l * (l + 1) // 2 if causal else l * l
-    return 10.0 * b * h * pairs * d, 8.0 * b * h * l * d * elem
+    lk = lk or l
+    pairs = sum(min(i + 1, lk) for i in range(l)) if causal else l * lk
+    return 10.0 * b * h * pairs * d, 4.0 * b * h * (l + lk) * d * elem
 
 
 def phase_bwd_times(dtype_name: str) -> dict:
@@ -2725,8 +2780,9 @@ def phase_bwd_times(dtype_name: str) -> dict:
 
     dtype = getattr(torch, dtype_name)
     rows = {}
-    for b, h, l, d, causal in BWD_TIMED + GIANT_CASES + TP_BWD_CASES:
-        q, k, v = _qkv(b, h, l, d, dtype, seed=200)
+    cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
+    for b, h, l, lk, d, causal in cases + COCA_CASES:
+        q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
         o = fused_attention_fwd(q, k, v, scale, causal)
@@ -2743,12 +2799,13 @@ def phase_bwd_times(dtype_name: str) -> dict:
             sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, scale=scale), iters=20)
         lib = time_ms(sdpa_fwd_bwd, iters=20) - sdpa_fwd
-        work = attention_bwd_work(b, h, l, d, causal, dtype_name)
+        work = attention_bwd_work(b, h, l, d, causal, dtype_name, lk=lk)
         bound, by = _bound(*work, dtype_name)
-        rows[(b, h, l, d, causal)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                          bound_ms=bound, bound_by=by)
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+        rows[_case_key((b, h, l, lk, d, causal))] = row
         scalar = SCALAR_BWD_MS.get((dtype_name, (b, h, l, d, causal)))
-        print(f"time fused_attention_bwd {dtype_name} [{b},{h},{l},{d}] causal={causal}: "
+        print(f"time fused_attention_bwd {dtype_name} [{b},{h},{l},{d}] x {lk} keys "
+              f"causal={causal}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd minus fwd {lib:.4f} ms, "
               f"bound {bound:.4f} ms ({by}){_fp32_cuda_core(work, dtype_name)}, kernel at "
               f"{bound / ms:.1%} of bound"
@@ -3989,6 +4046,393 @@ def phase_tp(work: str) -> dict:
     return {"launches": total, "ranks": ranks, "eva": {"one": one, "tp": tp}}
 
 
+def _set_compute_dtype(model, dtype) -> None:
+    """Every tower of ``model`` to compute in ``dtype`` (parameters stay)."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+
+
+def _coca_batch(tokenizer, n: int, seed: int = SEED + 50) -> dict:
+    """Seeded pixels at 224 px and n distinct captions (76 tokens)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    captions = [f"a {['red', 'green', 'blue'][i % 3]} {['cube', 'ball', 'cone', 'ring'][i % 4]} "
+                f"number {i * 7 + 3} on a table in scene {i % 5}" for i in range(n)]
+    return {"images": torch.from_numpy(rng.normal(size=(n, 224, 224, 3)).astype(
+                np.float32)).to(DEVICE),
+            "texts": torch.from_numpy(tokenizer(captions)).long().to(DEVICE)}
+
+
+def _coca_loss_and_grads(model, batch) -> tuple:
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg, make_loss_fn
+
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = make_loss_fn(model, StepCfg(loss_type="coca"))(batch, 0)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+# fp32 CoCa step: a tensor whose gradient is under this share of the whole
+# gradient's norm is cancellation (with seeded weights the pooler's 255
+# image tokens are nearly equal, so the cross-attention blocks' query-side
+# LayerNorm gradients cancel to ~5e-8 of the whole): its cosine measures
+# rounding, so it is held by its absolute error against the same share
+COCA_FP32_NOISE = 1e-6
+
+
+def _coca_step_vs_plain(model, batch, name: str) -> None:
+    """One CoCa loss and gradient through the kernels against plain attention
+    on the same weights: ``STEP_TOL`` (bf16: all tensors together; fp32:
+    every tensor whose gradient is at least ``COCA_FP32_NOISE`` of the whole
+    gradient's norm, the others to that share in absolute error)."""
+    loss_tol, min_cos = STEP_TOL[name]
+    _set_attn_impl(model, "auto")
+    loss_k, grads_k = _coca_loss_and_grads(model, batch)
+    _set_attn_impl(model, "xla")
+    loss_p, grads_p = _coca_loss_and_grads(model, batch)
+    _set_attn_impl(model, "auto")
+    check(grads_k.keys() == grads_p.keys() and len(grads_k) == len(list(model.parameters())),
+          "the two CoCa runs have different gradients")
+    cos, together = _grad_cosines(grads_k, grads_p)
+    whole = sum(float(g.double().norm()) ** 2 for g in grads_p.values()) ** 0.5
+    norm = {n: float(g.double().norm()) for n, g in grads_p.items()}
+    under = {n: float((grads_k[n].double() - g.double()).norm())
+             for n, g in grads_p.items() if norm[n] < COCA_FP32_NOISE * whole}
+    held_cos = {n: c for n, c in cos.items() if n not in under or name == "bfloat16"}
+    worst = min(held_cos, key=held_cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if name == "bfloat16":
+        held, under_ok, under_note = together, True, ""
+    else:
+        held = held_cos[worst]
+        under_ok = all(e <= COCA_FP32_NOISE * whole for e in under.values())
+        big = max(under, key=under.get) if under else None
+        under_note = (f"; {len(under)} tensors under {COCA_FP32_NOISE:g} of the whole gradient's "
+                      f"norm {whole:.4e} (cosines {min(cos[n] for n in under):.7f}-"
+                      f"{max(cos[n] for n in under):.7f}, gradient norms "
+                      f"{min(norm[n] for n in under):.3e}-{max(norm[n] for n in under):.3e}), "
+                      f"largest absolute error {under[big]:.3e} at {big} (need <= "
+                      f"{COCA_FP32_NOISE * whole:.3e})" if under else "")
+    print(f"coca step {COCA_MODEL} {name} batch {batch['images'].shape[0]}: loss {loss_k:.6f} "
+          f"through the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol {loss_tol:g}); "
+          f"gradient cosine per tensor min {cos[worst]:.7f} at {worst} "
+          f"({sum(held_cos[n] < min_cos for n in held_cos)} of {len(held_cos)} below "
+          f"{min_cos}), all together {together:.7f} (need "
+          f"{'together' if name == 'bfloat16' else 'per tensor'} >= {min_cos}){under_note}",
+          flush=True)
+    check(rel <= loss_tol and held >= min_cos and under_ok,
+          f"the {name} CoCa step through the kernels disagrees with plain attention")
+
+
+def _caption_divergence(model, image, got, want) -> str:
+    """Where two captions of one image first differ: the step and the top-2
+    gap of the plain route's logits there."""
+    import torch
+
+    diff = (got != want).nonzero()
+    if not len(diff):
+        return "equal"
+    t = int(diff[0, 0])
+    with torch.no_grad():
+        logits = model.decode_logits(image[None], want[None, :t])[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return f"first differ at step {t}, top-2 logit gap {float(top[0] - top[1]):.3e} there"
+
+
+def phase_coca(work: str, d: dict) -> dict:
+    """CoCa at coca_ViT-L-14's full width and depth (phase 22; vision 24 x
+    1024, 257 tokens, pooler 256 queries x 8 heads into 768; text 12 x 768
+    with the appended CLS; decoder 12 self + 12 cross blocks at 768 over 255
+    image tokens into 49,408 tokens; 638,450,177 parameters), seeded:
+    (a) written in open_clip's layout into the hub cache of
+    ``COCA_TAG``, loaded by tag, exact; (b) an fp32 engine and the HTTP
+    server: ``/v1/caption`` for 1 and 8 mini-Flickr images at the defaults
+    (6 beams in 3 groups, 30 tokens) and once with custom parameters,
+    ``/v1/encode_image`` and ``/v1/encode_text``; 24 fused-forward launches
+    a caption call (the vision tower; the text tower, the poolers and the
+    cached decode take plain attention), ``decode_logits`` through the
+    kernels against plain attention (cosine >= 0.9999), the captions
+    against the plain-attention engine's token for token (a divergence is
+    printed with the step and the top-2 logit gap there), the caption
+    latency cached and uncached; (c) the CoCa step, bf16 at batch 32, three
+    steps of 48 forward + 48 backward launches (vision 24, the decoder's 12
+    causal self-attention calls at ``[32,12,75,64]`` and 12 cross-attention
+    calls at ``[32,12,75,255,64]``), one step against plain attention
+    (``STEP_TOL`` bf16), one fp32 step with TF32 off at batch 8 against
+    plain attention (``STEP_TOL`` fp32), the host clock and peak memory;
+    (d) ``train.main`` with ``--pretrained`` the tag, bf16, batch 32, one
+    epoch on mini-Flickr rows (the caption loss in the run's loss records
+    and ``val_generative_loss`` in its evaluations), whose final checkpoint
+    loads strictly into an engine that captions. Returns the launches."""
+    import base64
+    import math
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import ClipInferenceEngine
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, create_model_and_transforms, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.coca import generate_beam
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.serve import ClipServer, make_http_server
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, TrainState, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    # ---- (a) seeded weights in the hub cache of the tag, loaded by tag ----
+    t0 = time.perf_counter()
+    src, _ = create_model(COCA_MODEL, device="cpu", seed=SEED + 40)
+    n_params = sum(p.numel() for p in src.parameters())
+    sd = src.state_dict()
+    del src
+    hub_id = get_pretrained_cfg(COCA_MODEL, COCA_TAG)["hf_hub"].rstrip("/")
+    cache = os.path.join(work, "coca_hub")
+    repo = os.path.join(cache, "models--" + hub_id.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", HUB_REV)
+    os.makedirs(os.path.join(repo, "refs"))
+    os.makedirs(snap)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(HUB_REV)
+    torch.save(sd, os.path.join(snap, "open_clip_pytorch_model.bin"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, pp_val = create_model_and_transforms(COCA_MODEL, pretrained=COCA_TAG,
+                                                cache_dir=cache, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    exact = _exactly(model, sd)
+    pooler = sorted(k for k in sd if k.startswith("visual.attn_pool.attn."))
+    print(f"coca (a): seeded {COCA_MODEL}, {n_params:,} parameters, written in {write_s:.2f} s "
+          f"({os.path.getsize(os.path.join(snap, 'open_clip_pytorch_model.bin')) / 2**30:.3f} "
+          f"GiB, open_clip layout, hub cache of {hub_id}), loaded by tag {COCA_TAG} in "
+          f"{load_s:.2f} s; the written values exactly: {exact}; pooler keys {pooler}",
+          flush=True)
+    check(exact, "the CoCa checkpoint loaded by tag differs from the written one")
+    check(n_params == 638_450_177, f"coca_ViT-L-14 has {n_params:,} parameters")
+    del sd
+
+    # ---- (b) serving, fp32 ----
+    tokenizer = get_tokenizer(COCA_MODEL)
+    engine = ClipInferenceEngine(model, image_size=model.visual.image_size,
+                                 context_length=model.context_length, buckets=COCA_BUCKETS)
+    server = ClipServer(engine, pp_val, tokenizer)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    paths = sorted(os.listdir(d["img_dir"]))[:8]
+    images_b64 = []
+    for p in paths:
+        with open(os.path.join(d["img_dir"], p), "rb") as f:
+            images_b64.append(base64.b64encode(f.read()).decode())
+    custom = dict(seq_len=20, num_beams=4, num_beam_groups=2, min_seq_len=3,
+                  repetition_penalty=1.2, length_penalty=0.8)
+    served = {}
+    try:
+        for what, imgs, gen in (("1 image", images_b64[:1], {}), ("8 images", images_b64, {}),
+                                ("custom 8 images", images_b64, custom)):
+            # ---- the main path: counts at 0 just before, read just after ----
+            _zero_counts()
+            t0 = time.perf_counter()
+            status, body = _post(base, "/v1/caption", {"images_b64": imgs, **gen})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = _read_counts()
+            add(counts)
+            served[what] = body.get("captions")
+            print(f"coca (b) /v1/caption {what} {gen or 'defaults'}: status {status}, "
+                  f"{ms:.1f} ms, launches {counts} (expected 24 fused forward), captions "
+                  f"{body.get('captions', body)[:2]}", flush=True)
+            check(status == 200 and len(body["captions"]) == len(imgs)
+                  and all(isinstance(c, str) for c in body["captions"]),
+                  f"/v1/caption {what} answered {status}: {body}")
+            check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": 24,
+                             "fused_attention_bwd": 0}, f"a caption call launched {counts}")
+        texts = ["a red cube on a table", "a blue ball"]
+        status_i, feats_i = _post(base, "/v1/encode_image", {"images_b64": images_b64[:2]})
+        status_t, feats_t = _post(base, "/v1/encode_text", {"texts": texts})
+        fi, ft = np.asarray(feats_i["features"]), np.asarray(feats_t["features"])
+        print(f"coca (b) /v1/encode_image {status_i} {fi.shape}, /v1/encode_text {status_t} "
+              f"{ft.shape}; norms {np.linalg.norm(fi, axis=-1).round(6).tolist()} "
+              f"{np.linalg.norm(ft, axis=-1).round(6).tolist()}", flush=True)
+        check(status_i == status_t == 200 and fi.shape == (2, 768) and ft.shape == (2, 768)
+              and np.allclose(np.linalg.norm(fi, axis=-1), 1, atol=1e-5)
+              and np.allclose(np.linalg.norm(ft, axis=-1), 1, atol=1e-5),
+              "the CoCa engine's encoders")
+        status, body = _post_status(base, "/v1/caption", {"images_b64": images_b64[:1],
+                                                          "num_beams": 20})
+        check(status == 400, f"a bad caption parameter answered {status}: {body}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+
+    # decode_logits and captions through the kernels against plain attention
+    pixels = torch.from_numpy(server._decode_images(images_b64)).to(DEVICE)
+    batch = _coca_batch(tokenizer, 8)
+    with torch.no_grad():
+        _zero_counts()
+        got = model.decode_logits(pixels.to(engine.dtype), batch["texts"][:, :-1]).float()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        _set_attn_impl(model, "xla")
+        want = model.decode_logits(pixels.to(engine.dtype), batch["texts"][:, :-1]).float()
+        _set_attn_impl(model, "auto")
+    add(counts)
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item()
+    print(f"coca (b) decode_logits {tuple(got.shape)} fp32: launches {counts} (expected 48 "
+          f"fused forward: vision 24, decoder 24), cosine vs plain attention min {cos:.8f} "
+          f"(need >= {MIN_COSINE})", flush=True)
+    check(counts["fused_attention_fwd"] == 48 and cos >= MIN_COSINE,
+          "decode_logits through the kernels disagrees with plain attention")
+    host = pixels.cpu().numpy()
+    kernel_tokens = torch.from_numpy(engine.caption_tokens(host))
+    _set_attn_impl(model, "xla")
+    plain_tokens = torch.from_numpy(engine.caption_tokens(host))
+    _set_attn_impl(model, "auto")
+    notes = [_caption_divergence(model, pixels[i].to(engine.dtype), kernel_tokens[i].to(DEVICE),
+                                 plain_tokens[i].to(DEVICE)) for i in range(len(host))]
+    same = sum(n == "equal" for n in notes)
+    print(f"coca (b) captions through the kernels vs the plain-attention engine: {same} of "
+          f"{len(notes)} equal token for token; {notes}", flush=True)
+    decoded = []
+    for row in kernel_tokens.tolist():  # as the server reads a row
+        body = row[1:] if row[0] == 49406 else row
+        decoded.append(tokenizer.decode(body[:body.index(49407)] if 49407 in body
+                                        else body).strip())
+    check(decoded == served["8 images"], "the served captions are not the engine's")
+
+    # caption latency: cached decode at the defaults, the re-decode at 10 tokens
+    lat = {}
+    for n in (1, 8):
+        samples = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine.caption_tokens(host[:n])
+            samples.append((time.perf_counter() - t0) * 1e3)
+        lat[f"cached b{n} 30 tokens"] = statistics.median(samples)
+    x1 = pixels[:1].to(engine.dtype)
+    for use_cache in (True, False):
+        samples = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate_beam(model, x1, seq_len=10, use_cache=use_cache)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        lat[f"{'cached' if use_cache else 'uncached'} b1 10 tokens"] = statistics.median(samples)
+    print(f"time coca caption fp32, 6 beams in 3 groups, median of 3 (host clock, ms): "
+          f"{ {k: round(v, 2) for k, v in lat.items()} } [{CARD}]", flush=True)
+
+    # ---- (c) the CoCa step: bf16 at batch 32, then fp32 at batch 8 ----
+    del engine, server
+    model.train()
+    _set_compute_dtype(model, torch.bfloat16)
+    batch = _coca_batch(tokenizer, COCA_BATCH)
+    _coca_step_vs_plain(model, batch, "bfloat16")
+    optimizer, _ = build_optimizer(dict(model.named_parameters()),
+                                   OptimCfg(text_tower_style="custom_text"),
+                                   cosine_lr(5e-4, 0, 10))
+    state = TrainState(model, None, optimizer, 0, torch.Generator().manual_seed(SEED))
+    train_step = make_train_step(model, StepCfg(loss_type="coca"))
+    losses = []
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    for _ in range(COCA_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append((float(metrics["total_loss"]), float(metrics["caption_loss"])))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * COCA_STEPS,
+                   "fused_attention_bwd": 48 * COCA_STEPS}
+    torch.cuda.reset_peak_memory_stats()
+    host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"coca (c) train step {COCA_MODEL} bf16 batch {COCA_BATCH}: (total, caption) losses "
+          f"{losses}; launches {counts} over {COCA_STEPS} steps, expected {want_counts}; host "
+          f"clock {host_ms:.3f} ms a step ({COCA_BATCH / host_ms * 1e3:.1f} samples/s); peak "
+          f"{peak:.3f} GiB [{CARD}]", flush=True)
+    check(counts == want_counts and all(math.isfinite(a) and math.isfinite(b)
+                                        for a, b in losses), f"the CoCa steps: {counts}")
+    state.optimizer = optimizer = train_step = None
+    torch.cuda.empty_cache()
+    _set_compute_dtype(model, torch.float32)
+    _coca_step_vs_plain(model, _coca_batch(tokenizer, COCA_FP32_BATCH, seed=SEED + 51),
+                        "float32")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # ---- (d) train.main with the tag, bf16, batch 32, one epoch ----
+    rows = {}
+    for split, n in (("train", 2 * COCA_BATCH), ("val", COCA_BATCH)):
+        with open(d[f"{split}_csv"]) as f:
+            lines = f.readlines()
+        rows[split] = os.path.join(work, f"coca_{split}.csv")
+        with open(rows[split], "w") as f:
+            f.writelines(lines[:n + 1])
+    argv = ["--model", COCA_MODEL, "--pretrained", COCA_TAG, "--cache-dir", cache,
+            "--train-data", rows["train"], "--val-data", rows["val"], "--dataset-type", "csv",
+            "--precision", "bf16", "--batch-size", str(COCA_BATCH), "--epochs", "1",
+            "--save-frequency", "0", "--workers", "4", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--logs", work, "--name", "coca_cli",
+            "--device", DEVICE]
+    records, counts, wall, seconds = _eval_cli_run(argv)
+    add(counts)
+    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * 2 + 48 * 2,
+                   "fused_attention_bwd": 48 * 2}  # 2 steps; an eval batch before and after
+    run = os.path.join(work, "coca_cli")
+    with open(os.path.join(run, "final_itm_results.json")) as f:
+        evals = [(e["epoch"], e["results"][0]["metrics"]) for e in json.load(f)]
+    gen_losses = [m.get("val_generative_loss") for _, m in evals]
+    caption_losses = [r.get("caption_loss") for r in records]
+    final = os.path.join(run, "checkpoints", "final_torch_state.pt")
+    served_model, _ = create_model(COCA_MODEL, pretrained=final, device=DEVICE)
+    engine = ClipInferenceEngine(served_model, image_size=served_model.visual.image_size,
+                                 context_length=served_model.context_length, buckets=(1,))
+    tokens = engine.caption_tokens(host[:1])
+    print(f"coca (d) train.main {COCA_MODEL} --pretrained {COCA_TAG} bf16 batch {COCA_BATCH} "
+          f"on {2 * COCA_BATCH} + {COCA_BATCH} mini-Flickr rows: {len(records)} steps, caption "
+          f"losses {caption_losses}, total {[r['total_loss'] for r in records]}; evaluations "
+          f"{[e for e, _ in evals]} with val_generative_loss {gen_losses}; wall {wall:.2f} s "
+          f"(train {seconds.get('train_one_epoch', 0):.2f} s, evaluation "
+          f"{seconds.get('evaluate', 0):.2f} s); launches {counts}, expected {want_counts}; "
+          f"final_torch_state.pt loads strictly and captions {tokens[0].tolist()[:12]}... "
+          f"[{CARD}]", flush=True)
+    check(counts == want_counts, f"the CoCa CLI run launched {counts}, expected {want_counts}")
+    check(len(records) == 2 and all(c is not None and math.isfinite(c) for c in caption_losses),
+          "the CoCa CLI run's caption losses")
+    check([e for e, _ in evals] == [0, 1] and all(g is not None and math.isfinite(g)
+                                                  for g in gen_losses),
+          f"the CoCa CLI run's evaluations lack val_generative_loss: {evals}")
+    check(tokens.shape == (1, 30) and tokens[0, 0] == 49406, "the trained CoCa does not caption")
+    del served_model, engine
+    torch.cuda.empty_cache()
+    print(f"coca: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": total, "latency_ms": lat, "step_ms": host_ms, "peak_gib": peak}
+
+
 def _dist_child_main() -> None:
     import faulthandler
 
@@ -4005,20 +4449,35 @@ def main() -> None:
 
     import torch
 
+    t_start = time.perf_counter()
+
+    def _elapsed(phase: str) -> None:
+        print(f"elapsed after {phase}: {time.perf_counter() - t_start:.1f} s", flush=True)
+
     phase_device()
+    _elapsed("device")
     phase_build()
+    _elapsed("build")
     worst = phase_kernels()
+    _elapsed("kernels")
     worst_bwd = phase_kernels_bwd()
+    _elapsed("kernels_bwd")
     engine, plain, serve_launches = phase_serve()
+    _elapsed("serve")
     rows = phase_kernel_times("float32")
+    _elapsed("kernel_times")
     rows_bf16 = phase_kernel_times("bfloat16")
+    _elapsed("kernel_times")
     phase_serving_times(engine, plain)
+    _elapsed("serving_times")
     check(serve_launches > 0, "the served run launched no fused_attention_fwd")
     del engine, plain
     torch.cuda.empty_cache()
     train_fwd, train_bwd = phase_train_step()
+    _elapsed("train_step")
     check(train_fwd > 0 and train_bwd > 0, "the train steps launched no kernel")
     phase_train_cli()
+    _elapsed("train_cli")
     # a work directory inside the checkout's (ignored) build tree, for the
     # mini-Flickr set, the runs and the seeded teacher
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -4026,27 +4485,49 @@ def main() -> None:
     work = tempfile.mkdtemp(prefix="chip_smoke_work_", dir=build)
     try:
         data = phase_data(work)
+        _elapsed("data")
+        coca = phase_coca(work, data)
+        _elapsed("coca")
         eval_cli = phase_train_eval_cli(data, work)
+        _elapsed("train_eval_cli")
         teacher_dir, teacher_launches = phase_teacher(work)
+        _elapsed("teacher")
         extracted, extract_launches = phase_extract(data, teacher_dir, work)
+        _elapsed("extract")
         live = phase_train_live_cli(data, teacher_dir, work, extracted)
+        _elapsed("train_live_cli")
         pre = phase_pretrained(work)
+        _elapsed("pretrained")
         zs = phase_zero_shot(data, pre, work)
+        _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
+        _elapsed("finetune")
         off = phase_offline(data, pre, ft, work)
+        _elapsed("offline")
         config2 = phase_config2(data, pre, work)
+        _elapsed("config2")
         accum = phase_accum(teacher_dir)
+        _elapsed("accum")
         giant = phase_giant(work)
+        _elapsed("giant")
         dist_launches = phase_dist(work)
+        _elapsed("dist")
         tp = phase_tp(work)
+        _elapsed("tp")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
+    _elapsed("bwd_times")
     bwd_rows32 = phase_bwd_times("float32")
+    _elapsed("bwd_times")
     worst_flash = phase_kernels_flash()
+    _elapsed("kernels_flash")
     long_launches = phase_train_long()
+    _elapsed("train_long")
     phase_train_cli_long()
+    _elapsed("train_cli_long")
     flash_rows = phase_flash_times()
+    _elapsed("flash_times")
 
     t = rows[MAIN_PATH_CASE]
     t16 = rows_bf16[TRAIN_CASES[0]]  # the training image call, bf16
@@ -4063,7 +4544,7 @@ def main() -> None:
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
-        + tp["launches"]["fused_attention_fwd"],
+        + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -4083,13 +4564,18 @@ def main() -> None:
                 **by_case[case]}
                for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                for case in TP_CASES],
+        "coca": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                  **by_case[_case_key(case)]}
+                 for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                 for case in COCA_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
-        + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"],
+        + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
+        + coca["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -4105,6 +4591,10 @@ def main() -> None:
                 **by_case[case]}
                for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                for case in TP_BWD_CASES],
+        "coca": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                  **by_case[_case_key(case)]}
+                 for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                 for case in COCA_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

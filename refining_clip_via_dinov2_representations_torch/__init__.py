@@ -11,7 +11,10 @@ from .constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
 from .inference import ClipInferenceEngine, create_engine
 from .models import (
     CLIP,
+    CoCa,
     build_model,
+    coca_generate,
+    coca_generate_beam,
     create_model,
     create_model_and_transforms,
     create_model_from_pretrained,

@@ -9,8 +9,10 @@ on the card also builds the CUDA kernels before the first request.
 Precision follows the JAX engine: images are rounded to the engine dtype
 (bf16 by default) on the device, then the model casts them to its compute
 dtype (fp32 under the default precision); features are L2-normalised in
-fp32. Int8 weights, meshes, StableHLO export and CoCa captioning are not
-ported yet (ROADMAP).
+fp32 (a CoCa engine's are its normalised latents). ``caption_tokens``
+captions images with a CoCa model's grouped beam search
+(``models/coca.py:generate_beam``), bucketed like the encoders. Int8
+weights, meshes and StableHLO export are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+_CAPTION_MAX_BEAMS = 16  # the JAX engine's cap on a request's beam width
 
 
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -56,11 +59,11 @@ class ClipInferenceEngine:
             torch.backends.cudnn.allow_tf32 = False
 
     def _encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        feats = self.model.encode_image(images.to(self.dtype)).float()
+        feats = self.model.encode_image(images.to(self.dtype), normalize=False).float()
         return feats / feats.norm(dim=-1, keepdim=True)
 
     def _encode_text(self, texts: torch.Tensor) -> torch.Tensor:
-        feats = self.model.encode_text(texts.long()).float()
+        feats = self.model.encode_text(texts.long(), normalize=False).float()
         return feats / feats.norm(dim=-1, keepdim=True)
 
     def _run_bucketed(self, fn, x: np.ndarray) -> np.ndarray:
@@ -84,9 +87,33 @@ class ClipInferenceEngine:
         """[N,L] int32 token ids -> [N,D] unit vectors."""
         return self._run_bucketed(self._encode_text, np.asarray(texts, np.int32))
 
-    def caption_tokens(self, images: np.ndarray) -> np.ndarray:
-        raise TypeError(
-            f"caption_tokens requires a CoCa model (got {type(self.model).__name__})")
+    def caption_tokens(self, images: np.ndarray, seq_len: int = 30, num_beams: int = 6,
+                       num_beam_groups: int = 3, min_seq_len: int = 5,
+                       repetition_penalty: float = 1.0, length_penalty: float = 1.0,
+                       sot_token_id: int = 49406, eot_token_id: int = 49407,
+                       pad_token_id: int = 0) -> np.ndarray:
+        """Caption a preprocessed image batch with the grouped beam search
+        (CoCa models only; the JAX engine's defaults): [N,H,W,3] floats ->
+        [N, seq_len] int32 ids (SOT ... EOT, pad-filled), bucketed and padded
+        like the encoders. On the card the image tower runs the fused
+        kernel (one launch a layer); the decode steps take plain attention,
+        as in the JAX package."""
+        from .models.coca import CoCa, generate_beam
+
+        if not isinstance(self.model, CoCa):
+            raise TypeError(
+                f"caption_tokens requires a CoCa model (got {type(self.model).__name__})")
+        if not 1 < num_beams <= _CAPTION_MAX_BEAMS:
+            raise ValueError(f"num_beams must be in [2, {_CAPTION_MAX_BEAMS}], got {num_beams}")
+
+        def caption(imgs: torch.Tensor) -> torch.Tensor:
+            return generate_beam(
+                self.model, imgs.to(self.dtype), num_beams=num_beams,
+                num_beam_groups=num_beam_groups, seq_len=seq_len, sot_token_id=sot_token_id,
+                eot_token_id=eot_token_id, pad_token_id=pad_token_id, min_seq_len=min_seq_len,
+                repetition_penalty=repetition_penalty, length_penalty=length_penalty).int()
+
+        return self._run_bucketed(caption, np.asarray(images, np.float32))
 
     def logit_terms(self) -> Tuple[float, float]:
         """(exp(logit_scale), logit_bias-or-0): the affine on feature cosines."""

@@ -1,6 +1,6 @@
-"""The training objectives: contrastive CLIP and the DINO-soft loss."""
+"""The training objectives: contrastive CLIP, CoCa's and the DINO-soft loss."""
 
-from .contrastive import clip_logits, clip_loss, cross_entropy, gather_features
+from .contrastive import clip_logits, clip_loss, coca_loss, cross_entropy, gather_features
 from .dino import (
     DinoLossCfg,
     DinoProjectionHead,

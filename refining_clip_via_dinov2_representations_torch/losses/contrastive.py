@@ -1,8 +1,8 @@
-"""Contrastive objectives as plain PyTorch functions: CLIP and SigLIP.
+"""Contrastive objectives as plain PyTorch functions: CLIP, SigLIP and CoCa.
 
 The port of the JAX package's ``losses/contrastive.py``: ``cross_entropy``
-(an fp32 log-softmax), ``clip_logits`` / ``clip_loss`` and
-``siglip_loss``. ``group`` is a ``torch.distributed`` process group (the
+(an fp32 log-softmax), ``clip_logits`` / ``clip_loss``, ``siglip_loss``
+and ``coca_loss``. ``group`` is a ``torch.distributed`` process group (the
 data axis): each rank passes its own rows, and the JAX package's
 named-axis collectives become collectives over the group.
 
@@ -240,3 +240,23 @@ def siglip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
             # backward is a collective every rank joins
             loss = loss + (0.0 if rank == i else 1.0) * negatives(block)
     return loss
+
+
+def coca_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+              caption_logits: torch.Tensor, caption_labels: torch.Tensor,
+              logit_scale: torch.Tensor, caption_loss_weight: float = 2.0,
+              clip_loss_weight: float = 1.0, pad_id: int = 0, group=None) -> dict:
+    """open_clip's ``CoCaLoss`` (``tpu/losses/contrastive.py:225-251``): the
+    weighted CLIP term (local rows against the gathered columns under a
+    group), and the caption cross-entropy over the labels that are not
+    ``pad_id``, from an fp32 log-softmax, times ``caption_loss_weight``.
+    Returns ``{"contrastive_loss", "caption_loss"}``."""
+    contrastive = torch.zeros((), dtype=torch.float32, device=caption_logits.device)
+    if clip_loss_weight:
+        contrastive = clip_loss_weight * clip_loss(image_features, text_features, logit_scale,
+                                                   group)
+    logp = torch.log_softmax(caption_logits.float(), dim=-1)  # [B, L, V]
+    picked = logp.gather(-1, caption_labels[..., None].long())[..., 0]
+    valid = (caption_labels != pad_id).float()
+    caption = -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+    return {"contrastive_loss": contrastive, "caption_loss": caption_loss_weight * caption}

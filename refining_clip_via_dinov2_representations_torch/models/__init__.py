@@ -1,7 +1,8 @@
-"""CLIP towers, the DINOv2 teacher, registry, weight conversion, pretrained
-checkpoints and the model factory."""
+"""CLIP towers, CoCa, the DINOv2 teacher, registry, weight conversion,
+pretrained checkpoints and the model factory."""
 
 from .clip import CLIP, build_model
+from .coca import CoCa, generate as coca_generate, generate_beam as coca_generate_beam
 from .config import (
     CLIPModelCfg,
     CLIPTextCfg,
@@ -37,4 +38,10 @@ from .pretrained import (
     list_pretrained_tags_by_model,
     resolve_pretrained,
 )
-from .transformer import TextTransformer, Transformer, VisionTransformer, text_global_pool
+from .transformer import (
+    MultimodalTransformer,
+    TextTransformer,
+    Transformer,
+    VisionTransformer,
+    text_global_pool,
+)

@@ -6,9 +6,11 @@ vision tower under ``visual.``, the text tower's parts at top level
 (``token_embedding``, ``positional_embedding``, ``transformer``,
 ``ln_final``, ``text_projection``), then ``logit_scale``, also for the
 ``custom_text`` configs (EVA01), whose open_clip checkpoints
-``models/eva.py`` converts. The vision tower is the ViT or the EVA01 trunk
-(``models/eva.py``); other towers (other timm trunks, ResNet, HF text,
-CoCa) raise ``NotImplementedError``.
+``models/eva.py`` converts. The vision tower is the ViT (with CoCa's
+attentional pooler where configured) or the EVA01 trunk (``models/eva.py``);
+other towers (other timm trunks, ResNet, HF text) raise
+``NotImplementedError``. ``build_model`` builds ``models/coca.py:CoCa``
+where the config has a ``multimodal_cfg``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
 ``image_features``, ``text_features`` and the exponentiated ``logit_scale``
@@ -26,14 +28,16 @@ from torch import nn
 from ..constants import DEFAULT_INIT_LOGIT_SCALE
 from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .eva import EVA01_DIMS
-from .layers import LayerNorm, MultiheadAttention, gelu, quick_gelu
-from .transformer import TextTransformer, VisionTransformer, encode_text_tokens, remat_args
+from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
+                     quick_gelu)
+from .transformer import (MultimodalTransformer, TextTransformer, VisionTransformer,
+                          encode_text_tokens, remat_args)
 
 
-def _unsupported(what: str):
+def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the standard ViT + text-transformer "
-        "CLIP so far (ROADMAP Queue 1)"
+        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01 and "
+        f"CoCa so far (ROADMAP Queue 1 item {item})"
     )
 
 
@@ -56,16 +60,13 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
             norm_eps=1e-6)
     if cfg.is_resnet:
         raise _unsupported("ModifiedResNet vision tower")
-    if cfg.attentional_pool:
-        raise _unsupported("attentional pooling (CoCa)")
     variants = {"pos_embed_type": cfg.pos_embed_type != "learnable",
                 "pool_type": cfg.pool_type != "tok",
                 "final_ln_after_pool": cfg.final_ln_after_pool,
-                "output_tokens": cfg.output_tokens, "act_kwargs": bool(cfg.act_kwargs),
-                "norm_kwargs": bool(cfg.norm_kwargs)}
+                "act_kwargs": bool(cfg.act_kwargs), "norm_kwargs": bool(cfg.norm_kwargs)}
     for what, present in variants.items():
         if present:
-            raise _unsupported(f"vision tower with {what}")
+            raise _unsupported(f"vision tower with {what}", "2-3")
     return VisionTransformer(
         image_size=to_2tuple(cfg.image_size),
         patch_size=to_2tuple(cfg.patch_size),
@@ -82,22 +83,29 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
         remat_policy=remat_policy,
         patch_dropout=cfg.patch_dropout,
         no_ln_pre=cfg.no_ln_pre,
+        attentional_pool=cfg.attentional_pool,
+        attn_pooler_queries=cfg.attn_pooler_queries,
+        attn_pooler_heads=cfg.attn_pooler_heads,
+        output_tokens=cfg.output_tokens,
     )
 
 
 def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
                       dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
-                      remat_policy: str = "full") -> TextTransformer:
+                      remat_policy: str = "full", coca: bool = False) -> TextTransformer:
+    """The causal text transformer; ``coca`` admits CoCa's appended CLS and
+    token outputs (a ``CLIP`` holds the tower's parts at top level, as
+    open_clip's, and has no place for them)."""
     if cfg.hf_model_name is not None:
         raise _unsupported(f"HF text tower {cfg.hf_model_name!r}")
-    if cfg.embed_cls or cfg.output_tokens:
-        raise _unsupported("CoCa text tower (embed_cls / output_tokens)")
+    if not coca and (cfg.embed_cls or cfg.output_tokens):
+        raise _unsupported("CoCa's text tower (embed_cls / output_tokens) outside CoCa")
     variants = {"a projection other than linear": cfg.proj_bias or cfg.proj_type != "linear",
                 "no_causal_mask": cfg.no_causal_mask, "pool_type": cfg.pool_type != "argmax",
                 "act_kwargs": bool(cfg.act_kwargs), "norm_kwargs": bool(cfg.norm_kwargs)}
     for what, present in variants.items():
         if present:
-            raise _unsupported(f"text tower with {what}")
+            raise _unsupported(f"text tower with {what}", "2-3")
     return TextTransformer(
         context_length=cfg.context_length,
         vocab_size=cfg.vocab_size,
@@ -112,7 +120,59 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
         compute_dtype=dtype,
         grad_checkpointing=grad_checkpointing,
         remat_policy=remat_policy,
+        embed_cls=cfg.embed_cls,
+        pad_id=cfg.pad_id,
+        output_tokens=cfg.output_tokens,
     )
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0):
+    """Seeded random init of ``model``'s layers (torch.Generator on the
+    CPU): LayerNorms at 1/0, biases 0, matmul weights normal(fan_in^-1/2),
+    token embeddings normal(0.02), vision CLS/positions/projection
+    normal(width^-1/2); CoCa's text tower positions and CLS normal(0.01),
+    its projection and the decoder's normal(width^-1/2), the pooler's
+    queries normal(1), as the JAX package's initialisers. Returns the
+    ``normal_(tensor, std)`` drawing from the same generator."""
+    g = torch.Generator().manual_seed(int(seed))
+
+    def normal_(p: torch.Tensor, std: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=g) * std)
+
+    for m in model.modules():
+        if isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, MultiheadAttention):
+            normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, PoolerAttention):
+            for w in m.weights():
+                normal_(w, w.shape[1] ** -0.5)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.Linear):
+            normal_(m.weight, m.in_features ** -0.5)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            normal_(m.weight, 0.02)
+        elif isinstance(m, VisionTransformer):
+            normal_(m.conv1.weight, m.conv1.weight[0].numel() ** -0.5)
+            if m.conv1.bias is not None:
+                m.conv1.bias.zero_()
+            for p in (m.class_embedding, m.positional_embedding, m.proj):
+                if isinstance(p, nn.Parameter):  # a Linear proj: the branch above
+                    normal_(p, m.width ** -0.5)
+        elif isinstance(m, AttentionalPooler):
+            normal_(m.query, 1.0)
+        elif isinstance(m, TextTransformer):
+            for p in (m.positional_embedding, m.cls_emb):
+                if p is not None:
+                    normal_(p, 0.01)
+            normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
+        elif isinstance(m, MultimodalTransformer):
+            normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
+    return normal_
 
 
 class CLIP(nn.Module):
@@ -154,40 +214,17 @@ class CLIP(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
-        """Seeded random init (torch.Generator on the CPU): LayerNorms at
-        1/0, biases 0, matmul weights normal(fan_in^-1/2), token embedding
-        normal(0.02), text positions normal(0.01), vision CLS/positions
-        normal(width^-1/2), as the JAX package's initialisers."""
-        g = torch.Generator().manual_seed(int(seed))
-
-        def normal_(p: torch.Tensor, std: float) -> None:
-            p.copy_(torch.randn(p.shape, generator=g) * std)
-
-        for m in self.modules():
-            if isinstance(m, LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, MultiheadAttention):
-                normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
-                m.in_proj_bias.zero_()
-            elif isinstance(m, nn.Linear):
-                normal_(m.weight, m.in_features ** -0.5)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                normal_(m.weight, 0.02)
-            elif isinstance(m, VisionTransformer):
-                normal_(m.conv1.weight, m.conv1.weight[0].numel() ** -0.5)
-                if m.conv1.bias is not None:
-                    m.conv1.bias.zero_()
-                for p in (m.class_embedding, m.positional_embedding, m.proj):
-                    if isinstance(p, nn.Parameter):  # a Linear proj: the branch above
-                        normal_(p, m.width ** -0.5)
+        """Seeded random init (``init_weights``); the top-level text
+        positions normal(0.01) and projection normal(width^-1/2)."""
+        normal_ = init_weights(self, seed)
         normal_(self.positional_embedding, 0.01)
         normal_(self.text_projection, self.text_projection.shape[0] ** -0.5)
 
     def encode_image(self, image: torch.Tensor, normalize: bool = False,
                      patch_dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         features = self.visual(image, patch_dropout_generator)
+        if isinstance(features, tuple):  # a tower with output_tokens
+            features = features[0]
         return F.normalize(features, dim=-1) if normalize else features
 
     def encode_text(self, text: torch.Tensor, normalize: bool = False) -> torch.Tensor:
@@ -213,23 +250,28 @@ class CLIP(nn.Module):
 
 def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
                 attn_impl: str = "auto", seed: int = 0,
-                grad_checkpointing: Union[bool, str] = False) -> CLIP:
-    """Instantiate CLIP from a parsed registry config, seeded-random weights
-    on the CPU. ``grad_checkpointing`` recomputes each residual block of both
-    towers in the backward: true for the ``"full"`` policy, or a policy name
-    of ``models/transformer.py:REMAT_POLICIES`` (the JAX ``remat``)."""
+                grad_checkpointing: Union[bool, str] = False) -> Union[CLIP, "CoCa"]:
+    """Instantiate CLIP (or CoCa, where the config has a ``multimodal_cfg``)
+    from a parsed registry config, seeded-random weights on the CPU.
+    ``grad_checkpointing`` recomputes each residual block of every tower in
+    the backward: true for the ``"full"`` policy, or a policy name of
+    ``models/transformer.py:REMAT_POLICIES`` (the JAX ``remat``)."""
+    kwargs = dict(init_logit_scale=cfg.init_logit_scale or DEFAULT_INIT_LOGIT_SCALE,
+                  init_logit_bias=cfg.init_logit_bias, dtype=dtype, attn_impl=attn_impl,
+                  grad_checkpointing=grad_checkpointing)
     if cfg.multimodal_cfg is not None:
-        raise _unsupported("CoCa (multimodal_cfg)")
+        from .coca import CoCa
+
+        model = CoCa(cfg.embed_dim, cfg.vision_cfg, cfg.text_cfg, cfg.multimodal_cfg,
+                     quick_gelu_act=cfg.quick_gelu, **kwargs)
+        init_weights(model, seed)
+        return model
     model = CLIP(
         embed_dim=cfg.embed_dim,
         vision_cfg=cfg.vision_cfg,
         text_cfg=cfg.text_cfg,
         quick_gelu=cfg.quick_gelu,
-        init_logit_scale=cfg.init_logit_scale or DEFAULT_INIT_LOGIT_SCALE,
-        init_logit_bias=cfg.init_logit_bias,
-        dtype=dtype,
-        attn_impl=attn_impl,
-        grad_checkpointing=grad_checkpointing,
+        **kwargs,
     )
     model.custom_text = cfg.custom_text
     model.init_weights(seed)

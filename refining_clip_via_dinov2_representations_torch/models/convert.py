@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package's parameter tree.
 
-``jax_params_to_state_dict`` is the port's own copy of the ViT and text arms
-of the JAX package's ``models/convert.py:flax_params_to_torch_state_dict``:
-the param tree (nested dicts of numpy arrays, as ``jax.device_get`` returns
-it) becomes an open_clip-layout state dict that loads into ``models.clip.CLIP``
-with ``strict=True``; an EVA01 tree (no ``ln_pre``, a biased patch
+``jax_params_to_state_dict`` is the port's own copy of the ViT, text and
+CoCa arms of the JAX package's ``models/convert.py:
+flax_params_to_torch_state_dict``: the param tree (nested dicts of numpy
+arrays, as ``jax.device_get`` returns it) becomes an open_clip-layout state
+dict that loads into ``models.clip.CLIP`` (or ``models.coca.CoCa``) with
+``strict=True``; an EVA01 tree (no ``ln_pre``, a biased patch
 embedding, a Dense ``proj``) gives the port's EVA01 keys (``models/eva.py``
 converts them to open_clip's CustomTextCLIP layout and back). Dense kernels
 are transposed to [out, in], the fused
@@ -49,9 +50,10 @@ def _t(x, transpose: bool = False) -> torch.Tensor:
 
 
 def _emit_block(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], prefix: str) -> None:
-    for ln in ("ln_1", "ln_2"):
-        sd[f"{prefix}.{ln}.weight"] = _t(tree[ln]["scale"])
-        sd[f"{prefix}.{ln}.bias"] = _t(tree[ln]["bias"])
+    for ln in ("ln_1", "ln_2", "ln_1_kv"):
+        if ln in tree:
+            sd[f"{prefix}.{ln}.weight"] = _t(tree[ln]["scale"])
+            sd[f"{prefix}.{ln}.bias"] = _t(tree[ln]["bias"])
     attn = tree["attn"]
     sd[f"{prefix}.attn.in_proj_weight"] = _t(attn["in_proj_kernel"], transpose=True)
     if "in_proj_bias" in attn:
@@ -66,27 +68,51 @@ def _emit_block(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], prefix: st
             sd[f"{prefix}.{ls}.gamma"] = _t(tree[ls]["gamma"])
 
 
-def _blocks(tree: Mapping[str, Any]):
-    """``resblocks_{i}`` subtrees in layer order."""
-    return sorted(tree.items(), key=lambda kv: int(kv[0].rsplit("_", 1)[-1]))
+def _blocks(tree: Mapping[str, Any], kind: str = "resblocks"):
+    """``{kind}_{i}`` subtrees in layer order."""
+    return sorted(((k, v) for k, v in tree.items() if k.startswith(kind + "_")),
+                  key=lambda kv: int(kv[0].rsplit("_", 1)[-1]))
+
+
+def _emit_pooler(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], prefix: str) -> None:
+    """A JAX ``AttentionalPooler`` (q, k, v Dense layers) in the names of
+    torch's ``nn.MultiheadAttention(kdim=vdim=context)``: one
+    ``in_proj_weight`` where the context is as wide as the queries, else
+    ``q_proj_weight``, ``k_proj_weight`` and ``v_proj_weight``."""
+    sd[f"{prefix}.query"] = _t(tree["query"])
+    for ln in ("ln_q", "ln_k"):
+        sd[f"{prefix}.{ln}.weight"] = _t(tree[ln]["scale"])
+        sd[f"{prefix}.{ln}.bias"] = _t(tree[ln]["bias"])
+    weights = [np.asarray(tree[f"{p}_proj"]["kernel"], np.float32).T for p in "qkv"]
+    if weights[0].shape == weights[1].shape:
+        sd[f"{prefix}.attn.in_proj_weight"] = _t(np.concatenate(weights, axis=0))
+    else:
+        for p, w in zip("qkv", weights):
+            sd[f"{prefix}.attn.{p}_proj_weight"] = _t(w)
+    sd[f"{prefix}.attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(tree[f"{p}_proj"]["bias"], np.float32) for p in "qkv"]))
+    sd[f"{prefix}.attn.out_proj.weight"] = _t(tree["out_proj"]["kernel"], transpose=True)
+    sd[f"{prefix}.attn.out_proj.bias"] = _t(tree["out_proj"]["bias"])
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX CLIP params (``variables["params"]``) -> open_clip state dict."""
+    """JAX CLIP or CoCa params (``variables["params"]``) -> open_clip state
+    dict: CLIP's text tower at top level, CoCa's under ``text.``, with its
+    attentional poolers (``visual.attn_pool``, ``visual.attn_pool_contrastive``)
+    and its decoder (``text_decoder.resblocks``, ``text_decoder.cross_attn``)."""
     params = params.get("params", params)
     visual, text = params["visual"], params["text"]
+    coca = "text_decoder" in params
     if "transformer" not in visual or "conv1" not in visual:
         raise NotImplementedError(
             "jax_params_to_state_dict covers the standard ViT vision tower; "
             f"this tree has {sorted(visual)}"
         )
-    if "token_embedding" not in text or "cls_emb" in text:
+    if "token_embedding" not in text or ("cls_emb" in text and not coca):
         raise NotImplementedError(
             "jax_params_to_state_dict covers the causal text transformer; "
             f"this tree has {sorted(text)}"
         )
-    if "attn_pool" in visual or "text_decoder" in params:
-        raise NotImplementedError("CoCa trees are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
     sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]), (3, 2, 0, 1)))
     if "bias" in visual["conv1"]:  # EVA01's biased patch embedding
@@ -100,19 +126,34 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         _emit_block(sd, block, f"visual.transformer.resblocks.{name.rsplit('_', 1)[-1]}")
     sd["visual.ln_post.weight"] = _t(visual["ln_post"]["scale"])
     sd["visual.ln_post.bias"] = _t(visual["ln_post"]["bias"])
+    for pool in ("attn_pool", "attn_pool_contrastive"):
+        if pool in visual:
+            _emit_pooler(sd, visual[pool], f"visual.{pool}")
     if isinstance(visual["proj"], Mapping):  # EVA01's biased head (a Dense)
         sd["visual.proj.weight"] = _t(visual["proj"]["kernel"], transpose=True)
         sd["visual.proj.bias"] = _t(visual["proj"]["bias"])
     else:
         sd["visual.proj"] = _t(visual["proj"])
 
-    sd["token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
-    sd["positional_embedding"] = _t(text["positional_embedding"])
+    tp = "text." if coca else ""
+    sd[f"{tp}token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
+    sd[f"{tp}positional_embedding"] = _t(text["positional_embedding"])
+    if "cls_emb" in text:
+        sd[f"{tp}cls_emb"] = _t(text["cls_emb"])
     for name, block in _blocks(text["transformer"]):
-        _emit_block(sd, block, f"transformer.resblocks.{name.rsplit('_', 1)[-1]}")
-    sd["ln_final.weight"] = _t(text["ln_final"]["scale"])
-    sd["ln_final.bias"] = _t(text["ln_final"]["bias"])
-    sd["text_projection"] = _t(text["text_projection"])
+        _emit_block(sd, block, f"{tp}transformer.resblocks.{name.rsplit('_', 1)[-1]}")
+    sd[f"{tp}ln_final.weight"] = _t(text["ln_final"]["scale"])
+    sd[f"{tp}ln_final.bias"] = _t(text["ln_final"]["bias"])
+    sd[f"{tp}text_projection"] = _t(text["text_projection"])
+
+    if coca:
+        dec = params["text_decoder"]
+        for kind in ("resblocks", "cross_attn"):
+            for name, block in _blocks(dec, kind):
+                _emit_block(sd, block, f"text_decoder.{kind}.{name.rsplit('_', 1)[-1]}")
+        sd["text_decoder.ln_final.weight"] = _t(dec["ln_final"]["scale"])
+        sd["text_decoder.ln_final.bias"] = _t(dec["ln_final"]["bias"])
+        sd["text_decoder.text_projection"] = _t(dec["text_projection"])
 
     sd["logit_scale"] = _t(params["logit_scale"])
     if "logit_bias" in params:
@@ -149,7 +190,7 @@ def jax_dinov2_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torc
             np.transpose(np.asarray(patch["kernel"]), (3, 2, 0, 1))),
         "embeddings.patch_embeddings.projection.bias": _t(patch["bias"]),
     }
-    for name, blk in _blocks({k: v for k, v in params.items() if k.startswith("blocks_")}):
+    for name, blk in _blocks(params, "blocks"):
         pre = f"encoder.layer.{name.rsplit('_', 1)[-1]}"
         for ln in ("norm1", "norm2"):
             sd[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])

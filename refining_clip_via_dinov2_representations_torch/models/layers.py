@@ -10,6 +10,8 @@ The port of the JAX package's ``models/layers.py``. Numerics kept:
   (``in_proj_weight`` [3D, D]), the transpose of the JAX ``in_proj_kernel``.
 * PatchDropout keeps ``max(1, int(n * (1 - prob)))`` patch tokens (CLS
   kept): the first of ``argsort(scores)`` (stable) for uniform scores.
+* ``MultiheadAttention`` has the JAX module's cross-attention and decode
+  modes; ``AttentionalPooler`` (CoCa) keeps open_clip's parameter names.
 
 Parameters stay fp32; each layer casts them to the dtype of its input, so a
 model computes in the dtype its input arrives in.
@@ -113,14 +115,31 @@ class PatchDropout(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Fused-QKV multi-head self-attention (full-sequence mode).
+    """Fused-QKV multi-head attention, in the JAX module's modes.
 
     ``in_proj_weight`` is [3D, D] as in torch's ``nn.MultiheadAttention``;
-    ``out_proj`` is a Linear. The attention core is ``multi_head_attention``
-    with this layer's ``attn_impl``. Under a model group (``tp``, set by
+    ``out_proj`` is a Linear. Under a model group (``tp``, set by
     ``parallel/tensor.py:shard_module``) the layer holds this rank's heads of
     q, k and v and its columns of ``out_proj``, and the core runs on
-    ``num_heads / tp.world`` heads.
+    ``num_heads / tp.world`` heads. The modes of ``forward``
+    (``tpu/models/layers.py:131-250``):
+
+    * full self-attention (no ``kv``): one product for q, k and v, then
+      ``multi_head_attention`` with this layer's ``attn_impl``, ``mask`` and
+      ``causal``;
+    * full cross-attention (``kv`` given, the CoCa decoder): q from ``x``,
+      k and v from ``kv`` through the thirds of the same weight, then the
+      same dispatch, so Lq != Lk reaches the fused kernel;
+    * ``return_kv``: only the head-split (k, v) of ``kv``, for reuse over a
+      generation;
+    * ``static_kv=(k, v)``: ``x``'s queries over such a pair;
+    * ``cache=(k, v)`` [B, H, L, Dh] with ``pos``: one token's decode step;
+      its k and v are written into the cache at ``pos`` (in place) and the
+      query attends over positions ``<= pos``. Returns ``(out, cache)``.
+
+    The last two take plain attention only because the JAX package routes
+    them there (``impl="xla"``, ``tpu/models/layers.py:209-243``): a decode
+    step launches no kernel.
     """
 
     tp = None
@@ -135,16 +154,54 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        b, l, d = x.shape
+    def _project(self, x: torch.Tensor, part: int) -> torch.Tensor:
+        """[B, L, D] -> this rank's heads of q (0), k (1) or v (2), [B, H, L, Dh],
+        contiguous (as the kernels take them)."""
+        b, l, _ = x.shape
+        n = self.in_proj_weight.shape[0] // 3
         heads = self.num_heads // (self.tp.world if self.tp else 1)
-        dh = d // self.num_heads
-        qkv = F.linear(copy_to_model(x, self.tp), self.in_proj_weight.to(x.dtype),
-                       self.in_proj_bias.to(x.dtype))
-        # [B, L, 3, H, Dh] -> three contiguous [B, H, L, Dh] tensors
-        q, k, v = qkv.view(b, l, 3, heads, dh).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        out = multi_head_attention(q, k, v, causal=causal, impl=self.attn_impl)
-        return row_linear(out.transpose(1, 2).reshape(b, l, heads * dh), self.out_proj, self.tp)
+        w = self.in_proj_weight[part * n:(part + 1) * n].to(x.dtype)
+        y = F.linear(x, w, self.in_proj_bias[part * n:(part + 1) * n].to(x.dtype))
+        return y.view(b, l, heads, n // heads).transpose(1, 2).contiguous()
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        b, h, l, dh = out.shape
+        return row_linear(out.transpose(1, 2).reshape(b, l, h * dh), self.out_proj, self.tp)
+
+    def forward(self, x: torch.Tensor, causal: bool = False, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, cache=None, pos: Optional[int] = None,
+                static_kv=None, return_kv: bool = False):
+        x = copy_to_model(x, self.tp)
+        if kv is not None:
+            kv = copy_to_model(kv, self.tp)
+        if return_kv:
+            return self._project(kv, 1), self._project(kv, 2)
+        if static_kv is not None:
+            out = multi_head_attention(self._project(x, 0), static_kv[0], static_kv[1],
+                                       mask=mask, impl="xla")
+            return self._out(out)
+        if cache is not None:
+            if x.shape[1] != 1 or pos is None:
+                raise ValueError("decode mode takes one token and its position")
+            ck, cv = cache
+            ck[:, :, pos:pos + 1] = self._project(x, 1)
+            cv[:, :, pos:pos + 1] = self._project(x, 2)
+            # additive key mask: only positions <= pos are live
+            key_mask = torch.zeros(ck.shape[2], device=x.device)
+            key_mask[pos + 1:] = float("-inf")
+            out = multi_head_attention(self._project(x, 0), ck, cv, mask=key_mask, impl="xla")
+            return self._out(out), (ck, cv)
+        if kv is not None:
+            q, k, v = self._project(x, 0), self._project(kv, 1), self._project(kv, 2)
+        else:
+            b, l, d = x.shape
+            heads = self.num_heads // (self.tp.world if self.tp else 1)
+            dh = d // self.num_heads
+            qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+            # [B, L, 3, H, Dh] -> three contiguous [B, H, L, Dh] tensors
+            q, k, v = qkv.view(b, l, 3, heads, dh).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        return self._out(multi_head_attention(q, k, v, mask=mask, causal=causal,
+                                              impl=self.attn_impl))
 
 
 class MLP(nn.Module):
@@ -161,3 +218,63 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return row_linear(self.act(column_linear(x, self.c_fc, self.tp)), self.c_proj, self.tp)
+
+
+class PoolerAttention(nn.Module):
+    """The parameters of torch's ``nn.MultiheadAttention(d_model, n_head,
+    kdim=context_dim, vdim=context_dim)``, open_clip's pooler attention,
+    under its names: one ``in_proj_weight`` [3D, D] where the context is as
+    wide as ``d_model``, else ``q_proj_weight`` [D, D] and
+    ``k_proj_weight``/``v_proj_weight`` [D, context_dim]; ``in_proj_bias``
+    [3D]; ``out_proj``."""
+
+    def __init__(self, d_model: int, context_dim: int, n_head: int):
+        super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"width {d_model} is not divisible by {n_head} heads")
+        self.num_heads = n_head
+        if context_dim == d_model:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        else:
+            self.q_proj_weight = nn.Parameter(torch.empty(d_model, d_model))
+            self.k_proj_weight = nn.Parameter(torch.empty(d_model, context_dim))
+            self.v_proj_weight = nn.Parameter(torch.empty(d_model, context_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+
+    def weights(self):
+        """(q, k, v) projection weights, [D, D], [D, C], [D, C]."""
+        if hasattr(self, "in_proj_weight"):
+            return self.in_proj_weight.chunk(3)
+        return self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
+
+
+class AttentionalPooler(nn.Module):
+    """Learned-query cross-attention pooler (open_clip ``transformer.py:
+    194-216``; ``tpu/models/layers.py:268-306``): ``n_queries`` learned
+    queries through ``ln_q`` attend over ``ln_k`` of the context with
+    separate q, k and v projections (the context may be wider than
+    ``d_model``), through the plain attention, as the JAX module calls it."""
+
+    def __init__(self, d_model: int, context_dim: int, n_head: int = 8, n_queries: int = 256):
+        super().__init__()
+        self.query = nn.Parameter(torch.zeros(n_queries, d_model))
+        self.attn = PoolerAttention(d_model, context_dim, n_head)
+        self.ln_q = LayerNorm(d_model)
+        self.ln_k = LayerNorm(context_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        nq, d = self.query.shape
+        h = self.attn.num_heads
+        x = self.ln_k(x)
+        q = self.ln_q(self.query.to(x.dtype).expand(b, nq, d))
+        wq, wk, wv = (w.to(x.dtype) for w in self.attn.weights())
+        bq, bk, bv = self.attn.in_proj_bias.to(x.dtype).chunk(3)
+
+        def heads(t, n):
+            return t.view(b, n, h, d // h).transpose(1, 2)
+
+        out = multi_head_attention(heads(F.linear(q, wq, bq), nq), heads(F.linear(x, wk, bk), l),
+                                   heads(F.linear(x, wv, bv), l))
+        return _linear(out.transpose(1, 2).reshape(b, nq, d), self.attn.out_proj)

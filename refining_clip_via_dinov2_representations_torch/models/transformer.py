@@ -1,11 +1,12 @@
-"""Transformer towers: the vision ViT and the causal text transformer.
+"""Transformer towers: the vision ViT, the causal text transformer and
+CoCa's multimodal decoder.
 
-The port of the JAX package's ``models/transformer.py`` for the standard
-CLIP: the ViT with a class token, learnable positional embedding and 'tok'
-pooling, and the causal text transformer with argmax-EOT pooling. (The CoCa
-decoder, KV-cache decode and the CLIPA/timm variants come later.) Parameter
-names are open_clip's, so ``models/convert.py`` output loads with
-``strict=True``.
+The port of the JAX package's ``models/transformer.py``: the ViT with a
+class token, learnable positional embedding, 'tok' pooling and CoCa's
+attentional poolers; the causal text transformer with argmax-EOT pooling or
+CoCa's appended CLS; the CoCa decoder; KV-cache decode. (The CLIPA/timm
+variants come later.) Parameter names are open_clip's, so
+``models/convert.py`` output loads with ``strict=True``.
 
 Images are NHWC at the public boundary, as in the JAX package (NCHW is
 accepted too and transposed once). The patch embedding, a convolution with
@@ -53,7 +54,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..parallel.tensor import gather_from_model
-from .layers import MLP, LayerNorm, LayerScale, MultiheadAttention, PatchDropout, _linear, gelu
+from .layers import (MLP, AttentionalPooler, LayerNorm, LayerScale, MultiheadAttention,
+                     PatchDropout, _linear, gelu)
 
 REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable",
                   "offload_dots_with_no_batch_dims")
@@ -134,13 +136,21 @@ def remat_args(grad_checkpointing: Union[bool, str]) -> Tuple[bool, str]:
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN block: ``x + ls_1(attn(ln_1(x)))`` then ``x + ls_2(mlp(ln_2(x)))``."""
+    """Pre-LN block: ``x + ls_1(attn(ln_1(x)))`` then ``x + ls_2(mlp(ln_2(x)))``.
+
+    A cross-attention block (``is_cross_attention``, the CoCa decoder's) has
+    ``ln_1_kv`` over its keys and values. ``cache``/``pos`` run one decode
+    step (returns ``(x, cache)``); ``static_kv`` attends over keys and
+    values that ``cross_kv`` computed once (``tpu/models/transformer.py:
+    75-139``)."""
 
     def __init__(self, width: int, n_head: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
-                 attn_impl: str = "auto", norm_eps: float = 1e-5):
+                 attn_impl: str = "auto", norm_eps: float = 1e-5,
+                 is_cross_attention: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, norm_eps)
+        self.ln_1_kv = LayerNorm(width, norm_eps) if is_cross_attention else None
         self.attn = MultiheadAttention(width, n_head, attn_impl)
         self.ln_2 = LayerNorm(width, norm_eps)
         self.mlp = MLP(width, int(width * mlp_ratio), act)
@@ -150,15 +160,40 @@ class ResidualAttentionBlock(nn.Module):
         else:
             self.ls_1 = self.ls_2 = None
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        attn_out = self.attn(self.ln_1(x), causal=causal)
+    def cross_kv(self, kv: torch.Tensor):
+        """The head-split (k, v) of ``ln_1_kv(kv)``, for ``static_kv``."""
+        kv = self.ln_1_kv(kv)
+        return self.attn(kv, kv=kv, return_kv=True)
+
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                mask: Optional[torch.Tensor] = None, kv: Optional[torch.Tensor] = None,
+                cache=None, pos: Optional[int] = None, static_kv=None):
+        kv = None if kv is None or self.ln_1_kv is None else self.ln_1_kv(kv)
+        new_cache = None
+        if cache is not None:
+            attn_out, new_cache = self.attn(self.ln_1(x), cache=cache, pos=pos)
+        else:
+            attn_out = self.attn(self.ln_1(x), causal=causal, kv=kv, mask=mask,
+                                 static_kv=static_kv)
         if self.ls_1 is not None:
             attn_out = self.ls_1(attn_out)
         x = x + attn_out
         mlp_out = self.mlp(self.ln_2(x))
         if self.ls_2 is not None:
             mlp_out = self.ls_2(mlp_out)
-        return x + mlp_out
+        x = x + mlp_out
+        return x if cache is None else (x, new_cache)
+
+
+def run_blocks(blocks, x: torch.Tensor, remat: bool, remat_policy: str, **kwargs) -> torch.Tensor:
+    """``x`` through each block with ``kwargs``, each block under
+    ``torch.utils.checkpoint`` (non-reentrant: keyword tensors take their
+    gradients too) with the policy's arguments where ``remat``."""
+    extra = remat_kwargs(remat_policy) if remat else {}
+    for blk in blocks:
+        x = (checkpoint(blk, x, use_reentrant=False, **extra, **kwargs) if remat
+             else blk(x, **kwargs))
+    return x
 
 
 class Transformer(nn.Module):
@@ -167,7 +202,9 @@ class Transformer(nn.Module):
     ``torch.utils.checkpoint`` (non-reentrant) with ``remat_policy``'s
     arguments (``remat_kwargs``): the block is recomputed in the backward,
     keeping only its input and what the policy saves, as the JAX package's
-    ``nn.remat``."""
+    ``nn.remat``. ``caches`` (one (k, v) per block) and ``pos`` run one
+    decode step and return ``(x, caches)``; decode has no backward, so it
+    never recomputes (``tpu/models/transformer.py:141-190``)."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
@@ -183,15 +220,16 @@ class Transformer(nn.Module):
             for _ in range(layers)
         )
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False,
+                mask: Optional[torch.Tensor] = None, caches=None, pos: Optional[int] = None):
+        if caches is not None:
+            new_caches = []
+            for blk, cache in zip(self.resblocks, caches):
+                x, cache = blk(x, cache=cache, pos=pos)
+                new_caches.append(cache)
+            return x, new_caches
         remat = self.grad_checkpointing and self.training and torch.is_grad_enabled()
-        kwargs = remat_kwargs(self.remat_policy) if remat else {}
-        for blk in self.resblocks:
-            if remat:
-                x = checkpoint(blk, x, causal, use_reentrant=False, **kwargs)
-            else:
-                x = blk(x, causal=causal)
-        return x
+        return run_blocks(self.resblocks, x, remat, self.remat_policy, causal=causal, mask=mask)
 
 
 def text_global_pool(x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
@@ -220,7 +258,9 @@ class VisionTransformer(nn.Module):
                  compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
                  remat_policy: str = "full", patch_dropout: float = 0.0,
                  no_ln_pre: bool = False, proj_bias: bool = False,
-                 patch_embed_bias: bool = False, norm_eps: float = 1e-5):
+                 patch_embed_bias: bool = False, norm_eps: float = 1e-5,
+                 attentional_pool: Union[bool, str] = False, attn_pooler_queries: int = 256,
+                 attn_pooler_heads: int = 8, output_tokens: bool = False):
         super().__init__()
         self.image_size = tuple(image_size)
         self.patch_size = tuple(patch_size)
@@ -237,9 +277,30 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
                                        act, attn_impl, grad_checkpointing, remat_policy,
                                        norm_eps)
-        self.ln_post = LayerNorm(width, norm_eps)
-        self.proj = (nn.Linear(width, output_dim) if proj_bias
-                     else nn.Parameter(torch.zeros(width, output_dim)))
+        self.output_tokens = output_tokens
+        self.attentional_pool = attentional_pool
+        self.attn_pool = self.attn_pool_contrastive = None
+        pool_dim = width
+        if attentional_pool:
+            if isinstance(attentional_pool, str) and attentional_pool not in ("parallel",
+                                                                               "cascade"):
+                raise ValueError(f"attentional_pool {attentional_pool!r}: True, 'parallel' "
+                                 "or 'cascade'")
+            self.attn_pool = AttentionalPooler(output_dim, width, attn_pooler_heads,
+                                               attn_pooler_queries)
+            if isinstance(attentional_pool, str):
+                # the CoCa paper's pooling: ln_post on the trunk's tokens, a
+                # one-query pooler over them (parallel) or over the pooled
+                # tokens (cascade)
+                self.attn_pool_contrastive = AttentionalPooler(
+                    output_dim, width if attentional_pool == "parallel" else output_dim,
+                    attn_pooler_heads, 1)
+            else:
+                pool_dim = output_dim  # open_clip's CoCa: ln_post after the pooler
+        self.ln_post = LayerNorm(pool_dim, norm_eps)
+        pooled_dim = output_dim if attentional_pool else width
+        self.proj = (nn.Linear(pooled_dim, output_dim) if proj_bias
+                     else nn.Parameter(torch.zeros(pooled_dim, output_dim)))
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable
@@ -268,10 +329,22 @@ class VisionTransformer(nn.Module):
             x = self.patch_dropout(x, patch_dropout_generator)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
-        pooled = self.ln_post(self.transformer(x))[:, 0]
+        x = self.transformer(x)
+        if self.attn_pool_contrastive is not None:  # "parallel" / "cascade"
+            x = self.ln_post(x)
+            tokens = self.attn_pool(x)
+            pooled = self.attn_pool_contrastive(
+                x if self.attentional_pool == "parallel" else tokens)[:, 0]
+        else:
+            if self.attn_pool is not None:  # open_clip's CoCa pooling
+                x = self.attn_pool(x)
+            x = self.ln_post(x)
+            pooled, tokens = x[:, 0], x[:, 1:]
         if isinstance(self.proj, nn.Linear):
-            return _linear(pooled, self.proj)
-        return pooled @ self.proj.to(pooled.dtype)
+            pooled = _linear(pooled, self.proj)
+        else:
+            pooled = pooled @ self.proj.to(pooled.dtype)
+        return (pooled, tokens) if self.output_tokens else pooled
 
 
 def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
@@ -291,19 +364,29 @@ def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
 
 
 class TextTransformer(nn.Module):
-    """Causal text transformer with argmax-EOT pooling."""
+    """Causal text transformer with argmax-EOT pooling; with ``embed_cls``
+    CoCa's tower (``tpu/models/transformer.py:418-575``): a learned CLS
+    appended at the end, an additive mask of the causal rule plus
+    ``_cls_mask`` (so the tower takes the plain attention, as in JAX), the
+    CLS row pooled then ``ln_final``, and the other rows as its tokens.
+    ``output_tokens`` returns ``(pooled, tokens)``. ``caches``/``pos`` run
+    one decode step of a single token and return ``(tokens, caches)``."""
 
     def __init__(self, context_length: int = 77, vocab_size: int = 49408,
                  width: int = 512, heads: int = 8, layers: int = 12,
                  mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
                  output_dim: int = 512, act: Callable = gelu, attn_impl: str = "auto",
                  compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
-                 remat_policy: str = "full"):
+                 remat_policy: str = "full", embed_cls: bool = False, pad_id: int = 0,
+                 output_tokens: bool = False):
         super().__init__()
         self.context_length = context_length
         self.compute_dtype = compute_dtype
+        self.embed_cls, self.pad_id, self.output_tokens = embed_cls, pad_id, output_tokens
         self.token_embedding = nn.Embedding(vocab_size, width)
-        self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(context_length + (1 if embed_cls else 0), width))
+        self.cls_emb = nn.Parameter(torch.zeros(width)) if embed_cls else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
                                        act, attn_impl, grad_checkpointing, remat_policy)
         self.ln_final = LayerNorm(width)
@@ -312,5 +395,103 @@ class TextTransformer(nn.Module):
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable
 
-    def forward(self, text: torch.Tensor) -> torch.Tensor:
-        return encode_text_tokens(self, text)
+    def _cls_mask(self, text: torch.Tensor) -> torch.Tensor:
+        """open_clip's ``build_cls_mask`` (``tpu/models/transformer.py:
+        445-462``), quirks kept: only the CLS query row is masked, and its
+        column k gates on token k - 1 (column 0 always open). [B, 1, L+1,
+        L+1], additive fp32."""
+        b, l = text.shape
+        ones = torch.ones(b, 1, dtype=torch.bool, device=text.device)
+        cls_row = torch.cat([ones, text != self.pad_id], dim=1)
+        rows = torch.cat([torch.ones(b, l, l + 1, dtype=torch.bool, device=text.device),
+                          cls_row[:, None, :]], dim=1)
+        zero = torch.zeros((), device=text.device)
+        return torch.where(rows, zero, float("-inf"))[:, None]
+
+    def forward(self, text: torch.Tensor, caches=None, pos: Optional[int] = None):
+        if caches is not None:
+            # one decode step: the appended CLS sits at the end, causally
+            # invisible to the token rows, so this is plain cached attention
+            dtype = self.compute_dtype
+            x = self.token_embedding(text).to(dtype)
+            x = x + self.positional_embedding[pos:pos + 1].to(dtype)
+            x, caches = self.transformer(x, caches=caches, pos=pos)
+            return (x if self.embed_cls else self.ln_final(x)), caches
+        if not (self.embed_cls or self.output_tokens):
+            return encode_text_tokens(self, text)
+        dtype = self.compute_dtype
+        b, l = text.shape
+        x = self.token_embedding(text).to(dtype)
+        mask = None
+        if self.embed_cls:
+            x = torch.cat([x, self.cls_emb.to(dtype).expand(b, 1, -1)], dim=1)
+            l += 1
+            causal = torch.full((l, l), float("-inf"), device=x.device).triu(1)
+            mask = causal + self._cls_mask(text)
+        x = x + self.positional_embedding[:l].to(dtype)
+        x = self.transformer(x, causal=mask is None, mask=mask)
+        if self.embed_cls:
+            pooled, tokens = self.ln_final(x[:, -1]), x[:, :-1]
+        else:
+            x = self.ln_final(x)
+            pooled, tokens = text_global_pool(x, text), x
+        pooled = pooled @ self.text_projection.to(dtype)
+        return (pooled, tokens) if self.output_tokens else pooled
+
+
+class MultimodalTransformer(nn.Module):
+    """CoCa's text decoder (``tpu/models/transformer.py:578-660``): each
+    layer a causal self-attention block (``resblocks``), then a
+    cross-attention block over the image tokens (``cross_attn``, with
+    ``ln_1_kv``), then ``ln_final`` and ``text_projection`` into the
+    vocabulary. On CUDA tensors both attentions take the fused kernels
+    (``[b, h, L, L]`` causal and ``[b, h, L, T]`` over T image tokens).
+
+    ``compute_cross_kv`` returns each cross block's (k, v) of the image
+    tokens; ``cross_caches`` takes them back, and ``caches``/``pos`` run one
+    decode step (returns ``(logits, caches)``). Blocks recompute in the
+    backward under ``grad_checkpointing`` (training with autograd, no
+    caches), as the JAX decoder's ``nn.remat``."""
+
+    def __init__(self, width: int, layers: int, heads: int, context_length: int = 77,
+                 mlp_ratio: float = 4.0, ls_init_value: Optional[float] = None,
+                 output_dim: int = 512, act: Callable = gelu, attn_impl: str = "auto",
+                 grad_checkpointing: bool = False, remat_policy: str = "full",
+                 norm_eps: float = 1e-5):
+        super().__init__()
+        saved_ops(remat_policy)  # raises on an unknown name
+        self.context_length = context_length
+        self.grad_checkpointing = grad_checkpointing
+        self.remat_policy = remat_policy
+
+        def blocks(cross: bool):
+            return nn.ModuleList(
+                ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl,
+                                       norm_eps, is_cross_attention=cross)
+                for _ in range(layers))
+
+        self.resblocks, self.cross_attn = blocks(False), blocks(True)
+        self.ln_final = LayerNorm(width, norm_eps)
+        self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
+
+    def forward(self, image_embs: Optional[torch.Tensor], text_embs: Optional[torch.Tensor],
+                caches=None, pos: Optional[int] = None, cross_caches=None,
+                compute_cross_kv: bool = False):
+        if compute_cross_kv:
+            return [blk.cross_kv(image_embs) for blk in self.cross_attn]
+        remat = (self.grad_checkpointing and self.training and torch.is_grad_enabled()
+                 and caches is None)
+        x, new_caches = text_embs, []
+        for i, (self_blk, cross_blk) in enumerate(zip(self.resblocks, self.cross_attn)):
+            if caches is not None:
+                x, cache = self_blk(x, cache=caches[i], pos=pos)
+                new_caches.append(cache)
+            else:
+                x = run_blocks([self_blk], x, remat, self.remat_policy, causal=True)
+            if cross_caches is not None:
+                x = cross_blk(x, static_kv=cross_caches[i])
+            else:
+                x = run_blocks([cross_blk], x, remat, self.remat_policy, kv=image_embs)
+        x = self.ln_final(x)
+        out = x @ self.text_projection.to(x.dtype)
+        return (out, new_caches) if caches is not None else out

@@ -242,11 +242,14 @@ def tp_sharding(named: Mapping[str, torch.Tensor], group, tp: Optional[ModelPara
 
 
 def _blocks(model: nn.Module) -> Iterable[nn.Module]:
-    """The residual blocks of both towers."""
-    for tower in (getattr(model, "visual", None), model):
+    """The residual blocks of every tower (CoCa's text tower and decoder
+    included)."""
+    for tower in (getattr(model, "visual", None), model, getattr(model, "text", None)):
         transformer = getattr(tower, "transformer", None)
-        for blk in getattr(transformer, "resblocks", ()):
-            yield blk
+        yield from getattr(transformer, "resblocks", ())
+    decoder = getattr(model, "text_decoder", None)
+    for kind in ("resblocks", "cross_attn"):
+        yield from getattr(decoder, kind, ())
 
 
 def apply_fsdp(model: nn.Module, head: Optional[nn.Module], mesh,

@@ -10,10 +10,17 @@ that thread's current CUDA stream).
     POST /v1/encode_text   {"texts": [...]}        -> {"features": ...}
     POST /v1/encode_image  {"images_b64": [...]}   -> {"features": ...}
     POST /v1/similarity    {"texts": [...], "images_b64": [...]} -> {"logits": ...}
-    POST /v1/caption       CoCa only (not ported yet): answers 400
+    POST /v1/caption       {"images_b64": [...], "seq_len"?, "num_beams"?,
+                           "num_beam_groups"?, "min_seq_len"?,
+                           "repetition_penalty"?, "length_penalty"?}
+                           -> {"captions": [...]} (CoCa models: grouped beam
+                           search, BPE decode; 400 on another model)
 
 CLI: ``python -m refining_clip_via_dinov2_representations_torch.serve
---model ViT-B-16 [--checkpoint state_dict.pt] [--device cuda] --port 8080``.
+--model ViT-B-16 [--checkpoint state_dict.pt] [--device cuda] --port 8080``;
+``--checkpoint`` also takes a pretrained tag (a CoCa captioner: ``--model
+coca_ViT-L-14 --checkpoint mscoco_finetuned_laion2b_s13b_b90k``, resolved
+from the hub cache).
 """
 
 from __future__ import annotations
@@ -30,6 +37,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+
+# the caption request's generation parameters
+GEN_PARAMS = ("seq_len", "num_beams", "num_beam_groups", "min_seq_len", "repetition_penalty",
+              "length_penalty")
 
 
 class _Batcher:
@@ -147,15 +158,51 @@ class ClipServer:
         scale, bias = self.engine.logit_terms()
         return scale * (img_f @ txt_f.T) + bias
 
-    def caption(self, images_b64: Sequence[str]) -> List[str]:
-        """CoCa captioning. No CoCa model is ported, so the engine raises
-        TypeError, which the client sees as a 400."""
+    def caption(self, images_b64: Sequence[str], **gen_kwargs) -> List[str]:
+        """Caption images with a CoCa engine (grouped beam search). The
+        parameters vary per request, so captioning bypasses the
+        micro-batchers; the engine's buckets still pad the request's rows.
+        Each caption is its tokens after SOT and before the first EOT, BPE
+        decoded. A non-CoCa engine raises TypeError, which the client sees
+        as a 400, as do bad parameters (``_validate_gen_kwargs``)."""
+        gen_kwargs = self._validate_gen_kwargs(gen_kwargs)
         pixels = self._decode_images(images_b64)
         try:
-            tokens = self.engine.caption_tokens(pixels)
+            tokens = self.engine.caption_tokens(pixels, **gen_kwargs)
         except TypeError as e:  # non-CoCa engine -> client error, not a 500
             raise ValueError(str(e)) from e
-        return [self.tokenizer.decode(row).strip() for row in np.asarray(tokens)]
+        sot, eot = 49406, 49407
+        out = []
+        for row in np.asarray(tokens).tolist():
+            body = row[1:] if row and row[0] == sot else row
+            if eot in body:
+                body = body[:body.index(eot)]
+            out.append(self.tokenizer.decode(body).strip())
+        return out
+
+    def _validate_gen_kwargs(self, gen: dict) -> dict:
+        """The JAX server's checks: ints coerced and bounded, the penalties
+        in [0.01, 100] rounded to 3 decimals, unknown names refused (each a
+        ValueError, so a 400)."""
+        out = {}
+        ints = {"seq_len": (2, min(77, self.engine.context_length)),
+                "num_beams": (2, 16), "num_beam_groups": (1, 16), "min_seq_len": (1, 76)}
+        for k, (lo, hi) in ints.items():
+            if k in gen:
+                v = int(gen[k])
+                if not lo <= v <= hi:
+                    raise ValueError(f"{k} must be in [{lo}, {hi}], got {v}")
+                out[k] = v
+        for k in ("repetition_penalty", "length_penalty"):
+            if k in gen:
+                v = float(gen[k])
+                if not 0.01 <= v <= 100.0:
+                    raise ValueError(f"{k} must be in [0.01, 100], got {v}")
+                out[k] = round(v, 3)
+        unknown = set(gen) - set(ints) - {"repetition_penalty", "length_penalty"}
+        if unknown:
+            raise ValueError(f"unknown caption parameters: {sorted(unknown)}")
+        return out
 
     def close(self) -> None:
         self._text_batcher.close()
@@ -197,7 +244,9 @@ def _make_handler(server: ClipServer):
                     out = server.similarity(req.get("texts", []), req.get("images_b64", []))
                     self._reply(200, {"logits": out.tolist()})
                 elif self.path == "/v1/caption":
-                    self._reply(200, {"captions": server.caption(req.get("images_b64", []))})
+                    gen = {k: req[k] for k in GEN_PARAMS if k in req}
+                    self._reply(200, {"captions": server.caption(req.get("images_b64", []),
+                                                                 **gen)})
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except (ValueError, KeyError, json.JSONDecodeError) as e:

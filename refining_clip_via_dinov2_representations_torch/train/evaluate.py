@@ -7,7 +7,10 @@ device (on a card, every attention call through the fused forward kernel:
 map to image ids by the first occurrence of their ``image_path``, image
 features are deduplicated by first occurrence, and the retrieval metrics
 of ``train/metrics.py`` follow. Without image paths (synthetic data) the
-in-batch ranks of ``get_clip_metrics`` stand in. The first evaluation
+in-batch ranks of ``get_clip_metrics`` stand in. A CoCa model adds its
+caption cross-entropy (``maybe_compute_generative_loss``, a row's mean over
+its positions, the pad positions included, as in JAX) as
+``val_generative_loss``. The first evaluation
 round of an epoch also runs the zero-shot ImageNet evaluation
 (``train/zero_shot.py``; frequency-gated there), as in the JAX package.
 
@@ -33,6 +36,19 @@ from .distributed import data_group
 from .metrics import build_unique_image_features, clip_retrieval_metrics, get_clip_metrics
 
 
+def maybe_compute_generative_loss(model_out: dict, per_row: bool = False) -> torch.Tensor:
+    """CoCa's caption cross-entropy where the output has ``logits`` and
+    ``labels`` (``tpu/train/evaluate.py:63-80``): the mean over every
+    position of -log p(label), from an fp32 log-softmax; ``per_row`` gives
+    one value a row, so padding rows can be dropped. Zeros otherwise."""
+    if "logits" in model_out and "labels" in model_out:
+        logp = torch.log_softmax(model_out["logits"].float(), dim=-1)
+        picked = logp.gather(-1, model_out["labels"][..., None].long())[..., 0]
+        return -picked.flatten(1).mean(1) if per_row else -picked.mean()
+    rows = model_out["image_features"].shape[0]
+    return torch.zeros(rows if per_row else (), device=model_out["image_features"].device)
+
+
 def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args, tokenizer=None,
              val_key: str = "val", include_zero_shot: bool = True) -> Dict[str, float]:
     """The metrics of ``data[val_key]`` at ``epoch``, after the zero-shot
@@ -55,21 +71,23 @@ def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args, tokenizer=Non
     device = next(model.parameters()).device
     all_img, all_txt, all_ids = [], [], []
     path2id: Dict[str, int] = {}
-    cumulative_loss = 0.0
+    cumulative_loss = cumulative_gen_loss = 0.0
     num_samples = 0
     logit_scale = 1.0
     group = data_group()
 
     def encode(images, texts):
         out = model(images, texts)
-        return out["image_features"], out["text_features"]
+        return (out["image_features"], out["text_features"],
+                maybe_compute_generative_loss(out, per_row=True))
 
     for i, batch in enumerate(loader):
         images = torch.from_numpy(np.asarray(batch["images"], np.float32)).to(device)
         texts = torch.from_numpy(np.asarray(batch["texts"])).long().to(device)
         b = images.shape[0]
         with torch.no_grad():
-            img_f, txt_f = on_rank_rows(encode, images, texts, group=group)
+            img_f, txt_f, gen_rows = on_rank_rows(encode, images, texts, group=group)
+            cumulative_gen_loss += float(gen_rows.sum())
             scale = model.logit_scale.exp()
             batch_loss = float(clip_loss(img_f, txt_f, scale))
         logit_scale = float(scale)
@@ -101,6 +119,8 @@ def evaluate(model: torch.nn.Module, data: Dict, epoch: int, args, tokenizer=Non
         metrics.update(get_clip_metrics(img_feats_per_cap, txt_feats, logit_scale))
     metrics.update({"clip_val_loss": cumulative_loss / max(1, num_samples), "epoch": epoch,
                     "num_samples": num_samples})
+    if cumulative_gen_loss != 0.0 and num_samples > 0:
+        metrics["val_generative_loss"] = cumulative_gen_loss / num_samples
     logging.info("Eval Epoch: %d %s", epoch,
                  "\t".join(f"{k}: {round(v, 4):.4f}" for k, v in metrics.items()))
     return metrics

@@ -67,6 +67,11 @@ student's ``preprocess_val`` normalisation, sets the DINO head's width, and
 stays out of the optimizer, the gradient norm, the checkpoints and the
 resume. Its CLIP-blind check covers both splits, each failure a warning.
 
+A CoCa model (a ``coca_*`` config, or ``--use_coca``) trains with the CoCa
+loss, which takes precedence over SigLIP and DINO as in the JAX CLI, its
+``--coca-*-loss-weight`` flags and CustomTextCLIP's locking and groups; its
+validation adds ``val_generative_loss``.
+
 The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
 honour yet raise at parse time (``train/params.py:UNPORTED``).
@@ -413,6 +418,20 @@ def _resolve_resume(args, checkpoint_dir: str, log_base: str):
     return latest_checkpoint(checkpoint_dir)
 
 
+def resolve_loss_type(args) -> str:
+    """The JAX CLI's loss dispatch (``tpu/train/main.py:103-113``, in its
+    order; the distillation and CyCLIP flags raise at parse time): CoCa
+    (a ``coca`` model name or ``--use_coca``) before SigLIP and DINO, so a
+    CoCa run with ``--use_dino_general`` takes the CoCa loss."""
+    if "coca" in args.model.lower() or args.use_coca:
+        return "coca"
+    if args.siglip:
+        return "siglip"
+    if args.use_dino_general:
+        return "dino"
+    return "clip"
+
+
 def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
@@ -488,6 +507,13 @@ def _main(args):
                                      if args.grad_checkpointing and args.remat_policy != "full"
                                      else args.grad_checkpointing))
     model.train()
+    loss_type = resolve_loss_type(args)
+    coca = hasattr(model, "text_decoder")
+    if loss_type == "coca" and not coca:
+        raise ValueError(f"--use_coca needs a CoCa model (a coca_* config), not {args.model}")
+    if coca and mp is not None:
+        raise NotImplementedError("CoCa under a model axis (--mesh-model-axis > 1) is not "
+                                  "ported (ROADMAP Queue 1 item 10b)")
     shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
@@ -538,7 +564,8 @@ def _main(args):
             else:
                 dino_dim = args.synthetic_dino_dim
             torch.manual_seed(args.seed + 1)
-            head = DinoProjectionHead(model.text_projection.shape[1], dino_dim,
+            text_projection = (model.text if coca else model).text_projection
+            head = DinoProjectionHead(text_projection.shape[1], dino_dim,
                                       args.projection_type, args.use_layernorm).to(device)
             shard_module(head, mp, head=True)
         # the forward's module across the data ranks: FSDP's shards, or DDP
@@ -582,7 +609,9 @@ def _main(args):
             residual_alpha=args.residual_alpha, with_diagnostics=args.dbg_print_every > 0,
         )
         step_cfg = StepCfg(
-            loss_type="siglip" if args.siglip else ("dino" if args.use_dino_general else "clip"),
+            loss_type=loss_type,
+            coca_caption_loss_weight=args.coca_caption_loss_weight,
+            coca_contrastive_loss_weight=args.coca_contrastive_loss_weight,
             dino=dino_cfg, siglip_dist_impl=args.loss_dist_impl or "bidir",
             accum_freq=args.accum_freq,
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,

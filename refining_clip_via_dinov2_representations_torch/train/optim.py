@@ -17,8 +17,9 @@ Those quirks are the reference's, kept for parity: it matches substrings of
 parameter names. The JAX function matches JAX paths
 (``model/text/transformer/resblocks_3/attn/in_proj_kernel``); here the same
 rules are written for open_clip's names (``transformer.resblocks.3.attn.
-in_proj_weight``), and ``tests/test_torch_optim.py`` holds the two label
-sets equal leaf for leaf at ViT-B-16.
+in_proj_weight``; CoCa's text tower under ``text.``), and
+``tests/test_torch_optim.py`` holds the two label sets equal leaf for leaf at
+ViT-B-16 (``tests/test_torch_coca_train.py`` at a tiny CoCa).
 
 Locking gives the label ``frozen``: such parameters belong to no param
 group, so the optimizer neither moves nor decays them, but they keep
@@ -144,7 +145,8 @@ def _block_index(pattern: str, name: str) -> Optional[int]:
 
 
 def _text_block(name: str) -> Optional[int]:
-    return _block_index(r"transformer\.resblocks\.(\d+)\.", name)
+    # CLIP's text blocks at top level; CustomTextCLIP's and CoCa's under text.
+    return _block_index(r"(?:text\.)?transformer\.resblocks\.(\d+)\.", name)
 
 
 def _vision_block(name: str) -> Optional[int]:
@@ -168,7 +170,7 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
     text_start = max(0, text_layers - n_unlock_text)
 
     def label_one(p: str) -> str:
-        is_text = p.split(".")[0] in _TEXT_PARTS
+        is_text = p.split(".")[0] in _TEXT_PARTS + ("text",)
         if cfg.lock_image and p.startswith("visual."):
             vb = _vision_block(p)
             g = cfg.lock_image_unlocked_groups

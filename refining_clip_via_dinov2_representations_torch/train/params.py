@@ -10,7 +10,9 @@ preprocessing, Horovod, SyncBatchNorm, the step profiler. Tracking
 ``--remote-sync``, ``--copy-codebase``, gradient accumulation
 (``--accum-freq``), the ``--opt`` families,
 ``--adam-mu-dtype``, ``--force-patch-dropout``, every ``--remat-policy``,
-SigLIP (``--siglip``, ``--loss-dist-impl``) and multi-GPU training
+SigLIP (``--siglip``, ``--loss-dist-impl``), CoCa (``--use_coca``, the
+``--coca-*-loss-weight`` flags; a ``coca_*`` model takes the CoCa loss
+without it) and multi-GPU training
 (``--dist-url``, ``--dist-backend``, ``--no-set-device-rank``,
 ``--ddp-static-graph``, ``--shard-opt-state``, ``--fsdp``,
 ``--fsdp-min-size``, ``--mesh-model-axis``; ``train/distributed.py``,
@@ -44,7 +46,6 @@ UNPORTED = {
     "trace": "tracing",
     "use_bn_sync": "SyncBatchNorm (it has no BatchNorm tower: ROADMAP Queue 1 item 14)",
     "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
-    "use_coca": "CoCa (ROADMAP Queue 1 item 14)",
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
     "distill_pretrained": "the distillation loss (ROADMAP Queue 1 item 12)",
     "compile_cache": "a JAX compilation cache",

@@ -2,14 +2,17 @@
 param-group optimizer (``train/optim.py``), the logit-scale clamp.
 
 The port of the JAX package's ``train/step.py`` for the ``"clip"``,
-``"dino"`` and ``"siglip"`` losses, in one process or in one process a
-rank. PyTorch runs eagerly, so there is no compiled function:
+``"dino"``, ``"siglip"`` and ``"coca"`` losses, in one process or in one
+process a rank. PyTorch runs eagerly, so there is no compiled function:
 ``make_train_step`` returns a closure over the model, the DINO head and
 the optimizer that updates them in place. On a CUDA model
 every attention call of both towers runs the fused kernels, forward and
 backward (``ops/attention.py``, ``"auto"`` or ``"fused"``); with
 ``"flash"``, attention over 512 or more queries runs the flash forward
-kernel and the shorter calls the plain path.
+kernel and the shorter calls the plain path. CoCa (``"coca"``) adds the
+caption logits and labels to the rows; its decoder's self- and
+cross-attention run the fused kernels too (its text tower, under its CLS
+mask, and its poolers take the plain attention, as in JAX).
 
 Kept from the JAX step: the lambda_soft warm-up from the step counter (only
 lambda_soft warms; ``enable_warmup_dino_hyperparams``); the DINO head on the
@@ -79,13 +82,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..losses import DinoLossCfg, clip_loss, dino_enhanced_loss
+from ..losses import DinoLossCfg, clip_loss, coca_loss, dino_enhanced_loss
 from ..losses.contrastive import SIGLIP_DIST_IMPLS, group_rank_size, siglip_loss
 from ..losses.dino import DinoProjectionHead
 from .optim import HEAD_PREFIX, GroupOptimizer, global_norm
 
 LN100 = math.log(100.0)
-LOSS_TYPES = ("clip", "dino", "siglip")
+LOSS_TYPES = ("clip", "dino", "siglip", "coca")
 
 
 @dataclasses.dataclass
@@ -99,7 +102,7 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class StepCfg:
-    loss_type: str = "clip"  # clip | dino
+    loss_type: str = "clip"  # clip | dino | siglip | coca
     dino: DinoLossCfg = DinoLossCfg()
     accum_freq: int = 1
     enable_warmup_dino_hyperparams: bool = False
@@ -108,6 +111,8 @@ class StepCfg:
     device_preprocess: Optional[Tuple] = None
     log_grad_norm: bool = False
     siglip_dist_impl: str = "bidir"  # bidir | shift | gather | reduce
+    coca_caption_loss_weight: float = 2.0
+    coca_contrastive_loss_weight: float = 1.0
 
     def __post_init__(self):
         if self.siglip_dist_impl not in SIGLIP_DIST_IMPLS:
@@ -120,7 +125,7 @@ class StepCfg:
         for what, present in unported.items():
             if present:
                 raise NotImplementedError(
-                    f"{what}: the port's train step has the clip, dino and siglip losses, "
+                    f"{what}: the port's train step has the clip, dino, siglip and coca losses, "
                     "without device preprocessing, so far (ROADMAP Queue 1 item 5)")
 
 
@@ -229,6 +234,8 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
             scalars.update(_lambda_overrides(cfg, step))
         elif cfg.loss_type == "siglip" and "logit_bias" in out:
             scalars["logit_bias"] = out["logit_bias"]
+        elif cfg.loss_type == "coca":
+            rows["logits"], rows["labels"] = out["logits"], out["labels"]
         return rows, scalars
 
     def compute_metrics(rows, scalars) -> Dict[str, torch.Tensor]:
@@ -241,6 +248,12 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
             total = siglip_loss(rows["img_f"], rows["txt_f"], logit_scale,
                                 scalars.get("logit_bias", 0.0), group, cfg.siglip_dist_impl)
             metrics["contrastive_loss"] = total
+        elif cfg.loss_type == "coca":
+            losses = coca_loss(rows["img_f"], rows["txt_f"], rows["logits"], rows["labels"],
+                               logit_scale, caption_loss_weight=cfg.coca_caption_loss_weight,
+                               clip_loss_weight=cfg.coca_contrastive_loss_weight, group=group)
+            total = losses["contrastive_loss"] + losses["caption_loss"]
+            metrics.update(losses)
         else:
             losses = dino_enhanced_loss(
                 rows["img_f"], rows["txt_f"], logit_scale, rows.get("dino_features"),

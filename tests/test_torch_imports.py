@@ -21,7 +21,9 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "profile_torch_serving.py",
                                       REPO / "scripts" / "step_noise_floor.py",
                                       REPO / "scripts" / "probe_attention_kernels.py",
-                                      REPO / "scripts" / "tune_attention_bwd.py"]
+                                      REPO / "scripts" / "tune_attention_bwd.py",
+                                      REPO / "scripts" / "chip_coca_phase.py",
+                                      REPO / "scripts" / "coca_fp32_gradients.py"]
 
 
 def _imported(node):
@@ -42,7 +44,7 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/eval/_imagenet_metadata.py",
                  f"{PORT.name}/eval/zero_shot_classifier.py", f"{PORT.name}/eval/offline.py",
                  f"{PORT.name}/eval/run_all_evals.py", f"{PORT.name}/eval/clip_blinds_cli.py",
-                 f"{PORT.name}/train/zero_shot.py"):
+                 f"{PORT.name}/train/zero_shot.py", f"{PORT.name}/models/coca.py"):
         assert must in names
 
 

@@ -105,7 +105,9 @@ def test_vit_b16_widths_depth1_matches_jax():
     {"vision_cfg": {"layers": [3, 4, 6, 3], "width": 64}},
     {"text_cfg": {"hf_model_name": "bert-base-uncased"}},
     {"text_cfg": {"embed_cls": True}},
-    {"multimodal_cfg": {"width": 32}},
+    # CoCa is ported (tests/test_torch_coca.py); its HF-text-tower variant
+    # (coca_roberta-ViT-B-32) is not
+    {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
     {"vision_cfg": {"pool_type": "avg", "no_ln_pre": True}},  # CLIPA towers
     {"text_cfg": {"no_causal_mask": True, "pool_type": "last"}},
 ])

@@ -164,9 +164,9 @@ def test_three_steps_match_jax_make_train_step(case):
 
 
 def test_unported_step_options_raise():
-    # patch dropout and siglip are ported (tests/test_torch_patch_dropout.py,
-    # tests/test_torch_dist_losses.py)
-    for kw in (dict(loss_type="cyclip"), dict(loss_type="coca"),
+    # patch dropout, siglip and coca are ported (tests/test_torch_patch_dropout.py,
+    # tests/test_torch_dist_losses.py, tests/test_torch_coca_train.py)
+    for kw in (dict(loss_type="cyclip"), dict(loss_type="distill"),
                dict(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))):
         with pytest.raises(NotImplementedError):
             StepCfg(**kw)
