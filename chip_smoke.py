@@ -50,14 +50,15 @@ Phases, each of which exits non-zero on failure:
    causal, Lq != Lk both ways, head_dim 40 to 256, in float32 (the
    split-TF32 tensor-core kernel up to head dim 128) and bfloat16; its
    autograd Function against autograd through the plain version.
-8. train-long — ViT-L-14-336 (577 vision tokens) at full width and depth,
-   DINO-soft, bf16, ``attn_impl="flash"``: three steps without and three
-   with grad checkpointing (24 and 48 flash launches per step, no fused
+8. train-long — ViT-L-14-336 (577 vision tokens) at full width, its vision
+   depth cut to ``LONG_LAYERS`` of 24 blocks, DINO-soft, bf16,
+   ``attn_impl="flash"``: three steps without and three with grad
+   checkpointing (one and two flash launches a block a step, no fused
    launch), one step's loss and gradients against plain attention, step
    times and peak memory; then in fp32 compute with grad checkpointing
    (what ``--precision amp --attn-impl flash --grad-checkpointing`` runs):
    one step's loss and gradients against plain attention, three steps'
-   launches (48 flash a step, no fused), the profiler's check that a step
+   launches (two flash a block a step, no fused), the profiler's check that a step
    ran the split-TF32 flash kernel and no scalar fp32 kernel, and the
    step's time and peak memory through flash, through ``"auto"`` (the fused
    fp32 kernels at 577 tokens) and through plain attention.
@@ -149,10 +150,11 @@ Config 5's single-chip recipe runs last in the work directory (the
 kernels are checked at its shapes, head dim 88 among them, in phases 3 and
 3b, and timed in phases 5 and 6):
 
-19. giant — ViT-g-14 at full width and depth (1.37B parameters, vision
-    ``[16,16,257,88]``, text ``[16,16,77,64]`` causal), seeded, bf16 over
-    fp32 parameters, batch 16, DINO-soft: 64 fused-forward launches a
-    forward, 128 forward + 64 backward a checkpointed step; one step
+19. giant — ViT-g-14 at full width, its vision depth cut to
+    ``GIANT_LAYERS`` of 40 blocks (vision ``[16,16,257,88]``, text
+    ``[16,16,77,64]`` causal), seeded, bf16 over fp32 parameters, batch 16,
+    DINO-soft: one fused-forward launch a block a forward, two forward and
+    one backward a block a checkpointed step; one step
     through the kernels against plain attention (``STEP_TOL`` bf16); under
     adafactor with a bf16 first moment each remat policy (``full``,
     ``dots_saveable``, ``dots_with_no_batch_dims_saveable``,
@@ -200,10 +202,12 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     (CLS cosine >= 0.9999 fp32; bf16 >= 0.999 or, where two bf16 paths of
     the whole teacher differ by more, no further than its kernel is from
     plain attention), 40 fused-forward launches a rank a call; (b)
-    EVA01-g-14 at full width and depth with Config 5's flags through
+    EVA01-g-14 at full width, its vision tower's depth cut to
+    ``TP_EVA_LAYERS`` of 40 blocks, with Config 5's flags through
     ``train.main``, bf16, batch 16, one process and two ranks: per-step
     losses at 1e-2 relative, each rank's peak memory beside the one
-    process's, 104 + 52 launches a rank a step.
+    process's, 2 x (``TP_EVA_LAYERS`` + 12) + (``TP_EVA_LAYERS`` + 12)
+    launches a rank a step.
 
 CoCa runs right after the mini-Flickr set is made (the fused kernels are
 checked at its decoder's shapes, the cross-attention ``[32,12,75,255,64]``
@@ -229,9 +233,31 @@ forward in phase 3 and backward in 3b, and timed in phases 5 and 6):
     loss in the loss records, ``val_generative_loss`` in both evaluations,
     the final checkpoint loaded strictly into an engine that captions.
 
+SigLIP runs right after CoCa (the fused kernels are checked at its shapes,
+the MAP head's probe ``[b,12,1,196,64]`` (one query over 196 keys), the
+non-causal text ``[b,12,64,64]`` and the vision ``[128,12,196,64]``, at b 8
+and 128, forward in phase 3 and backward in 3b, and timed at b 128 in
+phases 5 and 6):
+
+23. siglip — ViT-B-16-SigLIP at full width and depth (203,155,970
+    parameters), seeded: written with the committed c4-en vocabulary into
+    the hub repo of the ``webli`` tag, loaded by tag with its HF tokenizer,
+    exactly; fp32 serving (13 fused-forward launches a vision call, 12 a
+    text call; features against plain attention, cosine >= 0.9999) and the
+    HTTP encoders; the step in bf16 at batch 128 with
+    ``--grad-checkpointing`` (25 + 24 forward and 25 backward launches a
+    step: the MAP head is not recomputed; one step against plain attention
+    at ``STEP_TOL`` bf16), its host clock, CUDA-event time and peak memory,
+    and in fp32 with TF32 off at batch 8 (``STEP_TOL`` fp32); Config 4's
+    flags through ``train.main`` (``--siglip --precision bf16
+    --dataset-type webdataset --loss-dist-impl bidir --grad-checkpointing``,
+    batch 128, ``--pretrained webli``) on four tar shards written from
+    mini-Flickr: three steps' losses, samples/s, wall and launches.
+
 Each phase prints the seconds elapsed since the start. The line before the
-last is the JSON list of kernels (each fused kernel with a ``"coca"`` list
-of its CoCa shapes); the last line is ``{"ok": true, "device": {...}}``.
+last is the JSON list of kernels (each fused kernel with ``"coca"`` and
+``"siglip"`` lists of those shapes); the last line is ``{"ok": true,
+"device": {...}}``.
 Imports no JAX.
 """
 
@@ -359,6 +385,10 @@ FLASH_CASES = [
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
+# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 12
+# to keep the script inside its time limit (width, 577 tokens and every
+# check stay; PR 9-15's runs measured the full depth)
+LONG_LAYERS = 12
 # the DINOv2 teacher: every variant has head dim 64 and 257 tokens at 224 px
 # (fused kernel's gate); the thesis teacher is dinov2-small, 6 heads. HF's
 # published dinov2-small config (facebook/dinov2-small/config.json)
@@ -384,6 +414,10 @@ CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
 # head-dim-128 instantiations with the tail zero-padded), text [16,16,77,64]
 # causal; checked forward and backward in both dtypes, timed beside SDPA
 GIANT_MODEL, GIANT_BATCH = "ViT-g-14", 16
+# Config 5's vision depth here: ViT-g-14's 40 blocks cut to 16 for the time
+# limit (width, head dim 88 and every check stay; PR 12-15's runs measured
+# the full depth, 13.7 GiB at its peak)
+GIANT_LAYERS = 16
 GIANT_CASES = [(16, 16, 257, 88, False), (16, 16, 77, 64, True)]
 # peak memory of these optimizers under dots_with_no_batch_dims_saveable
 GIANT_OPTIMIZERS = (("adamw", None), ("adamw", "bfloat16"), ("adafactor", "bfloat16"))
@@ -399,6 +433,10 @@ GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
 # only ([16,12,257,64]); checked forward (all) and backward (the first four)
 # in both dtypes in phases 3 and 3b, timed in phases 5 and 6
 TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
+# the EVA01 vision tower's depth in the recipe's train.main runs: cut from 40
+# blocks to keep the script inside its time limit (the width and every check
+# stay; the step-level checks at full depth are (a), (c) and phase 19's)
+TP_EVA_LAYERS = 20
 TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
             (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
 TP_BWD_CASES = TP_CASES[:4]
@@ -414,6 +452,22 @@ TP_EVA_IMAGES = 7
 COCA_MODEL, COCA_TAG = "coca_ViT-L-14", "mscoco_finetuned_laion2b_s13b_b90k"
 COCA_BUCKETS, COCA_BATCH, COCA_FP32_BATCH, COCA_STEPS = (1, 8), 32, 8, 3
 COCA_CASES = [(32, 12, 75, 255, 64, False), (32, 12, 75, 75, 64, True)]
+# SigLIP at ViT-B-16-SigLIP's full width and depth (phase 23; Config 4,
+# docs/REPRODUCE.md:54-67): the tag whose hub repo the seeded weights and
+# the committed c4-en vocabulary are written into; the serving buckets; the
+# training batch (Config 4's per-chip batch, docs/REPRODUCE.md:64-66, bf16,
+# checkpointed), the fp32 step's batch, the steps; the CLI's tar shards (4 x
+# 96 samples: three steps of 128). Its attention calls through the kernels,
+# (B, H, Lq, Lk, D, causal): the MAP head's one probe query over the 196
+# patch tokens, the non-causal 64-token text tower and the vision blocks, at
+# the serving bucket and the training batch; all but the b8 ones are timed
+SIGLIP_MODEL, SIGLIP_TAG, SIGLIP_BUCKETS = "ViT-B-16-SigLIP", "webli", (1, 8)
+SIGLIP_BATCH, SIGLIP_FP32_BATCH, SIGLIP_STEPS, SIGLIP_SHARD_SAMPLES = 128, 8, 3, 96
+SIGLIP_CASES = [(8, 12, 1, 196, 64, False), (128, 12, 1, 196, 64, False),
+                (8, 12, 64, 64, 64, False), (128, 12, 64, 64, 64, False),
+                (128, 12, 196, 196, 64, False)]
+SIGLIP_TIMED = [c for c in SIGLIP_CASES if c[0] == SIGLIP_BATCH]
+SIGLIP_VOCAB = os.path.join("tests", "assets", "siglip_vocab", "c4_en_32000.json")
 
 
 def fail(msg: str) -> None:
@@ -517,7 +571,7 @@ def phase_kernels() -> dict:
 
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
-             + GIANT_CASES + TP_CASES] + COCA_CASES
+             + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -798,7 +852,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
-             + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES
+             + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -878,7 +932,7 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            + TP_BWD_CASES] + BWD_CASES + COCA_CASES
+            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -2558,16 +2612,17 @@ def _giant_step_numbers(state, train_step, batch, what: str) -> dict:
 
 
 def phase_giant(work: str) -> dict:
-    """Config 5's single-chip recipe at ViT-g-14's full width and depth
-    (vision 40 x 1408, 16 heads of 88, 257 tokens; text 24 x 1024, 77 causal
-    tokens; 1.37B parameters), seeded, bf16 compute over fp32 parameters,
+    """Config 5's single-chip recipe at ViT-g-14's full width, its vision
+    depth cut to ``GIANT_LAYERS`` (vision 40 x 1408 in the registry, 16
+    heads of 88, 257 tokens; text 24 x 1024, 77 causal tokens; 1.37B
+    parameters at full depth), seeded, bf16 compute over fp32 parameters,
     batch 16, the DINO-soft loss as Config 2 sets it (kl_teacher, lambda_soft
     0.5, mlp head 1024 -> 384 on precomputed rows):
 
     (a) one step's loss and gradients through the kernels against plain
         attention (bf16 ``STEP_TOL``: loss 1e-2, all tensors' cosine 0.99),
-        64 fused-forward launches a forward pass, 128 forward and 64
-        backward a checkpointed step;
+        a fused-forward launch a block a forward pass, two forward and one
+        backward a block a checkpointed step;
     (b) under adafactor with a bf16 first moment, each remat policy's loss
         and gradients against ``full``'s (the same tolerances), its launches,
         host clock, CUDA-event time and peak memory, and the same without
@@ -2603,6 +2658,7 @@ def phase_giant(work: str) -> dict:
     # launches: one a block (40 vision + 24 text) a forward; a checkpointed
     # step runs the forward twice (the recompute relaunches the kernel) and
     # the backward once
+    _cut_vision_depth(GIANT_MODEL, GIANT_LAYERS)
     mcfg = get_model_config(GIANT_MODEL)
     v_layers, t_layers = mcfg["vision_cfg"]["layers"], mcfg["text_cfg"]["layers"]
     blocks = v_layers + t_layers
@@ -2781,7 +2837,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
-    for b, h, l, lk, d, causal in cases + COCA_CASES:
+    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -2905,15 +2961,17 @@ def _read_counts() -> dict:
 
 
 def phase_train_long() -> int:
-    """The long-sequence training path: ViT-L-14-336 at full width and depth,
-    bf16 compute, ``attn_impl="flash"``, three steps without and three with
-    grad checkpointing; returns the flash launches of the six steps."""
+    """The long-sequence training path: ViT-L-14-336 at full width, its
+    vision depth cut to ``LONG_LAYERS``, bf16 compute, ``attn_impl="flash"``,
+    three steps without and three with grad checkpointing; returns the flash
+    launches of the six steps."""
     import math
 
     import torch
 
     from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
 
+    _cut_vision_depth(LONG_MODEL, LONG_LAYERS)
     batch = _train_batch(get_tokenizer(LONG_MODEL), LONG_BATCH, DEVICE, model_name=LONG_MODEL)
     _compare_step("bf16", batch, model_name=LONG_MODEL, impl="flash")
 
@@ -2927,8 +2985,8 @@ def phase_train_long() -> int:
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params) bf16 DINO-soft "
           f"(kl_teacher, lambda_soft 0.5, mlp head {head.fc1.in_features}->"
           f"{head.fc1.out_features}->{DINO_DIM}) batch {LONG_BATCH}", flush=True)
-    check(n_vis == 24 and model.visual.positional_embedding.shape[0] == 577,
-          "ViT-L-14-336 must have 24 vision layers over 577 tokens")
+    check(n_vis == LONG_LAYERS and model.visual.positional_embedding.shape[0] == 577,
+          f"ViT-L-14-336 must have {LONG_LAYERS} vision layers over 577 tokens here")
     head_before = [p.detach().clone() for p in head.parameters()]
     steps, flash_total, losses = 3, 0, []
     for remat in (False, True):
@@ -2940,7 +2998,7 @@ def phase_train_long() -> int:
             losses.append(metrics["total_loss"])
         torch.cuda.synchronize()
         counts = _read_counts()
-        per_step = 48 if remat else 24
+        per_step = 2 * n_vis if remat else n_vis
         print(f"train-long grad_checkpointing={remat}: launches {counts} over {steps} steps "
               f"(expected flash {per_step * steps}, fused 0)", flush=True)
         check(counts["flash_attention_fwd"] == per_step * steps,
@@ -3013,9 +3071,10 @@ def phase_long_fp32_step(batch) -> int:
         print(f"train-long {LONG_MODEL} fp32 impl={impl} grad_checkpointing=True: launches "
               f"{counts} over {steps} step(s)", flush=True)
         if impl == "flash":
-            check(counts == {"flash_attention_fwd": 48 * steps, "fused_attention_fwd": 0,
+            want = 2 * LONG_LAYERS * steps
+            check(counts == {"flash_attention_fwd": want, "fused_attention_fwd": 0,
                              "fused_attention_bwd": 0},
-                  f"expected {48 * steps} flash launches and no fused one, got {counts}")
+                  f"expected {want} flash launches and no fused one, got {counts}")
             flash = counts["flash_attention_fwd"]
         if parts:
             check_fp32_route(lambda: train_step(state, batch), parts,
@@ -3070,12 +3129,13 @@ def phase_train_cli_long() -> int:
         ckpt = os.path.join(logs, "long", "checkpoints", "epoch_1.pt")
         print(f"train-cli-long: {LONG_MODEL} --grad-checkpointing --attn-impl flash: "
               f"{len(records)} logged steps, total_loss {[r['total_loss'] for r in records]}; "
-              f"launches {counts} (expected flash {48 * steps}, fused 0); checkpoint "
-              f"{os.path.getsize(ckpt) / 2**20:.1f} MiB", flush=True)
+              f"launches {counts} (expected flash {2 * LONG_LAYERS * steps}, fused 0); "
+              f"checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB", flush=True)
         check(len(records) == steps and all(math.isfinite(r["total_loss"]) for r in records),
               "loss_steps.json is not one finite record per step")
-        check(counts == {"flash_attention_fwd": 48 * steps, "fused_attention_fwd": 0,
-                         "fused_attention_bwd": 0}, f"the CLI run launched {counts}")
+        check(counts == {"flash_attention_fwd": 2 * LONG_LAYERS * steps,
+                         "fused_attention_fwd": 0, "fused_attention_bwd": 0},
+              f"the CLI run launched {counts}")
         flash = counts["flash_attention_fwd"]
         model, _ = create_model(LONG_MODEL, pretrained=ckpt, device=DEVICE)  # strict
         saved = torch.load(ckpt, map_location="cpu", weights_only=True, mmap=True)["state_dict"]
@@ -3273,12 +3333,19 @@ def _probe_gloo_cuda() -> dict:
 
 def _child_train(payload: dict) -> dict:
     """One run of ``train.main`` (a rank when the environment names one):
-    its per-step losses, host clock and launches, and its peak memory."""
+    its per-step losses, host clock and launches, and its peak memory.
+    ``payload["eva_layers"]`` cuts the EVA01 towers' depth to that many
+    blocks."""
     import torch
     import torch.distributed as dist
 
+    from refining_clip_via_dinov2_representations_torch.models import eva
     from refining_clip_via_dinov2_representations_torch.train import main as train_main
     from refining_clip_via_dinov2_representations_torch.train import step as train_step_mod
+
+    if payload.get("eva_layers"):
+        for name, (width, _, heads, mlp_ratio, patch) in list(eva.EVA01_DIMS.items()):
+            eva.EVA01_DIMS[name] = (width, payload["eva_layers"], heads, mlp_ratio, patch)
 
     counters = _launch_counters()
     steps = []
@@ -3935,15 +4002,17 @@ def phase_tp(work: str) -> dict:
     launches a rank a step at ``[32,6,197,64]`` and ``[32,4,77,64]``; the
     split dinov2-giant teacher against the whole one (CLS cosine >= 0.9999
     fp32, >= 0.999 bf16), 40 fused-forward launches a rank a call. (b)
-    EVA01-g-14 at full width and depth through ``train.main`` with Config
-    5's flags (adafactor, a bf16 first moment, ``--grad-checkpointing``
-    under ``dots_with_no_batch_dims_saveable``) and Config 2's DINO flags,
-    bf16, batch 16, on mini-Flickr cut to ``TP_EVA_IMAGES`` images with
+    EVA01-g-14 at full width, its vision depth cut to ``TP_EVA_LAYERS``,
+    through ``train.main`` with Config 5's flags (adafactor, a bf16 first
+    moment, ``--grad-checkpointing`` under
+    ``dots_with_no_batch_dims_saveable``) and Config 2's DINO flags, bf16,
+    batch 16, on mini-Flickr cut to ``TP_EVA_IMAGES`` images with
     whole-image crops (the same rows in both runs): one process, then two
-    ranks at ``--mesh-model-axis 2 --shard-opt-state``: the per-step losses at 1e-2 relative (the bf16 step row), each rank's
-    peak memory beside the one process's, 104 fused-forward + 52 backward
-    launches a rank a step (40 vision + 12 text blocks, the forward twice
-    with the recompute). Returns the launches."""
+    ranks at ``--mesh-model-axis 2 --shard-opt-state``: the per-step losses
+    at 1e-2 relative (the bf16 step row), each rank's peak memory beside
+    the one process's, two fused-forward and one backward launch a rank a
+    block a step (``TP_EVA_LAYERS`` vision + 12 text blocks, the forward
+    twice with the recompute). Returns the launches."""
     import math
 
     from scripts.mini_flickr import generate
@@ -4016,17 +4085,21 @@ def phase_tp(work: str) -> dict:
             "0", "--lr", "5e-4", "--warmup", "2", "--workers", "4", "--seed", str(SEED),
             "--log-every-n-steps", "1", "--aug-cfg", "scale=(1.0, 1.0)", "--logs", work,
             "--device", DEVICE]
-    one = _child("train", {"argv": argv + ["--name", "tp-one"]}, {}, timeout=400)
+    one = _child("train", {"argv": argv + ["--name", "tp-one"], "eva_layers": TP_EVA_LAYERS},
+                 {}, timeout=400)
     tp = _children("train", {"argv": argv + ["--name", "tp-2", "--mesh-model-axis",
                                              str(TP_AXIS), "--shard-opt-state",
-                                             "--dist-backend", "gloo"]}, TP_AXIS, timeout=500)
+                                             "--dist-backend", "gloo"],
+                             "eva_layers": TP_EVA_LAYERS}, TP_AXIS, timeout=500)
     steps = len(one["losses"])
-    want_b = ((104, 52) if DEVICE == "cuda" else (0, 0))
+    blocks = TP_EVA_LAYERS + 12  # vision + text, each recomputed once
+    want_b = ((2 * blocks, blocks) if DEVICE == "cuda" else (0, 0))
     rels = [abs(a - b) / abs(b) for a, b in zip(tp[0]["losses"], one["losses"])]
     launched = [[(s["fused_attention_fwd"], s["fused_attention_bwd"]) for s in r["steps"]]
                 for r in tp]
     print(f"tp (b) {TP_EVA_MODEL} Config 5 flags + --mesh-model-axis {TP_AXIS} "
-          f"--shard-opt-state (full width and depth, bf16, batch {TP_EVA_BATCH}, {steps} steps): "
+          f"--shard-opt-state (full width, {TP_EVA_LAYERS} of 40 vision blocks, bf16, batch "
+          f"{TP_EVA_BATCH}, {steps} steps): "
           f"losses {tp[0]['losses']} vs one process {one['losses']} (max rel {max(rels):.2e}); "
           f"step host clock a rank {[[round(s['ms'], 1) for s in r['steps']] for r in tp]} ms "
           f"(one process {[round(s['ms'], 1) for s in one['steps']]}); peak GiB a rank "
@@ -4044,6 +4117,18 @@ def phase_tp(work: str) -> dict:
         add(r["launches"])
     print(f"tp: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"launches": total, "ranks": ranks, "eva": {"one": one, "tp": tp}}
+
+
+def _cut_vision_depth(model_name: str, layers: int) -> None:
+    """Registers ``model_name`` with its vision tower cut to ``layers``
+    blocks, for every later build in this process."""
+    from refining_clip_via_dinov2_representations_torch.models import (
+        get_model_config, register_model_config,
+    )
+
+    cfg = get_model_config(model_name)
+    cfg["vision_cfg"]["layers"] = layers
+    register_model_config(model_name, cfg)
 
 
 def _set_compute_dtype(model, dtype) -> None:
@@ -4066,18 +4151,26 @@ def _coca_batch(tokenizer, n: int, seed: int = SEED + 50) -> dict:
             "texts": torch.from_numpy(tokenizer(captions)).long().to(DEVICE)}
 
 
-def _coca_loss_and_grads(model, batch) -> tuple:
-    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg, make_loss_fn
+def _model_loss_and_grads(model, batch, cfg) -> tuple:
+    """(loss, {name: gradient}, launches) of one loss of ``cfg`` (a
+    ``StepCfg``) and its backward over ``model``'s parameters."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.train.step import make_loss_fn
 
     for p in model.parameters():
         p.grad = None
-    loss, _ = make_loss_fn(model, StepCfg(loss_type="coca"))(batch, 0)
+    _zero_counts()
+    loss, _ = make_loss_fn(model, cfg)(batch, 0)
     loss.backward()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    counts = _read_counts()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     for p in model.parameters():
         p.grad = None
-    return float(loss.detach()), grads
+    return float(loss.detach()), grads, counts
 
 
 # fp32 CoCa step: a tensor whose gradient is under this share of the whole
@@ -4093,11 +4186,13 @@ def _coca_step_vs_plain(model, batch, name: str) -> None:
     on the same weights: ``STEP_TOL`` (bf16: all tensors together; fp32:
     every tensor whose gradient is at least ``COCA_FP32_NOISE`` of the whole
     gradient's norm, the others to that share in absolute error)."""
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
     loss_tol, min_cos = STEP_TOL[name]
     _set_attn_impl(model, "auto")
-    loss_k, grads_k = _coca_loss_and_grads(model, batch)
+    loss_k, grads_k, _ = _model_loss_and_grads(model, batch, StepCfg(loss_type="coca"))
     _set_attn_impl(model, "xla")
-    loss_p, grads_p = _coca_loss_and_grads(model, batch)
+    loss_p, grads_p, _ = _model_loss_and_grads(model, batch, StepCfg(loss_type="coca"))
     _set_attn_impl(model, "auto")
     check(grads_k.keys() == grads_p.keys() and len(grads_k) == len(list(model.parameters())),
           "the two CoCa runs have different gradients")
@@ -4433,6 +4528,330 @@ def phase_coca(work: str, d: dict) -> dict:
     return {"launches": total, "latency_ms": lat, "step_ms": host_ms, "peak_gib": peak}
 
 
+def _siglip_batch(tokenizer, n: int, seed: int = SEED + 60) -> dict:
+    """Seeded pixels at 224 px and n distinct captions (64 tokens)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    captions = [f"a photo of a {['red', 'green', 'blue', 'black'][i % 4]} "
+                f"{['cat', 'dog', 'car', 'boat', 'bird'][i % 5]} number {i} in the park"
+                for i in range(n)]
+    return {"images": torch.from_numpy(rng.normal(size=(n, 224, 224, 3)).astype(
+                np.float32)).to(DEVICE),
+            "texts": torch.from_numpy(tokenizer(captions)).long().to(DEVICE)}
+
+
+def _siglip_step_vs_plain(model, batch, name: str, want_counts: dict) -> dict:
+    """One SigLIP loss and every gradient through the kernels against plain
+    attention on the same weights, ``STEP_TOL``: bf16 all tensors together,
+    fp32 every tensor. The kernel run's launches must be ``want_counts``;
+    the tensors with the lowest cosines are printed with their share of the
+    whole gradient's norm."""
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
+    cfg = StepCfg(loss_type="siglip", siglip_dist_impl="bidir")
+    loss_tol, min_cos = STEP_TOL[name]
+    _set_attn_impl(model, "auto")
+    loss_k, grads_k, counts = _model_loss_and_grads(model, batch, cfg)
+    _set_attn_impl(model, "xla")
+    loss_p, grads_p, _ = _model_loss_and_grads(model, batch, cfg)
+    _set_attn_impl(model, "auto")
+    check(grads_k.keys() == grads_p.keys() and len(grads_k) == len(list(model.parameters())),
+          "the two SigLIP runs have different gradients")
+    cos, together = _grad_cosines(grads_k, grads_p)
+    whole = sum(float(g.double().norm()) ** 2 for g in grads_p.values()) ** 0.5
+    lowest = sorted(cos, key=cos.get)[:3]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    held = together if name == "bfloat16" else cos[lowest[0]]
+    shares = [(n, round(cos[n], 7), f"{float(grads_p[n].double().norm()) / whole:.1e}")
+              for n in lowest]
+    need = "together" if name == "bfloat16" else "per tensor"
+    print(f"siglip step {SIGLIP_MODEL} {name} batch {batch['images'].shape[0]}: loss "
+          f"{loss_k:.6f} through the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol "
+          f"{loss_tol:g}); gradient cosine all tensors together {together:.7f}, per tensor "
+          f"lowest {shares} (cosine, share of the whole norm {whole:.4e}); "
+          f"{sum(c < min_cos for c in cos.values())} of {len(cos)} below {min_cos} (need "
+          f"{need} >= {min_cos}); kernel run launches {counts}, expected {want_counts}",
+          flush=True)
+    check(counts == want_counts, f"the {name} SigLIP step launched {counts}")
+    check(rel <= loss_tol and held >= min_cos,
+          f"the {name} SigLIP step through the kernels disagrees with plain attention")
+    return {"loss": loss_k, "together": together, "min_cosine": cos[lowest[0]]}
+
+
+def _write_siglip_shards(d: dict, out: str) -> str:
+    """Four tar shards in the webdataset layout from mini-Flickr's train rows:
+    ``SIGLIP_SHARD_SAMPLES`` samples each of a JPEG and its caption as
+    ``.txt``, one sample's caption in a ``.json`` member instead. Returns
+    the brace pattern."""
+    import csv
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    with open(d["train_csv"]) as f:
+        rows = [(r["filepath"], r["title"]) for r in csv.DictReader(f)]
+    os.makedirs(out, exist_ok=True)
+    jpeg = {}
+    for s in range(4):
+        with tarfile.open(os.path.join(out, f"shards-{s:05d}.tar"), "w") as tf:
+            for i in range(SIGLIP_SHARD_SAMPLES):
+                path, caption = rows[(s * SIGLIP_SHARD_SAMPLES + i) % len(rows)]
+                if path not in jpeg:
+                    buf = io.BytesIO()
+                    with Image.open(path) as img:
+                        img.convert("RGB").save(buf, format="JPEG", quality=90)
+                    jpeg[path] = buf.getvalue()
+                text = (("json", json.dumps({"caption": caption}).encode()) if (s, i) == (2, 5)
+                        else ("txt", caption.encode()))
+                for ext, data in (("jpg", jpeg[path]), text):
+                    info = tarfile.TarInfo(f"{s:02d}{i:05d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return os.path.join(out, "shards-{00000..00003}.tar")
+
+
+def phase_siglip(work: str, d: dict) -> dict:
+    """SigLIP at ViT-B-16-SigLIP's full width and depth (phase 23; vision 12
+    x 768 over 196 patch tokens, no CLS, the MAP head's probe; text 12 x 768
+    over 64 tokens, no causal mask, last-token pooling, a biased
+    projection; 203,155,970 parameters), seeded: (a) written with the
+    committed c4-en vocabulary (``tokenizer.json``) and a T5
+    ``tokenizer_config.json`` into the hub repo of the ``webli`` tag, loaded
+    by ``create_model`` and ``get_tokenizer`` from that cache, exact; (b)
+    serving fp32 through ``ClipInferenceEngine`` and the HTTP server: 13
+    fused-forward launches a vision call (12 blocks and the head), 12 a
+    text call, features through the kernels against plain attention
+    (cosine >= 0.9999); (c) the step: bf16 at ``SIGLIP_BATCH`` with
+    ``--grad-checkpointing``, one loss and gradient against plain attention
+    (``STEP_TOL`` bf16; 25 + 24 forward and 25 backward launches: the blocks
+    recompute, the head does not), three steps' launches, host clock,
+    CUDA-event time and peak memory; fp32 (TF32 off) at
+    ``SIGLIP_FP32_BATCH`` against plain attention (``STEP_TOL`` fp32, every
+    tensor); (d) Config 4's flags through ``train.main`` (``--siglip
+    --precision bf16 --dataset-type webdataset --loss-dist-impl bidir
+    --grad-checkpointing``, batch 128, ``--pretrained webli --cache-dir``)
+    on four tar shards written from mini-Flickr: per-step losses,
+    samples/s, wall, launches. Returns the launches."""
+    import base64
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import ClipInferenceEngine
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, create_model_and_transforms, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.serve import ClipServer, make_http_server
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, TrainState, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    # ---- (a) the seeded hub repo of the tag, loaded by tag ----
+    t0 = time.perf_counter()
+    src, _ = create_model(SIGLIP_MODEL, device="cpu", seed=SEED + 60)
+    n_params = sum(p.numel() for p in src.parameters())
+    sd = src.state_dict()
+    del src
+    hub_id = get_pretrained_cfg(SIGLIP_MODEL, SIGLIP_TAG)["hf_hub"].rstrip("/")
+    cache = os.path.join(work, "siglip_hub")
+    repo = os.path.join(cache, "models--" + hub_id.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", HUB_REV)
+    os.makedirs(os.path.join(repo, "refs"))
+    os.makedirs(snap)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(HUB_REV)
+    torch.save(sd, os.path.join(snap, "open_clip_pytorch_model.bin"))
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)), SIGLIP_VOCAB),
+                os.path.join(snap, "tokenizer.json"))
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5Tokenizer", "eos_token": "</s>", "unk_token": "<unk>",
+                   "pad_token": "</s>", "extra_ids": 0, "model_max_length": 64}, f)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, pp_val = create_model_and_transforms(SIGLIP_MODEL, pretrained=SIGLIP_TAG,
+                                                cache_dir=cache, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    tokenizer = get_tokenizer(SIGLIP_MODEL, cache_dir=cache)
+    exact = _exactly(model, sd)
+    gib = os.path.getsize(os.path.join(snap, "open_clip_pytorch_model.bin")) / 2**30
+    print(f"siglip (a): seeded {SIGLIP_MODEL}, {n_params:,} parameters, written in "
+          f"{write_s:.2f} s ({gib:.3f} GiB, open_clip CustomTextCLIP layout: visual.trunk.* + text.*, hub repo {hub_id} "
+          f"with tokenizer.json and tokenizer_config.json), loaded by tag {SIGLIP_TAG} in "
+          f"{load_s:.2f} s; the written values exactly: {exact}; tokenizer "
+          f"{type(tokenizer).__name__}, pad {tokenizer.pad_token_id}, eos "
+          f"{tokenizer.eos_token_id}", flush=True)
+    check(exact, "the SigLIP checkpoint loaded by tag differs from the written one")
+    check(n_params == 203_155_970, f"ViT-B-16-SigLIP has {n_params:,} parameters")
+    check(type(tokenizer).__name__ == "HFTokenizer", "the SigLIP tokenizer")
+    del sd
+
+    # ---- (b) serving, fp32 ----
+    engine = ClipInferenceEngine(model, image_size=model.visual.image_size,
+                                 context_length=model.context_length, buckets=SIGLIP_BUCKETS)
+    engine.warmup()
+    paths = sorted(os.listdir(d["img_dir"]))[:8]
+    images_b64, pixels = [], []
+    for p in paths:
+        with open(os.path.join(d["img_dir"], p), "rb") as f:
+            raw = f.read()
+        images_b64.append(base64.b64encode(raw).decode())
+    captions = ["a photo of a cat", "a dog on the beach", "two red cars in the street",
+                "an image of a bird", "a man holding a ball", "a blue boat on the water",
+                "a child sitting on a chair", "a horse near a tree"]
+    server = ClipServer(engine, pp_val, tokenizer)
+    pixels = server._decode_images(images_b64)
+    ids = tokenizer(captions)
+    counts = {}
+    with torch.inference_mode():
+        for what, fn, arg in (("image", engine.encode_image, pixels),
+                              ("text", engine.encode_text, ids)):
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = fn(arg)
+            torch.cuda.synchronize()
+            counts[what] = _read_counts()
+            add(counts[what])
+            _set_attn_impl(model, "xla")
+            want = fn(arg)
+            _set_attn_impl(model, "auto")
+            cos = float((torch.nn.functional.cosine_similarity(
+                torch.from_numpy(got).double(), torch.from_numpy(want).double(), dim=-1)).min())
+            norms = np.linalg.norm(got, axis=-1)
+            n_want = 13 if what == "image" else 12
+            print(f"siglip (b) encode_{what} fp32 bucket 8: launches {counts[what]} (expected "
+                  f"{n_want} fused forward), cosine vs plain attention min {cos:.8f} (need >= "
+                  f"{MIN_COSINE}), norms {norms.min():.6f}-{norms.max():.6f}", flush=True)
+            check(counts[what] == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                                   "fused_attention_bwd": 0} and cos >= MIN_COSINE
+                  and np.allclose(norms, 1, atol=1e-5),
+                  f"the SigLIP engine's encode_{what} through the kernels")
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status_i, feats_i = _post(base, "/v1/encode_image", {"images_b64": images_b64[:2]})
+        status_t, feats_t = _post(base, "/v1/encode_text", {"texts": captions[:2]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    fi, ft = np.asarray(feats_i["features"]), np.asarray(feats_t["features"])
+    print(f"siglip (b) HTTP /v1/encode_image {status_i} {fi.shape}, /v1/encode_text "
+          f"{status_t} {ft.shape}", flush=True)
+    dim = model.embed_dim
+    check(status_i == status_t == 200 and fi.shape == (2, dim) and ft.shape == (2, dim),
+          "the SigLIP server's encoders")
+    lat = {}
+    for b in SIGLIP_BUCKETS:
+        x = torch.from_numpy(np.repeat(pixels, 8, axis=0)[:b]).to(DEVICE)
+        t = torch.from_numpy(np.repeat(ids, 8, axis=0)[:b]).long().to(DEVICE)
+        with torch.inference_mode():
+            lat[f"image b{b}"] = time_ms(lambda: model.encode_image(x), iters=10)
+            lat[f"text b{b}"] = time_ms(lambda: model.encode_text(t), iters=10)
+    print(f"time siglip tower fp32 per call (CUDA events, ms): "
+          f"{ {k: round(v, 3) for k, v in lat.items()} } [{CARD}]", flush=True)
+    del engine, server
+
+    # ---- (c) the step: bf16 at SIGLIP_BATCH checkpointed, then fp32 ----
+    model.train()
+    _set_compute_dtype(model, torch.bfloat16)
+    model.set_grad_checkpointing(True)
+    batch = _siglip_batch(tokenizer, SIGLIP_BATCH)
+    step_want = {"flash_attention_fwd": 0, "fused_attention_fwd": 25 + 24,
+                 "fused_attention_bwd": 25}
+    bf16 = _siglip_step_vs_plain(model, batch, "bfloat16", step_want)
+    # a warm-up, as the CLI's: at the full rate from step 0 the third step's
+    # loss jumps to ~220 (first card run)
+    optimizer, _ = build_optimizer(dict(model.named_parameters()),
+                                   OptimCfg(text_tower_style="custom_text"),
+                                   cosine_lr(5e-4, 100, 1000))
+    state = TrainState(model, None, optimizer, 0, torch.Generator().manual_seed(SEED))
+    train_step = make_train_step(model, StepCfg(loss_type="siglip", siglip_dist_impl="bidir"))
+    losses = []
+    _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+    for _ in range(SIGLIP_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["total_loss"]))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    want_counts = {k: v * SIGLIP_STEPS for k, v in step_want.items()}
+    torch.cuda.reset_peak_memory_stats()
+    host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        train_step(state, batch)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end) / 3
+    print(f"siglip (c) train step {SIGLIP_MODEL} bf16 batch {SIGLIP_BATCH} "
+          f"--grad-checkpointing: losses {losses}; launches {counts} over {SIGLIP_STEPS} steps, "
+          f"expected {want_counts}; host clock {host_ms:.3f} ms a step "
+          f"({SIGLIP_BATCH / host_ms * 1e3:.1f} samples/s), CUDA events {event_ms:.3f} ms; peak "
+          f"{peak:.3f} GiB [{CARD}]", flush=True)
+    check(counts == want_counts and all(math.isfinite(x) for x in losses),
+          f"the SigLIP steps: {counts}")
+    state.optimizer = optimizer = train_step = None
+    torch.cuda.empty_cache()
+    _set_compute_dtype(model, torch.float32)
+    model.set_grad_checkpointing(False)
+    fp32 = _siglip_step_vs_plain(
+        model, _siglip_batch(tokenizer, SIGLIP_FP32_BATCH, seed=SEED + 61), "float32",
+        {"flash_attention_fwd": 0, "fused_attention_fwd": 25, "fused_attention_bwd": 25})
+    del model, state
+    torch.cuda.empty_cache()
+
+    # ---- (d) Config 4's flags through train.main ----
+    t0 = time.perf_counter()
+    shards = _write_siglip_shards(d, os.path.join(work, "siglip_shards"))
+    shard_s = time.perf_counter() - t0
+    n_samples = SIGLIP_STEPS * SIGLIP_BATCH
+    argv = ["--model", SIGLIP_MODEL, "--siglip", "--precision", "bf16", "--dataset-type",
+            "webdataset", "--train-data", shards, "--loss-dist-impl", "bidir",
+            "--grad-checkpointing", "--batch-size", str(SIGLIP_BATCH), "--train-num-samples",
+            str(n_samples), "--pretrained", SIGLIP_TAG, "--cache-dir", cache, "--epochs", "1",
+            "--save-frequency", "0", "--workers", "8", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--logs", work, "--name", "siglip_cli",
+            "--device", DEVICE]
+    records, counts, wall, seconds = _eval_cli_run(argv)
+    add(counts)
+    want_counts = {k: v * SIGLIP_STEPS for k, v in step_want.items()}
+    train_s = seconds.get("train_one_epoch", 0.0)
+    cli_losses = [r["total_loss"] for r in records]
+    print(f"siglip (d) train.main Config 4 flags ({' '.join(argv[:14])} ...) batch "
+          f"{SIGLIP_BATCH} on 4 tar shards of {SIGLIP_SHARD_SAMPLES} samples (written in "
+          f"{shard_s:.2f} s): {len(records)} steps, losses {cli_losses}; wall {wall:.2f} s "
+          f"(train {train_s:.2f} s, {n_samples / max(train_s, 1e-9):.1f} samples/s with loading); "
+          f"launches {counts}, expected {want_counts} [{CARD}]", flush=True)
+    check(len(records) == SIGLIP_STEPS and all(math.isfinite(x) for x in cli_losses),
+          "the Config 4 CLI run's losses")
+    check(counts == want_counts, f"the Config 4 CLI run launched {counts}, expected {want_counts}")
+    torch.cuda.empty_cache()
+    print(f"siglip: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": total, "step_ms": host_ms, "event_ms": event_ms, "peak_gib": peak,
+            "cli_wall_s": wall, "bf16": bf16, "fp32": fp32, "tower_ms": lat}
+
+
 def _dist_child_main() -> None:
     import faulthandler
 
@@ -4488,6 +4907,8 @@ def main() -> None:
         _elapsed("data")
         coca = phase_coca(work, data)
         _elapsed("coca")
+        siglip = phase_siglip(work, data)
+        _elapsed("siglip")
         eval_cli = phase_train_eval_cli(data, work)
         _elapsed("train_eval_cli")
         teacher_dir, teacher_launches = phase_teacher(work)
@@ -4544,7 +4965,8 @@ def main() -> None:
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
-        + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"],
+        + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
+        + siglip["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -4568,6 +4990,10 @@ def main() -> None:
                   **by_case[_case_key(case)]}
                  for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                  for case in COCA_CASES],
+        "siglip": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                    **by_case[_case_key(case)]}
+                   for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                   for case in SIGLIP_TIMED],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -4575,7 +5001,7 @@ def main() -> None:
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
         + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
-        + coca["launches"]["fused_attention_bwd"],
+        + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -4595,6 +5021,10 @@ def main() -> None:
                   **by_case[_case_key(case)]}
                  for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                  for case in COCA_CASES],
+        "siglip": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                    **by_case[_case_key(case)]}
+                   for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                   for case in SIGLIP_TIMED],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

@@ -26,5 +26,5 @@ from .models import (
     parse_model_cfg,
     register_model_config,
 )
-from .tokenizer import SimpleTokenizer, decode, tokenize
+from .tokenizer import HFTokenizer, SigLipTokenizer, SimpleTokenizer, decode, tokenize
 from .transform import PreprocessCfg, image_transform_v2

@@ -6,11 +6,14 @@ vision tower under ``visual.``, the text tower's parts at top level
 (``token_embedding``, ``positional_embedding``, ``transformer``,
 ``ln_final``, ``text_projection``), then ``logit_scale``, also for the
 ``custom_text`` configs (EVA01), whose open_clip checkpoints
-``models/eva.py`` converts. The vision tower is the ViT (with CoCa's
-attentional pooler where configured) or the EVA01 trunk (``models/eva.py``);
-other towers (other timm trunks, ResNet, HF text) raise
-``NotImplementedError``. ``build_model`` builds ``models/coca.py:CoCa``
-where the config has a ``multimodal_cfg``.
+``models/eva.py`` converts. A SigLIP model keeps open_clip's
+``CustomTextCLIP`` layout, as its hub checkpoints do: the timm trunk under
+``visual.trunk.`` (``models/siglip.py``) and the text tower under ``text.``,
+then ``logit_scale`` and ``logit_bias``. The vision tower is the ViT (with
+CoCa's attentional pooler where configured), the EVA01 trunk
+(``models/eva.py``) or the SigLIP trunk; other towers (other timm trunks,
+ResNet, HF text) raise ``NotImplementedError``. ``build_model`` builds
+``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
 ``image_features``, ``text_features`` and the exponentiated ``logit_scale``
@@ -30,21 +33,36 @@ from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .eva import EVA01_DIMS
 from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
                      quick_gelu)
-from .transformer import (MultimodalTransformer, TextTransformer, VisionTransformer,
-                          encode_text_tokens, remat_args)
+from .siglip import SiglipVisionCfg, SiglipVisionTower, gelu_tanh, parse_siglip_timm_name
+from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransformer,
+                          VisionTransformer, encode_text_tokens, remat_args)
 
 
 def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01 and "
-        f"CoCa so far (ROADMAP Queue 1 item {item})"
+        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01, SigLIP "
+        f"and CoCa so far (ROADMAP Queue 1 item {item})"
     )
 
 
 def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool,
                         dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
-                        remat_policy: str = "full") -> VisionTransformer:
+                        remat_policy: str = "full") -> Union[VisionTransformer,
+                                                             SiglipVisionTower]:
     if cfg.timm_model_name is not None:
+        dims = parse_siglip_timm_name(cfg.timm_model_name)
+        if dims is not None:
+            if dims["width"] != embed_dim and cfg.timm_proj in (None, "none"):
+                raise NotImplementedError(
+                    f"SigLIP tower {cfg.timm_model_name!r} width {dims['width']} != "
+                    f"embed_dim {embed_dim} without a projection")
+            # the config's image size wins (the -378 variants), as in JAX
+            return SiglipVisionTower(
+                SiglipVisionCfg(width=dims["width"], layers=dims["layers"], heads=dims["heads"],
+                                mlp_dim=dims["mlp_dim"], patch_size=dims["patch_size"],
+                                image_size=to_2tuple(cfg.image_size)[0]),
+                output_tokens=cfg.output_tokens, attn_impl=attn_impl, compute_dtype=dtype,
+                grad_checkpointing=grad_checkpointing, remat_policy=remat_policy)
         if cfg.timm_model_name not in EVA01_DIMS:
             raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
         # the EVA01 trunk: the standard ViT with timm's four differences
@@ -93,19 +111,23 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
 def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
                       dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
                       remat_policy: str = "full", coca: bool = False) -> TextTransformer:
-    """The causal text transformer; ``coca`` admits CoCa's appended CLS and
-    token outputs (a ``CLIP`` holds the tower's parts at top level, as
-    open_clip's, and has no place for them)."""
+    """The text transformer (``tpu/models/clip.py:329-380``); ``coca``
+    admits CoCa's appended CLS and token outputs (a ``CLIP`` holds the
+    tower's parts at top level, as open_clip's, and has no place for them).
+    The activation is GELU under the dtype rule (QuickGELU where asked), the
+    tanh form whatever the dtype where ``act_kwargs`` asks for it (every
+    SigLIP2 config); ``norm_kwargs``' eps is every LayerNorm's."""
     if cfg.hf_model_name is not None:
         raise _unsupported(f"HF text tower {cfg.hf_model_name!r}")
     if not coca and (cfg.embed_cls or cfg.output_tokens):
         raise _unsupported("CoCa's text tower (embed_cls / output_tokens) outside CoCa")
-    variants = {"a projection other than linear": cfg.proj_bias or cfg.proj_type != "linear",
-                "no_causal_mask": cfg.no_causal_mask, "pool_type": cfg.pool_type != "argmax",
-                "act_kwargs": bool(cfg.act_kwargs), "norm_kwargs": bool(cfg.norm_kwargs)}
-    for what, present in variants.items():
-        if present:
-            raise _unsupported(f"text tower with {what}", "2-3")
+    if cfg.proj_type not in ("linear", "none"):
+        raise _unsupported(f"text projection {cfg.proj_type!r}", "2-3")
+    if cfg.pool_type not in TEXT_POOL_TYPES:
+        raise _unsupported(f"text pool_type {cfg.pool_type!r}", "2-3")
+    act = quick_gelu if use_quick_gelu else gelu
+    if (cfg.act_kwargs or {}).get("approximate") == "tanh":
+        act = gelu_tanh
     return TextTransformer(
         context_length=cfg.context_length,
         vocab_size=cfg.vocab_size,
@@ -115,7 +137,7 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
         mlp_ratio=cfg.mlp_ratio,
         ls_init_value=cfg.ls_init_value,
         output_dim=embed_dim,
-        act=quick_gelu if use_quick_gelu else gelu,
+        act=act,
         attn_impl=attn_impl,
         compute_dtype=dtype,
         grad_checkpointing=grad_checkpointing,
@@ -123,6 +145,11 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
         embed_cls=cfg.embed_cls,
         pad_id=cfg.pad_id,
         output_tokens=cfg.output_tokens,
+        no_causal_mask=cfg.no_causal_mask,
+        pool_type=cfg.pool_type,
+        proj_type=cfg.proj_type,
+        proj_bias=cfg.proj_bias,
+        norm_eps=(cfg.norm_kwargs or {}).get("eps", 1e-5),
     )
 
 
@@ -169,7 +196,10 @@ def init_weights(model: nn.Module, seed: int = 0):
             for p in (m.positional_embedding, m.cls_emb):
                 if p is not None:
                     normal_(p, 0.01)
-            normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
+            if isinstance(m.text_projection, nn.Parameter):  # a Linear: the branch above
+                normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
+        elif isinstance(m, SiglipVisionTower):
+            m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
     return normal_
@@ -187,20 +217,26 @@ class CLIP(nn.Module):
                  grad_checkpointing: Union[bool, str] = False):
         super().__init__()
         remat, policy = remat_args(grad_checkpointing)
+        self.embed_dim = embed_dim
         self.visual = _build_vision_tower(embed_dim, vision_cfg, quick_gelu, dtype, attn_impl,
                                           remat, policy)
         text = _build_text_tower(embed_dim, text_cfg, quick_gelu, dtype, attn_impl, remat,
                                  policy)
-        # open_clip's CLIP layout: the text tower's parts sit at top level
-        self.token_embedding = text.token_embedding
-        self.positional_embedding = text.positional_embedding
-        self.transformer = text.transformer
-        self.ln_final = text.ln_final
-        self.text_projection = text.text_projection
         self.context_length = text.context_length
         self.compute_dtype = dtype
+        if isinstance(self.visual, SiglipVisionTower):
+            # open_clip's CustomTextCLIP layout, as SigLIP's hub checkpoints hold it
+            self.text = text
+        else:
+            # open_clip's CLIP layout: the text tower's parts sit at top level
+            self.token_embedding = text.token_embedding
+            self.positional_embedding = text.positional_embedding
+            self.transformer = text.transformer
+            self.ln_final = text.ln_final
+            self.text_projection = text.text_projection
+            self.causal, self.pool_type = text.causal, text.pool_type
         # open_clip's CustomTextCLIP semantics for locking and the param
-        # groups (``train/main.py:text_tower_style``); the layout stays CLIP's
+        # groups (``train/main.py:text_tower_style``), whatever the layout
         self.custom_text = False
         self.logit_scale = nn.Parameter(torch.tensor(float(init_logit_scale)))
         self.logit_bias = (None if init_logit_bias is None
@@ -210,15 +246,22 @@ class CLIP(nn.Module):
         """Per-block activation checkpointing in both towers (open_clip's
         method; ``Transformer``), under the policy the model was built with."""
         self.visual.set_grad_checkpointing(enable)
-        self.transformer.grad_checkpointing = enable
+        self._text_parts().transformer.grad_checkpointing = enable
+
+    def _text_parts(self) -> nn.Module:
+        """The module holding the text tower's parts: ``text`` in the
+        CustomTextCLIP layout, else the model itself."""
+        return self.text if "text" in self._modules else self
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
         """Seeded random init (``init_weights``); the top-level text
         positions normal(0.01) and projection normal(width^-1/2)."""
         normal_ = init_weights(self, seed)
-        normal_(self.positional_embedding, 0.01)
-        normal_(self.text_projection, self.text_projection.shape[0] ** -0.5)
+        if "text" not in self._modules:
+            normal_(self.positional_embedding, 0.01)
+            if isinstance(self.text_projection, nn.Parameter):
+                normal_(self.text_projection, self.text_projection.shape[0] ** -0.5)
 
     def encode_image(self, image: torch.Tensor, normalize: bool = False,
                      patch_dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -228,7 +271,7 @@ class CLIP(nn.Module):
         return F.normalize(features, dim=-1) if normalize else features
 
     def encode_text(self, text: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        features = encode_text_tokens(self, text)
+        features = encode_text_tokens(self._text_parts(), text)
         return F.normalize(features, dim=-1) if normalize else features
 
     def forward(self, image: Optional[torch.Tensor] = None,

@@ -58,6 +58,7 @@ class CoCa(nn.Module):
         from .clip import _build_text_tower, _build_vision_tower
 
         remat, policy = remat_args(grad_checkpointing)
+        self.embed_dim = embed_dim
         self.visual = _build_vision_tower(embed_dim, vision_cfg, quick_gelu_act, dtype,
                                           attn_impl, remat, policy)
         self.text = _build_text_tower(embed_dim, text_cfg, quick_gelu_act, dtype, attn_impl,

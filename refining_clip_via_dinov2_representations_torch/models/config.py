@@ -2,11 +2,11 @@
 
 The port's copy of the JAX package's ``models/config.py``: the same
 dataclasses (field names and defaults), ``parse_model_cfg`` and the registry
-lookups. The registry holds the standard ViT + text-transformer CLIPs
+lookups. The registry holds the names whose towers the port builds
 (``_registry_data.py``); ``register_model_config`` adds more at run time.
-Fields of towers the port does not build yet (timm and HF towers, CoCa) are
-kept so configs parse; ``models/clip.py`` raises ``NotImplementedError`` when
-asked to build one.
+Fields of towers the port does not build yet (other timm and the HF towers)
+are kept so configs parse; ``models/clip.py`` raises ``NotImplementedError``
+when asked to build one.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Weights carried across from the JAX package's parameter tree.
 
-``jax_params_to_state_dict`` is the port's own copy of the ViT, text and
-CoCa arms of the JAX package's ``models/convert.py:
+``jax_params_to_state_dict`` is the port's own copy of the ViT, SigLIP, text
+and CoCa arms of the JAX package's ``models/convert.py:
 flax_params_to_torch_state_dict``: the param tree (nested dicts of numpy
 arrays, as ``jax.device_get`` returns it) becomes an open_clip-layout state
 dict that loads into ``models.clip.CLIP`` (or ``models.coca.CoCa``) with
@@ -95,25 +95,99 @@ def _emit_pooler(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], prefix: s
     sd[f"{prefix}.attn.out_proj.bias"] = _t(tree["out_proj"]["bias"])
 
 
+def _emit_siglip_trunk(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``SiglipVisionTower`` tree in timm's names under
+    ``visual.trunk.``, as ``tpu/models/siglip.py:
+    siglip_vision_params_to_timm_state_dict`` emits it: the fused
+    ``head_attn`` kernel split into the head's ``q`` and fused ``kv``."""
+    pre = "visual.trunk."
+    patch = visual["patch_embedding"]
+    sd[pre + "patch_embed.proj.weight"] = _t(np.transpose(np.asarray(patch["kernel"]),
+                                                          (3, 2, 0, 1)))
+    sd[pre + "patch_embed.proj.bias"] = _t(patch["bias"])
+    pos = np.asarray(visual["position_embedding"])
+    sd[pre + "pos_embed"] = _t(pos.reshape(1, *pos.shape))
+
+    def dense(name: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{pre}{name}.weight"] = _t(tree["kernel"], transpose=True)
+        sd[f"{pre}{name}.bias"] = _t(tree["bias"])
+
+    def norm(name: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{pre}{name}.weight"] = _t(tree["scale"])
+        sd[f"{pre}{name}.bias"] = _t(tree["bias"])
+
+    for name, blk in _blocks(visual, "layers"):
+        b = f"blocks.{name.rsplit('_', 1)[-1]}"
+        norm(f"{b}.norm1", blk["layer_norm1"])
+        norm(f"{b}.norm2", blk["layer_norm2"])
+        dense(f"{b}.attn.qkv", {"kernel": blk["attn"]["in_proj_kernel"],
+                                "bias": blk["attn"]["in_proj_bias"]})
+        dense(f"{b}.attn.proj", blk["attn"]["out_proj"])
+        dense(f"{b}.mlp.fc1", blk["fc1"])
+        dense(f"{b}.mlp.fc2", blk["fc2"])
+    norm("norm", visual["post_layernorm"])
+    probe = np.asarray(visual["probe"])
+    sd[pre + "attn_pool.latent"] = _t(probe.reshape(1, 1, -1))
+    head = visual["head_attn"]
+    kernel, bias = np.asarray(head["in_proj_kernel"]), np.asarray(head["in_proj_bias"])
+    d = kernel.shape[0]
+    dense("attn_pool.q", {"kernel": kernel[:, :d], "bias": bias[:d]})
+    dense("attn_pool.kv", {"kernel": kernel[:, d:], "bias": bias[d:]})
+    dense("attn_pool.proj", head["out_proj"])
+    norm("attn_pool.norm", visual["head_layernorm"])
+    dense("attn_pool.mlp.fc1", visual["head_fc1"])
+    dense("attn_pool.mlp.fc2", visual["head_fc2"])
+
+
+def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
+    """A JAX ``TextTransformer`` tree under the prefix ``tp``; its
+    projection a matrix, a Dense (``proj_bias``: ``text_projection.weight``
+    and ``.bias``) or none (``proj_type: "none"``)."""
+    sd[f"{tp}token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
+    sd[f"{tp}positional_embedding"] = _t(text["positional_embedding"])
+    if "cls_emb" in text:
+        sd[f"{tp}cls_emb"] = _t(text["cls_emb"])
+    for name, block in _blocks(text["transformer"]):
+        _emit_block(sd, block, f"{tp}transformer.resblocks.{name.rsplit('_', 1)[-1]}")
+    sd[f"{tp}ln_final.weight"] = _t(text["ln_final"]["scale"])
+    sd[f"{tp}ln_final.bias"] = _t(text["ln_final"]["bias"])
+    proj = text.get("text_projection")
+    if isinstance(proj, Mapping):
+        sd[f"{tp}text_projection.weight"] = _t(proj["kernel"], transpose=True)
+        sd[f"{tp}text_projection.bias"] = _t(proj["bias"])
+    elif proj is not None:
+        sd[f"{tp}text_projection"] = _t(proj)
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX CLIP or CoCa params (``variables["params"]``) -> open_clip state
-    dict: CLIP's text tower at top level, CoCa's under ``text.``, with its
-    attentional poolers (``visual.attn_pool``, ``visual.attn_pool_contrastive``)
-    and its decoder (``text_decoder.resblocks``, ``text_decoder.cross_attn``)."""
+    """JAX CLIP, SigLIP or CoCa params (``variables["params"]``) -> open_clip
+    state dict: CLIP's text tower at top level; SigLIP's in open_clip's
+    CustomTextCLIP layout (the trunk in timm's names under ``visual.trunk.``,
+    the text tower under ``text.``, ``logit_bias``), as the JAX exporter
+    emits it; CoCa's text under ``text.``, with its attentional poolers
+    (``visual.attn_pool``, ``visual.attn_pool_contrastive``) and its decoder
+    (``text_decoder.resblocks``, ``text_decoder.cross_attn``)."""
     params = params.get("params", params)
     visual, text = params["visual"], params["text"]
     coca = "text_decoder" in params
-    if "transformer" not in visual or "conv1" not in visual:
-        raise NotImplementedError(
-            "jax_params_to_state_dict covers the standard ViT vision tower; "
-            f"this tree has {sorted(visual)}"
-        )
     if "token_embedding" not in text or ("cls_emb" in text and not coca):
         raise NotImplementedError(
             "jax_params_to_state_dict covers the causal text transformer; "
             f"this tree has {sorted(text)}"
         )
     sd: Dict[str, torch.Tensor] = {}
+    if "patch_embedding" in visual and "probe" in visual:  # the SigLIP tower
+        _emit_siglip_trunk(sd, visual)
+        _emit_text(sd, text, "text.")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        if "logit_bias" in params:
+            sd["logit_bias"] = _t(params["logit_bias"])
+        return sd
+    if "transformer" not in visual or "conv1" not in visual:
+        raise NotImplementedError(
+            "jax_params_to_state_dict covers the standard ViT vision tower; "
+            f"this tree has {sorted(visual)}"
+        )
     sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]), (3, 2, 0, 1)))
     if "bias" in visual["conv1"]:  # EVA01's biased patch embedding
         sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
@@ -135,16 +209,7 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     else:
         sd["visual.proj"] = _t(visual["proj"])
 
-    tp = "text." if coca else ""
-    sd[f"{tp}token_embedding.weight"] = _t(text["token_embedding"]["embedding"])
-    sd[f"{tp}positional_embedding"] = _t(text["positional_embedding"])
-    if "cls_emb" in text:
-        sd[f"{tp}cls_emb"] = _t(text["cls_emb"])
-    for name, block in _blocks(text["transformer"]):
-        _emit_block(sd, block, f"{tp}transformer.resblocks.{name.rsplit('_', 1)[-1]}")
-    sd[f"{tp}ln_final.weight"] = _t(text["ln_final"]["scale"])
-    sd[f"{tp}ln_final.bias"] = _t(text["ln_final"]["bias"])
-    sd[f"{tp}text_projection"] = _t(text["text_projection"])
+    _emit_text(sd, text, "text." if coca else "")
 
     if coca:
         dec = params["text_decoder"]

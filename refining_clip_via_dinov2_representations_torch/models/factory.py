@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..tokenizer import DEFAULT_CONTEXT_LENGTH, SimpleTokenizer
+from ..tokenizer import DEFAULT_CONTEXT_LENGTH, HFTokenizer, SigLipTokenizer, SimpleTokenizer
 from ..transform import PreprocessCfg, image_transform_v2, merge_preprocess_dict
 from ._safetensors import load_safetensors
 from .clip import CLIP, build_model
@@ -133,13 +133,14 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
                  strict: bool = True) -> Tuple[List[str], List[str]]:
     """Loads ``state_dict`` into ``model`` as the JAX ``_merge_params``
     merges (an EVA01 CustomTextCLIP layout converted first,
-    ``models/eva.py``): ``visual.positional_embedding`` and ``positional_embedding`` of
+    ``models/eva.py``; a SigLIP model takes that layout as it is):
+    ``visual.positional_embedding`` and ``positional_embedding`` of
     another length are resized, another tensor of the same size reshaped,
     values cast to the parameters' dtype; ``attn_mask`` buffers are skipped.
     Returns ``(missing, unexpected)`` keys; with ``strict`` either raises."""
     own = model.state_dict()
-    if any(k.startswith(TRUNK) for k in state_dict):  # open_clip's EVA CustomTextCLIP
-        state_dict = convert_eva_clip_state_dict(state_dict)
+    if any(k.startswith(TRUNK) for k in state_dict) and not any(k.startswith(TRUNK) for k in own):
+        state_dict = convert_eva_clip_state_dict(state_dict)  # open_clip's EVA CustomTextCLIP
     sd = {k: v for k, v in state_dict.items() if not k.endswith("attn_mask")}
     loaded = {}
     for k, v in sd.items():
@@ -314,18 +315,35 @@ def create_model_from_pretrained(model_name: str, pretrained: Optional[str] = No
 
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
-                  cache_dir: Optional[str] = None):
-    """The CLIP BPE tokenizer at the model's context length (an ``hf-hub:``
-    name's from its cached ``open_clip_config.json``)."""
+                  cache_dir: Optional[str] = None, **kwargs):
+    """The model's tokenizer at its context length, dispatched as the JAX
+    ``get_tokenizer`` (``tpu/models/factory.py:539-581``): a config's
+    ``hf_tokenizer_name`` gives ``HFTokenizer`` over that hub repo's cached
+    files (``tokenizer_kwargs``, such as SigLIP's ``clean: canonicalize``,
+    and ``kwargs`` passed on); a SigLIP name without one gives
+    ``SigLipTokenizer``; else the CLIP BPE. An ``hf-hub:`` name takes its
+    cached ``open_clip_config.json``, and without one its own tokenizer
+    files. Nothing is downloaded."""
     if model_name.startswith(HF_HUB_PREFIX):
-        config = _hub_config(model_name[len(HF_HUB_PREFIX):], cache_dir)["model_cfg"]
+        model_id = model_name[len(HF_HUB_PREFIX):]
+        try:
+            config = _hub_config(model_id, cache_dir)["model_cfg"]
+        except FileNotFoundError:
+            return HFTokenizer(model_id, context_length=context_length or DEFAULT_CONTEXT_LENGTH,
+                               cache_dir=cache_dir, **kwargs)
     else:
         config = get_model_config(model_name.replace("/", "-"))
     if config is None:
         raise RuntimeError(f"No valid model config found for {model_name}.")
     text_config = config.get("text_cfg", {})
-    if text_config.get("hf_tokenizer_name"):
-        raise NotImplementedError("HF tokenizers are not ported")
+    tokenizer_kwargs = dict(text_config.get("tokenizer_kwargs", {}), **kwargs)
     if context_length is None:
         context_length = text_config.get("context_length", DEFAULT_CONTEXT_LENGTH)
-    return SimpleTokenizer(context_length=context_length)
+    if text_config.get("hf_tokenizer_name"):
+        return HFTokenizer(text_config["hf_tokenizer_name"], context_length=context_length,
+                           cache_dir=cache_dir, **tokenizer_kwargs)
+    lname = model_name.lower()
+    if "siglip" in lname:
+        name = "gemma" if "siglip2" in lname else ("mc4" if "i18n" in lname else "c4-en")
+        return SigLipTokenizer(name, context_length=context_length)
+    return SimpleTokenizer(context_length=context_length, **tokenizer_kwargs)

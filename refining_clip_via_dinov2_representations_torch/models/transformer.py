@@ -5,7 +5,9 @@ The port of the JAX package's ``models/transformer.py``: the ViT with a
 class token, learnable positional embedding, 'tok' pooling and CoCa's
 attentional poolers; the causal text transformer with argmax-EOT pooling or
 CoCa's appended CLS; the CoCa decoder; KV-cache decode. (The CLIPA/timm
-variants come later.) Parameter names are open_clip's, so
+variants come later; the SigLIP tower is ``models/siglip.py``.) The text
+transformer's SigLIP options: no causal mask, first/last pooling, a biased
+or no projection, LayerNorm eps. Parameter names are open_clip's, so
 ``models/convert.py`` output loads with ``strict=True``.
 
 Images are NHWC at the public boundary, as in the JAX package (NCHW is
@@ -232,11 +234,32 @@ class Transformer(nn.Module):
         return run_blocks(self.resblocks, x, remat, self.remat_policy, causal=causal, mask=mask)
 
 
-def text_global_pool(x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
-    """Argmax-EOT pooling: each sequence's features at its highest token id,
-    the EOT (the first one on ties, so all-zero padding rows pool at
-    position 0). The only text pooling the port builds."""
+TEXT_POOL_TYPES = ("argmax", "first", "last")
+
+
+def text_global_pool(x: torch.Tensor, text: Optional[torch.Tensor] = None,
+                     pool_type: str = "argmax") -> torch.Tensor:
+    """The text tower's pooling (``tpu/models/transformer.py:193-207``):
+    ``"first"`` and ``"last"`` take that row; ``"argmax"`` each sequence's
+    features at its highest token id, the EOT (the first one on ties, so
+    all-zero padding rows pool at position 0)."""
+    if pool_type == "first":
+        return x[:, 0]
+    if pool_type == "last":
+        return x[:, -1]
+    if pool_type != "argmax":
+        raise ValueError(f"text pool_type {pool_type!r}: one of {TEXT_POOL_TYPES}")
     return x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
+
+
+def project_text(pooled: torch.Tensor, proj) -> torch.Tensor:
+    """The text projection: a [width, out] matrix, a biased ``Linear``
+    (``proj_bias``), or none (``proj_type: "none"``)."""
+    if proj is None:
+        return pooled
+    if isinstance(proj, nn.Linear):
+        return _linear(pooled, proj)
+    return pooled @ proj.to(pooled.dtype)
 
 
 class VisionTransformer(nn.Module):
@@ -350,27 +373,33 @@ class VisionTransformer(nn.Module):
 def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
     """The text-tower forward over a module holding its parts
     (``token_embedding``, ``positional_embedding``, ``transformer``,
-    ``ln_final``, ``text_projection``, ``compute_dtype``): a
-    ``TextTransformer``, or a ``CLIP``, which holds them at top level as
-    open_clip's CLIP does."""
+    ``ln_final``, ``text_projection``, ``compute_dtype``, ``causal``,
+    ``pool_type``): a ``TextTransformer``, or a ``CLIP``, which holds them at
+    top level as open_clip's CLIP does. A non-causal tower (SigLIP's) takes
+    no mask at all, so its attention reaches the fused kernel with
+    ``causal=False``."""
     dtype = tower.compute_dtype
     # a width-split table (``parallel/tensor.py``) looks up this rank's columns
     emb = tower.token_embedding
     x = gather_from_model(emb(text), getattr(emb, "tp", None)).to(dtype)
     x = x + tower.positional_embedding[: text.shape[1]].to(dtype)
-    x = tower.ln_final(tower.transformer(x, causal=True))
-    pooled = text_global_pool(x, text)
-    return pooled @ tower.text_projection.to(dtype)
+    x = tower.ln_final(tower.transformer(x, causal=tower.causal))
+    pooled = text_global_pool(x, text, tower.pool_type)
+    return project_text(pooled, tower.text_projection)
 
 
 class TextTransformer(nn.Module):
-    """Causal text transformer with argmax-EOT pooling; with ``embed_cls``
-    CoCa's tower (``tpu/models/transformer.py:418-575``): a learned CLS
-    appended at the end, an additive mask of the causal rule plus
-    ``_cls_mask`` (so the tower takes the plain attention, as in JAX), the
-    CLS row pooled then ``ln_final``, and the other rows as its tokens.
-    ``output_tokens`` returns ``(pooled, tokens)``. ``caches``/``pos`` run
-    one decode step of a single token and return ``(tokens, caches)``."""
+    """Text transformer (``tpu/models/transformer.py:418-575``): causal with
+    argmax-EOT pooling by default; ``no_causal_mask`` (no mask at all),
+    ``pool_type`` ``"first"``/``"last"``/``"argmax"``, a biased ``Linear``
+    projection (``proj_bias``) or none (``proj_type="none"``) and
+    ``norm_eps`` (every LayerNorm's) are SigLIP's options. With
+    ``embed_cls`` CoCa's tower: a learned CLS appended at the end, an
+    additive mask of the causal rule plus ``_cls_mask`` (so the tower takes
+    the plain attention, as in JAX), the CLS row pooled then ``ln_final``,
+    and the other rows as its tokens. ``output_tokens`` returns ``(pooled,
+    tokens)``. ``caches``/``pos`` run one decode step of a single token and
+    return ``(tokens, caches)``."""
 
     def __init__(self, context_length: int = 77, vocab_size: int = 49408,
                  width: int = 512, heads: int = 8, layers: int = 12,
@@ -378,19 +407,30 @@ class TextTransformer(nn.Module):
                  output_dim: int = 512, act: Callable = gelu, attn_impl: str = "auto",
                  compute_dtype: torch.dtype = torch.float32, grad_checkpointing: bool = False,
                  remat_policy: str = "full", embed_cls: bool = False, pad_id: int = 0,
-                 output_tokens: bool = False):
+                 output_tokens: bool = False, no_causal_mask: bool = False,
+                 pool_type: str = "argmax", proj_type: str = "linear", proj_bias: bool = False,
+                 norm_eps: float = 1e-5):
         super().__init__()
+        if pool_type not in TEXT_POOL_TYPES:
+            raise ValueError(f"text pool_type {pool_type!r}: one of {TEXT_POOL_TYPES}")
         self.context_length = context_length
         self.compute_dtype = compute_dtype
         self.embed_cls, self.pad_id, self.output_tokens = embed_cls, pad_id, output_tokens
+        self.causal, self.pool_type = not no_causal_mask, pool_type
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(
             torch.zeros(context_length + (1 if embed_cls else 0), width))
         self.cls_emb = nn.Parameter(torch.zeros(width)) if embed_cls else None
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
-                                       act, attn_impl, grad_checkpointing, remat_policy)
-        self.ln_final = LayerNorm(width)
-        self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
+                                       act, attn_impl, grad_checkpointing, remat_policy,
+                                       norm_eps)
+        self.ln_final = LayerNorm(width, norm_eps)
+        if proj_type == "none" or not output_dim:
+            self.text_projection = None
+        elif proj_bias:
+            self.text_projection = nn.Linear(width, output_dim)
+        else:
+            self.text_projection = nn.Parameter(torch.zeros(width, output_dim))
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable
@@ -426,16 +466,17 @@ class TextTransformer(nn.Module):
         if self.embed_cls:
             x = torch.cat([x, self.cls_emb.to(dtype).expand(b, 1, -1)], dim=1)
             l += 1
-            causal = torch.full((l, l), float("-inf"), device=x.device).triu(1)
-            mask = causal + self._cls_mask(text)
+            if self.causal:  # without the causal rule JAX applies no mask at all
+                causal = torch.full((l, l), float("-inf"), device=x.device).triu(1)
+                mask = causal + self._cls_mask(text)
         x = x + self.positional_embedding[:l].to(dtype)
-        x = self.transformer(x, causal=mask is None, mask=mask)
+        x = self.transformer(x, causal=self.causal and mask is None, mask=mask)
         if self.embed_cls:
             pooled, tokens = self.ln_final(x[:, -1]), x[:, :-1]
         else:
             x = self.ln_final(x)
-            pooled, tokens = text_global_pool(x, text), x
-        pooled = pooled @ self.text_projection.to(dtype)
+            pooled, tokens = text_global_pool(x, text, self.pool_type), x
+        pooled = project_text(pooled, self.text_projection)
         return (pooled, tokens) if self.output_tokens else pooled
 
 

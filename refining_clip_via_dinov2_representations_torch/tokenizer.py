@@ -1,9 +1,20 @@
-"""Byte-level BPE tokenizer for CLIP.
+"""Tokenizers: byte-level BPE for CLIP, and fast-tokenizer files for SigLIP.
 
 The port's own copy of the JAX package's ``tokenizer.py`` ``SimpleTokenizer``
 with its default ``lower`` cleaning: the same vocabulary file and the same
 framing (``<sot> ids <eot>`` zero-padded to the context length, over-long
 sequences cut with the last slot forced to EOT), as numpy int32 arrays.
+
+``HFTokenizer`` and ``SigLipTokenizer`` are the JAX package's classes of
+those names (``tpu/tokenizer.py:499-731``) without ``transformers``: a
+``tokenizer.json`` is read by ``FastTokenizerFile``, which covers what the
+SigLIP vocabularies use (a ``Unigram`` model decoded by Viterbi over the
+piece scores, with the unknown piece's score and ``fuse_unk`` as the
+``tokenizers`` library has them; the ``Metaspace`` pre-tokenizer; no
+normalizer; ``TemplateProcessing``'s end token; the special tokens split
+out first) and raises, naming what is missing, for anything else. Files
+come from a path, from ``$REFINING_CLIP_VOCAB_DIR`` or from the hub-cache
+layout (``models/pretrained.py:hub_snapshot_dirs``); nothing is downloaded.
 
 It needs no ``regex`` package: the pre-tokenizer pattern
 ``specials|'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``
@@ -17,10 +28,13 @@ from __future__ import annotations
 
 import gzip
 import html
+import json
 import os
+import string
 import unicodedata
+import warnings
 from functools import lru_cache
-from typing import List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -64,6 +78,40 @@ def whitespace_clean(text: str) -> str:
 
 def clean_lower(text: str) -> str:
     return whitespace_clean(basic_clean(text)).lower()
+
+
+_PUNCT_TABLE = str.maketrans("", "", string.punctuation)
+
+
+def canonicalize_text(text: str, *, keep_punctuation_exact_string: Optional[str] = None,
+                      trans_punctuation: dict = _PUNCT_TABLE) -> str:
+    """Lower case, ASCII punctuation removed, whitespace collapsed (big_vision's
+    prompt canonicalisation, ``tpu/tokenizer.py:95-113``)."""
+    text = text.replace("_", " ")
+    if keep_punctuation_exact_string:
+        text = keep_punctuation_exact_string.join(
+            part.translate(trans_punctuation)
+            for part in text.split(keep_punctuation_exact_string))
+    else:
+        text = text.translate(trans_punctuation)
+    return " ".join(text.lower().split()).strip()
+
+
+def _clean_canonicalize(text: str) -> str:
+    return canonicalize_text(basic_clean(text))
+
+
+def _clean_whitespace(text: str) -> str:
+    return whitespace_clean(basic_clean(text))
+
+
+def get_clean_fn(type: str) -> Callable[[str], str]:
+    """The ``clean`` option of the HF tokenizers (``tpu/tokenizer.py:124-131``)."""
+    fns = {"canonicalize": _clean_canonicalize, "lower": clean_lower,
+           "whitespace": _clean_whitespace}
+    if type not in fns:
+        raise ValueError(f"Invalid clean function ({type}).")
+    return fns[type]
 
 
 def _is_letter(c: str) -> bool:  # \p{L}
@@ -203,3 +251,383 @@ def tokenize(texts: Union[str, List[str]],
 
 def decode(output_ids) -> str:
     return _default_tokenizer().decode(np.asarray(output_ids))
+
+
+# ---------------------------------------------------------------------------
+# fast-tokenizer files (``tokenizer.json``) without ``transformers``
+# ---------------------------------------------------------------------------
+
+# the ``tokenizers`` library's penalty of the unknown piece under the lowest
+# piece score (``models/unigram/model.rs``: K_UNK_PENALTY)
+UNK_PENALTY = 10.0
+
+
+def _unsupported_file(path: str, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: {what}; the port reads tokenizer.json files with a Unigram model, the "
+        "Metaspace pre-tokenizer, no normalizer and TemplateProcessing (the SigLIP "
+        "vocabularies); a sentencepiece .model needs the `sentencepiece` package, which "
+        "the port does not use")
+
+
+def _token_content(tok) -> Optional[str]:
+    """A special token of a ``tokenizer_config.json`` / ``special_tokens_map.json``:
+    a string, or a dict holding ``content``."""
+    return tok.get("content") if isinstance(tok, dict) else tok
+
+
+class FastTokenizerFile:
+    """A ``tokenizer.json`` whose pipeline the SigLIP vocabularies use:
+
+    * special tokens (the file's ``added_tokens`` and ``special``) split out
+      of the raw text first, leftmost-longest, as the ``tokenizers``
+      library's added vocabulary does;
+    * no normalizer;
+    * ``Metaspace`` with ``prepend_scheme`` ``"always"`` and ``split``:
+      spaces become the replacement character, which is prepended where a
+      segment does not start with it, and each run of replacements starts a
+      new word;
+    * ``Unigram``: each word decoded by Viterbi over the piece scores; a
+      character no piece covers becomes the unknown piece at the lowest
+      score minus ``UNK_PENALTY``, and adjacent unknown pieces fuse into
+      one (``fuse_unk``); ties keep the path found first;
+    * ``TemplateProcessing``'s single-sequence template (its special tokens'
+      ids around the sequence).
+
+    Anything else raises ``NotImplementedError`` naming it. ``encode``
+    returns the ids before truncation and padding; ``frame`` truncates and
+    pads one row."""
+
+    def __init__(self, path: str, special: Sequence[str] = ()):
+        self.path = path
+        with open(path, encoding="utf-8") as f:
+            spec = json.load(f)
+        if spec.get("normalizer") is not None:
+            raise _unsupported_file(path, f"normalizer {spec['normalizer'].get('type')!r}")
+        pre = spec.get("pre_tokenizer") or {}
+        if pre.get("type") != "Metaspace":
+            raise _unsupported_file(path, f"pre-tokenizer {pre.get('type')!r}")
+        self.replacement = pre.get("replacement", "▁")
+        scheme = pre.get("prepend_scheme", "always" if pre.get("add_prefix_space", True)
+                         else "never")
+        if scheme != "always" or not pre.get("split", True):
+            raise _unsupported_file(path, f"Metaspace prepend_scheme {scheme!r}, split "
+                                          f"{pre.get('split', True)}")
+        model = spec.get("model") or {}
+        if model.get("type") != "Unigram":
+            raise _unsupported_file(path, f"{model.get('type')!r} model")
+        if model.get("byte_fallback"):
+            raise _unsupported_file(path, "Unigram byte_fallback")
+        self.pieces = [p for p, _ in model["vocab"]]
+        self.scores = [float(score) for _, score in model["vocab"]]
+        self.vocab = {p: i for i, p in enumerate(self.pieces)}
+        self.unk_id = model.get("unk_id")
+        self.unk_score = min(self.scores) - UNK_PENALTY
+        self.max_piece = max(len(p) for p in self.pieces)
+        # special tokens: the file's added ones, and those the caller names
+        # (a tokenizer_config's eos, unk, pad), each at its vocabulary id
+        self.added: Dict[str, int] = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
+        for tok in special:
+            if tok is not None and tok not in self.added:
+                if tok not in self.vocab:
+                    raise _unsupported_file(path, f"special token {tok!r} outside the vocabulary")
+                self.added[tok] = self.vocab[tok]
+        self.template = self._template(spec.get("post_processor"))
+        self._cache: Dict[str, List[int]] = {}
+
+    def _template(self, post) -> List[Union[str, List[int]]]:
+        """The single-sequence template: "A" for the sequence, else the ids of
+        a special token."""
+        if post is None:
+            return ["A"]
+        if post.get("type") != "TemplateProcessing":
+            raise _unsupported_file(self.path, f"post-processor {post.get('type')!r}")
+        out: List[Union[str, List[int]]] = []
+        for item in post["single"]:
+            if "Sequence" in item:
+                out.append("A")
+            else:
+                out.append(list(post["special_tokens"][item["SpecialToken"]["id"]]["ids"]))
+        return out
+
+    @property
+    def n_special(self) -> int:
+        return sum(len(t) for t in self.template if t != "A")
+
+    def token_id(self, token: str) -> int:
+        if token in self.added:
+            return self.added[token]
+        if token not in self.vocab:
+            raise KeyError(f"{self.path}: token {token!r} is not in the vocabulary")
+        return self.vocab[token]
+
+    def _split_special(self, text: str) -> List[Tuple[str, bool]]:
+        """(segment, is a special token) in order, leftmost-longest."""
+        if not self.added:
+            return [(text, False)]
+        out, start, i = [], 0, 0
+        longest = sorted(self.added, key=len, reverse=True)
+        while i < len(text):
+            hit = next((t for t in longest if text.startswith(t, i)), None)
+            if hit is None:
+                i += 1
+                continue
+            if i > start:
+                out.append((text[start:i], False))
+            out.append((hit, True))
+            i = start = i + len(hit)
+        if start < len(text):
+            out.append((text[start:], False))
+        return out
+
+    def _words(self, segment: str) -> List[str]:
+        """The Metaspace pre-tokenizer over one segment."""
+        rep = self.replacement
+        s = segment.replace(" ", rep)
+        if s and not s.startswith(rep):
+            s = rep + s
+        words: List[str] = []
+        prev_rep = False
+        for c in s:  # MergedWithNext: a run of replacements opens a word
+            if c == rep and not prev_rep:
+                words.append(c)
+            elif words:
+                words[-1] += c
+            else:
+                words.append(c)
+            prev_rep = c == rep
+        return words
+
+    def _viterbi(self, word: str) -> List[int]:
+        """The Unigram model's best segmentation of one word, as ids."""
+        if word in self._cache:
+            return self._cache[word]
+        n = len(word)
+        best = [0.0] * (n + 1)
+        start: List[Optional[int]] = [None] * (n + 1)
+        piece_id = [0] * (n + 1)
+        for i in range(n):
+            here = best[i]
+            single = False
+            for j in range(i + 1, min(n, i + self.max_piece) + 1):
+                pid = self.vocab.get(word[i:j])
+                if pid is None:
+                    continue
+                cand = self.scores[pid] + here
+                if start[j] is None or cand > best[j]:
+                    best[j], start[j], piece_id[j] = cand, i, pid
+                single = single or j == i + 1
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError(f"{self.path}: {word[i]!r} needs the unknown piece, and "
+                                     "the model has no unk_id")
+                cand = self.unk_score + here
+                if start[i + 1] is None or cand > best[i + 1]:
+                    best[i + 1], start[i + 1], piece_id[i + 1] = cand, i, self.unk_id
+        pieces, unk_run, end = [], [], n
+        while end > 0:
+            s0 = start[end]
+            if piece_id[end] == self.unk_id:  # fuse_unk: adjacent unknowns are one piece
+                unk_run.append(word[s0:end])
+            else:
+                if unk_run:
+                    pieces.append("".join(reversed(unk_run)))
+                    unk_run = []
+                pieces.append(word[s0:end])
+            end = s0
+        if unk_run:
+            pieces.append("".join(reversed(unk_run)))
+        ids = [self.vocab.get(p, self.unk_id) for p in reversed(pieces)]
+        self._cache[word] = ids
+        return ids
+
+    def encode(self, text: str) -> List[int]:
+        """The sequence's ids, before the template, truncation and padding."""
+        ids: List[int] = []
+        for segment, special in self._split_special(text):
+            if special:
+                ids.append(self.added[segment])
+                continue
+            for word in self._words(segment):
+                ids.extend(self._viterbi(word))
+        return ids
+
+    def frame(self, ids: List[int], context_length: int, pad_id: int) -> List[int]:
+        """Truncate the sequence to leave room for the template's tokens, apply
+        the template, pad to ``context_length`` (truncation="longest_first",
+        padding="max_length", as the JAX package's calls ask)."""
+        ids = ids[:max(0, context_length - self.n_special)]
+        out: List[int] = []
+        for part in self.template:
+            out.extend(ids if part == "A" else part)
+        out = out[:context_length]
+        return out + [pad_id] * (context_length - len(out))
+
+
+def _read_json(path: str) -> dict:
+    if not os.path.isfile(path):
+        return {}
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _snapshot_files(tokenizer_name: str, cache_dir: Optional[str]) -> str:
+    """The directory holding ``tokenizer_name``'s ``tokenizer.json``: the name
+    itself when it is a directory, else its snapshot in the hub-cache layout
+    under ``cache_dir`` (or the default caches). ``FileNotFoundError`` names
+    every path looked at; nothing is downloaded."""
+    if os.path.isdir(tokenizer_name):
+        dirs = [tokenizer_name]
+    else:
+        from .models.pretrained import CACHE_DIR, _hf_default_cache, hub_snapshot_dirs
+
+        dirs = []
+        for cache in ([cache_dir] if cache_dir else [CACHE_DIR, _hf_default_cache()]):
+            dirs += hub_snapshot_dirs(tokenizer_name, cache) or [os.path.join(
+                cache, "models--" + tokenizer_name.replace("/", "--"), "snapshots", "*")]
+    for d in dirs:
+        if os.path.isfile(os.path.join(d, "tokenizer.json")):
+            return d
+    raise FileNotFoundError(
+        f"no tokenizer.json of {tokenizer_name!r}: looked in "
+        f"{[os.path.join(d, 'tokenizer.json') for d in dirs]}; the port does not download "
+        "tokenizers: fill the hub cache (tokenizer.json, tokenizer_config.json, "
+        "special_tokens_map.json) on a machine with network and pass --cache-dir")
+
+
+class HFTokenizer:
+    """The JAX package's ``HFTokenizer`` (``tpu/tokenizer.py:499-556``: an
+    ``AutoTokenizer`` with CLIP-style framing) over a hub snapshot's
+    ``tokenizer.json``, ``tokenizer_config.json`` and
+    ``special_tokens_map.json``, without ``transformers``: the eos, unk and
+    pad tokens (T5's defaults ``</s>``, ``<unk>``, ``<pad>``) come from those
+    files; the text is cleaned (``clean``), encoded, cut to leave room for
+    the end token, framed and padded on the right to the context length
+    (another ``padding_side`` raises). ``strip_sep_token`` zeroes the
+    separator's id."""
+
+    def __init__(self, tokenizer_name: str, context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH,
+                 clean: str = "whitespace", strip_sep_token: bool = False,
+                 language: Optional[str] = None, cache_dir: Optional[str] = None):
+        snapshot = _snapshot_files(tokenizer_name, cache_dir)
+        config = {**_read_json(os.path.join(snapshot, "tokenizer_config.json")),
+                  **_read_json(os.path.join(snapshot, "special_tokens_map.json"))}
+        tokens = {"eos": "</s>", "unk": "<unk>", "pad": "<pad>", "sep": None}
+        for key in tokens:
+            if config.get(f"{key}_token") is not None:
+                tokens[key] = _token_content(config[f"{key}_token"])
+        extra = [_token_content(t) for t in config.get("additional_special_tokens") or []]
+        self.tokenizer = FastTokenizerFile(os.path.join(snapshot, "tokenizer.json"),
+                                           [t for t in tokens.values() if t] + extra)
+        self.pad_token_id = self.tokenizer.token_id(tokens["pad"])
+        self.eos_token_id = self.tokenizer.token_id(tokens["eos"])
+        self.sep_token_id = self.tokenizer.token_id(tokens["sep"]) if tokens["sep"] else None
+        if config.get("padding_side", "right") != "right":
+            raise _unsupported_file(snapshot, f"padding_side {config['padding_side']!r}")
+        if language is not None:
+            self.set_language(language)
+        self.context_length = context_length
+        self.clean_fn = get_clean_fn(clean)
+        self.strip_sep_token = strip_sep_token
+
+    def __call__(self, texts, context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        assert context_length, "Please set a valid context length in class init or call."
+        out = np.asarray([self.tokenizer.frame(self.tokenizer.encode(self.clean_fn(t)),
+                                               context_length, self.pad_token_id)
+                          for t in texts], dtype=np.int32).reshape(len(texts), context_length)
+        if self.strip_sep_token and self.sep_token_id is not None:
+            out = np.where(out == self.sep_token_id, 0, out).astype(np.int32)
+        return out
+
+    def set_language(self, src_lang):
+        warnings.warn("Cannot set language for the tokenizer.")
+
+
+class SigLipTokenizer:
+    """The JAX package's ``SigLipTokenizer`` (``tpu/tokenizer.py:558-731``)
+    without ``transformers``, resolving ``tokenizer_name`` offline:
+
+    1. an existing path: a fast-tokenizer ``.json``, or a directory holding
+       ``tokenizer.json`` (a sentencepiece ``.model`` raises: it needs the
+       ``sentencepiece`` package);
+    2. a logical vocabulary (``c4-en`` / ``mc4`` / ``gemma``) or a SigLIP
+       model name (``ViT-B-16-SigLIP`` -> ``c4-en``, ``*-i18n`` -> ``mc4``,
+       ``*SigLIP2*`` -> ``gemma``), looked up as ``VOCAB_FILES[name]`` or its
+       ``.json`` sibling in ``$REFINING_CLIP_VOCAB_DIR``;
+    3. the hub cache of the public model carrying the same vocabulary
+       (``HF_CACHE_EQUIVALENTS``) under ``$REFINING_CLIP_HF_CACHE`` or the
+       default caches.
+
+    Text is cleaned and canonicalised, encoded, cut to leave room for the
+    end token and padded with id 1 (0 for gemma), the SigLIP convention."""
+
+    VOCAB_FILES = {"c4-en": "c4_en_32000.model", "mc4": "mc4_250000.model",
+                   "gemma": "gemma_256000.model"}
+    HF_CACHE_EQUIVALENTS = {"c4-en": "t5-base", "mc4": "google/mt5-base",
+                            "gemma": "google/gemma-2b"}
+
+    @classmethod
+    def _logical_name(cls, tokenizer_name: str) -> Optional[str]:
+        if tokenizer_name in cls.VOCAB_FILES:
+            return tokenizer_name
+        lname = tokenizer_name.lower()
+        if "siglip" in lname:
+            if "siglip2" in lname or "gemma" in lname:
+                return "gemma"
+            return "mc4" if "i18n" in lname else "c4-en"
+        return None
+
+    def _load(self, path: str) -> None:
+        if os.path.isdir(path):
+            path = os.path.join(path, "tokenizer.json")
+        elif not path.endswith(".json"):
+            raise _unsupported_file(path, "a sentencepiece model")
+        self.tokenizer = FastTokenizerFile(path, ["</s>", "<unk>", "<pad>"])
+
+    def __init__(self, tokenizer_name: str, context_length: Optional[int] = 64):
+        self.context_length = context_length
+        exists = os.path.exists(tokenizer_name)
+        logical = None if exists else self._logical_name(tokenizer_name)
+        probe = (os.path.basename(tokenizer_name.rstrip("/")) if exists
+                 else (logical or tokenizer_name))
+        self.pad_token_id = 0 if "gemma" in probe.lower() else 1
+        if exists:
+            self._load(tokenizer_name)
+            return
+        if logical is None:
+            raise FileNotFoundError(
+                f"SigLIP tokenizer '{tokenizer_name}' is neither an existing local path nor a "
+                f"known logical vocab name ({sorted(self.VOCAB_FILES)}) or SigLIP model name.")
+        vocab_dir = os.environ.get("REFINING_CLIP_VOCAB_DIR", "")
+        if vocab_dir:
+            base = os.path.join(vocab_dir, self.VOCAB_FILES[logical])
+            for cand in (base, os.path.splitext(base)[0] + ".json"):
+                if os.path.exists(cand):
+                    self._load(cand)
+                    return
+        try:
+            self._load(_snapshot_files(self.HF_CACHE_EQUIVALENTS[logical],
+                                       os.environ.get("REFINING_CLIP_HF_CACHE") or None))
+            return
+        except (FileNotFoundError, NotImplementedError) as e:
+            reason = e
+        raise FileNotFoundError(
+            f"SigLIP vocab '{logical}' not found offline. Options: "
+            f"(a) pass a local sentencepiece .model / fast-tokenizer .json "
+            f"path directly; (b) place {self.VOCAB_FILES[logical]!r} (or its "
+            f".json sibling) in $REFINING_CLIP_VOCAB_DIR; (c) populate the "
+            f"HF cache with {self.HF_CACHE_EQUIVALENTS[logical]!r} (same "
+            f"vocab) on a connected machine; (d) use a config with "
+            f"text_cfg.hf_tokenizer_name (HFTokenizer path). ({reason})")
+
+    def __call__(self, texts, context_length: Optional[int] = None) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        context_length = context_length or self.context_length
+        assert context_length, "Please set a valid context length in class init or call."
+        rows = [self.tokenizer.frame(self.tokenizer.encode(canonicalize_text(basic_clean(t))),
+                                     context_length, self.pad_token_id) for t in texts]
+        return np.asarray(rows, dtype=np.int32).reshape(len(texts), context_length)

@@ -13,7 +13,8 @@ through ``_canon_path``, and a map that misses a row, or gives it -1,
 raises the JAX package's error. ImageNet folders (``--imagenet-val``,
 ``--imagenet-v2``: one directory per class) feed the zero-shot evaluation;
 folders named only with digits are class indices, sorted as numbers (the
-ImageNet-V2 layout). Webdataset and the ImageNet train subset raise.
+ImageNet-V2 layout). Tar shards (``--dataset-type webdataset``) are read
+by ``train/webdataset.py``; the ImageNet train subset raises.
 """
 
 from __future__ import annotations
@@ -488,7 +489,7 @@ def get_synthetic_dataset(args, preprocess_fn, is_train: bool, tokenizer=None,
 
 def get_dataset_fn(data_path: Optional[str], dataset_type: str):
     """The dataset function of ``--dataset-type`` (``auto``: by the file's
-    extension). Webdataset raises: it is not ported."""
+    extension; ``.tar`` shards are webdataset's, ``train/webdataset.py``)."""
     if dataset_type == "auto":
         ext = (data_path or "").split(".")[-1]
         if ext in ("csv", "tsv"):
@@ -501,8 +502,9 @@ def get_dataset_fn(data_path: Optional[str], dataset_type: str):
     if dataset_type == "synthetic":
         return get_synthetic_dataset
     if dataset_type == "webdataset":
-        raise NotImplementedError("webdataset shards: the port reads CSV and synthetic data "
-                                  "(ROADMAP Queue 1 item 15)")
+        from .webdataset import get_wds_dataset
+
+        return get_wds_dataset
     raise ValueError(f"Unsupported dataset type: {dataset_type}")
 
 

@@ -76,6 +76,11 @@ The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
 honour yet raise at parse time (``train/params.py:UNPORTED``).
 
+A SigLIP model (``--model ViT-B-16-SigLIP``, Config 4 with ``--siglip``)
+takes its tokenizer from its config's hub repo under ``--cache-dir``
+(``tokenizer.py:HFTokenizer``), and tar shards train it
+(``--dataset-type webdataset``, ``train/webdataset.py``).
+
 Multi-GPU: one process a GPU, launched by torchrun (``torchrun
 --nproc-per-node N -m refining_clip_via_dinov2_representations_torch.train.
 main ...``) or any launcher that sets ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``
@@ -436,6 +441,7 @@ def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
     from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
+    from ..models.siglip import SiglipVisionTower
     from .checkpoint import export_torch_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
                        get_dataset_fn, load_dino_index_map)
@@ -511,9 +517,10 @@ def _main(args):
     coca = hasattr(model, "text_decoder")
     if loss_type == "coca" and not coca:
         raise ValueError(f"--use_coca needs a CoCa model (a coca_* config), not {args.model}")
-    if coca and mp is not None:
-        raise NotImplementedError("CoCa under a model axis (--mesh-model-axis > 1) is not "
-                                  "ported (ROADMAP Queue 1 item 10b)")
+    if mp is not None and (coca or isinstance(model.visual, SiglipVisionTower)):
+        raise NotImplementedError(f"{'CoCa' if coca else 'SigLIP'} under a model axis "
+                                  "(--mesh-model-axis > 1) is not ported (ROADMAP Queue 1 "
+                                  "item 10b)")
     shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
@@ -564,8 +571,7 @@ def _main(args):
             else:
                 dino_dim = args.synthetic_dino_dim
             torch.manual_seed(args.seed + 1)
-            text_projection = (model.text if coca else model).text_projection
-            head = DinoProjectionHead(text_projection.shape[1], dino_dim,
+            head = DinoProjectionHead(model.embed_dim, dino_dim,
                                       args.projection_type, args.use_layernorm).to(device)
             shard_module(head, mp, head=True)
         # the forward's module across the data ranks: FSDP's shards, or DDP

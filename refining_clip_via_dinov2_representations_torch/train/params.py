@@ -4,8 +4,15 @@ The port of the JAX package's ``train/params.py``: the same flag names and
 defaults, and ``get_default_params`` for the model family. A flag that the
 port cannot honour raises ``NotImplementedError`` at parse time when it is
 set away from its default (``UNPORTED``), rather than being ignored: the
-other losses and towers, webdataset and the ImageNet train subset, device
-preprocessing, Horovod, SyncBatchNorm, the step profiler. Tracking
+other losses and towers, the ImageNet train subset, device preprocessing,
+the step profiler. The torch-specific flags the JAX CLI accepts and ignores
+(``TORCH_ONLY``: ``--torchscript``, ``--torchcompile``, ``--trace``,
+``--horovod``, ``--use-bn-sync``, ``--use-bnb-linear``,
+``--pretrained-image``) log its warning and change nothing;
+``--lock-text-freeze-layer-norm`` and ``--train-data-upsampling-factors``
+(parsed, read by none) pass silently, as there. Webdataset shards
+(``--dataset-type webdataset``, ``--dataset-resampled``;
+``train/webdataset.py``), Tracking
 (``--report-to``), preemption saves, asynchronous and remote checkpoints,
 ``--remote-sync``, ``--copy-codebase``, gradient accumulation
 (``--accum-freq``), the ``--opt`` families,
@@ -32,29 +39,25 @@ from __future__ import annotations
 
 import argparse
 import ast
+import logging
 
 # flag dest -> what the port is missing for it
 UNPORTED = {
     "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
-    "dataset_resampled": "webdataset resampling (ROADMAP Queue 1 item 15)",
-    "train_data_upsampling_factors": "webdataset (ROADMAP Queue 1 item 15)",
     "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
     "lock_image_freeze_bn_stats": "BatchNorm towers",
-    "lock_text_freeze_layer_norm": "frozen LayerNorms",
-    "torchscript": "TorchScript",
-    "torchcompile": "torch.compile",
-    "trace": "tracing",
-    "use_bn_sync": "SyncBatchNorm (it has no BatchNorm tower: ROADMAP Queue 1 item 14)",
     "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
     "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
     "distill_pretrained": "the distillation loss (ROADMAP Queue 1 item 12)",
     "compile_cache": "a JAX compilation cache",
     "profile": "the step profiler",
-    "pretrained_image": "pretrained towers",
-    "use_bnb_linear": "bitsandbytes layers",
     "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",
-    "horovod": "Horovod launcher (launch one process a GPU with torchrun)",
 }
+# flags of torch-only features: the JAX CLI logs that it ignores them
+# (``tpu/train/params.py:394-401``) and so does the port; ``--ddp-static-graph``,
+# which the JAX CLI lists too, is honoured by the port's DDP
+TORCH_ONLY = ("torchscript", "torchcompile", "trace", "horovod", "use_bn_sync",
+              "use_bnb_linear", "pretrained_image")
 
 
 def get_default_params(model_name: str):
@@ -301,6 +304,9 @@ def parse_args(args=None):
         if getattr(ns, dest) != parser.get_default(dest):
             raise NotImplementedError(
                 f"{dest}={getattr(ns, dest)!r}: the PyTorch port has no {missing} yet")
+    for dest in TORCH_ONLY:
+        if getattr(ns, dest):
+            logging.warning("flag --%s is torch-specific; ignored on TPU", dest.replace("_", "-"))
     for name, val in get_default_params(ns.model).items():
         if getattr(ns, name) is None:
             setattr(ns, name, val)

@@ -15,19 +15,21 @@ import chip_smoke as c  # noqa: E402
 from refining_clip_via_dinov2_representations_torch.models import (  # noqa: E402
     create_model, get_tokenizer,
 )
+from refining_clip_via_dinov2_representations_torch.train.step import StepCfg  # noqa: E402
 
 c.phase_device()
 c.phase_build()
 model, _ = create_model(c.COCA_MODEL, device="cuda", seed=c.SEED + 40)
 model.train()
 batch = c._coca_batch(get_tokenizer(c.COCA_MODEL), c.COCA_FP32_BATCH, seed=c.SEED + 51)
+cfg = StepCfg(loss_type="coca")
 c._set_attn_impl(model, "auto")
-lk, gk = c._coca_loss_and_grads(model, batch)
+lk, gk, _ = c._model_loss_and_grads(model, batch, cfg)
 c._set_attn_impl(model, "xla")
-lp, gp = c._coca_loss_and_grads(model, batch)
+lp, gp, _ = c._model_loss_and_grads(model, batch, cfg)
 c._set_attn_impl(model, "auto")
 with c._plain_versions():
-    lf, gf = c._coca_loss_and_grads(model, batch)
+    lf, gf, _ = c._model_loss_and_grads(model, batch, cfg)
 cos_k, tog_k = c._grad_cosines(gk, gp)
 cos_f, tog_f = c._grad_cosines(gf, gp)
 total = sum(float(g.double().norm() ** 2) for g in gp.values()) ** 0.5

@@ -100,6 +100,9 @@ _SLOW_TESTS = {
     # ~7 min of pure tracing over every registry config (fast canary subset
     # stays in the fast profile as test_registry_config_abstract_init_fast)
     "test_every_registry_config_abstract_inits",
+    # Config 4's flags through the JAX CLI and the port's (two cases, ~55 s
+    # each: the JAX step's compile over 8 CPU devices)
+    "test_config4_flags_match_the_jax_cli",
 }
 _DIST_MODULES = {
     "test_step_distributed_semantics", "test_multihost", "test_mesh_specs",

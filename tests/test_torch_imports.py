@@ -1,5 +1,6 @@
 """The PyTorch port, ``chip_smoke.py`` and the port's measurement scripts
-import no JAX.
+import no JAX, and no ``transformers`` (the card's machine may lack it; the
+port reads tokenizer files itself).
 
 An AST scan, not a ``sys.modules`` check: the test process may have JAX
 loaded already. Also checks that ``regex`` (which the GPU machine lacks),
@@ -15,7 +16,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "refining_clip_via_dinov2_representations_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "refining_clip_via_dinov2_representations_tpu")
+             "refining_clip_via_dinov2_representations_tpu", "transformers")
 NOT_AT_MODULE_LEVEL = ("regex", "PIL", "triton")
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "profile_torch_serving.py",
@@ -23,6 +24,7 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "probe_attention_kernels.py",
                                       REPO / "scripts" / "tune_attention_bwd.py",
                                       REPO / "scripts" / "chip_coca_phase.py",
+                                      REPO / "scripts" / "chip_siglip_phase.py",
                                       REPO / "scripts" / "coca_fp32_gradients.py"]
 
 

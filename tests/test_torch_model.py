@@ -109,7 +109,9 @@ def test_vit_b16_widths_depth1_matches_jax():
     # (coca_roberta-ViT-B-32) is not
     {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
     {"vision_cfg": {"pool_type": "avg", "no_ln_pre": True}},  # CLIPA towers
-    {"text_cfg": {"no_causal_mask": True, "pool_type": "last"}},
+    # SigLIP's text options are ported (tests/test_torch_siglip.py); its
+    # global-average-pooled `_gap` trunks are not
+    {"vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_gap_224"}},
 ])
 def test_unported_towers_raise(overrides):
     cfg = {k: dict(v) if isinstance(v, dict) else v for k, v in TINY_CFG.items()}

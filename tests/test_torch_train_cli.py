@@ -177,13 +177,48 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 # ported: test_config5_flags_run_on_the_tiny_model runs them; --siglip and
 # --fsdp are ported with multi-GPU training (tests/test_torch_dist_*.py),
 # --mesh-model-axis with the model axis (tests/test_torch_tp_*.py)
-@pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"], ["--use-bn-sync"],
-                                   ["--distill-model", "ViT-B-32"], ["--horovod"],
+# --use-bn-sync and --horovod, cases here until the JAX CLI's torch-only
+# flags were accepted (test_torch_only_flags_parse_with_the_jax_warning),
+# gave their places to --device-preprocess and --use_CyClip
+@pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"],
+                                   ["--device-preprocess"],
+                                   ["--distill-model", "ViT-B-32"], ["--use_CyClip"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):
         main(_argv(tmp_path, "--force-cpu", *extra))
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("extra", [["--torchscript"], ["--torchcompile"], ["--trace"],
+                                   ["--horovod"], ["--use-bn-sync"],
+                                   ["--use-bnb-linear", "Linear8bitLt"], ["--pretrained-image"],
+                                   ["--lock-text-freeze-layer-norm"],
+                                   ["--train-data-upsampling-factors", "1::2"]])
+def test_torch_only_flags_parse_with_the_jax_warning(extra, caplog):
+    """The flags the JAX CLI accepts and ignores parse in the port too, with
+    the JAX package's warning for the torch-specific seven
+    (``tpu/train/params.py:394-401``) and silently for the other two; the
+    namespace equals the JAX CLI's."""
+    import logging
+
+    from refining_clip_via_dinov2_representations_tpu.train.params import (
+        parse_args as jax_parse,
+    )
+
+    argv = ["--model", "ViT-B-16-SigLIP", *extra]
+    with caplog.at_level(logging.WARNING):
+        got = vars(params.parse_args(argv))
+    port_log = [r.getMessage() for r in caplog.records]
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        want = vars(jax_parse(argv))
+    jax_log = [r.getMessage() for r in caplog.records]
+    assert got == want
+    assert port_log == jax_log
+    flag = extra[0][2:]
+    silent = flag in ("lock-text-freeze-layer-norm", "train-data-upsampling-factors")
+    assert port_log == ([] if silent else [f"flag --{flag} is torch-specific; ignored on TPU"])
 
 
 @pytest.mark.parametrize("precision", ["amp", "amp_bf16", "amp_bfloat16", "bf16", "fp16",

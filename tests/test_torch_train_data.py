@@ -131,14 +131,24 @@ def test_loader_surfaces_dataset_errors():
 
 
 def test_unported_dataset_types_raise(tmp_path):
-    """Webdataset still raises; CSV train data and a val set load (the two
-    cases that raised before the CSV data path was ported)."""
+    """Every dataset type is ported now (tar shards: tests/test_torch_webdataset.py):
+    an unknown type or extension raises the JAX package's ValueError, a
+    webdataset train set without --train-num-samples its RuntimeError; CSV
+    train data and a val set load (the two cases that raised before the
+    CSV data path was ported)."""
     from types import SimpleNamespace
 
-    for kw in (dict(dataset_type="webdataset", train_data="shards.tar"),
-               dict(dataset_type="auto", train_data="shards.tar")):
-        args = SimpleNamespace(train_num_samples=8, batch_size=4, val_data=None, **kw)
-        with pytest.raises(NotImplementedError, match="webdataset"):
+    for kw, err, match in ((dict(dataset_type="parquet", train_data="rows.parquet"),
+                            ValueError, "Unsupported dataset type"),
+                           (dict(dataset_type="auto", train_data="rows.parquet"),
+                            ValueError, "extension parquet"),
+                           (dict(dataset_type="webdataset", train_data="shards.tar",
+                                 train_num_samples=None), RuntimeError, "train-num-samples"),
+                           (dict(dataset_type="auto", train_data="shards.tar",
+                                 train_num_samples=None), RuntimeError, "train-num-samples")):
+        args = SimpleNamespace(**{"train_num_samples": 8, "batch_size": 4, "val_data": None,
+                                  **kw})
+        with pytest.raises(err, match=match):
             data.get_data(args, (None, None))
 
     from PIL import Image

@@ -11,7 +11,13 @@ functions, so test files stay importable where JAX is absent.
 
 from __future__ import annotations
 
+import importlib
+import json
+import os
+import shutil
+
 import numpy as np
+import pytest
 
 TINY_CFG = {
     "embed_dim": 32,
@@ -117,3 +123,64 @@ OPENAI_TINY_CFG = {
     "text_cfg": {"context_length": 12, "vocab_size": 49408, "width": 64,
                  "heads": 1, "layers": 2},
 }
+
+
+@pytest.fixture
+def offline(monkeypatch):
+    """No outside host is reached during the test (``block_network``)."""
+    block_network(monkeypatch)
+
+
+def block_network(monkeypatch) -> None:
+    """The hub libraries offline, and a name lookup or connection to any
+    host but this one fails (``monkeypatch``'s undo restores them)."""
+    import socket
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    for module, attr in (("huggingface_hub.constants", "HF_HUB_OFFLINE"),
+                         ("transformers.utils.hub", "_is_offline_mode")):
+        try:
+            monkeypatch.setattr(importlib.import_module(module), attr, True)
+        except (ImportError, AttributeError):
+            pass
+    local = ("localhost", "127.0.0.1", "::1", "0.0.0.0", "", None)
+    real_lookup, real_connect = socket.getaddrinfo, socket.socket.connect
+
+    def lookup(host, *args, **kwargs):
+        assert host in local, f"network access attempted: {host}"
+        return real_lookup(host, *args, **kwargs)
+
+    def connect(sock, address):
+        assert not isinstance(address, tuple) or address[0] in local, (
+            f"network access attempted: {address}")
+        return real_connect(sock, address)
+
+    monkeypatch.setattr(socket, "getaddrinfo", lookup)
+    monkeypatch.setattr(socket.socket, "connect", connect)
+
+
+# the committed c4-en fast-tokenizer file (a 210-piece Unigram vocabulary in
+# the published tokenizer.json layout)
+VOCAB = os.path.join(os.path.dirname(__file__), "assets", "siglip_vocab", "c4_en_32000.json")
+
+
+def seed_hub_snapshot(cache: str, repo: str = "timm/ViT-B-16-SigLIP", state_dict=None,
+                      pad_token: str = "</s>") -> str:
+    """The published hub layout of a SigLIP repo under ``cache``: the
+    committed test vocabulary as ``tokenizer.json``, a T5 tokenizer config,
+    and ``state_dict`` as ``open_clip_pytorch_model.bin`` where given."""
+    root = os.path.join(cache, "models--" + repo.replace("/", "--"))
+    snap = os.path.join(root, "snapshots", "seeded")
+    os.makedirs(snap, exist_ok=True)
+    os.makedirs(os.path.join(root, "refs"), exist_ok=True)
+    with open(os.path.join(root, "refs", "main"), "w") as f:
+        f.write("seeded")
+    shutil.copy(VOCAB, os.path.join(snap, "tokenizer.json"))
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5Tokenizer", "eos_token": "</s>", "unk_token": "<unk>",
+                   "pad_token": pad_token, "extra_ids": 0, "model_max_length": 64}, f)
+    if state_dict is not None:
+        import torch
+
+        torch.save(state_dict, os.path.join(snap, "open_clip_pytorch_model.bin"))
+    return snap
