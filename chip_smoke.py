@@ -107,6 +107,13 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     attention (cosine >= 0.9999, fp32, 12 launches a tower call); the 224-px
     checkpoint at ``force_image_size=384`` resizes its table and runs
     ``[B,12,577,64]`` through the fused kernel and through flash.
+13b. int8 — weight-only int8 serving from that tag: ``create_engine(...,
+    pretrained="openai", quantize="int8")`` behind the HTTP server beside
+    the fp32 engine on the tag: resident bytes of the int8 tensors and of
+    each whole model, 12 launches a tower call, the int8 features through
+    the kernel against plain attention on the same int8 weights (cosine >=
+    0.9999) and against fp32 (>= 0.999, the JAX test's), each tower's time
+    and the request latency at buckets 1 and 8 beside fp32.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -207,7 +214,19 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     ``train.main``, bf16, batch 16, one process and two ranks: per-step
     losses at 1e-2 relative, each rank's peak memory beside the one
     process's, 2 x (``TP_EVA_LAYERS`` + 12) + (``TP_EVA_LAYERS`` + 12)
-    launches a rank a step.
+    launches a rank a step. In the same pair of processes as (a) and (c):
+    (d) ViT-B-16 fp32 served at ``(1, 2)`` through the engine's follower
+    protocol (rank 0 drives) against the one-process engine (cosine >=
+    0.9999), 12 launches a tower call on each rank at ``[8,6,197,64]`` /
+    ``[8,4,77,64]``, request latency at buckets 1 and 8 beside one process;
+    (e) the serve CLI at ``--mesh-model-axis 2`` from phase 13's ``openai``
+    tag, rank 0 answering ``/v1/encode_image`` and ``/v1/similarity``; (f)
+    ViT-B-16-SigLIP and coca_ViT-L-14 at full width, every tower cut to
+    ``TP_SERVE_LAYERS`` blocks, one fp32 and one bf16 loss and backward split
+    over the model group against the whole model (``STEP_TOL``), launches
+    on each rank; (g) a CoCa caption at ``(1, 2)`` against one process,
+    token for token. The kernels are checked and timed at these local
+    heads (``TP_SERVE_CASES``) in phases 3, 3b, 5 and 6.
 
 CoCa runs right after the mini-Flickr set is made (the fused kernels are
 checked at its decoder's shapes, the cross-attention ``[32,12,75,255,64]``
@@ -256,8 +275,9 @@ phases 5 and 6):
 
 Each phase prints the seconds elapsed since the start. The line before the
 last is the JSON list of kernels (each fused kernel with ``"coca"`` and
-``"siglip"`` lists of those shapes); the last line is ``{"ok": true,
-"device": {...}}``.
+``"siglip"`` lists of those shapes, and ``"tp_serve"`` of the model axis's
+serving and family shapes); the last line is ``{"ok": true, "device":
+{...}}``.
 Imports no JAX.
 """
 
@@ -385,10 +405,10 @@ FLASH_CASES = [
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
-# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 12
+# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 8
 # to keep the script inside its time limit (width, 577 tokens and every
-# check stay; PR 9-15's runs measured the full depth)
-LONG_LAYERS = 12
+# check stay; PERF.md keeps the numbers measured at 24, 12 and 8 blocks)
+LONG_LAYERS = 8
 # the DINOv2 teacher: every variant has head dim 64 and 257 tokens at 224 px
 # (fused kernel's gate); the thesis teacher is dinov2-small, 6 heads. HF's
 # published dinov2-small config (facebook/dinov2-small/config.json)
@@ -415,8 +435,8 @@ CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
 # causal; checked forward and backward in both dtypes, timed beside SDPA
 GIANT_MODEL, GIANT_BATCH = "ViT-g-14", 16
 # Config 5's vision depth here: ViT-g-14's 40 blocks cut to 16 for the time
-# limit (width, head dim 88 and every check stay; PR 12-15's runs measured
-# the full depth, 13.7 GiB at its peak)
+# limit (width, head dim 88 and every check stay; PERF.md keeps the numbers
+# measured at 40 blocks, 13.7 GiB at its peak; a cut to 10 saved no time)
 GIANT_LAYERS = 16
 GIANT_CASES = [(16, 16, 257, 88, False), (16, 16, 77, 64, True)]
 # peak memory of these optimizers under dots_with_no_batch_dims_saveable
@@ -434,9 +454,9 @@ GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
 # in both dtypes in phases 3 and 3b, timed in phases 5 and 6
 TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
 # the EVA01 vision tower's depth in the recipe's train.main runs: cut from 40
-# blocks to keep the script inside its time limit (the width and every check
-# stay; the step-level checks at full depth are (a), (c) and phase 19's)
-TP_EVA_LAYERS = 20
+# blocks to 8 to keep the script inside its time limit (the width and every
+# check stay; the step-level checks at full depth are (a), (c) and phase 19's)
+TP_EVA_LAYERS = 8
 TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
             (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
 TP_BWD_CASES = TP_CASES[:4]
@@ -467,6 +487,25 @@ SIGLIP_CASES = [(8, 12, 1, 196, 64, False), (128, 12, 1, 196, 64, False),
                 (8, 12, 64, 64, 64, False), (128, 12, 64, 64, 64, False),
                 (128, 12, 196, 196, 64, False)]
 SIGLIP_TIMED = [c for c in SIGLIP_CASES if c[0] == SIGLIP_BATCH]
+# Serving as the JAX engine serves (phases 13b and 21 (d)-(g)). Weight-only
+# int8: the ViT-B-16 engine from the ``openai`` tag at these buckets, held at
+# the JAX test's cosine against fp32 (tests/test_inference.py:121). The
+# model axis of 2, each rank's local heads, (B, H, Lq, Lk, D, causal):
+# ViT-B-16 served at bucket 8 (image [8,6,197,64], causal text [8,4,77,64]);
+# ViT-B-16-SigLIP's step at 8 (the MAP head's probe over 196 keys, the
+# non-causal 64-token text, the 196-token vision blocks); coca_ViT-L-14's
+# step at 8 (the decoder's cross-attention of 75 queries over 255 keys, its
+# causal self-attention, the vision tower's 16 heads of 64 at 257 tokens).
+# Checked forward and backward in both dtypes (phases 3 and 3b), timed in
+# phases 5 and 6. The SigLIP and CoCa towers there run at full width with
+# every tower cut to TP_SERVE_LAYERS blocks (the time limit; their full depths
+# run in phases 22 and 23)
+INT8_BUCKETS, INT8_MIN_COS = (1, 8), 0.999
+TP_SERVE_CASES = [(8, 6, 197, 197, 64, False), (8, 4, 77, 77, 64, True),
+              (8, 6, 1, 196, 64, False), (8, 6, 64, 64, 64, False),
+              (8, 6, 196, 196, 64, False), (8, 6, 75, 255, 64, False),
+              (8, 6, 75, 75, 64, True), (8, 8, 257, 257, 64, False)]
+TP_SERVE_BATCH, TP_SERVE_LAYERS, TP_SERVE_BUCKETS = 8, 2, (1, 8)
 SIGLIP_VOCAB = os.path.join("tests", "assets", "siglip_vocab", "c4_en_32000.json")
 
 
@@ -571,7 +610,7 @@ def phase_kernels() -> dict:
 
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
-             + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES
+             + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -852,7 +891,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
-             + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED
+             + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -932,7 +971,7 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES
+            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -2017,6 +2056,131 @@ def phase_pretrained(work: str) -> dict:
     return {"cache": cache, "archive": archive, "launches": launches}
 
 
+def phase_int8(d: dict, pre: dict) -> dict:
+    """Weight-only int8 serving at ViT-B-16's full width (phase 13b): the
+    ``openai`` tag that phase 13 wrote into the hub cache, through
+    ``create_engine(pretrained="openai", quantize="int8")`` and the HTTP
+    server, beside the fp32 engine on the same tag: the resident bytes of
+    the int8 tensors and of each whole model; the main path's launches (12
+    a tower call: warm-up, image, text and a served similarity); the int8
+    features through the kernel against plain attention on the same int8
+    weights (cosine >= 0.9999) and against the fp32 engine's (>= 0.999, the
+    JAX test's); each tower's time per call (CUDA events) and the request
+    latency (host clock, p50 of 10) at buckets 1 and 8, int8 beside fp32.
+    Returns the launches."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import (
+        create_engine, resident_bytes,
+    )
+    from refining_clip_via_dinov2_representations_torch.serve import (
+        ClipServer, make_http_server,
+    )
+
+    t_phase = time.perf_counter()
+    kw = dict(pretrained="openai", cache_dir=pre["cache"], buckets=INT8_BUCKETS, device=DEVICE)
+    fp32, _, _ = create_engine(EVAL_MODEL, warm=False, **kw)
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    engine, preprocess, tokenizer = create_engine(EVAL_MODEL, quantize="int8", **kw)
+    server = ClipServer(engine, preprocess, tokenizer)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    paths = sorted(os.listdir(d["img_dir"]))[:8]
+    images_b64 = []
+    for p in paths:
+        with open(os.path.join(d["img_dir"], p), "rb") as f:
+            images_b64.append(base64.b64encode(f.read()).decode())
+    captions = [f"a photo of served item {i}" for i in range(8)]
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        pixels = server._decode_images(images_b64)
+        ids = tokenizer(captions)
+        img = engine.encode_image(pixels)
+        txt = engine.encode_text(ids)
+        status, body = _post(base, "/v1/similarity", {"images_b64": images_b64[:2],
+                                                      "texts": captions[:2]})
+        _sync()
+        counts = _read_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    tower_calls = 2 * len(INT8_BUCKETS) + 2 + 2  # warm-up, image, text, the similarity
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 12 * tower_calls,
+            "fused_attention_bwd": 0} if DEVICE == "cuda" else None
+    scale, bias = engine.logit_terms()
+    served = np.asarray(body.get("logits", []), np.float32)
+    check(status == 200 and served.shape == (2, 2)
+          and float(np.abs(served - (scale * img[:2] @ txt[:2].T + bias)).max()) < 1e-3,
+          f"int8 /v1/similarity: {status} {str(body)[:200]}")
+    check(health["quantize"] == "int8" and health["mesh"] is None, f"int8 /health {health}")
+    check(want is None or counts == want, f"int8 serving launched {counts}, expected {want}")
+
+    def plain_features(eng):
+        _set_attn_impl(eng.model, "xla")
+        try:
+            return eng.encode_image(pixels), eng.encode_text(ids)
+        finally:
+            _set_attn_impl(eng.model, "auto")
+
+    p_img, p_txt = plain_features(engine)
+    f_img, f_txt = fp32.encode_image(pixels), fp32.encode_text(ids)
+    vs_plain = min(_cosines(img, p_img).min(), _cosines(txt, p_txt).min())
+    vs_fp32 = {"image": float(_cosines(img, f_img).min()),
+               "text": float(_cosines(txt, f_txt).min())}
+    sizes = {"int8": resident_bytes(engine.model), "fp32": resident_bytes(fp32.model)}
+    n_q = sum(p.numel() for p in engine.model.parameters() if p.dtype == torch.int8)
+    print(f"int8 {EVAL_MODEL} from the openai tag: {n_q:,} parameters stored as int8 "
+          f"({sizes['int8']['int8'] / 2**20:.1f} MiB), the whole model resident "
+          f"{sizes['int8']['total'] / 2**20:.1f} MiB against fp32 "
+          f"{sizes['fp32']['total'] / 2**20:.1f} MiB; /health quantize {health['quantize']}; "
+          f"launches {counts} over {tower_calls} tower calls; int8 features through the kernel vs "
+          f"plain attention on the same int8 weights min cosine {vs_plain:.8f} (need >= "
+          f"{MIN_COSINE}); int8 vs fp32 min cosine {vs_fp32} (need >= {INT8_MIN_COS}) [{CARD}]",
+          flush=True)
+    check(vs_plain >= MIN_COSINE, "the int8 engine's kernel disagrees with plain attention")
+    check(min(vs_fp32.values()) >= INT8_MIN_COS, f"int8 vs fp32 cosine {vs_fp32}")
+    check(sizes["int8"]["total"] < 0.5 * sizes["fp32"]["total"],
+          f"int8 resident bytes {sizes}")
+
+    rng = np.random.default_rng(SEED + 40)
+    h, w = engine.image_size
+    for b in INT8_BUCKETS:
+        x = torch.from_numpy(rng.normal(size=(b, h, w, 3)).astype(np.float32)).to(DEVICE)
+        t_ids = torch.from_numpy(tokenizer(captions[:1] * b)).long().to(DEVICE)
+        row = {}
+        for name, eng in (("int8", engine), ("fp32", fp32)):
+            with torch.inference_mode():
+                tower = (time_ms(lambda: eng.model.encode_image(x.to(eng.dtype)), iters=10),
+                         time_ms(lambda: eng.model.encode_text(t_ids), iters=10))
+            lat = []
+            for fn, arg in ((eng.encode_image, x.cpu().numpy()),
+                            (eng.encode_text, t_ids.cpu().numpy().astype(np.int32))):
+                samples = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    fn(arg)
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                lat.append(statistics.median(samples))
+            row[name] = (tower, lat)
+        print(f"int8 time bucket {b}: image tower {row['int8'][0][0]:.3f} ms per call (fp32 "
+              f"{row['fp32'][0][0]:.3f}), text {row['int8'][0][1]:.3f} (fp32 "
+              f"{row['fp32'][0][1]:.3f}); request latency p50 encode_image "
+              f"{row['int8'][1][0]:.3f} ms (fp32 {row['fp32'][1][0]:.3f}), encode_text "
+              f"{row['int8'][1][1]:.3f} (fp32 {row['fp32'][1][1]:.3f}) [{CARD}]", flush=True)
+    del engine, fp32
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    print(f"int8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def phase_zero_shot(d: dict, pre: dict, work: str) -> dict:
     """Config 1 through ``train.main.main`` (phase 14): zero-shot Flickr
     retrieval and zero-shot ImageNet from ``--pretrained openai``, no train
@@ -2837,7 +3001,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
-    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED:
+    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -3987,12 +4151,343 @@ def _child_tp(payload: dict) -> dict:
             "finite": bool(torch.isfinite(got).all()),
             "min_cosine": float(torch.nn.functional.cosine_similarity(got, want, dim=-1).min()),
             "floor": float(torch.nn.functional.cosine_similarity(plain, want, dim=-1).min())}
+    del whole, split, x, want, plain, got
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out.update(_child_tp_serve(payload, dev, mesh, mp))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return out
 
 
-def phase_tp(work: str) -> dict:
+def _leader_and_followers(engine, lead) -> tuple:
+    """``lead()`` on rank 0 (then ``stop``), the follower loop elsewhere;
+    the launches of this rank's part, counted from 0. Returns what
+    ``lead`` returned on rank 0, None elsewhere."""
+    _sync()
+    _zero_counts()
+    got = None
+    if engine.leader:
+        got = lead()
+        engine.stop()
+    else:
+        engine.follow()
+    _sync()
+    return got, _read_counts()
+
+
+def _split_vs_whole(model, mp, batch, cfg, name: str) -> dict:
+    """One loss and every gradient of ``model`` split over the model group
+    against the whole model in this process, same rows and weights:
+    (losses, the lowest cosine of a gradient gathered whole and where, the
+    cosine of all tensors together, the split run's launches). As the CoCa
+    phase holds its fp32 step, a tensor whose gradient is under
+    ``COCA_FP32_NOISE`` of the whole gradient's norm is held by its absolute
+    error against that share (with seeded weights the CoCa pooler's tokens
+    are nearly equal and the cross blocks' query-side gradients cancel)."""
+    import copy
+
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
+        gather_tensor, shard_module,
+    )
+
+    whole = copy.deepcopy(model)
+    loss_w, grads_w, _ = _model_loss_and_grads(whole, batch, cfg)
+    del whole
+    split = copy.deepcopy(model)
+    shard_module(split, mp)
+    loss_s, grads_s, counts = _model_loss_and_grads(split, batch, cfg)
+    grads_s = {n: gather_tensor(g, split.tp_splits[n], mp) if n in split.tp_splits else g
+               for n, g in grads_s.items()}
+    n_split = len(split.tp_splits)
+    del split
+    cos, together = _grad_cosines(grads_s, grads_w)
+    whole_norm = sum(float(g.double().norm()) ** 2 for g in grads_w.values()) ** 0.5
+    under = {n: float((grads_s[n].double() - g.double()).norm()) for n, g in grads_w.items()
+             if float(g.double().norm()) < COCA_FP32_NOISE * whole_norm}
+    held = {n: c for n, c in cos.items() if n not in under}
+    worst = min(held, key=held.get)
+    return {"loss": loss_s, "ref_loss": loss_w, "min_cosine": held[worst], "min_at": worst,
+            "together": together, "launches": counts, "n_split": n_split,
+            "n_grads": len(grads_s) == len(grads_w), "under": len(under),
+            "under_ok": all(e <= COCA_FP32_NOISE * whole_norm for e in under.values()),
+            "what": name}
+
+
+def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
+    """The tp pair's serving and family parts (phase 21 (d)-(g)), each rank:
+    (d) ViT-B-16 fp32 served at ``(1, TP_AXIS)`` through the engine's
+    follower protocol (rank 0 drives) against the one-process engine on
+    rank 0, same seeded weights: features, each rank's launches (12 a tower
+    call at ``[8,6,197,64]`` / ``[8,4,77,64]``), request latency p50 at
+    buckets 1 and 8 beside one process; (e) the serve CLI at
+    ``--mesh-model-axis 2`` from the ``openai`` tag that phase 13 wrote,
+    rank 0 answering ``/v1/encode_image`` and ``/v1/similarity``, against
+    the one-process engine on the tag; (f) ViT-B-16-SigLIP and
+    coca_ViT-L-14 at full width, every tower cut to ``TP_SERVE_LAYERS`` blocks,
+    one fp32 and one bf16 loss and backward split over the model group
+    against the whole model (``_split_vs_whole``); (g) a CoCa caption (the
+    engine's defaults: 6 beams in 3 groups, 30 tokens) at ``(1, TP_AXIS)``
+    against one process, token for token."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import (
+        ClipInferenceEngine, create_engine,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_model_config, get_tokenizer, register_model_config,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import siglip
+    from refining_clip_via_dinov2_representations_torch.serve import ClipServer
+    from refining_clip_via_dinov2_representations_torch.serve import main as serve_main
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
+    leader = torch.distributed.get_rank() == 0
+    out = {}
+
+    def median_ms(fn, arg, n=5):
+        samples = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn(arg)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    # (d) ViT-B-16 served on the model axis
+    t0 = time.perf_counter()
+    base, _ = create_model(MODEL, device=dev, seed=SEED)
+    size, ctx = base.visual.image_size, base.context_length
+    one = ClipInferenceEngine(copy.deepcopy(base), size, ctx, TP_SERVE_BUCKETS) if leader else None
+    eng = ClipInferenceEngine(base, size, ctx, TP_SERVE_BUCKETS, mesh=mesh)
+    rng = np.random.default_rng(SEED + 70)
+    pixels = rng.normal(size=(5, 224, 224, 3)).astype(np.float32)
+    ids = get_tokenizer(MODEL)(["a photo of a cat", "a red bicycle", "two dogs in the snow"])
+    local = (eng.model.visual.transformer.resblocks[0].attn.in_proj_weight.shape[0] // 192,
+             eng.model.transformer.resblocks[0].attn.in_proj_weight.shape[0] // 192)
+    got, counts = _leader_and_followers(
+        eng, lambda: (eng.encode_image(pixels), eng.encode_text(ids)))
+    res = {"launches": counts, "local_heads": local, "tower_calls": 2}
+    if leader:
+        res["min_cosine"] = float(min(_cosines(got[0], one.encode_image(pixels)).min(),
+                                      _cosines(got[1], one.encode_text(ids)).min()))
+        res["shapes"] = [list(got[0].shape), list(got[1].shape)]
+
+    def latency():
+        lat = {}
+        for b in TP_SERVE_BUCKETS:
+            x, t = pixels[:1].repeat(b, 0), ids[:1].repeat(b, 0)
+            lat[b] = {"tp": [median_ms(eng.encode_image, x), median_ms(eng.encode_text, t)],
+                      "one": [median_ms(one.encode_image, x), median_ms(one.encode_text, t)]}
+        return lat
+
+    res["latency"], _ = _leader_and_followers(eng, latency)
+    res["s"] = time.perf_counter() - t0
+    out["serve_engine"] = res
+    del eng, one, base
+    gc.collect()
+    _sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (e) the serve CLI under the two ranks
+    t0 = time.perf_counter()
+    answers = {}
+
+    def drive(httpd):
+        base_url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base_url + "/health", timeout=60) as r:
+                answers["health"] = json.loads(r.read())
+            answers["image"] = _post(base_url, "/v1/encode_image",
+                                     {"images_b64": payload["images_b64"]})
+            answers["similarity"] = _post(base_url, "/v1/similarity",
+                                          {"images_b64": payload["images_b64"],
+                                           "texts": payload["texts"]})
+        finally:
+            httpd.shutdown()
+
+    argv = ["--model", MODEL, "--pretrained", "openai", "--cache-dir", payload["cache"],
+            "--mesh-model-axis", str(TP_AXIS), "--device", DEVICE,
+            "--host", "127.0.0.1", "--port", "0", "--buckets"] + [str(b) for b in TP_SERVE_BUCKETS]
+    _sync()
+    _zero_counts()
+    serve_main(argv, on_ready=drive if leader else None)
+    _sync()
+    res = {"launches": _read_counts(), "tower_calls": 2 * len(TP_SERVE_BUCKETS) + 3,
+           "s": time.perf_counter() - t0}
+    if leader:
+        ref, preprocess, tokenizer = create_engine(MODEL, pretrained="openai",
+                                                   cache_dir=payload["cache"],
+                                                   buckets=TP_SERVE_BUCKETS, device=dev, warm=False)
+        server = ClipServer(ref, preprocess, tokenizer)
+        try:
+            want_f = server.encode_image_b64(payload["images_b64"])
+            want_l = server.similarity(payload["texts"], payload["images_b64"])
+        finally:
+            server.close()
+        status_i, body_i = answers["image"]
+        status_s, body_s = answers["similarity"]
+        res.update(health=answers["health"], status=[status_i, status_s],
+                   min_cosine=float(_cosines(np.asarray(body_i["features"], np.float32),
+                                             want_f).min()),
+                   logits_err=float(np.abs(np.asarray(body_s["logits"]) - want_l).max()))
+        del ref, server
+    out["serve_cli"] = res
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (f) SigLIP and CoCa split over the model group, depth cut
+    width, _, heads, mlp = siglip._SIGLIP_FAMILY_DIMS["base"]
+    siglip._SIGLIP_FAMILY_DIMS["base"] = (width, TP_SERVE_LAYERS, heads, mlp)
+    cfg = get_model_config(SIGLIP_MODEL)
+    cfg["text_cfg"]["layers"] = TP_SERVE_LAYERS
+    register_model_config(SIGLIP_MODEL, cfg)
+    cfg = get_model_config(COCA_MODEL)
+    for tower in ("vision_cfg", "text_cfg", "multimodal_cfg"):
+        cfg[tower]["layers"] = TP_SERVE_LAYERS
+    register_model_config(COCA_MODEL, cfg)
+    out["families"] = {}
+    g = torch.Generator().manual_seed(SEED + 71)
+    batches = {
+        "siglip": {"images": torch.randn(TP_SERVE_BATCH, 224, 224, 3, generator=g).to(dev),
+                   "texts": torch.randint(3, 32000, (TP_SERVE_BATCH, 64), generator=g).to(dev)},
+        "coca": _coca_batch(get_tokenizer(COCA_MODEL), TP_SERVE_BATCH)}
+    for family, name in (("siglip", SIGLIP_MODEL), ("coca", COCA_MODEL)):
+        t0 = time.perf_counter()
+        model, _ = create_model(name, device=dev, seed=SEED)
+        model.train()
+        step_cfg = StepCfg(loss_type=family)
+        for dtype_name in ("float32", "bfloat16"):
+            _set_compute_dtype(model, getattr(torch, dtype_name))
+            out["families"][f"{family} {dtype_name}"] = _split_vs_whole(
+                model, mp, batches[family], step_cfg, f"{name} {dtype_name}")
+        out["families"][f"{family} s"] = time.perf_counter() - t0
+        if family == "coca":
+            coca = model
+        else:
+            del model
+        gc.collect()
+
+    # (g) a CoCa caption on the model axis
+    t0 = time.perf_counter()
+    coca.eval()
+    _set_compute_dtype(coca, torch.float32)
+    size, ctx = coca.visual.image_size, coca.context_length
+    one = ClipInferenceEngine(copy.deepcopy(coca), size, ctx, (2,)) if leader else None
+    eng = ClipInferenceEngine(coca, size, ctx, (2,), mesh=mesh)
+    got, counts = _leader_and_followers(eng, lambda: eng.caption_tokens(pixels[:2]))
+    res = {"launches": counts, "s": time.perf_counter() - t0}
+    if leader:
+        want = one.caption_tokens(pixels[:2])
+        res.update(tokens=got.tolist(), ref_tokens=want.tolist())
+        if not np.array_equal(got, want):
+            x = torch.from_numpy(pixels[:2]).to(dev).to(one.dtype)
+            res["divergence"] = [_caption_divergence(one.model, x[i], torch.from_numpy(got[i]).to(
+                dev).long(), torch.from_numpy(want[i]).to(dev).long()) for i in range(2)]
+    out["caption"] = res
+    del eng, one, coca
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_report(ranks: list, add) -> None:
+    """Prints and checks the tp pair's serving and family parts
+    (``_child_tp_serve``) and adds their launches (``add``)."""
+    on_card = DEVICE == "cuda"
+
+    def fused(n_fwd, n_bwd=0):
+        return {"flash_attention_fwd": 0, "fused_attention_fwd": n_fwd if on_card else 0,
+                "fused_attention_bwd": n_bwd if on_card else 0}
+
+    r0 = ranks[0]["serve_engine"]
+    lat = {b: {k: [round(v, 3) for v in r0["latency"][str(b)][k]] for k in ("tp", "one")}
+           for b in TP_SERVE_BUCKETS}
+    print(f"tp (d) {MODEL} fp32 served at (1, {TP_AXIS}), rank 0 driving: features "
+          f"{r0['shapes']}, min cosine vs one process {r0['min_cosine']:.8f} (need >= "
+          f"{MIN_COSINE}); local heads (vision, text) a rank "
+          f"{[r['serve_engine']['local_heads'] for r in ranks]}; launches a rank over "
+          f"{r0['tower_calls']} tower calls {[r['serve_engine']['launches'] for r in ranks]}; "
+          f"request latency p50 ms [image, text] by bucket {lat} (tp vs one process); "
+          f"{r0['s']:.1f} s [{CARD}]", flush=True)
+    check(r0["min_cosine"] >= MIN_COSINE and r0["shapes"] == [[5, 512], [3, 512]],
+          "tp (d): the served split model disagrees with one process")
+    check(all(r["serve_engine"]["local_heads"] == [12 // TP_AXIS, 8 // TP_AXIS]
+              and r["serve_engine"]["launches"] == fused(12 * r0["tower_calls"])
+              for r in ranks), "tp (d): local heads or launches")
+    c0 = ranks[0]["serve_cli"]
+    print(f"tp (e) the serve CLI --pretrained openai --mesh-model-axis {TP_AXIS}: /health mesh "
+          f"{c0['health']['mesh']}, statuses {c0['status']}, /v1/encode_image min cosine vs one "
+          f"process {c0['min_cosine']:.8f}, /v1/similarity max abs error {c0['logits_err']:.3e}, "
+          f"launches a rank over {c0['tower_calls']} tower calls "
+          f"{[r['serve_cli']['launches'] for r in ranks]}, {c0['s']:.1f} s [{CARD}]", flush=True)
+    check(c0["status"] == [200, 200] and c0["health"]["mesh"] == {"data": 1, "model": TP_AXIS}
+          and c0["min_cosine"] >= MIN_COSINE and c0["logits_err"] < 1e-2,
+          "tp (e): the serve CLI on two ranks disagrees with one process")
+    check(all(r["serve_cli"]["launches"] == fused(12 * c0["tower_calls"]) for r in ranks),
+          "tp (e): launches")
+    blocks = {"siglip": (2 * TP_SERVE_LAYERS + 1,) * 2, "coca": (3 * TP_SERVE_LAYERS,) * 2}
+    for key in sorted(k for k in ranks[0]["families"] if not k.endswith(" s")):
+        family, dtype_name = key.split()
+        rs = [r["families"][key] for r in ranks]
+        f0 = rs[0]
+        rel = abs(f0["loss"] - f0["ref_loss"]) / abs(f0["ref_loss"])
+        loss_tol, min_cos = STEP_TOL[dtype_name]
+        held = f0["together"] if dtype_name == "bfloat16" else min(r["min_cosine"] for r in rs)
+        print(f"tp (f) {f0['what']} (full width, {TP_SERVE_LAYERS} blocks a tower, batch "
+              f"{TP_SERVE_BATCH}) split over {TP_AXIS} ranks ({f0['n_split']} split tensors): loss "
+              f"{f0['loss']:.6f} vs one process {f0['ref_loss']:.6f} (rel {rel:.2e}, tol "
+              f"{loss_tol:g}); gradient cosine all together {f0['together']:.7f}, per tensor min "
+              f"{f0['min_cosine']:.7f} at {f0['min_at']} ({f0['under']} tensors under "
+              f"{COCA_FP32_NOISE:g} of the whole norm held by absolute error); need "
+              f"{'together' if dtype_name == 'bfloat16' else 'per tensor'} >= {min_cos}; "
+              f"launches a rank {[r['launches'] for r in rs]} [{CARD}]", flush=True)
+        check(rel <= loss_tol and held >= min_cos and f0["n_grads"] and f0["n_split"] > 0
+              and (dtype_name == "bfloat16" or all(r["under_ok"] for r in rs))
+              and all(r["loss"] == f0["loss"] for r in rs),
+              f"tp (f): {key} split over the model group disagrees with one process")
+        check(all(r["launches"] == fused(*blocks[family]) for r in rs),
+              f"tp (f) {key}: launches, expected {fused(*blocks[family])}")
+        for r in rs:
+            add(r["launches"])
+    g0 = ranks[0]["caption"]
+    same = g0["tokens"] == g0["ref_tokens"]
+    print(f"tp (g) {COCA_MODEL} ({TP_SERVE_LAYERS} blocks a tower) captions 2 images at (1, "
+          f"{TP_AXIS}) (6 beams in 3 groups, 30 tokens): {'equal to' if same else 'NOT equal to'}"
+          f" one process token for token{'' if same else ': ' + str(g0['divergence'])}; "
+          f"launches a rank {[r['caption']['launches'] for r in ranks]}; {g0['s']:.1f} s "
+          f"[{CARD}]", flush=True)
+    check(same, "tp (g): the split CoCa's caption differs from one process")
+    check(all(r["caption"]["launches"] == fused(TP_SERVE_LAYERS) for r in ranks),
+          "tp (g): launches")
+    for r in ranks:
+        for part in ("serve_engine", "serve_cli", "caption"):
+            add(r[part]["launches"])
+
+
+def tp_pair(d: dict, pre: dict) -> list:
+    """One pair of ``--dist-child tp`` ranks (``_child_tp``: parts (a), (c)
+    and (d)-(g)) on two mini-Flickr images and the ``openai`` tag's hub
+    cache; each rank's results."""
+    import base64
+
+    images_b64 = []
+    for p in sorted(os.listdir(d["img_dir"]))[:2]:
+        with open(os.path.join(d["img_dir"], p), "rb") as f:
+            images_b64.append(base64.b64encode(f.read()).decode())
+    return _children("tp", {"cache": pre["cache"], "images_b64": images_b64,
+                            "texts": ["a photo of a dog", "a red car in the street"]},
+                     TP_AXIS, timeout=600)
+
+
+def phase_tp(work: str, d: dict, pre: dict) -> dict:
     """Config 5's multi-chip recipe at a model axis of ``TP_AXIS``, both ranks
     on the card over gloo (NCCL refuses two ranks on one device; gloo carries
     the all_reduce and all_gather that tensor parallelism needs). (a) and (c)
@@ -4024,7 +4519,7 @@ def phase_tp(work: str) -> dict:
         for k in total:
             total[k] += launches.get(k, 0)
 
-    ranks = _children("tp", {}, TP_AXIS, timeout=400)
+    ranks = tp_pair(d, pre)
     want = (24, 24) if DEVICE == "cuda" else (0, 0)
     for route in ("replicated", "zero1"):
         rs = [r[route] for r in ranks]
@@ -4071,6 +4566,8 @@ def phase_tp(work: str) -> dict:
         check(all(r["launches"] == want_t for r in rs), f"tp (c) launches, expected {want_t}")
         for r in rs:
             add(r["launches"])
+
+    tp_serve_report(ranks, add)
 
     # (b) EVA01-g-14 through train.main, one process and two ranks
     d = generate(os.path.join(work, "tp_data"), n_train=TP_EVA_IMAGES, n_val=1, size_px=224,
@@ -4852,6 +5349,50 @@ def phase_siglip(work: str, d: dict) -> dict:
             "cli_wall_s": wall, "bf16": bf16, "fp32": fp32, "tower_ms": lat}
 
 
+# every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
+CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
+              "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
+              "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES")
+
+
+def run_subset(keep, phases) -> None:
+    """A short card run of a few pieces (``scripts/chip_*_phase.py``): the
+    device and the build; phases 3, 3b, 5 and 6 on the case lists named in
+    ``keep`` alone (every other list of ``CASE_LISTS`` emptied); then
+    ``phases(work, d)`` on mini-Flickr cut to 14 + 7 images, in a directory
+    under ``build/`` removed at the end. Prints the seconds after each step
+    and ``RESULT`` with what ``phases`` returns."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    print(f"elapsed {time.perf_counter() - t0:.1f}", flush=True)
+    unknown = set(keep) - set(CASE_LISTS)
+    check(not unknown, f"run_subset: no case list {sorted(unknown)}")
+    for name in CASE_LISTS:
+        if name not in keep:
+            globals()[name] = []
+    phase_kernels()
+    phase_kernels_bwd()
+    for dtype_name in ("float32", "bfloat16"):
+        phase_kernel_times(dtype_name)
+        phase_bwd_times(dtype_name)
+    print(f"elapsed {time.perf_counter() - t0:.1f}", flush=True)
+    global EVAL_TRAIN_IMAGES, EVAL_VAL_IMAGES
+    EVAL_TRAIN_IMAGES, EVAL_VAL_IMAGES = 14, 7
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(dir=build)
+    try:
+        out = phases(work, phase_data(work))
+        print("RESULT", json.dumps(out, default=str), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"elapsed {time.perf_counter() - t0:.1f}", flush=True)
+
+
 def _dist_child_main() -> None:
     import faulthandler
 
@@ -4919,6 +5460,8 @@ def main() -> None:
         _elapsed("train_live_cli")
         pre = phase_pretrained(work)
         _elapsed("pretrained")
+        int8_launches = phase_int8(data, pre)
+        _elapsed("int8")
         zs = phase_zero_shot(data, pre, work)
         _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
@@ -4933,7 +5476,7 @@ def main() -> None:
         _elapsed("giant")
         dist_launches = phase_dist(work)
         _elapsed("dist")
-        tp = phase_tp(work)
+        tp = phase_tp(work, data, pre)
         _elapsed("tp")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4966,7 +5509,7 @@ def main() -> None:
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
-        + siglip["launches"]["fused_attention_fwd"],
+        + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -4994,6 +5537,10 @@ def main() -> None:
                     **by_case[_case_key(case)]}
                    for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                    for case in SIGLIP_TIMED],
+        "tp_serve": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                  **by_case[_case_key(case)]}
+                 for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                 for case in TP_SERVE_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -5025,6 +5572,10 @@ def main() -> None:
                     **by_case[_case_key(case)]}
                    for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                    for case in SIGLIP_TIMED],
+        "tp_serve": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                  **by_case[_case_key(case)]}
+                 for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                 for case in TP_SERVE_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

@@ -1,30 +1,173 @@
-"""Serving engine: bucketed batching over the two towers on one device.
+"""Serving engine: bucketed batching over the two towers, weight-only int8,
+and a model split over ``torch.distributed`` ranks.
 
-The port of the JAX package's ``inference.py`` ``ClipInferenceEngine``
-(single device, no quantisation). Requests are padded up to a small ladder
-of batch buckets, so the device sees a few fixed shapes; larger requests are
-chunked by the top bucket. ``warmup`` runs every (tower, bucket) once, which
-on the card also builds the CUDA kernels before the first request.
+The port of the JAX package's ``inference.py`` ``ClipInferenceEngine``.
+Requests are padded up to a small ladder of batch buckets, so the device
+sees a few fixed shapes; larger requests are chunked by the top bucket.
+``warmup`` runs every (tower, bucket) once, which on the card also builds
+the CUDA kernels before the first request.
 
 Precision follows the JAX engine: images are rounded to the engine dtype
 (bf16 by default) on the device, then the model casts them to its compute
 dtype (fp32 under the default precision); features are L2-normalised in
 fp32 (a CoCa engine's are its normalised latents). ``caption_tokens``
 captions images with a CoCa model's grouped beam search
-(``models/coca.py:generate_beam``), bucketed like the encoders. Int8
-weights, meshes and StableHLO export are not ported yet (ROADMAP).
+(``models/coca.py:generate_beam``), bucketed like the encoders.
+
+* ``quantize="int8"`` (``tpu/inference.py:51-122``): every floating
+  parameter of at least 2 dimensions and ``quantize_min_size`` elements
+  (counted on its JAX leaf) but the token and positional tables is kept on
+  the device as int8 with a per-output-channel fp32 scale, and is
+  dequantized to fp32 at each use (a ``torch.nn.utils.parametrize``
+  parametrization on the attribute), as the JAX engine dequantizes inside
+  its jitted call. The products stay ``F.linear``/``torch.matmul`` on the
+  dequantized weights: the JAX package forms them in XLA, not in a kernel.
+* ``mesh``, a ``(data, model)`` mesh of ``parallel/mesh.py:create_mesh``:
+  every rank builds the engine on the same whole model, which it splits
+  over its model group (``parallel/tensor.py:shard_module``); buckets round
+  up to multiples of the data axis's size. Rank 0 drives: each call sends
+  the operation and the padded batch to every rank over a gloo group of
+  its own, each data group runs its contiguous share of the rows (the
+  ranks of a model group run the same rows together), and rank 0 gathers
+  the results. The other ranks wait in ``follow`` until ``stop``. This is
+  the JAX engine's one controller on one host, with one process a card.
+  ``mesh`` with int8 keeps the int8 weights whole on every rank and logs
+  the JAX engine's warning. StableHLO export is not ported (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import dataclasses
+import datetime
+import logging
+import threading
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 _CAPTION_MAX_BEAMS = 16  # the JAX engine's cap on a request's beam width
 
+# -------------------------------------------------------------- weight-only int8
+
+_QUANT_MIN_SIZE = 1 << 14  # the JAX engine's: tensors under 16k elements stay as they are
+# the port's names of the leaves that the JAX ``_QUANT_SKIP_KEYS`` skip (token
+# and positional tables) in the families it builds; SigLIP's ``pos_embed``
+# is the JAX leaf ``position_embedding``, which no skip key names, so it is
+# quantized there and here
+_QUANT_SKIP_ENDINGS = ("token_embedding.weight", "positional_embedding")
+# tensors that the exporter assembles from JAX leaves of another size: the
+# size rule counts the leaf's elements (numerator, denominator)
+_QUANT_LEAF_SIZE = {"attn_pool.q.weight": (3, 1),                # head_attn/in_proj_kernel
+                    "attn_pool.kv.weight": (3, 2),
+                    "attn_pool.attn.in_proj_weight": (1, 3)}     # CoCa's {q,k,v}_proj
+
+
+@dataclasses.dataclass
+class Int8Weight:
+    """A quantized tensor: int8 values and the fp32 scale of each output
+    channel, shaped to broadcast against them."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.q.to(dtype) * self.scale.to(dtype)
+
+
+def _channel_dim(name: str, t: torch.Tensor) -> int:
+    """The dimension of ``t`` that holds the flax kernel's last axis: 0 for
+    torch's Linear, convolution and packed projection weights (the kernel
+    transposed), the last for a matrix the port applies as ``x @ P``
+    (``visual.proj``, ``text_projection``, the pooler's ``query``) and for
+    the position tables, which keep the flax layout."""
+    return 0 if name.endswith("weight") else t.dim() - 1
+
+
+def _leaf_numel(name: str, t: torch.Tensor) -> int:
+    for end, (num, den) in _QUANT_LEAF_SIZE.items():
+        if name == end or name.endswith("." + end):
+            return t.numel() * num // den
+    return t.numel()
+
+
+def quantize_tensor_int8(w: torch.Tensor, dim: int) -> Int8Weight:
+    """``tpu/inference.py:_quantize_leaf`` on ``dim``'s channels: the scale
+    ``max(amax, 1e-12) / 127`` over every other dimension, the values
+    ``clip(round(w / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``)."""
+    w = w.detach().float()
+    others = [d for d in range(w.dim()) if d != dim]
+    amax = w.abs().amax(dim=others, keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return Int8Weight(q, scale)
+
+
+def quantizes(name: str, t: torch.Tensor, min_size: int = _QUANT_MIN_SIZE) -> bool:
+    """Whether ``quantize_state_dict_int8`` stores tensor ``name`` as int8:
+    the JAX ``quantize_variables_int8`` rule on the port's names."""
+    if name.endswith(_QUANT_SKIP_ENDINGS):
+        return False
+    return t.dim() >= 2 and t.is_floating_point() and _leaf_numel(name, t) >= min_size
+
+
+def quantize_state_dict_int8(state_dict: Mapping[str, torch.Tensor],
+                             min_size: int = _QUANT_MIN_SIZE
+                             ) -> Dict[str, Union[torch.Tensor, Int8Weight]]:
+    """Each tensor that ``quantizes`` names as an ``Int8Weight``, the others
+    as they are: the port of ``quantize_variables_int8`` on an open_clip
+    state dict."""
+    return {k: quantize_tensor_int8(v, _channel_dim(k, v)) if quantizes(k, v, min_size) else v
+            for k, v in state_dict.items()}
+
+
+def dequantize(state_dict: Mapping[str, Union[torch.Tensor, Int8Weight]],
+               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The inverse of ``quantize_state_dict_int8`` (``dequantize_variables``):
+    ``q * scale`` in ``dtype``."""
+    return {k: v.dequantize(dtype) if isinstance(v, Int8Weight) else v
+            for k, v in state_dict.items()}
+
+
+class _Dequantize(nn.Module):
+    """The parametrization of a quantized attribute: the stored int8 values
+    times the channels' scale, in fp32, at each read."""
+
+    def __init__(self, scale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("scale", scale)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return q.to(self.scale.dtype) * self.scale
+
+
+def quantize_module_int8(model: nn.Module, min_size: int = _QUANT_MIN_SIZE) -> None:
+    """Replaces every parameter that ``quantizes`` names by its int8 values
+    (on its device) under a ``_Dequantize`` parametrization."""
+    from torch.nn.utils import parametrize
+
+    for name, p in list(model.named_parameters()):
+        if not quantizes(name, p, min_size):
+            continue
+        qw = quantize_tensor_int8(p, _channel_dim(name, p))
+        owner_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        setattr(owner, attr, nn.Parameter(qw.q, requires_grad=False))
+        parametrize.register_parametrization(owner, attr, _Dequantize(qw.scale), unsafe=True)
+
+
+def resident_bytes(model: nn.Module) -> Dict[str, int]:
+    """The bytes the model keeps on its device: ``int8`` (the quantized
+    values), ``total`` (every parameter and buffer, the scales included)."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return {"int8": sum(t.numel() for t in tensors if t.dtype == torch.int8),
+            "total": sum(t.numel() * t.element_size() for t in tensors)}
+
+
+# ------------------------------------------------------------------ the engine
 
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
@@ -37,55 +180,182 @@ class ClipInferenceEngine:
     """Bucketed two-tower encoder.
 
     Args:
-      model: a built ``models.clip.CLIP`` on its serving device.
+      model: a built ``models.clip.CLIP`` (or CoCa) on its serving device;
+        whole on every rank under a ``mesh``.
       image_size: (H, W) expected by the vision tower.
       context_length: text sequence length (77 for CLIP BPE).
       buckets: ascending batch-size ladder.
       dtype: the dtype images are rounded to before the vision tower.
+      quantize: None or ``"int8"`` (weight-only, see the module docstring).
+      quantize_min_size: the int8 rule's least tensor size.
+      mesh: a ``(data, model)`` mesh (``parallel/mesh.py:create_mesh``) over
+        the process group, or None for one process.
     """
 
     def __init__(self, model, image_size: Tuple[int, int] = (224, 224),
                  context_length: int = 77, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None,
+                 quantize_min_size: int = _QUANT_MIN_SIZE, mesh=None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.model = model.eval()
         self.device = model.logit_scale.device
         self.image_size = tuple(image_size)
         self.context_length = int(context_length)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.dtype = dtype
+        self.quantize = quantize
+        self.mesh = mesh
+        self.leader = True
+        self.broken = threading.Event()  # a mesh call failed: the ranks are out of step
+        if mesh is not None:
+            self._join(mesh, quantize is not None)
+        if quantize == "int8":
+            quantize_module_int8(model, quantize_min_size)
         if self.device.type == "cuda" and model.compute_dtype == torch.float32:
             # fp32 serving stays fp32: TF32 keeps ~3 decimal digits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
-    def _encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        feats = self.model.encode_image(images.to(self.dtype), normalize=False).float()
-        return feats / feats.norm(dim=-1, keepdim=True)
+    def _join(self, mesh, replicate: bool) -> None:
+        """This rank's part of the mesh: its model group's split, its data
+        group's rows, the control group."""
+        import torch.distributed as dist
 
-    def _encode_text(self, texts: torch.Tensor) -> torch.Tensor:
-        feats = self.model.encode_text(texts.long(), normalize=False).float()
-        return feats / feats.norm(dim=-1, keepdim=True)
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS
+        from .parallel.tensor import model_parallel, shard_module
 
-    def _run_bucketed(self, fn, x: np.ndarray) -> np.ndarray:
+        self._ndata = mesh[DATA_AXIS].size()
+        self._model_world = mesh[MODEL_AXIS].size()
+        self._data_rank = mesh[DATA_AXIS].get_local_rank()
+        if self._ndata > 1:
+            self.buckets = tuple(sorted(set(max(self._ndata, -(-b // self._ndata) * self._ndata)
+                                            for b in self.buckets)))
+        if replicate:
+            logging.warning(
+                "mesh + quantize='int8': int8 weights are replicated on every device (no TP "
+                "sharding); if the quantized checkpoint doesn't fit one chip, drop quantize "
+                "and use the TP-sharded path instead")
+        else:
+            shard_module(self.model, model_parallel(mesh[MODEL_AXIS].get_group()))
+        # requests arrive at any time: the control group waits without a deadline
+        self._control = dist.new_group(backend="gloo", timeout=datetime.timedelta(days=365))
+        self.leader = dist.get_rank() == 0
+        self._lock = threading.Lock()
+
+    # -- one call ----------------------------------------------------------------
+
+    def _compute(self, op: str, x: np.ndarray, gen: dict) -> np.ndarray:
+        """``op`` on this process's rows (numpy in, numpy out)."""
+        with torch.inference_mode():
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            if op == "encode_image":
+                feats = self.model.encode_image(t.to(self.dtype), normalize=False).float()
+            elif op == "encode_text":
+                feats = self.model.encode_text(t.long(), normalize=False).float()
+            else:
+                from torch.nn.utils import parametrize
+
+                from .models.coca import generate_beam
+
+                # int8: each weight dequantized once a call, not once a decode step
+                with parametrize.cached():
+                    return generate_beam(self.model, t.to(self.dtype), **gen).int().cpu().numpy()
+            return (feats / feats.norm(dim=-1, keepdim=True)).cpu().numpy()
+
+    def _send(self, op: str, x: Optional[np.ndarray] = None, gen: Optional[dict] = None):
+        """Rank 0: the operation (and its batch) to every rank."""
+        import torch.distributed as dist
+
+        header = [op, None if x is None else (tuple(x.shape), x.dtype.str), gen or {}]
+        dist.broadcast_object_list(header, src=0, group=self._control)
+        if x is not None:
+            dist.broadcast(torch.from_numpy(np.ascontiguousarray(x)), src=0, group=self._control)
+
+    def _receive(self):
+        """A follower: the next operation and its batch from rank 0."""
+        import torch.distributed as dist
+
+        header = [None, None, None]
+        dist.broadcast_object_list(header, src=0, group=self._control)
+        op, spec, gen = header
+        if spec is None:
+            return op, None, gen
+        t = torch.from_numpy(np.empty(spec[0], np.dtype(spec[1])))
+        dist.broadcast(t, src=0, group=self._control)
+        return op, t.numpy(), gen
+
+    def _rows(self, op: str, x: np.ndarray, gen: dict) -> Optional[np.ndarray]:
+        """Every rank: its data group's share of the padded batch through
+        ``op``; rank 0 returns the shares gathered in order (model rank 0 of
+        each data group), the others None."""
+        import torch.distributed as dist
+
+        per = x.shape[0] // self._ndata
+        out = torch.from_numpy(np.ascontiguousarray(
+            self._compute(op, x[self._data_rank * per:(self._data_rank + 1) * per], gen)))
+        parts = [torch.empty_like(out) for _ in range(dist.get_world_size())] \
+            if self.leader else None
+        dist.gather(out, parts, dst=0, group=self._control)
+        if not self.leader:
+            return None
+        return torch.cat([parts[r * self._model_world] for r in range(self._ndata)]).numpy()
+
+    def _call(self, op: str, x: np.ndarray, gen: Optional[dict] = None) -> np.ndarray:
+        """``op`` on one padded batch: here, or over every rank of the mesh."""
+        gen = gen or {}
+        if self.mesh is None:
+            return self._compute(op, x, gen)
+        if not self.leader:
+            raise RuntimeError("a follower rank takes its calls from rank 0: run follow()")
+        with self._lock:
+            if self.broken.is_set():
+                raise RuntimeError("an earlier call failed on the mesh; the ranks are out of step")
+            try:
+                self._send(op, x, gen)
+                return self._rows(op, x, gen)
+            except Exception:
+                self.broken.set()
+                raise
+
+    def follow(self) -> None:
+        """A follower rank's loop: each operation rank 0 sends, on this
+        rank's rows, until ``stop``. Raises where a call fails (the process
+        should then end: the other ranks are out of step)."""
+        if self.mesh is None or self.leader:
+            raise RuntimeError("follow() runs on the follower ranks of a mesh")
+        while True:
+            op, x, gen = self._receive()
+            if op == "stop":
+                return
+            self._rows(op, x, gen)
+
+    def stop(self) -> None:
+        """Rank 0: ends every follower's ``follow`` (a no-op without a mesh)."""
+        if self.mesh is not None and self.leader and not self.broken.is_set():
+            with self._lock:
+                self._send("stop")
+
+    def _run_bucketed(self, op: str, x: np.ndarray, gen: Optional[dict] = None) -> np.ndarray:
         """Pad to the bucket, run, slice back; chunk past the top bucket."""
         n, top = x.shape[0], self.buckets[-1]
         if n > top:
-            return np.concatenate([self._run_bucketed(fn, x[i:i + top])
+            return np.concatenate([self._run_bucketed(op, x[i:i + top], gen)
                                    for i in range(0, n, top)], axis=0)
         b = _bucket_for(n, self.buckets)
         if b != n:
             x = np.concatenate([x, np.zeros((b - n, *x.shape[1:]), x.dtype)], axis=0)
-        with torch.inference_mode():
-            out = fn(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
-            return out.cpu().numpy()[:n]
+        return self._call(op, x, gen)[:n]
+
+    # -- public API --------------------------------------------------------------
 
     def encode_image(self, images: np.ndarray) -> np.ndarray:
         """[N,H,W,3] float (0-mean preprocessed) -> [N,D] unit vectors."""
-        return self._run_bucketed(self._encode_image, np.asarray(images, np.float32))
+        return self._run_bucketed("encode_image", np.asarray(images, np.float32))
 
     def encode_text(self, texts: np.ndarray) -> np.ndarray:
         """[N,L] int32 token ids -> [N,D] unit vectors."""
-        return self._run_bucketed(self._encode_text, np.asarray(texts, np.int32))
+        return self._run_bucketed("encode_text", np.asarray(texts, np.int32))
 
     def caption_tokens(self, images: np.ndarray, seq_len: int = 30, num_beams: int = 6,
                        num_beam_groups: int = 3, min_seq_len: int = 5,
@@ -95,25 +365,23 @@ class ClipInferenceEngine:
         """Caption a preprocessed image batch with the grouped beam search
         (CoCa models only; the JAX engine's defaults): [N,H,W,3] floats ->
         [N, seq_len] int32 ids (SOT ... EOT, pad-filled), bucketed and padded
-        like the encoders. On the card the image tower runs the fused
-        kernel (one launch a layer); the decode steps take plain attention,
-        as in the JAX package."""
-        from .models.coca import CoCa, generate_beam
+        like the encoders; the int8 and mesh routes apply unchanged (every
+        rank of a model group chooses the same tokens: its logits are
+        all-reduced). On the card the image tower runs the fused kernel (one
+        launch a layer); the decode steps take plain attention, as in the
+        JAX package."""
+        from .models.coca import CoCa
 
         if not isinstance(self.model, CoCa):
             raise TypeError(
                 f"caption_tokens requires a CoCa model (got {type(self.model).__name__})")
         if not 1 < num_beams <= _CAPTION_MAX_BEAMS:
             raise ValueError(f"num_beams must be in [2, {_CAPTION_MAX_BEAMS}], got {num_beams}")
-
-        def caption(imgs: torch.Tensor) -> torch.Tensor:
-            return generate_beam(
-                self.model, imgs.to(self.dtype), num_beams=num_beams,
-                num_beam_groups=num_beam_groups, seq_len=seq_len, sot_token_id=sot_token_id,
-                eot_token_id=eot_token_id, pad_token_id=pad_token_id, min_seq_len=min_seq_len,
-                repetition_penalty=repetition_penalty, length_penalty=length_penalty).int()
-
-        return self._run_bucketed(caption, np.asarray(images, np.float32))
+        gen = dict(num_beams=num_beams, num_beam_groups=num_beam_groups, seq_len=seq_len,
+                   sot_token_id=sot_token_id, eot_token_id=eot_token_id,
+                   pad_token_id=pad_token_id, min_seq_len=min_seq_len,
+                   repetition_penalty=repetition_penalty, length_penalty=length_penalty)
+        return self._run_bucketed("caption", np.asarray(images, np.float32), gen)
 
     def logit_terms(self) -> Tuple[float, float]:
         """(exp(logit_scale), logit_bias-or-0): the affine on feature cosines."""
@@ -129,26 +397,36 @@ class ClipInferenceEngine:
         return scale * img_f @ txt_f.T + bias
 
     def warmup(self) -> None:
-        """Run one zero batch per (tower, bucket)."""
+        """Run one zero batch per (tower, bucket); under a mesh rank 0's
+        warmup runs every rank's (a follower's is a no-op)."""
+        if not self.leader:
+            return
         h, w = self.image_size
         for b in self.buckets:
             self.encode_image(np.zeros((b, h, w, 3), np.float32))
             self.encode_text(np.zeros((b, self.context_length), np.int32))
 
 
-def create_engine(model_name: str, checkpoint: Optional[str] = None,
-                  buckets: Sequence[int] = DEFAULT_BUCKETS, warm: bool = True,
-                  device="cuda", seed: int = 0):
-    """Registry name (+ optional local state-dict checkpoint) -> (engine,
-    preprocess, tokenizer), the serving bundle, on ``device`` ("cuda" unless
-    asked otherwise; raises when that device is missing). Without a
-    checkpoint the weights are a seeded random init."""
-    from .models.factory import create_model_and_transforms, get_tokenizer
+def create_engine(model_name: str, pretrained: Optional[str] = None,
+                  checkpoint: Optional[str] = None, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                  dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None,
+                  warm: bool = True, mesh=None, device="cuda", seed: int = 0,
+                  cache_dir: Optional[str] = None):
+    """Registry name (+ a pretrained tag, + a checkpoint file loaded over
+    it) -> (engine, preprocess, tokenizer), the serving bundle, on
+    ``device`` ("cuda" unless asked otherwise; raises when that device is
+    missing), as ``tpu/inference.py:create_engine``. Without either the
+    weights are a seeded random init. Under a ``mesh`` every rank calls
+    this, and only rank 0's ``warm`` runs (it runs every rank's)."""
+    from .models.factory import create_model_and_transforms, get_tokenizer, load_checkpoint
 
     model, preprocess = create_model_and_transforms(
-        model_name, pretrained=checkpoint, device=device, seed=seed)
+        model_name, pretrained=pretrained, device=device, seed=seed, cache_dir=cache_dir)
+    if checkpoint:
+        load_checkpoint(model, checkpoint, strict=True)
     engine = ClipInferenceEngine(model, image_size=model.visual.image_size,
-                                 context_length=model.context_length, buckets=buckets)
+                                 context_length=model.context_length, buckets=buckets,
+                                 dtype=dtype, quantize=quantize, mesh=mesh)
     if warm:
         engine.warmup()
-    return engine, preprocess, get_tokenizer(model_name)
+    return engine, preprocess, get_tokenizer(model_name, cache_dir=cache_dir)

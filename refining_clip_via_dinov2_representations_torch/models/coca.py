@@ -22,7 +22,9 @@ early_stopping=False stop rule, finalize with ties to the first group. With
 KV caches (reordered with the beams) and cross K/V computed once; without
 it each step re-runs the towers over the whole buffer. The decode steps'
 attention is plain, as the JAX package routes it (``models/layers.py:
-MultiheadAttention``); the image tower runs the fused kernel.
+MultiheadAttention``); the image tower runs the fused kernel. Under a
+model group the caches hold this rank's heads, and every rank chooses the
+same tokens: the logits come after the all-reduces, equal on every rank.
 
 Ties in a top-k resolve to the lowest index, as ``jax.lax.top_k``: the
 port sorts stably. Sampling draws from a ``torch.Generator`` (Gumbel-max
@@ -173,9 +175,12 @@ def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tens
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def _init_caches(b: int, cfg, length: int, dtype, device):
-    """Zeroed per-layer (k, v) caches of a tower, [B, H, L, Dh] each."""
-    shape = (b, cfg.heads, length, cfg.width // cfg.heads)
+def _init_caches(model: CoCa, b: int, cfg, length: int, dtype, device):
+    """Zeroed per-layer (k, v) caches of a tower, [B, H, L, Dh] each: this
+    rank's heads under a model group (``parallel/tensor.py:shard_module``),
+    as its attention layers project them."""
+    mp = getattr(model, "model_parallel", None)
+    shape = (b, cfg.heads // (mp.world if mp else 1), length, cfg.width // cfg.heads)
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device)) for _ in range(cfg.layers)]
 
@@ -278,8 +283,8 @@ def generate(model: CoCa, image: torch.Tensor, text: Optional[torch.Tensor] = No
 
     if use_cache:
         dtype = model.compute_dtype
-        tcaches = _init_caches(b, model.text_cfg, seq_len, dtype, device)
-        dcaches = _init_caches(b, model.multimodal_cfg, seq_len, dtype, device)
+        tcaches = _init_caches(model, b, model.text_cfg, seq_len, dtype, device)
+        dcaches = _init_caches(model, b, model.multimodal_cfg, seq_len, dtype, device)
         cross = model.text_decoder(image_embs, None, compute_cross_kv=True)
         cur = tokens[:, 0:1]
         # position 0 onwards, so a prompt's tokens prefill the caches
@@ -408,8 +413,8 @@ def generate_beam(model: CoCa, image: torch.Tensor, num_beams: int = 6,
 
     if use_cache:
         dtype = model.compute_dtype
-        tcaches = _init_caches(b * w, model.text_cfg, L, dtype, device)
-        dcaches = _init_caches(b * w, model.multimodal_cfg, L, dtype, device)
+        tcaches = _init_caches(model, b * w, model.text_cfg, L, dtype, device)
+        dcaches = _init_caches(model, b * w, model.multimodal_cfg, L, dtype, device)
         # the image tokens' cross K/V: projected once, the same for every beam
         cross = model.text_decoder(image_embs_rep, None, compute_cross_kv=True)
         cur = tokens.reshape(b * w, L)[:, 0:1]

@@ -23,7 +23,9 @@ N tokens ([b, heads, 1, 64] x N keys) run the fused kernels under
 
 ``grad_checkpointing`` recomputes the blocks (not the head) in the
 backward under the remat policy, as the JAX tower's ``nn.remat`` wraps
-only its blocks.
+only its blocks. Under a model group (``parallel/tensor.py:shard_module``)
+each block's attention and MLP and the MAP head run on this rank's heads
+and columns, as the JAX ``_param_spec`` splits them.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
-from .layers import LayerNorm, _linear
+from ..parallel.tensor import column_linear, row_linear
+from .layers import LayerNorm
 from .transformer import run_blocks, saved_ops
 
 # timm model name -> (width, layers, heads, mlp_dim): the port's own copy of
@@ -84,14 +87,22 @@ class SiglipVisionCfg:
     norm_eps: float = 1e-6
 
 
-def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """[B, L, D] -> contiguous [B, heads, L, D / heads]."""
-    b, l, d = t.shape
-    return t.view(b, l, heads, d // heads).transpose(1, 2).contiguous()
+def _heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """[B, L, heads * head_dim] -> contiguous [B, heads, L, head_dim]."""
+    b, l, _ = t.shape
+    return t.view(b, l, heads, head_dim).transpose(1, 2).contiguous()
+
+
+def _local_heads(heads: int, tp) -> int:
+    """The heads this rank runs: all of them, or its part under a model group."""
+    return heads // (tp.world if tp else 1)
 
 
 class Mlp(nn.Module):
-    """timm's Mlp: fc1 -> tanh GELU -> fc2."""
+    """timm's Mlp: fc1 -> tanh GELU -> fc2; under a model group (``tp``)
+    ``fc1`` column- and ``fc2`` row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -99,11 +110,15 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(gelu_tanh(_linear(x, self.fc1)), self.fc2)
+        return row_linear(gelu_tanh(column_linear(x, self.fc1, self.tp)), self.fc2, self.tp)
 
 
 class Attention(nn.Module):
-    """timm's Attention: one fused ``qkv`` projection, ``proj`` out."""
+    """timm's Attention: one fused ``qkv`` projection, ``proj`` out. Under a
+    model group (``tp``) ``qkv`` holds this rank's heads of q, k and v and
+    ``proj`` its columns: the core runs on ``num_heads / tp.world`` heads."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int, attn_impl: str = "auto"):
         super().__init__()
@@ -115,10 +130,11 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
-        qkv = _linear(x, self.qkv).view(b, l, 3, self.num_heads, d // self.num_heads)
+        heads = _local_heads(self.num_heads, self.tp)
+        qkv = column_linear(x, self.qkv, self.tp).view(b, l, 3, heads, d // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         out = multi_head_attention(q, k, v, impl=self.attn_impl)
-        return _linear(out.transpose(1, 2).reshape(b, l, d), self.proj)
+        return row_linear(out.transpose(1, 2).reshape(b, l, -1), self.proj, self.tp)
 
 
 class Block(nn.Module):
@@ -139,7 +155,11 @@ class Block(nn.Module):
 class AttentionPoolLatent(nn.Module):
     """timm's MAP head (HF ``SiglipMultiheadAttentionPoolingHead``): the
     ``latent`` probe through ``q`` attends over ``kv`` of the tokens, then
-    ``proj``; ``x + mlp(norm(x))``; the probe's row."""
+    ``proj``; ``x + mlp(norm(x))``; the probe's row. Under a model group
+    (``tp``) ``q`` and ``kv`` hold this rank's heads (of k and of v) and
+    ``proj`` its columns, as the JAX rule splits ``head_attn``."""
+
+    tp = None
 
     def __init__(self, cfg: SiglipVisionCfg, attn_impl: str = "auto"):
         super().__init__()
@@ -154,11 +174,12 @@ class AttentionPoolLatent(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
-        q = _linear(self.latent.to(x.dtype).expand(b, 1, d), self.q)
-        k, v = _linear(x, self.kv).chunk(2, dim=-1)
-        out = multi_head_attention(_heads(q, self.num_heads), _heads(k, self.num_heads),
-                                   _heads(v, self.num_heads), impl=self.attn_impl)
-        x = _linear(out.transpose(1, 2).reshape(b, 1, d), self.proj)
+        heads, dh = _local_heads(self.num_heads, self.tp), d // self.num_heads
+        q = column_linear(self.latent.to(x.dtype).expand(b, 1, d), self.q, self.tp)
+        k, v = column_linear(x, self.kv, self.tp).chunk(2, dim=-1)
+        out = multi_head_attention(_heads(q, heads, dh), _heads(k, heads, dh),
+                                   _heads(v, heads, dh), impl=self.attn_impl)
+        x = row_linear(out.transpose(1, 2).reshape(b, 1, -1), self.proj, self.tp)
         x = x + self.mlp(self.norm(x))
         return x[:, 0]
 

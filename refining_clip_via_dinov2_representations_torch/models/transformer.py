@@ -370,6 +370,12 @@ class VisionTransformer(nn.Module):
         return (pooled, tokens) if self.output_tokens else pooled
 
 
+def embed_tokens(emb: nn.Embedding, text: torch.Tensor) -> torch.Tensor:
+    """The token rows of ``text``: a width-split table (``parallel/tensor.py``)
+    looks up this rank's columns and gathers the others'."""
+    return gather_from_model(emb(text), getattr(emb, "tp", None))
+
+
 def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
     """The text-tower forward over a module holding its parts
     (``token_embedding``, ``positional_embedding``, ``transformer``,
@@ -379,9 +385,7 @@ def encode_text_tokens(tower: nn.Module, text: torch.Tensor) -> torch.Tensor:
     no mask at all, so its attention reaches the fused kernel with
     ``causal=False``."""
     dtype = tower.compute_dtype
-    # a width-split table (``parallel/tensor.py``) looks up this rank's columns
-    emb = tower.token_embedding
-    x = gather_from_model(emb(text), getattr(emb, "tp", None)).to(dtype)
+    x = embed_tokens(tower.token_embedding, text).to(dtype)
     x = x + tower.positional_embedding[: text.shape[1]].to(dtype)
     x = tower.ln_final(tower.transformer(x, causal=tower.causal))
     pooled = text_global_pool(x, text, tower.pool_type)
@@ -453,7 +457,7 @@ class TextTransformer(nn.Module):
             # one decode step: the appended CLS sits at the end, causally
             # invisible to the token rows, so this is plain cached attention
             dtype = self.compute_dtype
-            x = self.token_embedding(text).to(dtype)
+            x = embed_tokens(self.token_embedding, text).to(dtype)
             x = x + self.positional_embedding[pos:pos + 1].to(dtype)
             x, caches = self.transformer(x, caches=caches, pos=pos)
             return (x if self.embed_cls else self.ln_final(x)), caches
@@ -461,7 +465,7 @@ class TextTransformer(nn.Module):
             return encode_text_tokens(self, text)
         dtype = self.compute_dtype
         b, l = text.shape
-        x = self.token_embedding(text).to(dtype)
+        x = embed_tokens(self.token_embedding, text).to(dtype)
         mask = None
         if self.embed_cls:
             x = torch.cat([x, self.cls_emb.to(dtype).expand(b, 1, -1)], dim=1)

@@ -9,19 +9,21 @@ ordinary contiguous ``[B, H/m, L, d]`` tensors of this rank's heads.
 
 * A column-parallel layer (the packed QKV, ``c_fc``, DINOv2's
   query/key/value, ``fc1`` and the SwiGLU ``weights_in``, the DINO head's
-  ``fc1``) holds its rows of the weight and bias. Its input passes through
+  ``fc1``, SigLIP's ``qkv`` and its MAP head's ``q`` and packed ``kv``)
+  holds its rows of the weight and bias. Its input passes through
   ``copy_to_model``: the identity forward, an all-reduce of the gradient
   in the backward.
 * A row-parallel layer (``out_proj``, ``c_proj``, ``output.dense``,
-  ``fc2``, ``weights_out``) holds its columns of the weight and the whole
-  bias. ``row_linear`` multiplies, all-reduces the partial sums
+  ``fc2``, ``weights_out``, SigLIP's ``proj`` and its head's ``proj``)
+  holds its columns of the weight and the whole bias. ``row_linear`` multiplies, all-reduces the partial sums
   (``reduce_from_model``: the identity backward) and adds the bias once,
   after the sum.
 * The text tower's token embedding is split on its width, as
   ``P(None, MODEL)`` says; the looked-up rows are all-gathered on the last
   dimension (``gather_from_model``: the backward keeps this rank's columns).
 * Everything else is whole on every rank: LayerNorms, the class and
-  positional embeddings, the patch embedding, the projections, LayerScale.
+  positional embeddings, the patch embedding, the projections, LayerScale,
+  CoCa's attentional pooler (its flax leaves match no JAX pattern).
 
 So a block runs one all-reduce in the attention and one in the MLP, forward
 and backward alike. Every replicated activation and every replicated
@@ -170,9 +172,20 @@ _COLUMN = {
     "attention.attention.value.weight": 1, "attention.attention.value.bias": 1,
     "mlp.fc1.weight": 1, "mlp.fc1.bias": 1,                    # fc1/kernel
     "mlp.weights_in.weight": 2, "mlp.weights_in.bias": 2,      # mlp/weights_in/kernel
+    # SigLIP's timm trunk (attn/in_proj_kernel) and its MAP head, whose one
+    # head_attn/in_proj_kernel the exporter splits into q and the packed kv
+    "attn.qkv.weight": 3, "attn.qkv.bias": 3,
+    "attn_pool.q.weight": 1, "attn_pool.q.bias": 1,
+    "attn_pool.kv.weight": 2, "attn_pool.kv.bias": 2,
 }
 _ROW = ("attn.out_proj.weight", "mlp.c_proj.weight", "attention.output.dense.weight",
-        "mlp.fc2.weight", "mlp.weights_out.weight")
+        "mlp.fc2.weight", "mlp.weights_out.weight",
+        "attn.proj.weight", "attn_pool.proj.weight")                # SigLIP: attn/out_proj
+# CoCa's AttentionalPooler (``models/layers.py``) keeps torch's attention
+# names under ``attn_pool.attn.``, which the endings above would match; its
+# flax leaves (``attn_pool/{q,k,v,out}_proj``) match no JAX pattern, so it
+# stays whole
+_WHOLE = "attn_pool.attn."
 # the DINO head (``losses/dino.py:DinoProjectionHead``, names without a prefix)
 _HEAD_COLUMN = {"fc1.weight": 1, "fc1.bias": 1}
 _HEAD_ROW = ("fc2.weight",)
@@ -182,6 +195,8 @@ def param_split(name: str, head: bool = False) -> Optional[Split]:
     """The split of parameter ``name`` over the model group, or None where it
     stays whole. ``head``: ``name`` is the DINO head's."""
     column, row = (_HEAD_COLUMN, _HEAD_ROW) if head else (_COLUMN, _ROW)
+    if not head and (name.startswith(_WHOLE) or "." + _WHOLE in name):
+        return None
     for end, packs in column.items():
         if name == end or name.endswith("." + end):
             return Split(0, packs)

@@ -17,10 +17,24 @@ that thread's current CUDA stream).
                            search, BPE decode; 400 on another model)
 
 CLI: ``python -m refining_clip_via_dinov2_representations_torch.serve
---model ViT-B-16 [--checkpoint state_dict.pt] [--device cuda] --port 8080``;
-``--checkpoint`` also takes a pretrained tag (a CoCa captioner: ``--model
-coca_ViT-L-14 --checkpoint mscoco_finetuned_laion2b_s13b_b90k``, resolved
-from the hub cache).
+--model ViT-B-16 [--pretrained openai] [--checkpoint state_dict.pt]
+[--quantize int8] [--device cuda] --port 8080``, the JAX server's flags
+(``tpu/serve.py:291-300``): ``--pretrained`` is a tag resolved from the hub
+cache, ``--checkpoint`` a state-dict file loaded over it (a CoCa
+captioner: ``--model coca_ViT-L-14 --pretrained
+mscoco_finetuned_laion2b_s13b_b90k``); ``--quantize int8`` serves
+weight-only int8 (``inference.py``). A model split over the model axis runs
+one process a card under torchrun::
+
+    torchrun --nproc-per-node 2 -m refining_clip_via_dinov2_representations_torch.serve \
+        --model ViT-B-16 --pretrained openai --mesh-model-axis 2
+
+Every rank joins the process group (``train/distributed.py:
+init_distributed_device``: NCCL on cards, gloo with ``--device cpu``) and
+builds the engine on its part of the ``(data, model)`` mesh; rank 0 alone binds the port and runs the
+micro-batchers, and sends each engine call to the others, which wait in
+``ClipInferenceEngine.follow``. Shutting rank 0 down stops them; a failed
+call on the mesh ends the server with an error.
 """
 
 from __future__ import annotations
@@ -127,8 +141,9 @@ class ClipServer:
             "buckets": list(self.engine.buckets),
             "image_size": list(self.engine.image_size),
             "context_length": self.engine.context_length,
-            "quantize": None,
-            "mesh": None,
+            "quantize": self.engine.quantize,
+            "mesh": None if self.engine.mesh is None
+            else dict(zip(self.engine.mesh.mesh_dim_names, self.engine.mesh.shape)),
             "device": str(self.engine.device),
         }
 
@@ -267,35 +282,76 @@ def make_http_server(server: ClipServer, host: str = "0.0.0.0",
     return cls((host, port), _make_handler(server))
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="CLIP serving front end (PyTorch/CUDA)")
     p.add_argument("--model", required=True)
+    p.add_argument("--pretrained", default=None,
+                   help="a pretrained tag of the model, resolved from the hub cache")
     p.add_argument("--checkpoint", default=None,
-                   help="open_clip-layout state dict (torch.save); random init without")
+                   help="an open_clip-layout state-dict file, loaded over --pretrained; "
+                        "random init without either")
+    p.add_argument("--cache-dir", default=None, help="the hub cache of the tags")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--buckets", type=int, nargs="+", default=None)
+    p.add_argument("--quantize", choices=["int8"], default=None)
     p.add_argument("--batch-window-ms", type=float, default=5.0)
     p.add_argument("--mesh-model-axis", type=int, default=1,
-                   help="the JAX server's TP-sharded weights; not ported (above 1 raises)")
-    args = p.parse_args(argv)
+                   help="split the model over this many ranks (torchrun, one process a card)")
+    return p
+
+
+def _mesh(args):
+    """(mesh, device) of a ``--mesh-model-axis`` launch: the process group
+    joined, the ``(data, model)`` mesh built."""
+    from types import SimpleNamespace
+
+    from .parallel.mesh import create_mesh, log_mesh
+    from .train.distributed import init_distributed_device, is_using_distributed
+
+    if not is_using_distributed():
+        raise ValueError(f"--mesh-model-axis {args.mesh_model_axis} needs a process group: "
+                         "launch with torchrun (one process a card)")
+    ns = SimpleNamespace(device=args.device, force_cpu=False, dist_url=None,
+                         dist_backend=None, no_set_device_rank=False)
+    device = init_distributed_device(ns)
+    mesh = create_mesh(model=args.mesh_model_axis, device_type=device.type)
+    log_mesh(mesh)
+    return mesh, device
+
+
+def main(argv: Optional[List[str]] = None,
+         on_ready: Optional[Callable[[ThreadingHTTPServer], None]] = None) -> None:
+    """Serve until interrupted (or ``httpd.shutdown()``). ``on_ready(httpd)``
+    is called on the serving rank once it listens, from a thread of its own
+    (to drive the server from the same process)."""
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    mesh, device = None, args.device
     if args.mesh_model_axis > 1:
-        raise NotImplementedError(
-            f"--mesh-model-axis {args.mesh_model_axis}: serving a TP-sharded model is not "
-            "ported (ROADMAP Queue 1 item 13); the trainer takes the model axis")
+        mesh, device = _mesh(args)
 
     from .inference import DEFAULT_BUCKETS, create_engine
 
     engine, preprocess, tokenizer = create_engine(
-        args.model, checkpoint=args.checkpoint, device=args.device,
+        args.model, pretrained=args.pretrained, checkpoint=args.checkpoint, device=device,
         buckets=tuple(args.buckets) if args.buckets else DEFAULT_BUCKETS,
+        quantize=args.quantize, mesh=mesh, cache_dir=args.cache_dir,
     )
+    if not engine.leader:
+        engine.follow()  # until rank 0 stops; raises where a call fails
+        return
     server = ClipServer(engine, preprocess, tokenizer, batch_window_ms=args.batch_window_ms)
     httpd = make_http_server(server, args.host, args.port)
-    logging.basicConfig(level=logging.INFO)
-    logging.info("serving %s on %s:%d (%s, buckets %s)", args.model, args.host,
-                 httpd.server_address[1], engine.device, engine.buckets)
+    logging.info("serving %s on %s:%d (%s, buckets %s, quantize %s, mesh %s)", args.model,
+                 args.host, httpd.server_address[1], engine.device, engine.buckets,
+                 engine.quantize, server.health()["mesh"])
+    # a failed call on the mesh leaves the ranks out of step: end the server
+    threading.Thread(target=lambda: engine.broken.wait() and httpd.shutdown(),
+                     daemon=True).start()
+    if on_ready is not None:
+        threading.Thread(target=on_ready, args=(httpd,), daemon=True).start()
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -303,6 +359,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     finally:
         httpd.server_close()
         server.close()
+        engine.stop()
+    if engine.broken.is_set():
+        raise RuntimeError("a call failed on the mesh; the server stopped")
 
 
 if __name__ == "__main__":

@@ -441,7 +441,6 @@ def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
     from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
-    from ..models.siglip import SiglipVisionTower
     from .checkpoint import export_torch_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
                        get_dataset_fn, load_dino_index_map)
@@ -517,10 +516,6 @@ def _main(args):
     coca = hasattr(model, "text_decoder")
     if loss_type == "coca" and not coca:
         raise ValueError(f"--use_coca needs a CoCa model (a coca_* config), not {args.model}")
-    if mp is not None and (coca or isinstance(model.visual, SiglipVisionTower)):
-        raise NotImplementedError(f"{'CoCa' if coca else 'SigLIP'} under a model axis "
-                                  "(--mesh-model-axis > 1) is not ported (ROADMAP Queue 1 "
-                                  "item 10b)")
     shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)

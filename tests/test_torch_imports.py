@@ -25,6 +25,7 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "tune_attention_bwd.py",
                                       REPO / "scripts" / "chip_coca_phase.py",
                                       REPO / "scripts" / "chip_siglip_phase.py",
+                                      REPO / "scripts" / "chip_tp_serve_phase.py",
                                       REPO / "scripts" / "coca_fp32_gradients.py"]
 
 
@@ -46,7 +47,8 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/eval/_imagenet_metadata.py",
                  f"{PORT.name}/eval/zero_shot_classifier.py", f"{PORT.name}/eval/offline.py",
                  f"{PORT.name}/eval/run_all_evals.py", f"{PORT.name}/eval/clip_blinds_cli.py",
-                 f"{PORT.name}/train/zero_shot.py", f"{PORT.name}/models/coca.py"):
+                 f"{PORT.name}/train/zero_shot.py", f"{PORT.name}/models/coca.py",
+                 f"{PORT.name}/inference.py", f"{PORT.name}/parallel/tensor.py"):
         assert must in names
 
 

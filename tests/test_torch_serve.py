@@ -1,5 +1,8 @@
 """The port's HTTP front end (serve.py) at tiny size on the CPU: endpoints,
-micro-batching, and agreement with direct engine calls and the JAX engine."""
+micro-batching, and agreement with direct engine calls and the JAX engine;
+the CLI's ``--pretrained`` (a seeded hub cache, no network), ``--quantize
+int8`` and ``--checkpoint`` over ``--pretrained`` in process, and its
+argparse surface against the JAX server's (``tpu/serve.py:291-300``)."""
 
 import base64
 import io
@@ -20,7 +23,17 @@ from refining_clip_via_dinov2_representations_torch.transform import (
     PreprocessCfg, image_transform_v2,
 )
 
-from .torch_port_utils import TINY_CFG, jax_clip, port_clip
+from .torch_port_utils import TINY_CFG, jax_clip, offline, port_clip  # noqa: F401
+
+# a tiny model whose matrices reach the int8 rule's least size (16k elements)
+INT8_CFG = {
+    "embed_dim": 64,
+    "vision_cfg": {"image_size": 16, "patch_size": 8, "width": 128, "layers": 1,
+                   "head_width": 64},
+    "text_cfg": {"context_length": 12, "vocab_size": 49408, "width": 128, "heads": 2,
+                 "layers": 1},
+}
+CLI_MODEL = "tiny-torch-serve-cli"
 
 
 @pytest.fixture(scope="module")
@@ -172,3 +185,108 @@ def test_cli_defaults_to_cuda():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model", "ViT-B-32", "--port", "0"])
+
+
+@pytest.fixture
+def hub(tmp_path, monkeypatch, offline):  # noqa: F811
+    """``CLI_MODEL``'s ``openai`` tag as seeded weights in a hub cache, and
+    other seeded weights as a state-dict file."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import (
+        jax_params_to_state_dict, pretrained, register_model_config,
+    )
+
+    register_model_config(CLI_MODEL, INT8_CFG)
+    monkeypatch.setitem(pretrained._PRETRAINED, CLI_MODEL,
+                        {"openai": {"hf_hub": "example/tiny-serve-cli/", "url": ""}})
+    params = [jax_clip(INT8_CFG, attn_impl="xla", seed=s, jit=True)[1]["params"]
+              for s in (31, 32)]
+    snap = tmp_path / "hub" / "models--example--tiny-serve-cli" / "snapshots" / "seeded"
+    snap.mkdir(parents=True)
+    torch.save(jax_params_to_state_dict(params[0]), snap / "open_clip_pytorch_model.bin")
+    torch.save(jax_params_to_state_dict(params[1]), tmp_path / "ckpt.pt")
+    return {"cache": str(tmp_path / "hub"), "ckpt": str(tmp_path / "ckpt.pt"), "params": params}
+
+
+def _cli_answers(argv):
+    """Runs ``serve.main(argv)`` in this process; its /health and the
+    features of three images and three texts."""
+    got = {}
+
+    def drive(httpd):
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=60) as r:
+                got["health"] = json.loads(r.read())
+            got["image"] = _post(base, "/v1/encode_image",
+                                 {"images_b64": [_png_b64(s)[0] for s in range(3)]})
+            got["text"] = _post(base, "/v1/encode_text", {"texts": ["a cat", "a dog", "x"]})
+        finally:
+            httpd.shutdown()
+
+    main(argv + ["--device", "cpu", "--host", "127.0.0.1", "--port", "0", "--buckets", "2", "4"],
+         on_ready=drive)
+    return got
+
+
+@pytest.mark.parametrize("flags,weights", [
+    (["--pretrained", "openai"], 0), (["--pretrained", "openai", "--quantize", "int8"], 0),
+    (["--pretrained", "openai", "--checkpoint", "CKPT"], 1)], ids=["pretrained", "int8",
+                                                                    "checkpoint"])
+def test_cli_serves_the_tag_int8_and_a_checkpoint_over_the_tag(hub, flags, weights):
+    import torch
+
+    flags = [hub["ckpt"] if f == "CKPT" else f for f in flags]
+    got = _cli_answers(["--model", CLI_MODEL, "--cache-dir", hub["cache"]] + flags)
+    quantize = "int8" if "--quantize" in flags else None
+    assert got["health"]["quantize"] == quantize and got["health"]["mesh"] is None
+    assert got["image"][0] == got["text"][0] == 200
+    engines = [ClipInferenceEngine(port_clip(INT8_CFG, p), (16, 16), 12, buckets=(2, 4),
+                                   quantize=quantize) for p in hub["params"]]
+    preprocess = image_transform_v2(PreprocessCfg(size=16))
+    pixels = np.stack([preprocess(_png_b64(s)[1]) for s in range(3)])
+    ids = get_tokenizer(CLI_MODEL)(["a cat", "a dog", "x"])
+    img = np.asarray(got["image"][1]["features"], np.float32)
+    txt = np.asarray(got["text"][1]["features"], np.float32)
+    np.testing.assert_allclose(img, engines[weights].encode_image(pixels), atol=1e-6)
+    np.testing.assert_allclose(txt, engines[weights].encode_text(ids), atol=1e-6)
+    assert np.abs(img - engines[1 - weights].encode_image(pixels)).max() > 1e-3
+    if quantize:
+        assert any(p.dtype == torch.int8 for p in engines[0].model.parameters())
+        fp32 = ClipInferenceEngine(port_clip(INT8_CFG, hub["params"][0]), (16, 16), 12,
+                                   buckets=(2, 4))
+        want = fp32.encode_image(pixels)
+        assert (img * want).sum(-1).min() > 0.999 and np.abs(img - want).max() > 1e-6
+
+
+def _jax_parser():
+    """The JAX server's ``argparse`` parser, as its ``main`` builds it."""
+    import argparse
+
+    from refining_clip_via_dinov2_representations_tpu.serve import main as jax_main
+
+    class Built(Exception):
+        pass
+
+    def stop(self, args=None, namespace=None):
+        raise Built(self)
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", stop)
+        with pytest.raises(Built) as e:
+            jax_main([])
+    return e.value.args[0]
+
+
+def test_cli_flags_match_the_jax_server():
+    from refining_clip_via_dinov2_representations_torch.serve import build_parser
+
+    ours = {a.dest: a for a in build_parser()._actions}
+    for a in _jax_parser()._actions:
+        if a.dest == "help":
+            continue
+        mine = ours[a.dest]
+        assert mine.option_strings == a.option_strings, a.dest
+        for attr in ("default", "choices", "type", "nargs", "required"):
+            assert getattr(mine, attr) == getattr(a, attr), (a.dest, attr)

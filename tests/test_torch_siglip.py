@@ -399,7 +399,7 @@ def test_hub_checkpoint_by_tag_serves_through_create_engine(tiny_dims, tmp_path,
     assert model.state_dict().keys() == sd.keys()
     assert all(torch.equal(model.state_dict()[k], v) for k, v in sd.items())
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
-    engine, preprocess, tokenizer = create_engine(MODEL, checkpoint="webli", device="cpu",
+    engine, preprocess, tokenizer = create_engine(MODEL, pretrained="webli", device="cpu",
                                                   buckets=(1, 4), warm=False)
     assert type(tokenizer).__name__ == "HFTokenizer" and engine.context_length == 16
     ids = tokenizer(["a photo of a cat", "a dog on the beach"])

@@ -82,7 +82,9 @@ def test_a_model_axis_needs_a_process_group(tmp_path):
 
 
 def test_serve_refuses_a_model_axis():
+    """Without a process group: the split model's ranks come from torchrun
+    (``tests/test_torch_tp_serve.py`` serves under two)."""
     from refining_clip_via_dinov2_representations_torch.serve import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(ValueError, match="--mesh-model-axis 2 needs a process group"):
         main(["--model", MODEL, "--mesh-model-axis", "2"])

@@ -2,8 +2,9 @@
 
 * The split of every parameter (``parallel/tensor.py:param_split``) against
   the JAX ``parallel/mesh.py:_param_spec`` on the corresponding flax path,
-  for a tiny CLIP, a tiny EVA01 CLIP, the DINO head (``mlp``) and tiny
-  DINOv2 (plain and SwiGLU). Each flax leaf is replaced by a marker that
+  for a tiny CLIP, a tiny EVA01 CLIP, a tiny SigLIP (its timm trunk and MAP
+  head), a tiny CoCa (its attentional pooler whole, as the JAX rule keeps
+  it), the DINO head (``mlp``) and tiny DINOv2 (plain and SwiGLU). Each flax leaf is replaced by a marker that
   counts along the axis its spec splits (zeros where it is replicated) and
   carried through the port's converters, transposes included: a tensor the
   port splits on dim ``d`` must vary along ``d`` alone, a tensor the port
@@ -139,6 +140,51 @@ def test_dinov2_splits_agree_with_jax_param_spec(swiglu):
     want = {pre + "attention.attention.query.weight", pre + "attention.output.dense.weight",
             pre + ("mlp.weights_in.weight" if swiglu else "mlp.fc1.weight")}
     assert want <= split
+
+
+def test_siglip_splits_agree_with_jax_param_spec(monkeypatch):
+    from refining_clip_via_dinov2_representations_torch.models import siglip as tsiglip
+    from refining_clip_via_dinov2_representations_torch.models.convert import (
+        jax_params_to_state_dict,
+    )
+    from refining_clip_via_dinov2_representations_tpu.models import siglip as jsiglip
+
+    from .test_torch_siglip import TINY_DIMS, TINY_SIGLIP
+
+    monkeypatch.setitem(jsiglip._SIGLIP_FAMILY_DIMS, "base", TINY_DIMS)
+    monkeypatch.setitem(tsiglip._SIGLIP_FAMILY_DIMS, "base", TINY_DIMS)
+    _, variables = jax_clip(TINY_SIGLIP, attn_impl="xla", jit=True)
+    split = _check(jax_params_to_state_dict(_markers(variables["params"])))
+    trunk = "visual.trunk."
+    want = {trunk + "blocks.1.attn.qkv.weight", trunk + "blocks.1.attn.qkv.bias",
+            trunk + "blocks.0.attn.proj.weight", trunk + "blocks.0.mlp.fc1.weight",
+            trunk + "blocks.0.mlp.fc2.weight", trunk + "attn_pool.q.weight",
+            trunk + "attn_pool.kv.weight", trunk + "attn_pool.proj.weight",
+            trunk + "attn_pool.mlp.fc1.weight", trunk + "attn_pool.mlp.fc2.weight",
+            "text.token_embedding.weight", "text.transformer.resblocks.0.attn.in_proj_weight"}
+    assert want <= split
+    assert not {trunk + "patch_embed.proj.weight", trunk + "pos_embed", trunk + "attn_pool.latent",
+                "text.text_projection.weight"} & split
+
+
+def test_coca_splits_agree_with_jax_param_spec():
+    from refining_clip_via_dinov2_representations_torch.models.convert import (
+        jax_params_to_state_dict,
+    )
+
+    from .torch_coca_utils import jax_coca
+
+    _, variables = jax_coca()
+    sd = jax_params_to_state_dict(_markers(variables["params"]))
+    split = _check(sd)
+    pooler = {k for k in sd if k.startswith("visual.attn_pool.")}
+    assert "visual.attn_pool.attn.in_proj_weight" in pooler and not pooler & split
+    dec = "text_decoder."
+    assert {dec + "resblocks.0.attn.in_proj_weight", dec + "cross_attn.1.attn.in_proj_weight",
+            dec + "cross_attn.1.attn.out_proj.weight", dec + "resblocks.1.mlp.c_fc.weight",
+            "visual.transformer.resblocks.0.attn.in_proj_weight",
+            "text.token_embedding.weight"} <= split
+    assert dec + "text_projection" not in split
 
 
 def test_packed_splits_take_each_ranks_heads_of_every_pack():
