@@ -15,8 +15,8 @@ Phases, each of which exits non-zero on failure:
    float64 version with the same rounding points, at the same cases plus
    the training shapes, Lq != Lk and head dims 80 and 128, in float32 and
    bfloat16 (both dtypes run tensor-core kernels up to head dim 128, fp32
-   through split-TF32 products); the autograd Function against autograd
-   through the plain forward.
+   through split-TF32 products); the forward op's registered autograd
+   against autograd through the plain forward.
 4. serve   — ViT-B-16 at full width on a seeded random init, through
    ``create_engine`` and the HTTP server: image, text and similarity
    requests, ``/health`` and concurrent HTTP requests that the batcher
@@ -25,6 +25,19 @@ Phases, each of which exits non-zero on failure:
    run through the plain attention path (cosine >= 0.9999 in fp32), and by
    the profiler that one served fp32 image call ran the split-TF32 kernel
    and no scalar fp32 kernel.
+4b. export — the deployable artifact: the serve phase's engine exported at
+   buckets 1 and 8 (``ClipInferenceEngine.export``: one ``torch.export``
+   program per encoder and bucket, the weights baked in, the kernels as
+   ``torch.library`` custom ops in the graph) and each program reloaded with
+   ``load_exported``: features within 1e-5 and at cosine >= 0.99999 of the
+   engine's, 12 fused-forward launches a tower call, the profiler's check
+   that the fp32 image program runs the split-TF32 kernel alone; seconds to
+   export and to load each program, its bytes, and its call time beside the
+   engine's (host clock and CUDA events). Phases 13 and 13b export two more
+   engines at bucket 1 the same way: the 384-px tower under ``"flash"`` (12
+   flash launches through the artifact) and the int8 engine (its program
+   holds the int8 values; cosine >= 0.999 to fp32); phase 21 (h) a split
+   engine.
 5. times   — each kernel, its plain version and the library yardstick
    (``scaled_dot_product_attention``, which the port never calls) timed with
    CUDA events at the serving shapes, beside the kernel's bound (fp32: on
@@ -49,7 +62,7 @@ Phases, each of which exits non-zero on failure:
    float64 version with the same rounding points, from 512 to 4097 tokens,
    causal, Lq != Lk both ways, head_dim 40 to 256, in float32 (the
    split-TF32 tensor-core kernel up to head dim 128) and bfloat16; its
-   autograd Function against autograd through the plain version.
+   op's registered autograd against autograd through the plain version.
 8. train-long — ViT-L-14-336 (577 vision tokens) at full width, its vision
    depth cut to ``LONG_LAYERS`` of 24 blocks, DINO-soft, bf16,
    ``attn_impl="flash"``: three steps without and three with grad
@@ -225,8 +238,12 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     ``TP_SERVE_LAYERS`` blocks, one fp32 and one bf16 loss and backward split
     over the model group against the whole model (``STEP_TOL``), launches
     on each rank; (g) a CoCa caption at ``(1, 2)`` against one process,
-    token for token. The kernels are checked and timed at these local
-    heads (``TP_SERVE_CASES``) in phases 3, 3b, 5 and 6.
+    token for token; (h) ViT-B-16 fp32 split at ``(1, 2)`` exported at
+    bucket 1 and reloaded with ``load_exported_sharded`` (programs without
+    weights, ``params.npz`` and the manifest): each rank's features against
+    the split engine's (1e-5), 12 launches a tower call a rank. The kernels
+    are checked and timed at these local heads (``TP_SERVE_CASES``) in
+    phases 3, 3b, 5 and 6.
 
 CoCa runs right after the mini-Flickr set is made (the fused kernels are
 checked at its decoder's shapes, the cross-attention ``[32,12,75,255,64]``
@@ -288,9 +305,11 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -405,10 +424,10 @@ FLASH_CASES = [
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
-# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 8
+# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 4
 # to keep the script inside its time limit (width, 577 tokens and every
-# check stay; PERF.md keeps the numbers measured at 24, 12 and 8 blocks)
-LONG_LAYERS = 8
+# check stay; PERF.md keeps the numbers measured at 24, 12, 8 and 4 blocks)
+LONG_LAYERS = 4
 # the DINOv2 teacher: every variant has head dim 64 and 257 tokens at 224 px
 # (fused kernel's gate); the thesis teacher is dinov2-small, 6 heads. HF's
 # published dinov2-small config (facebook/dinov2-small/config.json)
@@ -454,9 +473,9 @@ GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
 # in both dtypes in phases 3 and 3b, timed in phases 5 and 6
 TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
 # the EVA01 vision tower's depth in the recipe's train.main runs: cut from 40
-# blocks to 8 to keep the script inside its time limit (the width and every
+# blocks to 4 to keep the script inside its time limit (the width and every
 # check stay; the step-level checks at full depth are (a), (c) and phase 19's)
-TP_EVA_LAYERS = 8
+TP_EVA_LAYERS = 4
 TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
             (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
 TP_BWD_CASES = TP_CASES[:4]
@@ -501,6 +520,10 @@ SIGLIP_TIMED = [c for c in SIGLIP_CASES if c[0] == SIGLIP_BATCH]
 # every tower cut to TP_SERVE_LAYERS blocks (the time limit; their full depths
 # run in phases 22 and 23)
 INT8_BUCKETS, INT8_MIN_COS = (1, 8), 0.999
+# the deployable artifact (phase 4b): ViT-B-16 fp32 exported at these
+# buckets; a reloaded program runs the engine's kernels and GEMMs in the same
+# order, so its features match the engine's up to fp32 rounding
+EXPORT_BUCKETS, EXPORT_TOL, EXPORT_MIN_COS = (1, 8), 1e-5, 0.99999
 TP_SERVE_CASES = [(8, 6, 197, 197, 64, False), (8, 4, 77, 77, 64, True),
               (8, 6, 1, 196, 64, False), (8, 6, 64, 64, 64, False),
               (8, 6, 196, 196, 64, False), (8, 6, 75, 255, 64, False),
@@ -948,6 +971,170 @@ def phase_serving_times(engine, plain) -> None:
               f" [{CARD}]", flush=True)
 
 
+@contextlib.contextmanager
+def _each_call(module, name: str, seconds: list):
+    """Wraps ``module.name`` so that each call appends its wall time to
+    ``seconds``; restores it on exit."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def _export_timed(engine, out: str) -> tuple:
+    """``engine.export(out)`` of a one-process engine: (the written paths,
+    {program: seconds to trace it and write its file})."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch import inference
+
+    traced, saved = [], []
+    with _each_call(inference, "_trace", traced), _each_call(torch.export, "save", saved):
+        written = engine.export(out)
+    return written, {k: traced[i] + saved[i] for i, k in enumerate(written)}
+
+
+def _through_artifact(path: str, x, want, what: str, kernel: str, layers: int) -> tuple:
+    """One reloaded program (``load_exported``) on ``x``, the main path:
+    ``layers`` launches of ``kernel`` and none of another (counts at 0 just
+    before, read just after), features within ``EXPORT_TOL`` and at cosine
+    ``EXPORT_MIN_COS`` of ``want`` (the engine's), checked. Returns (the
+    callable, its load seconds, the launches, the features)."""
+    import numpy as np
+
+    from refining_clip_via_dinov2_representations_torch.inference import load_exported
+
+    t0 = time.perf_counter()
+    run = load_exported(path)
+    load_s = time.perf_counter() - t0
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    got = run(x)
+    _sync()
+    counts = _read_counts()
+    got = got.cpu().numpy()
+    err, cos = float(np.abs(got - want).max()), float(_cosines(got, want).min())
+    want_counts = {k: layers if k == kernel and DEVICE == "cuda" else 0 for k in counts}
+    print(f"export {what}: {os.path.getsize(path):,} bytes, loaded in {load_s:.2f} s; features "
+          f"{got.shape} vs the engine max abs error {err:.3e} (tol {EXPORT_TOL:g}), min cosine "
+          f"{cos:.8f} (need >= {EXPORT_MIN_COS}); launches {counts}", flush=True)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()) and err <= EXPORT_TOL
+          and cos >= EXPORT_MIN_COS, f"export {what}: the artifact disagrees with the engine")
+    check(counts == want_counts, f"export {what}: launches {counts}, expected {want_counts}")
+    return run, load_s, counts, got
+
+
+def _host_ms(fn, n: int = 10) -> float:
+    """Median host clock of ``n`` calls, each ending in a device sync."""
+    samples = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def phase_export(engine) -> dict:
+    """The deployable artifact (phase 4b): the serve phase's seeded ViT-B-16
+    fp32 engine exported at ``EXPORT_BUCKETS`` (``ClipInferenceEngine.
+    export``, one program per encoder and bucket) and each program reloaded
+    with ``load_exported``: its features against the engine's, its launches
+    (12 fused-forward a tower call: the reloaded program runs the
+    hand-written kernel), the profiler's check that the fp32 image program
+    runs the split-TF32 kernel alone; seconds to export and to load each
+    program, each file's bytes, and each program's call time beside the
+    engine's (host clock, median of 10 calls that end in a sync; CUDA
+    events, ``time_ms``). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import ClipInferenceEngine
+
+    t_phase = time.perf_counter()
+    model = engine.model
+    eng = ClipInferenceEngine(model, engine.image_size, engine.context_length, EXPORT_BUCKETS,
+                              dtype=engine.dtype)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_export_", dir=build)
+    written, export_s = _export_timed(eng, out)
+    print(f"export {MODEL} fp32 buckets {EXPORT_BUCKETS}: seconds to export each program "
+          f"{ {k: round(v, 2) for k, v in export_s.items()} }; bytes "
+          f"{ {k: os.path.getsize(p) for k, p in written.items()} }", flush=True)
+    layers = len(model.visual.transformer.resblocks)
+    rng = np.random.default_rng(SEED + 80)
+    h, w = eng.image_size
+    total = {}
+    for name, path in written.items():
+        op, b = name.rsplit("_b", 1)
+        b = int(b)
+        if op == "encode_image":
+            x = rng.normal(size=(b, h, w, 3)).astype(np.float32)
+            want = eng.encode_image(x)
+        else:
+            x = np.zeros((b, eng.context_length), np.int32)
+            x[:, 0], x[:, 1:6], x[:, 6] = 49406, rng.integers(1, 49405, (b, 5)), 49407
+            want = eng.encode_text(x)
+        run, _, counts, _ = _through_artifact(path, x, want, f"{name} fp32",
+                                              "fused_attention_fwd", layers)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        xd = torch.from_numpy(x).to(DEVICE)
+        if op == "encode_image" and b == EXPORT_BUCKETS[-1] and DEVICE == "cuda":
+            check_fp32_route(lambda: run(xd), ("fwd",), f"the exported fp32 {name}")
+        eager = eng._encoders[op]  # what the engine runs for the same rows
+        with torch.no_grad():
+            times = {"artifact": (_host_ms(lambda: run(xd)), time_ms(lambda: run(xd), iters=10)),
+                     "engine": (_host_ms(lambda: eager(xd)), time_ms(lambda: eager(xd), iters=10))}
+        print(f"time export {name}: the reloaded program {times['artifact'][0]:.3f} ms host "
+              f"clock, {times['artifact'][1]:.3f} ms CUDA events; the engine's encoder "
+              f"{times['engine'][0]:.3f} ms host clock, {times['engine'][1]:.3f} ms CUDA events "
+              f"[{CARD}]", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"export: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def _export_one_bucket(model, image_size, context_length, out: str, what: str, kernel: str,
+                       x) -> tuple:
+    """``model`` exported by an engine at bucket 1 (images rounded to bf16,
+    the engine's default), its image program reloaded and run on the one
+    image ``x`` against that engine (``_through_artifact``). Returns (the
+    launches, the image program's tensor elements by dtype, the features)."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import ClipInferenceEngine
+
+    eng = ClipInferenceEngine(model, image_size, context_length, (1,))
+    written, export_s = _export_timed(eng, out)
+    program = torch.export.load(written["encode_image_b1"])
+    tensors = {}
+    for t in program.constants.values():
+        key = str(t.dtype).split(".")[-1]
+        tensors[key] = tensors.get(key, 0) + t.numel()
+    del program
+    layers = len(model.visual.transformer.resblocks)
+    _, _, counts, got = _through_artifact(written["encode_image_b1"], x, eng.encode_image(x),
+                                          f"{what} encode_image_b1", kernel, layers)
+    print(f"export {what}: seconds to export each program "
+          f"{ {k: round(v, 2) for k, v in export_s.items()} }, bytes "
+          f"{ {k: os.path.getsize(p) for k, p in written.items()} }; the image program's "
+          f"tensor elements by dtype {tensors}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return counts, tensors, got
+
+
 def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
     """The backward kernel's function in float64, rounded to the input dtype
     where ``_bwd_kernel`` rounds (P and dO for dV, dS): its distance from
@@ -1023,7 +1210,8 @@ def phase_kernels_bwd() -> dict:
             worst[name] = max(worst.get(name, 0.0), err)
             check(ok, f"fused_attention_bwd disagrees with its plain version at "
                       f"{name} [{b},{h},{lq},{d}] x {lk} keys causal={causal}: {err:.3e}")
-    # the autograd Function against autograd through the plain forward, fp32
+    # the forward op's registered autograd against autograd through the plain
+    # forward, fp32
     for i, (b, h, l, d, causal) in enumerate(TRAIN_CASES):
         q, k, v = (x.requires_grad_() for x in _qkv(b, h, l, d, torch.float32, seed=50 + i))
         do = _qkv(b, h, l, d, torch.float32, seed=60 + i)[0]
@@ -1034,7 +1222,7 @@ def phase_kernels_bwd() -> dict:
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         print(f"autograd fused_attention float32 [{b},{h},{l},{d}] causal={causal}: max_abs_err "
               f"{err:.3e} vs autograd of the plain forward (tol 1e-4 x {largest:.3e})", flush=True)
-        check(err <= 1e-4 * largest, "the autograd Function disagrees with autograd")
+        check(err <= 1e-4 * largest, "the fused op's autograd disagrees with autograd")
     return worst
 
 
@@ -1129,23 +1317,20 @@ def _grad_cosines(grads_a: dict, grads_b: dict):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """Run the flash and fused Functions through the kernels' plain versions
-    on CUDA tensors (measurement only): a step through them against one
-    through plain attention compares two plain PyTorch versions, no kernel."""
+    """Run the flash and fused ops (forward, and backward through their
+    registered autograd) on their plain versions on CUDA tensors
+    (measurement only): each op takes its plain version where its inputs
+    count as on the CPU, so a step through them against one through plain
+    attention compares two plain PyTorch versions, no kernel."""
     from refining_clip_via_dinov2_representations_torch.ops import flash_attention as fm
     from refining_clip_via_dinov2_representations_torch.ops import fused_attention as fu
 
-    kernels = fm.flash_attention_fwd, fu.fused_attention_fwd, fu.fused_attention_bwd
-    fm.flash_attention_fwd = lambda q, k, v, scale, causal=False: fm.flash_attention_reference(
-        q, k, v, scale, causal)
-    fu.fused_attention_fwd = lambda q, k, v, scale, causal=False: fu.fused_attention_reference(
-        q, k, v, scale, causal)
-    fu.fused_attention_bwd = (lambda q, k, v, o, do, scale, causal=False:
-                              fu.fused_attention_bwd_reference(q, k, v, o, do, scale, causal))
+    on_cpu = fu._on_cpu, fm._on_cpu
+    fu._on_cpu = fm._on_cpu = lambda *tensors: True
     try:
         yield
     finally:
-        fm.flash_attention_fwd, fu.fused_attention_fwd, fu.fused_attention_bwd = kernels
+        fu._on_cpu, fm._on_cpu = on_cpu
 
 
 def _compare_step(precision: str, batch, model_name: str = MODEL, impl: str = "auto",
@@ -2050,6 +2235,11 @@ def phase_pretrained(work: str) -> dict:
         check(counts[kernel] == 12 and sum(counts.values()) == 12,
               f"the 384-px tower through {impl!r} launched {counts}")
         launches[kernel] += counts[kernel]
+    # the tower under "flash" through its deployable artifact (phase 4b)
+    counts, _, _ = _export_one_bucket(big, big.visual.image_size, big.context_length,
+                                      os.path.join(work, "export_flash"), "384 px flash",
+                                      "flash_attention_fwd", x384[:1].cpu().numpy())
+    launches["flash_attention_fwd"] += counts["flash_attention_fwd"]
     del big
     if DEVICE != "cpu":
         torch.cuda.empty_cache()
@@ -2174,6 +2364,21 @@ def phase_int8(d: dict, pre: dict) -> dict:
               f"{row['fp32'][0][1]:.3f}); request latency p50 encode_image "
               f"{row['int8'][1][0]:.3f} ms (fp32 {row['fp32'][1][0]:.3f}), encode_text "
               f"{row['int8'][1][1]:.3f} (fp32 {row['fp32'][1][1]:.3f}) [{CARD}]", flush=True)
+    # the int8 engine's deployable artifact at bucket 1 (phase 4b): the int8
+    # values in the program, the int8 phase's tolerance against fp32
+    n_vis = sum(p.numel() for n, p in engine.model.named_parameters()
+                if n.startswith("visual.") and p.dtype == torch.int8)
+    a_counts, tensors, got = _export_one_bucket(
+        engine.model, engine.image_size, engine.context_length,
+        os.path.join(os.path.dirname(pre["cache"]), "export_int8"), "int8",
+        "fused_attention_fwd", pixels[:1])
+    a_cos = float(_cosines(got, f_img[:1]).min())
+    print(f"export int8: the image program holds {tensors.get('int8', 0):,} int8 values (the "
+          f"vision tower's {n_vis:,}); against the fp32 engine min cosine {a_cos:.8f} (need >= "
+          f"{INT8_MIN_COS})", flush=True)
+    check(tensors.get("int8", 0) == n_vis > 0, "the int8 artifact does not hold the int8 values")
+    check(a_cos >= INT8_MIN_COS, f"the int8 artifact against fp32: cosine {a_cos}")
+    counts = {k: v + a_counts[k] for k, v in counts.items()}
     del engine, fp32
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -3085,7 +3290,8 @@ def phase_kernels_flash() -> dict:
         err, (b, h, lq, lk, d, causal) = worst_case[name]
         print(f"kernel flash_attention_fwd {name}: worst case [{b},{h},{lq},{d}] x {lk} keys "
               f"causal={causal}, {err:.3e} vs plain or float64 (tol {TOL[name]:g})", flush=True)
-    # the autograd Function against autograd through the plain version, fp32
+    # the flash op's registered autograd against autograd through the plain
+    # version, fp32
     for causal in (False, True):
         q, k, v = (x.requires_grad_() for x in _qkv(2, 4, 577, 64, torch.float32,
                                                      seed=400 + causal))
@@ -3098,7 +3304,7 @@ def phase_kernels_flash() -> dict:
         print(f"autograd flash_attention float32 [2,4,577,64] causal={causal}: max_abs_err "
               f"{err:.3e} vs autograd of the plain version (tol 1e-4 x {largest:.3e})",
               flush=True)
-        check(err <= 1e-4 * largest, "the flash autograd Function disagrees with autograd")
+        check(err <= 1e-4 * largest, "the flash op's autograd disagrees with autograd")
     return worst
 
 
@@ -4215,8 +4421,52 @@ def _split_vs_whole(model, mp, batch, cfg, name: str) -> dict:
             "what": name}
 
 
+def _child_tp_export(out_dir: str, dev, mesh, pixels, ids) -> dict:
+    """The tp pair's part (h), each rank: ``MODEL`` fp32 split over the
+    mesh's model axis and exported at bucket 1 to ``out_dir``, both encoders
+    reloaded with ``load_exported_sharded`` and run on one image and one
+    caption (the main path: counts at 0 just before, read just after); the
+    split engine's features of the same rows (rank 0); the programs' bytes
+    and the tensors they hold; export and load seconds."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import (
+        ClipInferenceEngine, load_exported_sharded,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import create_model
+
+    t0 = time.perf_counter()
+    model = create_model(MODEL, device=dev, seed=SEED)[0]
+    ex = ClipInferenceEngine(model, model.visual.image_size, model.context_length, (1,),
+                             mesh=mesh)
+    t1 = time.perf_counter()
+    written = ex.export(out_dir)
+    res = {"export_s": time.perf_counter() - t1,
+           "bytes": {k: os.path.getsize(p) for k, p in written.items()},
+           # tensor elements the programs hold (plain attention's scale: a scalar)
+           "program_elements": sum(t.numel() for k in written if k.startswith("encode")
+                                   for p in [torch.export.load(written[k])]
+                                   for t in [*p.state_dict.values(), *p.constants.values()])}
+    t1 = time.perf_counter()
+    runs = [load_exported_sharded(out_dir, f"{op}_b1", mesh)
+            for op in ("encode_image", "encode_text")]
+    res["load_s"] = time.perf_counter() - t1
+    _sync()
+    # ---- the main path: counts at 0 just before, read just after ----
+    _zero_counts()
+    got = [runs[0](pixels), runs[1](ids)]
+    _sync()
+    res["launches"] = _read_counts()
+    res["features"] = [g.cpu().numpy().tolist() for g in got]
+    want, _ = _leader_and_followers(ex, lambda: (ex.encode_image(pixels), ex.encode_text(ids)))
+    if ex.leader:
+        res["want"] = [w.tolist() for w in want]
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
 def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
-    """The tp pair's serving and family parts (phase 21 (d)-(g)), each rank:
+    """The tp pair's serving and family parts (phase 21 (d)-(h)), each rank:
     (d) ViT-B-16 fp32 served at ``(1, TP_AXIS)`` through the engine's
     follower protocol (rank 0 drives) against the one-process engine on
     rank 0, same seeded weights: features, each rank's launches (12 a tower
@@ -4229,7 +4479,13 @@ def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
     one fp32 and one bf16 loss and backward split over the model group
     against the whole model (``_split_vs_whole``); (g) a CoCa caption (the
     engine's defaults: 6 beams in 3 groups, 30 tokens) at ``(1, TP_AXIS)``
-    against one process, token for token."""
+    against one process, token for token; (h) ViT-B-16 fp32 split at
+    ``(1, TP_AXIS)`` exported at bucket 1 (``ClipInferenceEngine.export``:
+    the rank-local programs, ``params.npz`` and the manifest) and reloaded
+    onto the mesh with ``load_exported_sharded``: each rank's features of an
+    image and a caption against the split engine's, its launches (12 a tower
+    call), the programs' bytes and tensors (none), export and load
+    seconds."""
     import copy
     import gc
 
@@ -4237,7 +4493,7 @@ def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
     import torch
 
     from refining_clip_via_dinov2_representations_torch.inference import (
-        ClipInferenceEngine, create_engine,
+        ClipInferenceEngine, create_engine, load_exported_sharded,
     )
     from refining_clip_via_dinov2_representations_torch.models import (
         create_model, get_model_config, get_tokenizer, register_model_config,
@@ -4289,6 +4545,14 @@ def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
     res["s"] = time.perf_counter() - t0
     out["serve_engine"] = res
     del eng, one, base
+    gc.collect()
+    _sync()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (h) the split engine's deployable artifact at bucket 1, reloaded onto the mesh
+    out["export"] = _child_tp_export(os.path.join(os.path.dirname(payload["cache"]), "tp_export"),
+                                     dev, mesh, pixels[:1], ids[:1])
     gc.collect()
     _sync()
     if dev.type == "cuda":
@@ -4398,9 +4662,36 @@ def _child_tp_serve(payload: dict, dev, mesh, mp) -> dict:
     return out
 
 
+def tp_export_report(ranks: list) -> None:
+    """Prints and checks the tp pair's part (h) (``_child_tp_export``)."""
+    import numpy as np
+
+    want_launches = {"flash_attention_fwd": 0, "fused_attention_bwd": 0,
+                     "fused_attention_fwd": 24 if DEVICE == "cuda" else 0}  # 12 a tower call
+    x0 = ranks[0]["export"]
+    want = [np.asarray(w, np.float32) for w in x0["want"]]
+    errs = [max(float(np.abs(np.asarray(g, np.float32) - w).max())
+                for g, w in zip(r["export"]["features"], want)) for r in ranks]
+    programs = max(v for k, v in x0["bytes"].items() if k.startswith("encode"))
+    print(f"tp (h) {MODEL} fp32 split at (1, {TP_AXIS}) exported at bucket 1 and reloaded with "
+          f"load_exported_sharded: max abs error vs the split engine a rank {errs} (tol "
+          f"{EXPORT_TOL:g}); launches a rank over 2 tower calls "
+          f"{[r['export']['launches'] for r in ranks]}; bytes {x0['bytes']}, tensor elements "
+          f"in the programs {[r['export']['program_elements'] for r in ranks]}; export "
+          f"{[round(r['export']['export_s'], 2) for r in ranks]} s, load "
+          f"{[round(r['export']['load_s'], 2) for r in ranks]} s a rank; {x0['s']:.1f} s "
+          f"[{CARD}]", flush=True)
+    check(max(errs) <= EXPORT_TOL, "tp (h): the reloaded split artifact disagrees with the engine")
+    check(all(r["export"]["launches"] == want_launches for r in ranks), "tp (h): launches")
+    check(all(r["export"]["program_elements"] < 100 for r in ranks)
+          and programs < x0["bytes"]["params"] / 100, "tp (h): the programs carry weights")
+
+
 def tp_serve_report(ranks: list, add) -> None:
     """Prints and checks the tp pair's serving and family parts
     (``_child_tp_serve``) and adds their launches (``add``)."""
+    import numpy as np
+
     on_card = DEVICE == "cuda"
 
     def fused(n_fwd, n_bwd=0):
@@ -4422,6 +4713,7 @@ def tp_serve_report(ranks: list, add) -> None:
     check(all(r["serve_engine"]["local_heads"] == [12 // TP_AXIS, 8 // TP_AXIS]
               and r["serve_engine"]["launches"] == fused(12 * r0["tower_calls"])
               for r in ranks), "tp (d): local heads or launches")
+    tp_export_report(ranks)
     c0 = ranks[0]["serve_cli"]
     print(f"tp (e) the serve CLI --pretrained openai --mesh-model-axis {TP_AXIS}: /health mesh "
           f"{c0['health']['mesh']}, statuses {c0['status']}, /v1/encode_image min cosine vs one "
@@ -4468,13 +4760,13 @@ def tp_serve_report(ranks: list, add) -> None:
     check(all(r["caption"]["launches"] == fused(TP_SERVE_LAYERS) for r in ranks),
           "tp (g): launches")
     for r in ranks:
-        for part in ("serve_engine", "serve_cli", "caption"):
+        for part in ("serve_engine", "export", "serve_cli", "caption"):
             add(r[part]["launches"])
 
 
 def tp_pair(d: dict, pre: dict) -> list:
     """One pair of ``--dist-child tp`` ranks (``_child_tp``: parts (a), (c)
-    and (d)-(g)) on two mini-Flickr images and the ``openai`` tag's hub
+    and (d)-(h)) on two mini-Flickr images and the ``openai`` tag's hub
     cache; each rank's results."""
     import base64
 
@@ -5424,6 +5716,8 @@ def main() -> None:
     _elapsed("kernels_bwd")
     engine, plain, serve_launches = phase_serve()
     _elapsed("serve")
+    export_launches = phase_export(engine)
+    _elapsed("export")
     rows = phase_kernel_times("float32")
     _elapsed("kernel_times")
     rows_bf16 = phase_kernel_times("bfloat16")
@@ -5509,7 +5803,8 @@ def main() -> None:
         + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
-        + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"],
+        + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
+        + export_launches["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],

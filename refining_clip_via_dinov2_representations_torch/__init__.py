@@ -8,7 +8,12 @@ card unless the caller passes ``device="cpu"``.
 """
 
 from .constants import OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
-from .inference import ClipInferenceEngine, create_engine
+from .inference import (
+    ClipInferenceEngine,
+    create_engine,
+    load_exported,
+    load_exported_sharded,
+)
 from .models import (
     CLIP,
     CoCa,

@@ -32,15 +32,48 @@ captions images with a CoCa model's grouped beam search
   the results. The other ranks wait in ``follow`` until ``stop``. This is
   the JAX engine's one controller on one host, with one process a card.
   ``mesh`` with int8 keeps the int8 weights whole on every rank and logs
-  the JAX engine's warning. StableHLO export is not ported (ROADMAP).
+  the JAX engine's warning.
+
+The deployable artifact (``tpu/inference.py:419-682``): ``export`` writes
+one ``torch.export`` program per (encoder, bucket), ``encode_image_b{B}.pt2``
+and ``encode_text_b{B}.pt2``, each what ``_compute`` runs for that encoder
+at static shapes: NHWC float32 images rounded to the engine dtype, or int32
+ids widened to int64, then the tower, then the fp32 L2 norm (the JAX
+artifact's input layout, so one array feeds either). The attention kernels
+are ``torch.library`` custom ops (``rcd_torch::``), so the graph calls them
+and a reloaded program launches them. Each file records the device it was
+traced on and the engine's TF32 flags, which the loaders set.
+
+* One process: the weights the encoder reads are baked into its program as
+  constants, as the JAX ``_bake`` bakes them (each bucket's file repeats its
+  tower's weights; an int8 engine's hold the int8 values and fp32 scales,
+  dequantized in the graph). ``load_exported(path)`` returns a callable from
+  a batch to its features, on the traced device.
+* A mesh: each program is the rank-local one, this rank's parameters taken
+  as call arguments (``torch.func.functional_call``) and the model axis's
+  collectives traced as ``_c10d_functional`` ops; it holds no weights.
+  ``params.npz`` holds every tensor once, whole (bf16 as its uint16 bits),
+  and ``sharding_manifest.json`` the mesh's axes, the batch layout, each
+  tensor's name, ``Split`` (null when whole) and dtype, and an
+  ``export_id``. ``load_exported_sharded(out_dir, name, mesh)`` places this
+  rank's parts once per (directory, freshness, mesh), binds the graph's
+  collectives to the mesh's model group, and returns a callable that every
+  rank calls with the same full batch.
+
+The loaders need torch and this package's ``ops`` (which registers the ops),
+no model code.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import io
+import json
 import logging
+import os
 import threading
+import uuid
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -169,6 +202,26 @@ def resident_bytes(model: nn.Module) -> Dict[str, int]:
 
 # ------------------------------------------------------------------ the engine
 
+_ENCODERS = ("encode_image", "encode_text")
+
+
+class _Encoder(nn.Module):
+    """One encoder as the engine runs it: images (NHWC float32) rounded to
+    ``dtype``, or int32 ids widened, through the tower, L2-normalised in
+    fp32 (a CoCa model's latents)."""
+
+    def __init__(self, model: nn.Module, op: str, dtype: torch.dtype):
+        super().__init__()
+        self.model, self.op, self.dtype = model, op, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.op == "encode_image":
+            feats = self.model.encode_image(x.to(self.dtype), normalize=False).float()
+        else:
+            feats = self.model.encode_text(x.long(), normalize=False).float()
+        return feats / feats.norm(dim=-1, keepdim=True)
+
+
 def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -204,6 +257,7 @@ class ClipInferenceEngine:
         self.context_length = int(context_length)
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.dtype = dtype
+        self._encoders = {op: _Encoder(self.model, op, dtype) for op in _ENCODERS}
         self.quantize = quantize
         self.mesh = mesh
         self.leader = True
@@ -249,19 +303,15 @@ class ClipInferenceEngine:
         """``op`` on this process's rows (numpy in, numpy out)."""
         with torch.inference_mode():
             t = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            if op == "encode_image":
-                feats = self.model.encode_image(t.to(self.dtype), normalize=False).float()
-            elif op == "encode_text":
-                feats = self.model.encode_text(t.long(), normalize=False).float()
-            else:
-                from torch.nn.utils import parametrize
+            if op in _ENCODERS:
+                return self._encoders[op](t).cpu().numpy()
+            from torch.nn.utils import parametrize
 
-                from .models.coca import generate_beam
+            from .models.coca import generate_beam
 
-                # int8: each weight dequantized once a call, not once a decode step
-                with parametrize.cached():
-                    return generate_beam(self.model, t.to(self.dtype), **gen).int().cpu().numpy()
-            return (feats / feats.norm(dim=-1, keepdim=True)).cpu().numpy()
+            # int8: each weight dequantized once a call, not once a decode step
+            with parametrize.cached():
+                return generate_beam(self.model, t.to(self.dtype), **gen).int().cpu().numpy()
 
     def _send(self, op: str, x: Optional[np.ndarray] = None, gen: Optional[dict] = None):
         """Rank 0: the operation (and its batch) to every rank."""
@@ -405,6 +455,333 @@ class ClipInferenceEngine:
         for b in self.buckets:
             self.encode_image(np.zeros((b, h, w, 3), np.float32))
             self.encode_text(np.zeros((b, self.context_length), np.int32))
+
+    # -- deployable artifact -----------------------------------------------------
+
+    def export(self, out_dir: str) -> Dict[str, str]:
+        """One ``torch.export`` program per (encoder, bucket) in ``out_dir``:
+        ``encode_image_b{B}.pt2`` and ``encode_text_b{B}.pt2`` (the module
+        docstring says what each holds). One process bakes the weights in;
+        under a mesh every rank calls this (it gathers the weights), rank 0
+        writes the programs, ``params.npz`` and ``sharding_manifest.json``,
+        and ``out_dir`` must be on a filesystem every rank sees. Returns
+        {name: path}."""
+        if self.mesh is not None:
+            return self._export_sharded(out_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        written = {}
+        for b in self.buckets:
+            for op in _ENCODERS:
+                program = _trace(_Baked(self._encoders[op]), (self._example(op, b),))
+                written[f"{op}_b{b}"] = path = os.path.join(out_dir, f"{op}_b{b}.pt2")
+                torch.export.save(program, path, extra_files=_program_meta(self.device))
+        return written
+
+    def _example(self, op: str, rows: int) -> torch.Tensor:
+        """A zero batch of ``rows`` in the artifact's input layout."""
+        if op == "encode_image":
+            return torch.zeros(rows, *self.image_size, 3, device=self.device)
+        return torch.zeros(rows, self.context_length, dtype=torch.int32, device=self.device)
+
+    def _export_sharded(self, out_dir: str) -> Dict[str, str]:
+        """``export`` under a mesh: each rank's program takes its parameters
+        as the call's first argument and its data group's rows; every tensor
+        is gathered whole and every program serialised before a file is
+        written, so an error leaves no half-written directory."""
+        import torch.distributed as dist
+
+        from .parallel.mesh import DATA_AXIS, MODEL_AXIS
+        from .parallel.tensor import gather_tensor, model_parallel
+
+        tensors = dict(self.model.named_parameters())
+        tensors.update(self.model.named_buffers())
+        names = tuple(tensors)
+        local = tuple(t.detach() for t in tensors.values())
+        blobs, written = {}, {}
+        for b in self.buckets:
+            for op in _ENCODERS:
+                program = _trace(_WeightsAsInputs(self._encoders[op], names),
+                                 (local, self._example(op, b // self._ndata)))
+                buf = io.BytesIO()
+                torch.export.save(program, buf, extra_files=_program_meta(self.device))
+                blobs[f"{op}_b{b}"] = buf.getvalue()
+                written[f"{op}_b{b}"] = os.path.join(out_dir, f"{op}_b{b}.pt2")
+        group = self.mesh[MODEL_AXIS].get_group()
+        mp = model_parallel(group)
+        splits = getattr(self.model, "tp_splits", {})
+        arrays, entries = {}, []
+        for i, (name, t) in enumerate(zip(names, local)):
+            split = splits.get(name)
+            whole = (t if split is None else gather_tensor(t, split, mp)).cpu()
+            # npy has no bfloat16: its bit pattern, as tpu/inference.py stores it
+            arrays[f"param_{i:05d}"] = (whole.view(torch.int16).numpy().view(np.uint16)
+                                        if whole.dtype == torch.bfloat16 else whole.numpy())
+            entries.append({"name": name, "dtype": str(whole.dtype).split(".")[-1],
+                            "split": None if split is None else dataclasses.asdict(split)})
+        manifest = {
+            "mesh_axes": {DATA_AXIS: self._ndata, MODEL_AXIS: self._model_world},
+            # each data rank runs its contiguous share of the rows
+            "batch_spec": [DATA_AXIS],
+            "params": entries,
+            # the graphs' collectives name this group; the loader rebinds them
+            "model_group": group.group_name,
+            # unique per export: the params cache keys on it
+            "export_id": uuid.uuid4().hex,
+        }
+        written["params"] = os.path.join(out_dir, "params.npz")
+        written["manifest"] = os.path.join(out_dir, "sharding_manifest.json")
+        if dist.get_rank() == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            for key, blob in blobs.items():
+                with open(written[key], "wb") as f:
+                    f.write(blob)
+            np.savez(written["params"], **arrays)
+            with open(written["manifest"], "w") as f:
+                json.dump(manifest, f)
+        dist.barrier(group=self._control)
+        missing = [p for p in written.values() if not os.path.exists(p)]
+        if missing:
+            raise FileNotFoundError(
+                f"export(out_dir={out_dir!r}): rank {dist.get_rank()} cannot see "
+                f"{[os.path.basename(m) for m in missing]} written by rank 0; a mesh export "
+                "needs out_dir on a filesystem shared by every rank")
+        return written
+
+
+# ------------------------------------------------------------ the artifact
+
+_META_FILE = "rcd_torch_meta.json"  # each program's extra file
+
+
+class _Baked(nn.Module):
+    """The program of one process: ``encoder`` is kept out of the module
+    tree, so ``torch.export`` bakes the tensors its call reads in as
+    constants (the other tower's are not read, so not stored)."""
+
+    def __init__(self, encoder: _Encoder):
+        super().__init__()
+        object.__setattr__(self, "encoder", encoder)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+
+class _WeightsAsInputs(nn.Module):
+    """The program of a mesh rank: ``encoder``'s parameters and buffers are
+    the call's first argument, a tuple in ``names``' order (``strict``: no
+    tensor of the model is baked in)."""
+
+    def __init__(self, encoder: _Encoder, names: Tuple[str, ...]):
+        super().__init__()
+        object.__setattr__(self, "encoder", encoder)
+        self.names = tuple("model." + n for n in names)
+
+    def forward(self, weights: Tuple[torch.Tensor, ...], x: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(self.encoder, dict(zip(self.names, weights)), (x,),
+                                          strict=True)
+
+
+def _trace(program: nn.Module, args: tuple):
+    """``torch.export`` of ``program`` at ``args``' static shapes, without
+    the example inputs (a mesh program's would be its weights). An int8
+    weight is dequantized once a call, where it is read (each read of a
+    parametrized attribute would trace its own)."""
+    from torch.nn.utils import parametrize
+
+    with torch.no_grad(), parametrize.cached():
+        exported = torch.export.export(program, args, strict=False)
+    exported.example_inputs = None
+    _drop_no_ops(exported.graph_module)
+    return exported
+
+
+def _drop_no_ops(graph_module) -> None:
+    """Removes the traced metadata asserts and each cast to the dtype its
+    input has: eager PyTorch returns the tensor itself there, the program
+    would make a call each (400 in ViT-B-16's text tower, about as many as
+    its other ops)."""
+    graph = graph_module.graph
+    for node in list(graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default:
+            graph.erase_node(node)
+        elif (node.target is torch.ops.aten.to.dtype and len(node.args) == 2
+              and not node.kwargs
+              and getattr(node.args[0].meta.get("val"), "dtype", None) == node.args[1]):
+            node.replace_all_uses_with(node.args[0])
+            graph.erase_node(node)
+    graph.lint()
+    graph_module.recompile()
+
+
+def _program_meta(device: torch.device) -> Dict[str, str]:
+    """The extra file of a program: the device it was traced on and the TF32
+    flags it runs under (fp32 serving turns them off)."""
+    return {_META_FILE: json.dumps({
+        "device": str(device),
+        "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                       "cudnn": torch.backends.cudnn.allow_tf32}})}
+
+
+def _load_program(source):
+    """(the program's module, its meta) from a ``.pt2`` path or file; sets
+    the TF32 flags it was exported under. Raises where its device is
+    missing."""
+    from . import ops  # noqa: F401  (registers the rcd_torch:: ops the graph calls)
+
+    extra = {_META_FILE: ""}
+    exported = torch.export.load(source, extra_files=extra)
+    meta = json.loads(extra[_META_FILE])
+    device = torch.device(meta["device"])
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"the program was exported on {device}, and this process has no "
+                           "CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = meta["allow_tf32"]["matmul"]
+    torch.backends.cudnn.allow_tf32 = meta["allow_tf32"]["cudnn"]
+    return exported, meta
+
+
+def load_exported(path: str):
+    """Reload one exported encoder of a one-process engine: a callable from
+    a batch (a tensor or array of the bucket's shape) to its features, on
+    the device it was traced on. ``run.program`` is the reloaded module."""
+    exported, meta = _load_program(path)
+    program, device = exported.module(), torch.device(meta["device"])
+
+    def run(x) -> torch.Tensor:
+        with torch.no_grad():
+            return program(torch.as_tensor(x, device=device))
+
+    run.program = program
+    return run
+
+
+# (abspath(out_dir), freshness, mesh) -> (manifest, this rank's tensors on its
+# device): every encoder and bucket loaded from one artifact onto one mesh
+# shares one copy of the weights; a re-export to the same directory misses,
+# and its older entries are dropped
+_SHARDED_PARAMS_CACHE: Dict[tuple, tuple] = {}
+
+
+def _artifact_freshness(out_dir: str) -> tuple:
+    """The mtime and size of the manifest and ``params.npz``, and the
+    manifest's ``export_id`` (a re-export that mtime and size miss)."""
+    token = []
+    for name in ("sharding_manifest.json", "params.npz"):
+        st = os.stat(os.path.join(out_dir, name))
+        token.append((name, st.st_mtime_ns, st.st_size))
+    with open(os.path.join(out_dir, "sharding_manifest.json")) as f:
+        token.append(("export_id", json.load(f)["export_id"]))
+    return tuple(token)
+
+
+def _rank_device(device_type: str) -> torch.device:
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("the artifact was exported on CUDA, and this process has no "
+                               "CUDA device")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device_type)
+
+
+def _load_sharded_params(out_dir: str, mesh, device_type: str) -> tuple:
+    """(manifest, this rank's part of every tensor on its device), cached."""
+    from .parallel.mesh import MODEL_AXIS
+    from .parallel.tensor import Split, split_tensor
+
+    base = os.path.abspath(out_dir)
+    fresh = _artifact_freshness(out_dir)
+    key = (base, fresh, mesh)
+    hit = _SHARDED_PARAMS_CACHE.get(key)
+    if hit is not None:
+        return hit
+    for stale in [k for k in _SHARDED_PARAMS_CACHE if k[0] == base and k[1] != fresh]:
+        del _SHARDED_PARAMS_CACHE[stale]
+    with open(os.path.join(out_dir, "sharding_manifest.json")) as f:
+        manifest = json.load(f)
+    want = manifest["mesh_axes"]
+    have = {name: mesh[name].size() for name in mesh.mesh_dim_names}
+    if have != want:
+        raise ValueError(f"mesh mismatch: the artifact was exported on mesh axes {want}, got "
+                         f"{have} (each rank's program is the one of its place in that mesh)")
+    world, rank = mesh[MODEL_AXIS].size(), mesh[MODEL_AXIS].get_local_rank()
+    device = _rank_device(device_type)
+    tensors = []
+    with np.load(os.path.join(out_dir, "params.npz")) as data:
+        for i, entry in enumerate(manifest["params"]):
+            whole = torch.from_numpy(data[f"param_{i:05d}"])
+            if entry["dtype"] == "bfloat16":
+                whole = whole.view(torch.int16).view(torch.bfloat16)  # the stored bits
+            if entry["split"] is not None:
+                whole = split_tensor(whole, Split(**entry["split"]), world, rank)
+            tensors.append(whole.to(device))
+    _SHARDED_PARAMS_CACHE[key] = (manifest, tuple(tensors))
+    return manifest, tuple(tensors)
+
+
+def _bind_collectives(program, exported_group: str, group) -> None:
+    """Points every ``_c10d_functional`` collective of ``program``'s graph
+    at ``group``: the graph names its group by the name it had at export
+    (``exported_group``), which another process or mesh gives another group.
+    Raises on a collective of any other group."""
+    name = group.group_name
+    for node in program.graph.nodes:
+        target = node.target
+        if node.op != "call_function" or getattr(target, "namespace", None) != "_c10d_functional":
+            continue
+        fields = [a.name for a in target._schema.arguments]
+        if "group_name" not in fields:
+            continue  # wait_tensor
+        i = fields.index("group_name")
+        old = node.args[i] if i < len(node.args) else node.kwargs.get("group_name")
+        if old not in (exported_group, name):
+            raise ValueError(f"{node.name}: a collective over group {old!r}, not the model "
+                             f"group the artifact was exported with ({exported_group!r})")
+        if i < len(node.args):
+            node.args = node.args[:i] + (name,) + node.args[i + 1:]
+        else:
+            node.kwargs = {**node.kwargs, "group_name": name}
+    program.recompile()
+
+
+def load_exported_sharded(out_dir: str, name: str, mesh):
+    """Reload one encoder (e.g. ``encode_image_b8``) that a mesh engine
+    exported, onto ``mesh``, which must have the exporting mesh's axes and
+    sizes (``ValueError`` otherwise). Every rank calls it, and then calls
+    the returned ``run(x)`` with the same full batch: each rank runs its
+    data group's rows and every rank gets the whole batch's features back.
+    This rank's parts of the weights are placed once per (directory,
+    freshness, mesh) and shared by every encoder and bucket loaded from
+    there. ``run.program`` is the reloaded module."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    exported, meta = _load_program(os.path.join(out_dir, f"{name}.pt2"))
+    device = torch.device(meta["device"])
+    manifest, weights = _load_sharded_params(out_dir, mesh, device.type)
+    local = weights[0].device if weights else _rank_device(device.type)
+    if local != device:
+        from torch.export.passes import move_to_device_pass
+
+        exported = move_to_device_pass(exported, local)  # rank 0 traced on its own card
+    program = exported.module()
+    _bind_collectives(program, manifest["model_group"], mesh[MODEL_AXIS].get_group())
+    ndata, data_rank = mesh[DATA_AXIS].size(), mesh[DATA_AXIS].get_local_rank()
+    data_group = mesh[DATA_AXIS].get_group()
+
+    def run(x) -> torch.Tensor:
+        x = torch.as_tensor(x, device=local)
+        per = x.shape[0] // ndata
+        with torch.no_grad():
+            out = program(weights, x[data_rank * per:(data_rank + 1) * per].contiguous())
+        if ndata == 1:
+            return out
+        parts = [torch.empty_like(out) for _ in range(ndata)]
+        dist.all_gather(parts, out, group=data_group)
+        return torch.cat(parts)
+
+    run.program = program
+    return run
 
 
 def create_engine(model_name: str, pretrained: Optional[str] = None,

@@ -28,10 +28,14 @@ Numerics, as the TPU kernel:
 * the output is ``acc / max(l, 1e-30)``, cast to the input dtype: it is
   normalised after the PV product (the fused kernel normalises before).
 
-The backward is not a kernel in the JAX package either: ``_flash_bwd_rule``
+The kernel is the ``torch.library`` custom op ``flash_attention_fwd``
+below (``torch.ops.rcd_torch.flash_attention_fwd``, defined as the fused
+ops are, ``ops/fused_attention.py``), whose implementation is the kernel
+wrapper ``_flash_attention_fwd``, with a fake implementation (its output's shape and dtype, for
+``torch.export``) and a registered autograd formula. The backward is not a kernel in the JAX package either: ``_flash_bwd_rule``
 recomputes attention through the plain ``dot_product_attention_xla`` and
-takes its VJP. ``_FlashAttention`` does the same. CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+takes its VJP, and the op's formula does the same. CPU tensors take the
+plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -94,8 +98,8 @@ def _check(q, k, v) -> None:
                          f"Lq <= {max_query_len(q.dtype, d)}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, causal: bool = False) -> torch.Tensor:
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, causal: bool = False) -> torch.Tensor:
     """The forward kernel, launched on the calling thread's current stream.
     Any Lq, Lk >= 1 and head_dim <= 256; CPU tensors take the plain version.
     ``flash_attention_fwd.launches`` counts the kernel's launches."""
@@ -118,37 +122,50 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention_fwd.launches = 0
-
-
 def _causal_mask(lq: int, lk: int, device) -> torch.Tensor:
     return torch.full((lq, lk), float("-inf"), device=device).triu(1)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        ctx.save_for_backward(q, k, v)  # the JAX VJP's residuals
-        ctx.scale, ctx.causal = scale, causal
-        return flash_attention_fwd(q, k, v, scale, causal)
+_lib = torch.library.Library("rcd_torch", "FRAGMENT")
+_lib.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, float scale, bool causal=False)"
+            " -> Tensor")
+_lib.impl("flash_attention_fwd", _flash_attention_fwd, "CompositeExplicitAutograd")
+# the op, (q, k, v, scale, causal), and its launch count
+flash_attention_fwd = torch.ops.rcd_torch.flash_attention_fwd.default
+flash_attention_fwd.launches = 0
 
-    @staticmethod
-    def backward(ctx, do):
-        # _flash_bwd_rule: the VJP of the plain attention, recomputed
-        from .attention import dot_product_attention_xla
 
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        mask = _causal_mask(q.shape[-2], k.shape[-2], q.device) if ctx.causal else None
-        with torch.enable_grad():
-            out = dot_product_attention_xla(q, k, v, mask=mask, scale=ctx.scale)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
-        return dq, dk, dv, None, None
+@torch.library.register_fake("rcd_torch::flash_attention_fwd", lib=_lib)
+def _(q, k, v, scale, causal=False):
+    return q.new_empty(q.shape)
+
+
+def _save_inputs(ctx, inputs, output):
+    q, k, v, scale, causal = inputs
+    ctx.save_for_backward(q, k, v)  # the JAX VJP's residuals
+    ctx.scale, ctx.causal = scale, causal
+
+
+def _backward(ctx, do):
+    # _flash_bwd_rule: the VJP of the plain attention, recomputed
+    from .attention import dot_product_attention_xla
+
+    q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    mask = _causal_mask(q.shape[-2], k.shape[-2], q.device) if ctx.causal else None
+    with torch.enable_grad():
+        out = dot_product_attention_xla(q, k, v, mask=mask, scale=ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd("rcd_torch::flash_attention_fwd", _backward,
+                                setup_context=_save_inputs, lib=_lib)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                     causal: bool = False) -> torch.Tensor:
     """Flash attention, differentiable. q: [B,H,Lq,D]; k, v: [B,H,Lk,D]."""
-    return _FlashAttention.apply(q, k, v, float(scale), bool(causal))
+    return flash_attention_fwd(q, k, v, float(scale), bool(causal))
 
 
 def flash_mha(

@@ -35,11 +35,20 @@ Routes on the card, chosen by dtype and head dim; nothing falls back:
   online-softmax pass and divides after P V, the same function up to fp32
   rounding; the bf16 forward keeps two passes.
 
-``fused_attention`` is a ``torch.autograd.Function`` over the two: the
-forward saves q, k, v and o (as the JAX VJP's residuals) and the backward
-runs the backward kernel. CPU tensors take the plain versions in both
+The two kernels are ``torch.library`` custom ops,
+``fused_attention_fwd`` and ``fused_attention_bwd`` below
+(``torch.ops.rcd_torch.*``), whose implementations are the kernel wrappers
+``_fused_attention_fwd`` and ``_fused_attention_bwd``: each op has a fake
+implementation that gives its outputs' shapes and dtypes (so
+``torch.export`` traces a tower into a graph that calls the op, and a
+reloaded program launches the kernel), and the forward op has a registered
+autograd formula whose setup saves q, k, v and o (as the JAX VJP's
+residuals) and whose backward calls the backward op. ``fused_attention``
+calls the forward op. CPU tensors take the plain versions in both
 directions; CUDA tensors launch the kernel their dtype and shape route to,
-or raise.
+or raise. The ops are defined with ``torch.library.Library``:
+``torch.library.custom_op`` wraps each call in ``torch._disable_dynamo``,
+whose first call imports ``torch._dynamo``, seconds in every process.
 """
 
 from __future__ import annotations
@@ -162,8 +171,8 @@ def _raise_on(lib, fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
 
 
-def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, causal: bool = False) -> torch.Tensor:
+def _fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, causal: bool = False) -> torch.Tensor:
     """The forward kernel, launched on the calling thread's current stream.
     CPU tensors take the plain version. ``fused_attention_fwd.launches``
     counts the kernel's launches."""
@@ -186,9 +195,9 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, scale: float,
-                        causal: bool = False):
+def _fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor, scale: float,
+                         causal: bool = False):
     """The backward kernel -> (dq, dk, dv), launched on the calling thread's
     current stream (autograd runs a CUDA backward on its own thread, with the
     forward's stream current). CPU tensors take the plain version.
@@ -214,25 +223,48 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+_lib = torch.library.Library("rcd_torch", "FRAGMENT")
+_lib.define("fused_attention_fwd(Tensor q, Tensor k, Tensor v, float scale, bool causal=False)"
+            " -> Tensor")
+_lib.define("fused_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, float scale,"
+            " bool causal=False) -> (Tensor, Tensor, Tensor)")
+_lib.impl("fused_attention_fwd", _fused_attention_fwd, "CompositeExplicitAutograd")
+_lib.impl("fused_attention_bwd", _fused_attention_bwd, "CompositeExplicitAutograd")
+# the ops, (q, k, v, scale, causal) and (q, k, v, o, do, scale, causal), and
+# their launch counts
+fused_attention_fwd = torch.ops.rcd_torch.fused_attention_fwd.default
+fused_attention_bwd = torch.ops.rcd_torch.fused_attention_bwd.default
 fused_attention_fwd.launches = 0
 fused_attention_bwd.launches = 0
 
 
-class _FusedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o = fused_attention_fwd(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.scale, ctx.causal = scale, causal
-        return o
+# contiguous outputs of the inputs' shapes and dtype, as the kernels and the
+# plain versions return them
+@torch.library.register_fake("rcd_torch::fused_attention_fwd", lib=_lib)
+def _(q, k, v, scale, causal=False):
+    return q.new_empty(q.shape)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        # MultiheadAttention's transpose + reshape hands back a strided view
-        do = do.contiguous()
-        dq, dk, dv = fused_attention_bwd(q, k, v, o, do, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+
+@torch.library.register_fake("rcd_torch::fused_attention_bwd", lib=_lib)
+def _(q, k, v, o, do, scale, causal=False):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _save_residuals(ctx, inputs, output):
+    q, k, v, scale, causal = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.scale, ctx.causal = scale, causal
+
+
+def _backward(ctx, do):
+    q, k, v, o = ctx.saved_tensors
+    # MultiheadAttention's transpose + reshape hands back a strided view
+    dq, dk, dv = fused_attention_bwd(q, k, v, o, do.contiguous(), ctx.scale, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+torch.library.register_autograd("rcd_torch::fused_attention_fwd", _backward,
+                                setup_context=_save_residuals, lib=_lib)
 
 
 def fused_attention(
@@ -243,4 +275,4 @@ def fused_attention(
 
     CPU tensors take the plain versions; CUDA tensors launch the forward
     kernel and, under autograd, the backward kernel, or raise."""
-    return _FusedAttention.apply(q, k, v, float(scale), bool(causal))
+    return fused_attention_fwd(q, k, v, float(scale), bool(causal))

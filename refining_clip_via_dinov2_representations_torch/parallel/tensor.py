@@ -107,15 +107,21 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     """Every rank's last-dimension slice, concatenated in rank order; the
-    backward keeps this rank's slice of the gradient."""
+    backward keeps this rank's slice of the gradient. Over gloo a CUDA
+    tensor is gathered on the host (as gloo moves it anyway): traced by
+    ``torch.export``, the gather becomes one all-gather into a tensor, which
+    gloo takes for host tensors only."""
 
     @staticmethod
     def forward(ctx, x, mp):
         ctx.mp, ctx.n = mp, x.shape[-1]
-        x = x.contiguous()
+        device = x.device
+        on_host = x.is_cuda and dist.get_backend(mp.group) == "gloo"
+        x = x.contiguous().cpu() if on_host else x.contiguous()
         parts = [torch.empty_like(x) for _ in range(mp.world)]
         dist.all_gather(parts, x, group=mp.group)
-        return torch.cat(parts, dim=-1)
+        whole = torch.cat(parts, dim=-1)
+        return whole.to(device) if on_host else whole
 
     @staticmethod
     def backward(ctx, g):

@@ -26,7 +26,8 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "chip_coca_phase.py",
                                       REPO / "scripts" / "chip_siglip_phase.py",
                                       REPO / "scripts" / "chip_tp_serve_phase.py",
-                                      REPO / "scripts" / "coca_fp32_gradients.py"]
+                                      REPO / "scripts" / "coca_fp32_gradients.py",
+                                      REPO / "scripts" / "dispatch_cost.py"]
 
 
 def _imported(node):

@@ -4,12 +4,14 @@ against the same model without checkpointing.
 * Each policy's loss and gradients equal no-remat's on a 2-layer CLIP
   (both towers checkpointed), fp32, within 1e-6 absolute — the same ops on
   the same values, recomputed — through the plain attention (``"xla"``) and
-  through the fused kernels' autograd Function (``"fused"``, whose plain
-  versions run on the CPU: the Function that selective checkpointing must
-  run again, the kernel's case on the card), with patch dropout on.
+  through the fused kernels' custom op (``"fused"``, whose plain versions
+  run on the CPU: the op that selective checkpointing must run again, the
+  kernel's case on the card), with patch dropout on.
 * The dots policies keep only the ops they name: ``dots_saveable`` the
   ``mm``/``addmm`` of the projections and the ``bmm`` of plain attention,
-  ``dots_with_no_batch_dims_saveable`` the ``mm``/``addmm`` alone; the
+  ``dots_with_no_batch_dims_saveable`` the ``mm``/``addmm`` alone (and the
+  fused op, which is no dot, is recomputed: one op to the policy, its plain
+  version inside it as the kernel on the card); the
   offload policy copies the four ``addmm`` outputs of each block (qkv, out,
   c_fc, c_proj) to the host and hands them back in the recompute (which
   stops before c_proj: autograd saved nothing past it).
@@ -89,6 +91,11 @@ def test_dots_policies_save_only_the_ops_they_name(monkeypatch, policy, impl):
     addmm = torch.ops.aten.addmm.default
     assert saved.count(addmm) == 4 * layers  # in_proj, out_proj, c_fc, c_proj
     bmm = [op for op, _ in decisions if op in transformer.BATCH_DOTS]
+    fused = [d for op, d in decisions if op == torch.ops.rcd_torch.fused_attention_fwd.default]
+    if impl == "fused":
+        # the attention of every block is the op, recomputed
+        assert fused == [CheckpointPolicy.PREFER_RECOMPUTE] * layers and not bmm
+        return
     assert bmm  # plain attention's products ran inside the blocks
     if policy == "dots_saveable":
         assert set(bmm) <= set(saved)
