@@ -127,6 +127,30 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     the kernel against plain attention on the same int8 weights (cosine >=
     0.9999) and against fp32 (>= 0.999, the JAX test's), each tower's time
     and the request latency at buckets 1 and 8 beside fp32.
+13c. zoo — the rest of the loss zoo and the ViT variants at full width:
+    (a) a seeded ViT-L-14 (full width and depth) written into the hub repo
+    of its ``openai`` tag; ``train.main`` with ``--distill-model ViT-L-14
+    --distill-pretrained openai`` for one epoch of the first 96 mini-Flickr
+    train rows (launches, losses, a final checkpoint of the student's keys
+    alone), whose teacher, loaded by tag, holds exactly the written values
+    and serves the checks that follow: its features through the kernels
+    against plain attention (cosine >= 0.9999 fp32; 24 + 12 launches); the
+    ViT-B-16 student's distillation step at batch 32 under it against
+    plain attention in bf16 and fp32 (``STEP_TOL``; 36 teacher + 24 student
+    forward and 24 backward launches a step), its host clock, CUDA events,
+    the teacher's share and peak memory; (b) the CyCLIP step at batch
+    64 in bf16 and fp32 against plain attention (24 + 24); (c) a seeded
+    ViT-L-14-CLIPA written with the committed BERT test vocabulary into
+    the hub repos of its ``datacomp1b`` tag and of bert-base-uncased, loaded
+    by tag exactly, its captions tokenized by the WordPiece reader to the
+    ids the CPU test pins, served fp32 at buckets 1 and 8 (24 launches an
+    image call, 12 a text call; cosine >= 0.9999 to plain attention; one
+    HTTP text request) and its tower time per call; (d) one full-width
+    forward each of ``vit_medium_patch16_gap_256`` (12 launches) and
+    ``vit_relpos_medium_patch16_cls_224`` (none: its bias is an external
+    mask, as in JAX) against plain attention. The new forward shapes
+    (``ZOO_CASES``, head dim 104 among them) are checked and timed in
+    phases 3 and 5, head dim 104's backward in 3b and 6.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -192,11 +216,13 @@ Multi-GPU training runs after it, in subprocesses of this script
 (``--dist-child train|probe|step``), on its own mini-Flickr cut (20 + 8
 images, whole-image crops):
 
-20. dist — (a) the thesis flags through ``train.main`` (ViT-B-16,
-    ``--precision amp``, batch 32, three steps) as one process and as rank
-    0 of a NCCL group of one under DDP, ``--shard-opt-state`` and
-    ``--fsdp``: per-step losses equal the one process's (1e-5), 24 + 24
-    fused launches a step, host clock and peak memory beside the one
+20. dist — ViT-B-16 at full width, its vision tower cut to
+    ``DIST_VISION_LAYERS`` of 12 blocks: (a) the thesis flags through
+    ``train.main`` (``--precision amp``, batch 32, three steps) as one
+    process and as rank 0 of a NCCL group of one under DDP,
+    ``--shard-opt-state`` and ``--fsdp``: per-step losses equal the one
+    process's (1e-5), ``DIST_VISION_LAYERS`` + 12 fused launches forward
+    and backward a step, host clock and peak memory beside the one
     process's; (b) two ranks on the card over gloo: each collective the
     port uses on CUDA tensors (and DDP, ZeRO-1's gather, FSDP) probed in
     its own pair of processes, the result written to
@@ -205,8 +231,9 @@ images, whole-image crops):
     fp32 step at 2 x 32 for each case it carries (clip and the SigLIP
     rings under DDP, clip under ZeRO-1 and FSDP) against the one-process
     step at 64 on the same rows: the rank-mean loss at 1e-5, every
-    gradient after the rank mean at cosine >= 0.9999 (TF32 off), 24 + 24
-    launches a step on each rank, the host clock of a second step.
+    gradient after the rank mean at cosine >= 0.9999 (TF32 off),
+    ``DIST_VISION_LAYERS`` + 12 forward and backward launches a step on
+    each rank, the host clock of a second step.
 
 Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
 ``train`` subprocesses (the kernels are checked at each rank's local heads,
@@ -250,19 +277,21 @@ checked at its decoder's shapes, the cross-attention ``[32,12,75,255,64]``
 (75 text queries over 255 image tokens) and the causal ``[32,12,75,64]``,
 forward in phase 3 and backward in 3b, and timed in phases 5 and 6):
 
-22. coca — coca_ViT-L-14 at full width and depth (638,450,177 parameters),
+22. coca — coca_ViT-L-14 at full width (638,450,177 parameters at full
+    depth), its vision tower cut to ``COCA_VISION_LAYERS`` of 24 blocks,
     seeded: written in open_clip's layout into the hub cache of the
     ``mscoco_finetuned_laion2b_s13b_b90k`` tag and loaded by tag, exactly;
     an fp32 engine behind the HTTP server captions 1 and 8 mini-Flickr
     images at the defaults (6 beams in 3 groups, 30 tokens) and once with
-    custom parameters (24 fused-forward launches a caption call: the
-    vision tower; the text tower, the poolers and the cached decode take
+    custom parameters (a fused-forward launch a vision block a caption
+    call: the vision tower; the text tower, the poolers and the cached decode take
     plain attention, as in JAX), encodes images and texts;
     ``decode_logits`` through the kernels against plain attention (cosine
     >= 0.9999), the captions against the plain-attention engine's token for
     token (where they differ: the step and the top-2 logit gap there), the
     caption latency cached and uncached; the CoCa step in bf16 at batch 32
-    (48 forward + 48 backward launches a step; one step against plain
+    (a forward and a backward launch a vision and decoder block a step:
+    ``COCA_VISION_LAYERS`` + 24; one step against plain
     attention at ``STEP_TOL`` bf16) and in fp32 with TF32 off at batch 8
     (``STEP_TOL`` fp32), host clock and peak memory; ``train.main`` from the
     tag, bf16, batch 32, one epoch on 64 + 32 mini-Flickr rows: the caption
@@ -292,8 +321,8 @@ phases 5 and 6):
 
 Each phase prints the seconds elapsed since the start. The line before the
 last is the JSON list of kernels (each fused kernel with ``"coca"`` and
-``"siglip"`` lists of those shapes, and ``"tp_serve"`` of the model axis's
-serving and family shapes); the last line is ``{"ok": true, "device":
+``"siglip"`` lists of those shapes, ``"tp_serve"`` of the model axis's
+serving and family shapes and ``"zoo"`` of phase 13c's); the last line is ``{"ok": true, "device":
 {...}}``.
 Imports no JAX.
 """
@@ -303,6 +332,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -424,10 +454,10 @@ FLASH_CASES = [
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
-# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 4
+# the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 2
 # to keep the script inside its time limit (width, 577 tokens and every
 # check stay; PERF.md keeps the numbers measured at 24, 12, 8 and 4 blocks)
-LONG_LAYERS = 4
+LONG_LAYERS = 2
 # the DINOv2 teacher: every variant has head dim 64 and 257 tokens at 224 px
 # (fused kernel's gate); the thesis teacher is dinov2-small, 6 heads. HF's
 # published dinov2-small config (facebook/dinov2-small/config.json)
@@ -453,10 +483,10 @@ CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
 # head-dim-128 instantiations with the tail zero-padded), text [16,16,77,64]
 # causal; checked forward and backward in both dtypes, timed beside SDPA
 GIANT_MODEL, GIANT_BATCH = "ViT-g-14", 16
-# Config 5's vision depth here: ViT-g-14's 40 blocks cut to 16 for the time
+# Config 5's vision depth here: ViT-g-14's 40 blocks cut to 8 for the time
 # limit (width, head dim 88 and every check stay; PERF.md keeps the numbers
-# measured at 40 blocks, 13.7 GiB at its peak; a cut to 10 saved no time)
-GIANT_LAYERS = 16
+# measured at 40 and 16 blocks, 13.7 GiB at its peak at 40)
+GIANT_LAYERS = 8
 GIANT_CASES = [(16, 16, 257, 88, False), (16, 16, 77, 64, True)]
 # peak memory of these optimizers under dots_with_no_batch_dims_saveable
 GIANT_OPTIMIZERS = (("adamw", None), ("adamw", "bfloat16"), ("adafactor", "bfloat16"))
@@ -473,9 +503,9 @@ GIANT_TRAIN_IMAGES, GIANT_VAL_IMAGES, GIANT_PATCH_DROPOUT = 16, 8, 0.5
 # in both dtypes in phases 3 and 3b, timed in phases 5 and 6
 TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
 # the EVA01 vision tower's depth in the recipe's train.main runs: cut from 40
-# blocks to 4 to keep the script inside its time limit (the width and every
+# blocks to 2 to keep the script inside its time limit (the width and every
 # check stay; the step-level checks at full depth are (a), (c) and phase 19's)
-TP_EVA_LAYERS = 4
+TP_EVA_LAYERS = 2
 TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
             (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
 TP_BWD_CASES = TP_CASES[:4]
@@ -489,6 +519,11 @@ TP_EVA_IMAGES = 7
 # cross-attention of 75 text queries over 255 image tokens and its causal
 # self-attention at 75 (the vision tower's [b,16,257,64] is a teacher case)
 COCA_MODEL, COCA_TAG = "coca_ViT-L-14", "mscoco_finetuned_laion2b_s13b_b90k"
+# the CoCa phase's vision depth: coca_ViT-L-14's 24 blocks cut to 8 to keep
+# the script inside its time limit (every width, the text tower, the pooler,
+# the decoder and every check stay); a vision block holds 12,596,224
+# parameters, 638,450,177 at full depth
+COCA_VISION_LAYERS, COCA_VISION_BLOCK, COCA_FULL_PARAMS = 8, 12_596_224, 638_450_177
 COCA_BUCKETS, COCA_BATCH, COCA_FP32_BATCH, COCA_STEPS = (1, 8), 32, 8, 3
 COCA_CASES = [(32, 12, 75, 255, 64, False), (32, 12, 75, 75, 64, True)]
 # SigLIP at ViT-B-16-SigLIP's full width and depth (phase 23; Config 4,
@@ -530,6 +565,42 @@ TP_SERVE_CASES = [(8, 6, 197, 197, 64, False), (8, 4, 77, 77, 64, True),
               (8, 6, 75, 75, 64, True), (8, 8, 257, 257, 64, False)]
 TP_SERVE_BATCH, TP_SERVE_LAYERS, TP_SERVE_BUCKETS = 8, 2, (1, 8)
 SIGLIP_VOCAB = os.path.join("tests", "assets", "siglip_vocab", "c4_en_32000.json")
+# The rest of the loss zoo and the ViT variants (phase 13c, after pretrained).
+# Distillation: the ViT-B-16 student under a ViT-L-14 teacher at full width
+# and depth, loaded by its ``openai`` tag from the seeded hub cache, at
+# ZOO_BATCH (the step checks, and train.main on the first ZOO_CLI_ROWS
+# mini-Flickr train rows); CyCLIP: the ViT-B-16 step at ZOO_CYCLIP_BATCH.
+# ViT-L-14-CLIPA at full width from the hub repo of its ``datacomp1b`` tag,
+# its text read by the committed BERT test vocabulary (the hub cache of
+# bert-base-uncased) and served at ZOO_BUCKETS; CLIPA_IDS are the ids the
+# CPU test pins for CLIPA_CAPTIONS (tests/test_torch_clipa.py, equal to the
+# JAX HFTokenizer's). timm's GAP and relative-position ViTs at full width,
+# one forward each at ZOO_VIT_BATCH. The new forward shapes, (B, H, Lq, Lk,
+# D, causal), checked in both dtypes (phase 3) and timed (5): the teacher's
+# causal text [32,12,77,64], CLIPA's vision [8,16,257,64] and non-causal
+# text [8,12,32,64], the GAP ViT's [8,8,256,64] and ViT-bigG-14-CLIPA's head
+# dim 104 [16,16,257,104] (it pads to DP = 128, as head dim 88 does; its
+# 2.5B-parameter model is not built); the backward runs at none of them but
+# head dim 104 (the students train at the training shapes), which phases 3b
+# and 6 check and time (ZOO_BWD_CASES)
+ZOO_TEACHER, ZOO_STUDENT, ZOO_TEACHER_TAG = "ViT-L-14", "ViT-B-16", "openai"
+ZOO_BATCH, ZOO_CYCLIP_BATCH, ZOO_CLI_ROWS, ZOO_STEPS = 32, 64, 96, 3
+CLIPA_MODEL, CLIPA_TAG, ZOO_BUCKETS = "ViT-L-14-CLIPA", "datacomp1b", (1, 8)
+ZOO_GAP, ZOO_RELPOS, ZOO_VIT_BATCH = ("vit_medium_patch16_gap_256",
+                                      "vit_relpos_medium_patch16_cls_224", 8)
+ZOO_CASES = [(32, 12, 77, 77, 64, True), (8, 16, 257, 257, 64, False),
+             (8, 12, 32, 32, 64, False), (8, 8, 256, 256, 64, False),
+             (16, 16, 257, 257, 104, False)]
+ZOO_BWD_CASES = ZOO_CASES[-1:]
+BERT_VOCAB = os.path.join("tests", "assets", "bert_vocab", "tokenizer.json")
+BERT_TOKENIZER_CONFIG = {"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                         "model_max_length": 512}
+CLIPA_CAPTIONS = ["a photo of a red circle on a black background",
+                  "Ünïcödé café: a naïve 猫 and a dog!", "unplayable xyzzy, (yes) $5 <b>"]
+CLIPA_IDS = [[101, 104, 238, 220, 104, 258, 254, 225, 104, 266, 244],
+             [101, 321, 190, 184, 196, 185, 186, 311, 155, 104, 313, 172, 222, 104, 271, 140],
+             [101, 321, 197, 193, 182, 206, 323, 127, 206, 207, 207, 206, 151, 147, 128, 318,
+              148, 143, 135, 157, 105, 159]]
 
 
 def fail(msg: str) -> None:
@@ -633,7 +704,7 @@ def phase_kernels() -> dict:
 
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
-             + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
+             + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -915,6 +986,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
              + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
+    cases += ZOO_CASES
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -1158,7 +1230,7 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
+            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_BWD_CASES
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -3206,7 +3278,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
-    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES:
+    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -3571,6 +3643,11 @@ def phase_flash_times() -> dict:
 # the dist phase's own mini-Flickr cut: 100 train caption rows (three steps
 # of 32), whole-image crops so that every run sees the same pixels
 DIST_TRAIN_IMAGES, DIST_VAL_IMAGES, DIST_BATCH = 20, 8, 32
+# ViT-B-16's vision depth in the dist phase's runs: 12 blocks cut to 4 to
+# keep the script inside its time limit (the width, the text tower and every
+# check stay: the routes must move bytes only; the thesis step runs at full
+# depth in phases 6 and 12)
+DIST_VISION_LAYERS = 4
 DIST_ROUTES = (("replicated", []), ("zero1", ["--shard-opt-state"]), ("fsdp", ["--fsdp"]))
 # the flags of the evaluation and the CLIP-blind check (and their values),
 # left out of the world-size-1 runs: their train steps are what is compared
@@ -3705,7 +3782,8 @@ def _child_train(payload: dict) -> dict:
     """One run of ``train.main`` (a rank when the environment names one):
     its per-step losses, host clock and launches, and its peak memory.
     ``payload["eva_layers"]`` cuts the EVA01 towers' depth to that many
-    blocks."""
+    blocks, ``payload["cut"]`` (a model name, a depth) a registry model's
+    vision depth (``_cut_vision_depth``)."""
     import torch
     import torch.distributed as dist
 
@@ -3716,6 +3794,8 @@ def _child_train(payload: dict) -> dict:
     if payload.get("eva_layers"):
         for name, (width, _, heads, mlp_ratio, patch) in list(eva.EVA01_DIMS.items()):
             eva.EVA01_DIMS[name] = (width, payload["eva_layers"], heads, mlp_ratio, patch)
+    if payload.get("cut"):
+        _cut_vision_depth(*payload["cut"])
 
     counters = _launch_counters()
     steps = []
@@ -3925,6 +4005,8 @@ def _child_step(payload: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if payload.get("cut"):
+        _cut_vision_depth(*payload["cut"])
     ns = SimpleNamespace(device=None, force_cpu=payload["device"] == "cpu", dist_url=None,
                          dist_backend=payload["backend"], no_set_device_rank=False)
     dev = init_distributed_device(ns)
@@ -4105,13 +4187,14 @@ def step_case_report(ranks: list, cases, expect=(24, 24)):
 
 
 def phase_dist(work: str) -> dict:
-    """Multi-GPU training on the one card. (a) World size 1 over NCCL through
-    ``train.main``: the thesis protocol's training at ViT-B-16's full width
-    (``--precision amp``, batch 32, three steps; no evaluation) as one
-    process, then as rank 0 of a group of one under DDP,
-    ``--shard-opt-state`` and ``--fsdp``: the ranks' per-step
-    losses equal the one process's (fp32, 1e-5 relative), 24 + 24 fused
-    launches a step, host clock and peak memory beside the one process's. (b) Two ranks on the card over gloo
+    """Multi-GPU training on the one card, ViT-B-16 at full width with its
+    vision depth cut to ``DIST_VISION_LAYERS``. (a) World size 1 over NCCL
+    through ``train.main``: the thesis protocol's training (``--precision
+    amp``, batch 32, three steps; no evaluation) as one process, then as
+    rank 0 of a group of one under DDP, ``--shard-opt-state`` and
+    ``--fsdp``: the ranks' per-step losses equal the one process's (fp32,
+    1e-5 relative), ``DIST_VISION_LAYERS`` + 12 fused launches forward and
+    backward a step, host clock and peak memory beside the one process's. (b) Two ranks on the card over gloo
     (NCCL refuses two ranks on one device): first the bare collectives gloo
     carries for CUDA tensors, written to ``gloo_cuda_probe.json`` in
     ``work`` and printed (a refusal of one it carried with torch 2.11, or
@@ -4146,10 +4229,13 @@ def phase_dist(work: str) -> dict:
 
     # a process a run: in one process a run's peak memory carries part of
     # what the run before it left
-    runs = {"one-process": _child("train", {"argv": run_argv("one-process", [])}, {})}
+    cut = (MODEL, DIST_VISION_LAYERS)
+    blocks = DIST_VISION_LAYERS + 12  # vision + text, a forward and a backward each
+    runs = {"one-process": _child("train", {"argv": run_argv("one-process", []), "cut": cut},
+                                  {})}
     backend = "nccl" if DEVICE == "cuda" else "gloo"
     for route, flags in DIST_ROUTES:
-        (runs[route],) = _children("train", {"argv": run_argv(route, flags)}, 1)
+        (runs[route],) = _children("train", {"argv": run_argv(route, flags), "cut": cut}, 1)
         check(runs[route]["world"] == 1 and runs[route]["backend"] == backend,
               f"dist {route}: not a NCCL group of one ({runs[route]['backend']})")
     for res in runs.values():
@@ -4161,8 +4247,8 @@ def phase_dist(work: str) -> dict:
         check(len(res["losses"]) == len(base["losses"]) and rel <= 1e-5,
               f"dist {route}: losses {res['losses']} vs one process {base['losses']}")
         for s in res["steps"]:
-            check(s["fused_attention_fwd"] == 24 and s["fused_attention_bwd"] == 24,
-                  f"dist {route}: step launches {s}, expected 24 + 24")
+            check(s["fused_attention_fwd"] == blocks and s["fused_attention_bwd"] == blocks,
+                  f"dist {route}: step launches {s}, expected {blocks} + {blocks}")
         step_ms = statistics.median(s["ms"] for s in res["steps"][1:])
         base_ms = statistics.median(s["ms"] for s in base["steps"][1:])
         print(f"dist {route} (world {res['world'] or 1}, {res['backend'] or 'no group'}): "
@@ -4195,8 +4281,9 @@ def phase_dist(work: str) -> dict:
                   flush=True)
     check(bool(cases), "dist: no 2-rank case ran")
     ranks = _children("step", {"cases": cases, "model": MODEL, "batch": DIST_BATCH,
-                               "device": DEVICE, "backend": "gloo"}, 2)
-    lines, failed = step_case_report(ranks, cases, (24, 24) if DEVICE == "cuda" else (0, 0))
+                               "device": DEVICE, "backend": "gloo", "cut": cut}, 2)
+    lines, failed = step_case_report(ranks, cases,
+                                     (blocks, blocks) if DEVICE == "cuda" else (0, 0))
     for line in lines:
         print(f"dist 2-rank gloo {line} ({CARD})", flush=True)
     check(not failed, f"dist 2-rank: {failed}")
@@ -5032,23 +5119,25 @@ def _caption_divergence(model, image, got, want) -> str:
 
 
 def phase_coca(work: str, d: dict) -> dict:
-    """CoCa at coca_ViT-L-14's full width and depth (phase 22; vision 24 x
-    1024, 257 tokens, pooler 256 queries x 8 heads into 768; text 12 x 768
-    with the appended CLS; decoder 12 self + 12 cross blocks at 768 over 255
-    image tokens into 49,408 tokens; 638,450,177 parameters), seeded:
+    """CoCa at coca_ViT-L-14's full width, its vision depth cut to
+    ``COCA_VISION_LAYERS`` of 24 blocks (phase 22; vision 1024 wide, 257
+    tokens, pooler 256 queries x 8 heads into 768; text 12 x 768 with the
+    appended CLS; decoder 12 self + 12 cross blocks at 768 over 255 image
+    tokens into 49,408 tokens; 638,450,177 parameters at full depth),
+    seeded:
     (a) written in open_clip's layout into the hub cache of
     ``COCA_TAG``, loaded by tag, exact; (b) an fp32 engine and the HTTP
     server: ``/v1/caption`` for 1 and 8 mini-Flickr images at the defaults
     (6 beams in 3 groups, 30 tokens) and once with custom parameters,
-    ``/v1/encode_image`` and ``/v1/encode_text``; 24 fused-forward launches
-    a caption call (the vision tower; the text tower, the poolers and the
-    cached decode take plain attention), ``decode_logits`` through the
+    ``/v1/encode_image`` and ``/v1/encode_text``; a fused-forward launch a
+    vision block a caption call (the vision tower; the text tower, the
+    poolers and the cached decode take plain attention), ``decode_logits`` through the
     kernels against plain attention (cosine >= 0.9999), the captions
     against the plain-attention engine's token for token (a divergence is
     printed with the step and the top-2 logit gap there), the caption
     latency cached and uncached; (c) the CoCa step, bf16 at batch 32, three
-    steps of 48 forward + 48 backward launches (vision 24, the decoder's 12
-    causal self-attention calls at ``[32,12,75,64]`` and 12 cross-attention
+    steps of a forward and a backward launch a block (the vision blocks,
+    the decoder's 12 causal self-attention calls at ``[32,12,75,64]`` and 12 cross-attention
     calls at ``[32,12,75,255,64]``), one step against plain attention
     (``STEP_TOL`` bf16), one fp32 step with TF32 off at batch 8 against
     plain attention (``STEP_TOL`` fp32), the host clock and peak memory;
@@ -5087,6 +5176,8 @@ def phase_coca(work: str, d: dict) -> dict:
             total[k] += launches.get(k, 0)
 
     # ---- (a) seeded weights in the hub cache of the tag, loaded by tag ----
+    _cut_vision_depth(COCA_MODEL, COCA_VISION_LAYERS)
+    vision = COCA_VISION_LAYERS  # fused launches a vision forward; the decoder's 24 besides
     t0 = time.perf_counter()
     src, _ = create_model(COCA_MODEL, device="cpu", seed=SEED + 40)
     n_params = sum(p.numel() for p in src.parameters())
@@ -5114,7 +5205,9 @@ def phase_coca(work: str, d: dict) -> dict:
           f"{load_s:.2f} s; the written values exactly: {exact}; pooler keys {pooler}",
           flush=True)
     check(exact, "the CoCa checkpoint loaded by tag differs from the written one")
-    check(n_params == 638_450_177, f"coca_ViT-L-14 has {n_params:,} parameters")
+    want_params = COCA_FULL_PARAMS - (24 - COCA_VISION_LAYERS) * COCA_VISION_BLOCK
+    check(n_params == want_params, f"coca_ViT-L-14 at {COCA_VISION_LAYERS} vision blocks has "
+                                   f"{n_params:,} parameters, expected {want_params:,}")
     del sd
 
     # ---- (b) serving, fp32 ----
@@ -5146,12 +5239,12 @@ def phase_coca(work: str, d: dict) -> dict:
             add(counts)
             served[what] = body.get("captions")
             print(f"coca (b) /v1/caption {what} {gen or 'defaults'}: status {status}, "
-                  f"{ms:.1f} ms, launches {counts} (expected 24 fused forward), captions "
+                  f"{ms:.1f} ms, launches {counts} (expected {vision} fused forward), captions "
                   f"{body.get('captions', body)[:2]}", flush=True)
             check(status == 200 and len(body["captions"]) == len(imgs)
                   and all(isinstance(c, str) for c in body["captions"]),
                   f"/v1/caption {what} answered {status}: {body}")
-            check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": 24,
+            check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": vision,
                              "fused_attention_bwd": 0}, f"a caption call launched {counts}")
         texts = ["a red cube on a table", "a blue ball"]
         status_i, feats_i = _post(base, "/v1/encode_image", {"images_b64": images_b64[:2]})
@@ -5185,10 +5278,10 @@ def phase_coca(work: str, d: dict) -> dict:
         _set_attn_impl(model, "auto")
     add(counts)
     cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min().item()
-    print(f"coca (b) decode_logits {tuple(got.shape)} fp32: launches {counts} (expected 48 "
-          f"fused forward: vision 24, decoder 24), cosine vs plain attention min {cos:.8f} "
+    print(f"coca (b) decode_logits {tuple(got.shape)} fp32: launches {counts} (expected "
+          f"{vision + 24} fused forward: vision {vision}, decoder 24), cosine vs plain attention min {cos:.8f} "
           f"(need >= {MIN_COSINE})", flush=True)
-    check(counts["fused_attention_fwd"] == 48 and cos >= MIN_COSINE,
+    check(counts["fused_attention_fwd"] == vision + 24 and cos >= MIN_COSINE,
           "decode_logits through the kernels disagrees with plain attention")
     host = pixels.cpu().numpy()
     kernel_tokens = torch.from_numpy(engine.caption_tokens(host))
@@ -5249,8 +5342,9 @@ def phase_coca(work: str, d: dict) -> dict:
     torch.cuda.synchronize()
     counts = _read_counts()
     add(counts)
-    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * COCA_STEPS,
-                   "fused_attention_bwd": 48 * COCA_STEPS}
+    step = vision + 24  # a forward and a backward launch a block a step
+    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": step * COCA_STEPS,
+                   "fused_attention_bwd": step * COCA_STEPS}
     torch.cuda.reset_peak_memory_stats()
     host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5284,8 +5378,8 @@ def phase_coca(work: str, d: dict) -> dict:
             "--device", DEVICE]
     records, counts, wall, seconds = _eval_cli_run(argv)
     add(counts)
-    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": 48 * 2 + 48 * 2,
-                   "fused_attention_bwd": 48 * 2}  # 2 steps; an eval batch before and after
+    want_counts = {"flash_attention_fwd": 0, "fused_attention_fwd": step * 2 + step * 2,
+                   "fused_attention_bwd": step * 2}  # 2 steps; an eval batch before and after
     run = os.path.join(work, "coca_cli")
     with open(os.path.join(run, "final_itm_results.json")) as f:
         evals = [(e["epoch"], e["results"][0]["metrics"]) for e in json.load(f)]
@@ -5641,10 +5735,418 @@ def phase_siglip(work: str, d: dict) -> dict:
             "cli_wall_s": wall, "bf16": bf16, "fp32": fp32, "tower_ms": lat}
 
 
+def _write_hub_repo(cache: str, hub_id: str, files: dict) -> str:
+    """A hub-cache repo ``hub_id`` under ``cache`` whose ``refs/main`` names
+    the ``HUB_REV`` snapshot; ``files`` maps a file name to a state dict
+    (``torch.save``), a path to copy, or a dict (JSON). Returns the snapshot."""
+    import torch
+
+    repo = os.path.join(cache, "models--" + hub_id.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", HUB_REV)
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    os.makedirs(snap, exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(HUB_REV)
+    for name, what in files.items():
+        if isinstance(what, str):
+            shutil.copy(what, os.path.join(snap, name))
+        elif name.endswith(".json"):
+            with open(os.path.join(snap, name), "w") as f:
+                json.dump(what, f)
+        else:
+            torch.save(what, os.path.join(snap, name))
+    return snap
+
+
+def _zoo_step_vs_plain(models, batch, cfg, name: str, want_counts: dict,
+                       dist_model=None) -> dict:
+    """One loss of ``cfg`` and every gradient of the student (``models[0]``)
+    through the kernels against plain attention in every model of
+    ``models`` (the student, and the distillation teacher ``dist_model``
+    where given), ``STEP_TOL``: bf16 all tensors together, fp32 every
+    tensor. The kernel run's launches must be ``want_counts``."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.train.step import make_loss_fn
+
+    loss_tol, min_cos = STEP_TOL[name]
+    model = models[0]
+
+    def run():
+        for p in model.parameters():
+            p.grad = None
+        _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+        loss, metrics = make_loss_fn(model, cfg, dist_model=dist_model)(batch, 0)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+        return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()}, grads,
+                counts)
+
+    loss_k, metrics_k, grads_k, counts = run()
+    for m in models:
+        _set_attn_impl(m, "xla")
+    loss_p, metrics_p, grads_p, _ = run()
+    for m in models:
+        _set_attn_impl(m, "auto")
+    check(grads_k.keys() == grads_p.keys() and len(grads_k) == len(list(model.parameters())),
+          f"the two {cfg.loss_type} runs have different gradients")
+    cos, together = _grad_cosines(grads_k, grads_p)
+    lowest = min(cos, key=cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    held = together if name == "bfloat16" else cos[lowest]
+    need = "together" if name == "bfloat16" else "per tensor"
+    terms = {k: round(v, 6) for k, v in metrics_k.items() if k != "logit_scale"}
+    print(f"zoo {cfg.loss_type} step {name} batch {batch['images'].shape[0]}: loss {loss_k:.6f} "
+          f"through the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol {loss_tol:g}), terms "
+          f"{terms}; student gradient cosine all tensors together {together:.7f}, per tensor "
+          f"lowest {cos[lowest]:.7f} at {lowest}, {sum(c < min_cos for c in cos.values())} of "
+          f"{len(cos)} below {min_cos} (need {need} >= {min_cos}); kernel run launches "
+          f"{counts}, expected {want_counts}", flush=True)
+    check(counts == want_counts, f"the {name} {cfg.loss_type} step launched {counts}")
+    check(rel <= loss_tol and held >= min_cos and math.isfinite(loss_k),
+          f"the {name} {cfg.loss_type} step through the kernels disagrees with plain attention")
+    return {"loss": loss_k, "together": together, "min_cosine": cos[lowest]}
+
+
+def phase_zoo(work: str, d: dict, pre: dict) -> dict:
+    """The rest of the loss zoo and the ViT variants (phase 13c, after
+    pretrained), at full width: (a) distillation: a seeded ViT-L-14
+    (``ZOO_TEACHER``, full width and depth) written in the hub-cache layout
+    of its ``openai`` tag; ``train.main`` with ``--model ViT-B-16
+    --distill-model ViT-L-14 --distill-pretrained openai`` on the first
+    ``ZOO_CLI_ROWS`` mini-Flickr train rows, one epoch: losses, launches,
+    wall, and a checkpoint without the teacher; the teacher that run loaded
+    by tag (kept by wrapping ``factory.create_model``) holds exactly the
+    written values, and its features through the kernels go against plain
+    attention (cosine >= 0.9999, fp32; 24 + 12 launches); the ViT-B-16
+    student's distillation step at ``ZOO_BATCH`` under it against plain
+    attention in bf16 and fp32 (``STEP_TOL``; 36 teacher + 24 student
+    forward and 24 backward launches); its host clock, CUDA events, the
+    teacher's share and peak memory;
+    (b) the CyCLIP step at ``ZOO_CYCLIP_BATCH`` in bf16 and fp32 against
+    plain attention (24 + 24); (c) ViT-L-14-CLIPA (``CLIPA_MODEL``) seeded,
+    written with the committed BERT test vocabulary into the hub repos of
+    its ``datacomp1b`` tag and of bert-base-uncased, loaded by tag exactly,
+    its captions tokenized to ``CLIPA_IDS``, served fp32 at ``ZOO_BUCKETS``
+    (24 launches an image call, 12 a text call; cosine >= 0.9999 to plain
+    attention; one HTTP text request), the tower time per call; (d) one
+    full-width fp32 forward each of ``ZOO_GAP`` (12 launches) and
+    ``ZOO_RELPOS`` (none: its bias is an external mask, the plain path, as
+    in JAX) against plain attention. Returns the launches and numbers."""
+    import base64
+    import csv
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.inference import ClipInferenceEngine
+    from refining_clip_via_dinov2_representations_torch.models import (
+        build_model, create_model, create_model_and_transforms, factory, get_model_config,
+        get_tokenizer, parse_model_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.serve import ClipServer, make_http_server
+    from refining_clip_via_dinov2_representations_torch.train.optim import (
+        OptimCfg, build_optimizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.scheduler import cosine_lr
+    from refining_clip_via_dinov2_representations_torch.train.step import (
+        StepCfg, TrainState, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    def cosine(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            torch.as_tensor(a).double().flatten(1), torch.as_tensor(b).double().flatten(1),
+            dim=-1).min())
+
+    cache = pre["cache"]
+    out = {}
+    # ---- (a) distillation: the teacher written in the hub repo of its tag ----
+    t0 = time.perf_counter()
+    src, _ = create_model(ZOO_TEACHER, device="cpu", seed=SEED + 70)
+    sd = src.state_dict()
+    n_teacher = sum(p.numel() for p in src.parameters())
+    del src
+    hub_id = get_pretrained_cfg(ZOO_TEACHER, ZOO_TEACHER_TAG)["hf_hub"].rstrip("/")
+    _write_hub_repo(cache, hub_id, {"open_clip_pytorch_model.bin": sd})
+    print(f"zoo (a): seeded {ZOO_TEACHER}, {n_teacher:,} parameters, written in "
+          f"{time.perf_counter() - t0:.2f} s (hub cache of {hub_id})", flush=True)
+
+    # ---- (a) the CLI with the distillation flags; the teacher it loads by tag
+    # is kept for the checks below (one load of 1.7 GB instead of two) ----
+    with open(d["train_csv"], newline="") as f:
+        rows = list(csv.reader(f))
+    cut, n_rows = os.path.join(work, "zoo_train.csv"), min(ZOO_CLI_ROWS, len(rows) - 1)
+    with open(cut, "w", newline="") as f:
+        csv.writer(f).writerows(rows[:1 + n_rows])
+    argv = ["--model", ZOO_STUDENT, "--distill-model", ZOO_TEACHER, "--distill-pretrained",
+            ZOO_TEACHER_TAG, "--cache-dir", cache, "--train-data", cut, "--dataset-type", "csv",
+            "--precision", "bf16", "--batch-size", str(ZOO_BATCH), "--epochs", "1",
+            "--save-frequency", "0", "--workers", "8", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--logs", work, "--name", "zoo_distill_cli",
+            "--device", DEVICE]
+    captured = {}
+    build = factory.create_model
+
+    def capture(name, *args, **kwargs):
+        t = time.perf_counter()
+        built = build(name, *args, **kwargs)
+        if name == ZOO_TEACHER:
+            captured["teacher"], captured["load_s"] = built[0], time.perf_counter() - t
+        return built
+
+    factory.create_model = capture
+    try:
+        records, counts, wall, seconds = _eval_cli_run(argv)
+    finally:
+        factory.create_model = build
+    add(counts)
+    distill_want = {"flash_attention_fwd": 0, "fused_attention_fwd": 36 + 24,
+                    "fused_attention_bwd": 24}
+    steps = n_rows // ZOO_BATCH  # the train loader drops the last partial batch
+    want_counts = {k: v * steps for k, v in distill_want.items()}
+    final = torch.load(os.path.join(work, "zoo_distill_cli", "checkpoints",
+                                    "final_torch_state.pt"), map_location="cpu",
+                       weights_only=False)["state_dict"]
+    with torch.device("meta"):
+        student_keys = set(build_model(parse_model_cfg(get_model_config(ZOO_STUDENT)))
+                           .state_dict())
+    student_only = set(final) == student_keys
+    del final
+    teacher = captured["teacher"]
+    exact = _exactly(teacher, sd)
+    del sd
+    cli_losses = [(round(r["contrastive_loss"], 5), round(r["distill_loss"], 5))
+                  for r in records]
+    train_s = seconds.get("train_one_epoch", 0.0)
+    print(f"zoo (a) train.main {' '.join(argv[:6])} ... bf16 batch {ZOO_BATCH} on "
+          f"{n_rows} mini-Flickr rows: {len(records)} steps, (contrastive, distill) "
+          f"losses {cli_losses}; wall {wall:.2f} s (train {train_s:.2f} s, the teacher loaded by "
+          f"tag {ZOO_TEACHER_TAG} in {captured['load_s']:.2f} s, its values exactly the written "
+          f"ones: {exact}); launches {counts}, expected {want_counts}; the final checkpoint "
+          f"holds the student's keys alone: {student_only} [{CARD}]", flush=True)
+    check(exact, "the distillation teacher loaded by tag differs from the written one")
+    check(len(records) == steps and all(math.isfinite(r["total_loss"]) for r in records),
+          "the distillation CLI run's losses")
+    check(counts == want_counts, f"the distillation CLI run launched {counts}")
+    check(student_only, "the final checkpoint holds other tensors than the student's")
+    out["cli_wall_s"] = wall
+    torch.cuda.empty_cache()
+
+    # ---- (a) the teacher's features and the distillation step ----
+    _set_compute_dtype(teacher, torch.float32)
+    tokenizer = get_tokenizer(ZOO_STUDENT)
+    batch = _train_batch(tokenizer, ZOO_BATCH, DEVICE, model_name=ZOO_STUDENT, seed=SEED + 71)
+    feats = {}
+    with torch.no_grad():
+        for what, fn, x in (("image", teacher.encode_image, batch["images"]),
+                            ("text", teacher.encode_text, batch["texts"])):
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = fn(x, normalize=True).float()
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            _set_attn_impl(teacher, "xla")
+            want = fn(x, normalize=True).float()
+            _set_attn_impl(teacher, "auto")
+            feats[what] = (cosine(got, want), counts["fused_attention_fwd"])
+    print(f"zoo (a) teacher {ZOO_TEACHER} fp32 batch {ZOO_BATCH}: features through the kernels "
+          f"vs plain attention, cosine min and fused launches {feats} (need >= {MIN_COSINE}; "
+          f"24 image, 12 text)", flush=True)
+    check(feats["image"][0] >= MIN_COSINE and feats["text"][0] >= MIN_COSINE
+          and (feats["image"][1], feats["text"][1]) == (24, 12),
+          "the distillation teacher's features through the kernels")
+    student, _ = create_model(ZOO_STUDENT, device=DEVICE, seed=SEED + 72)
+    student.train()
+    cfg = StepCfg(loss_type="distill")
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for m in (student, teacher):
+            _set_compute_dtype(m, dtype)
+        out[f"distill_{name}"] = _zoo_step_vs_plain((student, teacher), batch, cfg, name,
+                                                    distill_want, dist_model=teacher)
+        add(distill_want)
+    for m in (student, teacher):
+        _set_compute_dtype(m, torch.bfloat16)
+    optimizer, _ = build_optimizer(dict(student.named_parameters()), OptimCfg(),
+                                   cosine_lr(5e-4, 100, 1000))
+    state = TrainState(student, None, optimizer, 0, torch.Generator().manual_seed(SEED))
+    train_step = make_train_step(student, cfg, dist_model=teacher)
+    _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+    losses = []
+    for _ in range(ZOO_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["total_loss"]))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    torch.cuda.reset_peak_memory_stats()
+    host_ms = host_step_ms(lambda: train_step(state, batch), steps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    event_ms = time_ms(lambda: train_step(state, batch), iters=3)
+    with torch.no_grad():
+        teacher_ms = time_ms(lambda: teacher(batch["images"], batch["texts"]), iters=3)
+    want_counts = {k: v * ZOO_STEPS for k, v in distill_want.items()}
+    print(f"zoo (a) distill train step {ZOO_STUDENT} under {ZOO_TEACHER} bf16 batch {ZOO_BATCH}: "
+          f"losses {losses}; launches {counts} over {ZOO_STEPS} steps, expected {want_counts}; "
+          f"host clock {host_ms:.3f} ms a step ({ZOO_BATCH / host_ms * 1e3:.1f} samples/s), "
+          f"CUDA events {event_ms:.3f} ms, the teacher's forward alone {teacher_ms:.3f} ms "
+          f"({teacher_ms / event_ms:.1%} of the step); peak {peak:.3f} GiB [{CARD}]", flush=True)
+    check(counts == want_counts and all(math.isfinite(x) for x in losses),
+          f"the distillation steps: {counts}")
+    out.update(distill_step_ms=host_ms, distill_event_ms=event_ms, teacher_ms=teacher_ms,
+               distill_peak_gib=peak)
+    state = optimizer = train_step = None
+    del teacher, captured
+    torch.cuda.empty_cache()
+
+    # ---- (b) CyCLIP ----
+    cyc_batch = _train_batch(tokenizer, ZOO_CYCLIP_BATCH, DEVICE, model_name=ZOO_STUDENT,
+                             seed=SEED + 73)
+    cyc_want = {"flash_attention_fwd": 0, "fused_attention_fwd": 24, "fused_attention_bwd": 24}
+    cfg = StepCfg(loss_type="cyclip")
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        _set_compute_dtype(student, dtype)
+        out[f"cyclip_{name}"] = _zoo_step_vs_plain((student,), cyc_batch, cfg, name, cyc_want)
+        add(cyc_want)
+    del student
+    torch.cuda.empty_cache()
+
+    # ---- (c) ViT-L-14-CLIPA by its tag, its text by the WordPiece reader ----
+    t0 = time.perf_counter()
+    src, _ = create_model(CLIPA_MODEL, device="cpu", seed=SEED + 74)
+    sd = src.state_dict()
+    n_clipa = sum(p.numel() for p in src.parameters())
+    del src
+    root = os.path.dirname(os.path.abspath(__file__))
+    clipa_hub = get_pretrained_cfg(CLIPA_MODEL, CLIPA_TAG)["hf_hub"].rstrip("/")
+    _write_hub_repo(cache, clipa_hub, {"open_clip_pytorch_model.bin": sd})
+    _write_hub_repo(cache, "bert-base-uncased", {
+        "tokenizer.json": os.path.join(root, BERT_VOCAB),
+        "tokenizer_config.json": BERT_TOKENIZER_CONFIG})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, pp_val = create_model_and_transforms(CLIPA_MODEL, pretrained=CLIPA_TAG,
+                                                cache_dir=cache, device=DEVICE)
+    load_s = time.perf_counter() - t0
+    exact = _exactly(model, sd)
+    del sd
+    tokenizer = get_tokenizer(CLIPA_MODEL, cache_dir=cache)
+    ids = tokenizer(CLIPA_CAPTIONS)
+    ids_ok = [list(map(int, row[row != 0])) for row in ids] == CLIPA_IDS
+    print(f"zoo (c): seeded {CLIPA_MODEL}, {n_clipa:,} parameters, written in {write_s:.2f} s "
+          f"(hub repos {clipa_hub} and bert-base-uncased with the committed test vocabulary), "
+          f"loaded by tag {CLIPA_TAG} in {load_s:.2f} s; the written values exactly: {exact}; "
+          f"tokenizer {type(tokenizer).__name__} ({tokenizer.tokenizer.model_type}, context "
+          f"{tokenizer.context_length}, strip_sep_token {tokenizer.strip_sep_token}); the "
+          f"captions' ids equal the CPU test's: {ids_ok}", flush=True)
+    check(exact, "the CLIPA checkpoint loaded by tag differs from the written one")
+    check(ids_ok, f"CLIPA's token ids {ids.tolist()} differ from the pinned ones")
+    engine = ClipInferenceEngine(model, image_size=model.visual.image_size,
+                                 context_length=model.context_length, buckets=ZOO_BUCKETS)
+    engine.warmup()
+    images_b64 = []
+    for p in sorted(os.listdir(d["img_dir"]))[:8]:
+        with open(os.path.join(d["img_dir"], p), "rb") as f:
+            images_b64.append(base64.b64encode(f.read()).decode())
+    captions = CLIPA_CAPTIONS + ["a photo of a cat", "a dog on the beach", "two red cars",
+                                 "an image of a bird", "a blue boat on the water"]
+    server = ClipServer(engine, pp_val, tokenizer)
+    pixels = server._decode_images(images_b64)
+    text_ids = tokenizer(captions)
+    served = {}
+    with torch.inference_mode():
+        for what, fn, arg, n_want in (("image", engine.encode_image, pixels, 24),
+                                      ("text", engine.encode_text, text_ids, 12)):
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = fn(arg)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            _set_attn_impl(model, "xla")
+            want = fn(arg)
+            _set_attn_impl(model, "auto")
+            served[what] = got
+            cos = cosine(got, want)
+            print(f"zoo (c) {CLIPA_MODEL} encode_{what} fp32 bucket 8: launches {counts} "
+                  f"(expected {n_want} fused forward), cosine vs plain attention min {cos:.8f} "
+                  f"(need >= {MIN_COSINE}), finite {bool(np.isfinite(got).all())}", flush=True)
+            check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                             "fused_attention_bwd": 0} and cos >= MIN_COSINE
+                  and np.isfinite(got).all(), f"CLIPA's encode_{what} through the kernels")
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{httpd.server_address[1]}", "/v1/encode_text",
+                             {"texts": captions[:2]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    http_err = float(np.abs(np.asarray(body["features"]) - served["text"][:2]).max())
+    print(f"zoo (c) HTTP /v1/encode_text {status}: max |served - engine| {http_err:.2e}",
+          flush=True)
+    check(status == 200 and http_err < 1e-5, "CLIPA's served text features")
+    lat = {}
+    for b in ZOO_BUCKETS:
+        x = torch.from_numpy(np.repeat(pixels, 8, axis=0)[:b]).to(DEVICE)
+        t = torch.from_numpy(np.repeat(text_ids, 8, axis=0)[:b]).long().to(DEVICE)
+        with torch.inference_mode():
+            lat[f"image b{b}"] = time_ms(lambda: model.encode_image(x), iters=10)
+            lat[f"text b{b}"] = time_ms(lambda: model.encode_text(t), iters=10)
+    print(f"time zoo {CLIPA_MODEL} tower fp32 per call (CUDA events, ms): "
+          f"{ {k: round(v, 3) for k, v in lat.items()} } [{CARD}]", flush=True)
+    out["clipa_tower_ms"] = lat
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # ---- (d) the GAP and the relative-position ViTs, one forward each ----
+    for name, n_want in ((ZOO_GAP, 12), (ZOO_RELPOS, 0)):
+        model, _ = create_model(name, device=DEVICE, seed=SEED + 75)
+        size = model.visual.image_size[0]
+        x = torch.from_numpy(np.random.default_rng(SEED + 76).normal(
+            size=(ZOO_VIT_BATCH, size, size, 3)).astype(np.float32)).to(DEVICE)
+        with torch.no_grad():
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = model.encode_image(x, normalize=True)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            _set_attn_impl(model, "xla")
+            want = model.encode_image(x, normalize=True)
+        cos = cosine(got, want)
+        print(f"zoo (d) {name} fp32 batch {ZOO_VIT_BATCH} at {size} px "
+              f"({sum(p.numel() for p in model.parameters()):,} parameters): features "
+              f"{tuple(got.shape)}, launches {counts} (expected {n_want} fused forward), cosine "
+              f"vs plain attention min {cos:.8f} (need >= {MIN_COSINE})", flush=True)
+        check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                         "fused_attention_bwd": 0} and cos >= MIN_COSINE
+              and bool(torch.isfinite(got).all()), f"{name}'s forward")
+        del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"zoo: phase {out['seconds']:.1f} s", flush=True)
+    return {"launches": total, **out}
+
+
 # every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
 CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
               "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
-              "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES")
+              "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES", "ZOO_CASES",
+              "ZOO_BWD_CASES")
 
 
 def run_subset(keep, phases) -> None:
@@ -5756,6 +6258,8 @@ def main() -> None:
         _elapsed("pretrained")
         int8_launches = phase_int8(data, pre)
         _elapsed("int8")
+        zoo = phase_zoo(work, data, pre)
+        _elapsed("zoo")
         zs = phase_zero_shot(data, pre, work)
         _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
@@ -5804,7 +6308,7 @@ def main() -> None:
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
         + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
-        + export_launches["fused_attention_fwd"],
+        + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -5836,6 +6340,10 @@ def main() -> None:
                   **by_case[_case_key(case)]}
                  for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                  for case in TP_SERVE_CASES],
+        "zoo": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                 **by_case[_case_key(case)]}
+                for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                for case in ZOO_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -5843,7 +6351,8 @@ def main() -> None:
         + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
         + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
-        + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"],
+        + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"]
+        + zoo["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -5871,6 +6380,10 @@ def main() -> None:
                   **by_case[_case_key(case)]}
                  for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                  for case in TP_SERVE_CASES],
+        "zoo": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                 **by_case[_case_key(case)]}
+                for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                for case in ZOO_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

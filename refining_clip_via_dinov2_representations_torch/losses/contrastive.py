@@ -1,10 +1,12 @@
-"""Contrastive objectives as plain PyTorch functions: CLIP, SigLIP and CoCa.
+"""Contrastive objectives as plain PyTorch functions: CLIP, SigLIP, CoCa,
+CyCLIP and CLIP distillation.
 
 The port of the JAX package's ``losses/contrastive.py``: ``cross_entropy``
-(an fp32 log-softmax), ``clip_logits`` / ``clip_loss``, ``siglip_loss``
-and ``coca_loss``. ``group`` is a ``torch.distributed`` process group (the
-data axis): each rank passes its own rows, and the JAX package's
-named-axis collectives become collectives over the group.
+(an fp32 log-softmax), ``clip_logits`` / ``clip_loss``, ``siglip_loss``,
+``coca_loss``, ``cyclip_loss`` and ``distill_clip_loss``. ``group`` is a
+``torch.distributed`` process group (the data axis): each rank passes its
+own rows, and the JAX package's named-axis collectives become collectives
+over the group.
 
 * ``gather_features`` all-gathers the rows of every rank in rank order
   (``lax.all_gather(tiled=True)``) with gradients: the backward sums the
@@ -245,7 +247,8 @@ def siglip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
 def coca_loss(image_features: torch.Tensor, text_features: torch.Tensor,
               caption_logits: torch.Tensor, caption_labels: torch.Tensor,
               logit_scale: torch.Tensor, caption_loss_weight: float = 2.0,
-              clip_loss_weight: float = 1.0, pad_id: int = 0, group=None) -> dict:
+              clip_loss_weight: float = 1.0, pad_id: int = 0, group=None,
+              local_loss: bool = True) -> dict:
     """open_clip's ``CoCaLoss`` (``tpu/losses/contrastive.py:225-251``): the
     weighted CLIP term (local rows against the gathered columns under a
     group), and the caption cross-entropy over the labels that are not
@@ -254,9 +257,61 @@ def coca_loss(image_features: torch.Tensor, text_features: torch.Tensor,
     contrastive = torch.zeros((), dtype=torch.float32, device=caption_logits.device)
     if clip_loss_weight:
         contrastive = clip_loss_weight * clip_loss(image_features, text_features, logit_scale,
-                                                   group)
+                                                   group, local_loss)
     logp = torch.log_softmax(caption_logits.float(), dim=-1)  # [B, L, V]
     picked = logp.gather(-1, caption_labels[..., None].long())[..., 0]
     valid = (caption_labels != pad_id).float()
     caption = -(picked * valid).sum() / valid.sum().clamp(min=1.0)
     return {"contrastive_loss": contrastive, "caption_loss": caption_loss_weight * caption}
+
+
+def _unit_fp32(x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+
+
+def cyclip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                logit_scale: torch.Tensor, lambda_inmodal: float = 0.25,
+                lambda_crossmodal: float = 0.25, group=None, local_loss: bool = True) -> dict:
+    """The fork's ``CyCLIPLoss`` (``tpu/losses/contrastive.py:253-290``): the
+    CLIP term plus the cyclic consistency penalties, the mean squared gaps
+    between ``s_it`` and its transpose (cross-modal) and between ``s_ii``
+    and ``s_tt`` (in-modal), over fp32 L2-normalised rows (floor 1e-12).
+    Under a group with ``local_loss`` the penalties cover this rank's pairs
+    only, the reference's own rule; without it, every rank's. Returns
+    ``{"total_loss", "clip_loss", "inmodal_cyclic", "crossmodal_cyclic"}``."""
+    base = clip_loss(image_features, text_features, logit_scale, group, local_loss)
+    if group is not None and not local_loss:
+        img, txt = gather_features(image_features, text_features, group)
+    else:
+        img, txt = image_features, text_features
+    i, t = _unit_fp32(img), _unit_fp32(txt)
+    s_ii, s_tt, s_it = i @ i.T, t @ t.T, i @ t.T
+    l_cross = torch.square(s_it - s_it.T).mean()
+    l_inmod = torch.square(s_ii - s_tt).mean()
+    return {"total_loss": base + lambda_inmodal * l_inmod + lambda_crossmodal * l_cross,
+            "clip_loss": base, "inmodal_cyclic": l_inmod, "crossmodal_cyclic": l_cross}
+
+
+def distill_clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
+                      logit_scale: torch.Tensor, dist_image_features: torch.Tensor,
+                      dist_text_features: torch.Tensor, dist_logit_scale: torch.Tensor,
+                      group=None, local_loss: bool = True) -> dict:
+    """open_clip's ``DistillClipLoss`` (``tpu/losses/contrastive.py:293-319``):
+    the CLIP term, and the soft cross-entropy of the student's logits
+    against the softmax of the teacher's, both directions, each from fp32.
+    The teacher's logits come from ``clip_logits`` with the same ``group``
+    and ``local_loss`` as the student's. Returns ``{"contrastive_loss",
+    "distill_loss"}``."""
+    logits_i, logits_t, labels = clip_logits(image_features, text_features, logit_scale,
+                                             group, local_loss)
+    t_logits_i, t_logits_t, _ = clip_logits(dist_image_features, dist_text_features,
+                                            dist_logit_scale, group, local_loss)
+    contrastive = 0.5 * (cross_entropy(logits_i, labels) + cross_entropy(logits_t, labels))
+
+    def soft_ce(teacher: torch.Tensor, student: torch.Tensor) -> torch.Tensor:
+        q = torch.softmax(teacher.float(), dim=1)
+        return -(q * torch.log_softmax(student.float(), dim=1)).sum(dim=1).mean()
+
+    distill = 0.5 * (soft_ce(t_logits_i, logits_i) + soft_ce(t_logits_t, logits_t))
+    return {"contrastive_loss": contrastive, "distill_loss": distill}

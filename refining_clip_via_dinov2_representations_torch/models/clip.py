@@ -9,10 +9,12 @@ vision tower under ``visual.``, the text tower's parts at top level
 ``models/eva.py`` converts. A SigLIP model keeps open_clip's
 ``CustomTextCLIP`` layout, as its hub checkpoints do: the timm trunk under
 ``visual.trunk.`` (``models/siglip.py``) and the text tower under ``text.``,
-then ``logit_scale`` and ``logit_bias``. The vision tower is the ViT (with
-CoCa's attentional pooler where configured), the EVA01 trunk
-(``models/eva.py``) or the SigLIP trunk; other towers (other timm trunks,
-ResNet, HF text) raise ``NotImplementedError``. ``build_model`` builds
+then ``logit_scale`` and ``logit_bias``. The vision tower is the ViT in each of
+its variants (CoCa's attentional pooler, CLIPA's average pool with
+``ln_post`` after it, timm's ``vit_medium_patch16_gap_256``), the EVA01
+trunk (``models/eva.py``), the SigLIP trunk or the relative-position ViT
+(``models/relpos_vit.py``); other towers (other timm trunks, ResNet, HF
+text) raise ``NotImplementedError``. ``build_model`` builds
 ``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
@@ -33,6 +35,7 @@ from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .eva import EVA01_DIMS
 from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
                      quick_gelu)
+from .relpos_vit import RelPosVisionTower
 from .siglip import SiglipVisionCfg, SiglipVisionTower, gelu_tanh, parse_siglip_timm_name
 from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransformer,
                           VisionTransformer, encode_text_tokens, remat_args)
@@ -45,10 +48,24 @@ def _unsupported(what: str, item: str = "14"):
     )
 
 
+# the plain timm ViTs of the registry (``tpu/models/clip.py:135-141``): no
+# class token, average pool, no QKV bias, LayerScale 1e-6
+TIMM_PLAIN_VIT = {
+    "vit_medium_patch16_gap_256": dict(width=512, layers=12, heads=8, patch=16,
+                                       class_token=False, pool_type="avg", qkv_bias=False,
+                                       ls_init_value=1e-6),
+}
+RELPOS_VIT = "vit_relpos_medium_patch16_cls_224"
+
+
 def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool,
                         dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
                         remat_policy: str = "full") -> Union[VisionTransformer,
-                                                             SiglipVisionTower]:
+                                                             SiglipVisionTower,
+                                                             RelPosVisionTower]:
+    common = dict(output_dim=embed_dim, attn_impl=attn_impl, compute_dtype=dtype,
+                  grad_checkpointing=grad_checkpointing, remat_policy=remat_policy,
+                  output_tokens=cfg.output_tokens)
     if cfg.timm_model_name is not None:
         dims = parse_siglip_timm_name(cfg.timm_model_name)
         if dims is not None:
@@ -63,6 +80,17 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                                 image_size=to_2tuple(cfg.image_size)[0]),
                 output_tokens=cfg.output_tokens, attn_impl=attn_impl, compute_dtype=dtype,
                 grad_checkpointing=grad_checkpointing, remat_policy=remat_policy)
+        if cfg.timm_model_name == RELPOS_VIT:  # ``tpu/models/clip.py:160-170``
+            return RelPosVisionTower(width=512, layers=12, heads=8, patch_size=16,
+                                     image_size=to_2tuple(cfg.image_size)[0], **common)
+        if cfg.timm_model_name in TIMM_PLAIN_VIT:  # ``tpu/models/clip.py:171-193``
+            d = TIMM_PLAIN_VIT[cfg.timm_model_name]
+            return VisionTransformer(
+                image_size=to_2tuple(cfg.image_size), patch_size=to_2tuple(d["patch"]),
+                width=d["width"], layers=d["layers"], heads=d["heads"],
+                class_token=d["class_token"], pool_type=d["pool_type"], qkv_bias=d["qkv_bias"],
+                ls_init_value=d["ls_init_value"], no_ln_pre=True, patch_embed_bias=True,
+                act=gelu, norm_eps=1e-6, **common)
         if cfg.timm_model_name not in EVA01_DIMS:
             raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
         # the EVA01 trunk: the standard ViT with timm's four differences
@@ -78,13 +106,9 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
             norm_eps=1e-6)
     if cfg.is_resnet:
         raise _unsupported("ModifiedResNet vision tower")
-    variants = {"pos_embed_type": cfg.pos_embed_type != "learnable",
-                "pool_type": cfg.pool_type != "tok",
-                "final_ln_after_pool": cfg.final_ln_after_pool,
-                "act_kwargs": bool(cfg.act_kwargs), "norm_kwargs": bool(cfg.norm_kwargs)}
-    for what, present in variants.items():
-        if present:
-            raise _unsupported(f"vision tower with {what}", "2-3")
+    act = quick_gelu if use_quick_gelu else gelu
+    if (cfg.act_kwargs or {}).get("approximate") == "tanh":
+        act = gelu_tanh
     return VisionTransformer(
         image_size=to_2tuple(cfg.image_size),
         patch_size=to_2tuple(cfg.patch_size),
@@ -93,18 +117,17 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
         heads=cfg.heads,
         mlp_ratio=cfg.mlp_ratio,
         ls_init_value=cfg.ls_init_value,
-        output_dim=embed_dim,
-        act=quick_gelu if use_quick_gelu else gelu,
-        attn_impl=attn_impl,
-        compute_dtype=dtype,
-        grad_checkpointing=grad_checkpointing,
-        remat_policy=remat_policy,
+        act=act,
         patch_dropout=cfg.patch_dropout,
         no_ln_pre=cfg.no_ln_pre,
+        pos_embed_type=cfg.pos_embed_type,
+        pool_type=cfg.pool_type,
+        final_ln_after_pool=cfg.final_ln_after_pool,
+        norm_eps=(cfg.norm_kwargs or {}).get("eps", 1e-5),
         attentional_pool=cfg.attentional_pool,
         attn_pooler_queries=cfg.attn_pooler_queries,
         attn_pooler_heads=cfg.attn_pooler_heads,
-        output_tokens=cfg.output_tokens,
+        **common,
     )
 
 
@@ -173,7 +196,8 @@ def init_weights(model: nn.Module, seed: int = 0):
             m.bias.zero_()
         elif isinstance(m, MultiheadAttention):
             normal_(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
-            m.in_proj_bias.zero_()
+            if m.in_proj_bias is not None:
+                m.in_proj_bias.zero_()
         elif isinstance(m, PoolerAttention):
             for w in m.weights():
                 normal_(w, w.shape[1] ** -0.5)
@@ -198,7 +222,7 @@ def init_weights(model: nn.Module, seed: int = 0):
                     normal_(p, 0.01)
             if isinstance(m.text_projection, nn.Parameter):  # a Linear: the branch above
                 normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
-        elif isinstance(m, SiglipVisionTower):
+        elif isinstance(m, (SiglipVisionTower, RelPosVisionTower)):
             m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)

@@ -7,7 +7,18 @@ arrays, as ``jax.device_get`` returns it) becomes an open_clip-layout state
 dict that loads into ``models.clip.CLIP`` (or ``models.coca.CoCa``) with
 ``strict=True``; an EVA01 tree (no ``ln_pre``, a biased patch
 embedding, a Dense ``proj``) gives the port's EVA01 keys (``models/eva.py``
-converts them to open_clip's CustomTextCLIP layout and back). Dense kernels
+converts them to open_clip's CustomTextCLIP layout and back). The ViT's
+variants carry over as their leaves say: a tower without a class token
+(timm's GAP ViT) has no ``visual.class_embedding``, a fixed sine-cosine
+table no ``visual.positional_embedding``, a block without a QKV bias no
+``attn.in_proj_bias``. The JAX exporter refuses the GAP and relative-position
+trees (no published checkpoint exists), so their layout is this module's:
+the standard ViT keys, and for the relative-position tower
+(``models/relpos_vit.py``; its blocks at the top of the JAX tree) the
+blocks under ``visual.transformer.resblocks.{i}`` with their
+``relative_position_bias_table`` [entries, heads], no positional
+embedding, and its bias-free Dense ``proj`` as the ``visual.proj`` matrix
+[width, out]. Dense kernels
 are transposed to [out, in], the fused
 ``in_proj_kernel`` [D, 3D] to ``in_proj_weight`` [3D, D], the HWIO patch
 convolution to OIHW. Every operation is a transpose, so the same function
@@ -139,6 +150,22 @@ def _emit_siglip_trunk(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -
     dense("attn_pool.mlp.fc2", visual["head_fc2"])
 
 
+def _emit_relpos(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``RelPosVisionTower`` tree in the port's layout (the module
+    docstring)."""
+    sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]),
+                                                (3, 2, 0, 1)))
+    sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
+    sd["visual.class_embedding"] = _t(visual["class_embedding"])
+    for name, block in _blocks(visual):
+        prefix = f"visual.transformer.resblocks.{name.rsplit('_', 1)[-1]}"
+        _emit_block(sd, block, prefix)
+        sd[f"{prefix}.relative_position_bias_table"] = _t(block["relative_position_bias_table"])
+    sd["visual.ln_post.weight"] = _t(visual["ln_post"]["scale"])
+    sd["visual.ln_post.bias"] = _t(visual["ln_post"]["bias"])
+    sd["visual.proj"] = _t(visual["proj"]["kernel"])
+
+
 def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
     """A JAX ``TextTransformer`` tree under the prefix ``tp``; its
     projection a matrix, a Dense (``proj_bias``: ``text_projection.weight``
@@ -176,6 +203,11 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             f"this tree has {sorted(text)}"
         )
     sd: Dict[str, torch.Tensor] = {}
+    if "resblocks_0" in visual and "relative_position_bias_table" in visual["resblocks_0"]:
+        _emit_relpos(sd, visual)
+        _emit_text(sd, text, "")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        return sd
     if "patch_embedding" in visual and "probe" in visual:  # the SigLIP tower
         _emit_siglip_trunk(sd, visual)
         _emit_text(sd, text, "text.")
@@ -191,8 +223,9 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]), (3, 2, 0, 1)))
     if "bias" in visual["conv1"]:  # EVA01's biased patch embedding
         sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
-    sd["visual.class_embedding"] = _t(visual["class_embedding"])
-    sd["visual.positional_embedding"] = _t(visual["positional_embedding"])
+    for name in ("class_embedding", "positional_embedding"):  # a GAP or sin-cos tower lacks one
+        if name in visual:
+            sd[f"visual.{name}"] = _t(visual[name])
     if "ln_pre" in visual:
         sd["visual.ln_pre.weight"] = _t(visual["ln_pre"]["scale"])
         sd["visual.ln_pre.bias"] = _t(visual["ln_pre"]["bias"])

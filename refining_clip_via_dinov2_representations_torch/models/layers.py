@@ -139,20 +139,29 @@ class MultiheadAttention(nn.Module):
 
     The last two take plain attention only because the JAX package routes
     them there (``impl="xla"``, ``tpu/models/layers.py:209-243``): a decode
-    step launches no kernel.
+    step launches no kernel. Without ``qkv_bias`` (the timm GAP and relpos
+    ViTs) the layer has no ``in_proj_bias``, as the JAX module has none.
     """
 
     tp = None
 
-    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto"):
+    def __init__(self, dim: int, num_heads: int, attn_impl: str = "auto",
+                 qkv_bias: bool = True):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim)) if qkv_bias else None
         self.out_proj = nn.Linear(dim, dim)
+
+    def _bias(self, x: torch.Tensor, part: Optional[int] = None) -> Optional[torch.Tensor]:
+        """``in_proj_bias`` (its q, k or v third) in ``x``'s dtype, or None."""
+        if self.in_proj_bias is None:
+            return None
+        b = self.in_proj_bias if part is None else self.in_proj_bias.chunk(3)[part]
+        return b.to(x.dtype)
 
     def _project(self, x: torch.Tensor, part: int) -> torch.Tensor:
         """[B, L, D] -> this rank's heads of q (0), k (1) or v (2), [B, H, L, Dh],
@@ -161,7 +170,7 @@ class MultiheadAttention(nn.Module):
         n = self.in_proj_weight.shape[0] // 3
         heads = self.num_heads // (self.tp.world if self.tp else 1)
         w = self.in_proj_weight[part * n:(part + 1) * n].to(x.dtype)
-        y = F.linear(x, w, self.in_proj_bias[part * n:(part + 1) * n].to(x.dtype))
+        y = F.linear(x, w, self._bias(x, part))
         return y.view(b, l, heads, n // heads).transpose(1, 2).contiguous()
 
     def _out(self, out: torch.Tensor) -> torch.Tensor:
@@ -197,7 +206,7 @@ class MultiheadAttention(nn.Module):
             b, l, d = x.shape
             heads = self.num_heads // (self.tp.world if self.tp else 1)
             dh = d // self.num_heads
-            qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
+            qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self._bias(x))
             # [B, L, 3, H, Dh] -> three contiguous [B, H, L, Dh] tensors
             q, k, v = qkv.view(b, l, 3, heads, dh).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         return self._out(multi_head_attention(q, k, v, mask=mask, causal=causal,

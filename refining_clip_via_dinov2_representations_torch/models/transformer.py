@@ -1,13 +1,17 @@
 """Transformer towers: the vision ViT, the causal text transformer and
 CoCa's multimodal decoder.
 
-The port of the JAX package's ``models/transformer.py``: the ViT with a
-class token, learnable positional embedding, 'tok' pooling and CoCa's
-attentional poolers; the causal text transformer with argmax-EOT pooling or
-CoCa's appended CLS; the CoCa decoder; KV-cache decode. (The CLIPA/timm
-variants come later; the SigLIP tower is ``models/siglip.py``.) The text
-transformer's SigLIP options: no causal mask, first/last pooling, a biased
-or no projection, LayerNorm eps. Parameter names are open_clip's, so
+The port of the JAX package's ``models/transformer.py``: the ViT with every
+variant the JAX module has (a class token or none, a learnable or fixed 2D
+sine-cosine positional embedding, ``tok``/``avg`` pooling, ``ln_post``
+before or after the pool, no ``ln_pre``, a biased patch embedding or
+projection, no QKV bias, LayerScale, CoCa's attentional poolers; CLIPA's
+and timm's GAP ViT are such towers); the causal text transformer with
+argmax-EOT pooling or CoCa's appended CLS; the CoCa decoder; KV-cache
+decode. (The SigLIP tower is ``models/siglip.py``, the relative-position
+ViT ``models/relpos_vit.py``.) The text transformer's SigLIP and CLIPA
+options: no causal mask, first/last pooling, a biased or no projection,
+LayerNorm eps. Parameter names are open_clip's, so
 ``models/convert.py`` output loads with ``strict=True``.
 
 Images are NHWC at the public boundary, as in the JAX package (NCHW is
@@ -46,6 +50,7 @@ import functools
 from collections import defaultdict
 from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -149,11 +154,11 @@ class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, n_head: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
                  attn_impl: str = "auto", norm_eps: float = 1e-5,
-                 is_cross_attention: bool = False):
+                 is_cross_attention: bool = False, qkv_bias: bool = True):
         super().__init__()
         self.ln_1 = LayerNorm(width, norm_eps)
         self.ln_1_kv = LayerNorm(width, norm_eps) if is_cross_attention else None
-        self.attn = MultiheadAttention(width, n_head, attn_impl)
+        self.attn = MultiheadAttention(width, n_head, attn_impl, qkv_bias)
         self.ln_2 = LayerNorm(width, norm_eps)
         self.mlp = MLP(width, int(width * mlp_ratio), act)
         if ls_init_value is not None:
@@ -211,14 +216,14 @@ class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  ls_init_value: Optional[float] = None, act: Callable = gelu,
                  attn_impl: str = "auto", grad_checkpointing: bool = False,
-                 remat_policy: str = "full", norm_eps: float = 1e-5):
+                 remat_policy: str = "full", norm_eps: float = 1e-5, qkv_bias: bool = True):
         super().__init__()
         saved_ops(remat_policy)  # raises on an unknown name
         self.grad_checkpointing = grad_checkpointing
         self.remat_policy = remat_policy
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio, ls_init_value, act, attn_impl,
-                                   norm_eps)
+                                   norm_eps, qkv_bias=qkv_bias)
             for _ in range(layers)
         )
 
@@ -262,16 +267,48 @@ def project_text(pooled: torch.Tensor, proj) -> torch.Tensor:
     return pooled @ proj.to(pooled.dtype)
 
 
-class VisionTransformer(nn.Module):
-    """ViT tower: patch embed, CLS + learnable positional embedding, patch
-    dropout (training, with a generator), ln_pre, transformer, ln_post on the
-    CLS token, projection.
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int, cls_token: bool = False
+                            ) -> np.ndarray:
+    """The fixed 2D sine-cosine positional embedding [grid^2 (+1), dim] in
+    fp32 (``tpu/models/transformer.py:get_2d_sincos_pos_embed``, open_clip's
+    ``pos_embed.py:20-72``): computed in float64, the first half of each row
+    from the column index, the second from the row index; a zero row first
+    with ``cls_token``."""
+    def one_d(dim: int, pos: np.ndarray) -> np.ndarray:
+        omega = 1.0 / 10000 ** (np.arange(dim // 2, dtype=np.float64) / (dim / 2.0))
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
 
-    The EVA01 trunk (``models/eva.py``) is this tower with the JAX module's
-    four options: ``no_ln_pre`` (no ``ln_pre``), ``proj_bias`` (``proj`` a
-    biased Linear, timm's classifier head, instead of the [width, out]
-    matrix), ``patch_embed_bias`` (a bias on ``conv1``) and ``norm_eps``
-    (every LayerNorm's; 1e-6 for EVA)."""
+    grid = np.arange(grid_size, dtype=np.float64)
+    grid = np.stack(np.meshgrid(grid, grid), axis=0).reshape(2, 1, grid_size, grid_size)
+    emb = np.concatenate([one_d(embed_dim // 2, grid[0]), one_d(embed_dim // 2, grid[1])],
+                         axis=1)
+    if cls_token:
+        emb = np.concatenate([np.zeros((1, embed_dim)), emb], axis=0)
+    return emb.astype(np.float32)
+
+
+VISION_POOL_TYPES = ("tok", "avg", "none")
+
+
+class VisionTransformer(nn.Module):
+    """ViT tower: patch embed, the class token, the positional embedding,
+    patch dropout (training, with a generator), ln_pre, transformer, ln_post
+    and the pool, projection.
+
+    The JAX module's options (``tpu/models/transformer.py:240-400``):
+    ``no_ln_pre`` (no ``ln_pre``), ``proj_bias`` (``proj`` a biased Linear,
+    timm's classifier head, instead of the [width, out] matrix),
+    ``patch_embed_bias`` (a bias on ``conv1``), ``norm_eps`` (every
+    LayerNorm's), ``class_token`` (False: no ``class_embedding``, the GAP
+    trunks), ``qkv_bias``, ``pos_embed_type`` (``"learnable"``, or
+    ``"sin_cos_2d"``: a fixed buffer outside the state dict, as the JAX tree
+    has no such leaf; square grids only), ``pool_type`` (``"tok"``: the
+    class token; ``"avg"``: the mean of the tokens after the class token,
+    or of all without one; ``"none"``: every token) and
+    ``final_ln_after_pool`` (``ln_post`` on the pooled row instead of every
+    token). The EVA01 trunk (``models/eva.py``), CLIPA's towers and timm's
+    ``vit_medium_patch16_gap_256`` are this tower with such options."""
 
     def __init__(self, image_size: Tuple[int, int] = (224, 224),
                  patch_size: Tuple[int, int] = (16, 16), width: int = 768,
@@ -283,23 +320,40 @@ class VisionTransformer(nn.Module):
                  no_ln_pre: bool = False, proj_bias: bool = False,
                  patch_embed_bias: bool = False, norm_eps: float = 1e-5,
                  attentional_pool: Union[bool, str] = False, attn_pooler_queries: int = 256,
-                 attn_pooler_heads: int = 8, output_tokens: bool = False):
+                 attn_pooler_heads: int = 8, output_tokens: bool = False,
+                 class_token: bool = True, qkv_bias: bool = True,
+                 pos_embed_type: str = "learnable", pool_type: str = "tok",
+                 final_ln_after_pool: bool = False):
         super().__init__()
+        if pool_type not in VISION_POOL_TYPES:
+            raise ValueError(f"vision pool_type {pool_type!r}: one of {VISION_POOL_TYPES}")
+        if pool_type == "tok" and not class_token:
+            raise ValueError("pool_type 'tok' needs a class token")
         self.image_size = tuple(image_size)
         self.patch_size = tuple(patch_size)
         self.grid_size = (image_size[0] // patch_size[0], image_size[1] // patch_size[1])
         self.width = width
         self.compute_dtype = compute_dtype
+        self.pool_type, self.final_ln_after_pool = pool_type, final_ln_after_pool
         self.conv1 = nn.Conv2d(3, width, kernel_size=self.patch_size,
                                stride=self.patch_size, bias=patch_embed_bias)
-        self.class_embedding = nn.Parameter(torch.zeros(width))
-        n_pos = self.grid_size[0] * self.grid_size[1] + 1
-        self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
+        self.class_embedding = nn.Parameter(torch.zeros(width)) if class_token else None
+        n_pos = self.grid_size[0] * self.grid_size[1] + (1 if class_token else 0)
+        if pos_embed_type == "learnable":
+            self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width))
+        elif pos_embed_type == "sin_cos_2d":
+            if self.grid_size[0] != self.grid_size[1]:
+                raise ValueError("sin_cos_2d pos embedding only supports square input")
+            self.register_buffer("positional_embedding", torch.from_numpy(
+                get_2d_sincos_pos_embed(width, self.grid_size[0], cls_token=class_token)),
+                persistent=False)
+        else:
+            raise ValueError(f"pos_embed_type {pos_embed_type!r}: learnable or sin_cos_2d")
         self.patch_dropout = PatchDropout(patch_dropout) if patch_dropout > 0 else None
         self.ln_pre = None if no_ln_pre else LayerNorm(width, norm_eps)
         self.transformer = Transformer(width, layers, heads, mlp_ratio, ls_init_value,
                                        act, attn_impl, grad_checkpointing, remat_policy,
-                                       norm_eps)
+                                       norm_eps, qkv_bias)
         self.output_tokens = output_tokens
         self.attentional_pool = attentional_pool
         self.attn_pool = self.attn_pool_contrastive = None
@@ -328,6 +382,17 @@ class VisionTransformer(nn.Module):
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable
 
+    def _global_pool(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pooled, tokens) by ``pool_type`` (``tpu/models/transformer.py:
+        330-338``)."""
+        if self.pool_type == "avg":
+            if self.class_embedding is None:
+                return x.mean(dim=1), x
+            return x[:, 1:].mean(dim=1), x[:, 1:]
+        if self.pool_type == "tok":
+            return x[:, 0], x[:, 1:]
+        return x, x
+
     def _patch_embed(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, gh*gw, width], the stride-patch convolution
         as a matmul over (channel, row, col)-ordered patches."""
@@ -346,8 +411,10 @@ class VisionTransformer(nn.Module):
             raise ValueError(f"expected {self.image_size} images, got {tuple(x.shape)}")
         dtype = self.compute_dtype
         x = self._patch_embed(x.to(dtype))
-        cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        if self.class_embedding is not None:
+            cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
+            x = torch.cat([cls, x], dim=1)
+        x = x + self.positional_embedding.to(dtype)
         if self.patch_dropout is not None:
             x = self.patch_dropout(x, patch_dropout_generator)
         if self.ln_pre is not None:
@@ -358,11 +425,13 @@ class VisionTransformer(nn.Module):
             tokens = self.attn_pool(x)
             pooled = self.attn_pool_contrastive(
                 x if self.attentional_pool == "parallel" else tokens)[:, 0]
+        elif self.attn_pool is not None:  # open_clip's CoCa pooling
+            pooled, tokens = self._global_pool(self.ln_post(self.attn_pool(x)))
+        elif self.final_ln_after_pool:
+            pooled, tokens = self._global_pool(x)
+            pooled = self.ln_post(pooled)
         else:
-            if self.attn_pool is not None:  # open_clip's CoCa pooling
-                x = self.attn_pool(x)
-            x = self.ln_post(x)
-            pooled, tokens = x[:, 0], x[:, 1:]
+            pooled, tokens = self._global_pool(self.ln_post(x))
         if isinstance(self.proj, nn.Linear):
             pooled = _linear(pooled, self.proj)
         else:

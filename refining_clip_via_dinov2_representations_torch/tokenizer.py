@@ -1,4 +1,5 @@
-"""Tokenizers: byte-level BPE for CLIP, and fast-tokenizer files for SigLIP.
+"""Tokenizers: byte-level BPE for CLIP, and fast-tokenizer files for SigLIP
+and CLIPA.
 
 The port's own copy of the JAX package's ``tokenizer.py`` ``SimpleTokenizer``
 with its default ``lower`` cleaning: the same vocabulary file and the same
@@ -12,7 +13,10 @@ SigLIP vocabularies use (a ``Unigram`` model decoded by Viterbi over the
 piece scores, with the unknown piece's score and ``fuse_unk`` as the
 ``tokenizers`` library has them; the ``Metaspace`` pre-tokenizer; no
 normalizer; ``TemplateProcessing``'s end token; the special tokens split
-out first) and raises, naming what is missing, for anything else. Files
+out first) and what ``bert-base-uncased`` uses, CLIPA's tokenizer
+(``BertNormalizer``, ``BertPreTokenizer``, a greedy longest-match
+``WordPiece`` model, ``TemplateProcessing``'s ``[CLS] $A [SEP]``), and
+raises, naming what is missing, for anything else. Files
 come from a path, from ``$REFINING_CLIP_VOCAB_DIR`` or from the hub-cache
 layout (``models/pretrained.py:hub_snapshot_dirs``); nothing is downloaded.
 
@@ -266,8 +270,63 @@ def _unsupported_file(path: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {what}; the port reads tokenizer.json files with a Unigram model, the "
         "Metaspace pre-tokenizer, no normalizer and TemplateProcessing (the SigLIP "
-        "vocabularies); a sentencepiece .model needs the `sentencepiece` package, which "
-        "the port does not use")
+        "vocabularies), or a WordPiece model with the BertNormalizer, the BertPreTokenizer "
+        "and TemplateProcessing (bert-base-uncased, CLIPA's); a sentencepiece .model needs "
+        "the `sentencepiece` package, which the port does not use")
+
+
+# Rust's ``char::is_whitespace`` (the Unicode White_Space property), which
+# the BERT normalizer and pre-tokenizer use
+_WHITESPACE = frozenset(chr(c) for c in (*range(0x9, 0xE), 0x20, 0x85, 0xA0, 0x1680,
+                                         *range(0x2000, 0x200B), 0x2028, 0x2029, 0x202F,
+                                         0x205F, 0x3000))
+# the CJK blocks the BERT normalizer spaces out (``normalizers/bert.rs``)
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def bert_normalize(text: str, clean_text: bool = True, handle_chinese_chars: bool = True,
+                   strip_accents: Optional[bool] = None, lowercase: bool = True) -> str:
+    """The ``tokenizers`` library's ``BertNormalizer``: drop NUL, U+FFFD and
+    control characters (category C*, but tab, newline and return) and turn
+    whitespace into spaces; pad CJK characters with spaces; strip accents
+    (NFD, then no nonspacing marks; by default where ``lowercase``);
+    lowercase character by character."""
+    if clean_text:
+        text = "".join(" " if c in _WHITESPACE else c for c in text
+                       if not (c in "\0\ufffd" or (c not in "\t\n\r"
+                                                   and unicodedata.category(c)[0] == "C")))
+    if handle_chinese_chars:
+        text = "".join(f" {c} " if any(a <= ord(c) <= b for a, b in _CJK) else c for c in text)
+    if (lowercase if strip_accents is None else strip_accents):
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    if lowercase:
+        text = "".join(c.lower() for c in text)
+    return text
+
+
+def bert_pre_tokenize(text: str) -> List[str]:
+    """The ``BertPreTokenizer``: words split at whitespace, each punctuation
+    character (ASCII punctuation or a category P* character) a word of its
+    own."""
+    words: List[str] = []
+    word = ""
+    for c in text:
+        if c in _WHITESPACE:
+            if word:
+                words.append(word)
+            word = ""
+        elif c in string.punctuation or unicodedata.category(c)[0] == "P":
+            if word:
+                words.append(word)
+            words.append(c)
+            word = ""
+        else:
+            word += c
+    if word:
+        words.append(word)
+    return words
 
 
 def _token_content(tok) -> Optional[str]:
@@ -277,11 +336,17 @@ def _token_content(tok) -> Optional[str]:
 
 
 class FastTokenizerFile:
-    """A ``tokenizer.json`` whose pipeline the SigLIP vocabularies use:
+    """A ``tokenizer.json`` whose pipeline the SigLIP vocabularies or
+    ``bert-base-uncased`` use. Both:
 
     * special tokens (the file's ``added_tokens`` and ``special``) split out
       of the raw text first, leftmost-longest, as the ``tokenizers``
       library's added vocabulary does;
+    * ``TemplateProcessing``'s single-sequence template (its special tokens'
+      ids around the sequence).
+
+    SigLIP's (a ``Unigram`` model):
+
     * no normalizer;
     * ``Metaspace`` with ``prepend_scheme`` ``"always"`` and ``split``:
       spaces become the replacement character, which is prepended where a
@@ -290,9 +355,16 @@ class FastTokenizerFile:
     * ``Unigram``: each word decoded by Viterbi over the piece scores; a
       character no piece covers becomes the unknown piece at the lowest
       score minus ``UNK_PENALTY``, and adjacent unknown pieces fuse into
-      one (``fuse_unk``); ties keep the path found first;
-    * ``TemplateProcessing``'s single-sequence template (its special tokens'
-      ids around the sequence).
+      one (``fuse_unk``); ties keep the path found first.
+
+    BERT's (a ``WordPiece`` model):
+
+    * the ``BertNormalizer`` (``bert_normalize``) with the file's flags;
+    * the ``BertPreTokenizer`` (``bert_pre_tokenize``);
+    * ``WordPiece``: a word longer than ``max_input_chars_per_word``
+      characters is the unknown token; otherwise the longest vocabulary
+      entry at each position, after the first with the continuing prefix
+      (``##``), and where none matches the whole word is the unknown token.
 
     Anything else raises ``NotImplementedError`` naming it. ``encode``
     returns the ids before truncation and padding; ``frame`` truncates and
@@ -302,6 +374,46 @@ class FastTokenizerFile:
         self.path = path
         with open(path, encoding="utf-8") as f:
             spec = json.load(f)
+        model = spec.get("model") or {}
+        self.model_type = model.get("type")
+        if self.model_type == "WordPiece":
+            self._init_wordpiece(spec)
+        elif self.model_type == "Unigram":
+            self._init_unigram(spec)
+        else:
+            raise _unsupported_file(path, f"{self.model_type!r} model")
+        # special tokens: the file's added ones, and those the caller names
+        # (a tokenizer_config's eos, unk, pad, sep), each at its vocabulary id
+        self.added: Dict[str, int] = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
+        for tok in special:
+            if tok is not None and tok not in self.added:
+                if tok not in self.vocab:
+                    raise _unsupported_file(path, f"special token {tok!r} outside the vocabulary")
+                self.added[tok] = self.vocab[tok]
+        self.template = self._template(spec.get("post_processor"))
+        self._cache: Dict[str, List[int]] = {}
+
+    def _init_wordpiece(self, spec: dict) -> None:
+        norm = spec.get("normalizer") or {}
+        if norm.get("type") != "BertNormalizer":
+            raise _unsupported_file(self.path, f"normalizer {norm.get('type')!r} with WordPiece")
+        self.bert_flags = {k: norm.get(k, d) for k, d in (
+            ("clean_text", True), ("handle_chinese_chars", True), ("strip_accents", None),
+            ("lowercase", True))}
+        pre = spec.get("pre_tokenizer") or {}
+        if pre.get("type") != "BertPreTokenizer":
+            raise _unsupported_file(self.path, f"pre-tokenizer {pre.get('type')!r} with WordPiece")
+        model = spec["model"]
+        self.vocab = dict(model["vocab"])
+        self.unk_token = model.get("unk_token", "[UNK]")
+        if self.unk_token not in self.vocab:
+            raise _unsupported_file(self.path,
+                                    f"unk_token {self.unk_token!r} outside the vocabulary")
+        self.prefix = model.get("continuing_subword_prefix", "##")
+        self.max_chars = int(model.get("max_input_chars_per_word", 100))
+
+    def _init_unigram(self, spec: dict) -> None:
+        path = self.path
         if spec.get("normalizer") is not None:
             raise _unsupported_file(path, f"normalizer {spec['normalizer'].get('type')!r}")
         pre = spec.get("pre_tokenizer") or {}
@@ -313,9 +425,7 @@ class FastTokenizerFile:
         if scheme != "always" or not pre.get("split", True):
             raise _unsupported_file(path, f"Metaspace prepend_scheme {scheme!r}, split "
                                           f"{pre.get('split', True)}")
-        model = spec.get("model") or {}
-        if model.get("type") != "Unigram":
-            raise _unsupported_file(path, f"{model.get('type')!r} model")
+        model = spec["model"]
         if model.get("byte_fallback"):
             raise _unsupported_file(path, "Unigram byte_fallback")
         self.pieces = [p for p, _ in model["vocab"]]
@@ -324,16 +434,6 @@ class FastTokenizerFile:
         self.unk_id = model.get("unk_id")
         self.unk_score = min(self.scores) - UNK_PENALTY
         self.max_piece = max(len(p) for p in self.pieces)
-        # special tokens: the file's added ones, and those the caller names
-        # (a tokenizer_config's eos, unk, pad), each at its vocabulary id
-        self.added: Dict[str, int] = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
-        for tok in special:
-            if tok is not None and tok not in self.added:
-                if tok not in self.vocab:
-                    raise _unsupported_file(path, f"special token {tok!r} outside the vocabulary")
-                self.added[tok] = self.vocab[tok]
-        self.template = self._template(spec.get("post_processor"))
-        self._cache: Dict[str, List[int]] = {}
 
     def _template(self, post) -> List[Union[str, List[int]]]:
         """The single-sequence template: "A" for the sequence, else the ids of
@@ -441,15 +541,41 @@ class FastTokenizerFile:
         self._cache[word] = ids
         return ids
 
+    def _wordpiece(self, word: str) -> List[int]:
+        """The WordPiece model's ids of one pre-tokenized word."""
+        if word in self._cache:
+            return self._cache[word]
+        unk = [self.vocab[self.unk_token]]
+        if len(word) > self.max_chars:
+            return unk
+        ids, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                piece = word[start:end] if start == 0 else self.prefix + word[start:end]
+                if piece in self.vocab:
+                    ids.append(self.vocab[piece])
+                    break
+                end -= 1
+            if end == start:  # no entry matches: the whole word is unknown
+                ids = unk
+                break
+            start = end
+        self._cache[word] = ids
+        return ids
+
     def encode(self, text: str) -> List[int]:
         """The sequence's ids, before the template, truncation and padding."""
         ids: List[int] = []
         for segment, special in self._split_special(text):
             if special:
                 ids.append(self.added[segment])
-                continue
-            for word in self._words(segment):
-                ids.extend(self._viterbi(word))
+            elif self.model_type == "WordPiece":
+                for word in bert_pre_tokenize(bert_normalize(segment, **self.bert_flags)):
+                    ids.extend(self._wordpiece(word))
+            else:
+                for word in self._words(segment):
+                    ids.extend(self._viterbi(word))
         return ids
 
     def frame(self, ids: List[int], context_length: int, pad_id: int) -> List[int]:
@@ -499,12 +625,14 @@ class HFTokenizer:
     """The JAX package's ``HFTokenizer`` (``tpu/tokenizer.py:499-556``: an
     ``AutoTokenizer`` with CLIP-style framing) over a hub snapshot's
     ``tokenizer.json``, ``tokenizer_config.json`` and
-    ``special_tokens_map.json``, without ``transformers``: the eos, unk and
-    pad tokens (T5's defaults ``</s>``, ``<unk>``, ``<pad>``) come from those
-    files; the text is cleaned (``clean``), encoded, cut to leave room for
-    the end token, framed and padded on the right to the context length
-    (another ``padding_side`` raises). ``strip_sep_token`` zeroes the
-    separator's id."""
+    ``special_tokens_map.json``, without ``transformers``: the eos, unk,
+    pad and sep tokens come from those files, or from the defaults of the
+    model's tokenizer class (a Unigram file: T5's ``</s>``, ``<unk>``,
+    ``<pad>``; a WordPiece file: BERT's ``[UNK]``, ``[PAD]``, ``[SEP]``, no
+    eos); the text is cleaned (``clean``), encoded, cut to leave room for
+    the template's tokens, framed and padded on the right to the context
+    length (another ``padding_side`` raises). ``strip_sep_token`` zeroes
+    the separator's id (CLIPA's rule: ``[SEP]`` becomes padding)."""
 
     def __init__(self, tokenizer_name: str, context_length: Optional[int] = DEFAULT_CONTEXT_LENGTH,
                  clean: str = "whitespace", strip_sep_token: bool = False,
@@ -512,15 +640,18 @@ class HFTokenizer:
         snapshot = _snapshot_files(tokenizer_name, cache_dir)
         config = {**_read_json(os.path.join(snapshot, "tokenizer_config.json")),
                   **_read_json(os.path.join(snapshot, "special_tokens_map.json"))}
-        tokens = {"eos": "</s>", "unk": "<unk>", "pad": "<pad>", "sep": None}
+        path = os.path.join(snapshot, "tokenizer.json")
+        if (_read_json(path).get("model") or {}).get("type") == "WordPiece":
+            tokens = {"eos": None, "unk": "[UNK]", "pad": "[PAD]", "sep": "[SEP]"}
+        else:
+            tokens = {"eos": "</s>", "unk": "<unk>", "pad": "<pad>", "sep": None}
         for key in tokens:
             if config.get(f"{key}_token") is not None:
                 tokens[key] = _token_content(config[f"{key}_token"])
         extra = [_token_content(t) for t in config.get("additional_special_tokens") or []]
-        self.tokenizer = FastTokenizerFile(os.path.join(snapshot, "tokenizer.json"),
-                                           [t for t in tokens.values() if t] + extra)
+        self.tokenizer = FastTokenizerFile(path, [t for t in tokens.values() if t] + extra)
         self.pad_token_id = self.tokenizer.token_id(tokens["pad"])
-        self.eos_token_id = self.tokenizer.token_id(tokens["eos"])
+        self.eos_token_id = self.tokenizer.token_id(tokens["eos"]) if tokens["eos"] else None
         self.sep_token_id = self.tokenizer.token_id(tokens["sep"]) if tokens["sep"] else None
         if config.get("padding_side", "right") != "right":
             raise _unsupported_file(snapshot, f"padding_side {config['padding_side']!r}")

@@ -68,9 +68,14 @@ stays out of the optimizer, the gradient norm, the checkpoints and the
 resume. Its CLIP-blind check covers both splits, each failure a warning.
 
 A CoCa model (a ``coca_*`` config, or ``--use_coca``) trains with the CoCa
-loss, which takes precedence over SigLIP and DINO as in the JAX CLI, its
-``--coca-*-loss-weight`` flags and CustomTextCLIP's locking and groups; its
-validation adds ``val_generative_loss``.
+loss, which takes precedence over SigLIP, CyCLIP and DINO as in the JAX CLI,
+its ``--coca-*-loss-weight`` flags and CustomTextCLIP's locking and groups;
+its validation adds ``val_generative_loss``. ``--distill-model`` with
+``--distill-pretrained`` (before every other loss) trains under a frozen
+CLIP teacher built by ``create_model`` at ``--precision`` and loaded by its
+tag or file: in eval mode, whole on every rank (outside DDP, ZeRO-1, FSDP
+and the model axis) and in no checkpoint. ``--use_CyClip`` takes the CyCLIP
+loss.
 
 The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
@@ -425,13 +430,18 @@ def _resolve_resume(args, checkpoint_dir: str, log_base: str):
 
 def resolve_loss_type(args) -> str:
     """The JAX CLI's loss dispatch (``tpu/train/main.py:103-113``, in its
-    order; the distillation and CyCLIP flags raise at parse time): CoCa
-    (a ``coca`` model name or ``--use_coca``) before SigLIP and DINO, so a
-    CoCa run with ``--use_dino_general`` takes the CoCa loss."""
+    order): distillation (both ``--distill-model`` and
+    ``--distill-pretrained``), then CoCa (a ``coca`` model name or
+    ``--use_coca``), SigLIP, CyCLIP and DINO, so a CoCa run with
+    ``--use_dino_general`` takes the CoCa loss."""
+    if args.distill_model and args.distill_pretrained:
+        return "distill"
     if "coca" in args.model.lower() or args.use_coca:
         return "coca"
     if args.siglip:
         return "siglip"
+    if args.use_CyClip:
+        return "cyclip"
     if args.use_dino_general:
         return "dino"
     return "clip"
@@ -519,6 +529,17 @@ def _main(args):
     shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
+
+    # ---- the distillation teacher (``tpu/train/main.py:336-345``): frozen,
+    # whole on every rank, in no checkpoint ----
+    dist_model = None
+    if loss_type == "distill":
+        dist_model, _ = create_model(args.distill_model, args.distill_pretrained,
+                                     precision=args.precision, device=device,
+                                     attn_impl=args.attn_impl, cache_dir=args.cache_dir)
+        dist_model.eval().requires_grad_(False)
+        logging.info("[distill] teacher %s (%s) runs inside the train step", args.distill_model,
+                     args.distill_pretrained)
 
     # ---- DINO teacher features: the precomputed store, synthetic ones, or
     # the live teacher ----
@@ -613,6 +634,8 @@ def _main(args):
             loss_type=loss_type,
             coca_caption_loss_weight=args.coca_caption_loss_weight,
             coca_contrastive_loss_weight=args.coca_contrastive_loss_weight,
+            lambda_cyc_inmodal=args.lambda_cyc_inmodal,
+            lambda_cyc_crossmodal=args.lambda_cyc_crossmodal,
             dino=dino_cfg, siglip_dist_impl=args.loss_dist_impl or "bidir",
             accum_freq=args.accum_freq,
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,
@@ -622,7 +645,7 @@ def _main(args):
                                or model.visual.patch_dropout is not None),
         )
         train_step = make_train_step(model, step_cfg, head, dino_teacher, group=group,
-                                     towers=towers)
+                                     towers=towers, dist_model=dist_model)
         state = TrainState(model, head, optimizer, 0, torch.Generator().manual_seed(args.seed))
 
     tracker = (Tracker(log_base, args, enable_tb="tensorboard" in (args.report_to or ""))

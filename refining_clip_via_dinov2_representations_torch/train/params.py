@@ -4,8 +4,8 @@ The port of the JAX package's ``train/params.py``: the same flag names and
 defaults, and ``get_default_params`` for the model family. A flag that the
 port cannot honour raises ``NotImplementedError`` at parse time when it is
 set away from its default (``UNPORTED``), rather than being ignored: the
-other losses and towers, the ImageNet train subset, device preprocessing,
-the step profiler. The torch-specific flags the JAX CLI accepts and ignores
+other towers, the ImageNet train subset, device preprocessing, the step
+profiler. The torch-specific flags the JAX CLI accepts and ignores
 (``TORCH_ONLY``: ``--torchscript``, ``--torchcompile``, ``--trace``,
 ``--horovod``, ``--use-bn-sync``, ``--use-bnb-linear``,
 ``--pretrained-image``) log its warning and change nothing;
@@ -19,7 +19,9 @@ the step profiler. The torch-specific flags the JAX CLI accepts and ignores
 ``--adam-mu-dtype``, ``--force-patch-dropout``, every ``--remat-policy``,
 SigLIP (``--siglip``, ``--loss-dist-impl``), CoCa (``--use_coca``, the
 ``--coca-*-loss-weight`` flags; a ``coca_*`` model takes the CoCa loss
-without it) and multi-GPU training
+without it), CyCLIP (``--use_CyClip``, ``--lambda_cyc_inmodal``,
+``--lambda_cyc_crossmodal``), distillation (``--distill-model`` with
+``--distill-pretrained``) and multi-GPU training
 (``--dist-url``, ``--dist-backend``, ``--no-set-device-rank``,
 ``--ddp-static-graph``, ``--shard-opt-state``, ``--fsdp``,
 ``--fsdp-min-size``, ``--mesh-model-axis``; ``train/distributed.py``,
@@ -46,9 +48,6 @@ UNPORTED = {
     "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
     "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
     "lock_image_freeze_bn_stats": "BatchNorm towers",
-    "use_CyClip": "the CyCLIP loss (ROADMAP Queue 1 item 12)",
-    "distill_model": "the distillation loss (ROADMAP Queue 1 item 12)",
-    "distill_pretrained": "the distillation loss (ROADMAP Queue 1 item 12)",
     "compile_cache": "a JAX compilation cache",
     "profile": "the step profiler",
     "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",

@@ -1,8 +1,9 @@
 """The training step: forward both towers, the loss, backward, the
 param-group optimizer (``train/optim.py``), the logit-scale clamp.
 
-The port of the JAX package's ``train/step.py`` for the ``"clip"``,
-``"dino"``, ``"siglip"`` and ``"coca"`` losses, in one process or in one
+The port of the JAX package's ``train/step.py`` for every loss it
+dispatches to (``LOSS_TYPES``: ``"clip"``, ``"dino"``, ``"siglip"``,
+``"cyclip"``, ``"distill"`` and ``"coca"``), in one process or in one
 process a rank. PyTorch runs eagerly, so there is no compiled function:
 ``make_train_step`` returns a closure over the model, the DINO head and
 the optimizer that updates them in place. On a CUDA model
@@ -25,6 +26,15 @@ pixels the student saw, forward only (on a CUDA batch 12 more fused-forward
 launches a step at dinov2-small). The teacher is not in the state: its
 parameters take no gradient, no optimizer group and no checkpoint.
 
+Distillation (``"distill"``) runs the frozen CLIP teacher (``dist_model``)
+under ``torch.no_grad()`` on the same images and tokens as the student
+(``tpu/train/step.py:317-345``); its features and exponentiated logit
+scale are detached rows and scalars of the loss, and the total is the
+contrastive plus the distillation term. A batch that carries
+``dist_image_features`` and ``dist_text_features`` skips the teacher and
+takes the logit scale from its parameter. CyCLIP (``"cyclip"``) adds the
+cyclic penalties at ``lambda_cyc_inmodal`` and ``lambda_cyc_crossmodal``.
+
 ``accum_freq`` > 1 is the JAX step's cached-feature gradient accumulation:
 the batch holds ``accum`` microbatches stacked on a leading axis; phase 1
 encodes each under ``no_grad`` and caches its rows; phase 2 encodes each
@@ -33,8 +43,9 @@ takes the loss over all ``accum * B`` rows and backpropagates, so the
 gradients add up in ``.grad`` to the single big batch's. The loss is not
 scaled by ``1 / accum``, and the logit scale is live in every pass, so its
 gradient is ``accum`` times the big batch's (as in torch and the JAX step).
-The teacher's rows come from phase 1 and are reused in phase 2: the live
-teacher runs once a microbatch. The metrics are the mean over the passes.
+The teachers' rows (DINOv2's, the distillation teacher's) come from phase 1
+and are reused in phase 2: a teacher runs once a microbatch. The metrics
+are the mean over the passes.
 
 Patch dropout (``use_patch_dropout``, on a model whose vision config has a
 probability) is the step's one random draw. Each step takes a seed from
@@ -67,8 +78,7 @@ rank folded in is the data rank) and compute the same loss; their
 gradients of replicated tensors come out equal, and each holds its part of
 the split ones (``train_splits``).
 
-The other loss types, BatchNorm towers and device preprocessing raise
-``NotImplementedError``.
+BatchNorm towers and device preprocessing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -82,13 +92,16 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..losses import DinoLossCfg, clip_loss, coca_loss, dino_enhanced_loss
+from ..losses import (DinoLossCfg, clip_loss, coca_loss, cyclip_loss, dino_enhanced_loss,
+                      distill_clip_loss)
 from ..losses.contrastive import SIGLIP_DIST_IMPLS, group_rank_size, siglip_loss
 from ..losses.dino import DinoProjectionHead
 from .optim import HEAD_PREFIX, GroupOptimizer, global_norm
 
 LN100 = math.log(100.0)
-LOSS_TYPES = ("clip", "dino", "siglip", "coca")
+LOSS_TYPES = ("clip", "dino", "siglip", "cyclip", "distill", "coca")
+# rows a frozen teacher gives: computed once a microbatch under accumulation
+TEACHER_ROWS = ("dino_features", "dist_image_features", "dist_text_features")
 
 
 @dataclasses.dataclass
@@ -102,7 +115,7 @@ class TrainState:
 
 @dataclasses.dataclass(frozen=True)
 class StepCfg:
-    loss_type: str = "clip"  # clip | dino | siglip | coca
+    loss_type: str = "clip"  # clip | dino | siglip | cyclip | distill | coca
     dino: DinoLossCfg = DinoLossCfg()
     accum_freq: int = 1
     enable_warmup_dino_hyperparams: bool = False
@@ -113,20 +126,19 @@ class StepCfg:
     siglip_dist_impl: str = "bidir"  # bidir | shift | gather | reduce
     coca_caption_loss_weight: float = 2.0
     coca_contrastive_loss_weight: float = 1.0
+    lambda_cyc_inmodal: float = 0.25
+    lambda_cyc_crossmodal: float = 0.25
 
     def __post_init__(self):
         if self.siglip_dist_impl not in SIGLIP_DIST_IMPLS:
             raise ValueError(f"unknown siglip_dist_impl {self.siglip_dist_impl!r}: "
                              f"one of {SIGLIP_DIST_IMPLS}")
-        unported = {
-            f"loss_type {self.loss_type!r}": self.loss_type not in LOSS_TYPES,
-            "device preprocessing": self.device_preprocess is not None,
-        }
-        for what, present in unported.items():
-            if present:
-                raise NotImplementedError(
-                    f"{what}: the port's train step has the clip, dino, siglip and coca losses, "
-                    "without device preprocessing, so far (ROADMAP Queue 1 item 5)")
+        if self.loss_type not in LOSS_TYPES:
+            raise ValueError(f"unknown loss_type {self.loss_type!r}: one of {LOSS_TYPES}")
+        if self.device_preprocess is not None:
+            raise NotImplementedError(
+                "device preprocessing: the port's train step takes images preprocessed on the "
+                "host so far (ROADMAP Queue 1 item 11)")
 
 
 # an odd 63-bit constant (the golden ratio's): folds a microbatch index
@@ -204,13 +216,15 @@ def rank_mean(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor
 def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
                  head: Optional[DinoProjectionHead] = None,
                  dino_teacher: Any = None, group=None,
-                 towers: Optional[nn.Module] = None) -> Callable:
+                 towers: Optional[nn.Module] = None,
+                 dist_model: Optional[nn.Module] = None) -> Callable:
     """``loss_fn(batch, step) -> (loss, metrics)``: this rank's loss and
     metrics. ``batch`` holds tensors on the model's device: images
     [B,H,W,3] float, texts [B,L] int, optional dino_features [B,Dd];
     without them, ``dino_teacher`` (a ``LiveDinoTeacher``) encodes the
-    images. ``towers`` runs the forward (``Towers(model, head)`` by default;
-    its DDP wrapper under a group). ``loss_fn.encode_fn`` gives the
+    images. ``dist_model`` is the frozen CLIP teacher of ``"distill"``.
+    ``towers`` runs the forward (``Towers(model, head)`` by default; its
+    DDP wrapper under a group). ``loss_fn.encode_fn`` gives the
     per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the
     losses from them."""
     towers = towers if towers is not None else Towers(model, head)
@@ -236,6 +250,17 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
             scalars["logit_bias"] = out["logit_bias"]
         elif cfg.loss_type == "coca":
             rows["logits"], rows["labels"] = out["logits"], out["labels"]
+        elif cfg.loss_type == "distill":
+            if "dist_image_features" in batch:  # phase 2: the phase-1 rows
+                rows["dist_image_features"] = batch["dist_image_features"]
+                rows["dist_text_features"] = batch["dist_text_features"]
+                scalars["dist_logit_scale"] = dist_model.logit_scale.detach().exp()
+            else:
+                with torch.no_grad():
+                    t_out = dist_model(batch["images"], batch["texts"])
+                rows["dist_image_features"] = t_out["image_features"].detach()
+                rows["dist_text_features"] = t_out["text_features"].detach()
+                scalars["dist_logit_scale"] = t_out["logit_scale"].detach()
         return rows, scalars
 
     def compute_metrics(rows, scalars) -> Dict[str, torch.Tensor]:
@@ -253,6 +278,18 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
                                logit_scale, caption_loss_weight=cfg.coca_caption_loss_weight,
                                clip_loss_weight=cfg.coca_contrastive_loss_weight, group=group)
             total = losses["contrastive_loss"] + losses["caption_loss"]
+            metrics.update(losses)
+        elif cfg.loss_type == "cyclip":
+            losses = cyclip_loss(rows["img_f"], rows["txt_f"], logit_scale,
+                                 lambda_inmodal=cfg.lambda_cyc_inmodal,
+                                 lambda_crossmodal=cfg.lambda_cyc_crossmodal, group=group)
+            total = losses.pop("total_loss")
+            metrics.update(losses)
+        elif cfg.loss_type == "distill":
+            losses = distill_clip_loss(rows["img_f"], rows["txt_f"], logit_scale,
+                                       rows["dist_image_features"], rows["dist_text_features"],
+                                       scalars["dist_logit_scale"], group=group)
+            total = losses["contrastive_loss"] + losses["distill_loss"]
             metrics.update(losses)
         else:
             losses = dino_enhanced_loss(
@@ -296,8 +333,8 @@ def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: in
         cached = [loss_fn.encode_fn(m, step, gen(j))[0] for j, m in enumerate(micros)]
     passes = []
     for j, micro in enumerate(micros):
-        if "dino_features" in cached[j] and "dino_features" not in micro:
-            micro = {**micro, "dino_features": cached[j]["dino_features"]}
+        micro = {**micro, **{k: cached[j][k] for k in TEACHER_ROWS
+                             if k in cached[j] and k not in micro}}
         last = j == accum - 1
         with (contextlib.nullcontext() if last or towers is None
               else grad_sync_paused(towers)):
@@ -313,7 +350,8 @@ def accumulate_grads(loss_fn: Callable, batch: Dict[str, torch.Tensor], step: in
 def make_train_step(model: torch.nn.Module, cfg: StepCfg,
                     head: Optional[DinoProjectionHead] = None,
                     dino_teacher: Any = None, group=None,
-                    towers: Optional[nn.Module] = None) -> Callable:
+                    towers: Optional[nn.Module] = None,
+                    dist_model: Optional[nn.Module] = None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, updating the model
     and head in place through ``state.optimizer`` (``train/optim.py:
     build_optimizer`` over ``train_parameters(model, head)``). Metrics are
@@ -323,8 +361,11 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
     has a leading axis of ``accum_freq`` microbatches. Under a group,
     ``towers`` is the DDP-wrapped ``Towers`` (or, under FSDP, ``Towers`` of
     the sharded modules) and the optimizer's ``sharding`` the placement of
-    ZeRO-1 or FSDP."""
-    loss_fn = make_loss_fn(model, cfg, head, dino_teacher, group, towers)
+    ZeRO-1 or FSDP. ``dist_model`` is the frozen distillation teacher,
+    whole on every rank and outside ``towers``."""
+    if cfg.loss_type == "distill" and dist_model is None:
+        raise ValueError('loss_type "distill" needs the teacher: pass dist_model')
+    loss_fn = make_loss_fn(model, cfg, head, dino_teacher, group, towers, dist_model)
     rank, _ = group_rank_size(group)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):

@@ -108,7 +108,9 @@ def test_vit_b16_widths_depth1_matches_jax():
     # CoCa is ported (tests/test_torch_coca.py); its HF-text-tower variant
     # (coca_roberta-ViT-B-32) is not
     {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
-    {"vision_cfg": {"pool_type": "avg", "no_ln_pre": True}},  # CLIPA towers
+    # the CLIPA towers are ported (tests/test_torch_vit_variants.py); the
+    # ConvNeXt trunks are not
+    {"vision_cfg": {"timm_model_name": "convnext_base"}},
     # SigLIP's text options are ported (tests/test_torch_siglip.py); its
     # global-average-pooled `_gap` trunks are not
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_gap_224"}},

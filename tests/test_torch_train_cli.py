@@ -179,10 +179,12 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 # --mesh-model-axis with the model axis (tests/test_torch_tp_*.py)
 # --use-bn-sync and --horovod, cases here until the JAX CLI's torch-only
 # flags were accepted (test_torch_only_flags_parse_with_the_jax_warning),
-# gave their places to --device-preprocess and --use_CyClip
+# gave their places to --device-preprocess and --use_CyClip; --use_CyClip and
+# --distill-model, ported (tests/test_torch_loss_zoo_step.py), to
+# --compile-cache and --lock-image-freeze-bn-stats
 @pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"],
                                    ["--device-preprocess"],
-                                   ["--distill-model", "ViT-B-32"], ["--use_CyClip"],
+                                   ["--compile-cache", "x"], ["--lock-image-freeze-bn-stats"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="no .* yet"):

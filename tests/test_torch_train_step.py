@@ -164,9 +164,12 @@ def test_three_steps_match_jax_make_train_step(case):
 
 
 def test_unported_step_options_raise():
-    # patch dropout, siglip and coca are ported (tests/test_torch_patch_dropout.py,
-    # tests/test_torch_dist_losses.py, tests/test_torch_coca_train.py)
-    for kw in (dict(loss_type="cyclip"), dict(loss_type="distill"),
-               dict(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))):
-        with pytest.raises(NotImplementedError):
-            StepCfg(**kw)
+    # patch dropout and every loss type are ported (tests/test_torch_patch_dropout.py,
+    # tests/test_torch_dist_losses.py, tests/test_torch_coca_train.py,
+    # tests/test_torch_loss_zoo_step.py); an unknown loss type is refused
+    with pytest.raises(NotImplementedError, match="item 11"):
+        StepCfg(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))
+    with pytest.raises(ValueError, match="loss_type"):
+        StepCfg(loss_type="triplet")
+    with pytest.raises(ValueError, match="dist_model"):
+        make_train_step(torch.nn.Linear(1, 1), StepCfg(loss_type="distill"))

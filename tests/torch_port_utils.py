@@ -184,3 +184,25 @@ def seed_hub_snapshot(cache: str, repo: str = "timm/ViT-B-16-SigLIP", state_dict
 
         torch.save(state_dict, os.path.join(snap, "open_clip_pytorch_model.bin"))
     return snap
+
+
+# the committed bert-base-uncased-style fast-tokenizer file (WordPiece, the
+# BERT normalizer and pre-tokenizer; scripts/make_mini_bert_vocab.py)
+BERT_VOCAB = os.path.join(os.path.dirname(__file__), "assets", "bert_vocab", "tokenizer.json")
+BERT_TOKENIZER_CONFIG = {"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                         "model_max_length": 512}
+
+
+def seed_bert_snapshot(cache: str, repo: str = "bert-base-uncased") -> str:
+    """The hub layout of ``bert-base-uncased`` under ``cache``: the committed
+    test vocabulary as ``tokenizer.json`` and a BERT tokenizer config."""
+    root = os.path.join(cache, "models--" + repo.replace("/", "--"))
+    snap = os.path.join(root, "snapshots", "seeded")
+    os.makedirs(snap, exist_ok=True)
+    os.makedirs(os.path.join(root, "refs"), exist_ok=True)
+    with open(os.path.join(root, "refs", "main"), "w") as f:
+        f.write("seeded")
+    shutil.copy(BERT_VOCAB, os.path.join(snap, "tokenizer.json"))
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump(BERT_TOKENIZER_CONFIG, f)
+    return snap
