@@ -81,6 +81,21 @@ Phases, each of which exits non-zero on failure:
    flash kernel's times beside its plain version, SDPA, its bound and the
    scalar kernel's time.
 
+9b. preprocess — ``--device-preprocess``, right after train-eval-cli on
+    its mini-Flickr set: (a) ``ops/preprocess.py:preprocess_train_batch`` on
+    the card at ``[96, 256, 256, 3]`` uint8 -> 224 against the CPU float64
+    evaluation of the same crop boxes (max abs <= 1e-4), its CUDA-event
+    time; (b) train-eval-cli's thesis flags with ``--device-preprocess``
+    through ``train.main`` for one epoch: finite losses, the launches
+    ``_thesis_launches`` expects, train samples/s with loading beside
+    train-eval-cli's host-path run, and the uint8 loader's rate alone
+    beside the PIL loader's; (c) which JPEG decoder ran and, where the
+    native one built (libjpeg's headers are there), the raw loader over
+    mini-Flickr regenerated as 500 x 333 JPEGs (Flickr30k's size), the
+    native DCT-scaled decode against PIL, in images/s; the native BPE core
+    against the Python BPE on the val captions (tokens/s, ids equal).
+    Phase 2 also builds the host cores (``native/``, g++): the BPE core
+    must build.
 The DINOv2 teacher's phases run after train-eval-cli, on its mini-Flickr
 set (the forward kernel is checked at the teacher's shapes ``[64,6,257,64]``
 and ``[32,16,257,64]`` in phase 3, and timed in phase 5):
@@ -150,7 +165,15 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     ``vit_relpos_medium_patch16_cls_224`` (none: its bias is an external
     mask, as in JAX) against plain attention. The new forward shapes
     (``ZOO_CASES``, head dim 104 among them) are checked and timed in
-    phases 3 and 5, head dim 104's backward in 3b and 6.
+    phases 3 and 5, head dim 104's backward in 3b and 6. (e) EVA02-L-14 at
+    full width and depth, seeded: fp32 features through the kernels against
+    plain attention (cosine >= 0.9999; 24 launches an image call, 12 a text
+    call), the tower time at buckets 1 and 8, the bf16 CLIP step at 32
+    (``STEP_TOL``, all tensors together) and the fp32 step at 8 (every
+    tensor) against plain attention, 36 + 36 launches a step; EVA02-E-14 at
+    full width, 2 of its 64 blocks: one forward at head dim 112 in fp32 and
+    bf16 against plain attention. Their shapes (``EVA02_CASES``) are checked
+    and timed in phases 3, 3b, 5 and 6.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -195,7 +218,8 @@ kernels are checked at its shapes, head dim 88 among them, in phases 3 and
 3b, and timed in phases 5 and 6):
 
 19. giant — ViT-g-14 at full width, its vision depth cut to
-    ``GIANT_LAYERS`` of 40 blocks (vision ``[16,16,257,88]``, text
+    ``GIANT_LAYERS`` of 40 blocks and its text to ``GIANT_TEXT_LAYERS`` of
+    24 (vision ``[16,16,257,88]``, text
     ``[16,16,77,64]`` causal), seeded, bf16 over fp32 parameters, batch 16,
     DINO-soft: one fused-forward launch a block a forward, two forward and
     one backward a block a checkpointed step; one step
@@ -225,7 +249,8 @@ images, whole-image crops):
     and backward a step, host clock and peak memory beside the one
     process's; (b) two ranks on the card over gloo: each collective the
     port uses on CUDA tensors (and DDP, ZeRO-1's gather, FSDP) probed in
-    its own pair of processes, the result written to
+    its own pair of processes (beside phase 2's build, waited for before
+    phase 3: no timed phase runs beside them), the result written to
     ``gloo_cuda_probe.json`` in the work directory and printed, then from
     that file the ViT-B-16
     fp32 step at 2 x 32 for each case it carries (clip and the SigLIP
@@ -245,10 +270,11 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     rows and weights (loss 1e-5 relative, every whole gradient at cosine
     >= 0.9999), 24 + 24 launches a rank a step at ``[32,6,197,64]`` and
     ``[32,4,77,64]``, and one gloo all-reduce of an EVA01-g-14 activation;
-    (c) dinov2-giant split over the two ranks against the whole teacher
-    (CLS cosine >= 0.9999 fp32; bf16 >= 0.999 or, where two bf16 paths of
-    the whole teacher differ by more, no further than its kernel is from
-    plain attention), 40 fused-forward launches a rank a call; (b)
+    (c) dinov2-giant (``TP_TEACHER_LAYERS`` of its 40 blocks) split over the
+    two ranks against the whole teacher (CLS cosine >= 0.9999 fp32; bf16
+    >= 0.999 or, where two bf16 paths of the whole teacher differ by more,
+    no further than its kernel is from plain attention), one fused-forward
+    launch a block a rank a call; (b)
     EVA01-g-14 at full width, its vision tower's depth cut to
     ``TP_EVA_LAYERS`` of 40 blocks, with Config 5's flags through
     ``train.main``, bf16, batch 16, one process and two ranks: per-step
@@ -322,8 +348,8 @@ phases 5 and 6):
 Each phase prints the seconds elapsed since the start. The line before the
 last is the JSON list of kernels (each fused kernel with ``"coca"`` and
 ``"siglip"`` lists of those shapes, ``"tp_serve"`` of the model axis's
-serving and family shapes and ``"zoo"`` of phase 13c's); the last line is ``{"ok": true, "device":
-{...}}``.
+serving and family shapes, ``"zoo"`` of phase 13c's and ``"eva02"`` of its
+part (e)); the last line is ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
 
@@ -483,10 +509,11 @@ CONFIG2_BATCH, CONFIG2_EPOCHS, PREEMPT_AT, ACCUM = 96, 2, 3, 2
 # head-dim-128 instantiations with the tail zero-padded), text [16,16,77,64]
 # causal; checked forward and backward in both dtypes, timed beside SDPA
 GIANT_MODEL, GIANT_BATCH = "ViT-g-14", 16
-# Config 5's vision depth here: ViT-g-14's 40 blocks cut to 8 for the time
-# limit (width, head dim 88 and every check stay; PERF.md keeps the numbers
-# measured at 40 and 16 blocks, 13.7 GiB at its peak at 40)
-GIANT_LAYERS = 8
+# Config 5's depth here: ViT-g-14's 40 vision blocks cut to 4 and its 24
+# text blocks to 6 for the time limit (width, head dim 88 and every check
+# stay; PERF.md keeps the numbers measured at 40, 16 and 8 vision blocks and
+# 24 text blocks, 13.7 GiB at its peak at 40)
+GIANT_LAYERS, GIANT_TEXT_LAYERS = 4, 6
 GIANT_CASES = [(16, 16, 257, 88, False), (16, 16, 77, 64, True)]
 # peak memory of these optimizers under dots_with_no_batch_dims_saveable
 GIANT_OPTIMIZERS = (("adamw", None), ("adamw", "bfloat16"), ("adafactor", "bfloat16"))
@@ -506,6 +533,9 @@ TP_AXIS, TP_BATCH, TP_EVA_MODEL, TP_EVA_BATCH = 2, 32, "EVA01-g-14", 16
 # blocks to 2 to keep the script inside its time limit (the width and every
 # check stay; the step-level checks at full depth are (a), (c) and phase 19's)
 TP_EVA_LAYERS = 2
+# the split dinov2-giant teacher of tp (c): its 40 blocks cut to 10 (the
+# width, 24 heads of 64 split over the axis, and every check stay)
+TP_TEACHER_LAYERS = 10
 TP_CASES = [(32, 6, 197, 64, False), (32, 4, 77, 64, True), (16, 8, 257, 88, False),
             (16, 6, 77, 64, True), (16, 12, 257, 64, False)]
 TP_BWD_CASES = TP_CASES[:4]
@@ -519,11 +549,11 @@ TP_EVA_IMAGES = 7
 # cross-attention of 75 text queries over 255 image tokens and its causal
 # self-attention at 75 (the vision tower's [b,16,257,64] is a teacher case)
 COCA_MODEL, COCA_TAG = "coca_ViT-L-14", "mscoco_finetuned_laion2b_s13b_b90k"
-# the CoCa phase's vision depth: coca_ViT-L-14's 24 blocks cut to 8 to keep
+# the CoCa phase's vision depth: coca_ViT-L-14's 24 blocks cut to 4 to keep
 # the script inside its time limit (every width, the text tower, the pooler,
 # the decoder and every check stay); a vision block holds 12,596,224
 # parameters, 638,450,177 at full depth
-COCA_VISION_LAYERS, COCA_VISION_BLOCK, COCA_FULL_PARAMS = 8, 12_596_224, 638_450_177
+COCA_VISION_LAYERS, COCA_VISION_BLOCK, COCA_FULL_PARAMS = 4, 12_596_224, 638_450_177
 COCA_BUCKETS, COCA_BATCH, COCA_FP32_BATCH, COCA_STEPS = (1, 8), 32, 8, 3
 COCA_CASES = [(32, 12, 75, 255, 64, False), (32, 12, 75, 75, 64, True)]
 # SigLIP at ViT-B-16-SigLIP's full width and depth (phase 23; Config 4,
@@ -592,6 +622,24 @@ ZOO_CASES = [(32, 12, 77, 77, 64, True), (8, 16, 257, 257, 64, False),
              (8, 12, 32, 32, 64, False), (8, 8, 256, 256, 64, False),
              (16, 16, 257, 257, 104, False)]
 ZOO_BWD_CASES = ZOO_CASES[-1:]
+# EVA02 (phase 13c (e)): EVA02-L-14 at full width and depth served fp32 at
+# EVA02_BUCKETS, its bf16 step at EVA02_BATCH and fp32 step at
+# EVA02_FP32_BATCH; EVA02-E-14 at full width with its vision depth cut to
+# EVA02_E_LAYERS of 64 blocks (the time limit), one forward at
+# EVA02_E_BATCH. Their attention calls, (B, H, Lq, Lk, D, causal): the L
+# tower at bucket 8 and at the step's 32 (forward and backward), E's head
+# dim 112 (forward; it pads to DP = 128)
+EVA02_MODEL, EVA02_E_MODEL, EVA02_BUCKETS = "EVA02-L-14", "EVA02-E-14", (1, 8)
+EVA02_BATCH, EVA02_FP32_BATCH, EVA02_E_LAYERS, EVA02_E_BATCH = 32, 8, 2, 8
+EVA02_CASES = [(8, 16, 257, 257, 64, False), (32, 16, 257, 257, 64, False),
+               (8, 16, 257, 257, 112, False)]
+EVA02_BWD_CASES = EVA02_CASES[:2]
+# device preprocessing (phase 9b): the batch and raw size of the resampler's
+# check, its tolerance against float64; the JPEGs of the decoder comparison
+# (made only where the native decoder built),
+# mini-Flickr redrawn at 500 px and cut to Flickr30k's 500 x 333
+PP_BATCH, PP_RAW, PP_TOL = 96, 256, 1e-4
+PP_JPEG_SIZE = (500, 333)
 BERT_VOCAB = os.path.join("tests", "assets", "bert_vocab", "tokenizer.json")
 BERT_TOKENIZER_CONFIG = {"tokenizer_class": "BertTokenizer", "do_lower_case": True,
                          "model_max_length": 512}
@@ -640,12 +688,26 @@ def phase_device() -> None:
 
 
 def phase_build() -> None:
+    from refining_clip_via_dinov2_representations_torch import native as host
     from refining_clip_via_dinov2_representations_torch.ops import native
 
     t0 = time.perf_counter()
+    # the host cores (g++) build beside the kernels (nvcc)
+    built = {}
+    threads = [threading.Thread(target=lambda n=n, f=f: built.__setitem__(n, f()))
+               for n, f in (("bpe", host.load_native), ("jpeg", host.load_native_jpeg))]
+    for t in threads:
+        t.start()
     seconds = native.build()
     print(f"build: {len(seconds)} kernel sources in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())})", flush=True)
+    for t in threads:
+        t.join()
+    print(f"build: host cores in {time.perf_counter() - t0:.2f} s: native BPE "
+          f"{'built' if built.get('bpe') is not None else 'FAILED'}, JPEG decoder "
+          f"{'native (libjpeg)' if built.get('jpeg') is not None else 'PIL (no libjpeg headers)'}",
+          flush=True)
+    check(built.get("bpe") is not None, "the native BPE core did not build with g++")
     for name, log in native.build_logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -705,6 +767,7 @@ def phase_kernels() -> dict:
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
              + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_CASES
+    cases += EVA02_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -986,7 +1049,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
              + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
-    cases += ZOO_CASES
+    cases += ZOO_CASES + EVA02_CASES
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -1229,8 +1292,9 @@ def _attention_bwd_fp64(q, k, v, o, do, scale, causal):
 
 def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
-    return [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
-            + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_BWD_CASES
+    return ([(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
+             + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
+            + ZOO_BWD_CASES + EVA02_BWD_CASES)
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -1769,6 +1833,7 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
 
     run = os.path.join(work, "run")
     launches = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    rates = {}  # run 1's train samples/s and the loader's alone, for phase 9b
     first, counts1, wall1, sec1 = _eval_cli_run(argv + ["--epochs", "1"])
     saved_step = torch.load(os.path.join(run, "checkpoints", "epoch_1.pt"),
                             map_location="cpu", weights_only=True, mmap=True)["step"]
@@ -1791,6 +1856,7 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
         check(counts == want, f"train-eval-cli {label} launched {counts}, expected {want}")
         for k in launches:
             launches[k] += counts[k]
+        rates.setdefault("train_samples_s", steps * EVAL_BATCH / train_s)
 
     with open(os.path.join(run, "loss_steps.json")) as f:
         records = json.load(f)
@@ -1852,6 +1918,7 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
     print(f"train-eval-cli: the train loader alone ({args.workers} threads: PNG decode, "
           f"random resized crop, tokenizer, DINO rows): {n} samples in {host_s:.2f} s, "
           f"{n / host_s:.1f} samples/s (host clock) [{CARD}]", flush=True)
+    rates["loader_samples_s"] = n / host_s
     # ---- and the fp32 step alone at the CLI's batch, on one cached batch ----
     _, _, state, train_step, _ = _dino_setup("fp32", "auto", model_name=EVAL_MODEL)
     batch = _train_batch(get_tokenizer(EVAL_MODEL), EVAL_BATCH, DEVICE, model_name=EVAL_MODEL)
@@ -1862,7 +1929,179 @@ def phase_train_eval_cli(d: dict, work: str) -> dict:
     del state, train_step
     if DEVICE != "cpu":
         torch.cuda.empty_cache()
-    return launches
+    return {**launches, "rates": rates}
+
+
+def _jpeg_mini_flickr(work: str) -> str:
+    """mini-Flickr redrawn at 500 px, each image cut to ``PP_JPEG_SIZE``
+    (Flickr30k's 500 x 333) and saved as a JPEG; returns its train CSV
+    (five captions an image, as mini-Flickr's)."""
+    import csv
+
+    from PIL import Image
+
+    from scripts.mini_flickr import generate
+
+    d = generate(os.path.join(work, "data500"), n_train=EVAL_TRAIN_IMAGES, n_val=1,
+                 size_px=max(PP_JPEG_SIZE), dino_dim=8, seed=SEED + 3)
+    jpg_dir = os.path.join(work, "jpeg500")
+    os.makedirs(jpg_dir, exist_ok=True)
+    with open(d["train_csv"], newline="") as f:
+        rows = list(csv.reader(f))
+    out, done = [rows[0]], {}
+    for path, *rest in rows[1:]:
+        if path not in done:
+            done[path] = os.path.join(jpg_dir, os.path.basename(path)[:-4] + ".jpg")
+            with Image.open(path) as img:
+                img.convert("RGB").resize(PP_JPEG_SIZE, Image.BICUBIC).save(done[path],
+                                                                            quality=90)
+        out.append([done[path], *rest])
+    csv_path = os.path.join(work, "jpeg500_train.csv")
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerows(out)
+    return csv_path
+
+
+def _loader_rate(args, transform, tokenizer, dino_map=None) -> tuple:
+    """(samples, seconds, dtype and shape of a batch's images) of one pass
+    of the CSV train loader of ``args`` over ``transform``, on the host."""
+    from refining_clip_via_dinov2_representations_torch.train.data import get_csv_dataset
+
+    loader = get_csv_dataset(args, transform, True, tokenizer=tokenizer,
+                             dino_index_map=dino_map).dataloader
+    t0 = time.perf_counter()
+    n, kind = 0, None
+    for batch in loader:
+        n += len(batch["images"])
+        kind = kind or (str(batch["images"].dtype), tuple(batch["images"].shape))
+    return n, time.perf_counter() - t0, kind
+
+
+def phase_preprocess(d: dict, work: str, eval_cli: dict) -> dict:
+    """Phase 9b, ``--device-preprocess`` on the card (the module docstring):
+    (a) the resampler against float64, (b) the thesis CLI with the flag,
+    (c) the decoders and the BPE cores. Returns the CLI run's launches and
+    the numbers."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch import native as host
+    from refining_clip_via_dinov2_representations_torch.constants import (
+        OPENAI_DATASET_MEAN, OPENAI_DATASET_STD,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import get_tokenizer
+    from refining_clip_via_dinov2_representations_torch.ops import preprocess
+    from refining_clip_via_dinov2_representations_torch.tokenizer import SimpleTokenizer
+    from refining_clip_via_dinov2_representations_torch.train.data import load_dino_index_map
+    from refining_clip_via_dinov2_representations_torch.train.params import parse_args
+    from refining_clip_via_dinov2_representations_torch.transform import raw_uint8_transform
+
+    t_phase = time.perf_counter()
+    out = {}
+    # ---- (a) the resampler on the card against the CPU's float64 ----
+    mean, std = OPENAI_DATASET_MEAN, OPENAI_DATASET_STD
+    u8 = torch.from_numpy(np.random.default_rng(SEED + 90).integers(
+        0, 256, (PP_BATCH, PP_RAW, PP_RAW, 3), dtype=np.uint8)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 91)
+    boxes = preprocess.sample_crop_boxes(gen, PP_BATCH, PP_RAW, PP_RAW)
+    got = preprocess.preprocess_train_batch(None, u8, (224, 224), mean, std, boxes=boxes)
+    x64 = u8.cpu().double() / 255.0
+    want = preprocess.normalize_images(preprocess.resized_crop(x64, boxes.cpu().double(),
+                                                               (224, 224)),
+                                       mean, std, dtype=torch.float64)
+    err = float((got.cpu().double() - want).abs().max())
+    ms = time_ms(lambda: preprocess.preprocess_train_batch(gen, u8, (224, 224), mean, std),
+                 iters=20)
+    nbytes = u8.numel() + got.numel() * 4
+    print(f"preprocess (a) preprocess_train_batch [{PP_BATCH},{PP_RAW},{PP_RAW},3] uint8 -> "
+          f"{tuple(got.shape)} {got.dtype} on the card: max abs {err:.3e} against the CPU "
+          f"float64 of the same boxes (tol {PP_TOL:g}); {ms:.4f} ms a batch (CUDA events, the "
+          f"box draw included; its bytes alone {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
+          f"HBM rate) [{CARD}]", flush=True)
+    check(err <= PP_TOL and bool(torch.isfinite(got).all()),
+          f"preprocess_train_batch on the card disagrees with float64: {err:.3e}")
+    out.update(preprocess_ms=ms, preprocess_err=err)
+    del u8, got, x64, want
+
+    # ---- (b) the thesis CLI with --device-preprocess, one epoch ----
+    argv = _thesis_argv(d, work, "dp_run") + ["--device-preprocess", "--epochs", "1"]
+    args = parse_args(argv)
+    train_batches, val_batches, blind_batches, expected = _thesis_launches(args)
+    records, counts, wall, sec = _eval_cli_run(argv)
+    steps = len(records)
+    losses = [r["total_loss"] for r in records]
+    train_s = sec.get("train_one_epoch", float("nan"))
+    rate = steps * EVAL_BATCH / train_s
+    host_rate = eval_cli["rates"]["train_samples_s"]
+    print(f"preprocess (b) the thesis CLI with --device-preprocess ({EVAL_MODEL} fp32 batch "
+          f"{EVAL_BATCH}, uint8 at {args.device_preprocess_raw_size} px): wall {wall:.2f} s; "
+          f"train {train_s:.2f} s for {steps} steps, {rate:.1f} samples/s with loading, "
+          f"against {host_rate:.1f} on the host path (train-eval-cli run 1, this run); "
+          f"evaluate {sec.get('evaluate', 0.0):.2f} s; launches {counts}, expected "
+          f"{expected(2)} [{CARD}]", flush=True)
+    check(steps == train_batches and all(math.isfinite(x) for x in losses),
+          f"the --device-preprocess run's losses: {losses}")
+    check(counts == expected(2), f"the --device-preprocess run launched {counts}")
+    tokenizer = get_tokenizer(EVAL_MODEL)
+    dino_map = load_dino_index_map(d["dino_index_map"])
+    n, secs, kind = _loader_rate(args, raw_uint8_transform(args.device_preprocess_raw_size),
+                                 tokenizer, dino_map)
+    loader_host = eval_cli["rates"]["loader_samples_s"]
+    print(f"preprocess (b) the uint8 train loader alone ({args.workers} threads, batches "
+          f"{kind}): {n} samples in {secs:.2f} s, {n / secs:.1f} samples/s, against the PIL "
+          f"loader's {loader_host:.1f} (train-eval-cli, this run; host clock) [{CARD}]",
+          flush=True)
+    check(kind is not None and kind[0] == "uint8", f"the raw loader's batches: {kind}")
+    out.update(cli_samples_s=rate, host_cli_samples_s=host_rate, loader_samples_s=n / secs,
+               host_loader_samples_s=loader_host)
+
+    # ---- (c) the decoders on 500 x 333 JPEGs, and the BPE cores ----
+    decoder = host.jpeg_decoder()
+    rates = {}
+    if decoder == "PIL":  # no libjpeg headers: both passes would time PIL
+        print(f"preprocess (c) JPEG decoder that ran: PIL (the native decoder did not build: "
+              f"no libjpeg headers here); the native-against-PIL loader comparison skipped "
+              f"[{CARD}]", flush=True)
+    else:
+        jpeg_args = parse_args(argv[:2] + ["--train-data", _jpeg_mini_flickr(work)] + argv[4:]
+                               + ["--device-preprocess"])
+        native_t = raw_uint8_transform(PP_RAW)
+        pil_t = raw_uint8_transform(PP_RAW)
+        pil_t.decode_min_dim = None  # PIL at full size, then the same resize and crop
+        for what, t in (("native", native_t), ("PIL", pil_t), ("native again", native_t)):
+            n, secs, kind = _loader_rate(jpeg_args, t, tokenizer)
+            rates[what] = n / secs
+        print(f"preprocess (c) JPEG decoder that ran: native; the raw loader over {n} rows of "
+              f"{PP_JPEG_SIZE[0]}x{PP_JPEG_SIZE[1]} JPEGs ({jpeg_args.workers} threads, decode, "
+              f"resize to {PP_RAW}, crop, tokenizer): the native DCT-scaled decode "
+              f"{rates['native']:.1f} then {rates['native again']:.1f} images/s, PIL at full "
+              f"size {rates['PIL']:.1f} images/s (host clock) [{CARD}]", flush=True)
+    import csv
+
+    with open(d["val_csv"], newline="") as f:
+        captions = [r[1] for r in list(csv.reader(f))[1:]]
+    bpe = {}
+    with mock.patch.object(host, "load_native", lambda: None):  # the Python merge loop
+        python_tok = SimpleTokenizer()
+    native_tok = SimpleTokenizer()
+    check(native_tok._native is not None and python_tok._native is None,
+          "the tokenizers did not take the native and the Python BPE")
+    for what, tok in (("native", native_tok), ("Python", python_tok)):
+        t0 = time.perf_counter()
+        ids = tok(captions)
+        secs = time.perf_counter() - t0
+        bpe[what] = (ids, int((ids != 0).sum()) / secs)
+    same = bool(np.array_equal(bpe["native"][0], bpe["Python"][0]))
+    print(f"preprocess (c) BPE on {len(captions)} val captions (cold memo): native core "
+          f"{bpe['native'][1]:.0f} tokens/s, Python {bpe['Python'][1]:.0f} tokens/s; ids equal: "
+          f"{same} [{CARD}]", flush=True)
+    check(same, "the native BPE core's ids differ from the Python BPE's")
+    out.update(decoder=decoder, jpeg_images_s=rates, bpe_tokens_s={k: v[1] for k, v in bpe.items()})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"preprocess: phase {out['seconds']:.1f} s", flush=True)
+    return {**counts, **out}
 
 
 def _set_attn_impl(model, impl: str) -> None:
@@ -3053,8 +3292,8 @@ def _giant_step_numbers(state, train_step, batch, what: str) -> dict:
 
 
 def phase_giant(work: str) -> dict:
-    """Config 5's single-chip recipe at ViT-g-14's full width, its vision
-    depth cut to ``GIANT_LAYERS`` (vision 40 x 1408 in the registry, 16
+    """Config 5's single-chip recipe at ViT-g-14's full width, its depth cut
+    to ``GIANT_LAYERS`` and ``GIANT_TEXT_LAYERS`` (vision 40 x 1408 in the registry, 16
     heads of 88, 257 tokens; text 24 x 1024, 77 causal tokens; 1.37B
     parameters at full depth), seeded, bf16 compute over fp32 parameters,
     batch 16, the DINO-soft loss as Config 2 sets it (kl_teacher, lambda_soft
@@ -3099,7 +3338,7 @@ def phase_giant(work: str) -> dict:
     # launches: one a block (40 vision + 24 text) a forward; a checkpointed
     # step runs the forward twice (the recompute relaunches the kernel) and
     # the backward once
-    _cut_vision_depth(GIANT_MODEL, GIANT_LAYERS)
+    _cut_vision_depth(GIANT_MODEL, GIANT_LAYERS, GIANT_TEXT_LAYERS)
     mcfg = get_model_config(GIANT_MODEL)
     v_layers, t_layers = mcfg["vision_cfg"]["layers"], mcfg["text_cfg"]["layers"]
     blocks = v_layers + t_layers
@@ -3278,7 +3517,8 @@ def phase_bwd_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
-    for b, h, l, lk, d, causal in cases + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES:
+    cases += COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES + EVA02_BWD_CASES
+    for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
         scale = d ** -0.5
@@ -3643,11 +3883,11 @@ def phase_flash_times() -> dict:
 # the dist phase's own mini-Flickr cut: 100 train caption rows (three steps
 # of 32), whole-image crops so that every run sees the same pixels
 DIST_TRAIN_IMAGES, DIST_VAL_IMAGES, DIST_BATCH = 20, 8, 32
-# ViT-B-16's vision depth in the dist phase's runs: 12 blocks cut to 4 to
+# ViT-B-16's vision depth in the dist phase's runs: 12 blocks cut to 2 to
 # keep the script inside its time limit (the width, the text tower and every
 # check stay: the routes must move bytes only; the thesis step runs at full
 # depth in phases 6 and 12)
-DIST_VISION_LAYERS = 4
+DIST_VISION_LAYERS = 2
 DIST_ROUTES = (("replicated", []), ("zero1", ["--shard-opt-state"]), ("fsdp", ["--fsdp"]))
 # the flags of the evaluation and the CLIP-blind check (and their values),
 # left out of the world-size-1 runs: their train steps are what is compared
@@ -4186,7 +4426,7 @@ def step_case_report(ranks: list, cases, expect=(24, 24)):
     return lines, failed
 
 
-def phase_dist(work: str) -> dict:
+def phase_dist(work: str, carried: dict = None) -> dict:
     """Multi-GPU training on the one card, ViT-B-16 at full width with its
     vision depth cut to ``DIST_VISION_LAYERS``. (a) World size 1 over NCCL
     through ``train.main``: the thesis protocol's training (``--precision
@@ -4260,7 +4500,7 @@ def phase_dist(work: str) -> dict:
 
     import torch
 
-    carried = _probe_gloo_cuda()
+    carried = carried if carried is not None else _probe_gloo_cuda()
     probe_path = os.path.join(work, "gloo_cuda_probe.json")
     with open(probe_path, "w") as f:
         json.dump({"card": CARD, "torch": torch.__version__, "carried": carried}, f, indent=1)
@@ -4305,11 +4545,13 @@ def _child_tp(payload: dict) -> dict:
     just before it, read just after), its host clock and the rank's peak
     memory; one gloo all-reduce of a ``[16,257,1408]`` bf16 activation
     (EVA01-g-14's, summed in fp32 as the port does on gloo), host clock.
-    (c) dinov2-giant at its width and depth, seeded on the card: the whole
+    (c) dinov2-giant at its width, ``TP_TEACHER_LAYERS`` of its 40 blocks,
+    seeded on the card: the whole
     teacher's CLS features against its split copy's, fp32 and bf16, the
     split call's launches, and the floor: the whole teacher through the
     kernel against itself through plain attention (``"xla"``)."""
     import copy
+    import dataclasses
     import gc
     from types import SimpleNamespace
 
@@ -4417,8 +4659,9 @@ def _child_tp(payload: dict) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     out["allreduce_ms"] = statistics.median(times[1:])
     del act
-    # (c) the split teacher at dinov2-giant's width and depth
-    tcfg = dinov2_cfg_from_name("facebook/dinov2-giant")
+    # (c) the split teacher at dinov2-giant's width, its depth cut
+    tcfg = dataclasses.replace(dinov2_cfg_from_name("facebook/dinov2-giant"),
+                               layers=TP_TEACHER_LAYERS)
     whole = Dinov2(tcfg, attn_impl="auto").to(dev).init_weights(SEED).eval()
     split = copy.deepcopy(whole)
     shard_module(split, mp)
@@ -4932,9 +5175,11 @@ def phase_tp(work: str, d: dict, pre: dict) -> dict:
             # 0.999 (the kernel against plain attention: PERF.md, PR 14); the
             # split teacher must be no further from the whole than that
             min_cos = min(min_cos, floor)
-        want_t = {"flash_attention_fwd": 0, "fused_attention_fwd": 40 if DEVICE == "cuda" else 0,
+        want_t = {"flash_attention_fwd": 0,
+                  "fused_attention_fwd": TP_TEACHER_LAYERS if DEVICE == "cuda" else 0,
                   "fused_attention_bwd": 0}
-        print(f"tp (c) dinov2-giant split over {TP_AXIS} ranks, {dtype}, batch {TP_EVA_BATCH}: "
+        print(f"tp (c) dinov2-giant ({TP_TEACHER_LAYERS} of 40 blocks) split over {TP_AXIS} "
+              f"ranks, {dtype}, batch {TP_EVA_BATCH}: "
               f"CLS cosine vs the whole teacher min {min(r['min_cosine'] for r in rs):.8f} "
               f"(need >= {min_cos:.8f}; the whole teacher, kernel vs plain attention, "
               f"{floor:.8f}), launches a rank {[r['launches'] for r in rs]}, host clock "
@@ -4995,15 +5240,18 @@ def phase_tp(work: str, d: dict, pre: dict) -> dict:
     return {"launches": total, "ranks": ranks, "eva": {"one": one, "tp": tp}}
 
 
-def _cut_vision_depth(model_name: str, layers: int) -> None:
+def _cut_vision_depth(model_name: str, layers: int, text_layers: int = None) -> None:
     """Registers ``model_name`` with its vision tower cut to ``layers``
-    blocks, for every later build in this process."""
+    blocks (and its text tower to ``text_layers`` where given), for every
+    later build in this process."""
     from refining_clip_via_dinov2_representations_torch.models import (
         get_model_config, register_model_config,
     )
 
     cfg = get_model_config(model_name)
     cfg["vision_cfg"]["layers"] = layers
+    if text_layers is not None:
+        cfg["text_cfg"]["layers"] = text_layers
     register_model_config(model_name, cfg)
 
 
@@ -6137,16 +6385,129 @@ def phase_zoo(work: str, d: dict, pre: dict) -> dict:
               and bool(torch.isfinite(got).all()), f"{name}'s forward")
         del model
     torch.cuda.empty_cache()
+    out.update(phase_zoo_eva02(add, cosine))
     out["seconds"] = time.perf_counter() - t_phase
     print(f"zoo: phase {out['seconds']:.1f} s", flush=True)
     return {"launches": total, **out}
+
+
+def phase_zoo_eva02(add, cosine) -> dict:
+    """Phase 13c (e): EVA02-L-14 at full width and depth and EVA02-E-14 at
+    full width, ``EVA02_E_LAYERS`` of its 64 blocks (the module docstring).
+    ``add`` takes each main-path run's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, eva02, get_tokenizer,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg, make_loss_fn
+
+    t0 = time.perf_counter()
+    out = {}
+    model, _ = create_model(EVA02_MODEL, device=DEVICE, seed=SEED + 80)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokenizer = get_tokenizer(EVA02_MODEL)
+    batch = _train_batch(tokenizer, max(EVA02_BUCKETS), DEVICE, model_name=EVA02_MODEL,
+                         seed=SEED + 81)
+    for what, fn, arg, n_want in (("image", model.encode_image, batch["images"], 24),
+                                  ("text", model.encode_text, batch["texts"], 12)):
+        with torch.no_grad():
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = fn(arg, normalize=True)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            _set_attn_impl(model, "xla")
+            want = fn(arg, normalize=True)
+            _set_attn_impl(model, "auto")
+        cos = cosine(got, want)
+        print(f"zoo (e) {EVA02_MODEL} ({n_params:,} parameters) encode_{what} fp32 batch "
+              f"{max(EVA02_BUCKETS)}: launches {counts} (expected {n_want} fused forward), "
+              f"cosine vs plain attention min {cos:.8f} (need >= {MIN_COSINE})", flush=True)
+        check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                         "fused_attention_bwd": 0} and cos >= MIN_COSINE
+              and bool(torch.isfinite(got).all()), f"{EVA02_MODEL}'s encode_{what}")
+    lat = {}
+    for b in EVA02_BUCKETS:
+        x, t = batch["images"][:b], batch["texts"][:b]
+        with torch.inference_mode():
+            lat[f"image b{b}"] = time_ms(lambda: model.encode_image(x), iters=10)
+            lat[f"text b{b}"] = time_ms(lambda: model.encode_text(t), iters=10)
+    print(f"time zoo (e) {EVA02_MODEL} tower fp32 per call (CUDA events, ms): "
+          f"{ {k: round(v, 3) for k, v in lat.items()} } [{CARD}]", flush=True)
+    out["eva02_tower_ms"] = lat
+    step_want = {"flash_attention_fwd": 0, "fused_attention_fwd": 36, "fused_attention_bwd": 36}
+    cfg = StepCfg(loss_type="clip")
+    for name, dtype, n in (("bfloat16", torch.bfloat16, EVA02_BATCH),
+                           ("float32", torch.float32, EVA02_FP32_BATCH)):
+        _set_compute_dtype(model, dtype)
+        step_batch = _train_batch(tokenizer, n, DEVICE, model_name=EVA02_MODEL, seed=SEED + 82)
+        out[f"eva02_step_{name}"] = _zoo_step_vs_plain((model,), step_batch, cfg, name,
+                                                       step_want)
+        add(step_want)
+        if name == "bfloat16":  # the forward and backward's time and peak memory
+            loss_fn = make_loss_fn(model, cfg)
+
+            def fwd_bwd():
+                model.zero_grad(set_to_none=True)
+                loss_fn(step_batch, 0)[0].backward()
+
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(fwd_bwd, iters=3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            model.zero_grad(set_to_none=True)
+            print(f"time zoo (e) {EVA02_MODEL} bf16 CLIP forward and backward at batch {n}: "
+                  f"{ms:.3f} ms (CUDA events), peak {peak:.3f} GiB [{CARD}]", flush=True)
+            out["eva02_step_bf16_ms"], out["eva02_step_bf16_peak_gib"] = ms, peak
+    _set_compute_dtype(model, torch.float32)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # ---- EVA02-E-14: head dim 112, its vision depth cut ----
+    key = "eva02_enormous_patch14_clip_224"
+    whole = eva02.EVA02_DIMS[key]
+    eva02.EVA02_DIMS[key] = dataclasses.replace(whole, layers=EVA02_E_LAYERS)
+    try:
+        model, _ = create_model(EVA02_E_MODEL, device=DEVICE, seed=SEED + 83)
+    finally:
+        eva02.EVA02_DIMS[key] = whole
+    x = torch.from_numpy(np.random.default_rng(SEED + 84).normal(
+        size=(EVA02_E_BATCH, 224, 224, 3)).astype(np.float32)).to(DEVICE)
+    for name, dtype, min_cos in (("float32", torch.float32, MIN_COSINE),
+                                 ("bfloat16", torch.bfloat16, TEACHER_MIN_COS["bfloat16"])):
+        _set_compute_dtype(model, dtype)
+        with torch.no_grad():
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = model.encode_image(x, normalize=True)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            _set_attn_impl(model, "xla")
+            want = model.encode_image(x, normalize=True)
+            _set_attn_impl(model, "auto")
+        cos = cosine(got.float(), want.float())
+        print(f"zoo (e) {EVA02_E_MODEL} at full width, {EVA02_E_LAYERS} of 64 vision blocks "
+              f"(head dim {whole.width // whole.heads}), {name} batch {EVA02_E_BATCH}: launches "
+              f"{counts} (expected {EVA02_E_LAYERS} fused forward), cosine vs plain attention "
+              f"min {cos:.8f} (need >= {min_cos})", flush=True)
+        check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": EVA02_E_LAYERS,
+                         "fused_attention_bwd": 0} and cos >= min_cos
+              and bool(torch.isfinite(got.float()).all()), f"{EVA02_E_MODEL}'s {name} forward")
+    del model, x
+    torch.cuda.empty_cache()
+    out["eva02_seconds"] = time.perf_counter() - t0
+    print(f"zoo (e): {out['eva02_seconds']:.1f} s", flush=True)
+    return out
 
 
 # every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
 CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
               "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
               "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES", "ZOO_CASES",
-              "ZOO_BWD_CASES")
+              "ZOO_BWD_CASES", "EVA02_CASES", "EVA02_BWD_CASES")
 
 
 def run_subset(keep, phases) -> None:
@@ -6210,8 +6571,22 @@ def main() -> None:
 
     phase_device()
     _elapsed("device")
-    phase_build()
-    _elapsed("build")
+    # the dist phase's gloo probes launch no kernel: their processes run
+    # beside the build and are waited for before the first timed phase
+    # (their results are read in phase 20)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def probe():
+        carried = _probe_gloo_cuda()
+        return carried, time.perf_counter() - t_start
+
+    with ThreadPoolExecutor(1) as probe_pool:
+        probes = probe_pool.submit(probe)
+        phase_build()
+        _elapsed("build")
+        carried, probes_end = probes.result()
+    print(f"gloo probes ended {probes_end:.1f} s after the start", flush=True)
+    _elapsed("gloo probes")
     worst = phase_kernels()
     _elapsed("kernels")
     worst_bwd = phase_kernels_bwd()
@@ -6248,6 +6623,8 @@ def main() -> None:
         _elapsed("siglip")
         eval_cli = phase_train_eval_cli(data, work)
         _elapsed("train_eval_cli")
+        pp = phase_preprocess(data, work, eval_cli)
+        _elapsed("preprocess")
         teacher_dir, teacher_launches = phase_teacher(work)
         _elapsed("teacher")
         extracted, extract_launches = phase_extract(data, teacher_dir, work)
@@ -6272,7 +6649,7 @@ def main() -> None:
         _elapsed("accum")
         giant = phase_giant(work)
         _elapsed("giant")
-        dist_launches = phase_dist(work)
+        dist_launches = phase_dist(work, carried)
         _elapsed("dist")
         tp = phase_tp(work, data, pre)
         _elapsed("tp")
@@ -6308,7 +6685,8 @@ def main() -> None:
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
         + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
-        + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"],
+        + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"]
+        + pp["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -6344,6 +6722,10 @@ def main() -> None:
                  **by_case[_case_key(case)]}
                 for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                 for case in ZOO_CASES],
+        "eva02": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                   **by_case[_case_key(case)]}
+                  for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                  for case in EVA02_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -6352,7 +6734,7 @@ def main() -> None:
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
         + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
         + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"]
-        + zoo["launches"]["fused_attention_bwd"],
+        + zoo["launches"]["fused_attention_bwd"] + pp["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -6384,6 +6766,10 @@ def main() -> None:
                  **by_case[_case_key(case)]}
                 for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                 for case in ZOO_BWD_CASES],
+        "eva02": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                   **by_case[_case_key(case)]}
+                  for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                  for case in EVA02_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

@@ -5,14 +5,15 @@ causal text-transformer CLIP. Parameter layout is open_clip's ``CLIP``: the
 vision tower under ``visual.``, the text tower's parts at top level
 (``token_embedding``, ``positional_embedding``, ``transformer``,
 ``ln_final``, ``text_projection``), then ``logit_scale``, also for the
-``custom_text`` configs (EVA01), whose open_clip checkpoints
-``models/eva.py`` converts. A SigLIP model keeps open_clip's
+``custom_text`` configs (EVA01 and EVA02), whose open_clip checkpoints
+``models/eva.py`` and ``models/eva02.py`` convert. A SigLIP model keeps open_clip's
 ``CustomTextCLIP`` layout, as its hub checkpoints do: the timm trunk under
 ``visual.trunk.`` (``models/siglip.py``) and the text tower under ``text.``,
 then ``logit_scale`` and ``logit_bias``. The vision tower is the ViT in each of
 its variants (CoCa's attentional pooler, CLIPA's average pool with
 ``ln_post`` after it, timm's ``vit_medium_patch16_gap_256``), the EVA01
-trunk (``models/eva.py``), the SigLIP trunk or the relative-position ViT
+trunk (``models/eva.py``), the EVA02 trunks (``models/eva02.py``: rope,
+SwiGLU, sub-LN), the SigLIP trunk or the relative-position ViT
 (``models/relpos_vit.py``); other towers (other timm trunks, ResNet, HF
 text) raise ``NotImplementedError``. ``build_model`` builds
 ``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
@@ -24,6 +25,7 @@ text) raise ``NotImplementedError``. ``build_model`` builds
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -33,6 +35,7 @@ from torch import nn
 from ..constants import DEFAULT_INIT_LOGIT_SCALE
 from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .eva import EVA01_DIMS
+from .eva02 import EVA02_DIMS, Eva02VisionTower
 from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
                      quick_gelu)
 from .relpos_vit import RelPosVisionTower
@@ -43,8 +46,8 @@ from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransforme
 
 def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01, SigLIP "
-        f"and CoCa so far (ROADMAP Queue 1 item {item})"
+        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01, EVA02, "
+        f"SigLIP and CoCa so far (ROADMAP Queue 1 item {item})"
     )
 
 
@@ -62,7 +65,8 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                         dtype: torch.dtype, attn_impl: str, grad_checkpointing: bool = False,
                         remat_policy: str = "full") -> Union[VisionTransformer,
                                                              SiglipVisionTower,
-                                                             RelPosVisionTower]:
+                                                             RelPosVisionTower,
+                                                             Eva02VisionTower]:
     common = dict(output_dim=embed_dim, attn_impl=attn_impl, compute_dtype=dtype,
                   grad_checkpointing=grad_checkpointing, remat_policy=remat_policy,
                   output_tokens=cfg.output_tokens)
@@ -80,6 +84,12 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                                 image_size=to_2tuple(cfg.image_size)[0]),
                 output_tokens=cfg.output_tokens, attn_impl=attn_impl, compute_dtype=dtype,
                 grad_checkpointing=grad_checkpointing, remat_policy=remat_policy)
+        if cfg.timm_model_name in EVA02_DIMS:  # ``tpu/models/clip.py:114-131``
+            e_cfg = EVA02_DIMS[cfg.timm_model_name]
+            img = to_2tuple(cfg.image_size)[0]
+            if img != e_cfg.image_size:  # the config's image size wins, as in JAX
+                e_cfg = dataclasses.replace(e_cfg, image_size=img)
+            return Eva02VisionTower(e_cfg, **common)
         if cfg.timm_model_name == RELPOS_VIT:  # ``tpu/models/clip.py:160-170``
             return RelPosVisionTower(width=512, layers=12, heads=8, patch_size=16,
                                      image_size=to_2tuple(cfg.image_size)[0], **common)
@@ -222,7 +232,7 @@ def init_weights(model: nn.Module, seed: int = 0):
                     normal_(p, 0.01)
             if isinstance(m.text_projection, nn.Parameter):  # a Linear: the branch above
                 normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
-        elif isinstance(m, (SiglipVisionTower, RelPosVisionTower)):
+        elif isinstance(m, (SiglipVisionTower, RelPosVisionTower, Eva02VisionTower)):
             m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)

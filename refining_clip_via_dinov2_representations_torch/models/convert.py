@@ -23,6 +23,9 @@ are transposed to [out, in], the fused
 ``in_proj_kernel`` [D, 3D] to ``in_proj_weight`` [3D, D], the HWIO patch
 convolution to OIHW. Every operation is a transpose, so the same function
 carries a JAX gradient tree across to the port's parameter gradients.
+An EVA02 tree (``resblocks_*`` at its top with a SwiGLU or plain MLP, the
+JAX exporter's sniff) gives the port's EVA02 keys (``models/eva02.py``,
+which maps them to timm's and back).
 ``jax_head_params_to_state_dict`` does the same for the DINO projection
 head (``losses/dino.py:DinoProjectionHead``), and
 ``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
@@ -166,6 +169,47 @@ def _emit_relpos(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None
     sd["visual.proj"] = _t(visual["proj"]["kernel"])
 
 
+def _is_eva02(visual: Mapping[str, Any]) -> bool:
+    """The JAX exporter's sniff (``tpu/models/convert.py:_is_eva02``): blocks
+    at the top of the tree with a SwiGLU (``fc1_g``) or plain (``fc1``) MLP."""
+    mlp = visual.get("resblocks_0", {}).get("mlp")
+    return isinstance(mlp, Mapping) and ("fc1_g" in mlp or "fc1" in mlp)
+
+
+def _emit_eva02(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``Eva02VisionTower`` tree in the port's layout
+    (``models/eva02.py``): the fused ``in_proj`` kept whole, every Dense a
+    Linear, the sub-LN and SwiGLU norms as they are."""
+    sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]),
+                                                (3, 2, 0, 1)))
+    sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
+    sd["visual.class_embedding"] = _t(visual["class_embedding"])
+    sd["visual.positional_embedding"] = _t(visual["positional_embedding"])
+
+    def dense(name: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{name}.weight"] = _t(tree["kernel"], transpose=True)
+        sd[f"{name}.bias"] = _t(tree["bias"])
+
+    def norm(name: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{name}.weight"] = _t(tree["scale"])
+        sd[f"{name}.bias"] = _t(tree["bias"])
+
+    for name, blk in _blocks(visual):
+        pre = f"visual.transformer.resblocks.{name.rsplit('_', 1)[-1]}"
+        norm(f"{pre}.ln_1", blk["ln_1"])
+        norm(f"{pre}.ln_2", blk["ln_2"])
+        attn = blk["attn"]
+        sd[f"{pre}.attn.in_proj_weight"] = _t(attn["in_proj_kernel"], transpose=True)
+        sd[f"{pre}.attn.in_proj_bias"] = _t(attn["in_proj_bias"])
+        if "norm" in attn:
+            norm(f"{pre}.attn.norm", attn["norm"])
+        dense(f"{pre}.attn.out_proj", attn["out_proj"])
+        for lin, tree in blk["mlp"].items():
+            (norm if lin == "norm" else dense)(f"{pre}.mlp.{lin}", tree)
+    norm("visual.ln_post", visual["ln_post"])
+    dense("visual.proj", visual["proj"])
+
+
 def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
     """A JAX ``TextTransformer`` tree under the prefix ``tp``; its
     projection a matrix, a Dense (``proj_bias``: ``text_projection.weight``
@@ -205,6 +249,11 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd: Dict[str, torch.Tensor] = {}
     if "resblocks_0" in visual and "relative_position_bias_table" in visual["resblocks_0"]:
         _emit_relpos(sd, visual)
+        _emit_text(sd, text, "")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        return sd
+    if _is_eva02(visual):
+        _emit_eva02(sd, visual)
         _emit_text(sd, text, "")
         sd["logit_scale"] = _t(params["logit_scale"])
         return sd

@@ -34,6 +34,7 @@ from .clip import CLIP, build_model
 from .config import get_model_config, list_models, parse_model_cfg
 from .convert import normalize_state_dict_keys
 from .eva import TRUNK, convert_eva_clip_state_dict
+from .eva02 import Eva02VisionTower, convert_eva02_clip_state_dict
 from .pretrained import (HF_HUB_PREFIX, get_pretrained_cfg, list_pretrained_tags_by_model,
                          resolve_hf_file, resolve_pretrained)
 
@@ -132,15 +133,20 @@ def _resize_text_pos_embed(pos: torch.Tensor, target_len: int) -> torch.Tensor:
 def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
                  strict: bool = True) -> Tuple[List[str], List[str]]:
     """Loads ``state_dict`` into ``model`` as the JAX ``_merge_params``
-    merges (an EVA01 CustomTextCLIP layout converted first,
-    ``models/eva.py``; a SigLIP model takes that layout as it is):
+    merges (an EVA01 or EVA02 CustomTextCLIP layout converted first,
+    ``models/eva.py``, ``models/eva02.py``; a SigLIP model takes that
+    layout as it is):
     ``visual.positional_embedding`` and ``positional_embedding`` of
     another length are resized, another tensor of the same size reshaped,
     values cast to the parameters' dtype; ``attn_mask`` buffers are skipped.
     Returns ``(missing, unexpected)`` keys; with ``strict`` either raises."""
     own = model.state_dict()
     if any(k.startswith(TRUNK) for k in state_dict) and not any(k.startswith(TRUNK) for k in own):
-        state_dict = convert_eva_clip_state_dict(state_dict)  # open_clip's EVA CustomTextCLIP
+        # open_clip's EVA01 or EVA02 CustomTextCLIP layout
+        convert = (convert_eva02_clip_state_dict
+                   if isinstance(getattr(model, "visual", None), Eva02VisionTower)
+                   else convert_eva_clip_state_dict)
+        state_dict = convert(state_dict)
     sd = {k: v for k, v in state_dict.items() if not k.endswith("attn_mask")}
     loaded = {}
     for k, v in sd.items():

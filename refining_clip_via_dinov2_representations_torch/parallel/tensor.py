@@ -8,7 +8,9 @@ local ``nn.Parameter`` shards (no DTensors), so the fused kernels see
 ordinary contiguous ``[B, H/m, L, d]`` tensors of this rank's heads.
 
 * A column-parallel layer (the packed QKV, ``c_fc``, DINOv2's
-  query/key/value, ``fc1`` and the SwiGLU ``weights_in``, the DINO head's
+  query/key/value, ``fc1`` and the SwiGLU ``weights_in``, EVA02's
+  ``fc1_g`` and ``fc1_x`` (placed, but the EVA02 tower refuses a model
+  group: ROADMAP Queue 1 item 10d), the DINO head's
   ``fc1``, SigLIP's ``qkv`` and its MAP head's ``q`` and packed ``kv``)
   holds its rows of the weight and bias. Its input passes through
   ``copy_to_model``: the identity forward, an all-reduce of the gradient
@@ -177,6 +179,8 @@ _COLUMN = {
     "attention.attention.key.weight": 1, "attention.attention.key.bias": 1,
     "attention.attention.value.weight": 1, "attention.attention.value.bias": 1,
     "mlp.fc1.weight": 1, "mlp.fc1.bias": 1,                    # fc1/kernel
+    "mlp.fc1_g.weight": 1, "mlp.fc1_g.bias": 1,                # EVA02's SwiGLU:
+    "mlp.fc1_x.weight": 1, "mlp.fc1_x.bias": 1,                # fc1_g/, fc1_x/kernel
     "mlp.weights_in.weight": 2, "mlp.weights_in.bias": 2,      # mlp/weights_in/kernel
     # SigLIP's timm trunk (attn/in_proj_kernel) and its MAP head, whose one
     # head_attn/in_proj_kernel the exporter splits into q and the packed kv

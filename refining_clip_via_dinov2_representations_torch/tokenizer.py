@@ -170,7 +170,12 @@ def pre_tokenize(text: str, specials: List[str]) -> List[str]:
 
 
 class SimpleTokenizer:
-    """CLIP byte-BPE tokenizer producing fixed-length int32 id arrays."""
+    """CLIP byte-BPE tokenizer producing fixed-length int32 id arrays.
+
+    The merge loop runs in the C++ core (``native/__init__.py:NativeBPE``)
+    where ``g++`` builds it, as the JAX tokenizer runs it
+    (``tpu/tokenizer.py:171-177,235-248``), with each word's ids memoised;
+    where it does not build, in Python. The ids are the same either way."""
 
     def __init__(self, context_length: int = DEFAULT_CONTEXT_LENGTH):
         self.byte_encoder = bytes_to_unicode()
@@ -189,6 +194,12 @@ class SimpleTokenizer:
         self.vocab_size = len(self.encoder)
         self.sot_token_id, self.eot_token_id = (self.encoder[t] for t in _SPECIAL_TOKENS)
         self.context_length = context_length
+        self._native = None
+        self._id_cache: Dict[str, List[int]] = {}
+        from .native import NativeBPE, load_native
+
+        if load_native() is not None:
+            self._native = NativeBPE(merges, vocab)
 
     def bpe(self, token: str) -> str:
         cached = self._cache.get(token)
@@ -217,6 +228,15 @@ class SimpleTokenizer:
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         for token in pre_tokenize(clean_lower(text), _SPECIAL_TOKENS):
+            if self._native is not None:
+                word_ids = self._id_cache.get(token)
+                if word_ids is None:
+                    word_ids = ([self.encoder[token]] if token in _SPECIAL_TOKENS
+                                else self._native.encode_word(
+                                    "".join(self.byte_encoder[b] for b in token.encode("utf-8"))))
+                    self._id_cache[token] = word_ids
+                ids.extend(word_ids)
+                continue
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids

@@ -214,8 +214,13 @@ class CsvDataset:
         from PIL import Image
 
         path = self.images[idx]
-        with Image.open(path) as img:
-            image = self.transforms(img.convert("RGB"))
+        if getattr(self.transforms, "decode_min_dim", None) is not None:
+            # the raw uint8 path (``--device-preprocess``): the native
+            # DCT-scaled JPEG decode, PIL for what it refuses
+            image = self.transforms.load_and_apply(path)
+        else:
+            with Image.open(path) as img:
+                image = self.transforms(img.convert("RGB"))
         sample: Dict[str, Any] = {
             "images": image,
             "texts": self.tokenize([self.captions[idx]])[0] if self.tokenize
@@ -232,7 +237,8 @@ class SyntheticDataset:
     """A blank image and a constant caption: the fake-data backend of smoke
     runs. The blank (black) image is built with numpy and normalised with
     the transform's mean and std, which is what the JAX package's PIL
-    pipeline makes of a black image."""
+    pipeline makes of a black image; under ``raw_uint8_transform``
+    (``--device-preprocess``) it is uint8 zeros at the raw size."""
 
     def __init__(self, transform=None, image_size=(224, 224), caption: str = "Dummy caption",
                  dataset_size: int = 100, tokenizer=None, dino_dim: Optional[int] = None):
@@ -240,7 +246,9 @@ class SyntheticDataset:
         self.tokenize = tokenizer
         self.caption = caption
         self.dino_dim = dino_dim
-        if transform is not None:
+        if getattr(transform, "is_raw_uint8", False):
+            self._image = np.zeros((*transform.image_size, 3), np.uint8)
+        elif transform is not None:
             mean = np.asarray(getattr(transform, "mean", OPENAI_DATASET_MEAN), np.float32)
             std = np.asarray(getattr(transform, "std", OPENAI_DATASET_STD), np.float32)
             pixel = (np.zeros(3, np.float32) - mean) / std

@@ -67,6 +67,13 @@ student's ``preprocess_val`` normalisation, sets the DINO head's width, and
 stays out of the optimizer, the gradient norm, the checkpoints and the
 resume. Its CLIP-blind check covers both splits, each failure a warning.
 
+``--device-preprocess`` makes the train transform
+``transform.py:raw_uint8_transform(--device-preprocess-raw-size)``: the
+loaders decode (JPEGs through the native DCT-scaled decoder) and ship uint8
+at the raw size, and the train step crops, resamples and normalises on the
+device to the model's input size with its mean and std
+(``train/step.py``). Evaluation keeps the host pipeline.
+
 A CoCa model (a ``coca_*`` config, or ``--use_coca``) trains with the CoCa
 loss, which takes precedence over SigLIP, CyCLIP and DINO as in the JAX CLI,
 its ``--coca-*-loss-weight`` flags and CustomTextCLIP's locking and groups;
@@ -137,7 +144,9 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    out = {"images": torch.from_numpy(np.asarray(batch["images"], np.float32)),
+    images = np.asarray(batch["images"])  # uint8 under --device-preprocess: a quarter the bytes
+    out = {"images": torch.from_numpy(images if images.dtype == np.uint8
+                                      else images.astype(np.float32, copy=False)),
            "texts": torch.from_numpy(np.asarray(batch["texts"])).long()}
     if "dino_features" in batch:
         out["dino_features"] = torch.from_numpy(np.asarray(batch["dino_features"], np.float32))
@@ -451,6 +460,7 @@ def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
     from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
+    from ..transform import raw_uint8_transform
     from .checkpoint import export_torch_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
                        get_dataset_fn, load_dino_index_map)
@@ -529,6 +539,16 @@ def _main(args):
     shard_module(model, mp)  # this rank's heads and columns under a model axis
     preprocess_train, preprocess_val = build_transforms(args, pp_cfg)
     tokenizer = get_tokenizer(args.model, cache_dir=args.cache_dir)
+    # ---- --device-preprocess (``tpu/train/main.py:317-335``): the host
+    # ships uint8 at the raw size; the step crops and normalises on the
+    # device at the train transform's size, mean and std. Evaluation keeps
+    # the host pipeline ----
+    device_pp = None
+    if args.device_preprocess:
+        device_pp = (*preprocess_train.image_size, preprocess_train.mean, preprocess_train.std)
+        preprocess_train = raw_uint8_transform(args.device_preprocess_raw_size)
+        logging.info("device preprocess: host ships uint8 %dpx, the step crops to %s",
+                     args.device_preprocess_raw_size, device_pp[:2])
 
     # ---- the distillation teacher (``tpu/train/main.py:336-345``): frozen,
     # whole on every rank, in no checkpoint ----
@@ -643,6 +663,7 @@ def _main(args):
             # forced from the CLI or set in the model's config, as in the JAX CLI
             use_patch_dropout=(bool(args.force_patch_dropout)
                                or model.visual.patch_dropout is not None),
+            device_preprocess=device_pp,
         )
         train_step = make_train_step(model, step_cfg, head, dino_teacher, group=group,
                                      towers=towers, dist_model=dist_model)

@@ -4,11 +4,11 @@ The port of the JAX package's ``train/params.py``: the same flag names and
 defaults, and ``get_default_params`` for the model family. A flag that the
 port cannot honour raises ``NotImplementedError`` at parse time when it is
 set away from its default (``UNPORTED``), rather than being ignored: the
-other towers, the ImageNet train subset, device preprocessing, the step
-profiler. The torch-specific flags the JAX CLI accepts and ignores
-(``TORCH_ONLY``: ``--torchscript``, ``--torchcompile``, ``--trace``,
-``--horovod``, ``--use-bn-sync``, ``--use-bnb-linear``,
-``--pretrained-image``) log its warning and change nothing;
+other towers, the ImageNet train subset, the step profiler. The
+torch-specific flags the JAX CLI accepts and ignores (``TORCH_ONLY``:
+``--torchscript``, ``--torchcompile``, ``--trace``, ``--horovod``,
+``--use-bn-sync``, ``--use-bnb-linear``, ``--pretrained-image``) log its
+warning and change nothing;
 ``--lock-text-freeze-layer-norm`` and ``--train-data-upsampling-factors``
 (parsed, read by none) pass silently, as there. Webdataset shards
 (``--dataset-type webdataset``, ``--dataset-resampled``;
@@ -25,7 +25,8 @@ without it), CyCLIP (``--use_CyClip``, ``--lambda_cyc_inmodal``,
 (``--dist-url``, ``--dist-backend``, ``--no-set-device-rank``,
 ``--ddp-static-graph``, ``--shard-opt-state``, ``--fsdp``,
 ``--fsdp-min-size``, ``--mesh-model-axis``; ``train/distributed.py``,
-``parallel/``) are ported;
+``parallel/``) and device preprocessing (``--device-preprocess``,
+``--device-preprocess-raw-size``; ``ops/preprocess.py``) are ported;
 ``--momentum`` is parsed and read by none, as in the JAX package.
 ``--local-loss`` and ``--gather-with-grad`` are accepted and change
 nothing: the losses always take local rows against gathered columns, with
@@ -50,7 +51,6 @@ UNPORTED = {
     "lock_image_freeze_bn_stats": "BatchNorm towers",
     "compile_cache": "a JAX compilation cache",
     "profile": "the step profiler",
-    "device_preprocess": "device preprocessing (ROADMAP Queue 1 item 11)",
 }
 # flags of torch-only features: the JAX CLI logs that it ignores them
 # (``tpu/train/params.py:394-401``) and so does the port; ``--ddp-static-graph``,

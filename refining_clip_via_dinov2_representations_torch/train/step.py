@@ -78,7 +78,22 @@ rank folded in is the data rank) and compute the same loss; their
 gradients of replicated tensors come out equal, and each holds its part of
 the split ones (``train_splits``).
 
-BatchNorm towers and device preprocessing raise ``NotImplementedError``.
+Device preprocessing (``device_preprocess = (out_h, out_w, mean, std)``,
+``--device-preprocess``): the batch's images arrive uint8 ``[B, raw, raw,
+3]`` (``[accum, B, raw, raw, 3]`` under accumulation) and the step crops,
+resamples and normalises them on their device first
+(``ops/preprocess.py:preprocess_train_batch``; ``tpu/train/step.py:251-257``),
+handing the towers NHWC fp32 at ``(out_h, out_w)``. Each step takes a crop
+seed from the state's generator (after patch dropout's); microbatch ``j``
+draws its boxes from a generator on the images' device with ``j`` folded
+in. The boxes are drawn for the whole data axis's batch (the rows of every
+data rank, in rank order) and each rank takes its rows' boxes, so a rank's
+rows are cropped as the one process crops them. Each microbatch is
+preprocessed once, before both phases of ``accumulate_grads``: the cached
+and the live pass see the same pixels, and so do the live DINOv2 teacher
+and the distillation teacher.
+
+BatchNorm towers raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -135,10 +150,9 @@ class StepCfg:
                              f"one of {SIGLIP_DIST_IMPLS}")
         if self.loss_type not in LOSS_TYPES:
             raise ValueError(f"unknown loss_type {self.loss_type!r}: one of {LOSS_TYPES}")
-        if self.device_preprocess is not None:
-            raise NotImplementedError(
-                "device preprocessing: the port's train step takes images preprocessed on the "
-                "host so far (ROADMAP Queue 1 item 11)")
+        if self.device_preprocess is not None and len(self.device_preprocess) != 4:
+            raise ValueError("device_preprocess is (out_h, out_w, mean, std), not "
+                             f"{self.device_preprocess!r}")
 
 
 # an odd 63-bit constant (the golden ratio's): folds a microbatch index
@@ -152,6 +166,26 @@ def patch_dropout_generator(seed: int, index: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed((seed + _FOLD * (index + 1)) % (1 << 63))
     return g
+
+
+def device_preprocess_images(cfg: StepCfg, images: torch.Tensor, seed: int, rank: int = 0,
+                             world: int = 1) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` (or ``[accum, B, H, W, 3]``) -> the towers' NHWC
+    fp32 at ``cfg.device_preprocess``'s size: microbatch ``j`` cropped by
+    the boxes of data rank ``rank``'s rows among the ``world * B`` that a
+    generator of ``(seed, j)`` draws."""
+    from ..ops import preprocess
+
+    out_h, out_w, mean, std = cfg.device_preprocess
+    micros = images if cfg.accum_freq > 1 else images[None]
+    out = []
+    for j, micro in enumerate(micros):
+        b, h, w, _ = micro.shape
+        gen = patch_dropout_generator(seed, j, micro.device)
+        boxes = preprocess.sample_crop_boxes(gen, world * b, h, w)[rank * b:(rank + 1) * b]
+        out.append(preprocess.preprocess_train_batch(None, micro, (out_h, out_w), mean, std,
+                                                     boxes=boxes))
+    return torch.stack(out) if cfg.accum_freq > 1 else out[0]
 
 
 def train_parameters(model: torch.nn.Module, head: Optional[torch.nn.Module]
@@ -366,7 +400,7 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
     if cfg.loss_type == "distill" and dist_model is None:
         raise ValueError('loss_type "distill" needs the teacher: pass dist_model')
     loss_fn = make_loss_fn(model, cfg, head, dino_teacher, group, towers, dist_model)
-    rank, _ = group_rank_size(group)
+    rank, world = group_rank_size(group)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.optimizer.zero_grad()
@@ -376,6 +410,10 @@ def make_train_step(model: torch.nn.Module, cfg: StepCfg,
             device = batch["images"].device
             first = rank * max(1, cfg.accum_freq)
             generator_for = lambda j: patch_dropout_generator(seed, first + j, device)  # noqa: E731
+        if cfg.device_preprocess is not None:
+            crop_seed = int(torch.randint(0, 1 << 62, (1,), generator=state.generator))
+            batch = {**batch, "images": device_preprocess_images(cfg, batch["images"],
+                                                                 crop_seed, rank, world)}
         if cfg.accum_freq > 1:
             metrics = accumulate_grads(loss_fn, batch, state.step, cfg.accum_freq, generator_for)
         else:

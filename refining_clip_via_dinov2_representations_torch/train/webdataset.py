@@ -22,7 +22,9 @@ The port of the JAX package's ``train/webdataset.py``: ``.tar`` shards of
   evaluation reads the stream once, the last batch partial;
 * ``skip_next_batches(n)``: the next pass consumes the first
   ``n * batch_size`` raw samples undecoded (a mid-epoch resume);
-* decode, the transform and the tokenizer in a thread pool.
+* decode, the transform and the tokenizer in a thread pool; a transform
+  with ``decode_min_dim`` (``--device-preprocess``) takes the tar bytes
+  through ``apply_bytes``, the native JPEG decoder first.
 
 The same seed, epoch, rank and shards give the JAX loader's batches in the
 same order. Ranks and world size come from the data axis of the port's
@@ -208,8 +210,13 @@ class WdsLoader:
         from PIL import Image
 
         img_bytes, caption = raw
-        with Image.open(io.BytesIO(img_bytes)) as img:
-            image = self.preprocess_img(img.convert("RGB"))
+        if getattr(self.preprocess_img, "decode_min_dim", None) is not None:
+            # the raw uint8 path: native DCT-scaled JPEG decode of the tar
+            # bytes (PIL for what it refuses; ``transform.py:apply_bytes``)
+            image = self.preprocess_img.apply_bytes(img_bytes)
+        else:
+            with Image.open(io.BytesIO(img_bytes)) as img:
+                image = self.preprocess_img(img.convert("RGB"))
         text = self.tokenizer([caption])[0] if self.tokenizer else caption
         return {"images": image, "texts": text}
 

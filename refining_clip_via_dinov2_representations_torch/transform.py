@@ -211,7 +211,16 @@ def _random_erasing(arr: np.ndarray, prob: float, max_count: int, rng: random.Ra
 
 
 class ImageTransform:
-    """PIL image or uint8 HWC array -> normalised HWC float32 array."""
+    """PIL image or uint8 HWC array -> normalised HWC float32 array (uint8
+    HWC for ``raw_uint8_transform``).
+
+    A transform that tolerates a DCT-downscaled decode sets
+    ``decode_min_dim`` to its staging size: the loaders then hand it file
+    or tar bytes through ``apply_bytes``, which decodes JPEGs with the
+    native libjpeg core (``native/__init__.py:decode_jpeg``) at the
+    smallest M/8 scale that covers that size, and everything else (or a
+    JPEG the core refuses, or all JPEGs where it did not build) with PIL
+    (``tpu/transform.py:205-255``)."""
 
     def __init__(self, fn: Callable, image_size: Tuple[int, int], is_train: bool,
                  mean: Tuple[float, ...] = OPENAI_DATASET_MEAN,
@@ -221,6 +230,8 @@ class ImageTransform:
         self.is_train = is_train
         self.mean = tuple(mean)
         self.std = tuple(std)
+        self.decode_min_dim: Optional[int] = None
+        self.is_raw_uint8 = False
 
     def __call__(self, img) -> np.ndarray:
         from PIL import Image
@@ -228,6 +239,53 @@ class ImageTransform:
         if isinstance(img, np.ndarray):
             img = Image.fromarray(img)
         return self._fn(img)
+
+    def apply_bytes(self, data: bytes) -> np.ndarray:
+        """Encoded image bytes, decoded (the native JPEG path where
+        ``decode_min_dim`` is set) and transformed."""
+        import io
+
+        from PIL import Image
+
+        if self.decode_min_dim is not None:
+            from .native import decode_jpeg
+
+            arr = decode_jpeg(data, self.decode_min_dim)
+            if arr is not None:
+                return self._fn(Image.fromarray(arr))
+        with Image.open(io.BytesIO(data)) as img:
+            return self._fn(img.convert("RGB"))
+
+    def load_and_apply(self, path: str) -> np.ndarray:
+        """The image file at ``path``, transformed (through ``apply_bytes``
+        where ``decode_min_dim`` is set)."""
+        from PIL import Image
+
+        if self.decode_min_dim is not None:
+            with open(path, "rb") as f:
+                return self.apply_bytes(f.read())
+        with Image.open(path) as img:
+            return self._fn(img.convert("RGB"))
+
+
+def raw_uint8_transform(raw_size: int = 256) -> ImageTransform:
+    """The host side of ``--device-preprocess`` (``tpu/transform.py:374-397``):
+    shortest-edge bicubic resize to ``raw_size``, centre crop, uint8 HWC. The
+    crop, resampling and normalisation run in the train step on the device
+    (``ops/preprocess.py``); ``raw_size`` above the model's input leaves
+    room for its crops. JPEGs may decode at a DCT scale covering
+    ``raw_size`` (``decode_min_dim``) before the resize."""
+    size = (raw_size, raw_size)
+    interp = _interp("bicubic")
+
+    def raw(img) -> np.ndarray:
+        img = resize_shortest(img.convert("RGB"), raw_size, interp)
+        return np.asarray(center_crop_or_pad(img, size), dtype=np.uint8)
+
+    t = ImageTransform(raw, size, is_train=True)
+    t.is_raw_uint8 = True
+    t.decode_min_dim = raw_size
+    return t
 
 
 def image_transform(image_size, is_train: bool, mean=None, std=None,

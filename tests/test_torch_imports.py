@@ -27,7 +27,8 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "chip_siglip_phase.py",
                                       REPO / "scripts" / "chip_tp_serve_phase.py",
                                       REPO / "scripts" / "coca_fp32_gradients.py",
-                                      REPO / "scripts" / "dispatch_cost.py"]
+                                      REPO / "scripts" / "dispatch_cost.py",
+                                      REPO / "scripts" / "chip_preprocess_eva02_phase.py"]
 
 
 def _imported(node):
@@ -49,7 +50,9 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/eval/zero_shot_classifier.py", f"{PORT.name}/eval/offline.py",
                  f"{PORT.name}/eval/run_all_evals.py", f"{PORT.name}/eval/clip_blinds_cli.py",
                  f"{PORT.name}/train/zero_shot.py", f"{PORT.name}/models/coca.py",
-                 f"{PORT.name}/inference.py", f"{PORT.name}/parallel/tensor.py"):
+                 f"{PORT.name}/inference.py", f"{PORT.name}/parallel/tensor.py",
+                 f"{PORT.name}/native/__init__.py", f"{PORT.name}/ops/preprocess.py",
+                 f"{PORT.name}/models/eva02.py"):
         assert must in names
 
 

@@ -181,9 +181,9 @@ def test_without_force_cpu_the_run_needs_a_card(tmp_path):
 # flags were accepted (test_torch_only_flags_parse_with_the_jax_warning),
 # gave their places to --device-preprocess and --use_CyClip; --use_CyClip and
 # --distill-model, ported (tests/test_torch_loss_zoo_step.py), to
-# --compile-cache and --lock-image-freeze-bn-stats
+# --compile-cache and --lock-image-freeze-bn-stats; --device-preprocess is
+# ported (tests/test_torch_device_preprocess_step.py runs the CLI with it)
 @pytest.mark.parametrize("extra", [["--profile"], ["--imagenet-train", "x"],
-                                   ["--device-preprocess"],
                                    ["--compile-cache", "x"], ["--lock-image-freeze-bn-stats"],
                                    ["--force-custom-text"]])
 def test_unported_flags_raise_at_startup(tmp_path, extra):

@@ -164,11 +164,14 @@ def test_three_steps_match_jax_make_train_step(case):
 
 
 def test_unported_step_options_raise():
-    # patch dropout and every loss type are ported (tests/test_torch_patch_dropout.py,
-    # tests/test_torch_dist_losses.py, tests/test_torch_coca_train.py,
-    # tests/test_torch_loss_zoo_step.py); an unknown loss type is refused
-    with pytest.raises(NotImplementedError, match="item 11"):
-        StepCfg(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))
+    # patch dropout, every loss type and device preprocessing are ported
+    # (tests/test_torch_patch_dropout.py, tests/test_torch_dist_losses.py,
+    # tests/test_torch_coca_train.py, tests/test_torch_loss_zoo_step.py,
+    # tests/test_torch_device_preprocess_step.py); an unknown loss type and a
+    # device_preprocess that is not (out_h, out_w, mean, std) are refused
+    StepCfg(device_preprocess=(224, 224, (0.5,) * 3, (0.5,) * 3))
+    with pytest.raises(ValueError, match="out_h, out_w, mean, std"):
+        StepCfg(device_preprocess=(224, 224))
     with pytest.raises(ValueError, match="loss_type"):
         StepCfg(loss_type="triplet")
     with pytest.raises(ValueError, match="dist_model"):
