@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each of which exits non-zero on failure:
+Phases, each of which exits non-zero on failure (numbered as they were
+added; phases 3, 3b and 7 time nothing and run in this process while the
+processes of phases 20 and 21 run, ``phase_processes``):
 
 1. device  — the card's name and power limit; no CUDA device is a failure.
 2. build   — compiles every CUDA kernel of the serving and training paths
@@ -174,6 +176,28 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     full width, 2 of its 64 blocks: one forward at head dim 112 in fp32 and
     bf16 against plain attention. Their shapes (``EVA02_CASES``) are checked
     and timed in phases 3, 3b, 5 and 6.
+13d. convnets — the convolution towers, in the main process: (a) RN50
+    (102M parameters) from a seeded fp16 OpenAI TorchScript archive (random
+    running statistics, ``num_batches_tracked`` included) in the hub cache
+    of its ``openai`` tag, loaded by tag exactly; fp32 features through the
+    kernels against plain attention (cosine >= 0.9999; 1 fused launch an
+    image call: the pool's mean-token query over 50 keys, 12 a text call),
+    serving leaves the running statistics bit for bit; the tower time at
+    buckets 1 and 8 (CUDA events and host clock); (b) its DINO-soft step in
+    bf16 at 64 and fp32 at 8 against plain attention (``STEP_TOL``; 13 + 13
+    launches), the BatchNorm statistics after either route equal within
+    1e-6, and bit for bit unchanged with ``freeze_bn_stats``; the bf16
+    forward and backward's time and peak memory; (c) RN50x64 at 448 px, full
+    width, ``RN_BIG_BLOCKS`` blocks a stage (2 of its 3, 15, 36 and 10: the
+    time limit), one fp32 forward at 8 against plain attention (1 launch,
+    ``[8,64,1,64]`` over 197 keys); (d) convnext_base_w from the seeded hub
+    cache of its ``laion2b_s13b_b82k`` tag, exactly; fp32 features (0
+    launches an image call: the tower has no attention; 12 a text call), the
+    tower time, the bf16 DINO-soft step at 64 under ``--grad-checkpointing``
+    against plain attention (24 + 12); (e) convnext_large_d's mlp head
+    loaded exactly from open_clip's ``visual.head.mlp.*`` keys, one fp32
+    forward (16 text launches). The new shapes (``CONVNET_CASES``) are
+    checked and timed in phases 3, 3b, 5 and 6.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -203,7 +227,8 @@ The published Config 2 and the accumulated step run last, on the same set:
     events or their one warning, every artifact, ``final_torch_state.pt``
     served by the engine; the same flags with ``--save-on-preemption
     --async-checkpoint`` in a subprocess, sent SIGTERM once its
-    ``out.log`` shows step 3 of epoch 1, then ``--resume latest``: the
+    ``out.log`` shows step 3 of epoch 1 (beside phases 20 and 21), then
+    ``--resume latest`` (after them): the
     preemption save's position, both runs' launches, their losses against
     the uninterrupted run's (bf16, ``STEP_TOL``); the blocking seconds of a
     synchronous and an asynchronous save of the ViT-B-16 state.
@@ -238,7 +263,11 @@ kernels are checked at its shapes, head dim 88 among them, in phases 3 and
 
 Multi-GPU training runs after it, in subprocesses of this script
 (``--dist-child train|probe|step``), on its own mini-Flickr cut (20 + 8
-images, whole-image crops):
+images, whole-image crops). Every process of phases 20 and 21 and phase
+17's preempted run starts at once (``phase_processes``; each phase's
+checks and lines then come in order, and their host clocks, walls and
+latencies are taken beside the other processes); phase 17's ``--resume
+latest`` runs in this process after them:
 
 20. dist — ViT-B-16 at full width, its vision tower cut to
     ``DIST_VISION_LAYERS`` of 12 blocks: (a) the thesis flags through
@@ -250,7 +279,7 @@ images, whole-image crops):
     process's; (b) two ranks on the card over gloo: each collective the
     port uses on CUDA tensors (and DDP, ZeRO-1's gather, FSDP) probed in
     its own pair of processes (beside phase 2's build, waited for before
-    phase 3: no timed phase runs beside them), the result written to
+    phase 4: no timed phase runs beside them), the result written to
     ``gloo_cuda_probe.json`` in the work directory and printed, then from
     that file the ViT-B-16
     fp32 step at 2 x 32 for each case it carries (clip and the SigLIP
@@ -280,7 +309,7 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     ``train.main``, bf16, batch 16, one process and two ranks: per-step
     losses at 1e-2 relative, each rank's peak memory beside the one
     process's, 2 x (``TP_EVA_LAYERS`` + 12) + (``TP_EVA_LAYERS`` + 12)
-    launches a rank a step. In the same pair of processes as (a) and (c):
+    launches a rank a step. In a second pair of processes:
     (d) ViT-B-16 fp32 served at ``(1, 2)`` through the engine's follower
     protocol (rank 0 drives) against the one-process engine (cosine >=
     0.9999), 12 launches a tower call on each rank at ``[8,6,197,64]`` /
@@ -348,8 +377,9 @@ phases 5 and 6):
 Each phase prints the seconds elapsed since the start. The line before the
 last is the JSON list of kernels (each fused kernel with ``"coca"`` and
 ``"siglip"`` lists of those shapes, ``"tp_serve"`` of the model axis's
-serving and family shapes, ``"zoo"`` of phase 13c's and ``"eva02"`` of its
-part (e)); the last line is ``{"ok": true, "device": {...}}``.
+serving and family shapes, ``"zoo"`` of phase 13c's, ``"eva02"`` of its
+part (e) and ``"convnets"`` of phase 13d's); the last line is ``{"ok": true,
+"device": {...}}``.
 Imports no JAX.
 """
 
@@ -634,6 +664,30 @@ EVA02_BATCH, EVA02_FP32_BATCH, EVA02_E_LAYERS, EVA02_E_BATCH = 32, 8, 2, 8
 EVA02_CASES = [(8, 16, 257, 257, 64, False), (32, 16, 257, 257, 64, False),
                (8, 16, 257, 257, 112, False)]
 EVA02_BWD_CASES = EVA02_CASES[:2]
+# The convolution towers (phase 13d, after zoo). RN50 from a seeded OpenAI
+# TorchScript archive (fp16, ``num_batches_tracked`` included, as OpenAI's
+# carry it) in the hub cache of its ``openai`` tag, served fp32 at
+# CONVNET_BUCKETS; its DINO-soft step bf16 at CONVNET_BATCH and fp32 at
+# CONVNET_FP32_BATCH, and once with the freeze flag; RN50x64 at 448 px, full
+# width, RN_BIG_BLOCKS of its (3, 15, 36, 10) blocks a stage (None: all; 2:
+# the time limit), one fp32 forward at RN_BIG_BATCH; convnext_base_w from the
+# seeded hub cache of its laion2b_s13b_b82k tag, served fp32, its bf16 step
+# at CONVNET_BATCH under --grad-checkpointing; convnext_large_d's mlp head
+# loaded from open_clip's visual.head.mlp.* keys, one fp32 forward at 8.
+# Their attention calls, (B, H, Lq, Lk, D, causal): the ResNet pool's one
+# mean-token query over HW + 1 keys (RN50's 50 at the serving bucket, the
+# bf16 and fp32 steps; RN50x64's 197), convnext_base_w's causal text (10
+# heads of 64) at the serving bucket and the step; RN50's text is
+# ViT-B-16's, convnext_large_d's the ViT-L-14 teacher's. Checked in both
+# dtypes (phases 3 and 3b), timed in phases 5 and 6
+RN_MODEL, RN_TAG, RN_BIG, RN_BIG_BLOCKS, RN_BIG_BATCH = "RN50", "openai", "RN50x64", 2, 8
+CN_MODEL, CN_TAG, CN_MLP = "convnext_base_w", "laion2b_s13b_b82k", "convnext_large_d"
+CONVNET_BUCKETS, CONVNET_BATCH, CONVNET_FP32_BATCH = (1, 8), 64, 8
+CONVNET_CASES = [(8, 32, 1, 50, 64, False), (64, 32, 1, 50, 64, False),
+                 (8, 64, 1, 197, 64, False), (8, 10, 77, 77, 64, True),
+                 (64, 10, 77, 77, 64, True)]
+CONVNET_BWD_CASES = [(8, 32, 1, 50, 64, False), (64, 32, 1, 50, 64, False),
+                     (64, 10, 77, 77, 64, True)]
 # device preprocessing (phase 9b): the batch and raw size of the resampler's
 # check, its tolerance against float64; the JPEGs of the decoder comparison
 # (made only where the native decoder built),
@@ -767,7 +821,7 @@ def phase_kernels() -> dict:
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
              + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_CASES
-    cases += EVA02_CASES
+    cases += EVA02_CASES + CONVNET_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -1049,14 +1103,14 @@ def phase_kernel_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
              + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
-    cases += ZOO_CASES + EVA02_CASES
+    cases += ZOO_CASES + EVA02_CASES + CONVNET_CASES
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
-        ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal))
-        plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal))
+        ms = time_ms(lambda: fused_attention_fwd(q, k, v, scale, causal), iters=20)
+        plain = time_ms(lambda: fused_attention_reference(q, k, v, scale, causal), iters=20)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, scale=scale))
+            q, k, v, is_causal=causal, scale=scale), iters=20)
         work = attention_work(b, h, l, d, causal, dtype_name, lk=lk)
         bound, by = _bound(*work, dtype_name)
         row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
@@ -1294,7 +1348,7 @@ def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return ([(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
              + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
-            + ZOO_BWD_CASES + EVA02_BWD_CASES)
+            + ZOO_BWD_CASES + EVA02_BWD_CASES + CONVNET_BWD_CASES)
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -2993,10 +3047,12 @@ def phase_config2(d: dict, pre: dict, work: str) -> dict:
     flags with ``--save-on-preemption --async-checkpoint`` in a subprocess,
     sent SIGTERM once its ``out.log`` shows step ``PREEMPT_AT`` of epoch 1,
     and ``--resume latest`` in this process: the two runs' losses against
-    the uninterrupted run's. Then the blocking seconds of a synchronous and
-    an asynchronous save of the run's state. Returns the launches."""
+    the uninterrupted run's (``config2_preempted``, started beside the
+    multi-GPU phases' processes, and ``phase_config2_resume`` after them).
+    Then the blocking seconds of a synchronous and an asynchronous save of
+    the run's state. Returns the launches, the run's records and its
+    arguments."""
     import math
-    import signal
 
     import numpy as np
     import torch
@@ -3062,61 +3118,6 @@ def phase_config2(d: dict, pre: dict, work: str) -> dict:
     check(feats.shape[0] == 1 and abs(norm - 1) < 1e-4, "final_torch_state.pt does not serve")
     del engine
 
-    # ---- preempted by SIGTERM in a subprocess, then resumed here ----
-    pre_argv = _config2_argv(d, pre["cache"], work, "preempted") + [
-        "--save-on-preemption", "--async-checkpoint"]
-    log = os.path.join(work, "preempted", "out.log")
-    needle = f"Train Epoch: 1 [{train_batches + PREEMPT_AT}]"
-    with open(os.path.join(work, "preempted.stdout"), "w") as out:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen([sys.executable, "-m",
-                                 "refining_clip_via_dinov2_representations_torch.train.main",
-                                 *pre_argv], stdout=out, stderr=subprocess.STDOUT,
-                                cwd=os.path.dirname(os.path.abspath(__file__)))
-        try:
-            seen = _wait_for_line(log, needle, proc, timeout=600)
-            if seen:
-                proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        sub_s = time.perf_counter() - t0
-    with open(log) as f:
-        tail = f.read()
-    check(seen and rc == 0, f"the preempted run: line seen {seen}, rc {rc}; "
-                            f"its log ends {tail[-2000:]}")
-    saved = torch.load(os.path.join(work, "preempted", "checkpoints", "epoch_1_preempt.pt"),
-                       map_location="cpu", weights_only=True, mmap=True)
-    at, step = saved["step_in_epoch"], saved["step"]
-    del saved
-    with open(os.path.join(work, "preempted", "final_itm_results.json")) as f:
-        first_epochs = [e["epoch"] for e in json.load(f)]
-    print(f"config2: the subprocess with --save-on-preemption --async-checkpoint: SIGTERM "
-          f"after '{needle}', exit code {rc} after {sub_s:.2f} s; epoch_1_preempt.pt at "
-          f"optimizer step {step}, {at} steps into epoch 1; evaluations {first_epochs} "
-          f"[{CARD}]", flush=True)
-    check(at >= PREEMPT_AT and step == train_batches + at and first_epochs == [0, 1],
-          "the preemption save is not at its step, or evaluated the stopped epoch")
-    resumed, rcounts, rwall, _ = _eval_cli_run(pre_argv + ["--resume", "latest"])
-    rwant = _config2_expected(args, 1, 1, steps=train_batches - at)
-    print(f"config2: --resume latest: wall {rwall:.2f} s, launches {rcounts}, expected "
-          f"{rwant} [{CARD}]", flush=True)
-    check(rcounts == rwant, f"the resumed run launched {rcounts}, expected {rwant}")
-    for k in launches:
-        launches[k] += rcounts[k]
-    check([r["step"] for r in resumed] == [r["step"] for r in records],
-          "the two runs' records do not cover the uninterrupted run's steps")
-    rel = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
-              for a, b in zip(resumed, records))
-    same = sum(a["total_loss"] == b["total_loss"] for a, b in zip(resumed, records))
-    tol = STEP_TOL["bfloat16"][0]
-    print(f"config2: preempted + resumed vs uninterrupted, {len(records)} steps: total_loss "
-          f"largest relative difference {rel:.3e} (tol {tol:g}), {same} of {len(records)} "
-          f"equal", flush=True)
-    check(rel <= tol, "the preempted and resumed run does not reproduce the losses")
-
     # ---- the blocking time of one save, synchronous and asynchronous ----
     _, _, state, train_step, _ = _dino_setup("bf16", "auto", model_name=EVAL_MODEL)
     batch = _train_batch(get_tokenizer(EVAL_MODEL), CONFIG2_BATCH, DEVICE,
@@ -3137,7 +3138,88 @@ def phase_config2(d: dict, pre: dict, work: str) -> dict:
           f"write done {blocking['async total']:.3f} s after the call) [{CARD}]", flush=True)
     del state, train_step
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "records": records, "args": args,
+            "train_batches": train_batches}
+
+
+def config2_preempted(d: dict, pre: dict, work: str, train_batches: int,
+                      threads: int) -> dict:
+    """Config 2's flags with ``--save-on-preemption --async-checkpoint`` in a
+    subprocess (``threads`` OpenMP threads), sent SIGTERM once its
+    ``out.log`` shows step ``PREEMPT_AT`` of epoch 1 (an epoch is
+    ``train_batches`` steps): whether the line came, the exit code and the
+    seconds."""
+    import signal
+
+    pre_argv = _config2_argv(d, pre["cache"], work, "preempted") + [
+        "--save-on-preemption", "--async-checkpoint"]
+    log = os.path.join(work, "preempted", "out.log")
+    needle = f"Train Epoch: 1 [{train_batches + PREEMPT_AT}]"
+    env = {**os.environ, "OMP_NUM_THREADS": str(threads)}
+    with open(os.path.join(work, "preempted.stdout"), "w") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m",
+                                 "refining_clip_via_dinov2_representations_torch.train.main",
+                                 *pre_argv], stdout=out, stderr=subprocess.STDOUT, env=env,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            seen = _wait_for_line(log, needle, proc, timeout=600)
+            if seen:
+                proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"argv": pre_argv, "needle": needle, "seen": seen, "rc": rc,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_config2_resume(work: str, c2: dict, run: dict) -> None:
+    """Config 2's preempted run (``config2_preempted``'s ``run``) checked,
+    then ``--resume latest`` in this process: the preemption save's
+    position, the launches, and both runs' losses against the
+    uninterrupted run's (``c2``, ``phase_config2``'s; the resumed launches
+    are added to its)."""
+    import torch
+
+    records, args, train_batches = c2["records"], c2["args"], c2["train_batches"]
+    launches = c2["launches"]
+    log = os.path.join(work, "preempted", "out.log")
+    with open(log) as f:
+        tail = f.read()
+    seen, rc, needle = run["seen"], run["rc"], run["needle"]
+    check(seen and rc == 0, f"the preempted run: line seen {seen}, rc {rc}; "
+                            f"its log ends {tail[-2000:]}")
+    saved = torch.load(os.path.join(work, "preempted", "checkpoints", "epoch_1_preempt.pt"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    at, step = saved["step_in_epoch"], saved["step"]
+    del saved
+    with open(os.path.join(work, "preempted", "final_itm_results.json")) as f:
+        first_epochs = [e["epoch"] for e in json.load(f)]
+    print(f"config2: the subprocess with --save-on-preemption --async-checkpoint: SIGTERM "
+          f"after '{needle}', exit code {rc} after {run['seconds']:.2f} s (beside the "
+          f"multi-GPU phases' processes); epoch_1_preempt.pt at optimizer step {step}, {at} "
+          f"steps into epoch 1; evaluations {first_epochs} [{CARD}]", flush=True)
+    check(at >= PREEMPT_AT and step == train_batches + at and first_epochs == [0, 1],
+          "the preemption save is not at its step, or evaluated the stopped epoch")
+    resumed, rcounts, rwall, _ = _eval_cli_run(run["argv"] + ["--resume", "latest"])
+    rwant = _config2_expected(args, 1, 1, steps=train_batches - at)
+    print(f"config2: --resume latest: wall {rwall:.2f} s, launches {rcounts}, expected "
+          f"{rwant} [{CARD}]", flush=True)
+    check(rcounts == rwant, f"the resumed run launched {rcounts}, expected {rwant}")
+    for k in launches:
+        launches[k] += rcounts[k]
+    check([r["step"] for r in resumed] == [r["step"] for r in records],
+          "the two runs' records do not cover the uninterrupted run's steps")
+    rel = max(abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+              for a, b in zip(resumed, records))
+    same = sum(a["total_loss"] == b["total_loss"] for a, b in zip(resumed, records))
+    tol = STEP_TOL["bfloat16"][0]
+    print(f"config2: preempted + resumed vs uninterrupted, {len(records)} steps: total_loss "
+          f"largest relative difference {rel:.3e} (tol {tol:g}), {same} of {len(records)} "
+          f"equal", flush=True)
+    check(rel <= tol, "the preempted and resumed run does not reproduce the losses")
 
 
 def phase_accum(teacher: str) -> dict:
@@ -3517,7 +3599,8 @@ def phase_bwd_times(dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
-    cases += COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES + EVA02_BWD_CASES
+    cases += (COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES + EVA02_BWD_CASES
+              + CONVNET_BWD_CASES)
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
@@ -3888,6 +3971,10 @@ DIST_TRAIN_IMAGES, DIST_VAL_IMAGES, DIST_BATCH = 20, 8, 32
 # check stay: the routes must move bytes only; the thesis step runs at full
 # depth in phases 6 and 12)
 DIST_VISION_LAYERS = 2
+# the processes of phases 20 and 21 and config2's preempted run start at
+# once (``phase_processes``): the threads that wait on them, at least one a
+# process (a rank whose peer waits for a thread never ends)
+LANE_WORKERS = 16
 DIST_ROUTES = (("replicated", []), ("zero1", ["--shard-opt-state"]), ("fsdp", ["--fsdp"]))
 # the flags of the evaluation and the CLIP-blind check (and their values),
 # left out of the world-size-1 runs: their train steps are what is compared
@@ -3914,6 +4001,42 @@ DIST_STEP_CASES = ((("clip", "bidir", "replicated"), ("all_gather_grad",) + _DDP
                    (("clip", "bidir", "zero1"), ("all_gather_grad", "all_gather_into_tensor")
                     + _DDP),
                    (("clip", "bidir", "fsdp"), ("all_gather_grad", "fsdp")))
+
+
+def phase_processes(work: str, carried: dict, d: dict, pre: dict, c2: dict,
+                    beside=lambda: None) -> tuple:
+    """Phases 20 (dist) and 21 (tp) and Config 2's preempted run
+    (``config2_preempted``): every process of them started at once, then
+    ``beside()`` in this process (checks that time nothing), then each
+    phase's checks and lines in order. None of them is timed against a
+    quiet card: the host clocks, walls and latencies they print are taken
+    beside the other processes. Returns dist's launches, tp's results, the
+    preempted run and what ``beside`` returned."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()  # what this process cached, for the children
+    # OpenMP threads a process: the processes share the host's cores, and
+    # each spends most of its time starting up or in gloo's host copies
+    threads = max(1, (os.cpu_count() or 1) // 4)
+    n = 1 + len(DIST_ROUTES) + 2 + 2 * TP_AXIS + 1 + TP_AXIS + 1
+    check(n <= LANE_WORKERS, f"processes: {n} processes, {LANE_WORKERS} threads to wait on them")
+    print(f"processes: phases 20 and 21 and config2's preempted run, {n} processes, start at "
+          f"once, {threads} OpenMP threads each, on {os.cpu_count()} host cores", flush=True)
+    with ThreadPoolExecutor(LANE_WORKERS) as pool:
+        preempted = pool.submit(config2_preempted, d, pre, work, c2["train_batches"], threads)
+        finish_dist = start_dist(work, carried, pool, threads)
+        finish_tp = start_tp(work, d, pre, pool, threads)
+        besides = beside()
+        print(f"processes: this process's checks beside them ended after "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        dist_launches = finish_dist()
+        tp = finish_tp()
+        run = preempted.result()
+    print(f"processes: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dist_launches, tp, run, besides
 
 
 def _rank_device():
@@ -3963,15 +4086,25 @@ def _child(role: str, payload: dict, env: dict, timeout: float = 300) -> dict:
     return result
 
 
-def _rank_envs(world: int, per_card: bool = False) -> list:
+def _rank_envs(world: int, per_card: bool = False, threads: int = None) -> list:
     """torchrun's variables for ``world`` ranks: every rank on card 0, or
-    rank ``r`` on card ``r`` (``per_card``)."""
+    rank ``r`` on card ``r`` (``per_card``); ``threads`` OpenMP threads a
+    rank (default: the host's cores over the ranks, or ``OMP_NUM_THREADS``)."""
     port = str(_free_port())
-    threads = str(max(1, (os.cpu_count() or 1) // world))
+    omp = (str(threads) if threads else
+           os.environ.get("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // world))))
     return [{"RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r if per_card else 0),
-             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
-             "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", threads)}
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port, "OMP_NUM_THREADS": omp}
             for r in range(world)]
+
+
+def _submit_ranks(pool, role: str, payload: dict, world: int, timeout: float,
+                  threads: int) -> list:
+    """``world`` ranks of ``role`` submitted to ``pool`` together (it must
+    have a free worker for each, or a rank waits for a peer that never
+    starts); their futures in rank order."""
+    return [pool.submit(_child, role, payload, env, timeout)
+            for env in _rank_envs(world, threads=threads)]
 
 
 def _children(role: str, payload: dict, world: int, timeout: float = 300,
@@ -4426,7 +4559,7 @@ def step_case_report(ranks: list, cases, expect=(24, 24)):
     return lines, failed
 
 
-def phase_dist(work: str, carried: dict = None) -> dict:
+def start_dist(work: str, carried: dict, pool, threads: int):
     """Multi-GPU training on the one card, ViT-B-16 at full width with its
     vision depth cut to ``DIST_VISION_LAYERS``. (a) World size 1 over NCCL
     through ``train.main``: the thesis protocol's training (``--precision
@@ -4442,19 +4575,18 @@ def phase_dist(work: str, carried: dict = None) -> dict:
     ViT-B-16 fp32 step at 2 x 32 for each case whose collectives it carries
     (``DIST_STEP_CASES``; at least one must) against the one-process step
     at 64 on the same rows (``step_case_report``), with each rank's peak
-    memory over the steps and over the checkpoint's gather. Returns the
-    launches of every run."""
+    memory over the steps and over the checkpoint's gather. Every run is a
+    process of its own (in one process a run's peak memory carries part of
+    what the run before it left), all submitted to ``pool`` at once with
+    ``threads`` OpenMP threads each. Returns a function that waits for them,
+    checks and prints, and returns the launches of every run."""
+    import torch
+
     from scripts.mini_flickr import generate
 
     t_phase = time.perf_counter()
     d = generate(os.path.join(work, "dist_data"), n_train=DIST_TRAIN_IMAGES,
                  n_val=DIST_VAL_IMAGES, size_px=EVAL_SIZE_PX, dino_dim=DINO_DIM, seed=SEED)
-    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
-
-    def add(launches):
-        for k in total:
-            total[k] += launches.get(k, 0)
-
     argv = []
     thesis = iter(_thesis_argv(d, work, "dist"))
     for a in thesis:
@@ -4463,75 +4595,89 @@ def phase_dist(work: str, carried: dict = None) -> dict:
                 next(thesis)
         else:
             argv.append(a)
+
     def run_argv(route, flags):
         return argv + ["--name", f"dist-{route}", "--batch-size", str(DIST_BATCH), "--epochs",
                        "1", "--aug-cfg", "scale=(1.0, 1.0)", "--save-frequency", "0", *flags]
 
-    # a process a run: in one process a run's peak memory carries part of
-    # what the run before it left
     cut = (MODEL, DIST_VISION_LAYERS)
     blocks = DIST_VISION_LAYERS + 12  # vision + text, a forward and a backward each
-    runs = {"one-process": _child("train", {"argv": run_argv("one-process", []), "cut": cut},
-                                  {})}
-    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    one_env = {"OMP_NUM_THREADS": str(threads)}
+    runs = {"one-process": pool.submit(_child, "train", {"argv": run_argv("one-process", []),
+                                                         "cut": cut}, one_env)}
     for route, flags in DIST_ROUTES:
-        (runs[route],) = _children("train", {"argv": run_argv(route, flags), "cut": cut}, 1)
-        check(runs[route]["world"] == 1 and runs[route]["backend"] == backend,
-              f"dist {route}: not a NCCL group of one ({runs[route]['backend']})")
-    for res in runs.values():
-        add(res["launches"])
-    base = runs["one-process"]
-    check(len(base["losses"]) == 3, f"dist: {len(base['losses'])} steps, expected 3")
-    for route, res in runs.items():
-        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], base["losses"]))
-        check(len(res["losses"]) == len(base["losses"]) and rel <= 1e-5,
-              f"dist {route}: losses {res['losses']} vs one process {base['losses']}")
-        for s in res["steps"]:
-            check(s["fused_attention_fwd"] == blocks and s["fused_attention_bwd"] == blocks,
-                  f"dist {route}: step launches {s}, expected {blocks} + {blocks}")
-        step_ms = statistics.median(s["ms"] for s in res["steps"][1:])
-        base_ms = statistics.median(s["ms"] for s in base["steps"][1:])
-        print(f"dist {route} (world {res['world'] or 1}, {res['backend'] or 'no group'}): "
-              f"losses {[f'{x:.6f}' for x in res['losses']]} (max rel {rel:.2e} vs one "
-              f"process), step host clock {step_ms:.3f} ms (one process {base_ms:.3f}, "
-              f"overhead {step_ms - base_ms:+.3f} ms), peak {res['peak_gib']:.3f} GiB (one "
-              f"process {base['peak_gib']:.3f}), wall {res['wall_s']:.2f} s, launches "
-              f"{res['launches']} ({CARD})", flush=True)
-
-    import torch
+        (runs[route],) = _submit_ranks(pool, "train", {"argv": run_argv(route, flags),
+                                                       "cut": cut}, 1, 300, threads)
 
     carried = carried if carried is not None else _probe_gloo_cuda()
     probe_path = os.path.join(work, "gloo_cuda_probe.json")
     with open(probe_path, "w") as f:
         json.dump({"card": CARD, "torch": torch.__version__, "carried": carried}, f, indent=1)
-    print(f"dist gloo on CUDA tensors, 2 ranks on one card (torch {torch.__version__}, "
-          f"{CARD}): {json.dumps(carried)}", flush=True)
     with open(probe_path) as f:  # the phase runs what the written probe allows
         carried = json.load(f)["carried"]
-    wrong = [n for n, v in carried.items() if "wrong numbers" in str(v)]
-    check(not wrong, f"dist: gloo gave wrong numbers for CUDA tensors in {wrong}")
-    lost = [n for n in GLOO_CUDA_CARRIES if carried[n] is not True]
-    check(not lost, f"dist: gloo no longer carries {lost} for CUDA tensors: "
-          f"{ {n: carried[n] for n in lost} }")
     cases = [c for c, needs in DIST_STEP_CASES if all(carried[n] is True for n in needs)]
-    for c, needs in DIST_STEP_CASES:
-        if c not in cases:
-            print(f"dist 2-rank {'-'.join(c)}: not run, gloo does not carry "
-                  f"{[n for n in needs if carried[n] is not True]} for CUDA tensors",
-                  flush=True)
-    check(bool(cases), "dist: no 2-rank case ran")
-    ranks = _children("step", {"cases": cases, "model": MODEL, "batch": DIST_BATCH,
-                               "device": DEVICE, "backend": "gloo", "cut": cut}, 2)
-    lines, failed = step_case_report(ranks, cases,
-                                     (blocks, blocks) if DEVICE == "cuda" else (0, 0))
-    for line in lines:
-        print(f"dist 2-rank gloo {line} ({CARD})", flush=True)
-    check(not failed, f"dist 2-rank: {failed}")
-    for r in ranks:
-        for res in r["cases"].values():
-            add(res["launches_both"])
-    print(f"dist: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return total
+    pair = (_submit_ranks(pool, "step", {"cases": cases, "model": MODEL, "batch": DIST_BATCH,
+                                         "device": DEVICE, "backend": "gloo", "cut": cut}, 2,
+                          300, threads) if cases else [])
+
+    def finish() -> dict:
+        total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+
+        def add(launches):
+            for k in total:
+                total[k] += launches.get(k, 0)
+
+        done = {route: fut.result() for route, fut in runs.items()}
+        backend = "nccl" if DEVICE == "cuda" else "gloo"
+        for route, _ in DIST_ROUTES:
+            check(done[route]["world"] == 1 and done[route]["backend"] == backend,
+                  f"dist {route}: not a NCCL group of one ({done[route]['backend']})")
+        for res in done.values():
+            add(res["launches"])
+        base = done["one-process"]
+        check(len(base["losses"]) == 3, f"dist: {len(base['losses'])} steps, expected 3")
+        for route, res in done.items():
+            rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], base["losses"]))
+            check(len(res["losses"]) == len(base["losses"]) and rel <= 1e-5,
+                  f"dist {route}: losses {res['losses']} vs one process {base['losses']}")
+            for s in res["steps"]:
+                check(s["fused_attention_fwd"] == blocks and s["fused_attention_bwd"] == blocks,
+                      f"dist {route}: step launches {s}, expected {blocks} + {blocks}")
+            step_ms = statistics.median(s["ms"] for s in res["steps"][1:])
+            base_ms = statistics.median(s["ms"] for s in base["steps"][1:])
+            print(f"dist {route} (world {res['world'] or 1}, {res['backend'] or 'no group'}): "
+                  f"losses {[f'{x:.6f}' for x in res['losses']]} (max rel {rel:.2e} vs one "
+                  f"process), step host clock {step_ms:.3f} ms (one process {base_ms:.3f}, "
+                  f"overhead {step_ms - base_ms:+.3f} ms; beside the other children), peak "
+                  f"{res['peak_gib']:.3f} GiB (one process {base['peak_gib']:.3f}), wall "
+                  f"{res['wall_s']:.2f} s, launches {res['launches']} ({CARD})", flush=True)
+
+        print(f"dist gloo on CUDA tensors, 2 ranks on one card (torch {torch.__version__}, "
+              f"{CARD}): {json.dumps(carried)}", flush=True)
+        wrong = [n for n, v in carried.items() if "wrong numbers" in str(v)]
+        check(not wrong, f"dist: gloo gave wrong numbers for CUDA tensors in {wrong}")
+        lost = [n for n in GLOO_CUDA_CARRIES if carried[n] is not True]
+        check(not lost, f"dist: gloo no longer carries {lost} for CUDA tensors: "
+              f"{ {n: carried[n] for n in lost} }")
+        for c, needs in DIST_STEP_CASES:
+            if c not in cases:
+                print(f"dist 2-rank {'-'.join(c)}: not run, gloo does not carry "
+                      f"{[n for n in needs if carried[n] is not True]} for CUDA tensors",
+                      flush=True)
+        check(bool(cases), "dist: no 2-rank case ran")
+        ranks = [fut.result() for fut in pair]
+        lines, failed = step_case_report(ranks, cases,
+                                         (blocks, blocks) if DEVICE == "cuda" else (0, 0))
+        for line in lines:
+            print(f"dist 2-rank gloo {line} ({CARD})", flush=True)
+        check(not failed, f"dist 2-rank: {failed}")
+        for r in ranks:
+            for res in r["cases"].values():
+                add(res["launches_both"])
+        print(f"dist: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return total
+
+    return finish
 
 def _child_tp(payload: dict) -> dict:
     """A rank of the tp phase's parts (a) and (c): both ranks on the card over
@@ -4549,7 +4695,9 @@ def _child_tp(payload: dict) -> dict:
     seeded on the card: the whole
     teacher's CLS features against its split copy's, fp32 and bf16, the
     split call's launches, and the floor: the whole teacher through the
-    kernel against itself through plain attention (``"xla"``)."""
+    kernel against itself through plain attention (``"xla"``). Then parts
+    (d)-(h) (``_child_tp_serve``). ``payload["parts"]`` runs only
+    ``"train"`` ((a) and (c)) or ``"serve"`` ((d)-(h)); both by default."""
     import copy
     import dataclasses
     import gc
@@ -4587,6 +4735,12 @@ def _child_tp(payload: dict) -> dict:
     dev = init_distributed_device(ns)
     mesh = create_mesh(model=ns.world_size, device_type=dev.type)
     mp = model_parallel(model_group())
+    out = {"rank": ns.rank}
+    if "train" not in payload.get("parts", ("train", "serve")):
+        out.update(_child_tp_serve(payload, dev, mesh, mp))
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        return out
     cuda = dev.type == "cuda"
     gib = lambda: torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0  # noqa: E731
     base, _ = create_model(MODEL, precision="amp", device=dev, seed=SEED)
@@ -4637,7 +4791,6 @@ def _child_tp(payload: dict) -> dict:
             torch.cuda.empty_cache()
         return res
 
-    out = {"rank": ns.rank}
     ref = run("single")
     for route in ("replicated", "zero1"):
         res = run(route)
@@ -4691,7 +4844,8 @@ def _child_tp(payload: dict) -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    out.update(_child_tp_serve(payload, dev, mesh, mp))
+    if "serve" in payload.get("parts", ("train", "serve")):
+        out.update(_child_tp_serve(payload, dev, mesh, mp))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return out
@@ -5094,22 +5248,25 @@ def tp_serve_report(ranks: list, add) -> None:
             add(r[part]["launches"])
 
 
-def tp_pair(d: dict, pre: dict) -> list:
-    """One pair of ``--dist-child tp`` ranks (``_child_tp``: parts (a), (c)
-    and (d)-(h)) on two mini-Flickr images and the ``openai`` tag's hub
-    cache; each rank's results."""
+def _tp_pair_payload(d: dict, pre: dict) -> dict:
     import base64
 
     images_b64 = []
     for p in sorted(os.listdir(d["img_dir"]))[:2]:
         with open(os.path.join(d["img_dir"], p), "rb") as f:
             images_b64.append(base64.b64encode(f.read()).decode())
-    return _children("tp", {"cache": pre["cache"], "images_b64": images_b64,
-                            "texts": ["a photo of a dog", "a red car in the street"]},
-                     TP_AXIS, timeout=600)
+    return {"cache": pre["cache"], "images_b64": images_b64,
+            "texts": ["a photo of a dog", "a red car in the street"]}
 
 
-def phase_tp(work: str, d: dict, pre: dict) -> dict:
+def tp_pair(d: dict, pre: dict) -> list:
+    """One pair of ``--dist-child tp`` ranks (``_child_tp``: parts (a), (c)
+    and (d)-(h)) on two mini-Flickr images and the ``openai`` tag's hub
+    cache; each rank's results."""
+    return _children("tp", _tp_pair_payload(d, pre), TP_AXIS, timeout=600)
+
+
+def start_tp(work: str, d: dict, pre: dict, pool, threads: int):
     """Config 5's multi-chip recipe at a model axis of ``TP_AXIS``, both ranks
     on the card over gloo (NCCL refuses two ranks on one device; gloo carries
     the all_reduce and all_gather that tensor parallelism needs). (a) and (c)
@@ -5129,19 +5286,53 @@ def phase_tp(work: str, d: dict, pre: dict) -> dict:
     at 1e-2 relative (the bf16 step row), each rank's peak memory beside
     the one process's, two fused-forward and one backward launch a rank a
     block a step (``TP_EVA_LAYERS`` vision + 12 text blocks, the forward
-    twice with the recompute). Returns the launches."""
-    import math
-
+    twice with the recompute). The pair of (a) and (c), the pair of (d)-(h)
+    (``tp_serve_report``), the one process and the pair of (b) are
+    submitted to ``pool`` at once, ``threads`` OpenMP threads a process.
+    Returns a function that waits for them, checks and prints, and returns
+    the launches, the pairs' results merged by rank and (b)'s."""
     from scripts.mini_flickr import generate
 
     t_phase = time.perf_counter()
+    payload = _tp_pair_payload(d, pre)
+    pairs = [_submit_ranks(pool, "tp", {**payload, "parts": [part]}, TP_AXIS, timeout=600,
+                           threads=threads) for part in ("train", "serve")]
+    # (b) EVA01-g-14 through train.main, one process and two ranks
+    d = generate(os.path.join(work, "tp_data"), n_train=TP_EVA_IMAGES, n_val=1, size_px=224,
+                 dino_dim=DINO_DIM, seed=SEED + 5)
+    argv = ["--model", TP_EVA_MODEL, "--train-data", d["train_csv"], "--dataset-type", "csv",
+            "--batch-size", str(TP_EVA_BATCH), "--precision", "bf16", "--opt", "adafactor",
+            "--adam-mu-dtype", "bfloat16", "--grad-checkpointing", "--remat-policy",
+            "dots_with_no_batch_dims_saveable", "--use_dino_general", "--soft_mode",
+            "kl_teacher", "--lambda_soft", "0.5", "--teacher_temp", "0.15", "--use_projection",
+            "--projection_type", "mlp", "--dino_fts_path", d["dino_feats"],
+            "--dino_index_map_path", d["dino_index_map"], "--epochs", "1", "--save-frequency",
+            "0", "--lr", "5e-4", "--warmup", "2", "--workers", "4", "--seed", str(SEED),
+            "--log-every-n-steps", "1", "--aug-cfg", "scale=(1.0, 1.0)", "--logs", work,
+            "--device", DEVICE]
+    one_env = {"OMP_NUM_THREADS": str(threads)}
+    one_fut = pool.submit(_child, "train", {"argv": argv + ["--name", "tp-one"],
+                                            "eva_layers": TP_EVA_LAYERS}, one_env, 400)
+    eva_pair = _submit_ranks(pool, "train", {"argv": argv + ["--name", "tp-2",
+                                                             "--mesh-model-axis",
+                                                             str(TP_AXIS), "--shard-opt-state",
+                                                             "--dist-backend", "gloo"],
+                                             "eva_layers": TP_EVA_LAYERS}, TP_AXIS,
+                             timeout=500, threads=threads)
+    return lambda: _finish_tp(t_phase, [{**a.result(), **b.result()} for a, b in zip(*pairs)],
+                              one_fut, eva_pair)
+
+
+def _finish_tp(t_phase: float, ranks: list, one_fut, eva_pair: list) -> dict:
+    """``start_tp``'s checks and lines, once its processes end."""
+    import math
+
     total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
 
     def add(launches):
         for k in total:
             total[k] += launches.get(k, 0)
 
-    ranks = tp_pair(d, pre)
     want = (24, 24) if DEVICE == "cuda" else (0, 0)
     for route in ("replicated", "zero1"):
         rs = [r[route] for r in ranks]
@@ -5193,25 +5384,8 @@ def phase_tp(work: str, d: dict, pre: dict) -> dict:
 
     tp_serve_report(ranks, add)
 
-    # (b) EVA01-g-14 through train.main, one process and two ranks
-    d = generate(os.path.join(work, "tp_data"), n_train=TP_EVA_IMAGES, n_val=1, size_px=224,
-                 dino_dim=DINO_DIM, seed=SEED + 5)
-    argv = ["--model", TP_EVA_MODEL, "--train-data", d["train_csv"], "--dataset-type", "csv",
-            "--batch-size", str(TP_EVA_BATCH), "--precision", "bf16", "--opt", "adafactor",
-            "--adam-mu-dtype", "bfloat16", "--grad-checkpointing", "--remat-policy",
-            "dots_with_no_batch_dims_saveable", "--use_dino_general", "--soft_mode",
-            "kl_teacher", "--lambda_soft", "0.5", "--teacher_temp", "0.15", "--use_projection",
-            "--projection_type", "mlp", "--dino_fts_path", d["dino_feats"],
-            "--dino_index_map_path", d["dino_index_map"], "--epochs", "1", "--save-frequency",
-            "0", "--lr", "5e-4", "--warmup", "2", "--workers", "4", "--seed", str(SEED),
-            "--log-every-n-steps", "1", "--aug-cfg", "scale=(1.0, 1.0)", "--logs", work,
-            "--device", DEVICE]
-    one = _child("train", {"argv": argv + ["--name", "tp-one"], "eva_layers": TP_EVA_LAYERS},
-                 {}, timeout=400)
-    tp = _children("train", {"argv": argv + ["--name", "tp-2", "--mesh-model-axis",
-                                             str(TP_AXIS), "--shard-opt-state",
-                                             "--dist-backend", "gloo"],
-                             "eva_layers": TP_EVA_LAYERS}, TP_AXIS, timeout=500)
+    one = one_fut.result()
+    tp = [f.result() for f in eva_pair]
     steps = len(one["losses"])
     blocks = TP_EVA_LAYERS + 12  # vision + text, each recomputed once
     want_b = ((2 * blocks, blocks) if DEVICE == "cuda" else (0, 0))
@@ -6503,11 +6677,335 @@ def phase_zoo_eva02(add, cosine) -> dict:
     return out
 
 
+def _bn_buffers(model) -> dict:
+    """Copies of ``model``'s BatchNorm running statistics."""
+    return {k: v.detach().clone() for k, v in model.named_buffers() if ".running_" in k}
+
+
+def _set_bn_buffers(model, stats: dict) -> None:
+    import torch
+
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            if k in stats:
+                v.copy_(stats[k])
+
+
+def _convnet_step_vs_plain(model, head, cfg, batch, name: str, want: dict, what: str) -> dict:
+    """One loss and every gradient of ``cfg`` through the kernels against
+    plain attention (``STEP_TOL``: bf16 all tensors together; fp32 every
+    tensor whose gradient is at least 1e-6 of the whole norm, the others
+    within 1e-6 of it, as §2's CoCa row: the pool's key bias gradient is
+    zero but for rounding), each from the same BatchNorm statistics; the
+    statistics after the two runs against each other (1e-6 of a tensor's
+    largest element: BatchNorm comes before the pool, so the attention route
+    cannot move them). The kernel run's launches must be ``want``."""
+    import torch
+
+    loss_tol, min_cos = STEP_TOL[name]
+    start = _bn_buffers(model)
+
+    def run():
+        _set_bn_buffers(model, start)
+        _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+        loss, grads = _loss_and_grads(model, head, cfg, batch)
+        torch.cuda.synchronize()
+        return loss, grads, _read_counts(), _bn_buffers(model)
+
+    loss_k, grads_k, counts, stats_k = run()
+    _set_attn_impl(model, "xla")
+    loss_p, grads_p, _, stats_p = run()
+    _set_attn_impl(model, "auto")
+    _set_bn_buffers(model, start)
+    cos, together = _grad_cosines(grads_k, grads_p)
+    whole = sum(float(g.double().norm()) ** 2 for g in grads_p.values()) ** 0.5
+    small = {n for n, g in grads_p.items() if float(g.double().norm()) < 1e-6 * whole}
+    small_err = max([float((grads_k[n].double() - grads_p[n].double()).norm()) / whole
+                     for n in small] or [0.0])
+    held_cos = {n: c for n, c in cos.items() if n not in small}
+    lowest = min(held_cos, key=held_cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    stats_rel = max([float((stats_k[k] - stats_p[k]).abs().max())
+                     / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_k] or [0.0])
+    moved = sum(not torch.equal(stats_k[k], start[k]) for k in start)
+    held = together if name == "bfloat16" else held_cos[lowest]
+    print(f"convnets {what} {cfg.loss_type} step {name} batch {batch['images'].shape[0]}: loss "
+          f"{loss_k:.6f} through the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol "
+          f"{loss_tol:g}); gradient cosine all tensors together {together:.7f}, per tensor "
+          f"lowest {held_cos[lowest]:.7f} at {lowest} (need "
+          f"{'together' if name == 'bfloat16' else 'per tensor'} >= {min_cos}), {len(small)} "
+          f"tensors under 1e-6 of the whole norm within {small_err:.2e} of it; BatchNorm "
+          f"statistics: {moved} of {len(start)} moved, kernel vs plain route {stats_rel:.2e} "
+          f"(need <= 1e-6); launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"the {what} {name} step launched {counts}")
+    check(rel <= loss_tol and held >= min_cos and small_err <= 1e-6 and math.isfinite(loss_k)
+          and stats_rel <= 1e-6 and moved == len(start),
+          f"the {what} {name} step through the kernels disagrees with plain attention")
+    return {"loss": loss_k, "together": together, "min_cosine": held_cos[lowest],
+            "stats_rel": stats_rel}
+
+
+def phase_convnets(work: str) -> dict:
+    """The convolution towers (phase 13d, the module docstring): (a) RN50
+    by its ``openai`` tag from a seeded fp16 TorchScript archive, loaded
+    exactly, fp32 features through the kernels against plain attention (1
+    launch an image call, 12 a text call), its tower time at
+    ``CONVNET_BUCKETS``; (b) its DINO-soft step in bf16 and fp32 against
+    plain attention (13 + 13 launches), the running statistics equal
+    between the routes, and bit for bit unchanged under
+    ``freeze_bn_stats``; (c) RN50x64 at 448 px, one fp32 forward against
+    plain attention; (d) convnext_base_w by its tag, exactly, features (0 +
+    12 launches), tower time, the bf16 checkpointed step (24 + 12); (e)
+    convnext_large_d's mlp head loaded exactly from ``visual.head.mlp.*``,
+    one fp32 forward. Returns the launches and numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, get_model_config, get_tokenizer, openai,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.factory import load_weights
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.resnet import BatchNorm2d
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+    out = {"launches": total}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    def features(model, batch, what, want_counts):
+        """fp32 image and text features through the kernels against plain
+        attention (the main path's launches added)."""
+        got, counts = {}, {}
+        for kind, fn, x in (("image", model.encode_image, batch["images"]),
+                            ("text", model.encode_text, batch["texts"])):
+            with torch.no_grad():
+                _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+                got[kind] = fn(x, normalize=True).float()
+                torch.cuda.synchronize()
+                counts[kind] = _read_counts()
+                add(counts[kind])
+                _set_attn_impl(model, "xla")
+                want = fn(x, normalize=True).float()
+                _set_attn_impl(model, "auto")
+            cos = float(torch.nn.functional.cosine_similarity(got[kind].double(), want.double(),
+                                                              dim=-1).min())
+            n_want = want_counts[kind]
+            print(f"convnets {what} encode_{kind} fp32 batch {x.shape[0]}: launches "
+                  f"{counts[kind]} (expected {n_want} fused forward), cosine vs plain attention "
+                  f"min {cos:.8f} (need >= {MIN_COSINE})", flush=True)
+            check(counts[kind] == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                                   "fused_attention_bwd": 0} and cos >= MIN_COSINE
+                  and bool(torch.isfinite(got[kind]).all()),
+                  f"{what}'s encode_{kind} through the kernels")
+        return got
+
+    def tower_times(model, batch, what):
+        lat = {}
+        for b in CONVNET_BUCKETS:
+            x, t = batch["images"][:b], batch["texts"][:b]
+            with torch.inference_mode():
+                for kind, fn, arg in (("image", model.encode_image, x),
+                                      ("text", model.encode_text, t)):
+                    lat[f"{kind} b{b}"] = time_ms(lambda: fn(arg), iters=10)
+                    lat[f"{kind} b{b} host"] = _host_ms(lambda: fn(arg))
+        print(f"time convnets {what} tower fp32 per call (CUDA events; host clock with a sync, "
+              f"median of 10), ms: { {k: round(v, 4) for k, v in lat.items()} } [{CARD}]",
+              flush=True)
+        return lat
+
+    cache = os.path.join(work, "convnets_hub")
+    dino = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
+
+    # ---- (a) RN50 by its openai tag: a seeded OpenAI TorchScript archive ----
+    t0 = time.perf_counter()
+    src, _ = create_model(RN_MODEL, device="cpu", seed=SEED + 90)
+    g = torch.Generator().manual_seed(SEED + 91)
+    with torch.no_grad():  # running statistics away from their init
+        for m in src.modules():
+            if isinstance(m, BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    sd = src.state_dict()
+    want_sd = {k: v.half().float() for k, v in sd.items()}
+    sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(1000)
+               for k in list(sd) if k.endswith(".running_mean")})
+    del src
+    archive = openai.save_openai_archive(sd, os.path.join(work, "RN50.pt"))
+    hub_id = get_pretrained_cfg(RN_MODEL, RN_TAG)["hf_hub"].rstrip("/")
+    _write_hub_repo(cache, hub_id, {"open_clip_pytorch_model.bin": archive})
+    model, _ = create_model(RN_MODEL, pretrained=RN_TAG, cache_dir=cache, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    exact = _exactly(model, want_sd)
+    print(f"convnets (a) {RN_MODEL} ({n_params:,} parameters) from its {RN_TAG!r} tag (a seeded "
+          f"fp16 TorchScript archive with num_batches_tracked, hub repo {hub_id}): loaded "
+          f"exactly {exact} in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(exact, f"{RN_MODEL} by its tag does not hold the archive's values")
+    tokenizer = get_tokenizer(RN_MODEL)
+    batch = _train_batch(tokenizer, CONVNET_BATCH, DEVICE, model_name=RN_MODEL, seed=SEED + 92)
+    b8 = {k: v[:max(CONVNET_BUCKETS)] for k, v in batch.items()}
+    stats0 = _bn_buffers(model)
+    features(model, b8, f"(a) {RN_MODEL}", {"image": 1, "text": 12})
+    out["rn50_tower_ms"] = tower_times(model, b8, f"(a) {RN_MODEL}")
+    check(all(torch.equal(v, stats0[k]) for k, v in _bn_buffers(model).items()),
+          "serving moved the running statistics")
+
+    # ---- (b) its DINO-soft step, bf16 and fp32, and with the freeze flag ----
+    model.train()
+    torch.manual_seed(SEED + 93)
+    head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 13, "fused_attention_bwd": 13}
+    for name, dtype, n in (("bfloat16", torch.bfloat16, CONVNET_BATCH),
+                           ("float32", torch.float32, CONVNET_FP32_BATCH)):
+        _set_compute_dtype(model, dtype)
+        out[f"rn50_step_{name}"] = _convnet_step_vs_plain(
+            model, head, dino, {k: v[:n] for k, v in batch.items()}, name, want, f"(b) {RN_MODEL}")
+        add(want)
+    _set_compute_dtype(model, torch.bfloat16)
+    frozen = dataclasses.replace(dino, freeze_bn_stats=True)
+    _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+    loss, _ = _loss_and_grads(model, head, frozen, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    kept = all(torch.equal(v, stats0[k]) for k, v in _bn_buffers(model).items())
+    print(f"convnets (b) {RN_MODEL} bf16 step at {CONVNET_BATCH} with freeze_bn_stats: loss "
+          f"{loss:.6f}, running statistics bit for bit unchanged {kept}, launches {counts}",
+          flush=True)
+    check(kept and counts == want and math.isfinite(loss), "the frozen step moved the statistics")
+
+    def fwd_bwd():
+        _loss_and_grads(model, head, dino, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["rn50_step_bf16_ms"] = time_ms(fwd_bwd, iters=3)
+    out["rn50_step_bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time convnets (b) {RN_MODEL} bf16 DINO-soft forward and backward at "
+          f"{CONVNET_BATCH}: {out['rn50_step_bf16_ms']:.3f} ms (CUDA events), peak "
+          f"{out['rn50_step_bf16_peak_gib']:.3f} GiB [{CARD}]", flush=True)
+    del model, head, batch, b8
+    torch.cuda.empty_cache()
+    out["rn50_seconds"] = time.perf_counter() - t_phase
+    print(f"convnets (a)-(b): {out['rn50_seconds']:.1f} s", flush=True)
+
+    # ---- (c) RN50x64 at 448 px, full width ----
+    t0 = time.perf_counter()
+    if RN_BIG_BLOCKS is not None:  # the time limit: fewer blocks a stage
+        layers = get_model_config(RN_BIG)["vision_cfg"]["layers"]
+        _cut_vision_depth(RN_BIG, [min(n, RN_BIG_BLOCKS) for n in layers])
+    model, _ = create_model(RN_BIG, device=DEVICE, seed=SEED + 94)
+    n_params = sum(p.numel() for p in model.parameters())
+    blocks = [len(getattr(model.visual, f"layer{i}")) for i in range(1, 5)]
+    x = torch.from_numpy(np.random.default_rng(SEED + 95).normal(
+        size=(RN_BIG_BATCH, 448, 448, 3)).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+        got = model.encode_image(x, normalize=True)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        add(counts)
+        _set_attn_impl(model, "xla")
+        ref = model.encode_image(x, normalize=True)
+        _set_attn_impl(model, "auto")
+    cos = float(torch.nn.functional.cosine_similarity(got.double(), ref.double(), dim=-1).min())
+    print(f"convnets (c) {RN_BIG} ({n_params:,} parameters, blocks {blocks}) fp32 at 448 px "
+          f"batch {RN_BIG_BATCH}: launches {counts} (expected 1 fused forward, "
+          f"[{RN_BIG_BATCH},64,1,64] over 197 keys), cosine vs plain attention min {cos:.8f} "
+          f"(need >= {MIN_COSINE}); {time.perf_counter() - t0:.1f} s with the build", flush=True)
+    check(counts == {"flash_attention_fwd": 0, "fused_attention_fwd": 1, "fused_attention_bwd": 0}
+          and cos >= MIN_COSINE and bool(torch.isfinite(got).all()), f"{RN_BIG}'s forward")
+    del model, x, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- (d) convnext_base_w by its tag: a seeded open_clip file in the hub cache ----
+    t0 = time.perf_counter()
+    src, _ = create_model(CN_MODEL, device="cpu", seed=SEED + 96)
+    sd = src.state_dict()
+    del src
+    hub_id = get_pretrained_cfg(CN_MODEL, CN_TAG)["hf_hub"].rstrip("/")
+    _write_hub_repo(cache, hub_id, {"open_clip_pytorch_model.bin": sd})
+    model, _ = create_model(CN_MODEL, pretrained=CN_TAG, cache_dir=cache, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    exact = _exactly(model, sd)
+    print(f"convnets (d) {CN_MODEL} ({n_params:,} parameters) from its {CN_TAG!r} tag (hub repo "
+          f"{hub_id}): loaded exactly {exact} in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(exact, f"{CN_MODEL} by its tag does not hold the written values")
+    tokenizer = get_tokenizer(CN_MODEL)
+    batch = _train_batch(tokenizer, CONVNET_BATCH, DEVICE, model_name=CN_MODEL, seed=SEED + 97)
+    b8 = {k: v[:max(CONVNET_BUCKETS)] for k, v in batch.items()}
+    t1 = time.perf_counter()
+    features(model, b8, f"(d) {CN_MODEL}", {"image": 0, "text": 12})
+    t2 = time.perf_counter()
+    out["convnext_tower_ms"] = tower_times(model, b8, f"(d) {CN_MODEL}")
+    print(f"convnets (d) seconds: features {t2 - t1:.1f}, tower times "
+          f"{time.perf_counter() - t2:.1f}", flush=True)
+    t1 = time.perf_counter()
+    model.train().set_grad_checkpointing(True)
+    torch.manual_seed(SEED + 98)
+    head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
+    _set_compute_dtype(model, torch.bfloat16)
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 24, "fused_attention_bwd": 12}
+    out["convnext_step_bfloat16"] = _convnet_step_vs_plain(
+        model, head, dino, batch, "bfloat16", want, f"(d) {CN_MODEL} checkpointed")
+    add(want)
+    print(f"convnets (d) seconds: the step against plain attention "
+          f"{time.perf_counter() - t1:.1f}", flush=True)
+
+    def cn_fwd_bwd():
+        _loss_and_grads(model, head, dino, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["convnext_step_bf16_ms"] = time_ms(cn_fwd_bwd, iters=3)
+    out["convnext_step_bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time convnets (d) {CN_MODEL} bf16 DINO-soft forward and backward at {CONVNET_BATCH} "
+          f"under --grad-checkpointing: {out['convnext_step_bf16_ms']:.3f} ms (CUDA events), "
+          f"peak {out['convnext_step_bf16_peak_gib']:.3f} GiB [{CARD}]", flush=True)
+    del model, head, batch, b8, sd
+    torch.cuda.empty_cache()
+    print(f"convnets (d): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (e) convnext_large_d: the mlp head from open_clip's keys ----
+    t0 = time.perf_counter()
+    model, _ = create_model(CN_MLP, device=DEVICE, seed=SEED + 99)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}  # on the card
+    head_keys = sorted(k for k in sd if k.startswith("visual.head."))
+    with torch.no_grad():  # the head away from what the state dict holds
+        for k, v in model.state_dict().items():
+            if k in head_keys:
+                v.zero_()
+    load_weights(model, sd, strict=True)
+    exact = all(torch.equal(v, sd[k]) for k, v in model.state_dict().items())
+    tokenizer = get_tokenizer(CN_MLP)
+    batch = _train_batch(tokenizer, 8, DEVICE, model_name=CN_MLP, seed=SEED + 100)
+    print(f"convnets (e) {CN_MLP}: head keys {head_keys}, loaded exactly {exact}", flush=True)
+    check(exact and "visual.head.mlp.fc1.weight" in head_keys
+          and "visual.head.mlp.fc2.weight" in head_keys, f"{CN_MLP}'s mlp head")
+    features(model, batch, f"(e) {CN_MLP}", {"image": 0, "text": 16})
+    print(f"convnets (e): {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, batch, sd
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"convnets: {out['seconds']:.1f} s, launches {total}", flush=True)
+    return out
+
+
 # every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
 CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
               "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
               "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES", "ZOO_CASES",
-              "ZOO_BWD_CASES", "EVA02_CASES", "EVA02_BWD_CASES")
+              "ZOO_BWD_CASES", "EVA02_CASES", "EVA02_BWD_CASES", "CONVNET_CASES",
+              "CONVNET_BWD_CASES")
 
 
 def run_subset(keep, phases) -> None:
@@ -6587,10 +7085,6 @@ def main() -> None:
         carried, probes_end = probes.result()
     print(f"gloo probes ended {probes_end:.1f} s after the start", flush=True)
     _elapsed("gloo probes")
-    worst = phase_kernels()
-    _elapsed("kernels")
-    worst_bwd = phase_kernels_bwd()
-    _elapsed("kernels_bwd")
     engine, plain, serve_launches = phase_serve()
     _elapsed("serve")
     export_launches = phase_export(engine)
@@ -6637,6 +7131,8 @@ def main() -> None:
         _elapsed("int8")
         zoo = phase_zoo(work, data, pre)
         _elapsed("zoo")
+        convnets = phase_convnets(work)
+        _elapsed("convnets")
         zs = phase_zero_shot(data, pre, work)
         _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
@@ -6649,18 +7145,20 @@ def main() -> None:
         _elapsed("accum")
         giant = phase_giant(work)
         _elapsed("giant")
-        dist_launches = phase_dist(work, carried)
-        _elapsed("dist")
-        tp = phase_tp(work, data, pre)
-        _elapsed("tp")
+        # the kernels against their plain and float64 versions (phases 3, 3b
+        # and 7: checks that time nothing) run beside the processes
+        dist_launches, tp, preempted, (worst, worst_bwd, worst_flash) = phase_processes(
+            work, carried, data, pre, config2,
+            beside=lambda: (phase_kernels(), phase_kernels_bwd(), phase_kernels_flash()))
+        _elapsed("dist, tp and the preempted run, and phases 3, 3b and 7")
+        phase_config2_resume(work, config2, preempted)
+        _elapsed("config2 resume")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     bwd_rows = phase_bwd_times("bfloat16")
     _elapsed("bwd_times")
     bwd_rows32 = phase_bwd_times("float32")
     _elapsed("bwd_times")
-    worst_flash = phase_kernels_flash()
-    _elapsed("kernels_flash")
     long_launches = phase_train_long()
     _elapsed("train_long")
     phase_train_cli_long()
@@ -6681,12 +7179,12 @@ def main() -> None:
         + teacher_launches + extract_launches + live["fused_attention_fwd"]
         + pre["launches"]["fused_attention_fwd"] + zs["counts"]["fused_attention_fwd"]
         + ft["counts"]["fused_attention_fwd"] + off["fused_attention_fwd"]
-        + config2["fused_attention_fwd"] + accum["fused_attention_fwd"]
+        + config2["launches"]["fused_attention_fwd"] + accum["fused_attention_fwd"]
         + giant["launches"]["fused_attention_fwd"] + dist_launches["fused_attention_fwd"]
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
         + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
         + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"]
-        + pp["fused_attention_fwd"],
+        + pp["fused_attention_fwd"] + convnets["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -6726,15 +7224,20 @@ def main() -> None:
                    **by_case[_case_key(case)]}
                   for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                   for case in EVA02_CASES],
+        "convnets": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                      **by_case[_case_key(case)]}
+                     for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                     for case in CONVNET_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
         "launches": train_bwd + eval_cli["fused_attention_bwd"] + live["fused_attention_bwd"]
-        + ft["counts"]["fused_attention_bwd"] + config2["fused_attention_bwd"]
+        + ft["counts"]["fused_attention_bwd"] + config2["launches"]["fused_attention_bwd"]
         + accum["fused_attention_bwd"] + giant["launches"]["fused_attention_bwd"]
         + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
         + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"]
-        + zoo["launches"]["fused_attention_bwd"] + pp["fused_attention_bwd"],
+        + zoo["launches"]["fused_attention_bwd"] + pp["fused_attention_bwd"]
+        + convnets["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -6770,6 +7273,10 @@ def main() -> None:
                    **by_case[_case_key(case)]}
                   for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                   for case in EVA02_BWD_CASES],
+        "convnets": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                      **by_case[_case_key(case)]}
+                     for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                     for case in CONVNET_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

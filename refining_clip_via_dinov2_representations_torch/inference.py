@@ -18,7 +18,10 @@ captions images with a CoCa model's grouped beam search
   parameter of at least 2 dimensions and ``quantize_min_size`` elements
   (counted on its JAX leaf) but the token and positional tables is kept on
   the device as int8 with a per-output-channel fp32 scale, and is
-  dequantized to fp32 at each use (a ``torch.nn.utils.parametrize``
+  dequantized to fp32 at each use (a convolution's OIHW weight per output
+  channel, dimension 0, as the JAX engine scales its HWIO kernel's last
+  axis; BatchNorm's running statistics are buffers and stay fp32; a
+  ``torch.nn.utils.parametrize``
   parametrization on the attribute), as the JAX engine dequantizes inside
   its jitted call. The products stay ``F.linear``/``torch.matmul`` on the
   dequantized weights: the JAX package forms them in XLA, not in a kernel.

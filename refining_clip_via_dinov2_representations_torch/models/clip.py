@@ -13,9 +13,12 @@ then ``logit_scale`` and ``logit_bias``. The vision tower is the ViT in each of
 its variants (CoCa's attentional pooler, CLIPA's average pool with
 ``ln_post`` after it, timm's ``vit_medium_patch16_gap_256``), the EVA01
 trunk (``models/eva.py``), the EVA02 trunks (``models/eva02.py``: rope,
-SwiGLU, sub-LN), the SigLIP trunk or the relative-position ViT
-(``models/relpos_vit.py``); other towers (other timm trunks, ResNet, HF
-text) raise ``NotImplementedError``. ``build_model`` builds
+SwiGLU, sub-LN), the SigLIP trunk, the relative-position ViT
+(``models/relpos_vit.py``), OpenAI's ModifiedResNet (``models/resnet.py``,
+with BatchNorm's running statistics as buffers) or the ConvNeXt trunk
+(``models/convnext.py``, open_clip's timm layout under ``visual.trunk.``
+and ``visual.head.``); other towers (other timm trunks, HF text) raise
+``NotImplementedError``. ``build_model`` builds
 ``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
@@ -34,11 +37,13 @@ from torch import nn
 
 from ..constants import DEFAULT_INIT_LOGIT_SCALE
 from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
+from .convnext import CONVNEXT_DIMS, ConvNextCfg, ConvNextTower
 from .eva import EVA01_DIMS
 from .eva02 import EVA02_DIMS, Eva02VisionTower
 from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
                      quick_gelu)
 from .relpos_vit import RelPosVisionTower
+from .resnet import ModifiedResNet
 from .siglip import SiglipVisionCfg, SiglipVisionTower, gelu_tanh, parse_siglip_timm_name
 from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransformer,
                           VisionTransformer, encode_text_tokens, remat_args)
@@ -46,8 +51,9 @@ from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransforme
 
 def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the ViT and text-transformer CLIPs, EVA01, EVA02, "
-        f"SigLIP and CoCa so far (ROADMAP Queue 1 item {item})"
+        f"{what}: the PyTorch port builds the ViT, ModifiedResNet, ConvNeXt and "
+        f"text-transformer CLIPs, EVA01, EVA02, SigLIP and CoCa so far (ROADMAP Queue 1 "
+        f"item {item})"
     )
 
 
@@ -66,7 +72,8 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                         remat_policy: str = "full") -> Union[VisionTransformer,
                                                              SiglipVisionTower,
                                                              RelPosVisionTower,
-                                                             Eva02VisionTower]:
+                                                             Eva02VisionTower,
+                                                             ModifiedResNet, ConvNextTower]:
     common = dict(output_dim=embed_dim, attn_impl=attn_impl, compute_dtype=dtype,
                   grad_checkpointing=grad_checkpointing, remat_policy=remat_policy,
                   output_tokens=cfg.output_tokens)
@@ -101,6 +108,14 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                 class_token=d["class_token"], pool_type=d["pool_type"], qkv_bias=d["qkv_bias"],
                 ls_init_value=d["ls_init_value"], no_ln_pre=True, patch_embed_bias=True,
                 act=gelu, norm_eps=1e-6, **common)
+        if cfg.timm_model_name in CONVNEXT_DIMS:  # ``tpu/models/clip.py:240-253``
+            depths, dims = CONVNEXT_DIMS[cfg.timm_model_name]
+            return ConvNextTower(ConvNextCfg(depths=depths, dims=dims), embed_dim,
+                                 image_size=to_2tuple(cfg.image_size)[0],
+                                 proj_type=cfg.timm_proj or "linear",
+                                 proj_bias=cfg.timm_proj_bias, output_tokens=cfg.output_tokens,
+                                 compute_dtype=dtype, grad_checkpointing=grad_checkpointing,
+                                 remat_policy=remat_policy)
         if cfg.timm_model_name not in EVA01_DIMS:
             raise _unsupported(f"timm vision tower {cfg.timm_model_name!r}")
         # the EVA01 trunk: the standard ViT with timm's four differences
@@ -114,8 +129,10 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
             attn_impl=attn_impl, compute_dtype=dtype, grad_checkpointing=grad_checkpointing,
             remat_policy=remat_policy, no_ln_pre=True, proj_bias=True, patch_embed_bias=True,
             norm_eps=1e-6)
-    if cfg.is_resnet:
-        raise _unsupported("ModifiedResNet vision tower")
+    if cfg.is_resnet:  # ``tpu/models/clip.py:283-294``: heads of 64 channels
+        return ModifiedResNet(tuple(cfg.layers), embed_dim, cfg.width * 32 // cfg.head_width,
+                              image_size=to_2tuple(cfg.image_size)[0], width=cfg.width,
+                              attn_impl=attn_impl, compute_dtype=dtype)
     act = quick_gelu if use_quick_gelu else gelu
     if (cfg.act_kwargs or {}).get("approximate") == "tanh":
         act = gelu_tanh
@@ -186,6 +203,23 @@ def _build_text_tower(embed_dim: int, cfg: CLIPTextCfg, use_quick_gelu: bool,
     )
 
 
+class _SkipDefaultInit(torch.overrides.TorchFunctionMode):
+    """torch's default random parameter init skipped while a model is built
+    (its cost is that of the seeded draw): the seeded init, or the strict load
+    of a checkpoint, that follows writes every parameter. A function mode, so
+    it holds for the building thread alone."""
+
+    SKIPPED = frozenset({nn.init.uniform_, nn.init.normal_, nn.init.trunc_normal_,
+                         nn.init.kaiming_uniform_, nn.init.kaiming_normal_,
+                         nn.init.xavier_uniform_, nn.init.xavier_normal_})
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.SKIPPED:
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **kwargs)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0):
     """Seeded random init of ``model``'s layers (torch.Generator on the
@@ -214,7 +248,8 @@ def init_weights(model: nn.Module, seed: int = 0):
             m.in_proj_bias.zero_()
         elif isinstance(m, nn.Linear):
             normal_(m.weight, m.in_features ** -0.5)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             normal_(m.weight, 0.02)
         elif isinstance(m, VisionTransformer):
@@ -232,7 +267,8 @@ def init_weights(model: nn.Module, seed: int = 0):
                     normal_(p, 0.01)
             if isinstance(m.text_projection, nn.Parameter):  # a Linear: the branch above
                 normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
-        elif isinstance(m, (SiglipVisionTower, RelPosVisionTower, Eva02VisionTower)):
+        elif isinstance(m, (SiglipVisionTower, RelPosVisionTower, Eva02VisionTower,
+                            ModifiedResNet, ConvNextTower)):
             m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
@@ -327,29 +363,36 @@ class CLIP(nn.Module):
 
 def build_model(cfg: CLIPModelCfg, dtype: torch.dtype = torch.float32,
                 attn_impl: str = "auto", seed: int = 0,
-                grad_checkpointing: Union[bool, str] = False) -> Union[CLIP, "CoCa"]:
+                grad_checkpointing: Union[bool, str] = False,
+                init: bool = True) -> Union[CLIP, "CoCa"]:
     """Instantiate CLIP (or CoCa, where the config has a ``multimodal_cfg``)
-    from a parsed registry config, seeded-random weights on the CPU.
-    ``grad_checkpointing`` recomputes each residual block of every tower in
-    the backward: true for the ``"full"`` policy, or a policy name of
-    ``models/transformer.py:REMAT_POLICIES`` (the JAX ``remat``)."""
+    from a parsed registry config, seeded-random weights on the CPU (not
+    ``init``: torch's default init only, for a caller that loads every
+    tensor strictly next). ``grad_checkpointing`` recomputes each residual
+    block of every tower in the backward: true for the ``"full"`` policy, or
+    a policy name of ``models/transformer.py:REMAT_POLICIES`` (the JAX
+    ``remat``)."""
     kwargs = dict(init_logit_scale=cfg.init_logit_scale or DEFAULT_INIT_LOGIT_SCALE,
                   init_logit_bias=cfg.init_logit_bias, dtype=dtype, attn_impl=attn_impl,
                   grad_checkpointing=grad_checkpointing)
     if cfg.multimodal_cfg is not None:
         from .coca import CoCa
 
-        model = CoCa(cfg.embed_dim, cfg.vision_cfg, cfg.text_cfg, cfg.multimodal_cfg,
-                     quick_gelu_act=cfg.quick_gelu, **kwargs)
-        init_weights(model, seed)
+        with _SkipDefaultInit():
+            model = CoCa(cfg.embed_dim, cfg.vision_cfg, cfg.text_cfg, cfg.multimodal_cfg,
+                         quick_gelu_act=cfg.quick_gelu, **kwargs)
+        if init:
+            init_weights(model, seed)
         return model
-    model = CLIP(
-        embed_dim=cfg.embed_dim,
-        vision_cfg=cfg.vision_cfg,
-        text_cfg=cfg.text_cfg,
-        quick_gelu=cfg.quick_gelu,
-        **kwargs,
-    )
+    with _SkipDefaultInit():
+        model = CLIP(
+            embed_dim=cfg.embed_dim,
+            vision_cfg=cfg.vision_cfg,
+            text_cfg=cfg.text_cfg,
+            quick_gelu=cfg.quick_gelu,
+            **kwargs,
+        )
     model.custom_text = cfg.custom_text
-    model.init_weights(seed)
+    if init:
+        model.init_weights(seed)
     return model

@@ -26,6 +26,18 @@ carries a JAX gradient tree across to the port's parameter gradients.
 An EVA02 tree (``resblocks_*`` at its top with a SwiGLU or plain MLP, the
 JAX exporter's sniff) gives the port's EVA02 keys (``models/eva02.py``,
 which maps them to timm's and back).
+A ModifiedResNet tree (``attnpool`` in it) gives open_clip's torch layout
+as the JAX exporter's ``emit_resnet`` does (``tpu/models/convert.py:
+445-480``): OIHW convolutions, each BatchNorm's ``weight`` and ``bias``
+with its ``running_mean`` and ``running_var`` from the JAX ``batch_stats``
+(required), ``downsample.0`` (convolution) and ``downsample.1`` (norm). A
+ConvNeXt tree (``stem_conv``) gives timm's names under ``visual.trunk.`` as
+``convnext_params_to_timm_state_dict`` emits them, and its projection as
+open_clip's ``visual.head.proj``, or for the ``"mlp"`` head
+``visual.head.mlp.fc1`` and ``visual.head.mlp.fc2`` (both layers: the JAX
+exporter drops ``head_mlp_fc1`` and writes ``head_proj`` as ``head.proj``,
+ROADMAP "Found in the JAX package"); the text tower at top level, as
+open_clip's ``CLIP`` holds it for both.
 ``jax_head_params_to_state_dict`` does the same for the DINO projection
 head (``losses/dino.py:DinoProjectionHead``), and
 ``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
@@ -36,7 +48,7 @@ inverse of the JAX ``convert_dinov2_state_dict``, giving HF
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -61,6 +73,11 @@ def _t(x, transpose: bool = False) -> torch.Tensor:
     if transpose and arr.ndim == 2:
         arr = arr.T
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def _oihw(kernel) -> torch.Tensor:
+    """An HWIO flax convolution kernel as torch's OIHW."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
 def _emit_block(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any], prefix: str) -> None:
@@ -116,8 +133,7 @@ def _emit_siglip_trunk(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -
     ``head_attn`` kernel split into the head's ``q`` and fused ``kv``."""
     pre = "visual.trunk."
     patch = visual["patch_embedding"]
-    sd[pre + "patch_embed.proj.weight"] = _t(np.transpose(np.asarray(patch["kernel"]),
-                                                          (3, 2, 0, 1)))
+    sd[pre + "patch_embed.proj.weight"] = _oihw(patch["kernel"])
     sd[pre + "patch_embed.proj.bias"] = _t(patch["bias"])
     pos = np.asarray(visual["position_embedding"])
     sd[pre + "pos_embed"] = _t(pos.reshape(1, *pos.shape))
@@ -156,8 +172,7 @@ def _emit_siglip_trunk(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -
 def _emit_relpos(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
     """A JAX ``RelPosVisionTower`` tree in the port's layout (the module
     docstring)."""
-    sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]),
-                                                (3, 2, 0, 1)))
+    sd["visual.conv1.weight"] = _oihw(visual["conv1"]["kernel"])
     sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
     sd["visual.class_embedding"] = _t(visual["class_embedding"])
     for name, block in _blocks(visual):
@@ -180,8 +195,7 @@ def _emit_eva02(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
     """A JAX ``Eva02VisionTower`` tree in the port's layout
     (``models/eva02.py``): the fused ``in_proj`` kept whole, every Dense a
     Linear, the sub-LN and SwiGLU norms as they are."""
-    sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]),
-                                                (3, 2, 0, 1)))
+    sd["visual.conv1.weight"] = _oihw(visual["conv1"]["kernel"])
     sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
     sd["visual.class_embedding"] = _t(visual["class_embedding"])
     sd["visual.positional_embedding"] = _t(visual["positional_embedding"])
@@ -210,6 +224,73 @@ def _emit_eva02(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
     dense("visual.proj", visual["proj"])
 
 
+def _emit_resnet(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any],
+                 stats: Mapping[str, Any]) -> None:
+    """A JAX ``ModifiedResNet`` tree and its ``batch_stats`` in open_clip's
+    torch layout (the module docstring)."""
+    def bn(tree, st, name: str) -> None:
+        sd[name + ".weight"] = _t(tree["scale"])
+        sd[name + ".bias"] = _t(tree["bias"])
+        sd[name + ".running_mean"] = _t(st["mean"])
+        sd[name + ".running_var"] = _t(st["var"])
+
+    for i in "123":
+        sd[f"visual.conv{i}.weight"] = _oihw(visual[f"conv{i}"]["kernel"])
+        bn(visual[f"bn{i}"], stats[f"bn{i}"], f"visual.bn{i}")
+    for name in sorted((k for k in visual if k.startswith("layer")),
+                       key=lambda k: tuple(int(n) for n in k[len("layer"):].split("_"))):
+        stage, block = name[len("layer"):].split("_")
+        pre, tree, st = f"visual.layer{stage}.{block}", visual[name], stats[name]
+        for i in "123":
+            sd[f"{pre}.conv{i}.weight"] = _oihw(tree[f"conv{i}"]["kernel"])
+            bn(tree[f"bn{i}"], st[f"bn{i}"], f"{pre}.bn{i}")
+        if "downsample_conv" in tree:
+            sd[f"{pre}.downsample.0.weight"] = _oihw(tree["downsample_conv"]["kernel"])
+            bn(tree["downsample_bn"], st["downsample_bn"], f"{pre}.downsample.1")
+    pool = visual["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"visual.attnpool.{proj}.weight"] = _t(pool[proj]["kernel"], transpose=True)
+        sd[f"visual.attnpool.{proj}.bias"] = _t(pool[proj]["bias"])
+
+
+def _emit_convnext(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``ConvNextTower`` tree in open_clip's timm layout (the module
+    docstring), the ``"mlp"`` head's two layers included."""
+    pre = "visual.trunk."
+
+    def leaf(name: str, tree: Mapping[str, Any], conv: bool = False) -> None:
+        if "kernel" in tree:
+            kernel = tree["kernel"]
+            sd[f"{name}.weight"] = _oihw(kernel) if conv else _t(kernel, transpose=True)
+        if "scale" in tree:
+            sd[f"{name}.weight"] = _t(tree["scale"])
+        if "bias" in tree:
+            sd[f"{name}.bias"] = _t(tree["bias"])
+
+    leaf(pre + "stem.0", visual["stem_conv"], conv=True)
+    leaf(pre + "stem.1", visual["stem_norm"])
+    for name, tree in visual.items():
+        if name.startswith("downsample_norm_"):
+            leaf(f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.0", tree)
+        elif name.startswith("downsample_conv_"):
+            leaf(f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.1", tree, conv=True)
+        elif name.startswith("stage") and "_block" in name:
+            s, b = name[len("stage"):].split("_block")
+            blk = f"{pre}stages.{s}.blocks.{b}"
+            leaf(f"{blk}.conv_dw", tree["conv_dw"], conv=True)
+            leaf(f"{blk}.norm", tree["norm"])
+            leaf(f"{blk}.mlp.fc1", tree["fc1"])
+            leaf(f"{blk}.mlp.fc2", tree["fc2"])
+            sd[f"{blk}.gamma"] = _t(tree["gamma"])
+    leaf(pre + "head.norm", visual["head_norm"])
+    if "head_mlp_fc1" in visual:
+        leaf("visual.head.mlp.fc1", visual["head_mlp_fc1"])
+        leaf("visual.head.mlp.fc2", visual["head_proj"])
+    else:
+        leaf("visual.head.proj", visual["head_proj"])
+
+
 def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
     """A JAX ``TextTransformer`` tree under the prefix ``tp``; its
     projection a matrix, a Dense (``proj_bias``: ``text_projection.weight``
@@ -230,14 +311,20 @@ def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) ->
         sd[f"{tp}text_projection"] = _t(proj)
 
 
-def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX CLIP, SigLIP or CoCa params (``variables["params"]``) -> open_clip
-    state dict: CLIP's text tower at top level; SigLIP's in open_clip's
+def jax_params_to_state_dict(params: Mapping[str, Any],
+                             batch_stats: Optional[Mapping[str, Any]] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX CLIP, SigLIP or CoCa params (``variables["params"]``, or the
+    variables themselves) -> open_clip state dict; a ModifiedResNet's
+    running statistics come from ``batch_stats`` (else the variables'
+    ``"batch_stats"``). CLIP's text tower at top level; SigLIP's in open_clip's
     CustomTextCLIP layout (the trunk in timm's names under ``visual.trunk.``,
     the text tower under ``text.``, ``logit_bias``), as the JAX exporter
     emits it; CoCa's text under ``text.``, with its attentional poolers
     (``visual.attn_pool``, ``visual.attn_pool_contrastive``) and its decoder
     (``text_decoder.resblocks``, ``text_decoder.cross_attn``)."""
+    if batch_stats is None:
+        batch_stats = params.get("batch_stats")
     params = params.get("params", params)
     visual, text = params["visual"], params["text"]
     coca = "text_decoder" in params
@@ -249,6 +336,17 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd: Dict[str, torch.Tensor] = {}
     if "resblocks_0" in visual and "relative_position_bias_table" in visual["resblocks_0"]:
         _emit_relpos(sd, visual)
+        _emit_text(sd, text, "")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        return sd
+    if "attnpool" in visual or "stem_conv" in visual:
+        if "attnpool" in visual:
+            if batch_stats is None or "visual" not in batch_stats:
+                raise ValueError("a ModifiedResNet tree needs its batch_stats (BatchNorm's "
+                                 "running statistics)")
+            _emit_resnet(sd, visual, batch_stats["visual"])
+        else:
+            _emit_convnext(sd, visual)
         _emit_text(sd, text, "")
         sd["logit_scale"] = _t(params["logit_scale"])
         return sd
@@ -269,7 +367,7 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             "jax_params_to_state_dict covers the standard ViT vision tower; "
             f"this tree has {sorted(visual)}"
         )
-    sd["visual.conv1.weight"] = _t(np.transpose(np.asarray(visual["conv1"]["kernel"]), (3, 2, 0, 1)))
+    sd["visual.conv1.weight"] = _oihw(visual["conv1"]["kernel"])
     if "bias" in visual["conv1"]:  # EVA01's biased patch embedding
         sd["visual.conv1.bias"] = _t(visual["conv1"]["bias"])
     for name in ("class_embedding", "positional_embedding"):  # a GAP or sin-cos tower lacks one
@@ -333,8 +431,7 @@ def jax_dinov2_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torc
     sd: Dict[str, torch.Tensor] = {
         "embeddings.cls_token": _t(np.asarray(params["cls_token"]).reshape(1, 1, d)),
         "embeddings.position_embeddings": _t(pos.reshape(1, -1, d)),
-        "embeddings.patch_embeddings.projection.weight": _t(
-            np.transpose(np.asarray(patch["kernel"]), (3, 2, 0, 1))),
+        "embeddings.patch_embeddings.projection.weight": _oihw(patch["kernel"]),
         "embeddings.patch_embeddings.projection.bias": _t(patch["bias"]),
     }
     for name, blk in _blocks(params, "blocks"):

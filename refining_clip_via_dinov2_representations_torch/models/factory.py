@@ -135,7 +135,11 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
     """Loads ``state_dict`` into ``model`` as the JAX ``_merge_params``
     merges (an EVA01 or EVA02 CustomTextCLIP layout converted first,
     ``models/eva.py``, ``models/eva02.py``; a SigLIP model takes that
-    layout as it is):
+    layout as it is; another model whose text tower sits at top level takes
+    a ``text.``-prefixed tower there, as the JAX exporter writes it beside a
+    ConvNeXt trunk; BatchNorm's ``num_batches_tracked``, which OpenAI's and
+    open_clip's ResNet files carry and the JAX package neither writes nor
+    reads, is dropped):
     ``visual.positional_embedding`` and ``positional_embedding`` of
     another length are resized, another tensor of the same size reshaped,
     values cast to the parameters' dtype; ``attn_mask`` buffers are skipped.
@@ -147,7 +151,11 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
                    if isinstance(getattr(model, "visual", None), Eva02VisionTower)
                    else convert_eva_clip_state_dict)
         state_dict = convert(state_dict)
-    sd = {k: v for k, v in state_dict.items() if not k.endswith("attn_mask")}
+    if "token_embedding.weight" in own and "text.token_embedding.weight" in state_dict:
+        state_dict = {k[len("text."):] if k.startswith("text.") else k: v
+                      for k, v in state_dict.items()}
+    sd = {k: v for k, v in state_dict.items()
+          if not k.endswith(("attn_mask", "num_batches_tracked"))}
     loaded = {}
     for k, v in sd.items():
         if k not in own:
@@ -271,8 +279,9 @@ def create_model(
     if require_pretrained and not checkpoint_path:
         raise RuntimeError(f"no pretrained weights resolved for {model_name}")
     cfg = parse_model_cfg(raw_cfg)
+    # a checkpoint overwrites every tensor (strict), so no seeded draw first
     model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl, seed=seed,
-                        grad_checkpointing=grad_checkpointing)
+                        grad_checkpointing=grad_checkpointing, init=not checkpoint_path)
     if checkpoint_path:
         load_checkpoint(model, checkpoint_path, strict=True)
     model = model.to(device=device, dtype=param_dtype).eval()

@@ -40,7 +40,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.Module):

@@ -99,7 +99,7 @@ def load_openai_model(name_or_path: str, precision: str = "fp32", device="cuda",
     state_dict = load_openai_state_dict(checkpoint_path)
     cfg = parse_model_cfg(infer_openai_config(state_dict))
     compute_dtype, param_dtype = _precision_to_dtype(precision)
-    model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl)
+    model = build_model(cfg, dtype=compute_dtype, attn_impl=attn_impl, init=False)
     load_weights(model, state_dict, strict=True)
     return model.to(device=device, dtype=param_dtype).eval()
 

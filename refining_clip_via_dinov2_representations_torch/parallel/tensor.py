@@ -25,7 +25,10 @@ ordinary contiguous ``[B, H/m, L, d]`` tensors of this rank's heads.
   dimension (``gather_from_model``: the backward keeps this rank's columns).
 * Everything else is whole on every rank: LayerNorms, the class and
   positional embeddings, the patch embedding, the projections, LayerScale,
-  CoCa's attentional pooler (its flax leaves match no JAX pattern).
+  CoCa's attentional pooler (its flax leaves match no JAX pattern), and
+  the convolution towers (the ModifiedResNet and ConvNeXt: the JAX rule
+  keeps them replicated), so their ranks run the same tower on the same
+  rows while the text tower splits as before.
 
 So a block runs one all-reduce in the attention and one in the MLP, forward
 and backward alike. Every replicated activation and every replicated
@@ -196,6 +199,11 @@ _ROW = ("attn.out_proj.weight", "mlp.c_proj.weight", "attention.output.dense.wei
 # flax leaves (``attn_pool/{q,k,v,out}_proj``) match no JAX pattern, so it
 # stays whole
 _WHOLE = "attn_pool.attn."
+# the convolution towers stay whole on every rank, as ``tpu/parallel/mesh.py:
+# _param_spec`` says of them: ConvNeXt's blocks and head (whose ``mlp.fc1``
+# and ``mlp.fc2`` the endings above would match) and the ResNet (whose names
+# match none)
+_WHOLE_TOWERS = ("visual.trunk.stages.", "visual.head.")
 # the DINO head (``losses/dino.py:DinoProjectionHead``, names without a prefix)
 _HEAD_COLUMN = {"fc1.weight": 1, "fc1.bias": 1}
 _HEAD_ROW = ("fc2.weight",)
@@ -205,7 +213,8 @@ def param_split(name: str, head: bool = False) -> Optional[Split]:
     """The split of parameter ``name`` over the model group, or None where it
     stays whole. ``head``: ``name`` is the DINO head's."""
     column, row = (_HEAD_COLUMN, _HEAD_ROW) if head else (_COLUMN, _ROW)
-    if not head and (name.startswith(_WHOLE) or "." + _WHOLE in name):
+    if not head and (name.startswith(_WHOLE) or "." + _WHOLE in name
+                     or name.startswith(_WHOLE_TOWERS)):
         return None
     for end, packs in column.items():
         if name == end or name.endswith("." + end):

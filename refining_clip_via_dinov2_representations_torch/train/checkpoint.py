@@ -4,7 +4,9 @@ asynchronous writes, remote discovery, resume, the interop export.
 The port of the JAX package's ``train/checkpoint.py`` (which writes Orbax
 directories) for one process. ``checkpoints/epoch_N.pt`` holds:
 
-* ``state_dict``: the model in open_clip's layout, so
+* ``state_dict``: the model in open_clip's layout (a ModifiedResNet's
+  BatchNorm running statistics among its buffers, so a resume continues
+  them; ``tpu/train/checkpoint.py:153-154,235-258``), so
   ``models.create_model(pretrained=path)`` and
   ``inference.create_engine(checkpoint=path)`` load it strictly;
 * ``dino_head`` (the DINO projection head's state dict, or None),

@@ -12,7 +12,10 @@ caption cross-entropy (``maybe_compute_generative_loss``, a row's mean over
 its positions, the pad positions included, as in JAX) as
 ``val_generative_loss``. The first evaluation
 round of an epoch also runs the zero-shot ImageNet evaluation
-(``train/zero_shot.py``; frequency-gated there), as in the JAX package.
+(``train/zero_shot.py``; frequency-gated there), as in the JAX package. A
+BatchNorm tower (``models/resnet.py``) normalises with its running
+statistics, which evaluation, zero-shot and the CLIP-blind check never
+change: only the train step's ``batch_norm_mode`` updates them.
 
 Across ranks every rank reads the whole val set (the loaders are not
 sharded) and takes part: each batch is padded to a multiple of the world

@@ -82,7 +82,9 @@ its validation adds ``val_generative_loss``. ``--distill-model`` with
 CLIP teacher built by ``create_model`` at ``--precision`` and loaded by its
 tag or file: in eval mode, whole on every rank (outside DDP, ZeRO-1, FSDP
 and the model axis) and in no checkpoint. ``--use_CyClip`` takes the CyCLIP
-loss.
+loss. A ModifiedResNet (``RN*``) trains its BatchNorm running statistics
+(``train/step.py``); ``--lock-image --lock-image-freeze-bn-stats`` keeps
+them, and patch dropout is off for it, with the JAX CLI's warning.
 
 The run trains on the CUDA card unless ``--force-cpu`` (or ``--device``)
 asks for another device; with no card it raises. Flags the port does not
@@ -460,6 +462,7 @@ def _main(args):
     from ..eval.clip_blind import run_clip_blind_on_split
     from ..losses import DinoLossCfg, DinoProjectionHead
     from ..models.factory import _precision_to_dtype, create_model, get_tokenizer
+    from ..models.resnet import has_batch_norm
     from ..transform import raw_uint8_transform
     from .checkpoint import export_torch_checkpoint, restore_checkpoint, save_checkpoint
     from .data import (DinoFeatureStore, _clone_args, get_csv_dataset, get_data,
@@ -650,6 +653,15 @@ def _main(args):
             use_layernorm=args.use_layernorm, residual_projection=args.residual_projection,
             residual_alpha=args.residual_alpha, with_diagnostics=args.dbg_print_every > 0,
         )
+        want_patch_dropout = (bool(args.force_patch_dropout)
+                              or getattr(model.visual, "patch_dropout", None) is not None)
+        if want_patch_dropout and has_batch_norm(model):
+            # the JAX step ties BN's mode to ``deterministic``, so a BatchNorm
+            # tower never runs PatchDropout (``tpu/train/main.py:545-553``)
+            logging.warning(
+                "--force-patch-dropout has no effect on BatchNorm towers: PatchDropout is "
+                "disabled so BN statistics handling stays correct (see train/step.py)")
+            want_patch_dropout = False
         step_cfg = StepCfg(
             loss_type=loss_type,
             coca_caption_loss_weight=args.coca_caption_loss_weight,
@@ -661,8 +673,8 @@ def _main(args):
             enable_warmup_dino_hyperparams=args.enable_warmup_dino_hyperparams,
             warmup=args.warmup, log_grad_norm=bool(args.grad_clip_norm) or args.debug,
             # forced from the CLI or set in the model's config, as in the JAX CLI
-            use_patch_dropout=(bool(args.force_patch_dropout)
-                               or model.visual.patch_dropout is not None),
+            use_patch_dropout=want_patch_dropout,
+            freeze_bn_stats=bool(args.lock_image and args.lock_image_freeze_bn_stats),
             device_preprocess=device_pp,
         )
         train_step = make_train_step(model, step_cfg, head, dino_teacher, group=group,

@@ -3,10 +3,15 @@
 The port of the JAX package's ``train/optim.py``. Groups, with their lr and
 weight decay:
 
-  1. ``heads``: ``text_projection``, every non-visual name containing
-     "proj" (so every text-tower ``in_proj``/``out_proj``/``c_proj``
-     parameter) and the DINO projection head — ``head_lr``, wd 0;
+  1. ``heads``: ``text_projection``, a ResNet's attention pool
+     (``visual.attnpool.*``, its positional table too), every non-visual
+     name containing "proj" (so every text-tower
+     ``in_proj``/``out_proj``/``c_proj`` parameter) and the DINO projection
+     head — ``head_lr``, wd 0;
   2. ``logit_scale``: ``logit_scale_lr``, wd 0;
+  2b. ``resnet_l4`` and ``resnet_l3``: a ResNet's ``visual.layer4.*`` and
+     ``visual.layer3.*`` — ``resnet_lr4`` and ``resnet_lr3`` (the fork's
+     groups);
   3. ``text``: the unlocked text blocks (``--lock-text-unlocked-layers``),
      visual blocks whose index falls in that range too, and every
      ``token_embedding``/``positional_embedding`` (the visual one included)
@@ -195,11 +200,18 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
             return "frozen" if cfg.freeze_projection else "heads"
         if "text_projection" in p:
             return "heads"
+        if p.startswith("visual.attnpool."):  # the ResNet's pool, its positions too
+            return "heads"
         # every "proj" outside the visual tower joins the heads group
         if "proj" in p and "visual" not in p:
             return "heads"
         if "logit_scale" in p:
             return "logit_scale"
+        # the fork's ResNet groups (its main.py:577-601)
+        if p.startswith("visual.layer4."):
+            return "resnet_l4"
+        if p.startswith("visual.layer3."):
+            return "resnet_l3"
         if cfg.text_tower_style == "clip":  # the reference's block loop
             tb = _text_block(p)
             if tb is not None and tb >= text_start and n_unlock_text > 0:

@@ -48,7 +48,6 @@ import logging
 UNPORTED = {
     "imagenet_train": "ImageNet train subset (ROADMAP Queue 1 item 15)",
     "force_custom_text": "custom-text towers (ROADMAP Queue 1 item 14)",
-    "lock_image_freeze_bn_stats": "BatchNorm towers",
     "compile_cache": "a JAX compilation cache",
     "profile": "the step profiler",
 }

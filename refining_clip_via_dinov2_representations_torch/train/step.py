@@ -93,7 +93,18 @@ preprocessed once, before both phases of ``accumulate_grads``: the cached
 and the live pass see the same pixels, and so do the live DINOv2 teacher
 and the distillation teacher.
 
-BatchNorm towers raise ``NotImplementedError``.
+BatchNorm towers (``models/resnet.py``: OpenAI's ModifiedResNet) train as
+the JAX step trains them (``tpu/train/step.py:259-283``): every forward of
+the loss runs under ``batch_norm_mode``, so BatchNorm normalises with the
+batch's statistics and updates its running ones, unless
+``freeze_bn_stats`` (``--lock-image --lock-image-freeze-bn-stats``) keeps
+the running ones, which then normalise and never change. ``--lock-image``
+alone still updates them, as in JAX. Under accumulation they update once in
+every encode pass: ``accum`` times in phase 1, then ``accum`` more in phase
+2, continuing from phase 1's. Under a group they are the statistics of the
+global batch (the per-channel moments averaged over the data ranks, forward
+and backward), as GSPMD reduces them over every row of the JAX step. Patch
+dropout is off for them (``train/main.py`` warns, as the JAX CLI does).
 """
 
 from __future__ import annotations
@@ -111,6 +122,7 @@ from ..losses import (DinoLossCfg, clip_loss, coca_loss, cyclip_loss, dino_enhan
                       distill_clip_loss)
 from ..losses.contrastive import SIGLIP_DIST_IMPLS, group_rank_size, siglip_loss
 from ..losses.dino import DinoProjectionHead
+from ..models.resnet import batch_norm_mode, has_batch_norm
 from .optim import HEAD_PREFIX, GroupOptimizer, global_norm
 
 LN100 = math.log(100.0)
@@ -136,6 +148,7 @@ class StepCfg:
     enable_warmup_dino_hyperparams: bool = False
     warmup: int = 10000
     use_patch_dropout: bool = False
+    freeze_bn_stats: bool = False  # BatchNorm normalises with, and keeps, its running stats
     device_preprocess: Optional[Tuple] = None
     log_grad_norm: bool = False
     siglip_dist_impl: str = "bidir"  # bidir | shift | gather | reduce
@@ -262,6 +275,7 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
     per-sample rows and batch scalars; ``loss_fn.compute_metrics`` the
     losses from them."""
     towers = towers if towers is not None else Towers(model, head)
+    train_bn = has_batch_norm(model) and not cfg.freeze_bn_stats
 
     def encode_fn(batch: Dict[str, torch.Tensor], step: int,
                   generator: Optional[torch.Generator] = None):
@@ -271,7 +285,8 @@ def make_loss_fn(model: torch.nn.Module, cfg: StepCfg,
             if dino_feats is None and dino_teacher is not None:
                 dino_feats = dino_teacher.extract(batch["images"])
         project = dino_feats is not None and cfg.dino.use_projection and head is not None
-        out = towers(batch["images"], batch["texts"], generator, project)
+        with batch_norm_mode(model, train_bn, group):
+            out = towers(batch["images"], batch["texts"], generator, project)
         rows = {"img_f": out["image_features"], "txt_f": out["text_features"]}
         scalars: Dict[str, Any] = {"logit_scale": out["logit_scale"]}
         if cfg.loss_type == "dino":

@@ -28,7 +28,10 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "chip_tp_serve_phase.py",
                                       REPO / "scripts" / "coca_fp32_gradients.py",
                                       REPO / "scripts" / "dispatch_cost.py",
-                                      REPO / "scripts" / "chip_preprocess_eva02_phase.py"]
+                                      REPO / "scripts" / "chip_preprocess_eva02_phase.py",
+                                      REPO / "scripts" / "chip_convnets_phase.py",
+                                      REPO / "scripts" / "chip_processes_phase.py",
+                                      REPO / "scripts" / "convnext_memory_format.py"]
 
 
 def _imported(node):
@@ -52,7 +55,8 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/train/zero_shot.py", f"{PORT.name}/models/coca.py",
                  f"{PORT.name}/inference.py", f"{PORT.name}/parallel/tensor.py",
                  f"{PORT.name}/native/__init__.py", f"{PORT.name}/ops/preprocess.py",
-                 f"{PORT.name}/models/eva02.py"):
+                 f"{PORT.name}/models/eva02.py", f"{PORT.name}/models/resnet.py",
+                 f"{PORT.name}/models/convnext.py"):
         assert must in names
 
 

@@ -102,15 +102,16 @@ def test_vit_b16_widths_depth1_matches_jax():
 
 @pytest.mark.parametrize("overrides", [
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_224"}},
-    {"vision_cfg": {"layers": [3, 4, 6, 3], "width": 64}},
+    # the ModifiedResNet and ConvNeXt towers are ported (tests/test_torch_resnet.py,
+    # tests/test_torch_convnext.py); the Swin and ViTamin trunks are not
+    {"vision_cfg": {"timm_model_name": "swin_base_patch4_window7_224"}},
     {"text_cfg": {"hf_model_name": "bert-base-uncased"}},
     {"text_cfg": {"embed_cls": True}},
     # CoCa is ported (tests/test_torch_coca.py); its HF-text-tower variant
     # (coca_roberta-ViT-B-32) is not
     {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
-    # the CLIPA towers are ported (tests/test_torch_vit_variants.py); the
-    # ConvNeXt trunks are not
-    {"vision_cfg": {"timm_model_name": "convnext_base"}},
+    # the CLIPA towers are ported (tests/test_torch_vit_variants.py)
+    {"vision_cfg": {"timm_model_name": "vitamin_base_224"}},
     # SigLIP's text options are ported (tests/test_torch_siglip.py); its
     # global-average-pooled `_gap` trunks are not
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_gap_224"}},
@@ -136,3 +137,66 @@ def test_registry_holds_vit_b16_and_b32():
         assert get_model_config(name) == jax_get_model_config(name), name
     cfg = parse_model_cfg(get_model_config("ViT-B-16"))
     assert (cfg.vision_cfg.heads, cfg.vision_cfg.seq_len, cfg.text_cfg.heads) == (12, 197, 8)
+
+
+def _family_cfg(family, monkeypatch):
+    """A small config of each tower family ``build_model`` builds (the
+    fixed-width timm ViTs at their own size)."""
+    from refining_clip_via_dinov2_representations_torch.models import convnext, eva02, siglip
+
+    from .torch_coca_utils import TINY_COCA
+
+    text = {"context_length": 12, "vocab_size": 49408, "width": 32, "heads": 4, "layers": 1}
+    timm = {"timm_model_pretrained": False, "timm_pool": "", "timm_proj": "linear"}
+    if family == "vit":
+        return TINY_CFG
+    if family == "coca":
+        return TINY_COCA
+    if family == "resnet":
+        return {"embed_dim": 32, "text_cfg": text,
+                "vision_cfg": {"image_size": 64, "layers": [1, 1, 1, 1], "width": 8,
+                               "patch_size": None}}
+    if family == "convnext":
+        monkeypatch.setitem(convnext.CONVNEXT_DIMS, "convnext_tiny_test",
+                            ((1, 1, 1, 1), (8, 16, 32, 64)))
+        return {"embed_dim": 32, "text_cfg": text,
+                "vision_cfg": {"image_size": 64, "timm_model_name": "convnext_tiny_test",
+                               **timm, "timm_proj": "mlp"}}
+    if family == "siglip":
+        monkeypatch.setitem(siglip._SIGLIP_FAMILY_DIMS, "base", (32, 2, 4, 64))
+        return {"embed_dim": 32, "custom_text": True, "init_logit_bias": -10,
+                "text_cfg": {**text, "no_causal_mask": True, "pool_type": "last",
+                             "proj_bias": True},
+                "vision_cfg": {"image_size": 32, "timm_model_name": "vit_base_patch8_siglip_32",
+                               **timm, "timm_pool": "map", "timm_proj": "none"}}
+    if family == "eva02":
+        monkeypatch.setitem(eva02.EVA02_DIMS, "eva02_tiny_test", eva02.Eva02Cfg(
+            width=32, layers=2, heads=4, mlp_hidden=40, patch_size=8, image_size=24,
+            ref_feat_shape=(2, 2)))
+        return {"embed_dim": 24, "custom_text": True, "text_cfg": text,
+                "vision_cfg": {"image_size": 24, "timm_model_name": "eva02_tiny_test",
+                               **timm, "timm_pool": "token", "timm_proj": None}}
+    name = {"relpos": "vit_relpos_medium_patch16_cls_224",
+            "gap": "vit_medium_patch16_gap_256"}[family]
+    return {"embed_dim": 32, "text_cfg": text,
+            "vision_cfg": {"image_size": 256 if family == "gap" else 224,
+                           "timm_model_name": name, **timm}}
+
+
+@pytest.mark.parametrize("family", ["vit", "coca", "resnet", "convnext", "siglip", "eva02",
+                                    "relpos", "gap"])
+def test_a_build_skips_only_the_default_init_that_the_seeded_init_overwrites(family,
+                                                                             monkeypatch):
+    """``build_model`` constructs without torch's default random init: the
+    seeded init writes every tensor, so the model equals one built with it."""
+    import contextlib
+
+    from refining_clip_via_dinov2_representations_torch.models import clip
+
+    cfg = parse_model_cfg(_family_cfg(family, monkeypatch))
+    fast = build_model(cfg, seed=3).state_dict()
+    monkeypatch.setattr(clip, "_SkipDefaultInit", contextlib.nullcontext)
+    want = build_model(cfg, seed=3).state_dict()
+    assert fast.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(fast[k], v), k

@@ -206,3 +206,44 @@ def seed_bert_snapshot(cache: str, repo: str = "bert-base-uncased") -> str:
     with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
         json.dump(BERT_TOKENIZER_CONFIG, f)
     return snap
+
+
+def jax_drawn_clip(cfg_dict, seed: int = 0, noise: float = 0.05):
+    """(flax CLIP, variables) with numpy-drawn fp32 params on the tree's
+    shapes (``jax.eval_shape``: nothing is compiled for the init): norm
+    scales 1 + N(0, noise), other vectors N(0, noise), token embeddings
+    N(0, 0.02), matrices and kernels N(0, fan_in^-1/2), the logit scale at
+    ln(1/0.07); a BatchNorm tower's ``batch_stats`` drawn too (means
+    N(0, 0.1), variances U(0.5, 1.5)), so running statistics differ from
+    their init."""
+    import jax
+    import jax.numpy as jnp
+
+    from refining_clip_via_dinov2_representations_tpu.models import (
+        build_model, parse_model_cfg,
+    )
+
+    cfg = parse_model_cfg(cfg_dict)
+    model = build_model(cfg, attn_impl="xla")
+    size = cfg.vision_cfg.image_size
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3)),
+                            jnp.zeros((1, cfg.text_cfg.context_length), jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        shape = leaf.shape
+        if "logit_scale" in name:
+            return np.asarray(np.log(1 / 0.07), np.float32)
+        if "['mean']" in name:
+            return rng.normal(0.0, 0.1, shape).astype(np.float32)
+        if "['var']" in name:
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        if "token_embedding" in name:
+            return rng.normal(0.0, 0.02, shape).astype(np.float32)
+        std = noise if len(shape) < 2 else float(np.prod(shape[:-1])) ** -0.5
+        x = rng.normal(0.0, std, shape).astype(np.float32)
+        return x + 1.0 if name.endswith("['scale']") else x
+
+    variables = jax.tree_util.tree_map_with_path(draw, dict(shapes))
+    return model, variables
