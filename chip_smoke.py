@@ -198,6 +198,27 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     loaded exactly from open_clip's ``visual.head.mlp.*`` keys, one fp32
     forward (16 text launches). The new shapes (``CONVNET_CASES``) are
     checked and timed in phases 3, 3b, 5 and 6.
+13e. hybrids — the hybrid and windowed towers, in the main process: (a)
+    ViTamin-L (456,994,113 parameters) seeded and written in open_clip's
+    timm layout (the text under ``text.``) as ``pytorch_model.bin`` in the
+    hub cache of its ``datacomp1b`` tag, loaded by tag exactly; fp32
+    features through the kernels against plain attention (cosine >= 0.9999;
+    31 fused launches an image call, 12 a text call), the tower time at
+    buckets 1 and 8; (b) its bf16 DINO-soft step at 32 under
+    ``--grad-checkpointing`` against plain attention (``STEP_TOL``; 86 + 43
+    launches: the ViT stage and the text recomputed), its time and peak
+    memory; (c) ViTamin-L-384 at full width (576 vision tokens, ViTamin-L's
+    weights and a seeded position table), one fp32 forward at 8 under
+    ``--attn-impl flash`` (31 flash launches, no fused forward) and under
+    ``"auto"`` (31 fused forwards at 576 tokens), each against plain
+    attention; (d) swin_base_patch4_window7_224 seeded: fp32 features (0
+    launches an image call: every window attention carries a mask and runs
+    plain, as in JAX; 12 a text call), its bf16 DINO-soft step at 32 against
+    the fp32 step through plain attention (the bf16 step row's tolerances;
+    every ``relative_position_bias_table`` gradient among the tensors; 12 +
+    12). The new shapes (``HYBRID_CASES``, ``HYBRID_BWD_CASES``,
+    ``HYBRID_FLASH_CASES``) are checked in phases 3, 3b and 7 and timed in
+    5, 6 and 9.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -309,7 +330,21 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     ``train.main``, bf16, batch 16, one process and two ranks: per-step
     losses at 1e-2 relative, each rank's peak memory beside the one
     process's, 2 x (``TP_EVA_LAYERS`` + 12) + (``TP_EVA_LAYERS`` + 12)
-    launches a rank a step. In a second pair of processes:
+    launches a rank a step. After (a) and (c), in the same pair, the towers
+    parts, each split over the two ranks against the whole model in the
+    process on the same rows and weights (fp32, the CLIP loss, batch
+    ``TP_TOWER_BATCH``: loss 1e-5 relative, every whole gradient at cosine
+    >= 0.9999): towers (e) EVA02-L-14 at full width, ``TP_TOWER_LAYERS`` of
+    its 24 vision blocks (sub-LN and SwiGLU norms over the local width, their
+    whole gradients compared), 2 + 12 forward and backward launches a rank
+    at ``[8,8,257,64]`` / ``[8,6,77,64]``; towers (f) EVA02-E-14's vision
+    tower at full width, ``TP_TOWER_LAYERS`` of 64 blocks, one forward at
+    ``[8,8,257,112]``, features against the whole tower's (cosine >=
+    0.9999); towers (g) vit_relpos_medium_patch16_cls_224 and
+    swin_base_patch4_window7_224 at full depth (each bias table whole,
+    sliced to the rank's heads, its whole gradient compared; 0 + 12
+    launches) and ViTamin-L with ``TP_TOWER_LAYERS`` ViT blocks (2 + 12).
+    In a second pair of processes:
     (d) ViT-B-16 fp32 served at ``(1, 2)`` through the engine's follower
     protocol (rank 0 drives) against the one-process engine (cosine >=
     0.9999), 12 launches a tower call on each rank at ``[8,6,197,64]`` /
@@ -509,6 +544,8 @@ FLASH_CASES = [
 ]
 FLASH_TIMED = [(32, 16, 577, 577, 64, False, "bfloat16"), (32, 16, 577, 577, 64, False, "float32"),
                (32, 12, 577, 577, 64, False, "bfloat16"), (32, 12, 577, 577, 64, False, "float32")]
+# ViTamin-L-384's vision call under "flash" (phase 13e (c))
+FLASH_TIMED += [(8, 16, 576, 576, 64, False, "bfloat16"), (8, 16, 576, 576, 64, False, "float32")]
 LONG_MODEL, LONG_BATCH, CLI_LONG_SAMPLES = "ViT-L-14-336", 32, 96
 # the long-sequence phases' vision depth: ViT-L-14-336's 24 blocks cut to 2
 # to keep the script inside its time limit (width, 577 tokens and every
@@ -688,6 +725,44 @@ CONVNET_CASES = [(8, 32, 1, 50, 64, False), (64, 32, 1, 50, 64, False),
                  (64, 10, 77, 77, 64, True)]
 CONVNET_BWD_CASES = [(8, 32, 1, 50, 64, False), (64, 32, 1, 50, 64, False),
                      (64, 10, 77, 77, 64, True)]
+# The hybrid and windowed towers (phase 13e, after convnets). ViTamin-L from
+# the seeded hub cache of its ``datacomp1b`` tag (``pytorch_model.bin`` in
+# open_clip's timm layout, the text under ``text.``), served fp32 at
+# HYBRID_BUCKETS, its bf16 DINO-soft step at HYBRID_BATCH under
+# --grad-checkpointing; ViTamin-L-384 at full width (ViTamin-L's weights, a
+# seeded 576-row position table), one fp32 forward at 8 under "flash" and
+# under "auto"; swin_base_patch4_window7_224 seeded, fp32 features and its
+# bf16 step at HYBRID_BATCH against the fp32 plain step. Their attention
+# calls, (B, H, Lq, Lk, D, causal): ViTamin-L's vision [b,16,196,64] at the
+# serving bucket and the step (forward and backward), its text [8,12,77,64]
+# causal (the step's [32,12,77,64] is ZOO_CASES' teacher text, its backward
+# here), ViTamin-L-384's 576 queries through the fused forward ("auto") and
+# the flash forward (HYBRID_FLASH_CASES), Swin's text at the step's 32
+# (the b8 one is CONVNET_CASES'); Swin's windows carry a mask and run plain.
+# The tp pair's parts (e)-(g) at each rank's local heads (model axis 2,
+# batch TP_TOWER_BATCH): EVA02-L-14 [8,8,257,64] and its text [8,6,77,64]
+# causal (ViTamin-L's text too), EVA02-E-14's [8,8,257,112], Swin's text
+# [8,5,77,64] causal and ViTamin-L's [8,8,196,64] (relpos's text is
+# TP_SERVE_CASES' [8,4,77,64]). Checked in both dtypes (phases 3, 3b, 7);
+# HYBRID_TIMED and HYBRID_BWD_CASES timed in phases 5 and 6
+HYBRID_MODEL, HYBRID_TAG, HYBRID_384, SWIN_MODEL = ("ViTamin-L", "datacomp1b", "ViTamin-L-384",
+                                                    "swin_base_patch4_window7_224")
+HYBRID_BUCKETS, HYBRID_BATCH = (1, 8), 32
+HYBRID_CASES = [(8, 16, 196, 196, 64, False), (32, 16, 196, 196, 64, False),
+                (8, 12, 77, 77, 64, True), (8, 16, 576, 576, 64, False),
+                (32, 10, 77, 77, 64, True), (8, 8, 257, 257, 64, False),
+                (8, 6, 77, 77, 64, True), (8, 8, 257, 257, 112, False),
+                (8, 5, 77, 77, 64, True), (8, 8, 196, 196, 64, False)]
+HYBRID_TIMED = [c for c in HYBRID_CASES if c != (8, 12, 77, 77, 64, True)]
+HYBRID_BWD_CASES = [(32, 16, 196, 196, 64, False), (32, 12, 77, 77, 64, True),
+                    (32, 10, 77, 77, 64, True), (8, 8, 257, 257, 64, False),
+                    (8, 6, 77, 77, 64, True), (8, 5, 77, 77, 64, True),
+                    (8, 8, 196, 196, 64, False)]
+HYBRID_FLASH_CASES = [(8, 16, 576, 576, 64, False)]
+# (e)-(g): EVA02-L-14's and EVA02-E-14's vision depth cut to TP_TOWER_LAYERS
+# blocks and ViTamin-L's ViT stage to TP_TOWER_LAYERS (the time limit; the
+# widths and every check stay); relpos and Swin at full depth
+TP_TOWER_BATCH, TP_TOWER_LAYERS = 8, 2
 # device preprocessing (phase 9b): the batch and raw size of the resampler's
 # check, its tolerance against float64; the JPEGs of the decoder comparison
 # (made only where the native decoder built),
@@ -821,7 +896,7 @@ def phase_kernels() -> dict:
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
              + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_CASES
-    cases += EVA02_CASES + CONVNET_CASES
+    cases += EVA02_CASES + CONVNET_CASES + HYBRID_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -1103,7 +1178,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
              + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
-    cases += ZOO_CASES + EVA02_CASES + CONVNET_CASES
+    cases += ZOO_CASES + EVA02_CASES + CONVNET_CASES + HYBRID_TIMED
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -1348,7 +1423,7 @@ def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return ([(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
              + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
-            + ZOO_BWD_CASES + EVA02_BWD_CASES + CONVNET_BWD_CASES)
+            + ZOO_BWD_CASES + EVA02_BWD_CASES + CONVNET_BWD_CASES + HYBRID_BWD_CASES)
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -3600,7 +3675,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
     cases += (COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES + EVA02_BWD_CASES
-              + CONVNET_BWD_CASES)
+              + CONVNET_BWD_CASES + HYBRID_BWD_CASES)
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
@@ -3662,7 +3737,7 @@ def phase_kernels_flash() -> dict:
     worst, worst_case = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, (b, h, lq, lk, d, causal) in enumerate(FLASH_CASES):
+        for i, (b, h, lq, lk, d, causal) in enumerate(FLASH_CASES + HYBRID_FLASH_CASES):
             q, k, v = _qkv(b, h, lq, d, dtype, seed=300 + i, lk=lk)
             scale = d ** -0.5
             got = flash_attention_fwd(q, k, v, scale, causal)
@@ -4696,8 +4771,10 @@ def _child_tp(payload: dict) -> dict:
     teacher's CLS features against its split copy's, fp32 and bf16, the
     split call's launches, and the floor: the whole teacher through the
     kernel against itself through plain attention (``"xla"``). Then parts
-    (d)-(h) (``_child_tp_serve``). ``payload["parts"]`` runs only
-    ``"train"`` ((a) and (c)) or ``"serve"`` ((d)-(h)); both by default."""
+    (d)-(h) (``_child_tp_serve``), and the towers parts (e)-(g)
+    (``_child_tp_towers``). ``payload["parts"]`` names the parts to run:
+    ``"train"`` ((a) and (c)), ``"towers"`` (towers (e)-(g)) and ``"serve"``
+    ((d)-(h)); all three by default."""
     import copy
     import dataclasses
     import gc
@@ -4736,8 +4813,12 @@ def _child_tp(payload: dict) -> dict:
     mesh = create_mesh(model=ns.world_size, device_type=dev.type)
     mp = model_parallel(model_group())
     out = {"rank": ns.rank}
-    if "train" not in payload.get("parts", ("train", "serve")):
-        out.update(_child_tp_serve(payload, dev, mesh, mp))
+    parts = payload.get("parts", ("train", "towers", "serve"))
+    if "train" not in parts:
+        if "towers" in parts:
+            out["towers"] = _child_tp_towers(dev, mp)
+        if "serve" in parts:
+            out.update(_child_tp_serve(payload, dev, mesh, mp))
         torch.distributed.barrier()
         torch.distributed.destroy_process_group()
         return out
@@ -4844,11 +4925,146 @@ def _child_tp(payload: dict) -> dict:
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    if "serve" in payload.get("parts", ("train", "serve")):
+    if "towers" in parts:
+        out["towers"] = _child_tp_towers(dev, mp)
+    if "serve" in parts:
         out.update(_child_tp_serve(payload, dev, mesh, mp))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return out
+
+
+def _child_tp_towers(dev, mp) -> dict:
+    """The tp pair's towers parts (e)-(g), each rank, fp32 (TF32 off), the split
+    model against the whole one in this process on the same rows and weights
+    (``_split_vs_whole``; the CLIP loss): (e) EVA02-L-14 at full width, its
+    vision depth cut to ``TP_TOWER_LAYERS``, the sub-LN and SwiGLU norms'
+    whole gradients watched; (f) EVA02-E-14's vision tower at full width,
+    ``TP_TOWER_LAYERS`` of its 64 blocks, one forward (head dim 112 on 8
+    local heads): features against the whole tower's and the split call's
+    launches; (g) vit_relpos_medium_patch16_cls_224 and
+    swin_base_patch4_window7_224 at full depth (the bias tables' whole
+    gradients watched) and ViTamin-L with its ViT stage cut to
+    ``TP_TOWER_LAYERS`` blocks, one step each."""
+    import copy
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models import (
+        create_model, eva02, get_tokenizer, vitamin,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.clip import init_weights
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import shard_module
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
+    cfg = StepCfg(loss_type="clip")
+    out = {}
+    # (name, the trunk table and key to cut, the cut, the watched name endings)
+    steps = ((EVA02_MODEL, eva02.EVA02_DIMS, "eva02_large_patch14_clip_224",
+              {"layers": TP_TOWER_LAYERS}, ("attn.norm.weight", "mlp.norm.weight")),
+             (ZOO_RELPOS, None, None, None, ("relative_position_bias_table",)),
+             (SWIN_MODEL, None, None, None, ("relative_position_bias_table",)),
+             (HYBRID_MODEL, vitamin.VITAMIN_DIMS, "vitamin_large_224",
+              {"depth": TP_TOWER_LAYERS}, ()))
+    for name, table, key, kw, watch in steps:
+        t0 = time.perf_counter()
+        whole = None
+        if table is not None:
+            whole = table[key]
+            table[key] = dataclasses.replace(whole, **kw)
+        try:
+            model, _ = create_model(name, device=dev, seed=SEED + 120)
+        finally:
+            if table is not None:
+                table[key] = whole
+        model.train()
+        batch = _train_batch(get_tokenizer(name), TP_TOWER_BATCH, dev.type, model_name=name,
+                             seed=SEED + 121)
+        res = _split_vs_whole(model, mp, batch, cfg, name, watch)
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        del model, batch
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # (f) EVA02-E-14's vision tower, one forward
+    t0 = time.perf_counter()
+    e_cfg = dataclasses.replace(eva02.EVA02_DIMS["eva02_enormous_patch14_clip_224"],
+                                layers=TP_TOWER_LAYERS)
+    tower = eva02.Eva02VisionTower(e_cfg, 1024)
+    init_weights(tower, SEED + 122)
+    tower = tower.to(dev).eval()
+    split = copy.deepcopy(tower)
+    shard_module(split, mp)
+    x = torch.from_numpy(np.random.default_rng(SEED + 123).normal(
+        size=(TP_TOWER_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        want = tower(x)
+        _sync(dev)
+        _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+        got = split(x)
+        _sync(dev)
+        counts = _read_counts()
+    out[EVA02_E_MODEL] = {
+        "launches": counts, "n_split": len(split.tp_splits), "shape": list(got.shape),
+        "finite": bool(torch.isfinite(got).all()),
+        "min_cosine": float(torch.nn.functional.cosine_similarity(got.double(), want.double(),
+                                                                  dim=-1).min()),
+        "seconds": time.perf_counter() - t0}
+    del tower, split, x, want, got
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_towers_report(ranks: list, add) -> None:
+    """Checks and prints the tp pair's towers parts (e)-(g)
+    (``_child_tp_towers``)."""
+    cuda = DEVICE == "cuda"
+    blocks = {EVA02_MODEL: (TP_TOWER_LAYERS, 12), ZOO_RELPOS: (0, 12), SWIN_MODEL: (0, 12),
+              HYBRID_MODEL: (TP_TOWER_LAYERS, 12)}
+    for name, (vision, text) in blocks.items():
+        rs = [r["towers"][name] for r in ranks]
+        n = vision + text if cuda else 0
+        want = {"flash_attention_fwd": 0, "fused_attention_fwd": n, "fused_attention_bwd": n}
+        rel = max(abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"]) for r in rs)
+        part = "towers (e)" if name == EVA02_MODEL else "towers (g)"
+        print(f"tp {part} {name} fp32 (1, {TP_AXIS}) split vs one process, batch "
+              f"{TP_TOWER_BATCH}: loss {rs[0]['loss']:.7f} vs {rs[0]['ref_loss']:.7f} (max rel "
+              f"{rel:.2e}), min gradient cosine {min(r['min_cosine'] for r in rs):.7f} "
+              f"({rs[0]['min_at']}), the {rs[0]['watched']} watched whole parameters' lowest "
+              f"{min(r['watched_min'] for r in rs):.7f}, {rs[0]['under']} tensors under "
+              f"{COCA_FP32_NOISE:g} of the norm held by their error ({rs[0]['under_ok']}), "
+              f"{rs[0]['n_split']} split tensors, launches a rank "
+              f"{[r['launches'] for r in rs]} (expected {want}), "
+              f"{[round(r['seconds'], 1) for r in rs]} s a rank [{CARD}]", flush=True)
+        check(rel <= 1e-5 and all(r["min_cosine"] >= 0.9999 and r["n_grads"] and r["under_ok"]
+                                  and r["n_split"] > 0 and r["watched_held"] for r in rs),
+              f"tp {part} {name}: the split step disagrees with the one-process step")
+        check(all(r["watched"] > 0 for r in rs) or name == HYBRID_MODEL,
+              f"tp {part} {name}: no whole parameter used on a rank's part was compared")
+        check(all(r["launches"] == want for r in rs), f"tp {part} {name}: launches")
+        for r in rs:
+            add(r["launches"])
+    rs = [r["towers"][EVA02_E_MODEL] for r in ranks]
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": TP_TOWER_LAYERS if cuda else 0,
+            "fused_attention_bwd": 0}
+    print(f"tp towers (f) {EVA02_E_MODEL} vision tower at full width, {TP_TOWER_LAYERS} of 64 blocks, "
+          f"fp32 split over {TP_AXIS} ranks, batch {TP_TOWER_BATCH} (8 local heads of 112): "
+          f"feature cosine vs the whole tower min {min(r['min_cosine'] for r in rs):.8f} (need "
+          f">= {MIN_COSINE}), {rs[0]['n_split']} split tensors, launches a rank "
+          f"{[r['launches'] for r in rs]} (expected {want}), "
+          f"{[round(r['seconds'], 1) for r in rs]} s a rank [{CARD}]", flush=True)
+    check(all(r["finite"] and r["min_cosine"] >= MIN_COSINE and r["launches"] == want
+              and r["shape"] == [TP_TOWER_BATCH, 1024] for r in rs),
+          f"tp towers (f) {EVA02_E_MODEL}: the split tower disagrees with the whole one")
+    for r in rs:
+        add(r["launches"])
 
 
 def _leader_and_followers(engine, lead) -> tuple:
@@ -4867,7 +5083,7 @@ def _leader_and_followers(engine, lead) -> tuple:
     return got, _read_counts()
 
 
-def _split_vs_whole(model, mp, batch, cfg, name: str) -> dict:
+def _split_vs_whole(model, mp, batch, cfg, name: str, watch=()) -> dict:
     """One loss and every gradient of ``model`` split over the model group
     against the whole model in this process, same rows and weights:
     (losses, the lowest cosine of a gradient gathered whole and where, the
@@ -4875,7 +5091,9 @@ def _split_vs_whole(model, mp, batch, cfg, name: str) -> dict:
     phase holds its fp32 step, a tensor whose gradient is under
     ``COCA_FP32_NOISE`` of the whole gradient's norm is held by its absolute
     error against that share (with seeded weights the CoCa pooler's tokens
-    are nearly equal and the cross blocks' query-side gradients cancel)."""
+    are nearly equal and the cross blocks' query-side gradients cancel).
+    ``watch``: name endings whose gradients' count and lowest cosine are
+    returned (the whole parameters a split tower uses on a rank's part)."""
     import copy
 
     from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
@@ -4898,7 +5116,10 @@ def _split_vs_whole(model, mp, batch, cfg, name: str) -> dict:
              if float(g.double().norm()) < COCA_FP32_NOISE * whole_norm}
     held = {n: c for n, c in cos.items() if n not in under}
     worst = min(held, key=held.get)
+    watched = {n: c for n, c in cos.items() if n.endswith(tuple(watch))}
     return {"loss": loss_s, "ref_loss": loss_w, "min_cosine": held[worst], "min_at": worst,
+            "watched": len(watched), "watched_min": min(watched.values(), default=1.0),
+            "watched_held": all(n in held for n in watched),
             "together": together, "launches": counts, "n_split": n_split,
             "n_grads": len(grads_s) == len(grads_w), "under": len(under),
             "under_ok": all(e <= COCA_FP32_NOISE * whole_norm for e in under.values()),
@@ -5295,8 +5516,8 @@ def start_tp(work: str, d: dict, pre: dict, pool, threads: int):
 
     t_phase = time.perf_counter()
     payload = _tp_pair_payload(d, pre)
-    pairs = [_submit_ranks(pool, "tp", {**payload, "parts": [part]}, TP_AXIS, timeout=600,
-                           threads=threads) for part in ("train", "serve")]
+    pairs = [_submit_ranks(pool, "tp", {**payload, "parts": parts}, TP_AXIS, timeout=600,
+                           threads=threads) for parts in (["train", "towers"], ["serve"])]
     # (b) EVA01-g-14 through train.main, one process and two ranks
     d = generate(os.path.join(work, "tp_data"), n_train=TP_EVA_IMAGES, n_val=1, size_px=224,
                  dino_dim=DINO_DIM, seed=SEED + 5)
@@ -5383,6 +5604,7 @@ def _finish_tp(t_phase: float, ranks: list, one_fut, eva_pair: list) -> dict:
             add(r["launches"])
 
     tp_serve_report(ranks, add)
+    tp_towers_report(ranks, add)
 
     one = one_fut.result()
     tp = [f.result() for f in eva_pair]
@@ -6691,7 +6913,8 @@ def _set_bn_buffers(model, stats: dict) -> None:
                 v.copy_(stats[k])
 
 
-def _convnet_step_vs_plain(model, head, cfg, batch, name: str, want: dict, what: str) -> dict:
+def _convnet_step_vs_plain(model, head, cfg, batch, name: str, want: dict, what: str,
+                           phase: str = "convnets") -> dict:
     """One loss and every gradient of ``cfg`` through the kernels against
     plain attention (``STEP_TOL``: bf16 all tensors together; fp32 every
     tensor whose gradient is at least 1e-6 of the whole norm, the others
@@ -6729,7 +6952,7 @@ def _convnet_step_vs_plain(model, head, cfg, batch, name: str, want: dict, what:
                      / max(float(stats_p[k].abs().max()), 1e-30) for k in stats_k] or [0.0])
     moved = sum(not torch.equal(stats_k[k], start[k]) for k in start)
     held = together if name == "bfloat16" else held_cos[lowest]
-    print(f"convnets {what} {cfg.loss_type} step {name} batch {batch['images'].shape[0]}: loss "
+    print(f"{phase} {what} {cfg.loss_type} step {name} batch {batch['images'].shape[0]}: loss "
           f"{loss_k:.6f} through the kernels vs {loss_p:.6f} plain (rel {rel:.2e}, tol "
           f"{loss_tol:g}); gradient cosine all tensors together {together:.7f}, per tensor "
           f"lowest {held_cos[lowest]:.7f} at {lowest} (need "
@@ -6743,6 +6966,56 @@ def _convnet_step_vs_plain(model, head, cfg, batch, name: str, want: dict, what:
           f"the {what} {name} step through the kernels disagrees with plain attention")
     return {"loss": loss_k, "together": together, "min_cosine": held_cos[lowest],
             "stats_rel": stats_rel}
+
+
+def _features_vs_plain(model, batch, what, want_counts, add, phase: str = "convnets") -> dict:
+    """fp32 image and text features of ``model`` through the kernels against
+    plain attention (cosine >= ``MIN_COSINE``); each main-path call's
+    launches must be ``want_counts[kind]`` fused forwards and go to ``add``."""
+    import torch
+
+    got, counts = {}, {}
+    for kind, fn, x in (("image", model.encode_image, batch["images"]),
+                        ("text", model.encode_text, batch["texts"])):
+        with torch.no_grad():
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got[kind] = fn(x, normalize=True).float()
+            torch.cuda.synchronize()
+            counts[kind] = _read_counts()
+            add(counts[kind])
+            _set_attn_impl(model, "xla")
+            want = fn(x, normalize=True).float()
+            _set_attn_impl(model, "auto")
+        cos = float(torch.nn.functional.cosine_similarity(got[kind].double(), want.double(),
+                                                          dim=-1).min())
+        n_want = want_counts[kind]
+        print(f"{phase} {what} encode_{kind} fp32 batch {x.shape[0]}: launches "
+              f"{counts[kind]} (expected {n_want} fused forward), cosine vs plain attention "
+              f"min {cos:.8f} (need >= {MIN_COSINE})", flush=True)
+        check(counts[kind] == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
+                               "fused_attention_bwd": 0} and cos >= MIN_COSINE
+              and bool(torch.isfinite(got[kind]).all()),
+              f"{what}'s encode_{kind} through the kernels")
+    return got
+
+
+def _tower_times(model, batch, buckets, what, phase: str = "convnets") -> dict:
+    """Each tower's fp32 time per call at ``buckets``: CUDA events and the
+    host clock with a sync."""
+    import torch
+
+    lat = {}
+    for b in buckets:
+        x, t = batch["images"][:b], batch["texts"][:b]
+        with torch.inference_mode():
+            for kind, fn, arg in (("image", model.encode_image, x),
+                                  ("text", model.encode_text, t)):
+                lat[f"{kind} b{b}"] = time_ms(lambda: fn(arg), iters=10)
+                lat[f"{kind} b{b} host"] = _host_ms(lambda: fn(arg))
+    print(f"time {phase} {what} tower fp32 per call (CUDA events; host clock with a sync, "
+          f"median of 10), ms: { {k: round(v, 4) for k, v in lat.items()} } [{CARD}]",
+          flush=True)
+    return lat
 
 
 def phase_convnets(work: str) -> dict:
@@ -6784,47 +7057,6 @@ def phase_convnets(work: str) -> dict:
         for k in total:
             total[k] += launches.get(k, 0)
 
-    def features(model, batch, what, want_counts):
-        """fp32 image and text features through the kernels against plain
-        attention (the main path's launches added)."""
-        got, counts = {}, {}
-        for kind, fn, x in (("image", model.encode_image, batch["images"]),
-                            ("text", model.encode_text, batch["texts"])):
-            with torch.no_grad():
-                _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
-                got[kind] = fn(x, normalize=True).float()
-                torch.cuda.synchronize()
-                counts[kind] = _read_counts()
-                add(counts[kind])
-                _set_attn_impl(model, "xla")
-                want = fn(x, normalize=True).float()
-                _set_attn_impl(model, "auto")
-            cos = float(torch.nn.functional.cosine_similarity(got[kind].double(), want.double(),
-                                                              dim=-1).min())
-            n_want = want_counts[kind]
-            print(f"convnets {what} encode_{kind} fp32 batch {x.shape[0]}: launches "
-                  f"{counts[kind]} (expected {n_want} fused forward), cosine vs plain attention "
-                  f"min {cos:.8f} (need >= {MIN_COSINE})", flush=True)
-            check(counts[kind] == {"flash_attention_fwd": 0, "fused_attention_fwd": n_want,
-                                   "fused_attention_bwd": 0} and cos >= MIN_COSINE
-                  and bool(torch.isfinite(got[kind]).all()),
-                  f"{what}'s encode_{kind} through the kernels")
-        return got
-
-    def tower_times(model, batch, what):
-        lat = {}
-        for b in CONVNET_BUCKETS:
-            x, t = batch["images"][:b], batch["texts"][:b]
-            with torch.inference_mode():
-                for kind, fn, arg in (("image", model.encode_image, x),
-                                      ("text", model.encode_text, t)):
-                    lat[f"{kind} b{b}"] = time_ms(lambda: fn(arg), iters=10)
-                    lat[f"{kind} b{b} host"] = _host_ms(lambda: fn(arg))
-        print(f"time convnets {what} tower fp32 per call (CUDA events; host clock with a sync, "
-              f"median of 10), ms: { {k: round(v, 4) for k, v in lat.items()} } [{CARD}]",
-              flush=True)
-        return lat
-
     cache = os.path.join(work, "convnets_hub")
     dino = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
 
@@ -6856,8 +7088,8 @@ def phase_convnets(work: str) -> dict:
     batch = _train_batch(tokenizer, CONVNET_BATCH, DEVICE, model_name=RN_MODEL, seed=SEED + 92)
     b8 = {k: v[:max(CONVNET_BUCKETS)] for k, v in batch.items()}
     stats0 = _bn_buffers(model)
-    features(model, b8, f"(a) {RN_MODEL}", {"image": 1, "text": 12})
-    out["rn50_tower_ms"] = tower_times(model, b8, f"(a) {RN_MODEL}")
+    _features_vs_plain(model, b8, f"(a) {RN_MODEL}", {"image": 1, "text": 12}, add)
+    out["rn50_tower_ms"] = _tower_times(model, b8, CONVNET_BUCKETS, f"(a) {RN_MODEL}")
     check(all(torch.equal(v, stats0[k]) for k, v in _bn_buffers(model).items()),
           "serving moved the running statistics")
 
@@ -6945,9 +7177,9 @@ def phase_convnets(work: str) -> dict:
     batch = _train_batch(tokenizer, CONVNET_BATCH, DEVICE, model_name=CN_MODEL, seed=SEED + 97)
     b8 = {k: v[:max(CONVNET_BUCKETS)] for k, v in batch.items()}
     t1 = time.perf_counter()
-    features(model, b8, f"(d) {CN_MODEL}", {"image": 0, "text": 12})
+    _features_vs_plain(model, b8, f"(d) {CN_MODEL}", {"image": 0, "text": 12}, add)
     t2 = time.perf_counter()
-    out["convnext_tower_ms"] = tower_times(model, b8, f"(d) {CN_MODEL}")
+    out["convnext_tower_ms"] = _tower_times(model, b8, CONVNET_BUCKETS, f"(d) {CN_MODEL}")
     print(f"convnets (d) seconds: features {t2 - t1:.1f}, tower times "
           f"{time.perf_counter() - t2:.1f}", flush=True)
     t1 = time.perf_counter()
@@ -6991,7 +7223,7 @@ def phase_convnets(work: str) -> dict:
     print(f"convnets (e) {CN_MLP}: head keys {head_keys}, loaded exactly {exact}", flush=True)
     check(exact and "visual.head.mlp.fc1.weight" in head_keys
           and "visual.head.mlp.fc2.weight" in head_keys, f"{CN_MLP}'s mlp head")
-    features(model, batch, f"(e) {CN_MLP}", {"image": 0, "text": 16})
+    _features_vs_plain(model, batch, f"(e) {CN_MLP}", {"image": 0, "text": 16}, add)
     print(f"convnets (e): {time.perf_counter() - t0:.1f} s", flush=True)
     del model, batch, sd
     torch.cuda.empty_cache()
@@ -7000,12 +7232,208 @@ def phase_convnets(work: str) -> dict:
     return out
 
 
+def _hub_file_sd(sd: dict) -> dict:
+    """A port CLIP state dict in open_clip's CustomTextCLIP layout, as a timm
+    trunk's hub file holds it: the text tower's parts under ``text.``."""
+    return {k if k.startswith("visual.") or k in ("logit_scale", "logit_bias") else "text." + k: v
+            for k, v in sd.items()}
+
+
+def _swin_bf16_vs_fp32_plain(model, head, cfg, batch, want: dict) -> dict:
+    """Swin's bf16 step through the kernels (the text tower; the windows'
+    masked attention on the JAX package's bf16 backward) against the fp32
+    step through plain attention: loss 1e-2 relative, every gradient
+    together at cosine >= 0.99 (the bf16 step row), each
+    ``relative_position_bias_table``'s gradient among them and printed."""
+    import torch
+
+    loss_tol, min_cos = STEP_TOL["bfloat16"]
+    _set_compute_dtype(model, torch.bfloat16)
+    _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+    loss_k, grads_k = _loss_and_grads(model, head, cfg, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    _set_compute_dtype(model, torch.float32)
+    _set_attn_impl(model, "xla")
+    loss_p, grads_p = _loss_and_grads(model, head, cfg, batch)
+    _set_attn_impl(model, "auto")
+    cos, together = _grad_cosines(grads_k, grads_p)
+    tables = [n for n in cos if n.endswith("relative_position_bias_table")]
+    n_blocks = sum(model.visual.cfg.depths)
+    lowest = min(cos, key=cos.get)
+    low_t = min(tables, key=cos.get)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"hybrids (d) {SWIN_MODEL} DINO-soft step bf16 through the kernels vs fp32 plain, "
+          f"batch {batch['images'].shape[0]}: loss {loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}, "
+          f"tol {loss_tol:g}); gradient cosine all tensors together {together:.7f} (need >= "
+          f"{min_cos}), per tensor lowest {cos[lowest]:.7f} at {lowest}; the {len(tables)} "
+          f"bias tables lowest {cos[low_t]:.7f} at {low_t}; launches {counts}, expected {want}",
+          flush=True)
+    check(counts == want, f"the {SWIN_MODEL} bf16 step launched {counts}")
+    check(len(tables) == n_blocks and grads_k.keys() == grads_p.keys()
+          and rel <= loss_tol and together >= min_cos and math.isfinite(loss_k),
+          f"the {SWIN_MODEL} bf16 step disagrees with the fp32 plain step")
+    return {"loss": loss_k, "together": together, "min_cosine": cos[lowest],
+            "tables_min_cosine": cos[low_t]}
+
+
+def phase_hybrids(work: str) -> dict:
+    """The hybrid and windowed towers (phase 13e, the module docstring): (a)
+    ViTamin-L by its ``datacomp1b`` tag from a seeded hub cache, loaded
+    exactly, fp32 features through the kernels against plain attention (31
+    launches an image call, 12 a text call), its tower time at
+    ``HYBRID_BUCKETS``; (b) its bf16 DINO-soft step at ``HYBRID_BATCH`` under
+    --grad-checkpointing against plain attention (62 + 24 forward, 31 + 12
+    backward launches), its time and peak memory; (c) ViTamin-L-384 at full
+    width, one fp32 forward at 8 under ``"flash"`` (31 flash launches, no
+    fused forward) and under ``"auto"`` (31 fused at 576 tokens), each
+    against plain attention; (d) swin_base_patch4_window7_224 seeded, fp32
+    features (0 + 12 launches) and its bf16 step against the fp32 plain
+    step (12 + 12). Returns the launches and numbers."""
+    import numpy as np
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import (
+        DinoLossCfg, DinoProjectionHead,
+    )
+    from refining_clip_via_dinov2_representations_torch.models import (
+        build_model, create_model, get_model_config, get_tokenizer, parse_model_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+    out = {"launches": total}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    cache = os.path.join(work, "hybrids_hub")
+    dino = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
+
+    # ---- (a) ViTamin-L by its datacomp1b tag: a seeded file in the hub cache ----
+    t0 = time.perf_counter()
+    src, _ = create_model(HYBRID_MODEL, device="cpu", seed=SEED + 110)
+    sd = src.state_dict()
+    del src
+    repo, fname = get_pretrained_cfg(HYBRID_MODEL, HYBRID_TAG)["hf_hub"].rstrip("/").rsplit("/", 1)
+    _write_hub_repo(cache, repo, {fname: _hub_file_sd(sd)})
+    t1 = time.perf_counter()
+    model, _ = create_model(HYBRID_MODEL, pretrained=HYBRID_TAG, cache_dir=cache, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    exact = _exactly(model, sd)
+    print(f"hybrids (a) {HYBRID_MODEL} ({n_params:,} parameters) from its {HYBRID_TAG!r} tag "
+          f"(hub repo {repo}, {fname}, the text under text.): loaded exactly {exact}; seeded and "
+          f"written in {t1 - t0:.2f} s, loaded in {time.perf_counter() - t1:.2f} s", flush=True)
+    check(exact, f"{HYBRID_MODEL} by its tag does not hold the written values")
+    tokenizer = get_tokenizer(HYBRID_MODEL)
+    batch = _train_batch(tokenizer, HYBRID_BATCH, DEVICE, model_name=HYBRID_MODEL,
+                         seed=SEED + 111)
+    b8 = {k: v[:max(HYBRID_BUCKETS)] for k, v in batch.items()}
+    _features_vs_plain(model, b8, f"(a) {HYBRID_MODEL}", {"image": 31, "text": 12}, add,
+                       "hybrids")
+    out["vitamin_tower_ms"] = _tower_times(model, b8, HYBRID_BUCKETS, f"(a) {HYBRID_MODEL}",
+                                           "hybrids")
+    print(f"hybrids (a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (c) ViTamin-L-384: ViTamin-L's weights, a seeded 576-row table ----
+    t0 = time.perf_counter()
+    with torch.device(DEVICE):
+        big = build_model(parse_model_cfg(get_model_config(HYBRID_384)), init=False).eval()
+    own = model.state_dict()
+    g = torch.Generator().manual_seed(SEED + 112)
+    with torch.no_grad():
+        for k, v in big.state_dict().items():
+            v.copy_(own[k] if own[k].shape == v.shape
+                    else (torch.randn(v.shape, generator=g) * 0.02).to(DEVICE))
+    size = get_model_config(HYBRID_384)["vision_cfg"]["image_size"]
+    x = torch.from_numpy(np.random.default_rng(SEED + 113).normal(
+        size=(8, size, size, 3)).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        _set_attn_impl(big, "xla")
+        ref = big.encode_image(x, normalize=True)
+        for impl, want in (("flash", {"flash_attention_fwd": 31, "fused_attention_fwd": 0,
+                                      "fused_attention_bwd": 0}),
+                           ("auto", {"flash_attention_fwd": 0, "fused_attention_fwd": 31,
+                                     "fused_attention_bwd": 0})):
+            _set_attn_impl(big, impl)
+            _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+            got = big.encode_image(x, normalize=True)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            cos = float(torch.nn.functional.cosine_similarity(got.double(), ref.double(),
+                                                              dim=-1).min())
+            print(f"hybrids (c) {HYBRID_384} fp32 batch 8 ({(size // 16) ** 2} vision tokens) "
+                  f"--attn-impl "
+                  f"{impl}: launches {counts} (expected {want}), cosine vs plain attention min "
+                  f"{cos:.8f} (need >= {MIN_COSINE})", flush=True)
+            check(counts == want and cos >= MIN_COSINE and bool(torch.isfinite(got).all()),
+                  f"{HYBRID_384} under {impl}")
+    del big, x, ref, got
+    torch.cuda.empty_cache()
+    print(f"hybrids (c): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (b) its bf16 DINO-soft step under --grad-checkpointing ----
+    t0 = time.perf_counter()
+    model.train().set_grad_checkpointing(True)
+    torch.manual_seed(SEED + 114)
+    head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
+    _set_compute_dtype(model, torch.bfloat16)
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 2 * (31 + 12),
+            "fused_attention_bwd": 31 + 12}
+    out["vitamin_step_bfloat16"] = _convnet_step_vs_plain(
+        model, head, dino, batch, "bfloat16", want, f"(b) {HYBRID_MODEL} checkpointed",
+        "hybrids")
+    add(want)
+
+    def fwd_bwd():
+        _loss_and_grads(model, head, dino, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["vitamin_step_bf16_ms"] = time_ms(fwd_bwd, iters=3)
+    out["vitamin_step_bf16_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"time hybrids (b) {HYBRID_MODEL} bf16 DINO-soft forward and backward at "
+          f"{HYBRID_BATCH} under --grad-checkpointing: {out['vitamin_step_bf16_ms']:.3f} ms "
+          f"(CUDA events), peak {out['vitamin_step_bf16_peak_gib']:.3f} GiB [{CARD}]", flush=True)
+    del model, head, batch, b8, sd, own
+    torch.cuda.empty_cache()
+    print(f"hybrids (b): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (d) swin_base_patch4_window7_224, seeded ----
+    t0 = time.perf_counter()
+    model, _ = create_model(SWIN_MODEL, device=DEVICE, seed=SEED + 115)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokenizer = get_tokenizer(SWIN_MODEL)
+    batch = _train_batch(tokenizer, HYBRID_BATCH, DEVICE, model_name=SWIN_MODEL, seed=SEED + 116)
+    print(f"hybrids (d) {SWIN_MODEL}: {n_params:,} parameters", flush=True)
+    _features_vs_plain(model, {k: v[:8] for k, v in batch.items()}, f"(d) {SWIN_MODEL}",
+                       {"image": 0, "text": 12}, add, "hybrids")
+    model.train()
+    torch.manual_seed(SEED + 117)
+    head = DinoProjectionHead(model.text_projection.shape[1], DINO_DIM, "mlp").to(DEVICE)
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 12, "fused_attention_bwd": 12}
+    out["swin_step"] = _swin_bf16_vs_fp32_plain(model, head, dino, batch, want)
+    add(want)
+    del model, head, batch
+    torch.cuda.empty_cache()
+    print(f"hybrids (d): {time.perf_counter() - t0:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"hybrids: {out['seconds']:.1f} s, launches {total}", flush=True)
+    return out
+
+
 # every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
 CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
               "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
               "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES", "ZOO_CASES",
               "ZOO_BWD_CASES", "EVA02_CASES", "EVA02_BWD_CASES", "CONVNET_CASES",
-              "CONVNET_BWD_CASES")
+              "CONVNET_BWD_CASES", "HYBRID_CASES", "HYBRID_TIMED", "HYBRID_BWD_CASES",
+              "HYBRID_FLASH_CASES")
 
 
 def run_subset(keep, phases) -> None:
@@ -7133,6 +7561,8 @@ def main() -> None:
         _elapsed("zoo")
         convnets = phase_convnets(work)
         _elapsed("convnets")
+        hybrids = phase_hybrids(work)
+        _elapsed("hybrids")
         zs = phase_zero_shot(data, pre, work)
         _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
@@ -7184,7 +7614,8 @@ def main() -> None:
         + tp["launches"]["fused_attention_fwd"] + coca["launches"]["fused_attention_fwd"]
         + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
         + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"]
-        + pp["fused_attention_fwd"] + convnets["launches"]["fused_attention_fwd"],
+        + pp["fused_attention_fwd"] + convnets["launches"]["fused_attention_fwd"]
+        + hybrids["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -7228,6 +7659,10 @@ def main() -> None:
                       **by_case[_case_key(case)]}
                      for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                      for case in CONVNET_CASES],
+        "hybrids": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                     **by_case[_case_key(case)]}
+                    for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                    for case in HYBRID_TIMED],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -7237,7 +7672,8 @@ def main() -> None:
         + dist_launches["fused_attention_bwd"] + tp["launches"]["fused_attention_bwd"]
         + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"]
         + zoo["launches"]["fused_attention_bwd"] + pp["fused_attention_bwd"]
-        + convnets["launches"]["fused_attention_bwd"],
+        + convnets["launches"]["fused_attention_bwd"]
+        + hybrids["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -7277,16 +7713,23 @@ def main() -> None:
                       **by_case[_case_key(case)]}
                      for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                      for case in CONVNET_BWD_CASES],
+        "hybrids": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                     **by_case[_case_key(case)]}
+                    for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                    for case in HYBRID_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,
-        "launches": long_launches + pre["launches"]["flash_attention_fwd"],
+        "launches": long_launches + pre["launches"]["flash_attention_fwd"]
+        + hybrids["launches"]["flash_attention_fwd"],
         "max_abs_err": worst_flash["bfloat16"], "ms": tf["ms"], "plain_ms": tf["plain_ms"],
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"], "library_ms": tf["library_ms"],
         "fp32_shape": list(FLASH_TIMED[1][:3]) + [FLASH_TIMED[1][4]],
         "fp32_max_abs_err": worst_flash["float32"], "fp32_ms": tf32["ms"],
         "fp32_plain_ms": tf32["plain_ms"], "fp32_bound_ms": tf32["bound_ms"],
         "fp32_bound_by": tf32["bound_by"], "fp32_library_ms": tf32["library_ms"],
+        "hybrids": [{"shape": list(case[:5]), "causal": case[5], "dtype": case[6], **row}
+                    for case, row in flash_rows.items() if case[2] == 576],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

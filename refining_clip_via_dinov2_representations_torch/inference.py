@@ -94,6 +94,10 @@ _QUANT_MIN_SIZE = 1 << 14  # the JAX engine's: tensors under 16k elements stay a
 # is the JAX leaf ``position_embedding``, which no skip key names, so it is
 # quantized there and here
 _QUANT_SKIP_ENDINGS = ("token_embedding.weight", "positional_embedding")
+# a ViTamin trunk's ``pos_embed`` is the JAX leaf ``positional_embedding``
+# (skipped), where SigLIP's of the same name is ``position_embedding``
+# (quantized): the trunk is told apart by its stem
+_QUANT_SKIP_IF = {"visual.trunk.pos_embed": "visual.trunk.patch_embed.backbone.stem."}
 # tensors that the exporter assembles from JAX leaves of another size: the
 # size rule counts the leaf's elements (numerator, denominator)
 _QUANT_LEAF_SIZE = {"attn_pool.q.weight": (3, 1),                # head_attn/in_proj_kernel
@@ -142,10 +146,19 @@ def quantize_tensor_int8(w: torch.Tensor, dim: int) -> Int8Weight:
     return Int8Weight(q, scale)
 
 
-def quantizes(name: str, t: torch.Tensor, min_size: int = _QUANT_MIN_SIZE) -> bool:
+def _skipped(names) -> set:
+    """The names among ``names`` that ``_QUANT_SKIP_IF`` skips in this model."""
+    names = list(names)
+    return {n for n, mark in _QUANT_SKIP_IF.items()
+            if n in names and any(m.startswith(mark) for m in names)}
+
+
+def quantizes(name: str, t: torch.Tensor, min_size: int = _QUANT_MIN_SIZE,
+              skip=frozenset()) -> bool:
     """Whether ``quantize_state_dict_int8`` stores tensor ``name`` as int8:
-    the JAX ``quantize_variables_int8`` rule on the port's names."""
-    if name.endswith(_QUANT_SKIP_ENDINGS):
+    the JAX ``quantize_variables_int8`` rule on the port's names (``skip``:
+    the model's ``_skipped`` names)."""
+    if name.endswith(_QUANT_SKIP_ENDINGS) or name in skip:
         return False
     return t.dim() >= 2 and t.is_floating_point() and _leaf_numel(name, t) >= min_size
 
@@ -156,8 +169,9 @@ def quantize_state_dict_int8(state_dict: Mapping[str, torch.Tensor],
     """Each tensor that ``quantizes`` names as an ``Int8Weight``, the others
     as they are: the port of ``quantize_variables_int8`` on an open_clip
     state dict."""
-    return {k: quantize_tensor_int8(v, _channel_dim(k, v)) if quantizes(k, v, min_size) else v
-            for k, v in state_dict.items()}
+    skip = _skipped(state_dict)
+    return {k: quantize_tensor_int8(v, _channel_dim(k, v)) if quantizes(k, v, min_size, skip)
+            else v for k, v in state_dict.items()}
 
 
 def dequantize(state_dict: Mapping[str, Union[torch.Tensor, Int8Weight]],
@@ -185,8 +199,10 @@ def quantize_module_int8(model: nn.Module, min_size: int = _QUANT_MIN_SIZE) -> N
     (on its device) under a ``_Dequantize`` parametrization."""
     from torch.nn.utils import parametrize
 
-    for name, p in list(model.named_parameters()):
-        if not quantizes(name, p, min_size):
+    params = list(model.named_parameters())
+    skip = _skipped(n for n, _ in params)
+    for name, p in params:
+        if not quantizes(name, p, min_size, skip):
             continue
         qw = quantize_tensor_int8(p, _channel_dim(name, p))
         owner_name, _, attr = name.rpartition(".")

@@ -15,9 +15,11 @@ its variants (CoCa's attentional pooler, CLIPA's average pool with
 trunk (``models/eva.py``), the EVA02 trunks (``models/eva02.py``: rope,
 SwiGLU, sub-LN), the SigLIP trunk, the relative-position ViT
 (``models/relpos_vit.py``), OpenAI's ModifiedResNet (``models/resnet.py``,
-with BatchNorm's running statistics as buffers) or the ConvNeXt trunk
+with BatchNorm's running statistics as buffers), the ConvNeXt trunk
 (``models/convnext.py``, open_clip's timm layout under ``visual.trunk.``
-and ``visual.head.``); other towers (other timm trunks, HF text) raise
+and ``visual.head.``), the ViTamin hybrids (``models/vitamin.py``) or the
+Swin trunk (``models/swin.py``), both in timm's layout under
+``visual.trunk.``; other towers (FastViT/MobileCLIP, HF text) raise
 ``NotImplementedError``. ``build_model`` builds
 ``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
 
@@ -45,14 +47,16 @@ from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAtt
 from .relpos_vit import RelPosVisionTower
 from .resnet import ModifiedResNet
 from .siglip import SiglipVisionCfg, SiglipVisionTower, gelu_tanh, parse_siglip_timm_name
+from .swin import SWIN_DIMS, SwinVisionTower
 from .transformer import (TEXT_POOL_TYPES, MultimodalTransformer, TextTransformer,
                           VisionTransformer, encode_text_tokens, remat_args)
+from .vitamin import VITAMIN_DIMS, ViTaminVisionTower
 
 
 def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the ViT, ModifiedResNet, ConvNeXt and "
-        f"text-transformer CLIPs, EVA01, EVA02, SigLIP and CoCa so far (ROADMAP Queue 1 "
+        f"{what}: the PyTorch port builds the ViT, ModifiedResNet, ConvNeXt, ViTamin, Swin "
+        f"and text-transformer CLIPs, EVA01, EVA02, SigLIP and CoCa so far (ROADMAP Queue 1 "
         f"item {item})"
     )
 
@@ -73,7 +77,9 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                                                              SiglipVisionTower,
                                                              RelPosVisionTower,
                                                              Eva02VisionTower,
-                                                             ModifiedResNet, ConvNextTower]:
+                                                             ModifiedResNet, ConvNextTower,
+                                                             ViTaminVisionTower,
+                                                             SwinVisionTower]:
     common = dict(output_dim=embed_dim, attn_impl=attn_impl, compute_dtype=dtype,
                   grad_checkpointing=grad_checkpointing, remat_policy=remat_policy,
                   output_tokens=cfg.output_tokens)
@@ -97,6 +103,12 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
             if img != e_cfg.image_size:  # the config's image size wins, as in JAX
                 e_cfg = dataclasses.replace(e_cfg, image_size=img)
             return Eva02VisionTower(e_cfg, **common)
+        if cfg.timm_model_name in VITAMIN_DIMS:  # ``tpu/models/clip.py:142-159``
+            v_cfg = VITAMIN_DIMS[cfg.timm_model_name]
+            img = to_2tuple(cfg.image_size)[0]
+            if img != v_cfg.image_size:  # the config's image size wins, as in JAX
+                v_cfg = dataclasses.replace(v_cfg, image_size=img)
+            return ViTaminVisionTower(v_cfg, proj_bias=cfg.timm_proj_bias, **common)
         if cfg.timm_model_name == RELPOS_VIT:  # ``tpu/models/clip.py:160-170``
             return RelPosVisionTower(width=512, layers=12, heads=8, patch_size=16,
                                      image_size=to_2tuple(cfg.image_size)[0], **common)
@@ -108,6 +120,12 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                 class_token=d["class_token"], pool_type=d["pool_type"], qkv_bias=d["qkv_bias"],
                 ls_init_value=d["ls_init_value"], no_ln_pre=True, patch_embed_bias=True,
                 act=gelu, norm_eps=1e-6, **common)
+        if cfg.timm_model_name in SWIN_DIMS:  # ``tpu/models/clip.py:197-213``
+            s_cfg = SWIN_DIMS[cfg.timm_model_name]
+            img = to_2tuple(cfg.image_size)[0]
+            if img != s_cfg.image_size:  # the config's image size wins, as in JAX
+                s_cfg = dataclasses.replace(s_cfg, image_size=img)
+            return SwinVisionTower(s_cfg, proj_bias=cfg.timm_proj_bias, **common)
         if cfg.timm_model_name in CONVNEXT_DIMS:  # ``tpu/models/clip.py:240-253``
             depths, dims = CONVNEXT_DIMS[cfg.timm_model_name]
             return ConvNextTower(ConvNextCfg(depths=depths, dims=dims), embed_dim,
@@ -268,7 +286,8 @@ def init_weights(model: nn.Module, seed: int = 0):
             if isinstance(m.text_projection, nn.Parameter):  # a Linear: the branch above
                 normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
         elif isinstance(m, (SiglipVisionTower, RelPosVisionTower, Eva02VisionTower,
-                            ModifiedResNet, ConvNextTower)):
+                            ModifiedResNet, ConvNextTower, ViTaminVisionTower,
+                            SwinVisionTower)):
             m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)

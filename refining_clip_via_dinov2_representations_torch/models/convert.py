@@ -38,6 +38,12 @@ open_clip's ``visual.head.proj``, or for the ``"mlp"`` head
 exporter drops ``head_mlp_fc1`` and writes ``head_proj`` as ``head.proj``,
 ROADMAP "Found in the JAX package"); the text tower at top level, as
 open_clip's ``CLIP`` holds it for both.
+A ViTamin tree (``stem_conv1``) and a Swin tree (``patch_norm``) give
+timm's names under ``visual.trunk.`` as ``tpu/models/vitamin.py:
+vitamin_params_to_timm_state_dict`` and ``tpu/models/swin.py:
+swin_params_to_timm_state_dict`` emit them (``models/vitamin.py``,
+``models/swin.py``), the projection as ``visual.trunk.head``, the text
+tower at top level.
 ``jax_head_params_to_state_dict`` does the same for the DINO projection
 head (``losses/dino.py:DinoProjectionHead``), and
 ``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
@@ -254,41 +260,117 @@ def _emit_resnet(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any],
         sd[f"visual.attnpool.{proj}.bias"] = _t(pool[proj]["bias"])
 
 
+def _emit_timm_leaf(sd: Dict[str, torch.Tensor], name: str, tree: Mapping[str, Any],
+                    conv: bool = False) -> None:
+    """A flax Dense, Conv or LayerNorm as ``name.weight`` (and ``.bias``)."""
+    if "kernel" in tree:
+        sd[f"{name}.weight"] = _oihw(tree["kernel"]) if conv else _t(tree["kernel"], True)
+    if "scale" in tree:
+        sd[f"{name}.weight"] = _t(tree["scale"])
+    if "bias" in tree:
+        sd[f"{name}.bias"] = _t(tree["bias"])
+
+
 def _emit_convnext(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
     """A JAX ``ConvNextTower`` tree in open_clip's timm layout (the module
     docstring), the ``"mlp"`` head's two layers included."""
-    pre = "visual.trunk."
-
-    def leaf(name: str, tree: Mapping[str, Any], conv: bool = False) -> None:
-        if "kernel" in tree:
-            kernel = tree["kernel"]
-            sd[f"{name}.weight"] = _oihw(kernel) if conv else _t(kernel, transpose=True)
-        if "scale" in tree:
-            sd[f"{name}.weight"] = _t(tree["scale"])
-        if "bias" in tree:
-            sd[f"{name}.bias"] = _t(tree["bias"])
-
-    leaf(pre + "stem.0", visual["stem_conv"], conv=True)
-    leaf(pre + "stem.1", visual["stem_norm"])
+    pre, leaf = "visual.trunk.", _emit_timm_leaf
+    leaf(sd, pre + "stem.0", visual["stem_conv"], conv=True)
+    leaf(sd, pre + "stem.1", visual["stem_norm"])
     for name, tree in visual.items():
         if name.startswith("downsample_norm_"):
-            leaf(f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.0", tree)
+            leaf(sd, f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.0", tree)
         elif name.startswith("downsample_conv_"):
-            leaf(f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.1", tree, conv=True)
+            leaf(sd, f"{pre}stages.{name.rsplit('_', 1)[-1]}.downsample.1", tree, conv=True)
         elif name.startswith("stage") and "_block" in name:
             s, b = name[len("stage"):].split("_block")
             blk = f"{pre}stages.{s}.blocks.{b}"
-            leaf(f"{blk}.conv_dw", tree["conv_dw"], conv=True)
-            leaf(f"{blk}.norm", tree["norm"])
-            leaf(f"{blk}.mlp.fc1", tree["fc1"])
-            leaf(f"{blk}.mlp.fc2", tree["fc2"])
+            leaf(sd, f"{blk}.conv_dw", tree["conv_dw"], conv=True)
+            leaf(sd, f"{blk}.norm", tree["norm"])
+            leaf(sd, f"{blk}.mlp.fc1", tree["fc1"])
+            leaf(sd, f"{blk}.mlp.fc2", tree["fc2"])
             sd[f"{blk}.gamma"] = _t(tree["gamma"])
-    leaf(pre + "head.norm", visual["head_norm"])
+    leaf(sd, pre + "head.norm", visual["head_norm"])
     if "head_mlp_fc1" in visual:
-        leaf("visual.head.mlp.fc1", visual["head_mlp_fc1"])
-        leaf("visual.head.mlp.fc2", visual["head_proj"])
+        leaf(sd, "visual.head.mlp.fc1", visual["head_mlp_fc1"])
+        leaf(sd, "visual.head.mlp.fc2", visual["head_proj"])
     else:
-        leaf("visual.head.proj", visual["head_proj"])
+        leaf(sd, "visual.head.proj", visual["head_proj"])
+
+
+def _emit_vitamin(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``ViTaminVisionTower`` tree in timm's names under
+    ``visual.trunk.`` (``tpu/models/vitamin.py:330-404``)."""
+    pre, pe = "visual.trunk.", "visual.trunk.patch_embed.backbone."
+    for name, tree in visual.items():
+        if name in ("stem_conv1", "stem_conv2"):
+            _emit_timm_leaf(sd, f"{pe}stem.conv{name[-1]}", tree, conv=True)
+        elif name == "stem_norm1":
+            _emit_timm_leaf(sd, f"{pe}stem.norm1", tree)
+        elif name.startswith("stage") and "_block" in name:
+            s, b = name[len("stage"):].split("_block")
+            for part, sub in tree.items():
+                _emit_timm_leaf(sd, f"{pe}stages.{s}.blocks.{b}.{part}", sub,
+                                conv=part != "pre_norm")
+        elif name == "embed_norm":
+            _emit_timm_leaf(sd, pre + "patch_embed.pool.norm", tree)
+        elif name == "embed_conv":
+            _emit_timm_leaf(sd, pre + "patch_embed.pool.proj", tree, conv=True)
+        elif name == "positional_embedding":
+            pos = np.asarray(tree)
+            sd[pre + "pos_embed"] = _t(pos.reshape(1, *pos.shape))
+        elif name.startswith("resblocks_"):
+            b = f"{pre}blocks.{name.rsplit('_', 1)[-1]}"
+            _emit_timm_leaf(sd, f"{b}.norm1", tree["ln_1"])
+            _emit_timm_leaf(sd, f"{b}.norm2", tree["ln_2"])
+            attn = tree["attn"]
+            qkv = {"kernel": attn["in_proj_kernel"]}
+            if "in_proj_bias" in attn:
+                qkv["bias"] = attn["in_proj_bias"]
+            _emit_timm_leaf(sd, f"{b}.attn.qkv", qkv)
+            _emit_timm_leaf(sd, f"{b}.attn.proj", attn["out_proj"])
+            for part, sub in tree["mlp"].items():
+                _emit_timm_leaf(sd, f"{b}.mlp.{part}", sub)
+        elif name == "fc_norm":
+            _emit_timm_leaf(sd, pre + "fc_norm", tree)
+        elif name == "proj":
+            _emit_timm_leaf(sd, pre + "head", tree)
+        else:
+            raise KeyError(f"unexported vitamin tower entry {name}")
+
+
+def _emit_swin(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
+    """A JAX ``SwinVisionTower`` tree in timm's names under ``visual.trunk.``
+    (``tpu/models/swin.py:466``; no ``relative_position_index``)."""
+    pre = "visual.trunk."
+    for name, tree in visual.items():
+        if name == "patch_embed":
+            _emit_timm_leaf(sd, pre + "patch_embed.proj", tree, conv=True)
+        elif name == "patch_norm":
+            _emit_timm_leaf(sd, pre + "patch_embed.norm", tree)
+        elif "_block_" in name:
+            si, bi = name[len("stage_"):].split("_block_")
+            b = f"{pre}layers.{si}.blocks.{bi}"
+            _emit_timm_leaf(sd, f"{b}.norm1", tree["ln_1"])
+            _emit_timm_leaf(sd, f"{b}.norm2", tree["ln_2"])
+            attn = tree["attn"]
+            _emit_timm_leaf(sd, f"{b}.attn.qkv", {"kernel": attn["in_proj_kernel"],
+                                                  "bias": attn["in_proj_bias"]})
+            _emit_timm_leaf(sd, f"{b}.attn.proj", attn["out_proj"])
+            sd[f"{b}.attn.relative_position_bias_table"] = _t(
+                attn["relative_position_bias_table"])
+            for fc in ("fc1", "fc2"):
+                _emit_timm_leaf(sd, f"{b}.mlp.{fc}", tree[fc])
+        elif name.endswith("_downsample"):
+            ds = f"{pre}layers.{name[len('stage_'):-len('_downsample')]}.downsample"
+            _emit_timm_leaf(sd, f"{ds}.reduction", tree["reduction"])
+            _emit_timm_leaf(sd, f"{ds}.norm", tree["norm"])
+        elif name == "norm":
+            _emit_timm_leaf(sd, pre + "norm", tree)
+        elif name == "proj":
+            _emit_timm_leaf(sd, pre + "head", tree)
+        else:
+            raise KeyError(f"unexported swin tower entry {name}")
 
 
 def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
@@ -336,6 +418,11 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     sd: Dict[str, torch.Tensor] = {}
     if "resblocks_0" in visual and "relative_position_bias_table" in visual["resblocks_0"]:
         _emit_relpos(sd, visual)
+        _emit_text(sd, text, "")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        return sd
+    if "stem_conv1" in visual or "patch_norm" in visual:  # ViTamin, Swin
+        (_emit_vitamin if "stem_conv1" in visual else _emit_swin)(sd, visual)
         _emit_text(sd, text, "")
         sd["logit_scale"] = _t(params["logit_scale"])
         return sd

@@ -42,10 +42,16 @@ the output).
 ``convert_eva02_clip_state_dict`` takes a whole open_clip CustomTextCLIP
 state dict to the port's CLIP layout (``models/factory.py:load_weights``).
 
-Under a model axis the tower raises: its sub-LN and SwiGLU LayerNorm
-normalise over widths that a rank would hold only part of (ROADMAP Queue 1
-item 10d). Its parameters' placement already follows the JAX rule
-(``parallel/tensor.py:param_split``).
+Under a model group (``parallel/tensor.py:shard_module``) the parameters
+are placed as the JAX ``_param_spec`` places them: the fused ``in_proj``
+split by heads, ``out_proj`` by rows, ``fc1_g``/``fc1_x`` (or ``fc1``)
+column- and ``fc2`` row-parallel, every LayerNorm whole. The attention runs
+this rank's heads (rope is per head and per position, so it needs no
+change); the sub-LN normalises the merged local heads ``[B, L, d/m]`` and
+the SwiGLU norm the local hidden ``[B, L, h/m]`` over the whole width
+(``split_layer_norm``: statistics summed over the group, this rank's slice
+of the whole scale and bias). E's post-norm blocks need only the
+column/row pair.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention
+from ..parallel.tensor import column_linear, copy_to_model, row_linear, split_layer_norm
 from .layers import LayerNorm, _linear, gelu
 from .transformer import run_blocks, saved_ops
 
@@ -134,7 +141,9 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 
 class Eva02Attention(nn.Module):
     """Fused-QKV attention with rope on q and k and sub-LN before
-    ``out_proj``."""
+    ``out_proj``; under a model group (``tp``) this rank's heads."""
+
+    tp = None
 
     def __init__(self, cfg: Eva02Cfg, attn_impl: str = "auto"):
         super().__init__()
@@ -148,23 +157,27 @@ class Eva02Attention(nn.Module):
     def forward(self, x: torch.Tensor, sin: Optional[torch.Tensor] = None,
                 cos: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, l, d = x.shape
-        h = self.num_heads
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
-        q, k, v = qkv.view(b, l, 3, h, d // h).permute(2, 0, 3, 1, 4).unbind(0)
+        h = self.num_heads // (self.tp.world if self.tp else 1)
+        qkv = F.linear(copy_to_model(x, self.tp), self.in_proj_weight.to(x.dtype),
+                       self.in_proj_bias.to(x.dtype))
+        q, k, v = qkv.view(b, l, 3, h, d // self.num_heads).permute(2, 0, 3, 1, 4).unbind(0)
         if self.rope and sin is not None:
             q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
         # the kernels refuse strided views: v (and, without rope, q and k)
         # is one of the split's
         out = multi_head_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    impl=self.attn_impl)
-        out = out.transpose(1, 2).reshape(b, l, d)
+        out = out.transpose(1, 2).reshape(b, l, -1)
         if self.norm is not None:
-            out = self.norm(out)
-        return _linear(out, self.out_proj)
+            out = split_layer_norm(out, self.norm, self.tp)
+        return row_linear(out, self.out_proj, self.tp)
 
 
 class Eva02Mlp(nn.Module):
-    """SwiGLU with its inner LayerNorm, or the plain GELU MLP (E)."""
+    """SwiGLU with its inner LayerNorm, or the plain GELU MLP (E); under a
+    model group (``tp``) column- then row-parallel."""
+
+    tp = None
 
     def __init__(self, cfg: Eva02Cfg):
         super().__init__()
@@ -179,10 +192,12 @@ class Eva02Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:
-            h = self.norm(F.silu(_linear(x, self.fc1_g)) * _linear(x, self.fc1_x))
+            x = copy_to_model(x, self.tp)  # one all-reduce of the gradient for both
+            h = split_layer_norm(F.silu(_linear(x, self.fc1_g)) * _linear(x, self.fc1_x),
+                                 self.norm, self.tp)
         else:
-            h = gelu(_linear(x, self.fc1))
-        return _linear(h, self.fc2)
+            h = gelu(column_linear(x, self.fc1, self.tp))
+        return row_linear(h, self.fc2, self.tp)
 
 
 class Eva02Block(nn.Module):
@@ -255,19 +270,6 @@ class Eva02VisionTower(nn.Module):
         self.transformer = Eva02Transformer(cfg, attn_impl, grad_checkpointing, remat_policy)
         self.ln_post = LayerNorm(cfg.width, cfg.norm_eps)
         self.proj = nn.Linear(cfg.width, output_dim)
-
-    @property
-    def tp(self):
-        return None
-
-    @tp.setter
-    def tp(self, mp) -> None:
-        # parallel/tensor.py:shard_module gives its group here
-        if mp is not None:
-            raise NotImplementedError(
-                "EVA02 towers under a model axis: the sub-LN and the SwiGLU LayerNorm normalise "
-                "over widths a rank holds only part of, so their statistics would have to be "
-                "all-reduced (ROADMAP Queue 1 item 10d)")
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable

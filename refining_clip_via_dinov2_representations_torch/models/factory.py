@@ -35,6 +35,8 @@ from .config import get_model_config, list_models, parse_model_cfg
 from .convert import normalize_state_dict_keys
 from .eva import TRUNK, convert_eva_clip_state_dict
 from .eva02 import Eva02VisionTower, convert_eva02_clip_state_dict
+from .swin import SwinVisionTower, convert_swin_clip_state_dict
+from .vitamin import ViTaminVisionTower, convert_vitamin_clip_state_dict
 from .pretrained import (HF_HUB_PREFIX, get_pretrained_cfg, list_pretrained_tags_by_model,
                          resolve_hf_file, resolve_pretrained)
 
@@ -135,7 +137,9 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
     """Loads ``state_dict`` into ``model`` as the JAX ``_merge_params``
     merges (an EVA01 or EVA02 CustomTextCLIP layout converted first,
     ``models/eva.py``, ``models/eva02.py``; a SigLIP model takes that
-    layout as it is; another model whose text tower sits at top level takes
+    layout as it is; a ViTamin or Swin trunk goes through its timm importer,
+    ``models/vitamin.py``, ``models/swin.py``; another model whose text
+    tower sits at top level takes
     a ``text.``-prefixed tower there, as the JAX exporter writes it beside a
     ConvNeXt trunk; BatchNorm's ``num_batches_tracked``, which OpenAI's and
     open_clip's ResNet files carry and the JAX package neither writes nor
@@ -151,6 +155,10 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
                    if isinstance(getattr(model, "visual", None), Eva02VisionTower)
                    else convert_eva_clip_state_dict)
         state_dict = convert(state_dict)
+    elif isinstance(getattr(model, "visual", None), (ViTaminVisionTower, SwinVisionTower)):
+        state_dict = (convert_vitamin_clip_state_dict(state_dict)
+                      if isinstance(model.visual, ViTaminVisionTower)
+                      else convert_swin_clip_state_dict(state_dict))
     if "token_embedding.weight" in own and "text.token_embedding.weight" in state_dict:
         state_dict = {k[len("text."):] if k.startswith("text.") else k: v
                       for k, v in state_dict.items()}

@@ -19,8 +19,11 @@ Parameter names are the standard ViT's under ``visual.``
 ``transformer.resblocks.{i}.{ln_1, attn, ln_2, mlp}``, ``ln_post``,
 ``proj`` [width, out]), plus ``transformer.resblocks.{i}.
 relative_position_bias_table``; ``models/convert.py`` writes them from the
-JAX tree. No published checkpoint exists for this tower. Under a model axis
-it raises: its bias would have to be split with the heads.
+JAX tree. No published checkpoint exists for this tower. Under a model
+group (``parallel/tensor.py:shard_module``) each block's attention runs this
+rank's heads and its MLP its columns, and the bias takes this rank's heads'
+columns of the whole table (``model_slice``: the table stays whole on every
+rank, as ``_param_spec`` places it, and its gradient is the whole one).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.tensor import model_slice
 from .layers import MLP, LayerNorm, MultiheadAttention, gelu
 from .transformer import run_blocks, saved_ops
 
@@ -60,7 +64,9 @@ def build_relpos_index(grid: Tuple[int, int], prefix_tokens: int = 1) -> np.ndar
 
 class RelPosBlock(nn.Module):
     """A pre-LN block whose attention adds this block's relative position
-    bias."""
+    bias; under a model group (``tp``) that of this rank's heads."""
+
+    tp = None
 
     def __init__(self, width: int, heads: int, grid: Tuple[int, int], mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, norm_eps: float = 1e-6, act: Callable = gelu,
@@ -78,10 +84,10 @@ class RelPosBlock(nn.Module):
         self.mlp = MLP(width, int(width * mlp_ratio), act)
 
     def bias(self) -> torch.Tensor:
-        """The additive mask [1, H, N, N], fp32."""
+        """The additive mask [1, H, N, N] of this rank's H heads, fp32."""
         n = int(round(self.relative_position_index.numel() ** 0.5))
-        table = self.relative_position_bias_table[self.relative_position_index]
-        return table.reshape(n, n, self.heads).permute(2, 0, 1)[None]
+        table = model_slice(self.relative_position_bias_table, 1, self.tp)
+        return table[self.relative_position_index].reshape(n, n, -1).permute(2, 0, 1)[None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask=self.bias())
@@ -130,18 +136,6 @@ class RelPosVisionTower(nn.Module):
             grad_checkpointing, remat_policy)
         self.ln_post = LayerNorm(width, norm_eps)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
-
-    @property
-    def tp(self):
-        return None
-
-    @tp.setter
-    def tp(self, mp) -> None:
-        # parallel/tensor.py:shard_module gives its group here
-        if mp is not None:
-            raise NotImplementedError(
-                "vit_relpos_* under a model axis: the relative position bias would have to be "
-                "split with the heads (ROADMAP Queue 1 item 10c)")
 
     def set_grad_checkpointing(self, enable: bool = True) -> None:
         self.transformer.grad_checkpointing = enable

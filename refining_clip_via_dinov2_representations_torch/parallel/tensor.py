@@ -9,14 +9,15 @@ ordinary contiguous ``[B, H/m, L, d]`` tensors of this rank's heads.
 
 * A column-parallel layer (the packed QKV, ``c_fc``, DINOv2's
   query/key/value, ``fc1`` and the SwiGLU ``weights_in``, EVA02's
-  ``fc1_g`` and ``fc1_x`` (placed, but the EVA02 tower refuses a model
-  group: ROADMAP Queue 1 item 10d), the DINO head's
-  ``fc1``, SigLIP's ``qkv`` and its MAP head's ``q`` and packed ``kv``)
+  ``fc1_g`` and ``fc1_x``, ViTamin's GeGLU ``w0`` and ``w1``, the DINO
+  head's ``fc1``, SigLIP's, Swin's and ViTamin's ``qkv`` and the MAP
+  head's ``q`` and packed ``kv``)
   holds its rows of the weight and bias. Its input passes through
   ``copy_to_model``: the identity forward, an all-reduce of the gradient
   in the backward.
 * A row-parallel layer (``out_proj``, ``c_proj``, ``output.dense``,
-  ``fc2``, ``weights_out``, SigLIP's ``proj`` and its head's ``proj``)
+  ``fc2``, ``weights_out``, ViTamin's ``w2``, the timm attention's ``proj``
+  and the MAP head's ``proj``)
   holds its columns of the weight and the whole bias. ``row_linear`` multiplies, all-reduces the partial sums
   (``reduce_from_model``: the identity backward) and adds the bias once,
   after the sum.
@@ -25,10 +26,24 @@ ordinary contiguous ``[B, H/m, L, d]`` tensors of this rank's heads.
   dimension (``gather_from_model``: the backward keeps this rank's columns).
 * Everything else is whole on every rank: LayerNorms, the class and
   positional embeddings, the patch embedding, the projections, LayerScale,
-  CoCa's attentional pooler (its flax leaves match no JAX pattern), and
-  the convolution towers (the ModifiedResNet and ConvNeXt: the JAX rule
-  keeps them replicated), so their ranks run the same tower on the same
-  rows while the text tower splits as before.
+  the relative-position bias tables, CoCa's attentional pooler (its flax
+  leaves match no JAX pattern), Swin's patch merging, and the convolution
+  towers (the ModifiedResNet, ConvNeXt and ViTamin's MBConv stages: the JAX
+  rule keeps them replicated), so their ranks run the same tower on the
+  same rows while the text tower splits as before.
+* A whole parameter used on a rank's part (``model_slice``): a relative-
+  position table ``[entries, heads]`` feeding this rank's heads (the
+  relpos ViT's, Swin's), and the scale and bias of a LayerNorm over a
+  width split across the group (``split_layer_norm``: EVA02's sub-LN over
+  the merged local heads, its SwiGLU norm over the local hidden). The
+  forward takes this rank's contiguous slice in the head order of the
+  packed QKV (rank r holds heads ``r H/m ... (r+1) H/m - 1``); the backward
+  pads the slice's gradient with zeros to the whole shape and sums it over
+  the group, so every rank holds the whole gradient, as a replicated
+  parameter must. ``split_layer_norm`` sums each rank's fp32 sum and sum of
+  squares over the group (an all-reduce in the forward and in the
+  backward: every rank's output depends on every rank's part) and
+  normalises its part by the whole width's mean and variance.
 
 So a block runs one all-reduce in the attention and one in the MLP, forward
 and backward alike. Every replicated activation and every replicated
@@ -133,6 +148,68 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(-1, ctx.mp.rank * ctx.n, ctx.n).contiguous(), None
 
 
+class _SumOverModel(torch.autograd.Function):
+    """The sum over the model group of every rank's partial, in both
+    directions: each rank uses the sum on its own part alone, so the sum's
+    whole gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _ModelSlice(torch.autograd.Function):
+    """This rank's contiguous part of a whole tensor along ``dim``; the
+    backward pads the part's gradient with zeros to the whole shape and sums
+    it over the model group."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mp):
+        n = t.shape[dim] // mp.world
+        ctx.dim, ctx.mp, ctx.shape, ctx.n = dim, mp, t.shape, n
+        return t.narrow(dim, mp.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = g.new_zeros(ctx.shape)
+        whole.narrow(ctx.dim, ctx.mp.rank * ctx.n, ctx.n).copy_(g)
+        return _all_reduce(whole, ctx.mp.group), None, None
+
+
+def model_slice(t: torch.Tensor, dim: int, mp: Optional[ModelParallel]) -> torch.Tensor:
+    """This rank's contiguous part of the whole tensor ``t`` along ``dim``
+    (``t`` itself without a group); its gradient is the whole one on every
+    rank."""
+    if mp is None:
+        return t
+    if t.shape[dim] % mp.world:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not split over {mp.world}")
+    return _ModelSlice.apply(t, dim, mp)
+
+
+def split_layer_norm(x: torch.Tensor, norm: nn.Module, mp: Optional[ModelParallel]
+                     ) -> torch.Tensor:
+    """``norm`` (a whole ``models/layers.py:LayerNorm``) over a width whose
+    part ``x`` holds on this rank (its last dimension, in rank order):
+    fp32 statistics of the whole width, this rank's slice of the scale and
+    bias, cast back to ``x``'s dtype. Without a group, ``norm(x)``."""
+    if mp is None:
+        return norm(x)
+    x32 = x.float()
+    n = x.shape[-1] * mp.world
+    sums = _SumOverModel.apply(torch.stack([x32.sum(-1), x32.square().sum(-1)], -1), mp.group)
+    mean = sums[..., :1] / n
+    var = sums[..., 1:] / n - mean.square()
+    y = (x32 - mean) * torch.rsqrt(var + norm.eps)
+    y = y * model_slice(norm.weight, 0, mp).float() + model_slice(norm.bias, 0, mp).float()
+    return y.to(x.dtype)
+
+
 def copy_to_model(x: torch.Tensor, mp: Optional[ModelParallel]) -> torch.Tensor:
     return x if mp is None else _CopyToModel.apply(x, mp.group)
 
@@ -185,15 +262,18 @@ _COLUMN = {
     "mlp.fc1_g.weight": 1, "mlp.fc1_g.bias": 1,                # EVA02's SwiGLU:
     "mlp.fc1_x.weight": 1, "mlp.fc1_x.bias": 1,                # fc1_g/, fc1_x/kernel
     "mlp.weights_in.weight": 2, "mlp.weights_in.bias": 2,      # mlp/weights_in/kernel
-    # SigLIP's timm trunk (attn/in_proj_kernel) and its MAP head, whose one
+    "mlp.w0.weight": 1, "mlp.w0.bias": 1,                      # ViTamin's GeGLU:
+    "mlp.w1.weight": 1, "mlp.w1.bias": 1,                      # mlp/w0/, mlp/w1/kernel
+    # the timm trunks' attention (SigLIP's, Swin's, ViTamin's: attn/
+    # in_proj_kernel) and SigLIP's MAP head, whose one
     # head_attn/in_proj_kernel the exporter splits into q and the packed kv
     "attn.qkv.weight": 3, "attn.qkv.bias": 3,
     "attn_pool.q.weight": 1, "attn_pool.q.bias": 1,
     "attn_pool.kv.weight": 2, "attn_pool.kv.bias": 2,
 }
 _ROW = ("attn.out_proj.weight", "mlp.c_proj.weight", "attention.output.dense.weight",
-        "mlp.fc2.weight", "mlp.weights_out.weight",
-        "attn.proj.weight", "attn_pool.proj.weight")                # SigLIP: attn/out_proj
+        "mlp.fc2.weight", "mlp.weights_out.weight", "mlp.w2.weight",  # ViTamin: mlp/w2
+        "attn.proj.weight", "attn_pool.proj.weight")                # timm: attn/out_proj
 # CoCa's AttentionalPooler (``models/layers.py``) keeps torch's attention
 # names under ``attn_pool.attn.``, which the endings above would match; its
 # flax leaves (``attn_pool/{q,k,v,out}_proj``) match no JAX pattern, so it

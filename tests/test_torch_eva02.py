@@ -11,8 +11,9 @@
   ``create_engine`` against the JAX engine;
 * the five ``EVA02-*`` names at full width on the ``meta`` device, key for
   key and in parameter count against ``jax.eval_shape`` of the JAX trees;
-* the model-axis placement against the JAX ``_param_spec``, and the
-  refusal of a model group citing ROADMAP item 10d.
+* the model-axis placement against the JAX ``_param_spec``, and the tower
+  split over two gloo ranks (``test_torch_tp_towers.py:split_forward``)
+  giving the whole tower's forward, for both kinds of block.
 """
 
 import dataclasses
@@ -232,9 +233,7 @@ def test_the_five_names_build_at_full_width_as_the_jax_tree(name, monkeypatch):
 
 
 def test_splits_agree_with_jax_param_spec_and_a_model_group_is_refused(tiny):
-    from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
-        ModelParallel, shard_module,
-    )
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import shard_module
 
     from .test_torch_tp_spec import _check, _markers
 
@@ -248,9 +247,18 @@ def test_splits_agree_with_jax_param_spec_and_a_model_group_is_refused(tiny):
     assert not {blk + "attn.norm.weight", blk + "mlp.norm.weight", "visual.proj.weight",
                 "visual.conv1.weight"} & split
     model = build_model(parse_model_cfg(CFG))
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        shard_module(model, ModelParallel(group=None, rank=0, world=2))
-    shard_module(model, None)  # no group: whole, and no refusal
+    shard_module(model, None)  # no group: whole
+    assert model.tp_splits == {}
+    # two ranks split the tower and give the whole tower's forward
+    if not _SPLIT:
+        from .test_torch_tp_towers import split_forward
+
+        _SPLIT.update(split_forward(("eva02-swiglu", "eva02-post-norm")))
+    n_split, err = _SPLIT["eva02-swiglu" if tiny == "swiglu" else "eva02-post-norm"]
+    assert n_split == 2 * (8 if tiny == "swiglu" else 6) and err <= 1e-6, (n_split, err)
+
+
+_SPLIT = {}  # both forms' split forwards, from one pair of ranks
 
 
 def test_image_size_in_the_config_overrides_the_trunks(monkeypatch):

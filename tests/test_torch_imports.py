@@ -30,6 +30,7 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "dispatch_cost.py",
                                       REPO / "scripts" / "chip_preprocess_eva02_phase.py",
                                       REPO / "scripts" / "chip_convnets_phase.py",
+                                      REPO / "scripts" / "chip_hybrids_phase.py",
                                       REPO / "scripts" / "chip_processes_phase.py",
                                       REPO / "scripts" / "convnext_memory_format.py"]
 
@@ -56,7 +57,8 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/inference.py", f"{PORT.name}/parallel/tensor.py",
                  f"{PORT.name}/native/__init__.py", f"{PORT.name}/ops/preprocess.py",
                  f"{PORT.name}/models/eva02.py", f"{PORT.name}/models/resnet.py",
-                 f"{PORT.name}/models/convnext.py"):
+                 f"{PORT.name}/models/convnext.py", f"{PORT.name}/models/vitamin.py",
+                 f"{PORT.name}/models/swin.py"):
         assert must in names
 
 

@@ -102,16 +102,18 @@ def test_vit_b16_widths_depth1_matches_jax():
 
 @pytest.mark.parametrize("overrides", [
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_224"}},
-    # the ModifiedResNet and ConvNeXt towers are ported (tests/test_torch_resnet.py,
-    # tests/test_torch_convnext.py); the Swin and ViTamin trunks are not
-    {"vision_cfg": {"timm_model_name": "swin_base_patch4_window7_224"}},
+    # the ModifiedResNet, ConvNeXt, Swin and ViTamin towers are ported
+    # (tests/test_torch_resnet.py, test_torch_convnext.py, test_torch_swin.py,
+    # test_torch_vitamin.py); MobileCLIP's FastViT trunk is not
+    {"vision_cfg": {"timm_model_name": "fastvit_mci1"}},
     {"text_cfg": {"hf_model_name": "bert-base-uncased"}},
     {"text_cfg": {"embed_cls": True}},
     # CoCa is ported (tests/test_torch_coca.py); its HF-text-tower variant
     # (coca_roberta-ViT-B-32) is not
     {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
-    # the CLIPA towers are ported (tests/test_torch_vit_variants.py)
-    {"vision_cfg": {"timm_model_name": "vitamin_base_224"}},
+    # the CLIPA towers are ported (tests/test_torch_vit_variants.py);
+    # MobileCLIP-B's MCi ViT trunk is not
+    {"vision_cfg": {"timm_model_name": "vit_base_mci_224"}},
     # SigLIP's text options are ported (tests/test_torch_siglip.py); its
     # global-average-pooled `_gap` trunks are not
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_gap_224"}},

@@ -18,7 +18,8 @@ ViT in the port, against the JAX package.
   every state-dict key and shape equal to what the weight bridge makes of
   the JAX model's abstract tree, and the parameter counts.
 * The model axis: CLIPA's and the GAP tower's splits against the JAX
-  ``_param_spec``; the relative-position tower refuses a model group.
+  ``_param_spec``; the relative-position tower split over two gloo ranks
+  gives the whole tower's forward.
 """
 
 import numpy as np
@@ -284,9 +285,13 @@ def test_clipa_and_gap_splits_agree_with_jax_param_spec():
 
 
 def test_relpos_tower_refuses_a_model_axis():
-    from refining_clip_via_dinov2_representations_torch.parallel.tensor import (
-        ModelParallel, shard_module,
-    )
+    """No longer refused: two gloo ranks split the tower (its attention by
+    heads, its MLP by columns, each bias table whole and sliced to the
+    rank's heads) and give the whole tower's forward; one process keeps it
+    whole."""
+    from refining_clip_via_dinov2_representations_torch.parallel.tensor import shard_module
+
+    from .test_torch_tp_towers import split_forward
 
     tower = trelpos.RelPosVisionTower(width=32, layers=1, heads=4, patch_size=8, image_size=16,
                                       output_dim=OUT)
@@ -295,7 +300,9 @@ def test_relpos_tower_refuses_a_model_axis():
         for p in tower.parameters():
             p.copy_(torch.randn(p.shape, generator=g))
     before = {k: v.clone() for k, v in tower.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        shard_module(tower, ModelParallel(group=None, rank=0, world=2))
+    assert shard_module(tower, None) == {}  # one process: whole, as before
     assert all(torch.equal(v, tower.state_dict()[k]) for k, v in before.items())
-    shard_module(tower, None)  # one process: whole, as before
+    n_split, err = split_forward(("relpos",))["relpos"]
+    # each of 2 blocks: in_proj_weight, out_proj.weight, c_fc.weight and
+    # .bias, c_proj.weight (no QKV bias); the tables stay whole
+    assert n_split == 10 and err <= 1e-6, (n_split, err)
