@@ -219,6 +219,27 @@ the offline extractor's bf16 ``[256,12,197,64]``, in phases 3 and 5):
     12). The new shapes (``HYBRID_CASES``, ``HYBRID_BWD_CASES``,
     ``HYBRID_FLASH_CASES``) are checked in phases 3, 3b and 7 and timed in
     5, 6 and 9.
+13f. mobileclip — MobileCLIP's towers, in the main process: (a)
+    MobileCLIP-S2 (99,243,329 parameters, 124,480 running statistics)
+    seeded, its running statistics drawn away from 0/1, and written in
+    open_clip's layout as ``open_clip_pytorch_model.bin`` in the hub cache
+    of its ``datacompdr`` tag, loaded by tag exactly with the tag's
+    preprocessing (mean 0, std 1, ``shortest``, ``bilinear``); fp32
+    features through the kernels against plain attention (0 launches an
+    image call: FastViT's attention stage is plain, as in JAX; 12 a text
+    call, non-causal), the tower time at buckets 1 and 8; (d) its deploy
+    form (``models/fastvit.py:fuse_fastvit``: every branch and BatchNorm
+    folded) against the training form (fp32 image features, cosine >=
+    0.9999) and both forms' image time at buckets 1 and 8; (b) its bf16
+    DINO-soft step at 64, its BatchNorms training, against plain attention
+    (``STEP_TOL``; 12 + 12 launches; the running statistics of the two
+    routes equal), its time and peak memory; (c) MobileCLIP-B (149,777,921
+    parameters) seeded and written in Apple's layout
+    (``scripts/mobileclip_apple_layout.py``), loaded exactly through
+    ``load_checkpoint``; fp32 features (12 + 12 launches), the tower time,
+    its bf16 step at 64 (24 + 24). The new shapes (``MOBILECLIP_CASES``,
+    ``MOBILECLIP_BWD_CASES``) are checked in phases 3 and 3b and timed in 5
+    and 6.
 14. zero-shot — Config 1 through ``train.main.main``: ``--pretrained
     openai``, mini-Flickr's val CSV and ``--imagenet-val`` on a procedural
     ImageNet-V2-style folder (1000 digit-named classes, one image each), no
@@ -343,7 +364,11 @@ Config 5's multi-chip recipe runs after it, in ``--dist-child tp`` and
     0.9999); towers (g) vit_relpos_medium_patch16_cls_224 and
     swin_base_patch4_window7_224 at full depth (each bias table whole,
     sliced to the rank's heads, its whole gradient compared; 0 + 12
-    launches) and ViTamin-L with ``TP_TOWER_LAYERS`` ViT blocks (2 + 12).
+    launches) and ViTamin-L with ``TP_TOWER_LAYERS`` ViT blocks (2 + 12);
+    towers (i) MobileCLIP-B with ``TP_MC_B_LAYERS`` of its 12 ViT blocks
+    (2 + 12 launches, ``[8,6,197,64]`` and causal ``[8,4,77,64]``) and
+    MobileCLIP-S1 whole (its FastViT tower whole on each rank, 0 + 12 at
+    ``[8,4,77,64]`` non-causal), every whole gradient at cosine >= 0.99999.
     In a second pair of processes:
     (d) ViT-B-16 fp32 served at ``(1, 2)`` through the engine's follower
     protocol (rank 0 drives) against the one-process engine (cosine >=
@@ -763,6 +788,22 @@ HYBRID_FLASH_CASES = [(8, 16, 576, 576, 64, False)]
 # blocks and ViTamin-L's ViT stage to TP_TOWER_LAYERS (the time limit; the
 # widths and every check stay); relpos and Swin at full depth
 TP_TOWER_BATCH, TP_TOWER_LAYERS = 8, 2
+# MobileCLIP (phase 13f, after hybrids). MobileCLIP-S2 at full width by its
+# datacompdr tag from a seeded hub cache, MobileCLIP-B at full width from a
+# seeded file in Apple's layout (scripts/mobileclip_apple_layout.py). New
+# kernel shapes: the S towers' non-causal text [8,8,77,64] and [64,8,77,64]
+# (MobileCLIP-B's causal text and its [B,12,197,64] vision are ViT-B-16's),
+# and S1's text at a model axis of 2, [8,4,77,64] non-causal (the tp pair's
+# part (i)); checked in both dtypes (phases 3, 3b), timed in phases 5 and 6
+MC_S2, MC_B, MC_S1, MC_TAG = "MobileCLIP-S2", "MobileCLIP-B", "MobileCLIP-S1", "datacompdr"
+MC_BUCKETS, MC_BATCH = (1, 8), 64
+MOBILECLIP_CASES = [(8, 8, 77, 77, 64, False), (64, 8, 77, 77, 64, False),
+                    (8, 4, 77, 77, 64, False)]
+MOBILECLIP_BWD_CASES = list(MOBILECLIP_CASES)
+# (i): MobileCLIP-B's ViT cut to TP_MC_B_LAYERS blocks (the time limit; the
+# widths and every check stay), MobileCLIP-S1 whole; every whole gradient at
+# cosine >= TP_MC_MIN_COS
+TP_MC_B_LAYERS, TP_MC_MIN_COS = 2, 0.99999
 # device preprocessing (phase 9b): the batch and raw size of the resampler's
 # check, its tolerance against float64; the JPEGs of the decoder comparison
 # (made only where the native decoder built),
@@ -896,7 +937,7 @@ def phase_kernels() -> dict:
     worst = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TEACHER_CASES + SLICE10_CASES
              + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES + ZOO_CASES
-    cases += EVA02_CASES + CONVNET_CASES + HYBRID_CASES
+    cases += EVA02_CASES + CONVNET_CASES + HYBRID_CASES + MOBILECLIP_CASES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (b, h, l, lk, d, causal) in enumerate(cases):
@@ -1178,7 +1219,7 @@ def phase_kernel_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in TIMED_CASES + TEACHER_CASES
              + SLICE10_CASES + GIANT_CASES + TP_CASES] + COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES
-    cases += ZOO_CASES + EVA02_CASES + CONVNET_CASES + HYBRID_TIMED
+    cases += ZOO_CASES + EVA02_CASES + CONVNET_CASES + HYBRID_TIMED + MOBILECLIP_CASES
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=100, lk=lk)
         scale = d ** -0.5
@@ -1423,7 +1464,8 @@ def bwd_cases():
     """Every backward case as (B, H, Lq, Lk, D, causal)."""
     return ([(b, h, l, l, d, c) for b, h, l, d, c in KERNEL_CASES + TRAIN_CASES + GIANT_CASES
              + TP_BWD_CASES] + BWD_CASES + COCA_CASES + SIGLIP_CASES + TP_SERVE_CASES
-            + ZOO_BWD_CASES + EVA02_BWD_CASES + CONVNET_BWD_CASES + HYBRID_BWD_CASES)
+            + ZOO_BWD_CASES + EVA02_BWD_CASES + CONVNET_BWD_CASES + HYBRID_BWD_CASES
+            + MOBILECLIP_BWD_CASES)
 
 
 def check_bwd_case(b, h, lq, lk, d, causal, dtype, seed, qkv=None):
@@ -3675,7 +3717,7 @@ def phase_bwd_times(dtype_name: str) -> dict:
     rows = {}
     cases = [(b, h, l, l, d, c) for b, h, l, d, c in BWD_TIMED + GIANT_CASES + TP_BWD_CASES]
     cases += (COCA_CASES + SIGLIP_TIMED + TP_SERVE_CASES + ZOO_BWD_CASES + EVA02_BWD_CASES
-              + CONVNET_BWD_CASES + HYBRID_BWD_CASES)
+              + CONVNET_BWD_CASES + HYBRID_BWD_CASES + MOBILECLIP_BWD_CASES)
     for b, h, l, lk, d, causal in cases:
         q, k, v = _qkv(b, h, l, d, dtype, seed=200, lk=lk)
         do = _qkv(b, h, l, d, dtype, seed=201)[0]
@@ -4773,7 +4815,7 @@ def _child_tp(payload: dict) -> dict:
     kernel against itself through plain attention (``"xla"``). Then parts
     (d)-(h) (``_child_tp_serve``), and the towers parts (e)-(g)
     (``_child_tp_towers``). ``payload["parts"]`` names the parts to run:
-    ``"train"`` ((a) and (c)), ``"towers"`` (towers (e)-(g)) and ``"serve"``
+    ``"train"`` ((a) and (c)), ``"towers"`` (towers (e)-(g) and (i)) and ``"serve"``
     ((d)-(h)); all three by default."""
     import copy
     import dataclasses
@@ -4816,7 +4858,7 @@ def _child_tp(payload: dict) -> dict:
     parts = payload.get("parts", ("train", "towers", "serve"))
     if "train" not in parts:
         if "towers" in parts:
-            out["towers"] = _child_tp_towers(dev, mp)
+            out["towers"] = _child_tp_towers(dev, mp, payload.get("towers"))
         if "serve" in parts:
             out.update(_child_tp_serve(payload, dev, mesh, mp))
         torch.distributed.barrier()
@@ -4934,7 +4976,7 @@ def _child_tp(payload: dict) -> dict:
     return out
 
 
-def _child_tp_towers(dev, mp) -> dict:
+def _child_tp_towers(dev, mp, names=None) -> dict:
     """The tp pair's towers parts (e)-(g), each rank, fp32 (TF32 off), the split
     model against the whole one in this process on the same rows and weights
     (``_split_vs_whole``; the CLIP loss): (e) EVA02-L-14 at full width, its
@@ -4945,7 +4987,10 @@ def _child_tp_towers(dev, mp) -> dict:
     launches; (g) vit_relpos_medium_patch16_cls_224 and
     swin_base_patch4_window7_224 at full depth (the bias tables' whole
     gradients watched) and ViTamin-L with its ViT stage cut to
-    ``TP_TOWER_LAYERS`` blocks, one step each."""
+    ``TP_TOWER_LAYERS`` blocks, one step each; (i) MobileCLIP-B with its ViT
+    cut to ``TP_MC_B_LAYERS`` blocks and MobileCLIP-S1 whole (its FastViT
+    tower whole on each rank, its BatchNorms training), one step each.
+    ``names``: the towers to run (all by default; EVA02-E-14 is (f)'s)."""
     import copy
     import dataclasses
     import gc
@@ -4954,7 +4999,7 @@ def _child_tp_towers(dev, mp) -> dict:
     import torch
 
     from refining_clip_via_dinov2_representations_torch.models import (
-        create_model, eva02, get_tokenizer, vitamin,
+        create_model, eva02, fastvit, get_tokenizer, vitamin,
     )
     from refining_clip_via_dinov2_representations_torch.models.clip import init_weights
     from refining_clip_via_dinov2_representations_torch.parallel.tensor import shard_module
@@ -4968,8 +5013,12 @@ def _child_tp_towers(dev, mp) -> dict:
              (ZOO_RELPOS, None, None, None, ("relative_position_bias_table",)),
              (SWIN_MODEL, None, None, None, ("relative_position_bias_table",)),
              (HYBRID_MODEL, vitamin.VITAMIN_DIMS, "vitamin_large_224",
-              {"depth": TP_TOWER_LAYERS}, ()))
+              {"depth": TP_TOWER_LAYERS}, ()),
+             (MC_B, fastvit.MCI_DIMS, "vit_base_mci_224", {"layers": TP_MC_B_LAYERS}, ()),
+             (MC_S1, None, None, None, ()))
     for name, table, key, kw, watch in steps:
+        if names is not None and name not in names:
+            continue
         t0 = time.perf_counter()
         whole = None
         if table is not None:
@@ -4992,6 +5041,8 @@ def _child_tp_towers(dev, mp) -> dict:
             torch.cuda.empty_cache()
 
     # (f) EVA02-E-14's vision tower, one forward
+    if names is not None and EVA02_E_MODEL not in names:
+        return out
     t0 = time.perf_counter()
     e_cfg = dataclasses.replace(eva02.EVA02_DIMS["eva02_enormous_patch14_clip_224"],
                                 layers=TP_TOWER_LAYERS)
@@ -5022,18 +5073,23 @@ def _child_tp_towers(dev, mp) -> dict:
     return out
 
 
-def tp_towers_report(ranks: list, add) -> None:
-    """Checks and prints the tp pair's towers parts (e)-(g)
-    (``_child_tp_towers``)."""
+def tp_towers_report(ranks: list, add, names=None) -> None:
+    """Checks and prints the tp pair's towers parts (e)-(g) and (i)
+    (``_child_tp_towers``; ``names``: the towers that ran, all by
+    default)."""
     cuda = DEVICE == "cuda"
     blocks = {EVA02_MODEL: (TP_TOWER_LAYERS, 12), ZOO_RELPOS: (0, 12), SWIN_MODEL: (0, 12),
-              HYBRID_MODEL: (TP_TOWER_LAYERS, 12)}
+              HYBRID_MODEL: (TP_TOWER_LAYERS, 12), MC_B: (TP_MC_B_LAYERS, 12), MC_S1: (0, 12)}
     for name, (vision, text) in blocks.items():
+        if names is not None and name not in names:
+            continue
         rs = [r["towers"][name] for r in ranks]
         n = vision + text if cuda else 0
         want = {"flash_attention_fwd": 0, "fused_attention_fwd": n, "fused_attention_bwd": n}
         rel = max(abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"]) for r in rs)
-        part = "towers (e)" if name == EVA02_MODEL else "towers (g)"
+        part = {EVA02_MODEL: "towers (e)", MC_B: "towers (i)", MC_S1: "towers (i)"}.get(
+            name, "towers (g)")
+        min_cos = TP_MC_MIN_COS if name in (MC_B, MC_S1) else 0.9999
         print(f"tp {part} {name} fp32 (1, {TP_AXIS}) split vs one process, batch "
               f"{TP_TOWER_BATCH}: loss {rs[0]['loss']:.7f} vs {rs[0]['ref_loss']:.7f} (max rel "
               f"{rel:.2e}), min gradient cosine {min(r['min_cosine'] for r in rs):.7f} "
@@ -5043,14 +5099,19 @@ def tp_towers_report(ranks: list, add) -> None:
               f"{rs[0]['n_split']} split tensors, launches a rank "
               f"{[r['launches'] for r in rs]} (expected {want}), "
               f"{[round(r['seconds'], 1) for r in rs]} s a rank [{CARD}]", flush=True)
-        check(rel <= 1e-5 and all(r["min_cosine"] >= 0.9999 and r["n_grads"] and r["under_ok"]
+        check(rel <= 1e-5 and all(r["min_cosine"] >= min_cos and r["n_grads"] and r["under_ok"]
                                   and r["n_split"] > 0 and r["watched_held"] for r in rs),
               f"tp {part} {name}: the split step disagrees with the one-process step")
-        check(all(r["watched"] > 0 for r in rs) or name == HYBRID_MODEL,
+        check(all(r["watched"] > 0 for r in rs) or name in (HYBRID_MODEL, MC_B, MC_S1),
               f"tp {part} {name}: no whole parameter used on a rank's part was compared")
+        if name == MC_S1:  # its FastViT tower whole on each rank: only the text splits
+            check(all(r["vision_split"] == 0 for r in rs),
+                  f"tp {part} {name}: a FastViT tensor was split")
         check(all(r["launches"] == want for r in rs), f"tp {part} {name}: launches")
         for r in rs:
             add(r["launches"])
+    if names is not None and EVA02_E_MODEL not in names:
+        return
     rs = [r["towers"][EVA02_E_MODEL] for r in ranks]
     want = {"flash_attention_fwd": 0, "fused_attention_fwd": TP_TOWER_LAYERS if cuda else 0,
             "fused_attention_bwd": 0}
@@ -5109,6 +5170,7 @@ def _split_vs_whole(model, mp, batch, cfg, name: str, watch=()) -> dict:
     grads_s = {n: gather_tensor(g, split.tp_splits[n], mp) if n in split.tp_splits else g
                for n, g in grads_s.items()}
     n_split = len(split.tp_splits)
+    vision_split = sum(n.startswith("visual.") for n in split.tp_splits)
     del split
     cos, together = _grad_cosines(grads_s, grads_w)
     whole_norm = sum(float(g.double().norm()) ** 2 for g in grads_w.values()) ** 0.5
@@ -5121,6 +5183,7 @@ def _split_vs_whole(model, mp, batch, cfg, name: str, watch=()) -> dict:
             "watched": len(watched), "watched_min": min(watched.values(), default=1.0),
             "watched_held": all(n in held for n in watched),
             "together": together, "launches": counts, "n_split": n_split,
+            "vision_split": vision_split,
             "n_grads": len(grads_s) == len(grads_w), "under": len(under),
             "under_ok": all(e <= COCA_FP32_NOISE * whole_norm for e in under.values()),
             "what": name}
@@ -7046,7 +7109,6 @@ def phase_convnets(work: str) -> dict:
     from refining_clip_via_dinov2_representations_torch.models.pretrained import (
         get_pretrained_cfg,
     )
-    from refining_clip_via_dinov2_representations_torch.models.resnet import BatchNorm2d
     from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
 
     t_phase = time.perf_counter()
@@ -7063,12 +7125,7 @@ def phase_convnets(work: str) -> dict:
     # ---- (a) RN50 by its openai tag: a seeded OpenAI TorchScript archive ----
     t0 = time.perf_counter()
     src, _ = create_model(RN_MODEL, device="cpu", seed=SEED + 90)
-    g = torch.Generator().manual_seed(SEED + 91)
-    with torch.no_grad():  # running statistics away from their init
-        for m in src.modules():
-            if isinstance(m, BatchNorm2d):
-                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
-                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    _bn_away_from_init(src, SEED + 91)
     sd = src.state_dict()
     want_sd = {k: v.half().float() for k, v in sd.items()}
     sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(1000)
@@ -7427,13 +7484,202 @@ def phase_hybrids(work: str) -> dict:
     return out
 
 
+def _bn_away_from_init(model, seed: int) -> None:
+    """Every BatchNorm's running statistics of ``model`` drawn away from
+    0/1 (means N(0, 0.1), variances U(0.5, 1.5))."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.models.resnet import BatchNorm2d
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+
+
+def _mobileclip_step(model, dino, batch, what: str, want: dict, add) -> dict:
+    """The bf16 DINO-soft step of a MobileCLIP model through the kernels
+    against plain attention, its BatchNorms training (``_convnet_step_vs_plain``:
+    the running statistics of the two routes compared too), then its time
+    (CUDA events) and peak memory."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import DinoProjectionHead
+
+    model.train()
+    torch.manual_seed(SEED + 135)
+    head = DinoProjectionHead(model.embed_dim, DINO_DIM, "mlp").to(DEVICE)
+    _set_compute_dtype(model, torch.bfloat16)
+    out = _convnet_step_vs_plain(model, head, dino, batch, "bfloat16", want, what, "mobileclip")
+    add(want)
+    start = _bn_buffers(model)
+
+    def fwd_bwd():
+        _loss_and_grads(model, head, dino, batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["ms"] = time_ms(fwd_bwd, iters=3)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _set_bn_buffers(model, start)
+    print(f"time mobileclip {what} bf16 DINO-soft forward and backward at "
+          f"{batch['images'].shape[0]}: {out['ms']:.3f} ms (CUDA events), peak "
+          f"{out['peak_gib']:.3f} GiB [{CARD}]", flush=True)
+    _set_compute_dtype(model, torch.float32)
+    model.eval()
+    return out
+
+
+def phase_mobileclip(work: str) -> dict:
+    """MobileCLIP (phase 13f, the module docstring): (a) MobileCLIP-S2 by its
+    ``datacompdr`` tag from a seeded hub cache, loaded exactly with the tag's
+    preprocessing, fp32 features through the kernels against plain attention
+    (0 launches an image call, 12 a text call), its tower time at
+    ``MC_BUCKETS``; (d) its deploy form (``fuse_fastvit``) against the
+    training form, fp32, and both forms' image time; (b) its bf16 DINO-soft
+    step at ``MC_BATCH`` with its BatchNorms training, against plain
+    attention (12 + 12 launches); (c) MobileCLIP-B from a seeded file in
+    Apple's layout through ``load_checkpoint``, exactly, fp32 features (12 +
+    12 launches), tower time, its bf16 step (24 + 24). Returns the launches
+    and numbers."""
+    import torch
+
+    from refining_clip_via_dinov2_representations_torch.losses import DinoLossCfg
+    from refining_clip_via_dinov2_representations_torch.models import (
+        build_model, create_model, get_model_config, get_tokenizer, load_checkpoint,
+        parse_model_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.models.fastvit import fuse_fastvit
+    from refining_clip_via_dinov2_representations_torch.models.pretrained import (
+        get_pretrained_cfg,
+    )
+    from refining_clip_via_dinov2_representations_torch.train.step import StepCfg
+    from scripts.mobileclip_apple_layout import to_apple_layout
+
+    t_phase = time.perf_counter()
+    total = {"fused_attention_fwd": 0, "fused_attention_bwd": 0, "flash_attention_fwd": 0}
+    out = {"launches": total}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches.get(k, 0)
+
+    cache = os.path.join(work, "mobileclip_hub")
+    dino = StepCfg(loss_type="dino", dino=DinoLossCfg(lambda_soft=0.5, soft_mode="kl_teacher"))
+
+    # ---- (a) MobileCLIP-S2 by its datacompdr tag: a seeded file in the hub cache ----
+    t0 = time.perf_counter()
+    src, _ = create_model(MC_S2, device="cpu", seed=SEED + 130)
+    _bn_away_from_init(src, SEED + 131)
+    sd = src.state_dict()
+    del src
+    hub_id = get_pretrained_cfg(MC_S2, MC_TAG)["hf_hub"].rstrip("/")
+    _write_hub_repo(cache, hub_id, {"open_clip_pytorch_model.bin": sd})
+    t1 = time.perf_counter()
+    model, pp = create_model(MC_S2, pretrained=MC_TAG, cache_dir=cache, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_stats = sum(b.numel() for k, b in model.named_buffers() if ".running_" in k)
+    exact = _exactly(model, sd)
+    tag_pp = (tuple(pp.mean), tuple(pp.std), pp.resize_mode, pp.interpolation)
+    print(f"mobileclip (a) {MC_S2} ({n_params:,} parameters, {n_stats:,} running statistics) "
+          f"from its {MC_TAG!r} tag (hub repo {hub_id}): loaded exactly {exact}, preprocessing "
+          f"{tag_pp}; seeded and written in {t1 - t0:.2f} s, loaded in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    check(exact and n_params == 99_243_329 and n_stats == 124_480,
+          f"{MC_S2} by its tag does not hold the written values")
+    check(tag_pp == ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), "shortest", "bilinear"),
+          f"{MC_S2}'s tag preprocessing {tag_pp}")
+    tokenizer = get_tokenizer(MC_S2)
+    batch = _train_batch(tokenizer, MC_BATCH, DEVICE, model_name=MC_S2, seed=SEED + 132)
+    b8 = {k: v[:max(MC_BUCKETS)] for k, v in batch.items()}
+    _features_vs_plain(model, b8, f"(a) {MC_S2}", {"image": 0, "text": 12}, add, "mobileclip")
+    out["s2_tower_ms"] = _tower_times(model, b8, MC_BUCKETS, f"(a) {MC_S2}", "mobileclip")
+    print(f"mobileclip (a): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (d) the deploy form against the training form ----
+    t0 = time.perf_counter()
+    fused = fuse_fastvit(model)
+    n_fused = sum(p.numel() for p in fused.visual.parameters())
+    with torch.no_grad():
+        want = model.encode_image(b8["images"], normalize=True).float()
+        _zero_counts()  # ---- the main path: counts at 0 just before, read just after ----
+        got = fused.encode_image(b8["images"], normalize=True).float()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    cos = float(torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1).min())
+    lat = {}
+    with torch.inference_mode():
+        for form, m in (("training", model), ("deploy", fused)):
+            for b in MC_BUCKETS:
+                x = b8["images"][:b]
+                lat[f"{form} b{b}"] = time_ms(lambda: m.encode_image(x), iters=10)
+                lat[f"{form} b{b} host"] = _host_ms(lambda: m.encode_image(x))
+    out["s2_deploy_ms"] = lat
+    print(f"mobileclip (d) {MC_S2} deploy form (fuse_fastvit: {n_fused:,} image parameters, no "
+          f"BatchNorm) vs the training form, fp32 batch {b8['images'].shape[0]}: cosine min "
+          f"{cos:.8f} (need >= {MIN_COSINE}), launches {counts} (expected none); image tower "
+          f"per call (CUDA events; host clock with a sync, median of 10), ms: "
+          f"{ {k: round(v, 4) for k, v in lat.items()} } [{CARD}]", flush=True)
+    check(cos >= MIN_COSINE and bool(torch.isfinite(got).all()) and not any(counts.values())
+          and not any(".running_" in k for k in fused.state_dict()),
+          f"{MC_S2}'s deploy form disagrees with its training form")
+    del fused
+    print(f"mobileclip (d): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (b) its bf16 DINO-soft step, its BatchNorms training ----
+    t0 = time.perf_counter()
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 12, "fused_attention_bwd": 12}
+    out["s2_step_bfloat16"] = _mobileclip_step(model, dino, batch, f"(b) {MC_S2}", want, add)
+    del model, batch, b8, sd
+    torch.cuda.empty_cache()
+    print(f"mobileclip (b): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (c) MobileCLIP-B from a seeded file in Apple's layout ----
+    t0 = time.perf_counter()
+    src, _ = create_model(MC_B, device="cpu", seed=SEED + 136)
+    _bn_away_from_init(src, SEED + 137)
+    with torch.no_grad():
+        src.visual.trunk.head.bias.zero_()  # Apple's projection is a bare matrix
+    sd = src.state_dict()
+    del src
+    path = os.path.join(work, "mobileclip_b_apple.pt")
+    torch.save(to_apple_layout(sd), path)
+    t1 = time.perf_counter()
+    with torch.device(DEVICE):
+        model = build_model(parse_model_cfg(get_model_config(MC_B)), init=False)
+    missing, unexpected = load_checkpoint(model, path, strict=True)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    exact = _exactly(model, sd)
+    print(f"mobileclip (c) {MC_B} ({n_params:,} parameters) from a seeded file in Apple's "
+          f"layout (image_encoder.model.*, text_encoder.*) through load_checkpoint: loaded "
+          f"exactly {exact} (missing {len(missing)}, unexpected {len(unexpected)}); seeded and "
+          f"written in {t1 - t0:.2f} s, loaded in {time.perf_counter() - t1:.2f} s", flush=True)
+    check(exact and n_params == 149_777_921 and not missing and not unexpected,
+          f"{MC_B} from Apple's layout does not hold the written values")
+    tokenizer = get_tokenizer(MC_B)
+    batch = _train_batch(tokenizer, MC_BATCH, DEVICE, model_name=MC_B, seed=SEED + 138)
+    b8 = {k: v[:max(MC_BUCKETS)] for k, v in batch.items()}
+    _features_vs_plain(model, b8, f"(c) {MC_B}", {"image": 12, "text": 12}, add, "mobileclip")
+    out["b_tower_ms"] = _tower_times(model, b8, MC_BUCKETS, f"(c) {MC_B}", "mobileclip")
+    want = {"flash_attention_fwd": 0, "fused_attention_fwd": 24, "fused_attention_bwd": 24}
+    out["b_step_bfloat16"] = _mobileclip_step(model, dino, batch, f"(c) {MC_B}", want, add)
+    del model, batch, b8, sd
+    torch.cuda.empty_cache()
+    print(f"mobileclip (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mobileclip: {out['seconds']:.1f} s, launches {total}", flush=True)
+    return out
+
+
 # every kernel case list of phases 3, 3b, 5 and 6, by name (``run_subset``)
 CASE_LISTS = ("KERNEL_CASES", "TIMED_CASES", "TRAIN_CASES", "BWD_TIMED", "BWD_CASES",
               "TEACHER_CASES", "SLICE10_CASES", "GIANT_CASES", "TP_CASES", "TP_BWD_CASES",
               "COCA_CASES", "SIGLIP_CASES", "SIGLIP_TIMED", "TP_SERVE_CASES", "ZOO_CASES",
               "ZOO_BWD_CASES", "EVA02_CASES", "EVA02_BWD_CASES", "CONVNET_CASES",
               "CONVNET_BWD_CASES", "HYBRID_CASES", "HYBRID_TIMED", "HYBRID_BWD_CASES",
-              "HYBRID_FLASH_CASES")
+              "HYBRID_FLASH_CASES", "MOBILECLIP_CASES", "MOBILECLIP_BWD_CASES")
 
 
 def run_subset(keep, phases) -> None:
@@ -7563,6 +7809,8 @@ def main() -> None:
         _elapsed("convnets")
         hybrids = phase_hybrids(work)
         _elapsed("hybrids")
+        mobileclip = phase_mobileclip(work)
+        _elapsed("mobileclip")
         zs = phase_zero_shot(data, pre, work)
         _elapsed("zero_shot")
         ft = phase_finetune(data, pre, zs, work)
@@ -7615,7 +7863,8 @@ def main() -> None:
         + siglip["launches"]["fused_attention_fwd"] + int8_launches["fused_attention_fwd"]
         + export_launches["fused_attention_fwd"] + zoo["launches"]["fused_attention_fwd"]
         + pp["fused_attention_fwd"] + convnets["launches"]["fused_attention_fwd"]
-        + hybrids["launches"]["fused_attention_fwd"],
+        + hybrids["launches"]["fused_attention_fwd"]
+        + mobileclip["launches"]["fused_attention_fwd"],
         "max_abs_err": worst["float32"], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "bf16_shape": list(TRAIN_CASES[0][:4]), "bf16_ms": t16["ms"],
@@ -7663,6 +7912,10 @@ def main() -> None:
                      **by_case[_case_key(case)]}
                     for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
                     for case in HYBRID_TIMED],
+        "mobileclip": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                        **by_case[_case_key(case)]}
+                       for dtype_name, by_case in (("float32", rows), ("bfloat16", rows_bf16))
+                       for case in MOBILECLIP_CASES],
     }, {
         "name": "fused_attention_bwd", "route": "cuda", "source": BWD_SRC,
         "replaces": BWD_TPU,
@@ -7673,7 +7926,8 @@ def main() -> None:
         + coca["launches"]["fused_attention_bwd"] + siglip["launches"]["fused_attention_bwd"]
         + zoo["launches"]["fused_attention_bwd"] + pp["fused_attention_bwd"]
         + convnets["launches"]["fused_attention_bwd"]
-        + hybrids["launches"]["fused_attention_bwd"],
+        + hybrids["launches"]["fused_attention_bwd"]
+        + mobileclip["launches"]["fused_attention_bwd"],
         "max_abs_err": worst_bwd["bfloat16"],
         "ms": tb["ms"], "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"], "library_ms": tb["library_ms"],
@@ -7717,6 +7971,10 @@ def main() -> None:
                      **by_case[_case_key(case)]}
                     for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
                     for case in HYBRID_BWD_CASES],
+        "mobileclip": [{"shape": list(case[:5]), "causal": case[5], "dtype": dtype_name,
+                        **by_case[_case_key(case)]}
+                       for dtype_name, by_case in (("float32", bwd_rows32), ("bfloat16", bwd_rows))
+                       for case in MOBILECLIP_BWD_CASES],
     }, {
         "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU,

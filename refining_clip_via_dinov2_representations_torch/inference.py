@@ -94,10 +94,6 @@ _QUANT_MIN_SIZE = 1 << 14  # the JAX engine's: tensors under 16k elements stay a
 # is the JAX leaf ``position_embedding``, which no skip key names, so it is
 # quantized there and here
 _QUANT_SKIP_ENDINGS = ("token_embedding.weight", "positional_embedding")
-# a ViTamin trunk's ``pos_embed`` is the JAX leaf ``positional_embedding``
-# (skipped), where SigLIP's of the same name is ``position_embedding``
-# (quantized): the trunk is told apart by its stem
-_QUANT_SKIP_IF = {"visual.trunk.pos_embed": "visual.trunk.patch_embed.backbone.stem."}
 # tensors that the exporter assembles from JAX leaves of another size: the
 # size rule counts the leaf's elements (numerator, denominator)
 _QUANT_LEAF_SIZE = {"attn_pool.q.weight": (3, 1),                # head_attn/in_proj_kernel
@@ -147,10 +143,13 @@ def quantize_tensor_int8(w: torch.Tensor, dim: int) -> Int8Weight:
 
 
 def _skipped(names) -> set:
-    """The names among ``names`` that ``_QUANT_SKIP_IF`` skips in this model."""
-    names = list(names)
-    return {n for n, mark in _QUANT_SKIP_IF.items()
-            if n in names and any(m.startswith(mark) for m in names)}
+    """The names among ``names`` whose JAX leaf ``_QUANT_SKIP_ENDINGS`` skips
+    under another name: a ViTamin or MCi trunk's ``pos_embed`` is the JAX
+    ``positional_embedding``, where SigLIP's is ``position_embedding``
+    (quantized), ``models/convert.py:jax_positional_names``."""
+    from .models.convert import jax_positional_names
+
+    return jax_positional_names(names)
 
 
 def quantizes(name: str, t: torch.Tensor, min_size: int = _QUANT_MIN_SIZE,

@@ -17,11 +17,13 @@ SwiGLU, sub-LN), the SigLIP trunk, the relative-position ViT
 (``models/relpos_vit.py``), OpenAI's ModifiedResNet (``models/resnet.py``,
 with BatchNorm's running statistics as buffers), the ConvNeXt trunk
 (``models/convnext.py``, open_clip's timm layout under ``visual.trunk.``
-and ``visual.head.``), the ViTamin hybrids (``models/vitamin.py``) or the
-Swin trunk (``models/swin.py``), both in timm's layout under
-``visual.trunk.``; other towers (FastViT/MobileCLIP, HF text) raise
-``NotImplementedError``. ``build_model`` builds
-``models/coca.py:CoCa`` where the config has a ``multimodal_cfg``.
+and ``visual.head.``), the ViTamin hybrids (``models/vitamin.py``), the
+Swin trunk (``models/swin.py``) or MobileCLIP's FastViT and MCi trunks
+(``models/fastvit.py``), all in timm's layout under ``visual.trunk.``; the HF
+text towers raise ``NotImplementedError``. A MobileCLIP model keeps open_clip's
+CustomTextCLIP layout, as SigLIP's does and its hub checkpoints hold it.
+``build_model`` builds ``models/coca.py:CoCa`` where the config has a
+``multimodal_cfg``.
 
 ``forward`` matches the JAX module: a dict of L2-normalised
 ``image_features``, ``text_features`` and the exponentiated ``logit_scale``
@@ -42,6 +44,7 @@ from .config import CLIPModelCfg, CLIPTextCfg, CLIPVisionCfg, to_2tuple
 from .convnext import CONVNEXT_DIMS, ConvNextCfg, ConvNextTower
 from .eva import EVA01_DIMS
 from .eva02 import EVA02_DIMS, Eva02VisionTower
+from .fastvit import FASTVIT_DIMS, MCI_DIMS, FastVitTower, MciVisionTransformer
 from .layers import (AttentionalPooler, LayerNorm, MultiheadAttention, PoolerAttention, gelu,
                      quick_gelu)
 from .relpos_vit import RelPosVisionTower
@@ -55,9 +58,9 @@ from .vitamin import VITAMIN_DIMS, ViTaminVisionTower
 
 def _unsupported(what: str, item: str = "14"):
     return NotImplementedError(
-        f"{what}: the PyTorch port builds the ViT, ModifiedResNet, ConvNeXt, ViTamin, Swin "
-        f"and text-transformer CLIPs, EVA01, EVA02, SigLIP and CoCa so far (ROADMAP Queue 1 "
-        f"item {item})"
+        f"{what}: the PyTorch port builds the ViT, ModifiedResNet, ConvNeXt, ViTamin, Swin, "
+        f"FastViT, MCi and text-transformer CLIPs, EVA01, EVA02, SigLIP and CoCa so far "
+        f"(ROADMAP Queue 1 item {item})"
     )
 
 
@@ -79,7 +82,8 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
                                                              Eva02VisionTower,
                                                              ModifiedResNet, ConvNextTower,
                                                              ViTaminVisionTower,
-                                                             SwinVisionTower]:
+                                                             SwinVisionTower, FastVitTower,
+                                                             MciVisionTransformer]:
     common = dict(output_dim=embed_dim, attn_impl=attn_impl, compute_dtype=dtype,
                   grad_checkpointing=grad_checkpointing, remat_policy=remat_policy,
                   output_tokens=cfg.output_tokens)
@@ -126,6 +130,19 @@ def _build_vision_tower(embed_dim: int, cfg: CLIPVisionCfg, use_quick_gelu: bool
             if img != s_cfg.image_size:  # the config's image size wins, as in JAX
                 s_cfg = dataclasses.replace(s_cfg, image_size=img)
             return SwinVisionTower(s_cfg, proj_bias=cfg.timm_proj_bias, **common)
+        if cfg.timm_model_name in FASTVIT_DIMS:  # ``tpu/models/clip.py:231-245``
+            f_cfg = FASTVIT_DIMS[cfg.timm_model_name]
+            img = to_2tuple(cfg.image_size)[0]
+            if img != f_cfg.image_size:  # the config's image size wins, as in JAX
+                f_cfg = dataclasses.replace(f_cfg, image_size=img)
+            # no attention kernel: the attention stage is plain, as in JAX
+            return FastVitTower(f_cfg, embed_dim, output_tokens=cfg.output_tokens,
+                                compute_dtype=dtype, grad_checkpointing=grad_checkpointing,
+                                remat_policy=remat_policy)
+        if cfg.timm_model_name in MCI_DIMS:  # ``tpu/models/clip.py:246-257``
+            m_cfg = dataclasses.replace(MCI_DIMS[cfg.timm_model_name],
+                                        image_size=to_2tuple(cfg.image_size)[0])
+            return MciVisionTransformer(m_cfg, **common)
         if cfg.timm_model_name in CONVNEXT_DIMS:  # ``tpu/models/clip.py:240-253``
             depths, dims = CONVNEXT_DIMS[cfg.timm_model_name]
             return ConvNextTower(ConvNextCfg(depths=depths, dims=dims), embed_dim,
@@ -287,7 +304,7 @@ def init_weights(model: nn.Module, seed: int = 0):
                 normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
         elif isinstance(m, (SiglipVisionTower, RelPosVisionTower, Eva02VisionTower,
                             ModifiedResNet, ConvNextTower, ViTaminVisionTower,
-                            SwinVisionTower)):
+                            SwinVisionTower, FastVitTower, MciVisionTransformer)):
             m.init_weights(normal_)
         elif isinstance(m, MultimodalTransformer):
             normal_(m.text_projection, m.text_projection.shape[0] ** -0.5)
@@ -313,8 +330,9 @@ class CLIP(nn.Module):
                                  policy)
         self.context_length = text.context_length
         self.compute_dtype = dtype
-        if isinstance(self.visual, SiglipVisionTower):
-            # open_clip's CustomTextCLIP layout, as SigLIP's hub checkpoints hold it
+        if isinstance(self.visual, (SiglipVisionTower, FastVitTower, MciVisionTransformer)):
+            # open_clip's CustomTextCLIP layout, as SigLIP's and MobileCLIP's hub
+            # checkpoints hold it
             self.text = text
         else:
             # open_clip's CLIP layout: the text tower's parts sit at top level

@@ -44,6 +44,12 @@ vitamin_params_to_timm_state_dict`` and ``tpu/models/swin.py:
 swin_params_to_timm_state_dict`` emit them (``models/vitamin.py``,
 ``models/swin.py``), the projection as ``visual.trunk.head``, the text
 tower at top level.
+A FastViT tree (``final_conv`` and ``stem_0``) and an MCi tree
+(``stem_0_conv``), each with its ``batch_stats``, give timm's names under
+``visual.trunk.`` as ``tpu/models/fastvit.py:
+fastvit_params_to_timm_state_dict`` and ``mci_vit_params_to_timm_state_dict``
+emit them (``models/fastvit.py``), the layer scales [C, 1, 1], and the text
+tower under ``text.`` (open_clip's CustomTextCLIP layout, MobileCLIP's).
 ``jax_head_params_to_state_dict`` does the same for the DINO projection
 head (``losses/dino.py:DinoProjectionHead``), and
 ``jax_dinov2_params_to_state_dict`` for the JAX ``Dinov2`` teacher: the
@@ -72,6 +78,21 @@ def normalize_state_dict_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         out[k] = v
     out.pop("text.transformer.embeddings.position_ids", None)
     return out
+
+
+# a timm trunk's ``pos_embed`` behind a convolution stem (ViTamin's, MCi's) is
+# the JAX leaf ``positional_embedding``; SigLIP's, behind ``patch_embed.proj``,
+# is ``position_embedding``
+_CONV_STEM = "visual.trunk.patch_embed.backbone."
+
+
+def jax_positional_names(names) -> set:
+    """The names among a model's ``names`` whose JAX leaf is a
+    ``positional_embedding`` under another name (the int8 skip and the
+    optimizer groups read the JAX leaf's name)."""
+    names = list(names)
+    return ({"visual.trunk.pos_embed"} & set(names)
+            if any(n.startswith(_CONV_STEM) for n in names) else set())
 
 
 def _t(x, transpose: bool = False) -> torch.Tensor:
@@ -230,29 +251,33 @@ def _emit_eva02(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
     dense("visual.proj", visual["proj"])
 
 
+def _emit_bn(sd: Dict[str, torch.Tensor], name: str, tree: Mapping[str, Any],
+             stats: Mapping[str, Any]) -> None:
+    """A flax BatchNorm and its ``batch_stats`` as ``name.{weight, bias,
+    running_mean, running_var}``."""
+    sd[name + ".weight"] = _t(tree["scale"])
+    sd[name + ".bias"] = _t(tree["bias"])
+    sd[name + ".running_mean"] = _t(stats["mean"])
+    sd[name + ".running_var"] = _t(stats["var"])
+
+
 def _emit_resnet(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any],
                  stats: Mapping[str, Any]) -> None:
     """A JAX ``ModifiedResNet`` tree and its ``batch_stats`` in open_clip's
     torch layout (the module docstring)."""
-    def bn(tree, st, name: str) -> None:
-        sd[name + ".weight"] = _t(tree["scale"])
-        sd[name + ".bias"] = _t(tree["bias"])
-        sd[name + ".running_mean"] = _t(st["mean"])
-        sd[name + ".running_var"] = _t(st["var"])
-
     for i in "123":
         sd[f"visual.conv{i}.weight"] = _oihw(visual[f"conv{i}"]["kernel"])
-        bn(visual[f"bn{i}"], stats[f"bn{i}"], f"visual.bn{i}")
+        _emit_bn(sd, f"visual.bn{i}", visual[f"bn{i}"], stats[f"bn{i}"])
     for name in sorted((k for k in visual if k.startswith("layer")),
                        key=lambda k: tuple(int(n) for n in k[len("layer"):].split("_"))):
         stage, block = name[len("layer"):].split("_")
         pre, tree, st = f"visual.layer{stage}.{block}", visual[name], stats[name]
         for i in "123":
             sd[f"{pre}.conv{i}.weight"] = _oihw(tree[f"conv{i}"]["kernel"])
-            bn(tree[f"bn{i}"], st[f"bn{i}"], f"{pre}.bn{i}")
+            _emit_bn(sd, f"{pre}.bn{i}", tree[f"bn{i}"], st[f"bn{i}"])
         if "downsample_conv" in tree:
             sd[f"{pre}.downsample.0.weight"] = _oihw(tree["downsample_conv"]["kernel"])
-            bn(tree["downsample_bn"], st["downsample_bn"], f"{pre}.downsample.1")
+            _emit_bn(sd, f"{pre}.downsample.1", tree["downsample_bn"], st["downsample_bn"])
     pool = visual["attnpool"]
     sd["visual.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
     for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
@@ -373,6 +398,124 @@ def _emit_swin(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any]) -> None:
             raise KeyError(f"unexported swin tower entry {name}")
 
 
+def _emit_mobileone(sd: Dict[str, torch.Tensor], pre: str, tree: Mapping[str, Any],
+                    stats: Mapping[str, Any]) -> None:
+    """A JAX ``MobileOneBlock`` subtree in timm's names (``tpu/models/
+    fastvit.py:_emit_mobileone_inv``)."""
+    for name, sub in tree.items():
+        if name == "identity":
+            _emit_bn(sd, f"{pre}.identity", sub, stats[name])
+        elif name.endswith("_conv"):
+            branch = name[:-len("_conv")]
+            if branch.startswith("conv_kxk_"):
+                branch = "conv_kxk." + branch[len("conv_kxk_"):]
+            sd[f"{pre}.{branch}.conv.weight"] = _oihw(sub["kernel"])
+        elif name.endswith("_bn"):
+            branch = name[:-len("_bn")]
+            if branch.startswith("conv_kxk_"):
+                branch = "conv_kxk." + branch[len("conv_kxk_"):]
+            _emit_bn(sd, f"{pre}.{branch}.bn", sub, stats[name])
+        elif name == "se":
+            for fc, leaf in sub.items():
+                _emit_timm_leaf(sd, f"{pre}.se.{fc}", leaf, conv=True)
+        else:
+            raise KeyError(f"unexported MobileOne leaf {pre}/{name}")
+
+
+def _emit_fastvit(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any],
+                  stats: Mapping[str, Any]) -> None:
+    """A JAX ``FastVitTower`` tree and its ``batch_stats`` in timm's names
+    under ``visual.trunk.`` (``tpu/models/fastvit.py:
+    fastvit_params_to_timm_state_dict``), the layer scales [C, 1, 1]."""
+    pre = "visual.trunk."
+
+    def gamma(name: str, v) -> None:
+        sd[name + ".gamma"] = _t(np.asarray(v).reshape(-1, 1, 1))
+
+    for name, p in visual.items():
+        s = stats.get(name, {})
+        if name.startswith("stem_"):
+            _emit_mobileone(sd, f"{pre}stem.{name.split('_')[1]}", p, s)
+        elif name == "final_conv":
+            _emit_mobileone(sd, pre + "final_conv", p, s)
+        elif name == "head_fc":
+            _emit_timm_leaf(sd, pre + "head.fc", p)
+        elif name.endswith("_downsample"):
+            d = f"{pre}stages.{name[len('stage'):-len('_downsample')]}.downsample.proj"
+            p0, s0 = p["proj_0"], s.get("proj_0", {})
+            for sub, leaf in p0.items():
+                if sub.endswith("_conv"):
+                    sd[f"{d}.0.{sub[:-len('_conv')]}.conv.weight"] = _oihw(leaf["kernel"])
+                elif sub.endswith("_bn"):
+                    _emit_bn(sd, f"{d}.0.{sub[:-len('_bn')]}.bn", leaf, s0[sub])
+                else:  # se
+                    for fc, fl in leaf.items():
+                        _emit_timm_leaf(sd, f"{d}.0.se.{fc}", fl, conv=True)
+            _emit_mobileone(sd, f"{d}.1", p["proj_1"], s.get("proj_1", {}))
+        elif name.endswith("_pos_emb"):
+            _emit_timm_leaf(sd, f"{pre}stages.{name[len('stage'):-len('_pos_emb')]}.pos_emb."
+                            "pos_enc", p["pos_enc"], conv=True)
+        elif name.startswith("stage") and "_block" in name:
+            st, b = name[len("stage"):].split("_block")
+            bp = f"{pre}stages.{st}.blocks.{b}"
+            for sub, leaf in p.items():
+                if sub == "token_mixer":
+                    for m, ml in leaf.items():
+                        if m in ("norm", "mixer"):
+                            _emit_mobileone(sd, f"{bp}.token_mixer.{m}", ml,
+                                            s["token_mixer"][m])
+                        elif m == "layer_scale":
+                            gamma(f"{bp}.token_mixer.layer_scale", ml)
+                        else:  # qkv, proj
+                            _emit_timm_leaf(sd, f"{bp}.token_mixer.{m}", ml)
+                elif sub == "norm":
+                    _emit_bn(sd, f"{bp}.norm", leaf, s["norm"])
+                elif sub == "mlp":
+                    sd[f"{bp}.mlp.conv.conv.weight"] = _oihw(leaf["conv"]["kernel"])
+                    _emit_bn(sd, f"{bp}.mlp.conv.bn", leaf["conv_bn"], s["mlp"]["conv_bn"])
+                    for fc in ("fc1", "fc2"):
+                        _emit_timm_leaf(sd, f"{bp}.mlp.{fc}", leaf[fc], conv=True)
+                else:  # layer_scale, layer_scale_1, layer_scale_2
+                    gamma(f"{bp}.{sub}", leaf)
+        else:
+            raise KeyError(f"unexported fastvit tower entry {name}")
+
+
+def _emit_mci(sd: Dict[str, torch.Tensor], visual: Mapping[str, Any],
+              stats: Mapping[str, Any]) -> None:
+    """A JAX ``MciVisionTransformer`` tree and its stem's ``batch_stats`` in
+    timm's names under ``visual.trunk.`` (``tpu/models/fastvit.py:
+    mci_vit_params_to_timm_state_dict``)."""
+    pre = "visual.trunk."
+    for name, p in visual.items():
+        if name.startswith("stem_") and name.endswith("_conv"):
+            sd[f"{pre}patch_embed.backbone.{name[5:-5]}.conv.weight"] = _oihw(p["kernel"])
+        elif name.startswith("stem_") and name.endswith("_bn"):
+            _emit_bn(sd, f"{pre}patch_embed.backbone.{name[5:-3]}.bn", p, stats[name])
+        elif name == "class_embedding":
+            sd[pre + "cls_token"] = _t(np.asarray(p).reshape(1, 1, -1))
+        elif name == "positional_embedding":
+            sd[pre + "pos_embed"] = _t(np.asarray(p).reshape(1, *np.shape(p)))
+        elif name == "norm":
+            _emit_timm_leaf(sd, pre + "norm", p)
+        elif name == "head_fc":
+            _emit_timm_leaf(sd, pre + "head", p)
+        elif name.startswith("resblocks_"):
+            b = f"{pre}blocks.{name.rsplit('_', 1)[-1]}"
+            _emit_timm_leaf(sd, f"{b}.norm1", p["ln_1"])
+            _emit_timm_leaf(sd, f"{b}.norm2", p["ln_2"])
+            attn = p["attn"]
+            qkv = {"kernel": attn["in_proj_kernel"]}
+            if "in_proj_bias" in attn:
+                qkv["bias"] = attn["in_proj_bias"]
+            _emit_timm_leaf(sd, f"{b}.attn.qkv", qkv)
+            _emit_timm_leaf(sd, f"{b}.attn.proj", attn["out_proj"])
+            _emit_timm_leaf(sd, f"{b}.mlp.fc1", p["mlp"]["c_fc"])
+            _emit_timm_leaf(sd, f"{b}.mlp.fc2", p["mlp"]["c_proj"])
+        else:
+            raise KeyError(f"unexported mci-vit tower entry {name}")
+
+
 def _emit_text(sd: Dict[str, torch.Tensor], text: Mapping[str, Any], tp: str) -> None:
     """A JAX ``TextTransformer`` tree under the prefix ``tp``; its
     projection a matrix, a Dense (``proj_bias``: ``text_projection.weight``
@@ -419,6 +562,16 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     if "resblocks_0" in visual and "relative_position_bias_table" in visual["resblocks_0"]:
         _emit_relpos(sd, visual)
         _emit_text(sd, text, "")
+        sd["logit_scale"] = _t(params["logit_scale"])
+        return sd
+    if ("final_conv" in visual and "stem_0" in visual) or "stem_0_conv" in visual:
+        # MobileCLIP's FastViT or MCi trunk: open_clip's CustomTextCLIP layout
+        if batch_stats is None or "visual" not in batch_stats:
+            raise ValueError("a FastViT or MCi tree needs its batch_stats (BatchNorm's "
+                             "running statistics)")
+        (_emit_fastvit if "final_conv" in visual else _emit_mci)(sd, visual,
+                                                                 batch_stats["visual"])
+        _emit_text(sd, text, "text.")
         sd["logit_scale"] = _t(params["logit_scale"])
         return sd
     if "stem_conv1" in visual or "patch_norm" in visual:  # ViTamin, Swin

@@ -6,8 +6,10 @@ QuickGELU), ``hf-hub:`` names and pretrained tags read from local caches
 (``models/pretrained.py``; nothing is downloaded), and checkpoint files in
 four formats (``load_state_dict``): OpenAI TorchScript archives, plain
 torch files (the port's epoch checkpoints among them), ``.npz`` and
-``.safetensors``. ``load_checkpoint`` resizes positional tables of another
-grid or context length as the JAX package does. Without a checkpoint the
+``.safetensors``. ``load_checkpoint`` also reads big_vision's SigLIP
+``.npz`` and Apple's MobileCLIP files (``models/convert_external.py``), and
+resizes positional tables of another grid or context length as the JAX
+package does. Without a checkpoint the
 weights are a seeded random init.
 
 Entry points place the model on ``device`` ("cuda" by default) and raise
@@ -29,12 +31,14 @@ import torch.nn.functional as F
 
 from ..tokenizer import DEFAULT_CONTEXT_LENGTH, HFTokenizer, SigLipTokenizer, SimpleTokenizer
 from ..transform import PreprocessCfg, image_transform_v2, merge_preprocess_dict
+from . import convert_external
 from ._safetensors import load_safetensors
 from .clip import CLIP, build_model
 from .config import get_model_config, list_models, parse_model_cfg
 from .convert import normalize_state_dict_keys
 from .eva import TRUNK, convert_eva_clip_state_dict
 from .eva02 import Eva02VisionTower, convert_eva02_clip_state_dict
+from .fastvit import FastVitTower, MciVisionTransformer, convert_mobileclip_clip_state_dict
 from .swin import SwinVisionTower, convert_swin_clip_state_dict
 from .vitamin import ViTaminVisionTower, convert_vitamin_clip_state_dict
 from .pretrained import (HF_HUB_PREFIX, get_pretrained_cfg, list_pretrained_tags_by_model,
@@ -137,8 +141,9 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
     """Loads ``state_dict`` into ``model`` as the JAX ``_merge_params``
     merges (an EVA01 or EVA02 CustomTextCLIP layout converted first,
     ``models/eva.py``, ``models/eva02.py``; a SigLIP model takes that
-    layout as it is; a ViTamin or Swin trunk goes through its timm importer,
-    ``models/vitamin.py``, ``models/swin.py``; another model whose text
+    layout as it is; a ViTamin, Swin, FastViT or MCi trunk goes through its
+    timm importer, ``models/vitamin.py``, ``models/swin.py``,
+    ``models/fastvit.py``; another model whose text
     tower sits at top level takes
     a ``text.``-prefixed tower there, as the JAX exporter writes it beside a
     ConvNeXt trunk; BatchNorm's ``num_batches_tracked``, which OpenAI's and
@@ -159,6 +164,9 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
         state_dict = (convert_vitamin_clip_state_dict(state_dict)
                       if isinstance(model.visual, ViTaminVisionTower)
                       else convert_swin_clip_state_dict(state_dict))
+    elif isinstance(getattr(model, "visual", None), (FastVitTower, MciVisionTransformer)):
+        state_dict = convert_mobileclip_clip_state_dict(
+            state_dict, mci=isinstance(model.visual, MciVisionTransformer))
     if "token_embedding.weight" in own and "text.token_embedding.weight" in state_dict:
         state_dict = {k[len("text."):] if k.startswith("text.") else k: v
                       for k, v in state_dict.items()}
@@ -192,15 +200,21 @@ def load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
 def load_checkpoint(model: torch.nn.Module, checkpoint_path: str,
                     strict: bool = True) -> Tuple[List[str], List[str]]:
     """A checkpoint file (``load_state_dict``'s formats) into ``model``
-    (``load_weights``); returns ``(missing, unexpected)``. The big_vision
-    ``.npz`` and MobileCLIP layouts raise: ``convert_external.py`` is not
-    ported."""
+    (``load_weights``); returns ``(missing, unexpected)``. Dispatched as the
+    JAX ``load_checkpoint``: a big_vision ``.npz`` (``txt/``/``img/`` keys)
+    and Apple's MobileCLIP layout (``image_encoder.model.``) through
+    ``models/convert_external.py``, else open_clip's layout. A BatchNorm
+    tower's file without running statistics fails ``strict``, as there."""
+    path = str(checkpoint_path)
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            big_vision = convert_external.is_big_vision(z.files)
+        if big_vision:
+            return load_weights(model, convert_external.load_big_vision_weights(path),
+                                strict=strict)
     sd = load_state_dict(checkpoint_path)
-    if any(("txt/" in k) or ("img/" in k) for k in sd) or any(
-            k.startswith("image_encoder.model.") for k in sd):
-        raise NotImplementedError(f"{checkpoint_path}: the big_vision and MobileCLIP layouts "
-                                  "need convert_external.py, which is not ported "
-                                  "(ROADMAP Queue 1 item 14)")
+    if convert_external.is_mobileclip(sd):
+        sd = convert_external.convert_state_dict(sd)
     if not any(k.startswith(("visual.", "text.")) or k == "logit_scale" for k in sd):
         raise ValueError(f"unrecognized checkpoint layout in {checkpoint_path}")
     return load_weights(model, sd, strict=strict)

@@ -28,12 +28,16 @@ train=True)`` is in force, as the train step sets it: then every
 running ones once a forward. With a ``group`` (the data axis), the per-channel
 mean and mean square are averaged over the group's ranks, forward and
 backward (``_AllReduceMean``): the statistics of the global batch, as GSPMD
-reduces them over every row of the JAX step.
+reduces them over every row of the JAX step. Inside ``running_stats_kept()``
+the batch's statistics still normalise but the running ones are left as they
+are: the recompute of a checkpointed block (``models/fastvit.py``) runs its
+norms a second time, and the JAX ``nn.remat`` updates them once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import OrderedDict
 from typing import Optional, Sequence
 
@@ -46,6 +50,7 @@ from ..ops.attention import multi_head_attention
 from .layers import _linear
 
 BN_MOMENTUM, BN_EPS = 0.99, 1e-5  # flax nn.BatchNorm's defaults
+_KEPT = threading.local()  # running_stats_kept's depth, per thread
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -87,15 +92,30 @@ class BatchNorm2d(nn.Module):
                 moments = _AllReduceMean.apply(moments, self.group)
             mean, mean2 = moments[0], moments[1]
             var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean.float() + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var.float() + (1 - m) * var)
+            if getattr(_KEPT, "depth", 0) == 0:
+                self._update(mean, var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean.float() + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var.float() + (1 - m) * var)
+
+
+@contextlib.contextmanager
+def running_stats_kept():
+    """Inside (on this thread), ``BatchNorm2d`` in training mode normalises
+    with the batch's statistics and leaves its running ones as they are."""
+    _KEPT.depth = getattr(_KEPT, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _KEPT.depth -= 1
 
 
 @contextlib.contextmanager

@@ -281,8 +281,12 @@ _ROW = ("attn.out_proj.weight", "mlp.c_proj.weight", "attention.output.dense.wei
 _WHOLE = "attn_pool.attn."
 # the convolution towers stay whole on every rank, as ``tpu/parallel/mesh.py:
 # _param_spec`` says of them: ConvNeXt's blocks and head (whose ``mlp.fc1``
-# and ``mlp.fc2`` the endings above would match) and the ResNet (whose names
-# match none)
+# and ``mlp.fc2`` the endings above would match), FastViT's stages (the
+# same, and its attention stage's ``token_mixer.qkv``/``proj``; its ``stem``,
+# ``final_conv`` and ``head.fc`` match no ending) and the ResNet (whose names
+# match none). The JAX spec itself splits FastViT's 4-D 1x1 ``fc1``/``fc2``
+# kernels on a dimension of size 1 and cannot place the tower (ROADMAP "Found
+# in the JAX package")
 _WHOLE_TOWERS = ("visual.trunk.stages.", "visual.head.")
 # the DINO head (``losses/dino.py:DinoProjectionHead``, names without a prefix)
 _HEAD_COLUMN = {"fc1.weight": 1, "fc1.bias": 1}

@@ -93,6 +93,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
+from ..models.convert import jax_positional_names
 from ..parallel.tensor import Split, whole_shape
 from .scheduler import Schedule
 
@@ -173,6 +174,8 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
         vision_layers = _count_blocks(names, _vision_block)
     n_unlock_text = cfg.lock_text_unlocked_layers
     text_start = max(0, text_layers - n_unlock_text)
+    # the JAX rule reads the leaf's name: ViTamin's and MCi's ``pos_embed``
+    positional = jax_positional_names(names)
 
     def label_one(p: str) -> str:
         is_text = p.split(".")[0] in _TEXT_PARTS + ("text",)
@@ -221,7 +224,7 @@ def label_params(names: Iterable[str], cfg: OptimCfg, text_layers: Optional[int]
             vb = _vision_block(p)
             if vb is not None and n_unlock_text > 0 and text_start <= vb < text_layers:
                 return "text"
-        if "token_embedding" in p or "positional_embedding" in p:
+        if "token_embedding" in p or "positional_embedding" in p or p in positional:
             return "text"  # the visual positional embedding too
         return "default"
 

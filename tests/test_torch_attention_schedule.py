@@ -47,6 +47,8 @@ from refining_clip_via_dinov2_representations_torch.ops.fused_attention import (
     fused_attention_reference,
 )
 
+from .torch_port_utils import one_thread  # noqa: F401  (one intra-op thread)
+
 CSRC = Path(__file__).resolve().parents[1] / "refining_clip_via_dinov2_representations_torch" / "csrc"
 ROWS = 64  # query rows per block: 4 warps x the m16 of mma.sync m16n8k16
 CHUNK = 16  # keys (dQ) or queries (dK/dV) per product step of the backward

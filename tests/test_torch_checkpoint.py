@@ -22,7 +22,7 @@ from refining_clip_via_dinov2_representations_torch.train.checkpoint import (
 )
 from refining_clip_via_dinov2_representations_torch.train.main import main
 
-from .torch_port_utils import TINY_CFG, images, jax_clip, token_ids
+from .torch_port_utils import TINY_CFG, images, jax_clip, one_thread, token_ids  # noqa: F401
 
 MODEL = "tiny-torch-ckpt-test"
 register_model_config(MODEL, TINY_CFG)

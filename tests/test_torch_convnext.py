@@ -34,7 +34,9 @@ from refining_clip_via_dinov2_representations_torch.models import convnext as tc
 from refining_clip_via_dinov2_representations_torch.models.convert import jax_params_to_state_dict
 from refining_clip_via_dinov2_representations_torch.train.step import StepCfg, make_loss_fn
 
-from .torch_port_utils import images, jax_drawn_clip, offline, token_ids  # noqa: F401
+from .torch_port_utils import (  # noqa: F401
+    images, jax_drawn_clip, offline, one_thread, token_ids,
+)
 
 TINY_NAME = "convnext_tiny_test"
 TINY_DIMS = ((1, 1, 1, 1), (8, 16, 32, 64))
@@ -55,17 +57,6 @@ register_model_config(MODEL, _cfg("linear"))
 CN_NAMES = ("convnext_base", "convnext_base_w", "convnext_base_w_320", "convnext_large",
             "convnext_large_d", "convnext_large_d_320", "convnext_small", "convnext_tiny",
             "convnext_xlarge", "convnext_xxlarge", "convnext_xxlarge_320")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: the tiny towers run many small
-    ops, whose OpenMP threads would otherwise spin against the other test
-    workers' processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

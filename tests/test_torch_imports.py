@@ -32,7 +32,9 @@ FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                       REPO / "scripts" / "chip_convnets_phase.py",
                                       REPO / "scripts" / "chip_hybrids_phase.py",
                                       REPO / "scripts" / "chip_processes_phase.py",
-                                      REPO / "scripts" / "convnext_memory_format.py"]
+                                      REPO / "scripts" / "convnext_memory_format.py",
+                                      REPO / "scripts" / "chip_mobileclip_phase.py",
+                                      REPO / "scripts" / "mobileclip_apple_layout.py"]
 
 
 def _imported(node):
@@ -58,7 +60,8 @@ def test_scan_covers_the_port():
                  f"{PORT.name}/native/__init__.py", f"{PORT.name}/ops/preprocess.py",
                  f"{PORT.name}/models/eva02.py", f"{PORT.name}/models/resnet.py",
                  f"{PORT.name}/models/convnext.py", f"{PORT.name}/models/vitamin.py",
-                 f"{PORT.name}/models/swin.py"):
+                 f"{PORT.name}/models/swin.py", f"{PORT.name}/models/fastvit.py",
+                 f"{PORT.name}/models/convert_external.py"):
         assert must in names
 
 

@@ -102,18 +102,20 @@ def test_vit_b16_widths_depth1_matches_jax():
 
 @pytest.mark.parametrize("overrides", [
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_224"}},
-    # the ModifiedResNet, ConvNeXt, Swin and ViTamin towers are ported
-    # (tests/test_torch_resnet.py, test_torch_convnext.py, test_torch_swin.py,
-    # test_torch_vitamin.py); MobileCLIP's FastViT trunk is not
-    {"vision_cfg": {"timm_model_name": "fastvit_mci1"}},
+    # the ModifiedResNet, ConvNeXt, Swin, ViTamin and MobileCLIP towers are
+    # ported (tests/test_torch_resnet.py, test_torch_convnext.py,
+    # test_torch_swin.py, test_torch_vitamin.py, test_torch_fastvit.py); a timm
+    # FastViT outside the registry's mci trunks raises in both packages
+    {"vision_cfg": {"timm_model_name": "fastvit_t8"}},
     {"text_cfg": {"hf_model_name": "bert-base-uncased"}},
     {"text_cfg": {"embed_cls": True}},
     # CoCa is ported (tests/test_torch_coca.py); its HF-text-tower variant
     # (coca_roberta-ViT-B-32) is not
     {"multimodal_cfg": {"width": 32}, "text_cfg": {"hf_model_name": "roberta-base"}},
-    # the CLIPA towers are ported (tests/test_torch_vit_variants.py);
-    # MobileCLIP-B's MCi ViT trunk is not
-    {"vision_cfg": {"timm_model_name": "vit_base_mci_224"}},
+    # the CLIPA towers and MobileCLIP-B's MCi ViT are ported
+    # (tests/test_torch_vit_variants.py, test_torch_fastvit.py); the HF text
+    # towers are not yet ported (the JAX package builds them)
+    {"text_cfg": {"hf_model_name": "xlm-roberta-base"}},
     # SigLIP's text options are ported (tests/test_torch_siglip.py); its
     # global-average-pooled `_gap` trunks are not
     {"vision_cfg": {"timm_model_name": "vit_base_patch16_siglip_gap_224"}},
@@ -171,6 +173,22 @@ def _family_cfg(family, monkeypatch):
                              "proj_bias": True},
                 "vision_cfg": {"image_size": 32, "timm_model_name": "vit_base_patch8_siglip_32",
                                **timm, "timm_pool": "map", "timm_proj": "none"}}
+    if family == "fastvit":
+        from refining_clip_via_dinov2_representations_torch.models import fastvit
+
+        monkeypatch.setitem(fastvit.FASTVIT_DIMS, "fastvit_tiny_test", fastvit.FastVitCfg(
+            layers=(1, 1, 1, 1), embed_dims=(8, 16, 32, 64), image_size=64))
+        return {"embed_dim": 24, "custom_text": True, "text_cfg": text,
+                "vision_cfg": {"image_size": 64, "timm_model_name": "fastvit_tiny_test",
+                               **timm, "timm_pool": "avg", "timm_proj": None}}
+    if family == "mci":
+        from refining_clip_via_dinov2_representations_torch.models import fastvit
+
+        monkeypatch.setitem(fastvit.MCI_DIMS, "vit_base_mci_224",
+                            fastvit.MciCfg(width=32, layers=2, heads=2, image_size=32))
+        return {"embed_dim": 24, "custom_text": True, "text_cfg": text,
+                "vision_cfg": {"image_size": 32, "timm_model_name": "vit_base_mci_224",
+                               **timm, "timm_pool": "token", "timm_proj": None}}
     if family == "eva02":
         monkeypatch.setitem(eva02.EVA02_DIMS, "eva02_tiny_test", eva02.Eva02Cfg(
             width=32, layers=2, heads=4, mlp_hidden=40, patch_size=8, image_size=24,
@@ -186,7 +204,7 @@ def _family_cfg(family, monkeypatch):
 
 
 @pytest.mark.parametrize("family", ["vit", "coca", "resnet", "convnext", "siglip", "eva02",
-                                    "relpos", "gap"])
+                                    "relpos", "gap", "fastvit", "mci"])
 def test_a_build_skips_only_the_default_init_that_the_seeded_init_overwrites(family,
                                                                              monkeypatch):
     """``build_model`` constructs without torch's default random init: the

@@ -59,7 +59,7 @@ from refining_clip_via_dinov2_representations_torch.train.step import (
 )
 
 from .torch_dist_utils import run_ranks
-from .torch_port_utils import images, jax_drawn_clip, token_ids
+from .torch_port_utils import images, jax_drawn_clip, one_thread, token_ids  # noqa: F401
 
 CFG = {
     "embed_dim": 32,
@@ -74,17 +74,6 @@ OPTIM_KW = dict(lr=1e-3, head_lr=2e-3, text_lr=5e-4, logit_scale_lr=1e-2, eps=1e
                 resnet_lr4=2e-3, resnet_lr3=3e-3)
 RN_NAMES = ("RN50", "RN50-quickgelu", "RN101", "RN101-quickgelu", "RN50x4", "RN50x4-quickgelu",
             "RN50x16", "RN50x16-quickgelu", "RN50x64", "RN50x64-quickgelu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: the tiny towers run many small
-    ops, whose OpenMP threads would otherwise spin against the other test
-    workers' processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

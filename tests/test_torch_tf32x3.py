@@ -53,6 +53,7 @@ from refining_clip_via_dinov2_representations_torch.ops.flash_attention import (
 )
 from tests.test_torch_attention_schedule import FLASH_SHAPES, _blocks
 from tests.test_torch_flash_attention import _jax_flash
+from tests.torch_port_utils import one_thread  # noqa: F401  (one intra-op thread)
 
 CSRC = (Path(__file__).resolve().parents[1] / "refining_clip_via_dinov2_representations_torch"
         / "csrc")

@@ -20,7 +20,7 @@ from refining_clip_via_dinov2_representations_torch.models import (
 from refining_clip_via_dinov2_representations_torch.train import params
 from refining_clip_via_dinov2_representations_torch.train.main import main
 
-from .torch_port_utils import TINY_CFG
+from .torch_port_utils import TINY_CFG, one_thread  # noqa: F401  (one intra-op thread)
 
 MODEL = "tiny-torch-cli-test"
 register_model_config(MODEL, TINY_CFG)

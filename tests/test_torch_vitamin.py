@@ -43,7 +43,9 @@ from refining_clip_via_dinov2_representations_torch.models import vitamin as tvi
 from refining_clip_via_dinov2_representations_torch.models.convert import jax_params_to_state_dict
 from refining_clip_via_dinov2_representations_torch.train.step import StepCfg, make_loss_fn
 
-from .torch_port_utils import images, jax_drawn_clip, offline, token_ids  # noqa: F401
+from .torch_port_utils import (  # noqa: F401
+    images, jax_drawn_clip, offline, one_thread, token_ids,
+)
 
 TINY_NAME = "vitamin_tiny_test"
 TINY = dict(stem_width=8, conv_dims=(8, 16), conv_depths=(1, 1), embed_dim=32, depth=2,
@@ -60,16 +62,6 @@ register_model_config(MODEL, CFG)
 NAMES = ("ViTamin-B", "ViTamin-B-LTT", "ViTamin-L", "ViTamin-L-256", "ViTamin-L-336",
          "ViTamin-L-384", "ViTamin-L2", "ViTamin-L2-256", "ViTamin-L2-336", "ViTamin-L2-384",
          "ViTamin-S", "ViTamin-S-LTT", "ViTamin-XL-256", "ViTamin-XL-336", "ViTamin-XL-384")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the tiny towers' many small ops would otherwise
-    spin OpenMP threads against the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

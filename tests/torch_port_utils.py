@@ -28,6 +28,20 @@ TINY_CFG = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch intra-op thread for a module that imports this fixture, the
+    count before restored after it: tests of many small ops (tiny towers,
+    the kernels' schedule models) otherwise spin OpenMP threads against the
+    other test workers' processes."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_clip(cfg_dict, attn_impl: str = "fused", seed: int = 0, noise: float = 0.02,
              jit: bool = False):
     """(flax module, variables) with seeded, perturbed fp32 params; ``jit``
